@@ -40,3 +40,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long end-to-end reference-case subprocess runs; "
         "deselect with -m 'not slow' for the quick gate (~5 min)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's hand-written "
+        "kernels have no CPU mode); skips where there is none")

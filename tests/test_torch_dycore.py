@@ -1,0 +1,238 @@
+"""The port's incompressible main path against tlab_tpu, float64 on the
+CPU: plans, one stacked substep, one RK4 step, the diagnostics, the
+golden 20-step RK3 slice, and the options the port rejects."""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from test_golden import GOLDEN, INI
+from tlab_tpu.config import Ini, load_case
+from tlab_tpu.dycore import incompressible as jdyn
+from tlab_tpu.fdm.plan import build_fdm_plan
+from tlab_tpu.grid import uniform_grid
+from tlab_tpu.ops import elliptic_factorize as jfac
+from tlab_tpu.physics.params import NSParams
+from tlab_tpu.runtime import Simulation as JSimulation
+from tlab_tpu.tools.initialize import initial_state
+from tlab_tpu_torch import entry
+from tlab_tpu_torch.convert import plans_from_jax, state_from_numpy
+from tlab_tpu_torch.dycore import incompressible as tdyn
+from tlab_tpu_torch.runtime import Simulation
+
+F64 = torch.float64
+
+
+def _setup(rk_name="RungeKuttaExplicit4"):
+    """Both packages' plans for a 32x33x16 shear layer and its state with
+    extra noise (so every term of the RHS is exercised)."""
+    grid = uniform_grid(32, 33, 16, 2.0 * np.pi, 1.0, np.pi)
+    fdm = build_fdm_plan(grid)
+    nsp = NSParams(reynolds=500.0, schmidt=(1.0,))
+    sbc = (("neumann", "neumann"),)
+    PJ = jdyn.build_device_plans(
+        fdm, nsp, jdyn.WallBCs.from_velocity_kind("freeslip", "freeslip",
+                                                  scalar_bcs=sbc),
+        rk_name=rk_name, dtype=jnp.float64)
+    PJ["ell_fac"] = jfac.device_factorize_plan(jfac.build_factorize_plan(fdm),
+                                               jnp.float64)
+    PT = tdyn.build_device_plans(
+        fdm, nsp, tdyn.WallBCs.from_velocity_kind("freeslip", "freeslip",
+                                                  scalar_bcs=sbc),
+        rk_name=rk_name, dtype=F64, device="cpu")
+    u, v, w, s = entry.initial_fields(grid, seed=3)
+    rng = np.random.default_rng(4)
+    u, v, w = (a + 0.1 * rng.standard_normal(a.shape) for a in (u, v, w))
+    return PJ, PT, (u, v, w, np.array(s))
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.max(np.abs(a - b)) / np.max(np.abs(b))
+
+
+def _same(a, b):
+    if isinstance(a, dict):
+        assert isinstance(b, dict) and sorted(a) == sorted(b)
+        return all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.dtype == b.dtype \
+            and torch.equal(a, b)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def test_plans_from_jax_equal_port_plans():
+    PJ, PT, _ = _setup()
+    assert _same(plans_from_jax(PJ, "cpu", F64), PT)
+
+
+def test_substep_rhs_stacked_matches_jax():
+    PJ, PT, (u, v, w, s) = _setup()
+    Q = np.concatenate([u[None], v[None], w[None], s])
+    H = np.random.default_rng(5).standard_normal(Q.shape)
+    HJ, pJ = jdyn.substep_rhs_stacked(PJ, jnp.asarray(Q), jnp.asarray(H),
+                                      1e-3)
+    Hin = torch.from_numpy(H)
+    HT, pT = tdyn.substep_rhs_stacked(PT, torch.from_numpy(Q), Hin, 1e-3)
+    assert torch.equal(Hin, torch.from_numpy(H))     # input left as it was
+    assert _rel(HT, HJ) <= 1e-12
+    assert _rel(pT, pJ) <= 1e-12
+
+
+@pytest.mark.parametrize("rk_name", ["RungeKuttaExplicit4",
+                                     "RungeKuttaExplicit3"])
+def test_rk_step_matches_jax(rk_name):
+    PJ, PT, (u, v, w, s) = _setup(rk_name)
+    sj, _ = jdyn.rk_step(PJ, jdyn.State(u=jnp.asarray(u), v=jnp.asarray(v),
+                                        w=jnp.asarray(w), s=jnp.asarray(s)),
+                         1e-3)
+    st = state_from_numpy(u, v, w, s, "cpu", F64)
+    st2, _ = tdyn.rk_step(PT, st, 1e-3)
+    assert _rel(st.u, u) == 0.0                      # input left as it was
+    for a, b in zip(st2[:4], sj[:4]):
+        assert _rel(a, b) <= 1e-12
+
+
+def test_rk_loop_stacked_matches_jax():
+    PJ, PT, (u, v, w, s) = _setup()
+    sj, pj = jdyn.rk_loop_stacked(PJ, jdyn.State(
+        u=jnp.asarray(u), v=jnp.asarray(v), w=jnp.asarray(w),
+        s=jnp.asarray(s)), 1e-3, 2)
+    st, pt = tdyn.rk_loop_stacked(PT, state_from_numpy(u, v, w, s, "cpu",
+                                                       F64), 1e-3, 2)
+    for a, b in zip(st[:4], sj[:4]):
+        assert _rel(a, b) <= 1e-12
+    assert _rel(pt, pj) <= 1e-11
+
+
+def test_diagnostics_match_jax():
+    PJ, PT, (u, v, w, s) = _setup()
+    sj = jdyn.State(u=jnp.asarray(u), v=jnp.asarray(v), w=jnp.asarray(w),
+                    s=jnp.asarray(s))
+    st = state_from_numpy(u, v, w, s, "cpu", F64)
+    cj = float(jdyn.cfl_advective_max(PJ, sj))
+    ct = float(tdyn.cfl_advective_max(PT, st))
+    assert abs(ct - cj) <= 1e-13 * cj
+    for a, b in zip(tdyn.dilatation_minmax(PT, st),
+                    jdyn.dilatation_minmax(PJ, sj)):
+        assert abs(float(a) - float(b)) <= 1e-12 * abs(float(b))
+    assert tdyn.next_dt(PT, ct, 0.8, 0.2) == pytest.approx(
+        jdyn.next_dt(PJ, cj, 0.8, 0.2), rel=1e-13)
+
+
+def test_golden_slice():
+    """tests/test_golden.py's 20 RK3 steps through the port: the case
+    loads through tlab_tpu_torch.runtime, the initial state comes from
+    tlab_tpu's initializer."""
+    case = load_case(Ini(text=INI))
+    sim = Simulation.from_case(case, dtype=F64, device="cpu")
+    st = initial_state(JSimulation.from_case(load_case(Ini(text=INI))),
+                       seed=12345)
+    state = state_from_numpy(st.u, st.v, st.w, st.s, "cpu", F64)
+    for _ in range(20):
+        state, _ = tdyn.rk_step(sim.P, state, 2e-3)
+    u = state.u.numpy()
+    v = state.v.numpy()
+    s = state.s[0].numpy()
+    got = {
+        'u_mean': float(u.mean()), 'u_var': float(u.var()),
+        'v_var': float(v.var()), 's_mean': float(s.mean()),
+        'u_probe': float(u[7, 16, 3]), 'v_probe': float(v[20, 8, 11]),
+        's_probe': float(s[3, 25, 7]),
+    }
+    for k, ref in GOLDEN.items():
+        scale = max(abs(ref), 1e-8)
+        assert abs(got[k] - ref) / scale < 1e-9, (k, got[k], ref)
+
+
+@pytest.mark.parametrize("section, key, value", [
+    ("Main", "TermAdvection", "skewsymmetric"),
+    ("Main", "EllipticOrder", "compactdirect6"),
+    ("Main", "TermDivergence", "none"),
+    ("Control", "ScalLimit", "yes"),
+    ("BoundaryConditions", "Scalar1SfcTypeJmin", "linear"),
+])
+def test_from_case_rejects_options_off_the_path(section, key, value):
+    text = INI.replace(f"[{section}]\n", f"[{section}]\n{key}={value}\n", 1)
+    if key == "ScalLimit":
+        text = text.replace("ScalLimit=no\n", "")
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        Simulation.from_case(load_case(Ini(text=text)), dtype=F64)
+
+
+@pytest.mark.parametrize("key, value", [
+    ("anelastic", {}), ("ibm", {}), ("comm", {}), ("bodyforce", print),
+    ("d1x_banded", {}), ("adv_form", "divergence"),
+])
+def test_step_rejects_plans_off_the_path(key, value):
+    _, PT, (u, v, w, s) = _setup()
+    PT[key] = value
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        tdyn.rk_step(PT, state_from_numpy(u, v, w, s, "cpu", F64), 1e-3)
+
+
+def _taylor_green(grid, reynolds=100.0):
+    """The port's plan and the 2-D Taylor-Green state u = sin x cos y,
+    v = -cos x sin y (an exact solution with free-slip walls at y = 0, pi),
+    as tests/test_dycore.py builds them for tlab_tpu."""
+    fdm = build_fdm_plan(grid)
+    nsp = NSParams(reynolds=reynolds, schmidt=())
+    P = tdyn.build_device_plans(
+        fdm, nsp, tdyn.WallBCs.from_velocity_kind("freeslip", "freeslip",
+                                                  scalar_bcs=()),
+        dtype=F64, device="cpu")
+    X = grid.x.nodes[:, None, None]
+    Y = grid.y.nodes[None, :, None]
+    u = np.sin(X) * np.cos(Y) * np.ones(grid.shape)
+    v = -np.cos(X) * np.sin(Y) * np.ones(grid.shape)
+    state = state_from_numpy(u, v, np.zeros(grid.shape),
+                             np.zeros((0,) + grid.shape), "cpu", F64)
+    return nsp, P, state, X, Y
+
+
+@pytest.mark.parametrize("stretched", [False, True])
+def test_taylor_green_decay(stretched):
+    """50 RK4 steps of the full port loop against the exact decay (limits
+    of tests/test_dycore.py; the stretched y grid exercises the Jacobian-
+    corrected D2 and a nonuniform factorized Poisson plan)."""
+    from tlab_tpu.grid import Grid, make_axis
+    if stretched:
+        s = np.linspace(0.0, 1.0, 65)
+        grid = Grid(make_axis(np.arange(48) * (2.0 * np.pi / 48), True),
+                    make_axis(np.pi * (s + 0.10 * np.sin(np.pi * s)), False),
+                    make_axis(np.zeros(1), False))
+    else:
+        grid = uniform_grid(64, 65, 1, 2.0 * np.pi, np.pi, 1.0)
+    nsp, P, state, X, Y = _taylor_green(grid)
+    dt = 2e-3
+    state, _ = tdyn.rk_loop_stacked(P, state, dt, 50)
+    u_exact = np.sin(X) * np.cos(Y) * np.exp(-nsp.visc * 2.0 * dt * 50)
+    err = np.max(np.abs(state.u.numpy() - u_exact))
+    assert err < (5e-4 if stretched else 2e-5), err
+
+
+def test_divergence_stays_small():
+    grid = uniform_grid(64, 65, 1, 2.0 * np.pi, np.pi, 1.0)
+    _, P, state, _, _ = _taylor_green(grid)
+    for _ in range(10):
+        state, _ = tdyn.rk_step(P, state, 2e-3)
+    dmin, dmax = tdyn.dilatation_minmax(P, state)
+    assert max(abs(float(dmin)), abs(float(dmax))) < 1e-4
+
+
+def test_wall_value_enforcement():
+    """Noise on no-slip wall rows is cleaned at the first step and the
+    rows stay at the wall reference (tests/test_dycore.py:126)."""
+    grid = uniform_grid(16, 33, 8, 2 * np.pi, 1.0, np.pi)
+    P = tdyn.build_device_plans(build_fdm_plan(grid),
+                                NSParams(reynolds=100.0, schmidt=()),
+                                tdyn.WallBCs(s=()), dtype=F64, device="cpu")
+    rng = np.random.default_rng(0)
+    u, v, w = (0.01 * rng.standard_normal(grid.shape) for _ in range(3))
+    st = state_from_numpy(u, v, w, np.zeros((0,) + grid.shape), "cpu", F64)
+    assert float(st.v[:, 0, :].abs().max()) > 1e-4
+    st1, _ = tdyn.rk_step(P, st, 1e-4)
+    for a in (st1.u, st1.v, st1.w):
+        assert float(a[:, (0, -1), :].abs().max()) < 1e-15

@@ -1,0 +1,83 @@
+"""The port's factorized Poisson solver against tlab_tpu's, float64 on the
+CPU, plus the divergence-removal property of tests/test_factorize.py."""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from tlab_tpu.fdm.plan import build_fdm_plan
+from tlab_tpu.grid import uniform_grid
+from tlab_tpu.ops import elliptic_factorize as jfac
+from tlab_tpu.physics.params import NSParams
+from tlab_tpu_torch.dycore import incompressible as tdyn
+from tlab_tpu_torch.ops import elliptic_factorize as tfac
+
+
+def _plans(nx, ny, nz):
+    grid = uniform_grid(nx, ny, nz, 2.0, 1.0, 1.5)
+    fdm = build_fdm_plan(grid)
+    plan = jfac.build_factorize_plan(fdm)
+    return grid, fdm, jfac.device_factorize_plan(plan, jnp.float64), \
+        tfac.device_factorize_plan(tfac.build_factorize_plan(fdm),
+                                   torch.float64, "cpu")
+
+
+def _rel(a, b):
+    return np.max(np.abs(np.asarray(a) - np.asarray(b))) / \
+        np.max(np.abs(np.asarray(b)))
+
+
+@pytest.mark.parametrize("nx, ny, nz", [(32, 33, 16), (16, 24, 1)])
+def test_poisson_factorize_matches_jax(nx, ny, nz):
+    grid, fdm, dev_j, dev_t = _plans(nx, ny, nz)
+    rng = np.random.default_rng(11)
+    f = rng.standard_normal((nx, ny, nz))
+    bb = rng.standard_normal((nx, nz))
+    bt = rng.standard_normal((nx, nz))
+    p_j, dpdy_j = jfac.poisson_factorize(dev_j, jnp.asarray(f),
+                                         bcs_b=jnp.asarray(bb),
+                                         bcs_t=jnp.asarray(bt))
+    p_t, dpdy_t = tfac.poisson_factorize(dev_t, torch.from_numpy(f),
+                                         bcs_b=torch.from_numpy(bb),
+                                         bcs_t=torch.from_numpy(bt))
+    assert _rel(p_t, p_j) <= 1e-11
+    assert _rel(dpdy_t, dpdy_j) <= 1e-11
+
+
+def test_tables_match_jax():
+    """The per-mode tables, built once per plan, equal tlab_tpu's."""
+    _, _, dev_j, dev_t = _plans(32, 33, 16)
+    tb_j = jfac.build_tables(dev_j)
+    tb_t = dev_t["tables"]
+    for name in ("em", "v1", "u1", "sp", "ep"):
+        assert _rel(tb_t[name].real.movedim(1, 0), tb_j[name]) <= 1e-12
+    for name in ("du1_n", "dsp_n", "dep_n"):
+        assert _rel(tb_t[name].real, tb_j[name]) <= 1e-12
+    for name in ("dmin", "dmax"):
+        got = tb_t[name].movedim(1, 0)
+        assert _rel(got.real, tb_j[name + "_re"]) <= 1e-14
+        assert _rel(got.imag, tb_j[name + "_im"]) <= 1e-14
+
+
+def test_factorize_roundoff_divergence_removal():
+    """Projecting with the port's solver and its stage-consistent dpdy
+    removes divergence to round-off in the interior (as
+    tests/test_factorize.py:43 for tlab_tpu)."""
+    grid, fdm, _, dev = _plans(32, 48, 8)
+    nx, ny, nz = grid.shape
+    P = tdyn.build_device_plans(
+        fdm, NSParams(reynolds=100.0, schmidt=()),
+        tdyn.WallBCs.from_velocity_kind("freeslip", "freeslip",
+                                        scalar_bcs=()),
+        dtype=torch.float64, device="cpu")
+    rng = np.random.default_rng(0)
+    u, v, w = (torch.from_numpy(rng.standard_normal((nx, ny, nz)))
+               for _ in range(3))
+    v[:, 0, :] = 0.0
+    v[:, -1, :] = 0.0
+    div = tdyn.divergence(P, u, v, w)
+    p, dpdy = tfac.poisson_factorize(dev, div)
+    div2 = tdyn.divergence(P, u - tdyn._d1(P, "x", 0, p), v - dpdy,
+                           w - tdyn._d1(P, "z", 2, p))
+    red = div2[:, 2:-2, :].abs().max() / div.abs().max()
+    assert red < 1e-9, red

@@ -1,0 +1,82 @@
+"""Carry the JAX package's plans and states across to the port.
+
+The parity tests build a plan or an initial state with tlab_tpu and hand it
+to the port through these functions, so that both packages compute on the
+same inputs.  The JAX side delivers host arrays, and every leaf goes through
+np.asarray first; nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+from tlab_tpu_torch import device as _device
+from tlab_tpu_torch.dycore.incompressible import OFF_PATH, check_main_path
+from tlab_tpu_torch.dycore.state import State
+from tlab_tpu_torch.ops import elliptic_factorize as fac
+
+_MATRIX = re.compile(r"^(d1|d12|iod)[xyz]$")
+# direct eigen Poisson plans: tlab_tpu keeps them beside the factorized
+# plan for its initial conditions; the main path does not read them
+_UNUSED = ("dtype", "ell", "ell_dd")
+
+
+def plans_from_jax(P_np: dict, device, dtype) -> dict:
+    """The port's plan dict from a tlab_tpu build_device_plans/
+    Simulation plan (with its factorized Poisson plan in "ell_fac").
+
+    Raises NotImplementedError for keys that select a path the port lacks
+    (check_main_path), and KeyError for keys it does not know."""
+    dev = _device.resolve(device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64)).to(dev, dtype)
+
+    P = {}
+    for key, val in P_np.items():
+        if _MATRIX.match(key):
+            P[key] = t(val)
+        elif key == "rk":
+            P[key] = dict(val)
+        elif key in ("visc", "diffusion_constant"):
+            P[key] = float(val)
+        elif key in ("diff", "sizes"):
+            P[key] = tuple(val)
+        elif key == "bc_rows":
+            P[key] = {c: _rows(val[c], t) for c in ("u", "v", "w")}
+            P[key]["s"] = tuple(_rows(r, t) for r in val["s"])
+        elif key in ("wall_bc_types", "wall_refs"):
+            P[key] = dict(val)
+        elif key == "ell_fac":
+            arrays = {k: v for k, v in val.items() if k not in ("dft",
+                                                                 "sing")}
+            P[key] = fac.device_plan_from_arrays(arrays, dtype, dev)
+        elif key in _UNUSED:
+            continue
+        elif key in OFF_PATH or key.endswith("_banded") \
+                or key in ("adv_form", "remove_divergence"):
+            if val is not None:     # check_main_path rejects it
+                P[key] = val
+        else:
+            raise KeyError(f"unknown tlab_tpu plan key {key!r}")
+    check_main_path(P)
+    return P
+
+
+def _rows(rows, t):
+    if rows is None:
+        return None
+    return {k: None if rows[k] is None else t(rows[k]) for k in ("nb", "nt")}
+
+
+def state_from_numpy(u, v, w, s, device, dtype) -> State:
+    """State of tensors from array-likes: u, v, w (nx, ny, nz), s
+    (ns, nx, ny, nz)."""
+    dev = _device.resolve(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float64)).to(dev, dtype)
+
+    return State(u=t(u), v=t(v), w=t(w), s=t(s))

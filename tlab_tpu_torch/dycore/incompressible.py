@@ -1,0 +1,365 @@
+"""Incompressible dynamical core, main path: fused Burgers RHS + pressure
+projection on the stacked carry.  Port of the main-path functions of
+tlab_tpu/dycore/incompressible.py (its module docstring describes the
+substep, after the reference's rhs_global_incompressible_1.f90 and
+time.f90 TIME_RUNGEKUTTA).
+
+Per substep: the Burgers term nu d2(q) - u_i d1(q) along x, y and z for the
+whole (3+ns) stack (on a CUDA float32 stack through the hand-written kernel
+of ops/burgers.py), the factorized pressure projection, then the wall rows
+of the tendencies; q += dte h; h *= kco.
+
+Only the main path is ported.  A plan that asks for anything else raises
+NotImplementedError naming the ROADMAP item that will port it.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tlab_tpu.constants import BC
+from tlab_tpu.fdm.plan import DerivPlan, FdmPlan
+from tlab_tpu.physics.params import NSParams
+from tlab_tpu_torch import device as _device
+from tlab_tpu_torch.dycore import timemarch
+from tlab_tpu_torch.dycore.state import State, stack, unstack
+from tlab_tpu_torch.ops import burgers
+from tlab_tpu_torch.ops import elliptic_factorize as fac
+from tlab_tpu_torch.ops.derivative import der1, der12
+
+
+# ---------------------------------------------------------------------------
+# Boundary-condition configuration (as tlab_tpu, pure NumPy)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class WallBCs:
+    """Tendency BCs at jmin/jmax per variable: 'dirichlet' | 'neumann' | 'none'.
+
+    'freeslip' walls => tangential velocities neumann, normal dirichlet;
+    'noslip' => all dirichlet (reference boundary_bcs.f90:114-118).
+    """
+
+    u: tuple = ("dirichlet", "dirichlet")
+    v: tuple = ("dirichlet", "dirichlet")
+    w: tuple = ("dirichlet", "dirichlet")
+    s: tuple = (("dirichlet", "dirichlet"),)
+
+    @staticmethod
+    def from_velocity_kind(jmin: str, jmax: str,
+                           scalar_bcs=(("dirichlet", "dirichlet"),)):
+        def tang(kind):
+            return "neumann" if kind == "freeslip" else "dirichlet"
+        return WallBCs(
+            u=(tang(jmin), tang(jmax)),
+            v=("dirichlet", "dirichlet"),
+            w=(tang(jmin), tang(jmax)),
+            s=tuple(scalar_bcs),
+        )
+
+
+def neumann_value_rows(plan_y: DerivPlan, bot: bool, top: bool):
+    """Row vectors (nb, nt) with wall value = row . u_column giving du/dy=0.
+
+    Dense equivalent of reference BOUNDARY_BCS_NEUMANN_Y: from the Neumann-
+    reduced derivative D (rows with f'_wall = 0), the wall value follows from
+    the wall row of the compact system A f' = B f.
+    """
+    ibc = {(True, False): BC.ND, (False, True): BC.DN,
+           (True, True): BC.NN}[(bot, top)]
+    D = plan_y.d1[ibc]
+    A1, B1 = plan_y.A1, plan_y.B1
+    nb = nt = None
+    if bot:
+        nb = (A1[0, :] @ D - B1[0, :]) / B1[0, 0]
+        nb[0] += 1.0
+    if top:
+        nt = (A1[-1, :] @ D - B1[-1, :]) / B1[-1, -1]
+        nt[-1] += 1.0
+    return nb, nt
+
+
+# ---------------------------------------------------------------------------
+# Device plan assembly
+# ---------------------------------------------------------------------------
+
+def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
+                       rk_name: str = "RungeKuttaExplicit4",
+                       dtype=torch.float32, device="cpu",
+                       wall_refs=None) -> dict:
+    """The plan dict of operator tensors and coefficients on `device`.
+
+    Main-path keys of tlab_tpu's build_device_plans, with P["ell_fac"] the
+    factorized Poisson plan.  Every direction uses its dense operators: the
+    banded long-line plans (N >= 2304 on the TPU) are ROADMAP A12."""
+    dev = _device.resolve(device)
+    _device.full_fp32_matmul()
+    if fdm.y.periodic or fdm.y.size <= 4 or not fdm.x.periodic:
+        raise NotImplementedError(
+            "the ported projection needs walls in y (ny > 4) and periodic x "
+            "(ROADMAP A8: direct eigen Poisson)")
+    scheme = timemarch.get_scheme(rk_name)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64)).to(dev, dtype)
+
+    P = {
+        "rk": {"kdt": tuple(scheme.kdt), "kco": tuple(scheme.kco),
+               "ktime": tuple(scheme.ktime),
+               "explicit_diffusion": "diffusion" not in rk_name.lower()},
+        "visc": float(nsp.visc),
+        "diff": tuple(nsp.visc / sc for sc in nsp.schmidt),
+        "sizes": tuple(p.size for p in (fdm.x, fdm.y, fdm.z)),
+    }
+    for name, plan in (("x", fdm.x), ("y", fdm.y), ("z", fdm.z)):
+        if plan.size > 1:
+            P[f"d1{name}"] = t(plan.d1[BC.DD])
+            P[f"d12{name}"] = t(plan.d12[BC.DD])
+            P[f"iod{name}"] = t(1.0 / plan.jac)
+
+    # wall-tendency BC rows along y
+    def rows_for(pair):
+        bot = pair[0] == "neumann"
+        top = pair[1] == "neumann"
+        if not (bot or top):
+            return None
+        # the reference uses the matched-ibc reduction; for mixed cases the
+        # difference is only in the far-wall rows, which are unused
+        nb, nt = neumann_value_rows(fdm.y, True, True)
+        return {"nb": t(nb) if bot else None, "nt": t(nt) if top else None}
+
+    P["bc_rows"] = {
+        "u": rows_for(bcs.u), "v": rows_for(bcs.v), "w": rows_for(bcs.w),
+        "s": tuple(rows_for(p) for p in bcs.s),
+    }
+    P["wall_bc_types"] = {"u": bcs.u, "v": bcs.v, "w": bcs.w, "s": bcs.s}
+    P["wall_refs"] = wall_refs or {"u": (0.0, 0.0), "v": (0.0, 0.0),
+                                   "w": (0.0, 0.0)}
+    P["diffusion_constant"] = timemarch.diffusion_constant(fdm, nsp)
+    P["ell_fac"] = fac.device_factorize_plan(fac.build_factorize_plan(fdm),
+                                             dtype, dev)
+    return P
+
+
+# Plan keys of tlab_tpu that select a path this port does not have yet.
+OFF_PATH = {
+    "ibm": "A10 (immersed boundaries)",
+    "surface_bc": "A10 (interactive surface BC)",
+    "buffer": "A10 (buffer zones)",
+    "bodyforce": "A9 (sources: buoyancy, Coriolis, ...)",
+    "anelastic": "A9 (anelastic)",
+    "stag": "A8 (staggered pressure)",
+    "ell_stag": "A8 (staggered pressure)",
+    "pfilter": "A8 (pressure filter)",
+    "dealias": "A8 (dealiasing)",
+    "scal_bounds": "A8 (per-substep scalar clipping)",
+    "comm": "A17 (multi-GPU pencils)",
+}
+
+
+def check_main_path(P: dict) -> None:
+    """Raise NotImplementedError if P asks for an option off the ported path."""
+    for key, item in OFF_PATH.items():
+        if P.get(key) is not None:
+            raise NotImplementedError(f"plan key {key!r}: ROADMAP {item}")
+    for key in P:
+        if key.endswith("_banded"):
+            raise NotImplementedError(f"plan key {key!r}: ROADMAP A12 "
+                                      "(banded long-line operators)")
+    if P.get("adv_form", "convective") != "convective":
+        raise NotImplementedError(
+            f"advection form {P['adv_form']!r}: ROADMAP A8")
+    if not P.get("remove_divergence", True):
+        raise NotImplementedError("TermDivergence=none: ROADMAP A8")
+    if P.get("ell_fac") is None:
+        raise NotImplementedError("no factorized Poisson plan: ROADMAP A8 "
+                                  "(direct eigen Poisson)")
+
+
+# ---------------------------------------------------------------------------
+# Operators
+# ---------------------------------------------------------------------------
+
+def _d1(P, axis_name: str, axis: int, a):
+    M = P.get(f"d1{axis_name}")
+    if M is None:
+        return torch.zeros_like(a)
+    return der1(M, a, axis)
+
+
+def divergence(P, u, v, w):
+    return _d1(P, "x", 0, u) + _d1(P, "y", 1, v) + _d1(P, "z", 2, w)
+
+
+def _fused_burgers_ok(P, axis_name: str, fields) -> bool:
+    """Gate for the hand-written CUDA kernel (ops/burgers.py), the
+    counterpart of tlab_tpu's _fused_burgers_ok: a float32 stack on CUDA,
+    no banded plan for this direction, no anelastic weighting, no
+    dealiasing, convective advection.  There is no switch to turn it off:
+    where the gate holds, the kernel runs or the step raises."""
+    return (fields.is_cuda and fields.dtype == torch.float32
+            and P.get(f"d1{axis_name}_banded") is None
+            and P.get("anelastic") is None and not P.get("dealias")
+            and P.get("adv_form", "convective") == "convective")
+
+
+def _burgers_all(P, axis_name: str, axis: int, fields, conv, nu):
+    """nu d2 f - c d1 f along one direction for ALL fields of the stack.
+
+    fields: (F, nx, ny, nz); conv: (nx, ny, nz) advecting velocity; nu:
+    (F, 1, 1, 1) per-field diffusivity."""
+    d12 = P.get(f"d12{axis_name}")
+    if d12 is None:
+        return torch.zeros_like(fields)
+    if _fused_burgers_ok(P, axis_name, fields):
+        return burgers.fused_burgers(d12, fields, conv, nu.reshape(-1), axis)
+    # the dense branch (tlab_tpu's _d12_apply): one [D1;D2] product
+    da, d2a = der12(d12, fields, axis + 1)
+    return nu * d2a - conv[None] * da
+
+
+def _solve_pressure(P, u, v, w, h1, h2, h3, dte):
+    """Pressure projection (reference rhs_global_incompressible_1.f90:
+    177-360): the forcing divergence (with q/dte, which removes the
+    residual divergence too), the factorized Poisson solve with the
+    wall-normal tendency as Neumann data, and the pressure gradient on the
+    velocity nodes -> (dpdx, dpdy, dpdz, p)."""
+    inv_dte = 1.0 / dte
+    fx = h1 + u * inv_dte
+    fy = h2 + v * inv_dte
+    fz = h3 + w * inv_dte
+    div = _d1(P, "y", 1, fy) + _d1(P, "x", 0, fx) + _d1(P, "z", 2, fz)
+    p, dpdy = fac.poisson_factorize(P["ell_fac"], div,
+                                    bcs_b=h2[:, 0, :], bcs_t=h2[:, -1, :])
+    return _d1(P, "x", 0, p), dpdy, _d1(P, "z", 2, p), p
+
+
+def _apply_wall_rows_stacked(H, i, rows):
+    """Set the j=0 / j=ny-1 rows of tendency i of the stack H in place:
+    Dirichlet rows to 0, Neumann rows to the value with zero wall-normal
+    derivative (the nt row sees the updated j=0 row, as in tlab_tpu)."""
+    nb = nt = None
+    if rows is not None:
+        nb, nt = rows["nb"], rows["nt"]
+    H[i, :, 0, :] = torch.matmul(nb, H[i]) if nb is not None else 0.0
+    H[i, :, -1, :] = torch.matmul(nt, H[i]) if nt is not None else 0.0
+
+
+def substep_rhs_stacked(P, Q, H, dte):
+    """The tendency of one substep on the stacked carry Q, H
+    (3+ns, nx, ny, nz), rows u, v, w, s1..  Returns (H_new, p); H is not
+    modified (H_new is a new tensor, updated in place below)."""
+    check_main_path(P)
+    u, v, w = Q[0], Q[1], Q[2]
+    visc = P["visc"]
+    nu = torch.tensor((visc,) * 3 + tuple(P["diff"]), dtype=Q.dtype,
+                      device=Q.device).reshape(-1, 1, 1, 1)
+    # accumulate in place: one (3+ns)-field stack less alive at a time
+    adv = _burgers_all(P, "x", 0, Q, u, nu)
+    adv += _burgers_all(P, "y", 1, Q, v, nu)
+    adv += _burgers_all(P, "z", 2, Q, w, nu)
+    H = adv.add_(H)
+
+    dpdx, dpdy, dpdz, p = _solve_pressure(P, u, v, w, H[0], H[1], H[2], dte)
+    H[0] -= dpdx
+    H[1] -= dpdy
+    H[2] -= dpdz
+
+    rows = P["bc_rows"]
+    _apply_wall_rows_stacked(H, 0, rows["u"])
+    _apply_wall_rows_stacked(H, 1, rows["v"])
+    _apply_wall_rows_stacked(H, 2, rows["w"])
+    for i in range(Q.shape[0] - 3):
+        _apply_wall_rows_stacked(H, 3 + i, rows["s"][i])
+    return H, p
+
+
+def _enforce_wall_values(P, state: State) -> State:
+    """Re-impose Dirichlet wall values on the fields (reference applies
+    BcsFlowJmin/Jmax%ref each substep, boundary_bcs.f90): no-penetration
+    v=0 always; u/w pinned for no-slip walls.  Returns a new State; the
+    components it changes are copies."""
+    kinds = P["wall_bc_types"]
+    refs = P["wall_refs"]
+    comps = {"u": state.u, "v": state.v, "w": state.w}
+    for name in ("v", "u", "w"):
+        sides = [s for s in (0, 1) if kinds[name][s] == "dirichlet"]
+        if sides:
+            a = comps[name].clone()
+            for side in sides:
+                a[:, (0, -1)[side], :] = refs[name][side]
+            comps[name] = a
+    return State(s=state.s, sfc=state.sfc, **comps)
+
+
+def _rk_core_stacked(P, Q, dtime, kdt, kco):
+    """One low-storage RK step on the stacked carry.  Updates Q in place
+    (the callers pass a carry they own) and returns (Q, last p)."""
+    H = torch.zeros_like(Q)
+    p = None
+    last = len(kdt) - 1
+    for i, k in enumerate(kdt):
+        dte = dtime * k
+        H, p = substep_rhs_stacked(P, Q, H, dte)
+        Q.add_(H, alpha=dte)
+        if i < last:
+            H.mul_(kco[i])
+    return Q, p
+
+
+def rk_step(P, state: State, dtime):
+    """One full low-storage RK step; returns (new_state, last pressure)."""
+    state = _enforce_wall_values(P, state)
+    Q, p = _rk_core_stacked(P, stack(state), dtime, P["rk"]["kdt"],
+                            P["rk"]["kco"])
+    return unstack(Q, state.sfc), p
+
+
+def rk_loop_stacked(P, state: State, dtime, n_steps: int):
+    """n_steps full RK steps with the State<->stack conversion done once.
+    Returns (state, last p)."""
+    state = _enforce_wall_values(P, state)
+    Q = stack(state)
+    p = torch.zeros_like(Q[0])
+    for _ in range(n_steps):
+        Q, p = _rk_core_stacked(P, Q, dtime, P["rk"]["kdt"], P["rk"]["kco"])
+    return unstack(Q, state.sfc), p
+
+
+# ---------------------------------------------------------------------------
+# Diagnostics for the step log / adaptive dt
+# ---------------------------------------------------------------------------
+
+def cfl_advective_max(P, state: State):
+    """max(|u|/dx + |v|/dy + |w|/dz), cf. reference TIME_COURANT."""
+    acc = 0.0
+    if "iodx" in P:
+        acc = acc + torch.abs(state.u) * P["iodx"][:, None, None]
+    if "iody" in P:
+        acc = acc + torch.abs(state.v) * P["iody"][None, :, None]
+    if "iodz" in P:
+        acc = acc + torch.abs(state.w) * P["iodz"][None, None, :]
+    return torch.max(acc)
+
+
+def dilatation_minmax(P, state: State):
+    """Dilatation extrema for the step log / bounds control."""
+    d = divergence(P, state.u, state.v, state.w)
+    return torch.min(d), torch.max(d)
+
+
+def next_dt(P, cfl_max_value, cfla, cfld):
+    """Host-side dt selection (reference TIME_COURANT final ops); the
+    diffusion limit applies only to fully explicit schemes
+    (time.f90:530-534, RKM_EXP3/EXP4).  A semi-implicit run starting
+    from REST (cfl max 0) still needs a finite dt, so the diffusion
+    limit serves as the cold-start fallback."""
+    cfl_max_value = float(cfl_max_value)
+    dtc = cfla / cfl_max_value if cfl_max_value > 0 else np.inf
+    dconst = P["diffusion_constant"]
+    dtd = cfld / dconst if dconst > 0 else np.inf
+    if not P["rk"].get("explicit_diffusion", True):
+        return dtc if np.isfinite(dtc) else dtd
+    return min(dtc, dtd)
