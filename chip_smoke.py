@@ -11,7 +11,10 @@ non-zero:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    the Burgers kernels K1-K3 from tlab_tpu_torch/csrc/ with nvcc
   3. kernels  K1-K3 against their plain PyTorch version on the card, fp32,
-              at two ragged shapes and at the main path's 512x256x256 shape
+              at three ragged shapes and at the main path's 512x256x256
+              shape, each there also against a float64 product and timed
+              beside its plain version, the plain version's one matmul
+              (library_ms) and its bound
   4. main     the shear layer at 512x256x256 fp32: one warm-up RK4 step,
               then 3 timed steps through rk_loop_stacked; every Burgers
               term must go through the kernels
@@ -35,15 +38,23 @@ from tlab_tpu_torch import device as tdevice
 from tlab_tpu_torch import entry
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.ops import _build, burgers
+from tlab_tpu_torch.ops.derivative import apply_along
 
 MAIN_SHAPE = (512, 256, 256)
 # ragged edges in every tile dimension; the odd widths take the kernels'
-# scalar epilogue, the multiples of 4 their 16-byte one
-RAGGED = ((5, (24, 20, 36)), (5, (23, 19, 37)))
+# scalar loads and epilogue, the multiples of 4 their 16-byte ones; the
+# last is smaller than one tile in every dimension
+RAGGED = ((5, (24, 20, 36)), (5, (23, 19, 37)), (3, (7, 5, 6)))
 STEPS = 3
 REPS = 7
-KERNEL_TOL = 1e-5        # max|kernel - plain| / max|plain|: fp32 sums of
-                         # <= 512 products taken in another order
+KERNEL_TOL = 1e-5        # max|kernel - plain| / max|plain|: sums of <= 512
+                         # products in another order, in fp32 (K3) or from
+                         # the 3xTF32 split (K1, K2: ~22 bits an operand)
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense)
+PEAK_BYTES = 3.35e12     # device memory, B/s
+PEAK_OPS = {"tf32": 495e12, "fp32": 67e12}      # FLOP/s by unit
+# the unit each kernel's product runs on, and its passes over the product
+UNIT = (("tf32", 3), ("tf32", 3), ("fp32", 1))
 FP64_TOL = 3e-4          # 5 RK4 steps at tlab_tpu's production 5.9e-5/step
 SOURCE = "tlab_tpu_torch/csrc/burgers.cu"
 REPLACES = ("tlab_tpu/ops/pallas_burgers.py:62",    # _kern_x
@@ -87,11 +98,36 @@ def phase_build() -> None:
     _build.library("burgers")
     seconds = time.perf_counter() - t0
     info = _build.builds.get("burgers")
-    regs = [ln.split("ptxas info    : ")[-1] for ln in
-            (info["log"].splitlines() if info else []) if "registers" in ln]
+    regs = [ln.split("ptxas info    : ")[-1].strip() for ln in
+            (info["log"].splitlines() if info else [])
+            if "registers" in ln or "spill" in ln or "warning" in ln.lower()]
     how = "built" if info else "loaded"
     print(f"[build] libburgers {how} in {seconds:.2f} s; ptxas: "
           + " | ".join(regs))
+
+
+def bound(axis, d12, x, conv, nu) -> dict:
+    """The least time the card could take for one fused Burgers term: each
+    input read once and the output written once at the memory rate, or
+    2 * 2n multiply-adds per output point (times the passes of the split)
+    at the peak of the unit the kernel's product runs on."""
+    n = x.shape[axis + 1]
+    unit, passes = UNIT[axis]
+    nbytes = sum(t.numel() * t.element_size() for t in (d12, x, conv, nu, x))
+    ops = passes * 4 * n * x.numel()
+    by_bytes, by_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[unit]
+    return {"bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "bytes_ms": 1e3 * by_bytes, "ops_ms": 1e3 * by_ops, "unit": unit}
+
+
+def fp64_errors(axis, d12, x, conv, nu, got, ref) -> dict:
+    """max|. - fp64| / max|fp64| of the kernel and of the plain version."""
+    ref64 = burgers.fused_burgers_plain(d12.double(), x.double(),
+                                        conv.double(), nu.double(), axis)
+    scale = ref64.abs().max().item()
+    return {"kernel_vs_fp64": (got - ref64).abs().max().item() / scale,
+            "plain_vs_fp64": (ref - ref64).abs().max().item() / scale}
 
 
 def check_kernel(axis, d12, x, conv, nu, timed: bool) -> dict:
@@ -105,14 +141,20 @@ def check_kernel(axis, d12, x, conv, nu, timed: bool) -> dict:
             f"max|err| {err} > {KERNEL_TOL} * {scale}")
     res = {"max_abs_err": err, "rel_err": err / scale}
     if timed:
-        ms, plain_ms = [], []
+        res.update(fp64_errors(axis, d12, x, conv, nu, got, ref))
+        del got, ref
+        calls = {
+            "ms": lambda: burgers.fused_burgers(d12, x, conv, nu, axis),
+            "plain_ms":
+                lambda: burgers.fused_burgers_plain(d12, x, conv, nu, axis),
+            # the plain version's one full-fp32 matmul, without the combine
+            "library_ms": lambda: apply_along(d12, x, axis + 1)}
+        times = {key: [] for key in calls}
         for _ in range(REPS):
-            ms.append(event_ms(
-                lambda: burgers.fused_burgers(d12, x, conv, nu, axis)))
-            plain_ms.append(event_ms(
-                lambda: burgers.fused_burgers_plain(d12, x, conv, nu, axis)))
-        res["ms"] = statistics.median(ms)
-        res["plain_ms"] = statistics.median(plain_ms)
+            for key, fn in calls.items():
+                times[key].append(event_ms(fn))
+        res.update({key: statistics.median(v) for key, v in times.items()})
+        res.update(bound(axis, d12, x, conv, nu))
     return res
 
 
@@ -130,7 +172,7 @@ def phase_kernels(P) -> list:
                                                        device="cuda"), False)
             print(f"[kernels] {burgers.ENTRY_POINTS[axis]} F={F} {shape}: "
                   f"rel err {r['rel_err']:.3e}")
-    records = []
+    records, errs = [], []
     nu = torch.tensor((P["visc"],) * 3 + P["diff"], dtype=torch.float32,
                       device="cuda")
     x = randn(len(nu), *MAIN_SHAPE)
@@ -140,11 +182,21 @@ def phase_kernels(P) -> list:
         print(f"[kernels] {burgers.ENTRY_POINTS[axis]} F={len(nu)} "
               f"{MAIN_SHAPE}: max|err| {r['max_abs_err']:.3e} "
               f"(rel {r['rel_err']:.3e}); kernel {r['ms']:.3f} ms, "
-              f"plain {r['plain_ms']:.3f} ms (median of {REPS})")
+              f"plain {r['plain_ms']:.3f} ms, its matmul alone "
+              f"{r['library_ms']:.3f} ms (median of {REPS}); bound "
+              f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['unit']}: "
+              f"{r['ops_ms']:.3f} ms, bytes: {r['bytes_ms']:.3f} ms)")
+        errs.append(f"{burgers.ENTRY_POINTS[axis]} ({r['unit']}) "
+                    f"{r['kernel_vs_fp64']:.3e}, plain (cuBLAS fp32) "
+                    f"{r['plain_vs_fp64']:.3e}")
         records.append({"name": burgers.ENTRY_POINTS[axis], "route": "cuda",
                         "source": SOURCE, "replaces": REPLACES[axis],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"],
+                        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"]})
+    print(f"[kernels] max|. - fp64| / max|fp64| at {MAIN_SHAPE}: "
+          + "; ".join(errs))
     return records
 
 

@@ -96,3 +96,119 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad, exc):
         axis = 3
     with pytest.raises(exc):
         burgers._check(d12, x, conv, nu, axis)
+
+
+# (F, shapes by contracted axis): n = 512 on the contracted axis for F = 4
+SPLIT_SHAPES = {4: ((512, 8, 128), (4, 512, 128), (4, 8, 512)),
+                5: ((96, 8, 128), (4, 96, 128), (4, 8, 96))}
+
+
+def _split_case(F, axis):
+    ops = _operands(F, SPLIT_SHAPES[F][axis], axis, np.float32,
+                    seed=F + 10 * axis)
+    t = [torch.from_numpy(a) for a in ops]
+    ref64 = burgers.fused_burgers_plain(*(a.double() for a in t),
+                                        axis).numpy()
+    return ops, t, ref64
+
+
+@pytest.mark.parametrize("F", [4, 5])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_split_plain_matches_fp64(F, axis):
+    """The arithmetic of the tensor-core kernels (3 TF32 products of the
+    hi/lo split, fp32 sums) against a float64 product.  hi + lo keeps ~22
+    significant bits and the dropped lo.lo term is ~2^-22 relative, so the
+    split is as close to float64 as a full-fp32 product is (~5e-7 of the
+    largest result over 512 terms): 2e-6 holds it with a factor of 4."""
+    _, t, ref64 = _split_case(F, axis)
+    got = burgers.fused_burgers_split_plain(*t, axis)
+    assert got.dtype == torch.float32
+    err = np.max(np.abs(got.numpy() - ref64)) / np.max(np.abs(ref64))
+    assert err <= 2e-6, err
+
+
+@pytest.mark.parametrize("F", [4, 5])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_split_plain_matches_pallas_kernel_at_high(F, axis):
+    """Against the TPU kernel in interpret mode at its default "high"
+    precision, the 3-pass bf16 split this design is the counterpart of.
+    That split keeps ~16 bits (measured ~5e-6 of the largest result from
+    float64), which is what the 2e-5 allows for; the TF32 split is the
+    closer of the two."""
+    ops, t, ref64 = _split_case(F, axis)
+    with pltpu.force_tpu_interpret_mode():
+        ref = np.asarray(pb.fused_burgers(*map(jnp.asarray, ops), axis))
+    got = burgers.fused_burgers_split_plain(*t, axis).numpy()
+    scale = np.max(np.abs(ref64))
+    assert np.max(np.abs(got - ref)) <= 2e-5 * scale
+    assert np.max(np.abs(got - ref64)) < np.max(np.abs(ref - ref64))
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_single_tf32_pass_misses_the_kernel_limit(axis):
+    """Why the split is there: one TF32 pass (x_hi . d_hi alone) is off by
+    ~3e-4 of the largest result, far over the 1e-5 that the kernels are
+    held to against their plain version."""
+    _, t, ref64 = _split_case(4, axis)
+    one = burgers.fused_burgers_split_plain(*t, axis, passes=1).numpy()
+    err = np.max(np.abs(one - ref64)) / np.max(np.abs(ref64))
+    assert err > 1e-5, err
+    with pytest.raises(ValueError):
+        burgers.fused_burgers_split_plain(*t, axis, passes=2)
+
+
+def test_tf32_round_is_nearest_even_on_10_bits():
+    v = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -1.0 - 2.0 ** -11, 1.0 + 2.0 ** -10 + 2.0 ** -12,
+                      0.0, 3.0e38], dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2.0 ** -9, -1.0, 1.0 + 2.0 ** -10,
+                         0.0, 3.0e38], dtype=torch.float32)
+    got = burgers.tf32_round(v)
+    assert torch.equal(got[:5], want[:5])
+    assert abs(float(got[5]) / 3.0e38 - 1.0) <= 2.0 ** -11
+    assert int((got.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    hi, lo = burgers.tf32_split(torch.from_numpy(
+        np.random.default_rng(0).standard_normal(4096).astype(np.float32)))
+    x = hi.double() + lo.double()
+    assert float((x - (hi + lo).double()).abs().max()) == 0.0
+    assert float(lo.abs().max()) <= 2.0 ** -11 * float(hi.abs().max())
+
+
+def _unpack_operator(pack, n):
+    """[D1 hi, D1 lo, D2 hi, D2 lo] (4, n, n) back from pack_operator's
+    layout (the swizzle is its own inverse)."""
+    at, kt, _, rows, chunks, _ = pack.shape
+    r = torch.arange(rows)
+    c = torch.arange(chunks)
+    src = c[None, :] ^ ((r[:, None] >> 1) & 3)
+    q = pack.gather(4, src[None, None, None, :, :, None].expand_as(pack))
+    q = q.permute(2, 0, 3, 1, 4, 5).reshape(4, at * rows, kt * chunks * 4)
+    return q[:, :n, :n]
+
+
+@pytest.mark.parametrize("n", [7, 23, 128, 130])
+def test_pack_operator_layout(n):
+    """The split operator as K1 and K2 copy it into shared memory: zero
+    padding to whole tiles, the four tiles D1 hi, D1 lo, D2 hi, D2 lo per
+    (row tile, K tile), and the 64-byte swizzle of each tile's chunks."""
+    rows, depth = 128, 16
+    d12 = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (2 * n, n)).astype(np.float32))
+    pack = burgers.pack_operator(d12, rows, depth)
+    at, kt = -(-n // rows), -(-n // depth)
+    assert tuple(pack.shape) == (at, kt, 4, rows, depth // 4, 4)
+    assert pack.is_contiguous()
+    hi, lo = burgers.tf32_split(d12.reshape(2, n, n))
+    want = torch.stack((hi[0], lo[0], hi[1], lo[1]))
+    assert torch.equal(_unpack_operator(pack, n), want)
+    # everything outside the operator is zero padding
+    assert float(pack.abs().sum()) == pytest.approx(
+        float(want.abs().sum()), rel=1e-5)
+    # one element by hand: row a, column k of D2 hi
+    flat = pack.reshape(at, kt, 4, rows * depth)
+    for a, k in ((0, 0), (n - 1, n - 1), (n // 2, n // 3)):
+        r, c = a % rows, (k % depth) // 4
+        pos = r * depth + ((c ^ ((r >> 1) & 3)) * 4) + k % 4
+        assert flat[a // rows, k // depth, 2, pos] == hi[1][a, k]
+    with pytest.raises(ValueError):
+        burgers.pack_operator(d12, rows, 32)

@@ -16,6 +16,10 @@ from tlab_tpu.physics.params import NSParams
 from tlab_tpu.runtime import Simulation as JSimulation
 from tlab_tpu.tools.initialize import initial_state
 from tlab_tpu_torch import entry
+from tlab_tpu_torch import config as tconfig
+from tlab_tpu_torch import grid as tgrid
+from tlab_tpu_torch.fdm.plan import build_fdm_plan as tbuild_fdm_plan
+from tlab_tpu_torch.physics.params import NSParams as TNSParams
 from tlab_tpu_torch.convert import plans_from_jax, state_from_numpy
 from tlab_tpu_torch.dycore import incompressible as tdyn
 from tlab_tpu_torch.runtime import Simulation
@@ -37,8 +41,11 @@ def _setup(rk_name="RungeKuttaExplicit4"):
     PJ["ell_fac"] = jfac.device_factorize_plan(jfac.build_factorize_plan(fdm),
                                                jnp.float64)
     PT = tdyn.build_device_plans(
-        fdm, nsp, tdyn.WallBCs.from_velocity_kind("freeslip", "freeslip",
-                                                  scalar_bcs=sbc),
+        tbuild_fdm_plan(tgrid.uniform_grid(32, 33, 16, 2.0 * np.pi, 1.0,
+                                           np.pi)),
+        TNSParams(reynolds=500.0, schmidt=(1.0,)),
+        tdyn.WallBCs.from_velocity_kind("freeslip", "freeslip",
+                                        scalar_bcs=sbc),
         rk_name=rk_name, dtype=F64, device="cpu")
     u, v, w, s = entry.initial_fields(grid, seed=3)
     rng = np.random.default_rng(4)
@@ -124,9 +131,9 @@ def test_diagnostics_match_jax():
 
 def test_golden_slice():
     """tests/test_golden.py's 20 RK3 steps through the port: the case
-    loads through tlab_tpu_torch.runtime, the initial state comes from
-    tlab_tpu's initializer."""
-    case = load_case(Ini(text=INI))
+    loads through the port's own load_case and runtime, the initial state
+    comes from tlab_tpu's initializer."""
+    case = tconfig.load_case(tconfig.Ini(text=INI))
     sim = Simulation.from_case(case, dtype=F64, device="cpu")
     st = initial_state(JSimulation.from_case(load_case(Ini(text=INI))),
                        seed=12345)
@@ -159,7 +166,8 @@ def test_from_case_rejects_options_off_the_path(section, key, value):
     if key == "ScalLimit":
         text = text.replace("ScalLimit=no\n", "")
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        Simulation.from_case(load_case(Ini(text=text)), dtype=F64)
+        Simulation.from_case(tconfig.load_case(tconfig.Ini(text=text)),
+                             dtype=F64, device="cpu")
 
 
 @pytest.mark.parametrize("key, value", [
@@ -177,8 +185,8 @@ def _taylor_green(grid, reynolds=100.0):
     """The port's plan and the 2-D Taylor-Green state u = sin x cos y,
     v = -cos x sin y (an exact solution with free-slip walls at y = 0, pi),
     as tests/test_dycore.py builds them for tlab_tpu."""
-    fdm = build_fdm_plan(grid)
-    nsp = NSParams(reynolds=reynolds, schmidt=())
+    fdm = tbuild_fdm_plan(grid)
+    nsp = TNSParams(reynolds=reynolds, schmidt=())
     P = tdyn.build_device_plans(
         fdm, nsp, tdyn.WallBCs.from_velocity_kind("freeslip", "freeslip",
                                                   scalar_bcs=()),
@@ -197,14 +205,14 @@ def test_taylor_green_decay(stretched):
     """50 RK4 steps of the full port loop against the exact decay (limits
     of tests/test_dycore.py; the stretched y grid exercises the Jacobian-
     corrected D2 and a nonuniform factorized Poisson plan)."""
-    from tlab_tpu.grid import Grid, make_axis
+    Grid, make_axis = tgrid.Grid, tgrid.make_axis
     if stretched:
         s = np.linspace(0.0, 1.0, 65)
         grid = Grid(make_axis(np.arange(48) * (2.0 * np.pi / 48), True),
                     make_axis(np.pi * (s + 0.10 * np.sin(np.pi * s)), False),
                     make_axis(np.zeros(1), False))
     else:
-        grid = uniform_grid(64, 65, 1, 2.0 * np.pi, np.pi, 1.0)
+        grid = tgrid.uniform_grid(64, 65, 1, 2.0 * np.pi, np.pi, 1.0)
     nsp, P, state, X, Y = _taylor_green(grid)
     dt = 2e-3
     state, _ = tdyn.rk_loop_stacked(P, state, dt, 50)
@@ -214,7 +222,7 @@ def test_taylor_green_decay(stretched):
 
 
 def test_divergence_stays_small():
-    grid = uniform_grid(64, 65, 1, 2.0 * np.pi, np.pi, 1.0)
+    grid = tgrid.uniform_grid(64, 65, 1, 2.0 * np.pi, np.pi, 1.0)
     _, P, state, _, _ = _taylor_green(grid)
     for _ in range(10):
         state, _ = tdyn.rk_step(P, state, 2e-3)
@@ -225,9 +233,9 @@ def test_divergence_stays_small():
 def test_wall_value_enforcement():
     """Noise on no-slip wall rows is cleaned at the first step and the
     rows stay at the wall reference (tests/test_dycore.py:126)."""
-    grid = uniform_grid(16, 33, 8, 2 * np.pi, 1.0, np.pi)
-    P = tdyn.build_device_plans(build_fdm_plan(grid),
-                                NSParams(reynolds=100.0, schmidt=()),
+    grid = tgrid.uniform_grid(16, 33, 8, 2 * np.pi, 1.0, np.pi)
+    P = tdyn.build_device_plans(tbuild_fdm_plan(grid),
+                                TNSParams(reynolds=100.0, schmidt=()),
                                 tdyn.WallBCs(s=()), dtype=F64, device="cpu")
     rng = np.random.default_rng(0)
     u, v, w = (0.01 * rng.standard_normal(grid.shape) for _ in range(3))

@@ -8,17 +8,20 @@ import jax.numpy as jnp
 from tlab_tpu.fdm.plan import build_fdm_plan
 from tlab_tpu.grid import uniform_grid
 from tlab_tpu.ops import elliptic_factorize as jfac
-from tlab_tpu.physics.params import NSParams
+from tlab_tpu_torch import grid as tgrid
 from tlab_tpu_torch.dycore import incompressible as tdyn
+from tlab_tpu_torch.fdm.plan import build_fdm_plan as tbuild_fdm_plan
 from tlab_tpu_torch.ops import elliptic_factorize as tfac
+from tlab_tpu_torch.physics.params import NSParams as TNSParams
 
 
 def _plans(nx, ny, nz):
     grid = uniform_grid(nx, ny, nz, 2.0, 1.0, 1.5)
     fdm = build_fdm_plan(grid)
     plan = jfac.build_factorize_plan(fdm)
-    return grid, fdm, jfac.device_factorize_plan(plan, jnp.float64), \
-        tfac.device_factorize_plan(tfac.build_factorize_plan(fdm),
+    tfdm = tbuild_fdm_plan(tgrid.uniform_grid(nx, ny, nz, 2.0, 1.0, 1.5))
+    return grid, tfdm, jfac.device_factorize_plan(plan, jnp.float64), \
+        tfac.device_factorize_plan(tfac.build_factorize_plan(tfdm),
                                    torch.float64, "cpu")
 
 
@@ -66,7 +69,7 @@ def test_factorize_roundoff_divergence_removal():
     grid, fdm, _, dev = _plans(32, 48, 8)
     nx, ny, nz = grid.shape
     P = tdyn.build_device_plans(
-        fdm, NSParams(reynolds=100.0, schmidt=()),
+        fdm, TNSParams(reynolds=100.0, schmidt=()),
         tdyn.WallBCs.from_velocity_kind("freeslip", "freeslip",
                                         scalar_bcs=()),
         dtype=torch.float64, device="cpu")

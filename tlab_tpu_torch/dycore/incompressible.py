@@ -19,9 +19,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from tlab_tpu.constants import BC
-from tlab_tpu.fdm.plan import DerivPlan, FdmPlan
-from tlab_tpu.physics.params import NSParams
+from tlab_tpu_torch.constants import BC
+from tlab_tpu_torch.fdm.plan import DerivPlan, FdmPlan
+from tlab_tpu_torch.physics.params import NSParams
 from tlab_tpu_torch import device as _device
 from tlab_tpu_torch.dycore import timemarch
 from tlab_tpu_torch.dycore.state import State, stack, unstack
@@ -87,13 +87,13 @@ def neumann_value_rows(plan_y: DerivPlan, bot: bool, top: bool):
 
 def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
                        rk_name: str = "RungeKuttaExplicit4",
-                       dtype=torch.float32, device="cpu",
+                       dtype=torch.float32, device="cuda",
                        wall_refs=None) -> dict:
     """The plan dict of operator tensors and coefficients on `device`.
 
     Main-path keys of tlab_tpu's build_device_plans, with P["ell_fac"] the
     factorized Poisson plan.  Every direction uses its dense operators: the
-    banded long-line plans (N >= 2304 on the TPU) are ROADMAP A12."""
+    banded long-line plans are ROADMAP A12."""
     dev = _device.resolve(device)
     _device.full_fp32_matmul()
     if fdm.y.periodic or fdm.y.size <= 4 or not fdm.x.periodic:

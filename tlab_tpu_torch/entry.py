@@ -12,9 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tlab_tpu.fdm.plan import build_fdm_plan
-from tlab_tpu.grid import uniform_grid
-from tlab_tpu.physics.params import NSParams
+from tlab_tpu_torch.fdm.plan import build_fdm_plan
+from tlab_tpu_torch.grid import uniform_grid
+from tlab_tpu_torch.physics.params import NSParams
 from tlab_tpu_torch.convert import state_from_numpy
 from tlab_tpu_torch.dycore import incompressible as dyn
 

@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from tlab_tpu.fdm.plan import DerivPlan, FdmPlan
+from tlab_tpu_torch.fdm.plan import DerivPlan, FdmPlan
 from tlab_tpu_torch import device as _device
 
 

@@ -13,10 +13,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tlab_tpu.config import CaseSetup, consistency_check, load_case
-from tlab_tpu.fdm.plan import FdmPlan, build_fdm_plan
-from tlab_tpu.grid import Grid, build_axis_from_segments, make_axis
-from tlab_tpu.physics.params import NSParams
+from tlab_tpu_torch.config import CaseSetup, consistency_check, load_case
+from tlab_tpu_torch.fdm.plan import FdmPlan, build_fdm_plan
+from tlab_tpu_torch.grid import Grid, build_axis_from_segments, make_axis
+from tlab_tpu_torch.physics.params import NSParams
 from tlab_tpu_torch import device as _device
 from tlab_tpu_torch.dycore import incompressible as dyn
 
@@ -113,7 +113,7 @@ class Simulation:
     device: torch.device
 
     @classmethod
-    def from_case(cls, case_or_path, dtype=torch.float64, device="cpu",
+    def from_case(cls, case_or_path, dtype=torch.float32, device="cuda",
                   grid: Optional[Grid] = None) -> "Simulation":
         case = case_or_path if isinstance(case_or_path, CaseSetup) \
             else load_case(case_or_path)
