@@ -11,7 +11,7 @@ non-zero:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    the Burgers kernels K1-K3 from tlab_tpu_torch/csrc/ with nvcc
   3. kernels  K1-K3 against their plain PyTorch version on the card, fp32,
-              at three ragged shapes and at the main path's 512x256x256
+              at four ragged shapes and at the main path's 512x256x256
               shape, each there also against a float64 product and timed
               beside its plain version, the plain version's one matmul
               (library_ms) and its bound
@@ -43,18 +43,20 @@ from tlab_tpu_torch.ops.derivative import apply_along
 MAIN_SHAPE = (512, 256, 256)
 # ragged edges in every tile dimension; the odd widths take the kernels'
 # scalar loads and epilogue, the multiples of 4 their 16-byte ones; the
-# last is smaller than one tile in every dimension
-RAGGED = ((5, (24, 20, 36)), (5, (23, 19, 37)), (3, (7, 5, 6)))
+# third is smaller than one tile in every dimension; in the last nz spans
+# two operator tiles and ends in a ragged K tile
+RAGGED = ((5, (24, 20, 36)), (5, (23, 19, 37)), (3, (7, 5, 6)),
+          (3, (6, 10, 200)))
 STEPS = 3
 REPS = 7
 KERNEL_TOL = 1e-5        # max|kernel - plain| / max|plain|: sums of <= 512
-                         # products in another order, in fp32 (K3) or from
-                         # the 3xTF32 split (K1, K2: ~22 bits an operand)
+                         # products in another order, from the 3xTF32 split
+                         # (K1-K3: ~22 bits an operand)
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense)
 PEAK_BYTES = 3.35e12     # device memory, B/s
 PEAK_OPS = {"tf32": 495e12, "fp32": 67e12}      # FLOP/s by unit
 # the unit each kernel's product runs on, and its passes over the product
-UNIT = (("tf32", 3), ("tf32", 3), ("fp32", 1))
+UNIT = (("tf32", 3), ("tf32", 3), ("tf32", 3))
 FP64_TOL = 3e-4          # 5 RK4 steps at tlab_tpu's production 5.9e-5/step
 SOURCE = "tlab_tpu_torch/csrc/burgers.cu"
 REPLACES = ("tlab_tpu/ops/pallas_burgers.py:62",    # _kern_x

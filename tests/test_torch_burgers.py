@@ -12,6 +12,7 @@ from tlab_tpu.fdm.plan import build_fdm_plan
 from tlab_tpu.grid import uniform_grid
 from tlab_tpu.ops import pallas_burgers as pb
 from tlab_tpu.physics.params import NSParams
+from tlab_tpu_torch import entry
 from tlab_tpu_torch.dycore import incompressible as tdyn
 from tlab_tpu_torch.ops import burgers
 
@@ -127,6 +128,39 @@ def test_split_plain_matches_fp64(F, axis):
     assert err <= 2e-6, err
 
 
+def _plan_operator_z(n=256):
+    """d12z (float32) of the shear layer's 8 x 8 x n grid: the z operator
+    that the row kernel is given on the card, from the port's own plans."""
+    _, P, _ = entry.build(8, 8, n, torch.float32, "cpu")
+    return P["d12z"]
+
+
+def test_split_plain_row_form_with_the_plan_operator_matches_fp64():
+    """The case the card runs along z: n = 256 and the plan's compact
+    [D1; D2] (rows of ~256 decaying entries with alternating signs, D2's of
+    order (n / L)^2), not a random matrix.  The 3xTF32 arithmetic stays
+    within 2e-6 of the largest float64 result there too, and as close as
+    the full-fp32 product is within a factor of 4."""
+    d12 = _plan_operator_z()
+    assert tuple(d12.shape) == (512, 256)
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((4, 8, 8, 256))
+                         .astype(np.float32))
+    conv = torch.from_numpy(rng.standard_normal((8, 8, 256))
+                            .astype(np.float32))
+    nu = torch.tensor([2e-4, 2e-4, 2e-4, 2e-4], dtype=torch.float32)
+    ref64 = burgers.fused_burgers_plain(d12.double(), x.double(),
+                                        conv.double(), nu.double(), 2)
+    scale = float(ref64.abs().max())
+    got = burgers.fused_burgers_split_plain(d12, x, conv, nu, 2)
+    full = burgers.fused_burgers_plain(d12, x, conv, nu, 2)
+    err = float((got - ref64).abs().max()) / scale
+    err_full = float((full - ref64).abs().max()) / scale
+    assert got.dtype == torch.float32
+    assert err <= 2e-6, err
+    assert err <= 4 * err_full, (err, err_full)
+
+
 @pytest.mark.parametrize("F", [4, 5])
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_split_plain_matches_pallas_kernel_at_high(F, axis):
@@ -188,7 +222,7 @@ def _unpack_operator(pack, n):
 
 @pytest.mark.parametrize("n", [7, 23, 128, 130])
 def test_pack_operator_layout(n):
-    """The split operator as K1 and K2 copy it into shared memory: zero
+    """The split operator as K1-K3 copy it into shared memory: zero
     padding to whole tiles, the four tiles D1 hi, D1 lo, D2 hi, D2 lo per
     (row tile, K tile), and the 64-byte swizzle of each tile's chunks."""
     rows, depth = 128, 16
@@ -212,3 +246,27 @@ def test_pack_operator_layout(n):
         assert flat[a // rows, k // depth, 2, pos] == hi[1][a, k]
     with pytest.raises(ValueError):
         burgers.pack_operator(d12, rows, 32)
+
+
+def test_pack_operator_round_trips_the_z_operator_at_256():
+    """The operator the row kernel streams on the card: the plan's d12z at
+    n = 256 packs into two row tiles of 16 K tiles with no padding, and
+    unpacks to its own TF32 split, whose parts add up to the operator
+    within 2^-21 of each entry (the far off-diagonal entries that have
+    decayed below 1e-20, towards the denormals, are held by the absolute
+    bound alone)."""
+    d12 = _plan_operator_z()
+    pack = burgers.pack_operator(d12, 128, 16)
+    assert tuple(pack.shape) == (2, 16, 4, 128, 4, 4)
+    assert pack.numel() == 2 * d12.numel()
+    parts = _unpack_operator(pack, 256)
+    hi, lo = burgers.tf32_split(d12.reshape(2, 256, 256))
+    assert torch.equal(parts, torch.stack((hi[0], lo[0], hi[1], lo[1])))
+    back = torch.cat((parts[0].double() + parts[1].double(),
+                      parts[2].double() + parts[3].double()))
+    assert float((back - d12.double()).abs().max()) <= \
+        2.0 ** -21 * float(d12.abs().max())
+    normal = d12.abs() > 1e-20
+    assert int(normal.sum()) > d12.numel() // 4
+    assert torch.all(((back - d12.double()).abs()
+                      <= 2.0 ** -21 * d12.double().abs())[normal])

@@ -15,9 +15,11 @@ from tlab_tpu_torch.ops import burgers
 
 # (F, shape): ragged edges in every tile dimension; the odd widths take the
 # kernels' scalar loads and epilogue, the multiples of 4 their 16-byte
-# ones; (7, 5, 6) is smaller than one tile in every dimension
+# ones; (7, 5, 6) is smaller than one tile in every dimension; in
+# (6, 10, 200) nz spans two operator tiles and ends in a ragged K tile; in
+# (3, 7, 130) the rows of a field are far fewer than a row tile and F is odd
 SHAPES = [(5, (24, 20, 36)), (5, (23, 19, 37)), (4, (130, 20, 68)),
-          (3, (7, 5, 6))]
+          (3, (7, 5, 6)), (3, (6, 10, 200)), (5, (3, 7, 130))]
 
 
 def _card():
@@ -38,9 +40,9 @@ def _operands(F, shape, axis, dev, dtype=torch.float32):
 @pytest.mark.parametrize("F, shape", SHAPES)
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_kernel_matches_plain_version(F, shape, axis):
-    """Sums of <= 130 products in another order, in fp32 (K3) or from the
-    3xTF32 split (K1, K2, ~22 bits an operand): 1e-5 of the largest result
-    is well above their round-off."""
+    """Sums of <= 200 products in another order, from the 3xTF32 split
+    (all three kernels, ~22 bits an operand): 1e-5 of the largest result is
+    well above their round-off."""
     d12, x, conv, nu = _operands(F, shape, axis, _card())
     before = burgers.launches[axis]
     got = burgers.fused_burgers(d12, x, conv, nu, axis)

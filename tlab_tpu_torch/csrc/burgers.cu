@@ -6,30 +6,28 @@
 // bound by operations, not bytes (see tlab_tpu_torch/ops/burgers.py), so
 // what matters is the unit the product runs on.
 //
-// K1 and K2 (column form, D @ X) run on the tensor cores: wgmma with TF32
-// operands and the 3-pass split x = x_hi + x_lo, d = d_hi + d_lo,
+// All three run on the tensor cores: wgmma with TF32 operands and the
+// 3-pass split x = x_hi + x_lo, d = d_hi + d_lo,
 // x_lo.d_hi + x_hi.d_lo + x_hi.d_hi into fp32 accumulators, the Hopper
 // counterpart of the Pallas kernel's 3-pass bf16 split (_dot).  hi + lo
 // carries ~22 significant bits and the dropped lo.lo term is ~2^-22
 // relative, so the result stays within fp32 round-off of a full-fp32
-// product.  See the note above tc::burgers_col.
+// product.  K1 and K2 share the column kernel (D @ X, tc::burgers_col), K3
+// is the row kernel (X @ D^T, tc::burgers_row); both take the operator
+// split and tiled once on the host side (`pack`) and differ in where the
+// field tile's fragment elements sit and in their epilogue.  See the notes
+// above the two kernels.
 //
-// K3 (row form, X @ D^T) is still an fp32-FMA tiled product: each block
-// computes a 128 x 64 output tile, each of its 256 threads an 8 x 4
-// sub-tile, with the operator streamed through shared memory in K-tiles of
-// 16 beside the field tile.
-//
-// In all three, two accumulators (the D1 rows and the D2 rows of the same
-// output tile) are combined with nu_f and the matching conv element in the
-// epilogue, so the 2F-field product never reaches device memory.  Ragged
-// edges are masked: loads outside the array read 0, stores outside it are
-// skipped.
+// Two accumulators (the D1 rows and the D2 rows of the same output tile)
+// are combined with nu_f and the matching conv element in the epilogue, so
+// the 2F-field product never reaches device memory.  Ragged edges are
+// masked: loads outside the array read 0, stores outside it are skipped.
 //
 // Entry points: plain C, launched on the caller's stream, returning
 // cudaGetLastError().
 //   burgers_x  K1  contracts axis 0: column form D @ X_f, X_f = (nx, ny*nz)
 //   burgers_y  K2  contracts axis 1: column form D @ X_fi, X_fi = (ny, nz)
-//   burgers_z  K3  contracts axis 2: row form X @ D^T, X = (F*nx*ny, nz)
+//   burgers_z  K3  contracts axis 2: row form X_f @ D^T, X_f = (nx*ny, nz)
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -37,21 +35,7 @@
 
 namespace {
 
-// tiles of the fp32-FMA row kernel (K3)
-constexpr int kThreads = 256;   // 16 x 16
-constexpr int kTM = 8;          // output rows per thread
-constexpr int kTN = 4;          // output columns per thread
-constexpr int kBM = 16 * kTM;   // 128 output rows per block
-constexpr int kBN = 16 * kTN;   // 64 output columns per block
-constexpr int kBK = 16;         // contraction depth per shared-memory stage
-constexpr int kPad = 4;         // keeps rows 16-byte aligned, spreads banks
-
-__device__ __forceinline__ void load8(float (&r)[8], const float* p) {
-    const float4 lo = *reinterpret_cast<const float4*>(p);
-    const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-    r[0] = lo.x; r[1] = lo.y; r[2] = lo.z; r[3] = lo.w;
-    r[4] = hi.x; r[5] = hi.y; r[6] = hi.z; r[7] = hi.w;
-}
+constexpr int kTN = 4;          // outputs per 16-byte access
 
 __device__ __forceinline__ void load4(float (&r)[4], const float* p) {
     const float4 v = *reinterpret_cast<const float4*>(p);
@@ -84,57 +68,69 @@ __device__ __forceinline__ void combine_store(
 }
 
 // ---------------------------------------------------------------------------
-// Column form (K1, K2) on the tensor cores, 3xTF32.
+// The tensor-core machinery both forms share, 3xTF32.
 //
-// Batch b = f * G + g.  For each b the (n, C) output slab is
-// out_b = nu_f * (D2 @ X_b) - conv_g .* (D1 @ X_b), with X_b, conv_g, out_b
-// row-major (n, C) slabs.  K1: G = 1, C = ny*nz.  K2: G = nx, C = nz.
+// wgmma computes D (M x N, fp32 registers) += A (M x K) . B (K x N) with
+// M = 64 field lines a warpgroup, N = kTA operator rows a, K = the
+// contracted index.  B = the operator rows, which are K-major as they
+// stand.  The operator is split once on the host side into `pack`: for each
+// (row tile, K tile) the four kTA x kKT tiles D1 hi, D1 lo, D2 hi, D2 lo,
+// zero-padded, already in the 64-byte-swizzled core-matrix layout their
+// wgmma descriptor names, so a stage's operator tiles are one contiguous
+// 32 KB copy.  A = the field tile comes from registers: each thread reads
+// its fragment elements from a plain tile in shared memory and splits them
+// into hi + lo there.  Thread (g, q) of warp w holds (m, k), (m + 8, k),
+// (m, k + 4), (m + 8, k + 4) with m = 16 w + g, k = q; the two forms differ
+// in the strides between those elements (the Tiles types below).
 //
-// wgmma takes 32-bit operands from shared memory only K-major, and the field
-// tile (k, c) has c contiguous, so a block computes the transposed tile
-// out^T(c, a) = X^T(c, k) . D^T(k, a): A = X^T comes from registers (each
-// thread reads its fragment elements from the plain (k, c) tile in shared
-// memory and splits them into hi + lo there), B = the operator rows, which
-// are K-major as they stand.  The operator is split once on the host side
-// into `pack`: for each (row tile, K tile) the four kTA x kKT tiles D1 hi,
-// D1 lo, D2 hi, D2 lo, zero-padded, already in the 64-byte-swizzled
-// core-matrix layout their wgmma descriptor names, so a stage's operator
-// tiles are one contiguous 32 KB copy.
-//
-// A block of two warpgroups owns 128 columns c (64 each) x 128 operator rows
-// a and two fp32 accumulators per thread (D1 rows, D2 rows; 2 x 64
-// registers).  A ring of kStages shared-memory stages is filled by cp.async
-// kStages - 2 K tiles ahead; each K tile is one commit group of 12 wgmma
-// (2 k-steps x {D1, D2} x {x_lo.d_hi, x_hi.d_lo, x_hi.d_hi}), and the
-// fragments of tile t+1 are read and split while the products of tile t
-// run (two register sets, wait_group 1).  The epilogue stages both
-// accumulators through the ring's memory, transposed back, and writes
-// 16-byte rows of out, reading conv the same way; the conv tile is asked
-// into L2 a few K tiles before, and the blocks are ordered so that those
-// sharing a field tile or a conv tile run side by side.
-//
-// What holds it back now (H100, 512x256x256): with the loads taken out the
-// K loop runs at ~92% of the TF32 peak, but each block's prologue and
-// epilogue (~0.7 ms over a launch) overlap nothing, since the 2 x 64
-// accumulator registers allow one block an SM; the loads (~41 KB a K tile
-// from L2) slow the loop by another ~20%.
+// A block of two warpgroups owns 128 field lines (64 each) x 128 operator
+// rows a and two fp32 accumulators per thread (D1 rows, D2 rows; 2 x 64
+// registers), so one block fits an SM.  A ring of kStages shared-memory
+// stages is filled by cp.async kStages - 2 K tiles ahead; each K tile is one
+// commit group of 12 wgmma (2 k-steps x {D1, D2} x {x_lo.d_hi, x_hi.d_lo,
+// x_hi.d_hi}), and the fragments of tile t+1 are read and split while the
+// products of tile t run (two register sets, wait_group 1).  The conv tile
+// of the epilogue is asked into L2 a few K tiles before it is used, and the
+// blocks are ordered so that those sharing a conv tile run side by side.
 namespace tc {
 
-constexpr int kTC = 128;             // columns c per block (2 warpgroups x 64)
+constexpr int kTC = 128;             // field lines per block (2 warpgroups x 64)
 constexpr int kTA = 128;             // operator rows per block (wgmma N)
 constexpr int kKT = 16;              // contraction depth per stage (64 bytes)
 constexpr int kStages = 5;
 constexpr int kPrefetch = 8;         // K tiles between asking for conv and using it
 constexpr int kThreads = 256;
-constexpr int kXS = kTC + 8;         // field-tile row stride, = 8 (mod 32)
-constexpr int kOS = kTC + 4;         // epilogue row stride, = 4 (mod 32)
 constexpr int kOpSub = kTA * kKT;    // floats in one operator tile (8 KB)
 constexpr int kOpStage = 4 * kOpSub; // D1 hi, D1 lo, D2 hi, D2 lo
+constexpr int kOpRing = kStages * kOpStage;
+constexpr int kMaxSmemBytes = 232448;   // what one block may have on sm_90
+static_assert(kKT * 4 == 64, "the pack is laid out for the 64-byte swizzle");
+static_assert(kTA == 128 && kTC == 128, "prefetch_tile asks for 128 x 128");
+
+// column form: (k, c) field tiles, one a K tile, beside the operator stages
+constexpr int kXS = kTC + 8;         // field-tile row stride, = 8 (mod 32)
+constexpr int kOS = kTC + 4;         // epilogue row stride, = 4 (mod 32)
 constexpr int kXStage = kKT * kXS;
-constexpr int kRing = kStages * (kOpStage + kXStage);   // floats
+constexpr int kRing = kOpRing + kStages * kXStage;      // floats
 constexpr int kSmemBytes = kRing * 4 + 1024;            // + alignment slack
 static_assert(2 * kTA * kOS <= kRing, "epilogue tiles must fit in the ring");
-static_assert(kKT * 4 == 64, "the pack is laid out for the 64-byte swizzle");
+
+// row form: (r, k) field chunks kRK deep, one for kRT operator tiles
+constexpr int kRK = 32;              // 128-byte pieces of a field row
+constexpr int kRT = kRK / kKT;       // K tiles a chunk serves
+constexpr int kRG = kRT > 2 ? kRT : 2;   // an item's K tiles come in such groups
+constexpr int kRS = kRK + 4;         // chunk row stride, = 4 (mod 8)
+constexpr int kRChunk = kTC * kRS;
+// chunks alive at once: those of the kStages - 2 tiles ahead, and the one
+// being read
+constexpr int kRChunks = (kStages - 2 + kRT - 1) / kRT + 1;
+constexpr int kRowRing = kOpRing + kRChunks * kRChunk;  // floats
+constexpr int kRowSmemBytes = kRowRing * 4 + 1024;
+static_assert(kRK % kKT == 0 && kRG % kRT == 0 && kRG % 2 == 0,
+              "chunks hold whole K tiles, groups whole chunks and tile pairs");
+static_assert(kRS % 8 == 4, "fragment reads must spread over the 32 banks");
+static_assert(kSmemBytes <= kMaxSmemBytes && kRowSmemBytes <= kMaxSmemBytes,
+              "the rings must fit in one block's shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -238,62 +234,158 @@ __device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// Start the copies of K tile t into its stage: the four operator tiles
-// (contiguous in pack) and the (kKT, kTC) field tile, zero beyond n and C.
-__device__ __forceinline__ void load_stage(
-        float* ring, const float* pack_tiles, const float* xb, int t,
-        int n, int C, int c0, bool xvec, int tid) {
-    const int s = t % kStages;
-    const uint32_t op = smem_u32(ring + s * kOpStage);
-    const float* src = pack_tiles + (size_t)t * kOpStage;
+// Start the copy of one stage's four operator tiles (contiguous in pack).
+__device__ __forceinline__ void load_operator(float* ring, const float* src,
+                                              int stage, int tid) {
+    const uint32_t op = smem_u32(ring + stage * kOpStage);
 #pragma unroll
     for (int i = 0; i < kOpStage / 4 / kThreads; ++i) {
         const int e = (tid + i * kThreads) * 4;
         cp_async16(op + e * 4, src + e, 16);
     }
-    const uint32_t xs = smem_u32(ring + kStages * kOpStage + s * kXStage);
-    const int k0 = t * kKT;
-    if (xvec) {
-#pragma unroll
-        for (int i = 0; i < kKT * kTC / 4 / kThreads; ++i) {
-            const int e = tid + i * kThreads;
-            const int kk = e / (kTC / 4), cc = (e % (kTC / 4)) * 4;
-            const int k = k0 + kk, c = c0 + cc;
-            const bool ok = k < n && c < C;
-            cp_async16(xs + (kk * kXS + cc) * 4,
-                       ok ? xb + (size_t)k * C + c : xb, ok ? 16 : 0);
-        }
-    } else {
-        for (int e = tid; e < kKT * kTC; e += kThreads) {
-            const int kk = e / kTC, cc = e % kTC;
-            const int k = k0 + kk, c = c0 + cc;
-            const bool ok = k < n && c < C;
-            cp_async4(xs + (kk * kXS + cc) * 4,
-                      ok ? xb + (size_t)k * C + c : xb, ok ? 4 : 0);
-        }
+}
+
+// Ask for the part inside (rows, cols) of a 128 x 128 tile into L2, one
+// request a 128-byte line.
+__device__ __forceinline__ void prefetch_tile(const float* tile, size_t stride,
+                                              int rows, int cols, int tid) {
+    for (int i = tid; i < 128 * 4; i += kThreads) {
+        const int r = i / 4, c = (i % 4) * 32;
+        if (r < rows && c < cols) prefetch_l2(tile + r * stride + c);
     }
 }
 
-// One K tile: read this thread's A fragments from the field tile, split
-// them, and start the tile's 12 products as one commit group.
+__device__ __forceinline__ void clear(float (&acc1)[64], float (&acc2)[64]) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) { acc1[i] = 0.f; acc2[i] = 0.f; }
+}
+
+// The K tiles of a column-form block: tile t is operator tile t of the
+// block's row tile and the (kKT, kTC) field tile below it, in stage
+// t % kStages.  Fragment element (m, k) sits at k * kXS + m.
+struct ColTiles {
+    static constexpr int kStepK = kXS, kStepM = 1;
+    const float* pack_tiles;   // the row tile's operator tiles
+    const float* xb;           // the batch's (n, C) slab
+    int kt, n, C, c0;
+    bool xvec;
+    int tid, frag0;
+
+    // start the copies of tile t; zero beyond n and C, nothing beyond kt
+    __device__ __forceinline__ void load(float* ring, int t) {
+        if (t >= kt) return;
+        const int s = t % kStages;
+        load_operator(ring, pack_tiles + (size_t)t * kOpStage, s, tid);
+        const uint32_t xs = smem_u32(ring + kOpRing + s * kXStage);
+        const int k0 = t * kKT;
+        if (xvec) {
+#pragma unroll
+            for (int i = 0; i < kKT * kTC / 4 / kThreads; ++i) {
+                const int e = tid + i * kThreads;
+                const int kk = e / (kTC / 4), cc = (e % (kTC / 4)) * 4;
+                const int k = k0 + kk, c = c0 + cc;
+                const bool ok = k < n && c < C;
+                cp_async16(xs + (kk * kXS + cc) * 4,
+                           ok ? xb + (size_t)k * C + c : xb, ok ? 16 : 0);
+            }
+        } else {
+            for (int e = tid; e < kKT * kTC; e += kThreads) {
+                const int kk = e / kTC, cc = e % kTC;
+                const int k = k0 + kk, c = c0 + cc;
+                const bool ok = k < n && c < C;
+                cp_async4(xs + (kk * kXS + cc) * 4,
+                          ok ? xb + (size_t)k * C + c : xb, ok ? 4 : 0);
+            }
+        }
+    }
+
+    // this thread's first fragment element of tile t
+    __device__ __forceinline__ const float* frag(const float* ring,
+                                                 int t) const {
+        return ring + kOpRing + (t % kStages) * kXStage + frag0;
+    }
+};
+
+// The K tiles of a row-form block, numbered through all its work items
+// (one an operator row tile): ring position t is K tile t % kt of item
+// t / kt, in stage t % kStages.  kt is padded to whole groups of kRG, so the
+// field chunks (kTC rows x kRK, one copied with every kRT-th tile) keep one
+// numbering through the items; the padding tiles beyond kt_live hold
+// nothing and are skipped.  Fragment element (m, k) sits at m * kRS + k.
+// The copies are asked for in the order of t, each position once, so the
+// item and K tile of the next one are counted along and not divided out.
+struct RowTiles {
+    static constexpr int kStepK = 1, kStepM = kRS;
+    const float* pack;         // the whole packed operator
+    const float* xb;           // the block's first field row
+    int kt, kt_live, items, n, rows;
+    bool xvec;
+    int tid, frag0;
+    int item, tk;              // of the next position to be copied
+
+    // start the copies of position t; zero beyond n and the field's last
+    // row, nothing for padding tiles and beyond the last item
+    __device__ __forceinline__ void load(float* ring, int t) {
+        if (item < items && tk < kt_live) {
+            load_operator(ring,
+                          pack + ((size_t)item * kt_live + tk) * kOpStage,
+                          t % kStages, tid);
+            if (tk % kRT == 0) load_chunk(ring, t);
+        }
+        if (++tk == kt) { tk = 0; ++item; }
+    }
+
+    __device__ __forceinline__ void load_chunk(float* ring, int t) const {
+        const uint32_t xs = smem_u32(
+            ring + kOpRing + ((t / kRT) % kRChunks) * kRChunk);
+        const int k0 = tk * kKT;
+        if (xvec) {
+#pragma unroll
+            for (int i = 0; i < kTC * kRK / 4 / kThreads; ++i) {
+                const int e = tid + i * kThreads;
+                const int rr = e / (kRK / 4), kk = (e % (kRK / 4)) * 4;
+                const int k = k0 + kk;
+                const bool ok = rr < rows && k < n;
+                cp_async16(xs + (rr * kRS + kk) * 4,
+                           ok ? xb + (size_t)rr * n + k : xb, ok ? 16 : 0);
+            }
+        } else {
+            for (int e = tid; e < kTC * kRK; e += kThreads) {
+                const int rr = e / kRK, kk = e % kRK;
+                const int k = k0 + kk;
+                const bool ok = rr < rows && k < n;
+                cp_async4(xs + (rr * kRS + kk) * 4,
+                          ok ? xb + (size_t)rr * n + k : xb, ok ? 4 : 0);
+            }
+        }
+    }
+
+    __device__ __forceinline__ const float* frag(const float* ring,
+                                                 int t) const {
+        return ring + kOpRing + ((t / kRT) % kRChunks) * kRChunk
+             + (t % kRT) * kKT + frag0;
+    }
+};
+
+// One K tile: read this thread's A fragments from the field tile (element
+// (m, k) of the fragment at xs[m * SM + k * SK]), split them, and start the
+// tile's 12 products against the operator stage at `op` as one commit group.
+template <int SK, int SM>
 __device__ __forceinline__ void tile_products(
-        const float* ring, int t, int frag0, float (&acc1)[64],
-        float (&acc2)[64], uint32_t (&hi)[kKT / 8][4],
-        uint32_t (&lo)[kKT / 8][4]) {
-    const int s = t % kStages;
-    const float* xs = ring + kStages * kOpStage + s * kXStage + frag0;
+        const float* xs, uint32_t op, float (&acc1)[64], float (&acc2)[64],
+        uint32_t (&hi)[kKT / 8][4], uint32_t (&lo)[kKT / 8][4]) {
 #pragma unroll
     for (int j = 0; j < kKT / 8; ++j) {
         // a0 (m, k), a1 (m + 8, k), a2 (m, k + 4), a3 (m + 8, k + 4)
-        const float v[4] = {xs[(j * 8) * kXS], xs[(j * 8) * kXS + 8],
-                            xs[(j * 8 + 4) * kXS], xs[(j * 8 + 4) * kXS + 8]};
+        const float v[4] = {xs[(j * 8) * SK], xs[(j * 8) * SK + 8 * SM],
+                            xs[(j * 8 + 4) * SK],
+                            xs[(j * 8 + 4) * SK + 8 * SM]};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
             hi[j][i] = to_tf32(v[i]);
             lo[j][i] = to_tf32(v[i] - __uint_as_float(hi[j][i]));
         }
     }
-    const uint32_t op = smem_u32(ring + s * kOpStage);
     wgmma_fence();
 #pragma unroll
     for (int j = 0; j < kKT / 8; ++j) {
@@ -314,23 +406,51 @@ __device__ __forceinline__ void tile_products(
 
 // Iteration t of the ring: wait for K tile t, start the copies of tile
 // t + kStages - 2 into the stage that tile t - 2 has left, start tile t's
-// products, and wait until tile t - 1's are done.
+// products (unless the tile is padding, `live` false), and wait until tile
+// t - 1's are done.
+template <class Tiles>
 __device__ __forceinline__ void ring_step(
-        float* ring, const float* pack_tiles, const float* xb, int t, int kt,
-        int n, int C, int c0, bool xvec, int tid, int frag0,
-        float (&acc1)[64], float (&acc2)[64], uint32_t (&hi)[kKT / 8][4],
+        Tiles& tl, float* ring, int t, bool live, float (&acc1)[64],
+        float (&acc2)[64], uint32_t (&hi)[kKT / 8][4],
         uint32_t (&lo)[kKT / 8][4]) {
     cp_async_wait<kStages - 3>();
     fence_async_shared();
     __syncthreads();
-    if (t + kStages - 2 < kt)
-        load_stage(ring, pack_tiles, xb, t + kStages - 2, n, C, c0, xvec,
-                   tid);
+    tl.load(ring, t + kStages - 2);
     cp_async_commit();
-    tile_products(ring, t, frag0, acc1, acc2, hi, lo);
+    if (live)
+        tile_products<Tiles::kStepK, Tiles::kStepM>(
+            tl.frag(ring, t), smem_u32(ring + (t % kStages) * kOpStage),
+            acc1, acc2, hi, lo);
     wgmma_wait<1>();
 }
 
+// The 1024-byte-aligned start of the dynamic shared memory (the swizzle
+// works on address bits).
+__device__ __forceinline__ float* aligned_ring(unsigned char* raw) {
+    return reinterpret_cast<float*>(
+        raw + ((1024 - (smem_u32(raw) & 1023)) & 1023));
+}
+
+// ---------------------------------------------------------------------------
+// Column form (K1, K2).
+//
+// Batch b = f * G + g.  For each b the (n, C) output slab is
+// out_b = nu_f * (D2 @ X_b) - conv_g .* (D1 @ X_b), with X_b, conv_g, out_b
+// row-major (n, C) slabs.  K1: G = 1, C = ny*nz.  K2: G = nx, C = nz.
+//
+// wgmma takes 32-bit operands only K-major, and the field tile (k, c) has c
+// contiguous, so a block computes the transposed tile
+// out^T(c, a) = X^T(c, k) . D^T(k, a): the field lines are the columns c,
+// and A = X^T is read through the fragment strides of ColTiles.  The
+// epilogue stages both accumulators through the ring's memory, transposed
+// back, and writes 16-byte rows of out, reading conv the same way.
+//
+// What holds it back now (H100, 512x256x256): with the loads taken out the
+// K loop runs at ~92% of the TF32 peak, but each block's prologue and
+// epilogue (~0.7 ms over a launch) overlap nothing, since the 2 x 64
+// accumulator registers allow one block an SM; the loads (~41 KB a K tile
+// from L2) slow the loop by another ~20%.
 __global__ void __launch_bounds__(kThreads, 1)
 burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
             const float* __restrict__ conv, const float* __restrict__ nu,
@@ -338,9 +458,7 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
             int c_tiles)
 {
     extern __shared__ unsigned char smem_raw[];
-    // the swizzle works on address bits: align the ring to 1024 bytes
-    float* ring = reinterpret_cast<float*>(
-        smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023));
+    float* ring = aligned_ring(smem_raw);
 
     const int tid = threadIdx.x;
     const int lane = tid % 32, warp = tid / 32;
@@ -358,27 +476,24 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
     const int g_slab = rest / c_tiles;
     const int b = f * G + g_slab;
     const size_t slab = (size_t)n * C;
-    const float* xb = x + (size_t)b * slab;
     const int kt = (n + kKT - 1) / kKT;
-    const float* pack_tiles = pack + (size_t)a_tile * kt * kOpStage;
-    const bool xvec = (C % 4) == 0 &&
-        (reinterpret_cast<uintptr_t>(x) & 15) == 0;
     // this thread's rows of A: m = 16 * warp + g (+ 8), column k = q (+ 4)
     const int m = warp * 16 + g;
-    const int frag0 = q * kXS + m;
+    ColTiles tl{
+        pack + (size_t)a_tile * kt * kOpStage, x + (size_t)b * slab, kt, n, C,
+        c0, (C % 4) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0, tid,
+        q * kXS + m};
 
     const float* cg = conv + (size_t)g_slab * slab;
 
     float acc1[64], acc2[64];
-#pragma unroll
-    for (int i = 0; i < 64; ++i) { acc1[i] = 0.f; acc2[i] = 0.f; }
+    clear(acc1, acc2);
     uint32_t hi_a[kKT / 8][4], lo_a[kKT / 8][4];
     uint32_t hi_b[kKT / 8][4], lo_b[kKT / 8][4];
 
 #pragma unroll
     for (int t = 0; t < kStages - 2; ++t) {
-        if (t < kt)
-            load_stage(ring, pack_tiles, xb, t, n, C, c0, xvec, tid);
+        tl.load(ring, t);
         cp_async_commit();
     }
     // The epilogue's conv tile is asked into L2 (128-byte lines) kPrefetch
@@ -391,16 +506,10 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
     // two tiles per trip, so that each has its own fragment registers
     for (int t = 0; t < kt; t += 2) {
         if (t == ask_at)
-            for (int i = tid; i < kTA * (kTC / 32); i += kThreads) {
-                const int a = a0 + i / (kTC / 32);
-                const int c = c0 + (i % (kTC / 32)) * 32;
-                if (a < n && c < C) prefetch_l2(cg + (size_t)a * C + c);
-            }
-        ring_step(ring, pack_tiles, xb, t, kt, n, C, c0, xvec, tid, frag0,
-                  acc1, acc2, hi_a, lo_a);
+            prefetch_tile(cg + (size_t)a0 * C + c0, C, n - a0, C - c0, tid);
+        ring_step(tl, ring, t, true, acc1, acc2, hi_a, lo_a);
         if (t + 1 < kt)
-            ring_step(ring, pack_tiles, xb, t + 1, kt, n, C, c0, xvec, tid,
-                      frag0, acc1, acc2, hi_b, lo_b);
+            ring_step(tl, ring, t + 1, true, acc1, acc2, hi_b, lo_b);
     }
     wgmma_wait<0>();
     cp_async_wait<0>();
@@ -437,78 +546,153 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
     }
 }
 
-}  // namespace tc
+// ---------------------------------------------------------------------------
+// Row form (K3).
+//
+// For each field f the (P, n) output slab (P = nx * ny rows) is
+// out_f = nu_f * (X_f @ D2^T) - conv .* (X_f @ D1^T), all row-major (P, n).
+//
+// Here both operands are K-major as they lie in memory: the field lines are
+// the rows r, A = X is read through the fragment strides of RowTiles from
+// plain (r, k) chunks whose row stride (= 4 mod 8 words) spreads a warp's
+// fragment reads over the 32 banks.  A chunk is kRK deep, so that a field
+// row comes from L2 in 128-byte pieces, and serves kRT operator tiles.
+//
+// A block owns (f, 128 rows of P) and walks over the operator's row tiles
+// as its work items.  The accumulators hold out itself: d[4j + 2h + e] is
+// (r = m + 8h, a = 8j + 2q + e), two consecutive a a thread, so the
+// epilogue combines on registers and writes 8-byte pieces, 32 bytes a row
+// and warp, and needs none of the ring.  The ring therefore runs through
+// the items without a stop: when an item's last products are started, the
+// copies of the next item's first kStages - 2 tiles are already on their
+// way, and they land while the epilogue reads conv and stores.  A row tile
+// never straddles two fields, so nu_f is one scalar a block; the F blocks
+// that share a conv tile run side by side, and the first asks for it.
+//
+// What holds it back now (H100, 512x256x256, 1.51 ms a launch against a
+// bound of 0.83 ms): the copies from L2 (without them 1.26 ms) and, as in
+// the column form, each block's first copies and last epilogue, which
+// overlap nothing.  The K loop is sensitive to integer work ahead of the
+// copies: with the item and K tile of a position divided out of t (two
+// divisions a tile) a launch took 1.93 ms.  A 16- or 64-deep chunk, the
+// next item's copies only after the epilogue, and an epilogue staged
+// through the ring for 16-byte rows were all measured slower.
 
-// Row form (K3).  X is (R, n) row-major with R = F * P rows (P = nx*ny rows
-// per field); out[r, a] = nu[r / P] * (X D2^T)[r, a]
-//                         - conv[r % P, a] * (X D1^T)[r, a].
-__global__ void __launch_bounds__(kThreads)
-burgers_row(const float* __restrict__ d12, const float* __restrict__ x,
-            const float* __restrict__ conv, const float* __restrict__ nu,
-            float* __restrict__ out, int n, int R, int P, int col_tiles)
-{
-    __shared__ __align__(16) float s_x[kBK][kBM + kPad];
-    __shared__ __align__(16) float s_d1[kBK][kBN + kPad];
-    __shared__ __align__(16) float s_d2[kBK][kBN + kPad];
-
-    const int tid = threadIdx.x;
-    const int tx = tid % 16;
-    const int ty = tid / 16;
-    // operator-column tiles vary fastest (the same field rows stay in L2)
-    const int a0 = (blockIdx.x % col_tiles) * kBN;
-    const int r0 = (blockIdx.x / col_tiles) * kBM;
-
-    float acc1[kTM][kTN] = {};
-    float acc2[kTM][kTN] = {};
-
-    for (int k0 = 0; k0 < n; k0 += kBK) {
-        for (int e = tid; e < kBM * kBK; e += kThreads) {
-            const int m = e / kBK, kk = e % kBK;
-            const int r = r0 + m, k = k0 + kk;
-            s_x[kk][m] = (r < R && k < n) ? x[(size_t)r * n + k] : 0.f;
-        }
-        for (int e = tid; e < kBN * kBK; e += kThreads) {
-            const int aa = e / kBK, kk = e % kBK;
-            const int a = a0 + aa, k = k0 + kk;
-            const bool ok = a < n && k < n;
-            s_d1[kk][aa] = ok ? d12[(size_t)a * n + k] : 0.f;
-            s_d2[kk][aa] = ok ? d12[(size_t)(a + n) * n + k] : 0.f;
-        }
-        __syncthreads();
+// out = nu_f * acc2 - conv * acc1 for this thread's part of a (rows, cols)
+// tile, straight from the accumulators; cv and ob point at the tile's first
+// element.  conv is read in batches of 8 pieces ahead of their use.
+__device__ __forceinline__ void row_epilogue(
+        const float (&acc1)[64], const float (&acc2)[64],
+        const float* __restrict__ cv, float* __restrict__ ob, float nu_f,
+        size_t n, int rows, int cols, int m, int q, bool vec) {
 #pragma unroll
-        for (int kk = 0; kk < kBK; ++kk) {
-            float rx[kTM], r1[kTN], r2[kTN];
-            load8(rx, &s_x[kk][ty * kTM]);
-            load4(r1, &s_d1[kk][tx * kTN]);
-            load4(r2, &s_d2[kk][tx * kTN]);
+    for (int h = 0; h < 2; ++h) {
+        const int r = m + 8 * h;
+        if (r >= rows) continue;
+        const float* cr = cv + r * n + 2 * q;
+        float* orow = ob + r * n + 2 * q;
+        const int left = cols - 2 * q;      // columns from this thread's first
+        if (vec) {
 #pragma unroll
-            for (int i = 0; i < kTM; ++i)
+            for (int jb = 0; jb < 16; jb += 8) {
+                float2 c[8];
 #pragma unroll
-                for (int j = 0; j < kTN; ++j) {
-                    acc1[i][j] = fmaf(rx[i], r1[j], acc1[i][j]);
-                    acc2[i][j] = fmaf(rx[i], r2[j], acc2[i][j]);
+                for (int j = 0; j < 8; ++j)
+                    c[j] = 8 * (jb + j) < left
+                        ? *reinterpret_cast<const float2*>(cr + 8 * (jb + j))
+                        : make_float2(0.f, 0.f);
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    const int i = 4 * (jb + j) + 2 * h;
+                    float2 v;
+                    v.x = nu_f * acc2[i] - c[j].x * acc1[i];
+                    v.y = nu_f * acc2[i + 1] - c[j].y * acc1[i + 1];
+                    if (8 * (jb + j) < left)
+                        *reinterpret_cast<float2*>(orow + 8 * (jb + j)) = v;
                 }
-        }
-        __syncthreads();
-    }
-
-    const bool vec = (n % 4) == 0 && aligned16(conv, out);
-    const int a = a0 + tx * kTN;
+            }
+        } else {
 #pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-        const int r = r0 + ty * kTM + i;
-        if (r < R && a < n) {
-            const size_t o = (size_t)r * n + a;
-            const size_t co = (size_t)(r % P) * n + a;
-            combine_store(out + o, conv + co, acc1[i], acc2[i], nu[r / P],
-                          n - a, vec);
+            for (int j = 0; j < 16; ++j)
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                    if (8 * j + e < left)
+                        orow[8 * j + e] = nu_f * acc2[4 * j + 2 * h + e]
+                            - cr[8 * j + e] * acc1[4 * j + 2 * h + e];
         }
     }
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+burgers_row(const float* __restrict__ pack, const float* __restrict__ x,
+            const float* __restrict__ conv, const float* __restrict__ nu,
+            float* __restrict__ out, int n, int P, int F, int a_tiles)
+{
+    extern __shared__ unsigned char smem_raw[];
+    float* ring = aligned_ring(smem_raw);
+
+    const int tid = threadIdx.x;
+    const int lane = tid % 32, warp = tid / 32;
+    const int g = lane / 4, q = lane % 4;
+    // fields vary fastest: the F blocks that share a conv tile run side by
+    // side
+    const int f = blockIdx.x % F;
+    const int p0 = (blockIdx.x / F) * kTC;
+    const size_t row0 = (size_t)f * P + p0;
+    const int kt_live = (n + kKT - 1) / kKT;
+    const int kt = (kt_live + kRG - 1) / kRG * kRG;
+    // this thread's rows of A: m = 16 * warp + g (+ 8), column k = q (+ 4)
+    const int m = warp * 16 + g;
+    RowTiles tl{
+        pack, x + row0 * n, kt, kt_live, a_tiles, n, P - p0,
+        (n % 4) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0, tid,
+        m * kRS + q, 0, 0};
+
+    const float* cv = conv + (size_t)p0 * n;
+    float* ob = out + row0 * n;
+    const float nu_f = nu[f];
+    // 8-byte pieces: every (r, a) with a even is then 8-byte aligned
+    const bool vec = (n % 2) == 0 &&
+        ((reinterpret_cast<uintptr_t>(conv) |
+          reinterpret_cast<uintptr_t>(out)) & 7) == 0;
+
+    float acc1[64], acc2[64];
+    clear(acc1, acc2);
+    uint32_t hi_a[kKT / 8][4], lo_a[kKT / 8][4];
+    uint32_t hi_b[kKT / 8][4], lo_b[kKT / 8][4];
+
+#pragma unroll
+    for (int t = 0; t < kStages - 2; ++t) {
+        tl.load(ring, t);
+        cp_async_commit();
+    }
+    // as in the column form: the first of the F blocks sharing the item's
+    // conv tile asks for it kPrefetch K tiles before the item's epilogue
+    const int ask_at = f == 0
+        ? (kt_live > kPrefetch ? (kt_live - kPrefetch) & ~1 : 0) : -1;
+    // two tiles per trip, so that each has its own fragment registers (kt
+    // is even); t runs on through the items
+    int t = 0;
+    for (int a0 = 0; a0 < n; a0 += kTA) {
+        for (int tk = 0; tk < kt; tk += 2, t += 2) {
+            if (tk == ask_at)
+                prefetch_tile(cv + a0, n, tl.rows, n - a0, tid);
+            ring_step(tl, ring, t, tk < kt_live, acc1, acc2, hi_a, lo_a);
+            ring_step(tl, ring, t + 1, tk + 1 < kt_live, acc1, acc2, hi_b,
+                      lo_b);
+        }
+        wgmma_wait<0>();
+        row_epilogue(acc1, acc2, cv + a0, ob + a0, nu_f, n, tl.rows, n - a0,
+                     m, q, vec);
+        clear(acc1, acc2);
+    }
+}
+
+}  // namespace tc
+
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// F * G batches of (n, C) slabs through the tensor-core column kernel
+// F * G batches of (n, C) slabs through the column kernel
 int launch_col(const float* pack, const float* x, const float* conv,
                const float* nu, float* out, int n, int C, int G, int F,
                void* stream)
@@ -526,11 +710,27 @@ int launch_col(const float* pack, const float* x, const float* conv,
     return static_cast<int>(cudaGetLastError());
 }
 
+// F fields of (P, n) slabs through the row kernel
+int launch_row(const float* pack, const float* x, const float* conv,
+               const float* nu, float* out, int n, int P, int F, void* stream)
+{
+    cudaError_t err = cudaFuncSetAttribute(
+        tc::burgers_row, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tc::kRowSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long blocks = (long long)ceil_div(P, tc::kTC) * F;
+    if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+    tc::burgers_row<<<static_cast<unsigned>(blocks), tc::kThreads,
+                      tc::kRowSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+        pack, x, conv, nu, out, n, P, F, ceil_div(n, tc::kTA));
+    return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Tile sizes of the split operator that burgers_x and burgers_y take as
-// `pack` (see tlab_tpu_torch/ops/burgers.py::pack_operator).
-extern "C" void burgers_col_tiles(int* rows, int* depth)
+// Tile sizes of the split operator that the entry points take as `pack`
+// (see tlab_tpu_torch/ops/burgers.py::pack_operator).
+extern "C" void burgers_pack_tiles(int* rows, int* depth)
 {
     *rows = tc::kTA;
     *depth = tc::kKT;
@@ -550,14 +750,9 @@ extern "C" int burgers_y(const float* pack, const float* x, const float* conv,
     return launch_col(pack, x, conv, nu, out, ny, nz, nx, F, stream);
 }
 
-extern "C" int burgers_z(const float* d12, const float* x, const float* conv,
+extern "C" int burgers_z(const float* pack, const float* x, const float* conv,
                          const float* nu, float* out, int F, int nx, int ny,
                          int nz, void* stream)
 {
-    const int n = nz, P = nx * ny, R = F * P;
-    const int ct = ceil_div(n, kBN);
-    dim3 grid(ct * ceil_div(R, kBM));
-    burgers_row<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        d12, x, conv, nu, out, n, R, P, ct);
-    return static_cast<int>(cudaGetLastError());
+    return launch_row(pack, x, conv, nu, out, nz, nx * ny, F, stream);
 }

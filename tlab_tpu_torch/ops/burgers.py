@@ -11,16 +11,16 @@ What bounds it on an H100.  Per output point the dense [D1; D2] product is
 against ~9 bytes of device-memory traffic (x in, result out, conv shared by
 the F fields): ~230 flop/byte along x and ~115 along y and z, far above the
 fp32-FMA ridge of ~20 flop/byte (67 TFLOP/s over 3.35 TB/s).  The kernels
-are bound by operations, so the unit decides.  K1 and K2 run on the tensor
+are bound by operations, so the unit decides.  All three run on the tensor
 cores (wgmma, TF32 operands) with the 3-pass split of the Pallas kernel's
 ``_dot``: x = x_hi + x_lo, d = d_hi + d_lo, each part rounded to TF32, and
 x_lo.d_hi + x_hi.d_lo + x_hi.d_hi summed in fp32.  hi + lo carries ~22
 significant bits and the dropped lo.lo term is ~2^-22 relative, so the
 result agrees with a full-fp32 product to fp32 round-off, at three times
-the TF32 work (495 TFLOP/s peak) instead of fp32 FMA.  K3 is still fp32
-FMA.  The operator's split is a constant of the plan: ``pack_operator``
-makes it once for each operator tensor, already in the tile layout the
-kernel copies into shared memory.  The TPU kernel's point, the fusion, is
+the TF32 work (495 TFLOP/s peak) instead of fp32 FMA.  The operator's split
+is a constant of the plan: ``pack_operator`` makes it once for each operator
+tensor, already in the tile layout that all three kernels copy into shared
+memory.  The TPU kernel's point, the fusion, is
 kept for the bytes: the combine runs in the epilogue from two accumulators
 (D1 rows and D2 rows), so the 2F-field product that the plain version
 writes and reads back (~6F+1 field passes per axis) never reaches device
@@ -96,7 +96,7 @@ def fused_burgers_split_plain(d12, x, conv, nu, axis: int, passes: int = 3):
 
 
 def pack_operator(d12, rows: int, depth: int):
-    """The split operator in the layout K1 and K2 copy into shared memory.
+    """The split operator in the layout K1-K3 copy into shared memory.
 
     d12 (2n, n) = [D1; D2] is split into TF32 hi + lo, zero-padded to
     multiples of the tile (rows x depth), and written tile by tile as
@@ -126,9 +126,9 @@ def _packed(d12, lib):
     hit = _packs.get(key)
     if hit is None:
         rows, depth = ctypes.c_int(), ctypes.c_int()
-        lib.burgers_col_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-        lib.burgers_col_tiles.restype = None
-        lib.burgers_col_tiles(ctypes.byref(rows), ctypes.byref(depth))
+        lib.burgers_pack_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.burgers_pack_tiles.restype = None
+        lib.burgers_pack_tiles(ctypes.byref(rows), ctypes.byref(depth))
         while len(_packs) >= _PACKS_KEPT:
             _packs.pop(next(iter(_packs)))
         hit = _packs[key] = (d12, pack_operator(d12, rows.value,
@@ -174,10 +174,9 @@ def fused_burgers(d12, x, conv, nu, axis: int):
     fn.restype = ctypes.c_int
     F, nx, ny, nz = x.shape
     with torch.cuda.device(x.device):
-        # K1 and K2 take the operator split and tiled, K3 as it stands
-        op = _packed(d12, lib) if axis < 2 else d12
+        pack = _packed(d12, lib)
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(op.data_ptr(), x.data_ptr(), conv.data_ptr(),
+        err = fn(pack.data_ptr(), x.data_ptr(), conv.data_ptr(),
                  nu.data_ptr(), out.data_ptr(), F, nx, ny, nz, stream)
     if err != 0:
         raise RuntimeError(f"{ENTRY_POINTS[axis]} launch failed: "

@@ -148,9 +148,10 @@ def build_factorize_plan(fdm: FdmPlan, shift: float = 1.0,
 # ---------------------------------------------------------------------------
 
 def device_factorize_plan(plan: FactorizePlan, dtype=torch.float32,
-                          device="cpu") -> dict:
+                          device="cuda") -> dict:
     """Device plan dict: the eigen data as complex tensors plus the per-mode
-    tables (built here, once)."""
+    tables (built here, once), on the card unless the caller names another
+    device."""
     arrays = {
         "Vmin": plan.emin["V"], "Wmin": plan.emin["W"],
         "Vmax": plan.emax["V"], "Wmax": plan.emax["W"],

@@ -1,4 +1,4 @@
-"""Time variants of the column Burgers kernel (K1, K2) on one CUDA card.
+"""Time variants of the Burgers kernels (K1-K3) on one CUDA card.
 
     python3 -m tlab_tpu_torch.tools.burgers_variants [variant ...]
 
@@ -10,6 +10,10 @@ entry points at the main path's shape (F = 4, 512x256x256, fp32) on the
 same inputs, compared with the plain version and timed with CUDA events
 (median and minimum of 7).  Variants that drop work ("noload", "nomma")
 give wrong results on purpose: they show what the remaining work costs.
+The ring, the products and the operator's layout are shared by the column
+kernel (K1, K2) and the row kernel (K3), so most variants change all three;
+"fslowest" changes the column kernel alone, and "xk16", "xk64", "noahead",
+"stagedepi" and "stcs" the row kernel alone.
 
 With no arguments every variant runs, "base" first and last.
 """
@@ -27,22 +31,86 @@ import torch
 from tlab_tpu_torch import device as _device
 from tlab_tpu_torch.ops import _build, burgers
 
+# copies of a row-kernel item's first tiles only after the epilogue before
+# it: the count of copies stops at the item's end, and the prologue is made
+# again for each item
+_NOAHEAD_COUNT = ("        if (++tk == kt) { tk = 0; ++item; }\n",
+                  "        if (tk < kt) ++tk;\n")
+_PROLOGUE_AGAIN = """        tl.tk = 0;
+        ++tl.item;
+        for (int i = 0; i < kStages - 2; ++i) {
+            tl.load(ring, t + i);
+            cp_async_commit();
+        }
+"""
+_EPILOGUE = """        row_epilogue(acc1, acc2, cv + a0, ob + a0, nu_f, n, tl.rows, n - a0,
+                     m, q, vec);
+"""
+_CLEAR = "        clear(acc1, acc2);\n"
+# the row kernel's epilogue through the ring's memory, as the column
+# kernel's: (r, a) tiles, then 16-byte rows of out and conv
+_STAGED_EPILOGUE = """        cp_async_wait<0>();
+        __syncthreads();
+        {
+            float* s1 = ring;
+            float* s2 = ring + kTC * kOS;
+#pragma unroll
+            for (int j = 0; j < 16; ++j)
+#pragma unroll
+                for (int h = 0; h < 2; ++h) {
+                    const int o = (m + 8 * h) * kOS + 8 * j + 2 * q;
+                    *reinterpret_cast<float2*>(s1 + o) = make_float2(
+                        acc1[4 * j + 2 * h], acc1[4 * j + 2 * h + 1]);
+                    *reinterpret_cast<float2*>(s2 + o) = make_float2(
+                        acc2[4 * j + 2 * h], acc2[4 * j + 2 * h + 1]);
+                }
+            __syncthreads();
+            const bool vec4 = (n % 4) == 0 && aligned16(cv, ob);
+            for (int i = tid; i < kTC * (kTA / 4); i += kThreads) {
+                const int rr = i / (kTA / 4), aa = (i % (kTA / 4)) * 4;
+                if (rr >= tl.rows || a0 + aa >= n) continue;
+                float d1[kTN], d2[kTN];
+                load4(d1, &s1[rr * kOS + aa]);
+                load4(d2, &s2[rr * kOS + aa]);
+                const size_t o = (size_t)rr * n + a0 + aa;
+                combine_store(ob + o, cv + o, d1, d2, nu_f, n - a0 - aa,
+                              vec4);
+            }
+            __syncthreads();
+        }
+"""
+
 VARIANTS = {
     "base": [],
-    # the K loop without its copies from L2 (tiles 0..kStages-3 only)
-    "noload": [("    if (t + kStages - 2 < kt)\n        load_stage(",
-                "    if (false)\n        load_stage(")],
+    # the K loop without its copies from L2 (the prologue's tiles only)
+    "noload": [("    tl.load(ring, t + kStages - 2);\n",
+                "    if (t < 0) tl.load(ring, t + kStages - 2);\n")],
     # the copies and the epilogue without the products
-    "nomma": [("    tile_products(ring, t, frag0, acc1, acc2, hi, lo);\n",
-               "    if (n < 0) tile_products(ring, t, frag0, acc1, acc2, "
-               "hi, lo);\n")],
+    "nomma": [("    if (live)\n        tile_products<",
+               "    if (t < 0)\n        tile_products<")],
     "stages4": [("constexpr int kStages = 5;", "constexpr int kStages = 4;")],
-    # fields slowest, as a (tiles, batch) grid orders them
+    # column kernel: fields slowest, as a (tiles, batch) grid orders them
     "fslowest": [("const int f = rest % F;\n    rest /= F;",
                   "const int f = rest / (c_tiles * G);\n"
                   "    rest %= (c_tiles * G);")],
-    "noprefetch": [("if (a < n && c < C) prefetch_l2(",
-                    "if (a < 0) prefetch_l2(")],
+    "noprefetch": [("if (r < rows && c < cols) prefetch_l2(",
+                    "if (r < 0) prefetch_l2(")],
+    # row kernel: depth of a field chunk (64-, 128-, 256-byte pieces of a
+    # field row); 64 deep leaves room for 4 operator stages
+    "xk16": [("constexpr int kRK = 32;", "constexpr int kRK = 16;")],
+    "xk64": [("constexpr int kRK = 32;", "constexpr int kRK = 64;"),
+             ("constexpr int kStages = 5;", "constexpr int kStages = 4;")],
+    "noahead": [_NOAHEAD_COUNT,
+                (_EPILOGUE + _CLEAR, _EPILOGUE + _CLEAR + _PROLOGUE_AGAIN)],
+    # the staged epilogue needs the ring, so it cannot have the next item's
+    # copies on their way: compare it with "noahead"
+    "stagedepi": [_NOAHEAD_COUNT, (_EPILOGUE + _CLEAR, _STAGED_EPILOGUE
+                                   + _CLEAR + _PROLOGUE_AGAIN)],
+    # row kernel: streaming stores of out
+    "stcs": [("                        *reinterpret_cast<float2*>"
+              "(orow + 8 * (jb + j)) = v;",
+              "                        __stcs(reinterpret_cast<float2*>"
+              "(orow + 8 * (jb + j)), v);")],
 }
 SHAPE = (512, 256, 256)
 FIELDS = 4
@@ -76,13 +144,28 @@ def build_all(names, workdir: pathlib.Path) -> dict:
     return out
 
 
+def registers(log: str) -> str:
+    """'row 232 registers, col 232 registers' from ptxas's report."""
+    found, kernel = [], "?"
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            kernel = "row" if "burgers_row" in ln else "col"
+        elif "Used" in ln:
+            found.append(f"{kernel} "
+                         + ln.split(":")[-1].split(",")[0].strip()[5:])
+        elif "spill" in ln and "0 bytes spill stores, 0 bytes spill" not in ln:
+            found.append(f"{kernel} SPILLS: {ln.strip()}")
+    return ", ".join(found)
+
+
 def time_variant(lib, x, conv, nu, d12, ref) -> str:
     rows, depth = ctypes.c_int(), ctypes.c_int()
-    lib.burgers_col_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.burgers_col_tiles.restype = None
-    lib.burgers_col_tiles(ctypes.byref(rows), ctypes.byref(depth))
+    lib.burgers_pack_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.burgers_pack_tiles.restype = None
+    lib.burgers_pack_tiles(ctypes.byref(rows), ctypes.byref(depth))
     parts = []
-    for axis, fn in enumerate((lib.burgers_x, lib.burgers_y)):
+    for axis, name in enumerate(burgers.ENTRY_POINTS):
+        fn = getattr(lib, name)
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
         pack = burgers.pack_operator(d12[axis], rows.value, depth.value)
@@ -134,10 +217,10 @@ def main(argv=None) -> int:
     x = torch.randn((FIELDS, *SHAPE), generator=gen, device="cuda")
     conv = torch.randn(SHAPE, generator=gen, device="cuda")
     nu = torch.rand(FIELDS, generator=gen, device="cuda")
-    d12 = [torch.randn((2 * SHAPE[a], SHAPE[a]), generator=gen,
-                       device="cuda") for a in (0, 1)]
+    d12 = [torch.randn((2 * n, n), generator=gen, device="cuda")
+           for n in SHAPE]
     ref = [burgers.fused_burgers_plain(d12[a], x, conv, nu, a)
-           for a in (0, 1)]
+           for a in range(3)]
     with tempfile.TemporaryDirectory() as tmp:
         built = build_all(dict.fromkeys(names), pathlib.Path(tmp))
         for name in names:
@@ -145,9 +228,7 @@ def main(argv=None) -> int:
             if so is None:
                 print(f"[variants] {name}: BUILD FAILED\n{log[-2000:]}")
                 return 1
-            regs = [ln.split(":")[-1].strip() for ln in log.splitlines()
-                    if "Used" in ln][0]
-            print(f"[variants] {name}: {regs}; "
+            print(f"[variants] {name}: {registers(log)}; "
                   + time_variant(ctypes.CDLL(str(so)), x, conv, nu, d12, ref),
                   flush=True)
     return 0
