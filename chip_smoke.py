@@ -20,6 +20,11 @@ non-zero:
               term must go through the kernels
   5. fp64     fp32 (kernels) against fp64 (dense path) on the card,
               5 RK4 steps at 128x64x64
+  6. dns      the port's command line (inigrid, ini, dns) on the card:
+              (a) examples/shear3d/tlab.ini at its full 512x256x256 for 10
+              adaptive-dt steps with a restart and the avg tables at step
+              10; (b) the same case at 128x64x64, 8 steps straight against
+              4 + 4 through a restart file, bit for bit
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA card the script exits 1 and
 prints no result.
@@ -27,18 +32,30 @@ prints no result.
 from __future__ import annotations
 
 import json
+import os
+import pathlib
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
+import numpy as np
 import torch
 
 from tlab_tpu_torch import device as tdevice
 from tlab_tpu_torch import entry
+from tlab_tpu_torch.convert import state_to_numpy
 from tlab_tpu_torch.dycore import incompressible as dyn
+from tlab_tpu_torch.io import fields_io
 from tlab_tpu_torch.ops import _build, burgers
 from tlab_tpu_torch.ops.derivative import apply_along
+from tlab_tpu_torch.stats import averages
+from tlab_tpu_torch.tools import cli
+from tlab_tpu_torch.tools import dns as dns_tool
+from tlab_tpu_torch.utils import trace as ttrace
 
 MAIN_SHAPE = (512, 256, 256)
 # ragged edges in every tile dimension; the odd widths take the kernels'
@@ -58,6 +75,11 @@ PEAK_OPS = {"tf32": 495e12, "fp32": 67e12}      # FLOP/s by unit
 # the unit each kernel's product runs on, and its passes over the product
 UNIT = (("tf32", 3), ("tf32", 3), ("tf32", 3))
 FP64_TOL = 3e-4          # 5 RK4 steps at tlab_tpu's production 5.9e-5/step
+CASE = pathlib.Path(__file__).resolve().parent / "examples" / "shear3d" \
+    / "tlab.ini"
+DNS_STEPS = 10
+CFL_TARGET, CFL_TOL = 1.2, 0.05      # [Main] TimeCFL of the case
+WALL_MEAN, WALL_TOL = 0.5, 1e-3      # |<u>| at the walls: DeltaVelocityX / 2
 SOURCE = "tlab_tpu_torch/csrc/burgers.cu"
 REPLACES = ("tlab_tpu/ops/pallas_burgers.py:62",    # _kern_x
             "tlab_tpu/ops/pallas_burgers.py:71",    # _kern_y
@@ -83,7 +105,7 @@ def event_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def phase_device() -> str:
+def phase_device() -> tuple:
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -92,7 +114,7 @@ def phase_device() -> str:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {name} count {torch.cuda.device_count()}")
     print(f"[device] nvidia-smi: {smi}")
-    return name
+    return name, smi
 
 
 def phase_build() -> None:
@@ -248,13 +270,197 @@ def phase_fp64() -> None:
     require(rel <= FP64_TOL, f"fp32 vs fp64: {rel} > {FP64_TOL}")
 
 
+def edit_case(text: str, changes: dict) -> str:
+    """The case file's text with {(section, key): value} changed; every key
+    must be there already."""
+    for (section, key), value in changes.items():
+        pat = re.compile(rf"(\[{section}\][^\[]*?^{key}=)[^\n]*", re.M | re.S)
+        text, n = pat.subn(rf"\g<1>{value}", text)
+        require(n == 1, f"[{section}] {key} not found in the case file")
+    return text
+
+
+def run_cli(command: str, ini: str, outdir: str, *more) -> float:
+    """One command of the port's CLI on the card; seconds of wall time."""
+    t0 = time.perf_counter()
+    rc = cli.main([command, "--ini", ini, "--outdir", outdir, *more])
+    torch.cuda.synchronize()
+    require(rc == 0, f"cli {command} returned {rc}")
+    return time.perf_counter() - t0
+
+
+def data_rows(path) -> list:
+    """dns.out's step rows as lists of fields (text)."""
+    with open(path) as fh:
+        return [ln.split() for ln in fh if not ln.startswith("#")]
+
+
+def read_trace(path) -> dict:
+    """tlab.trace: message -> (time of the line, seconds of a LEAVING
+    line's span or None)."""
+    out = {}
+    with open(path) as fh:
+        for ln in fh:
+            stamp, msg = ln.strip().split(None, 1)
+            span = re.search(r"^LEAVING  (.*?)  \(([0-9.]+) s\)$", msg)
+            if span:
+                out[span.group(1)] = (float(stamp), float(span.group(2)))
+            else:
+                out[msg.split(" (dt=")[0]] = (float(stamp), None)
+    return out
+
+
+def phase_dns_case(card: str) -> list:
+    """6a: inigrid, ini and dns of the full-width case through the CLI."""
+    changes = {("Iteration", "End"): str(DNS_STEPS),
+               ("Iteration", "Restart"): str(DNS_STEPS),
+               ("Iteration", "Statistics"): str(DNS_STEPS)}
+    text = edit_case(CASE.read_text(), changes)
+    print(f"[dns] {CASE.relative_to(CASE.parents[2])} with "
+          + ", ".join(f"[{s}] {k}={v}" for (s, k), v in changes.items()))
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = os.path.join(out, "tlab.ini")
+        with open(ini, "w") as fh:
+            fh.write(text)
+        os.environ["TLAB_TPU_TRACE"] = "1"     # spans for the timings below
+        runs = []
+        run_fn = dns_tool.run
+
+        def keep_run(*args, **kw):
+            runs.append(run_fn(*args, **kw))
+            return runs[-1]
+
+        dns_tool.run = keep_run
+        try:
+            run_cli("inigrid", ini, out)
+            ini_s = run_cli("ini", ini, out)
+            torch.cuda.reset_peak_memory_stats()
+            burgers.launches[:] = [0, 0, 0]
+            dns_s = run_cli("dns", ini, out)
+            launches = list(burgers.launches)
+        finally:
+            dns_tool.run = run_fn
+            del os.environ["TLAB_TPU_TRACE"]
+            ttrace.close()
+        peak = torch.cuda.max_memory_allocated()
+        run = runs[0]
+        n_sub = len(run.sim.P["rk"]["kdt"])
+        require(launches == [DNS_STEPS * n_sub] * 3,
+                f"dns launched {launches}, expected "
+                f"{DNS_STEPS * n_sub} per axis")
+        for name in ("grid", "tlab.log", "dns.out"):
+            require(os.path.exists(os.path.join(out, name)), f"no {name}")
+
+        rows = data_rows(os.path.join(out, "dns.out"))
+        require(len(rows) == DNS_STEPS + 1
+                and all(r[0] == "0" for r in rows),
+                f"dns.out: {len(rows)} rows, status {[r[0] for r in rows]}")
+        cfl = [float(r[4]) for r in rows[1:]]
+        require(all(abs(c - CFL_TARGET) <= CFL_TOL for c in cfl),
+                f"CFL column {cfl} not within {CFL_TOL} of {CFL_TARGET}")
+        dil1, dil_n = abs(float(rows[1][8])), abs(float(rows[-1][8]))
+        require(dil_n < dil1, f"dilatation max {dil_n} at the last row, "
+                              f"{dil1} at row 1")
+
+        got = fields_io.read_state(os.path.join(out, "flow"),
+                                   os.path.join(out, "scal"), DNS_STEPS,
+                                   run.state.s.shape[0])
+        require(tuple(got[0].shape) == MAIN_SHAPE, "restart shape")
+        for name, a, b in zip("uvws", got[:4], state_to_numpy(run.state)):
+            require(np.isfinite(b).all() and np.array_equal(a, b),
+                    f"restart field {name} differs from the final state")
+        require(got[4] == run.rtime, "restart time differs from the run's")
+
+        stats = {}
+        for name in (f"avg{DNS_STEPS}", f"avg{DNS_STEPS}s1"):
+            _, _, cols = averages.read_avg(os.path.join(out, name))
+            require(all(np.isfinite(v).all() for v in cols.values()),
+                    f"{name}: non-finite column")
+            stats[name] = cols
+        flow = stats[f"avg{DNS_STEPS}"]
+        walls = [abs(flow["rU"][0]), abs(flow["rU"][-1])]
+        require(all(abs(m - WALL_MEAN) <= WALL_TOL for m in walls),
+                f"|rU| at the walls {walls}, expected {WALL_MEAN}")
+        require(flow["Tke"].min() >= 0.0, "negative Tke")
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+
+    ic_s, host_s = trace["initial_state"][1], trace["inirand_fields"][1]
+    stamps = [trace["time loop starts"][0]] + [
+        trace[f"iteration {k} logged"][0] for k in range(1, DNS_STEPS + 1)]
+    steps_s = stamps[-1] - stamps[0]
+    each = [b - a for a, b in zip(stamps, stamps[1:])]
+    points = MAIN_SHAPE[0] * MAIN_SHAPE[1] * MAIN_SHAPE[2]
+    substeps = DNS_STEPS * n_sub
+    print(f"[dns] {card}: ini {ini_s:.3f} s of which initial_state "
+          f"{ic_s:.3f} s = random fields on the host {host_s:.3f} s + "
+          f"device part {ic_s - host_s:.3f} s")
+    print(f"[dns] {card}: dns {dns_s:.3f} s; {DNS_STEPS} adaptive-dt "
+          f"steps with their host syncs {steps_s:.4f} s: "
+          f"{1e3 * steps_s / substeps:.3f} ms/substep, "
+          f"{points * substeps / steps_s:.6e} points/s/substep (first step "
+          f"{each[0]:.4f} s, the others' median "
+          f"{1e3 * statistics.median(each[1:]) / n_sub:.3f} ms/substep); "
+          f"launches "
+          f"{launches}; CFL {min(cfl):.3f}..{max(cfl):.3f}; dilatation max "
+          f"{dil1:.4e} -> {dil_n:.4e}; t = {run.rtime:.6e}")
+    print(f"[dns] {card}: one write_statistics "
+          f"{trace[f'statistics {DNS_STEPS}'][1]:.3f} s; one checkpoint "
+          f"(4 fields, <f8) {trace[f'checkpoint {DNS_STEPS}'][1]:.3f} s; "
+          f"peak device memory {peak} B; |rU| at the walls {walls[0]:.6f}, "
+          f"{walls[1]:.6f}; max Tke {flow['Tke'].max():.4e}")
+    return launches
+
+
+def phase_dns_restart() -> None:
+    """6b: 8 steps straight against 4 + 4 through a restart, 128x64x64."""
+    small = {("Grid", "Imax"): "128", ("Grid", "Jmax"): "64",
+             ("Grid", "Kmax"): "64", ("IniGridOx", "points_1"): "129",
+             ("IniGridOy", "points_1"): "64",
+             ("IniGridOz", "points_1"): "65",
+             ("Iteration", "Restart"): "4"}
+    base = CASE.read_text()
+
+    def case(start, end):
+        return edit_case(base, {**small,
+                                ("Iteration", "Start"): str(start),
+                                ("Iteration", "End"): str(end)})
+
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as top:
+        a, b = os.path.join(top, "a"), os.path.join(top, "b")
+        inis = {}
+        for name, (start, end) in (("straight", (0, 8)), ("first", (0, 4)),
+                                   ("second", (4, 8))):
+            inis[name] = os.path.join(top, name + ".ini")
+            with open(inis[name], "w") as fh:
+                fh.write(case(start, end))
+        run_cli("ini", inis["straight"], a)
+        os.makedirs(b)
+        for f in ("flow.0.1", "flow.0.2", "flow.0.3", "scal.0.1"):
+            shutil.copy(os.path.join(a, f), os.path.join(b, f))
+        run_cli("dns", inis["straight"], a)
+        run_cli("dns", inis["first"], b)
+        run_cli("dns", inis["second"], b)
+        for f in ("flow.8.1", "flow.8.2", "flow.8.3", "scal.8.1"):
+            with open(os.path.join(a, f), "rb") as fa, \
+                    open(os.path.join(b, f), "rb") as fb:
+                require(fa.read() == fb.read(),
+                        f"{f}: 4 + 4 steps differ from 8 straight")
+        tail = {d: [r for r in data_rows(os.path.join(d, "dns.out"))
+                    if int(r[1]) > 4] for d in (a, b)}
+        require(len(tail[a]) == 4 and tail[a] == tail[b],
+                f"dns.out rows 5-8 differ: {tail[a]} / {tail[b]}")
+    print("[dns] 128x64x64 fp32: 8 steps straight = 4 steps + restart "
+          "file + 4 steps, final fields bit for bit, dns.out rows 5-8 equal "
+          f"(t = {float(tail[a][-1][2]):.6e})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
               file=sys.stderr)
         return 1
     tdevice.full_fp32_matmul()
-    name = phase_device()
+    name, smi = phase_device()
     phase_build()
     _, P, state = entry.build(*MAIN_SHAPE, torch.float32, "cuda", seed=0)
     records = phase_kernels(P)
@@ -263,6 +469,9 @@ def main() -> int:
         rec["launches"] = n
     del P, state
     phase_fp64()
+    for rec, n in zip(records, phase_dns_case(smi)):
+        rec["dns_launches"] = n
+    phase_dns_restart()
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,0 +1,122 @@
+"""The port's command line (tlab_tpu_torch/tools/cli.py) on the CPU: the
+files `ini` and `dns` leave behind, against tlab_tpu's CLI on the same case,
+and the messages for what is not ported."""
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+from tlab_tpu.io import fields_io as jio
+from tlab_tpu.tools import cli as jcli
+from tlab_tpu_torch.io import fields_io as tio
+from tlab_tpu_torch.stats import averages as tavg
+from tlab_tpu_torch.tools import cli
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+CASE3D = os.path.join(DATA, "case01_small3d.ini")
+
+# the test workers share the machine's cores: with every worker's products
+# on all of them, the threads spin on each other and a step takes 20x longer
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def rundir(tmp_path_factory):
+    """inigrid, ini and dns through the port's CLI in float64 on the CPU."""
+    out = tmp_path_factory.mktemp("cli")
+    ini = str(out / "tlab.ini")
+    shutil.copy(CASE3D, ini)
+    common = ["--ini", ini, "--outdir", str(out), "--device", "cpu", "--x64"]
+    assert cli.main(["inigrid", *common]) == 0
+    assert cli.main(["ini", *common]) == 0
+    assert cli.main(["dns", *common]) == 0
+    return out
+
+
+def test_files_are_written(rundir):
+    assert sorted(os.listdir(rundir)) == [
+        "avg10", "avg10s1", "avg5", "avg5s1", "dns.out", "flow.0.1",
+        "flow.0.2", "flow.0.3", "flow.10.1", "flow.10.2", "flow.10.3",
+        "grid", "scal.0.1", "scal.10.1", "tlab.ini", "tlab.ini.bak",
+        "tlab.log"]
+    rows = [ln for ln in (rundir / "dns.out").read_text().splitlines()
+            if not ln.startswith("#")]
+    assert len(rows) == 11 and all(r.startswith("0 ") for r in rows)
+    _, _, cols = tavg.read_avg(str(rundir / "avg10"))
+    assert all(np.isfinite(v).all() for v in cols.values())
+
+
+def test_matches_the_jax_cli(rundir, tmp_path):
+    """tlab_tpu's CLI on the same case file (float64, CPU): the initial
+    fields agree to 1e-11, the final ones to 1e-10 of max|field|, and
+    dns.out row for row in its printed digits."""
+    ini = str(tmp_path / "tlab.ini")
+    shutil.copy(CASE3D, ini)
+    common = ["--ini", ini, "--outdir", str(tmp_path), "--cpu", "--x64"]
+    assert jcli.main(["ini", *common]) == 0
+    assert jcli.main(["dns", *common]) == 0
+    for it, tol in ((0, 1e-11), (10, 1e-10)):
+        for name in (f"flow.{it}.1", f"flow.{it}.2", f"flow.{it}.3",
+                     f"scal.{it}.1"):
+            a, pa, _ = jio.read_field(str(tmp_path / name))
+            b, pb, _ = tio.read_field(str(rundir / name))
+            assert np.max(np.abs(a - b)) <= tol * np.max(np.abs(a)), name
+            assert abs(pa[0] - pb[0]) <= 1e-12 * max(abs(pa[0]), 1.0)
+            assert pa[1] == pb[1]
+    assert (tmp_path / "dns.out").read_text() == \
+        (rundir / "dns.out").read_text()
+
+
+def test_dns_restarts_from_its_own_files(rundir, tmp_path):
+    """`dns` with [Iteration] Start=10 picks up flow.10.* and its time."""
+    for name in ("flow.10.1", "flow.10.2", "flow.10.3", "scal.10.1"):
+        shutil.copy(rundir / name, tmp_path / name)
+    ini = tmp_path / "tlab.ini"
+    with open(CASE3D) as fh:
+        ini.write_text(fh.read().replace("Start=0", "Start=10")
+                       .replace("End=10", "End=12"))
+    assert cli.main(["dns", "--ini", str(ini), "--outdir", str(tmp_path),
+                     "--device", "cpu", "--x64", "--inner-steps", "2"]) == 0
+    rows = [ln.split() for ln in
+            (tmp_path / "dns.out").read_text().splitlines()
+            if not ln.startswith("#")]
+    assert [int(r[1]) for r in rows] == [10, 12]
+    t10 = tio.read_field(str(rundir / "flow.10.1"))[1][0]
+    assert abs(float(rows[0][2]) - t10) <= 1e-6 * t10
+
+
+def test_default_device_is_the_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("there is a card: the default device exists")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["ini", "--ini", CASE3D, "--outdir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("command, item", [("averages", "A14"),
+                                           ("inipart", "A15"),
+                                           ("visuals", "A16")])
+def test_unported_command_exits_with_its_item(command, item):
+    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+        cli.main([command])
+
+
+@pytest.mark.parametrize("old, new, item", [
+    ("TermAdvection=convective", "TermAdvection=skewsymmetric", "A8"),
+    ("[BufferZone]\nType=none", "[SavePlanes]\nPlanesJ=3", "A15"),
+    ("ForceDilatation=yes", "ForceDilatation=yes\nNormalizeR=1.0", "A9")])
+def test_unported_option_exits_with_its_item(rundir, tmp_path, old, new,
+                                             item):
+    for name in ("flow.0.1", "flow.0.2", "flow.0.3", "scal.0.1"):
+        shutil.copy(rundir / name, tmp_path / name)
+    ini = tmp_path / "tlab.ini"
+    with open(CASE3D) as fh:
+        text = fh.read()
+    assert old in text
+    ini.write_text(text.replace(old, new))
+    common = ["--ini", str(ini), "--outdir", str(tmp_path), "--device",
+              "cpu", "--x64", "--steps", "1"]
+    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
+        cli.main(["ini", *common])
+        cli.main(["dns", *common])

@@ -6,12 +6,22 @@ tests/conftest.py (which imports JAX) must be left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from tlab_tpu_torch import entry
+from tlab_tpu_torch.config import load_case
 from tlab_tpu_torch.dycore import incompressible as tdyn
 from tlab_tpu_torch.ops import burgers
+from tlab_tpu_torch.runtime import Simulation
+from tlab_tpu_torch.tools import dns as tdns
+from tlab_tpu_torch.tools.initialize import initial_state
+
+CASE3D = os.path.join(os.path.dirname(__file__), "data",
+                      "case01_small3d.ini")
 
 # (F, shape): ragged edges in every tile dimension; the odd widths take the
 # kernels' scalar loads and epilogue, the multiples of 4 their 16-byte
@@ -73,3 +83,52 @@ def test_wrapper_raises_on_cuda_input_it_does_not_take():
                               .transpose(0, 1), nu, 2)
     with pytest.raises(TypeError):
         burgers.fused_burgers(d12, x.double(), conv, nu, 2)
+
+
+@pytest.mark.cuda
+def test_two_dimensional_step_launches_no_z_kernel():
+    """nz == 1 (the reference's Case01 shape): an RK4 step launches K1 and
+    K2 once a substep and K3 never, and stays close to the float64 step."""
+    dev = _card()
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        _, P, state = entry.build(64, 48, 1, dtype, dev, seed=1)
+        before = list(burgers.launches)
+        state, _ = tdyn.rk_step(P, state, 1e-3)
+        torch.cuda.synchronize()
+        out[dtype] = (state, [b - a for a, b in zip(before,
+                                                    burgers.launches)])
+    assert out[torch.float32][1] == [5, 5, 0]
+    assert out[torch.float64][1] == [0, 0, 0]
+    u32, u64 = out[torch.float32][0].u.double(), out[torch.float64][0].u
+    assert (u32 - u64).abs().max() <= 3e-4 * u64.abs().max()
+
+
+@pytest.mark.cuda
+def test_dns_run_float32_follows_float64(tmp_path):
+    """10 adaptive-dt steps of case01_small3d.ini through dns.run on the
+    card: float32 (every Burgers term through K1-K3) against float64 (the
+    dense path) from the same initial state, within the 3e-4 that 5 RK4
+    steps are held to (tlab_tpu's production accuracy a step, 5.9e-5, over
+    the steps); dt follows the CFL in both, so the times agree too."""
+    dev = _card()
+    case = load_case(CASE3D)
+    sim64 = Simulation.from_case(case, dtype=torch.float64, device=dev)
+    start = initial_state(sim64, seed=7)
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        sim = Simulation.from_case(case, dtype=dtype, device=dev)
+        state = type(start)(*(t.to(dtype) for t in start[:4]))
+        out = tmp_path / str(dtype)
+        before = list(burgers.launches)
+        runs[dtype] = tdns.run(sim, state, outdir=str(out), n_steps=10,
+                               log_path=str(out / "dns.out"))
+        launched = [b - a for a, b in zip(before, burgers.launches)]
+        assert launched == ([50] * 3 if dtype == torch.float32 else [0] * 3)
+    r32, r64 = runs[torch.float32], runs[torch.float64]
+    assert abs(r32.rtime - r64.rtime) <= 3e-4 * r64.rtime
+    for a, b in zip(r32.state[:4], r64.state[:4]):
+        assert (a.double() - b).abs().max() <= 3e-4 * b.abs().max()
+    assert sorted(os.listdir(tmp_path / str(torch.float32))) == [
+        "avg10", "avg10s1", "avg5", "avg5s1", "dns.out", "flow.10.1",
+        "flow.10.2", "flow.10.3", "scal.10.1", "tlab.log"]

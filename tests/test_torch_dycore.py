@@ -14,7 +14,7 @@ from tlab_tpu.grid import uniform_grid
 from tlab_tpu.ops import elliptic_factorize as jfac
 from tlab_tpu.physics.params import NSParams
 from tlab_tpu.runtime import Simulation as JSimulation
-from tlab_tpu.tools.initialize import initial_state
+from tlab_tpu.tools.initialize import initial_state as jinitial_state
 from tlab_tpu_torch import entry
 from tlab_tpu_torch import config as tconfig
 from tlab_tpu_torch import grid as tgrid
@@ -23,8 +23,13 @@ from tlab_tpu_torch.physics.params import NSParams as TNSParams
 from tlab_tpu_torch.convert import plans_from_jax, state_from_numpy
 from tlab_tpu_torch.dycore import incompressible as tdyn
 from tlab_tpu_torch.runtime import Simulation
+from tlab_tpu_torch.tools.initialize import initial_state
 
 F64 = torch.float64
+
+# the test workers share the machine's cores: with every worker's products
+# on all of them, the threads spin on each other and a step takes 20x longer
+torch.set_num_threads(2)
 
 
 def _setup(rk_name="RungeKuttaExplicit4"):
@@ -130,14 +135,17 @@ def test_diagnostics_match_jax():
 
 
 def test_golden_slice():
-    """tests/test_golden.py's 20 RK3 steps through the port: the case
-    loads through the port's own load_case and runtime, the initial state
-    comes from tlab_tpu's initializer."""
+    """tests/test_golden.py's 20 RK3 steps through the port alone: the
+    case loads through the port's own load_case and runtime, and the initial
+    state comes from the port's initializer, which tlab_tpu's is held
+    against here (1e-11 of max|field|)."""
     case = tconfig.load_case(tconfig.Ini(text=INI))
     sim = Simulation.from_case(case, dtype=F64, device="cpu")
-    st = initial_state(JSimulation.from_case(load_case(Ini(text=INI))),
-                       seed=12345)
-    state = state_from_numpy(st.u, st.v, st.w, st.s, "cpu", F64)
+    state = initial_state(sim, seed=12345)
+    st = jinitial_state(JSimulation.from_case(load_case(Ini(text=INI))),
+                        seed=12345)
+    for a, b in zip(state[:4], (st.u, st.v, st.w, st.s)):
+        assert _rel(a, b) <= 1e-11
     for _ in range(20):
         state, _ = tdyn.rk_step(sim.P, state, 2e-3)
     u = state.u.numpy()
@@ -158,13 +166,13 @@ def test_golden_slice():
     ("Main", "TermAdvection", "skewsymmetric"),
     ("Main", "EllipticOrder", "compactdirect6"),
     ("Main", "TermDivergence", "none"),
-    ("Control", "ScalLimit", "yes"),
+    ("Filter", "Type", "compact"),
     ("BoundaryConditions", "Scalar1SfcTypeJmin", "linear"),
 ])
 def test_from_case_rejects_options_off_the_path(section, key, value):
     text = INI.replace(f"[{section}]\n", f"[{section}]\n{key}={value}\n", 1)
-    if key == "ScalLimit":
-        text = text.replace("ScalLimit=no\n", "")
+    if f"[{section}]" not in INI:
+        text = INI + f"[{section}]\n{key}={value}\n"
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         Simulation.from_case(tconfig.load_case(tconfig.Ini(text=text)),
                              dtype=F64, device="cpu")
@@ -244,3 +252,55 @@ def test_wall_value_enforcement():
     st1, _ = tdyn.rk_step(P, st, 1e-4)
     for a in (st1.u, st1.v, st1.w):
         assert float(a[:, (0, -1), :].abs().max()) < 1e-15
+
+
+def test_scalar_limits_clip_as_jax():
+    """[Control] ScalLimit (the default): the scalars are clipped to
+    [MinScalar, MaxScalar] after every substep, as tlab_tpu's step does
+    with P["scal_bounds"]."""
+    PJ, PT, (u, v, w, s) = _setup()
+    s = s + 0.2 * np.random.default_rng(6).standard_normal(s.shape)
+    PJ["scal_bounds"] = ((0.1,), (0.9,))
+    PT["scal_bounds"] = tdyn.scalar_bounds((0.1,), (0.9,), F64, "cpu")
+    assert _same(plans_from_jax(PJ, "cpu", F64)["scal_bounds"],
+                 PT["scal_bounds"])
+    sj, _ = jdyn.rk_loop_stacked(PJ, jdyn.State(
+        u=jnp.asarray(u), v=jnp.asarray(v), w=jnp.asarray(w),
+        s=jnp.asarray(s)), 1e-3, 2)
+    st, _ = tdyn.rk_loop_stacked(PT, state_from_numpy(u, v, w, s, "cpu",
+                                                      F64), 1e-3, 2)
+    assert float(st.s.min()) == 0.1 and float(st.s.max()) == 0.9
+    for a, b in zip(st[:4], sj[:4]):
+        assert _rel(a, b) <= 1e-12
+
+
+def test_visc_scale_scales_every_diffusivity():
+    """aux={"visc_scale": f} equals a plan with visc and diff times f, and
+    matches tlab_tpu's aux."""
+    PJ, PT, (u, v, w, s) = _setup()
+    st = state_from_numpy(u, v, w, s, "cpu", F64)
+    got, _ = tdyn.rk_step(PT, st, 1e-3, aux={"visc_scale": 1.5})
+    P2 = dict(PT, visc=PT["visc"] * 1.5,
+              diff=tuple(d * 1.5 for d in PT["diff"]))
+    want, _ = tdyn.rk_step(P2, st, 1e-3)
+    sj, _ = jdyn.rk_step(PJ, jdyn.State(
+        u=jnp.asarray(u), v=jnp.asarray(v), w=jnp.asarray(w),
+        s=jnp.asarray(s)), 1e-3, aux={"visc_scale": jnp.asarray(1.5)})
+    for a, b, c in zip(got[:4], want[:4], sj[:4]):
+        assert _rel(a, b) <= 1e-14 and _rel(a, c) <= 1e-12
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        tdyn.rk_step(PT, st, 1e-3, aux={"refs_x": None})
+
+
+def test_two_dimensional_plan_has_no_z_operator():
+    """nz == 1: no z operator in the plan, so no z Burgers term (and on the
+    card no K3 launch); x and y keep their [D1; D2] operators."""
+    grid = tgrid.uniform_grid(16, 12, 1, 2.0, 1.0, 1.0)
+    P = tdyn.build_device_plans(
+        tbuild_fdm_plan(grid), TNSParams(reynolds=100.0, schmidt=(1.0,)),
+        tdyn.WallBCs.from_velocity_kind("freeslip", "freeslip"),
+        dtype=F64, device="cpu")
+    assert "d12z" not in P and "d1z" not in P and "iodz" not in P
+    assert "d12x" in P and "d12y" in P
+    Q = torch.ones(4, 16, 12, 1, dtype=F64)
+    assert not tdyn._burgers_all(P, "z", 2, Q, Q[0], None).any()

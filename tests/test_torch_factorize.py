@@ -84,3 +84,59 @@ def test_factorize_roundoff_divergence_removal():
                            w - tdyn._d1(P, "z", 2, p))
     red = div2[:, 2:-2, :].abs().max() / div.abs().max()
     assert red < 1e-9, red
+
+
+@pytest.mark.parametrize("nx, ny, nz", [(32, 33, 16), (16, 24, 1)])
+def test_poisson_factorize_dd_matches_jax(nx, ny, nz):
+    """Dirichlet walls (ibc="dd", the initial conditions' solve) with
+    non-zero wall values, against tlab_tpu to 1e-11."""
+    grid, fdm, dev_j, dev_t = _plans(nx, ny, nz)
+    rng = np.random.default_rng(12)
+    f = rng.standard_normal((nx, ny, nz))
+    bb = rng.standard_normal((nx, nz))
+    bt = rng.standard_normal((nx, nz))
+    p_j, dpdy_j = jfac.poisson_factorize(dev_j, jnp.asarray(f),
+                                         bcs_b=jnp.asarray(bb),
+                                         bcs_t=jnp.asarray(bt), ibc="dd")
+    p_t, dpdy_t = tfac.poisson_factorize(dev_t, torch.from_numpy(f),
+                                         bcs_b=torch.from_numpy(bb),
+                                         bcs_t=torch.from_numpy(bt),
+                                         ibc="dd")
+    assert _rel(p_t, p_j) <= 1e-11
+    assert _rel(dpdy_t, dpdy_j) <= 1e-11
+    # the wall rows hold the Dirichlet data
+    assert _rel(p_t[:, 0, :], bb) <= 1e-11 and _rel(p_t[:, -1, :], bt) <= 1e-11
+
+
+def test_poisson_factorize_dd_manufactured_solution():
+    """lap(p) = f with p = sin(pi y) cos(2 pi x / Lx) cos(2 pi z / Lz) + y,
+    p given at both walls: two first-order compact integrals recover p to
+    1.1e-4 at 48 points (tests/test_factorize.py holds tlab_tpu's Neumann
+    solve to 5e-5 on its grid); the singular (mean) column carries the
+    linear part."""
+    nx, ny, nz = 16, 48, 8
+    grid, fdm, _, dev = _plans(nx, ny, nz)
+    x, y, z = (a.nodes for a in (grid.x, grid.y, grid.z))
+    kx, kz = 2.0 * np.pi / 2.0, 2.0 * np.pi / 1.5
+    X, Y, Z = np.meshgrid(x, y, z, indexing="ij")
+    wave = np.cos(kx * X) * np.cos(kz * Z)
+    p = np.sin(np.pi * Y) * wave + Y
+    f = -(np.pi ** 2 + kx ** 2 + kz ** 2) * np.sin(np.pi * Y) * wave
+    got, _ = tfac.poisson_factorize(
+        dev, torch.from_numpy(f), bcs_b=torch.from_numpy(p[:, 0, :].copy()),
+        bcs_t=torch.from_numpy(p[:, -1, :].copy()), ibc="dd")
+    assert np.max(np.abs(got.numpy() - p)) < 5e-4
+
+
+def test_sing_column_dd_matches_jax():
+    _, _, dev_j, dev_t = _plans(32, 33, 16)
+    rng = np.random.default_rng(13)
+    fcol = rng.standard_normal(33) + 1j * rng.standard_normal(33)
+    gbs, gts = 0.3 - 0.2j, -0.7 + 0.1j
+    uj, vj = jfac.sing_column(dev_j, jnp.asarray(fcol), gbs, gts, "dd")
+    ut, vt = tfac.sing_column(dev_t, torch.from_numpy(fcol),
+                              torch.tensor(gbs, dtype=torch.complex128),
+                              torch.tensor(gts, dtype=torch.complex128), "dd")
+    assert _rel(ut, uj) <= 1e-11 and _rel(vt, vj) <= 1e-11
+    with pytest.raises(ValueError, match="ibc"):
+        tfac.solve_modal_factorize(dev_t, None, None, None, ibc="dn")

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of the tlab_tpu incompressible DNS main path.
+"""PyTorch/CUDA port of the tlab_tpu incompressible DNS main path and of
+the single-device run around it (tools.cli: inigrid, ini, dns).
 
 The package mirrors ``tlab_tpu``'s layout: each module sits at the path of
 its JAX counterpart, which stays the reference it is tested against.

@@ -13,7 +13,8 @@ import numpy as np
 import torch
 
 from tlab_tpu_torch import device as _device
-from tlab_tpu_torch.dycore.incompressible import OFF_PATH, check_main_path
+from tlab_tpu_torch.dycore.incompressible import (OFF_PATH, check_main_path,
+                                                  scalar_bounds)
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.ops import elliptic_factorize as fac
 
@@ -53,6 +54,9 @@ def plans_from_jax(P_np: dict, device, dtype) -> dict:
             arrays = {k: v for k, v in val.items() if k not in ("dft",
                                                                  "sing")}
             P[key] = fac.device_plan_from_arrays(arrays, dtype, dev)
+        elif key == "scal_bounds":
+            if val is not None:
+                P[key] = scalar_bounds(val[0], val[1], dtype, dev)
         elif key in _UNUSED:
             continue
         elif key in OFF_PATH or key.endswith("_banded") \
@@ -80,3 +84,15 @@ def state_from_numpy(u, v, w, s, device, dtype) -> State:
         return torch.as_tensor(np.array(a, np.float64)).to(dev, dtype)
 
     return State(u=t(u), v=t(v), w=t(w), s=t(s))
+
+
+def state_to_numpy(state) -> tuple:
+    """(u, v, w, s) float64 arrays on the host from a State of tensors on
+    any device (the inverse of state_from_numpy; array-likes pass through
+    np.asarray, so a tlab_tpu State converts too)."""
+    def a(t):
+        if isinstance(t, torch.Tensor):
+            t = t.detach().cpu().numpy()
+        return np.asarray(t, np.float64)
+
+    return a(state.u), a(state.v), a(state.w), a(state.s)

@@ -7,7 +7,8 @@ time.f90 TIME_RUNGEKUTTA).
 Per substep: the Burgers term nu d2(q) - u_i d1(q) along x, y and z for the
 whole (3+ns) stack (on a CUDA float32 stack through the hand-written kernel
 of ops/burgers.py), the factorized pressure projection, then the wall rows
-of the tendencies; q += dte h; h *= kco.
+of the tendencies; q += dte h; the scalars clipped to the plan's bounds;
+h *= kco.
 
 Only the main path is ported.  A plan that asks for anything else raises
 NotImplementedError naming the ROADMAP item that will port it.
@@ -143,6 +144,15 @@ def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
     return P
 
 
+def scalar_bounds(mins, maxs, dtype, device):
+    """The plan's "scal_bounds" entry: the [Control] MinScalar/MaxScalar
+    lists as (ns, 1, 1, 1) tensors that the step clips the scalars to."""
+    def t(vals):
+        return torch.tensor(tuple(vals), dtype=torch.float64).to(
+            device, dtype).reshape(-1, 1, 1, 1)
+    return t(mins), t(maxs)
+
+
 # Plan keys of tlab_tpu that select a path this port does not have yet.
 OFF_PATH = {
     "ibm": "A10 (immersed boundaries)",
@@ -154,7 +164,6 @@ OFF_PATH = {
     "ell_stag": "A8 (staggered pressure)",
     "pfilter": "A8 (pressure filter)",
     "dealias": "A8 (dealiasing)",
-    "scal_bounds": "A8 (per-substep scalar clipping)",
     "comm": "A17 (multi-GPU pencils)",
 }
 
@@ -247,15 +256,38 @@ def _apply_wall_rows_stacked(H, i, rows):
     H[i, :, -1, :] = torch.matmul(nt, H[i]) if nt is not None else 0.0
 
 
-def substep_rhs_stacked(P, Q, H, dte):
+# aux keys of tlab_tpu's step that the port does not carry
+_AUX_OFF_PATH = {"rtime": "ROADMAP A9 (time-dependent forcing)",
+                 "refs_x": "ROADMAP A10 (unsteady inflow)",
+                 "fac_tables": "ROADMAP 'Do not port' (the factorize tables "
+                               "are part of the plan)"}
+
+
+def _visc_scale(aux) -> float:
+    """The [ViscChange] ramp's factor on every diffusivity, from the step's
+    aux dict (1.0 without one).  Only 'visc_scale' is ported."""
+    if not aux:
+        return 1.0
+    for key in aux:
+        if key != "visc_scale":
+            raise NotImplementedError(
+                f"aux key {key!r}: "
+                + _AUX_OFF_PATH.get(key, "the step knows no such key"))
+    return float(aux["visc_scale"])
+
+
+def substep_rhs_stacked(P, Q, H, dte, aux=None):
     """The tendency of one substep on the stacked carry Q, H
     (3+ns, nx, ny, nz), rows u, v, w, s1..  Returns (H_new, p); H is not
-    modified (H_new is a new tensor, updated in place below)."""
+    modified (H_new is a new tensor, updated in place below).  aux:
+    {"visc_scale": factor} scales the diffusivities ahead of the Burgers
+    terms."""
     check_main_path(P)
     u, v, w = Q[0], Q[1], Q[2]
     visc = P["visc"]
-    nu = torch.tensor((visc,) * 3 + tuple(P["diff"]), dtype=Q.dtype,
-                      device=Q.device).reshape(-1, 1, 1, 1)
+    scale = _visc_scale(aux)
+    nu = torch.tensor([d * scale for d in (visc,) * 3 + tuple(P["diff"])],
+                      dtype=Q.dtype, device=Q.device).reshape(-1, 1, 1, 1)
     # accumulate in place: one (3+ns)-field stack less alive at a time
     adv = _burgers_all(P, "x", 0, Q, u, nu)
     adv += _burgers_all(P, "y", 1, Q, v, nu)
@@ -294,37 +326,43 @@ def _enforce_wall_values(P, state: State) -> State:
     return State(s=state.s, sfc=state.sfc, **comps)
 
 
-def _rk_core_stacked(P, Q, dtime, kdt, kco):
+def _rk_core_stacked(P, Q, dtime, kdt, kco, aux=None):
     """One low-storage RK step on the stacked carry.  Updates Q in place
     (the callers pass a carry they own) and returns (Q, last p)."""
     H = torch.zeros_like(Q)
     p = None
     last = len(kdt) - 1
+    bounds = P.get("scal_bounds")      # (mins, maxs), each (ns, 1, 1, 1)
     for i, k in enumerate(kdt):
         dte = dtime * k
-        H, p = substep_rhs_stacked(P, Q, H, dte)
+        H, p = substep_rhs_stacked(P, Q, H, dte, aux)
         Q.add_(H, alpha=dte)
+        if bounds is not None and Q.shape[0] > 3:
+            # per-substep scalar clipping (reference DNS_BOUNDS_LIMIT,
+            # dns_local.f90:67-90)
+            torch.clamp(Q[3:], min=bounds[0], max=bounds[1], out=Q[3:])
         if i < last:
             H.mul_(kco[i])
     return Q, p
 
 
-def rk_step(P, state: State, dtime):
+def rk_step(P, state: State, dtime, aux=None):
     """One full low-storage RK step; returns (new_state, last pressure)."""
     state = _enforce_wall_values(P, state)
     Q, p = _rk_core_stacked(P, stack(state), dtime, P["rk"]["kdt"],
-                            P["rk"]["kco"])
+                            P["rk"]["kco"], aux)
     return unstack(Q, state.sfc), p
 
 
-def rk_loop_stacked(P, state: State, dtime, n_steps: int):
+def rk_loop_stacked(P, state: State, dtime, n_steps: int, aux=None):
     """n_steps full RK steps with the State<->stack conversion done once.
     Returns (state, last p)."""
     state = _enforce_wall_values(P, state)
     Q = stack(state)
     p = torch.zeros_like(Q[0])
     for _ in range(n_steps):
-        Q, p = _rk_core_stacked(P, Q, dtime, P["rk"]["kdt"], P["rk"]["kco"])
+        Q, p = _rk_core_stacked(P, Q, dtime, P["rk"]["kdt"], P["rk"]["kco"],
+                                aux)
     return unstack(Q, state.sfc), p
 
 

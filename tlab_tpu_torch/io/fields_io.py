@@ -1,0 +1,107 @@
+"""Restart/field file I/O in the reference's on-disk format (port of
+tlab_tpu/io/fields_io.py, NumPy path).
+
+Layout (cf. reference src/base/io_fields.f90:534-596, stream access, no
+record markers): header of 5 int32 (offset, nx, ny, nz, nt) followed by
+float64 params (count = (offset - 20)/8; params[0] = rtime, params[1] = visc
+for flow fields), then the full 3-D field with x innermost, z outermost.
+
+The in-memory convention is C-ordered (nx, ny, nz); on disk that is the
+transpose (nz, ny, nx) written contiguously.  A State's tensors come to the
+host through convert.state_to_numpy (float64, which holds a float32 value
+exactly), so a restart written by this package is read by tlab_tpu and the
+other way round.  The threaded native engine and the compressible and
+visualization formats are ROADMAP A13/A15.
+"""
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+from tlab_tpu_torch.convert import state_to_numpy
+
+_HDR = struct.Struct("<5i")
+_HDR_BE = struct.Struct(">5i")
+
+
+def _header_sane(offset, nx, ny, nz, nt) -> bool:
+    return (20 <= offset <= 20 + 8 * 64
+            and 0 < nx < 2 ** 24 and 0 < ny < 2 ** 24 and 0 < nz < 2 ** 24
+            and 0 <= nt < 2 ** 30)
+
+
+def write_field(path: str, arr: np.ndarray, itime: int = 0,
+                params=(0.0, 0.0), dtype="<f8", byteorder: str = "<") -> None:
+    """byteorder '>' writes the big-endian layout of the reference's
+    -fconvert=big builds (config/mpipc.cmake BIG)."""
+    arr = np.asarray(arr)
+    nx, ny, nz = arr.shape
+    params = np.asarray(params, dtype=byteorder + "f8")
+    hdr = _HDR if byteorder == "<" else _HDR_BE
+    dt = byteorder + dtype[1:]
+    offset = hdr.size + params.nbytes
+    with open(path, "wb") as fh:
+        fh.write(hdr.pack(offset, nx, ny, nz, itime))
+        fh.write(params.tobytes())
+        fh.write(np.ascontiguousarray(arr.transpose(2, 1, 0)).astype(dt)
+                 .tobytes())
+
+
+def read_field(path: str, dtype="<f8"):
+    """Returns (arr (nx, ny, nz) float64, params array, itime).
+
+    Endianness is AUTODETECTED from the 5-int32 header sanity check
+    (offset/shape ranges): the reference's example fixtures were written
+    by per-machine -fconvert builds in either byte order."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    byteorder = "<"
+    offset, nx, ny, nz, nt = _HDR.unpack(data[:_HDR.size])
+    if not _header_sane(offset, nx, ny, nz, nt):
+        vals = _HDR_BE.unpack(data[:_HDR.size])
+        if _header_sane(*vals):
+            byteorder = ">"
+            offset, nx, ny, nz, nt = vals
+    nparams = (offset - _HDR.size) // 8
+    params = np.frombuffer(data, dtype=byteorder + "f8", count=nparams,
+                           offset=_HDR.size)
+    dt = byteorder + dtype[1:]
+    itemsize = np.dtype(dt).itemsize
+    n = nx * ny * nz
+    expected = offset + n * itemsize
+    if len(data) < expected and itemsize == 8:
+        dt = byteorder + "f4"  # single-precision restart file
+        itemsize = 4
+    raw = np.frombuffer(data, dtype=dt, count=n, offset=offset)
+    arr = raw.reshape(nz, ny, nx).transpose(2, 1, 0).astype(np.float64)
+    return arr, params, nt
+
+
+def write_state(prefix_flow: str, prefix_scal: str, itime: int, state,
+                rtime: float, visc: float, dtype: str = "<f8") -> None:
+    """Checkpoint: flow.<it>.1..3 = u,v,w; scal.<it>.1..N.
+    dtype '<f4' writes single-precision restarts ([Main] FileType=single,
+    io_fields.f90:37-40); read_field autodetects from the file size."""
+    params = (rtime, visc)
+    u, v, w, s = state_to_numpy(state)
+    for i, comp in enumerate((u, v, w)):
+        write_field(f"{prefix_flow}.{itime}.{i + 1}", comp, itime, params,
+                    dtype=dtype)
+    for i in range(s.shape[0]):
+        write_field(f"{prefix_scal}.{itime}.{i + 1}", s[i], itime, params,
+                    dtype=dtype)
+
+
+def read_state(prefix_flow: str, prefix_scal: str, itime: int, n_scalars: int):
+    """Returns (u, v, w, s, rtime, visc), float64 arrays on the host
+    (convert.state_from_numpy makes the State)."""
+    u, params, _ = read_field(f"{prefix_flow}.{itime}.1")
+    v, _, _ = read_field(f"{prefix_flow}.{itime}.2")
+    w, _, _ = read_field(f"{prefix_flow}.{itime}.3")
+    s = [read_field(f"{prefix_scal}.{itime}.{i + 1}")[0]
+         for i in range(n_scalars)]
+    s = np.stack(s) if s else np.zeros((0,) + u.shape)
+    rtime = params[0] if len(params) > 0 else 0.0
+    visc = params[1] if len(params) > 1 else 0.0
+    return u, v, w, s, rtime, visc

@@ -1,11 +1,13 @@
-"""Build the port's CUDA sources into shared libraries loaded with ctypes.
+"""Build the port's native sources into shared libraries loaded with ctypes.
 
 Each library is compiled from ``tlab_tpu_torch/csrc/<name>.cu`` by nvcc for
 sm_90a (Hopper) on its first use in a process, into
 ``tlab_tpu_torch/_build/``, under a file name keyed by a hash of the
 sources and flags: an unchanged source loads the existing library, a
-changed one builds anew.  Importing this module builds nothing.  A failed
-build raises with nvcc's stderr.
+changed one builds anew.  ``host_library`` does the same for a plain C
+source with the host compiler alone (native/nrrand.c, the reference's random
+stream).  Importing this module builds nothing.  A failed build raises with
+the compiler's stderr.
 """
 from __future__ import annotations
 
@@ -50,28 +52,63 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library built from csrc/<name>.cu (built if needed)."""
-    lib = _loaded.get(name)
+def _load(key: str, so: pathlib.Path, compiler: str, flags, src, libs=()):
+    """The library `so`, compiled from `src` first where it is not there
+    yet; loaded once a process under `key`."""
+    lib = _loaded.get(key)
     if lib is not None:
         return lib
-    src = CSRC / f"{name}.cu"
-    so = BUILD_DIR / f"lib{name}-{_digest()}.so"
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            [compiler, *flags, "-o", str(tmp), str(src), *libs],
             capture_output=True, text=True)
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed to build {src.name} "
+            raise RuntimeError(f"{compiler} failed to build {src.name} "
                                f"(exit {proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, so)
-        builds[name] = {"path": str(so),
-                        "seconds": time.perf_counter() - t0,
-                        "log": proc.stderr}
-    lib = ctypes.CDLL(str(so))
-    _loaded[name] = lib
+        builds[key] = {"path": str(so),
+                       "seconds": time.perf_counter() - t0,
+                       "log": proc.stderr}
+    lib = _loaded[key] = ctypes.CDLL(str(so))
     return lib
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library built from csrc/<name>.cu (built if needed)."""
+    if name in _loaded:
+        return _loaded[name]
+    return _load(name, BUILD_DIR / f"lib{name}-{_digest()}.so", nvcc_path(),
+                 NVCC_FLAGS, CSRC / f"{name}.cu")
+
+
+NATIVE = _PKG.parent / "native"
+CC_FLAGS = ("-O2", "-shared", "-fPIC")
+
+
+def cc_path() -> str:
+    for name in (os.environ.get("CC"), "cc", "gcc"):
+        found = shutil.which(name) if name else None
+        if found:
+            return found
+    raise RuntimeError("no host C compiler (CC, cc, gcc) found; "
+                       "the native library cannot be built")
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """The loaded library built from native/<name>.c with the host C
+    compiler (built if needed), keyed by the hash of source and flags."""
+    key = f"host:{name}"
+    if key in _loaded:
+        return _loaded[key]
+    src = NATIVE / f"{name}.c"
+    if not src.exists():
+        raise RuntimeError(f"{src} not found; the native library cannot be "
+                           "built")
+    h = hashlib.sha256(" ".join(CC_FLAGS).encode())
+    h.update(src.read_bytes())
+    return _load(key, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so",
+                 cc_path(), CC_FLAGS, src, libs=("-lm",))

@@ -265,19 +265,19 @@ def build_tables(dev: dict) -> dict:
     return out
 
 
-def sing_column(dev: dict, fcol, gts):
-    """Reference singular-mode (kappa = 0) column solve for Neumann walls:
-    NN via DN_Sing(gb=0) (opr_odes.f90:37-100,170-185).
+def sing_column(dev: dict, fcol, gbs, gts, ibc: str = "nn"):
+    """Reference singular-mode (kappa = 0) column solve: NN via
+    DN_Sing(gb=0), DD via DD_Sing (opr_odes.f90:37-100,170-185,188-260).
 
-    fcol: (ny,) complex forcing column; gts the top wall value.
-    Returns (u, v) columns.  The kappa=0 sweep denominators are
-    mode-independent (1 -+ shift*lam), so no per-mode tables needed."""
+    fcol: (ny,) complex forcing column; gbs/gts the wall values (gbs is
+    read by 'dd' only).  Returns (u, v) columns.  The kappa=0 sweep
+    denominators are mode-independent (1 -+ shift*lam), so no per-mode
+    tables needed."""
     cd = fcol.dtype
     ny = dev["ny"]
     shift = dev["shift"]
     dmin0 = (1.0 - shift * dev["lam_min"])[None, :, None]
     dmax0 = (1.0 + shift * dev["lam_max"])[None, :, None]
-    rB0_min, rAf0_min = dev["rB_ft_min"], dev["rAf_ft_min"]
 
     def smin0(fv, bc):
         rhs = fv.clone()
@@ -293,30 +293,54 @@ def sing_column(dev: dict, fcol, gts):
 
     zero0 = torch.zeros((), dtype=cd, device=fcol.device)
     zcol = torch.zeros(ny, dtype=cd, device=fcol.device)
-    # literal reference NN_Sing -> DN_Sing(gb=0): v' = f with v_N = gts
-    # (max sweep), then u' = v with u_1 = 0 (min sweep); the constraint
-    # adjusts the free bottom forcing f_1 of the max sweep
+    if ibc == "nn":
+        # literal reference NN_Sing -> DN_Sing(gb=0): v' = f with v_N = gts
+        # (max sweep), then u' = v with u_1 = 0 (min sweep); the constraint
+        # adjusts the free bottom forcing f_1 of the max sweep
+        rB0, rAf0 = dev["rB_ft_min"], dev["rAf_ft_min"]
+        f0 = fcol.clone()
+        f0[0] = 0.0
+        e0 = zcol.clone()
+        e0[0] = 1.0
+        v0s, _ = smax0(f0, gts)
+        v1s, _ = smax0(e0, zero0)
+        u0s, r0 = smin0(v0s, zero0)
+        u1s, r1 = smin0(v1s, zero0)
+        du0 = torch.sum(rB0 * u0s) - torch.sum(rAf0 * r0)      # u'_1 = ft
+        du1 = torch.sum(rB0 * u1s) - torch.sum(rAf0 * r1)
+        coef = (v0s[0] - du0) / (du1 - v1s[0])
+        return u0s + coef * u1s, v0s + coef * v1s
+    # DD_Sing: v' = f with v_1 = 0 (min sweep), u' = v with u_N = gts
+    # (max sweep) + s^+ correction for u_1 = gbs
+    rB0, rAf0 = dev["rB_ft_max"], dev["rAf_ft_max"]
     f0 = fcol.clone()
-    f0[0] = 0.0
+    f0[ny - 1] = 0.0
     e0 = zcol.clone()
-    e0[0] = 1.0
-    v0s, _ = smax0(f0, gts)
-    v1s, _ = smax0(e0, zero0)
-    u0s, r0 = smin0(v0s, zero0)
-    u1s, r1 = smin0(v1s, zero0)
-    du0 = torch.sum(rB0_min * u0s) - torch.sum(rAf0_min * r0)  # u'_1 = ft
-    du1 = torch.sum(rB0_min * u1s) - torch.sum(rAf0_min * r1)
-    coef = (v0s[0] - du0) / (du1 - v1s[0])
-    return u0s + coef * u1s, v0s + coef * v1s
+    e0[ny - 1] = 1.0
+    v0s, _ = smin0(f0, zero0)
+    v1s, _ = smin0(e0, zero0)
+    u0s, r0 = smax0(v0s, gts)
+    u1s, r1 = smax0(v1s, zero0)
+    sps, _ = smax0(torch.ones(ny, dtype=cd, device=fcol.device), zero0)
+    du0 = torch.sum(rB0 * u0s) - torch.sum(rAf0 * r0)          # u'_N = ft
+    du1 = torch.sum(rB0 * u1s) - torch.sum(rAf0 * r1)
+    coef = (v0s[ny - 1] - du0) / (du1 - v1s[ny - 1])
+    q1s = (gbs - (u0s[0] + coef * u1s[0])) / sps[0]
+    us = u0s + coef * u1s + q1s * sps
+    us[0] = gbs
+    return us, v0s + coef * v1s + q1s
 
 
-def solve_modal_factorize(dev: dict, f_hat, gb, gt):
-    """p and dpdy per mode for p'' - kappa^2 p = f with Neumann walls
-    (reference OPR_ODE2_Factorize_NN + _Sing, opr_odes.f90).
+def solve_modal_factorize(dev: dict, f_hat, gb, gt, ibc: str = "nn"):
+    """p and dpdy per mode for p'' - kappa^2 p = f (reference
+    OPR_ODE2_Factorize_NN/DD + _Sing, opr_odes.f90).
 
-    f_hat: (nkx, ny, nz) complex; gb/gt: (nkx, nz) complex wall values of
-    p'.  Returns (p_hat, dpdy_hat); dpdy is the composition's v + kappa*p
-    -- the stage derivative the reference's RK substep consumes."""
+    f_hat: (nkx, ny, nz) complex; gb/gt: (nkx, nz) complex wall values
+    (Neumann p' for 'nn', Dirichlet p for 'dd').  Returns (p_hat,
+    dpdy_hat); dpdy is the composition's v + kappa*p -- the stage
+    derivative the reference's RK substep consumes."""
+    if ibc not in ("nn", "dd"):
+        raise ValueError(f"ibc must be 'nn' or 'dd', got {ibc!r}")
     cd = f_hat.dtype
     ny = dev["ny"]
     tb = dev["tables"]
@@ -332,14 +356,16 @@ def solve_modal_factorize(dev: dict, f_hat, gb, gt):
     rhs1[:, 0, :] = 0.0
     v0 = _modal_solve(dev["Vmin"], dev["Wmin"], tb["dmin"], rhs1)
 
-    # stage 2 (max sweep): u0 with bc u_N = 0
+    # stage 2 (max sweep): u0 with bc u_N = 0 ('nn') or gt ('dd')
     rhs2s = v0.clone()
-    rhs2s[:, ny - 1, :] = 0.0
+    rhs2s[:, ny - 1, :] = 0.0 if ibc == "nn" else gt
     u0 = _modal_solve(dev["Vmax"], dev["Wmax"], tb["dmax"], rhs2s)
 
     # u'_N of stage 2 from the bc-end scheme row (du_boundary)
     du0_n = (torch.matmul(rB, u0) - kap * torch.matmul(rA, u0)
              - torch.matmul(rAf, rhs2s))
+    if ibc == "dd":
+        du0_n = du0_n + kap * gt
 
     # the kappa = 0 modes (exactly the reference's singular index set for
     # mwn-based kappa) are guarded against 0/0 here and overwritten by
@@ -349,49 +375,64 @@ def solve_modal_factorize(dev: dict, f_hat, gb, gt):
     def safe(x):
         return torch.where(sing, torch.ones_like(x), x)
 
-    # reference 3x3 closure over (q1 = v_1, uN, fn) -- exact LU order
-    # (opr_odes.f90:330-358)
-    a11 = 1.0 + kap * sp[:, 0, :]
-    a21 = em[:, ny - 1, :]
-    a31 = dsp_n
-    a12 = kap * ep[:, 0, :]
-    a22 = kap
-    a32 = dep_n
-    a13 = kap * u1[:, 0, :]
-    a23 = v1[:, ny - 1, :]
-    a33 = du1_n
+    if ibc == "nn":
+        # reference 3x3 closure over (q1 = v_1, uN, fn) -- exact LU order
+        # (opr_odes.f90:330-358)
+        a11 = 1.0 + kap * sp[:, 0, :]
+        a21 = em[:, ny - 1, :]
+        a31 = dsp_n
+        a12 = kap * ep[:, 0, :]
+        a22 = kap
+        a32 = dep_n
+        a13 = kap * u1[:, 0, :]
+        a23 = v1[:, ny - 1, :]
+        a33 = du1_n
 
-    a12 = a12 / safe(a11)
-    a22 = a22 - a21 * a12
-    a32 = a32 - a31 * a12
-    a13 = a13 / safe(a11)
-    a23 = (a23 - a21 * a13) / safe(a22)
-    a33 = a33 - a31 * a13 - a32 * a23
+        a12 = a12 / safe(a11)
+        a22 = a22 - a21 * a12
+        a32 = a32 - a31 * a12
+        a13 = a13 / safe(a11)
+        a23 = (a23 - a21 * a13) / safe(a22)
+        a33 = a33 - a31 * a13 - a32 * a23
 
-    q1 = (gb - kap * u0[:, 0, :]) / safe(a11)
-    uN = (gt - v0[:, ny - 1, :] - a21 * q1) / safe(a22)
-    fn = (gt - du0_n - a31 * q1 - a32 * uN) / safe(a33)
-    uN = uN - a23 * fn
-    q1 = q1 - a12 * uN - a13 * fn
+        q1 = (gb - kap * u0[:, 0, :]) / safe(a11)
+        uN = (gt - v0[:, ny - 1, :] - a21 * q1) / safe(a22)
+        fn = (gt - du0_n - a31 * q1 - a32 * uN) / safe(a33)
+        uN = uN - a23 * fn
+        q1 = q1 - a12 * uN - a13 * fn
 
-    # uniform superposition: u0_N = u1_N = sp_N = 0 (bc rows) and
-    # ep_N = 1, so row N reduces to the solved uN, matching the
-    # reference's explicit i = nx handling
-    u = u0 + fn[:, None, :] * u1 + q1[:, None, :] * sp \
-        + uN[:, None, :] * ep
+        # uniform superposition: u0_N = u1_N = sp_N = 0 (bc rows) and
+        # ep_N = 1, so row N reduces to the solved uN, matching the
+        # reference's explicit i = nx handling
+        u = u0 + fn[:, None, :] * u1 + q1[:, None, :] * sp \
+            + uN[:, None, :] * ep
+    else:
+        # reference DD closure over (q1 = v_1, fn) (opr_odes.f90:452-466)
+        aa = du1_n - v1[:, ny - 1, :]
+        bb = dsp_n - em[:, ny - 1, :]
+        det = safe(aa * sp[:, 0, :] - bb * u1[:, 0, :])
+        rhs_c = kap * gt - du0_n + v0[:, ny - 1, :]
+        q1 = (aa * (gb - u0[:, 0, :]) - u1[:, 0, :] * rhs_c) / det
+        fn = (sp[:, 0, :] * rhs_c - bb * (gb - u0[:, 0, :])) / det
+
+        u = u0 + fn[:, None, :] * u1 + q1[:, None, :] * sp
+        u[:, 0, :] = gb
     v = v0 + fn[:, None, :] * v1 + q1[:, None, :] * em + kap3 * u
 
     # ---- reference singular modes (kappa = 0 at {0,Nyq} x {0,Nyq}) ----
     for (i, k) in dev["sing_idx"]:
-        us, vs = sing_column(dev, f_hat[i, :, k], gt[i, k])
+        us, vs = sing_column(dev, f_hat[i, :, k], gb[i, k], gt[i, k], ibc)
         u[i, :, k] = us
         v[i, :, k] = vs
     return u, v
 
 
-def poisson_factorize(dev: dict, f, bcs_b=None, bcs_t=None):
-    """Physical-space Poisson with Neumann walls via the factorized modal
-    solver; bcs_b/bcs_t are the wall values of dp/dy (nx, nz).
+def poisson_factorize(dev: dict, f, bcs_b=None, bcs_t=None,
+                      ibc: str = "nn"):
+    """Physical-space Poisson via the factorized modal solver; bcs_b/bcs_t
+    (nx, nz) are the wall values of dp/dy for ibc 'nn' (Neumann walls, the
+    dycore's call) and of p for 'dd' (Dirichlet walls, the initial
+    conditions' call).
 
     Returns (p, dpdy); dpdy is the stage-consistent first derivative --
     the reference's OPR_Poisson dpdy output (opr_elliptic.f90:336)."""
@@ -412,5 +453,5 @@ def poisson_factorize(dev: dict, f, bcs_b=None, bcs_t=None):
     f_hat = fwd(f)
     gb = fwd(gb_phys[:, None, :])[:, 0, :]
     gt = fwd(gt_phys[:, None, :])[:, 0, :]
-    p_hat, dpdy_hat = solve_modal_factorize(dev, f_hat, gb, gt)
+    p_hat, dpdy_hat = solve_modal_factorize(dev, f_hat, gb, gt, ibc)
     return bwd(p_hat), bwd(dpdy_hat)

@@ -14,11 +14,14 @@ import numpy as np
 import torch
 
 from tlab_tpu_torch.config import CaseSetup, consistency_check, load_case
+from tlab_tpu_torch.constants import BC
 from tlab_tpu_torch.fdm.plan import FdmPlan, build_fdm_plan
 from tlab_tpu_torch.grid import Grid, build_axis_from_segments, make_axis
 from tlab_tpu_torch.physics.params import NSParams
 from tlab_tpu_torch import device as _device
 from tlab_tpu_torch.dycore import incompressible as dyn
+from tlab_tpu_torch.dycore.state import State
+from tlab_tpu_torch.ops import elliptic_factorize as fac
 
 
 def grid_from_case(case: CaseSetup) -> Grid:
@@ -94,9 +97,6 @@ def _off_path_options(case: CaseSetup, grid: Grid):
         found.append(("dealiasing", "A8"))
     if on(case.filter):
         found.append(("[Filter]", "A8"))
-    ctrl = case.control or {}
-    if ctrl.get("scal_limit") and len(case.schmidt):
-        found.append(("[Control] ScalLimit", "A8"))
     if "diffusion" in case.time_order.lower():
         found.append((f"TimeOrder={case.time_order}", "A11"))
     return found
@@ -148,5 +148,52 @@ class Simulation:
         P = dyn.build_device_plans(fdm, nsp, bcs, rk_name=case.time_order,
                                    dtype=dtype, device=dev,
                                    wall_refs=wall_refs)
+        ctrl = case.control or {}
+        if ctrl.get("scal_limit") and nsp.n_scalars:
+            P["scal_bounds"] = dyn.scalar_bounds(
+                ctrl["min_scalar"], ctrl["max_scalar"], dtype, dev)
         return cls(case=case, grid=grid, fdm=fdm, nsp=nsp, P=P,
                    dtype=dtype, device=dev)
+
+    # -- convenience ops (the initial conditions' vector calculus) ----------
+    def zero_state(self) -> State:
+        nx, ny, nz = self.grid.shape
+        kw = {"dtype": self.dtype, "device": self.device}
+        return State(u=torch.zeros((nx, ny, nz), **kw),
+                     v=torch.zeros((nx, ny, nz), **kw),
+                     w=torch.zeros((nx, ny, nz), **kw),
+                     s=torch.zeros((self.nsp.n_scalars, nx, ny, nz), **kw))
+
+    def curl(self, u, v, w):
+        dy_w = dyn._d1(self.P, "y", 1, w)
+        dz_v = dyn._d1(self.P, "z", 2, v)
+        dz_u = dyn._d1(self.P, "z", 2, u)
+        dx_w = dyn._d1(self.P, "x", 0, w)
+        dx_v = dyn._d1(self.P, "x", 0, v)
+        dy_u = dyn._d1(self.P, "y", 1, u)
+        return dy_w - dz_v, dz_u - dx_w, dx_v - dy_u
+
+    def poisson_ref(self, bc, f):
+        """The Poisson solve the reference's OPR_Poisson pointer resolves
+        to, with homogeneous walls of kind `bc` (BC.NN or BC.DD): the
+        factorized formulation, which the initial conditions share with the
+        dycore (flow_local.f90:315-337, fi_vectorcalculus.f90:94)."""
+        dev = self.P.get("ell_fac")
+        if dev is None:
+            raise NotImplementedError(
+                "poisson_ref without a factorized plan (the direct eigen "
+                "Poisson): ROADMAP A8")
+        p, _ = fac.poisson_factorize(dev, f,
+                                     ibc="nn" if bc == BC.NN else "dd")
+        return p
+
+    def solenoidal(self, u, v, w):
+        """Remove dilatation: u += grad(phi), lap(phi) = -div(u)
+        (cf. reference FI_SOLENOIDAL, fi_vectorcalculus.f90:72-106);
+        the y-correction uses OPR_Partial_Y (D1), not the stage dpdy."""
+        div = dyn.divergence(self.P, u, v, w)
+        phi = self.poisson_ref(BC.NN, -div)
+        u = u + dyn._d1(self.P, "x", 0, phi)
+        v = v + dyn._d1(self.P, "y", 1, phi)
+        w = w + dyn._d1(self.P, "z", 2, phi)
+        return u, v, w

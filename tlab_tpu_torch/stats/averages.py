@@ -1,0 +1,581 @@
+"""Plane-averaged statistics (temporal mode): the AVG_FLOW_XZ / AVG_SCAL_XZ
+tables (reference src/statistics/avg_flow_xz.f90, avg_scal_xz.f90) for the
+incompressible equation set.  Port of the part of tlab_tpu/stats/averages.py
+that the DNS loop's in-run statistics reach.
+
+Profiles are horizontal (x,z)-plane averages as functions of y, reduced on
+the state's device.  The table layout, group names and column names match
+the reference's ASCII `avg<it>` / `avg<it>s<i>` files exactly
+(io_averages.f90:95-130 non-NetCDF branch), so reference post-processing
+scripts can consume the output.
+
+Incompressible: rR = 1, Favre == Reynolds, and the thermodynamic,
+Acoustics, RhoBudget and Stratification columns are 0, as the reference
+leaves inactive groups.  Left for ROADMAP A14: the equation-set context
+(`extras`: anelastic and compressible columns, buoyancy, Coriolis, scalar
+sources), the diagnostic pressure solve when no pressure is passed in, the
+legacy alias keys (SU, FU, .., Chi, Rss), the NetCDF writer and reader, and
+the conditional (gated) statistics.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tlab_tpu_torch.dycore import incompressible as dyn
+
+# ---------------------------------------------------------------------------
+# Table layout (reference avg_flow_xz.f90:102-391, avg_scal_xz.f90:92-236)
+# ---------------------------------------------------------------------------
+
+FLOW_GROUPS = [
+    ("Mean", "rR rU rV rW rP rT re rh rs rB fU fV fW fT fe fh fs"),
+    ("Fluctuations",
+     "Tke Rxx Ryy Rzz Rxy Rxz Ryz rP2 rR2 rT2 fT2 re2 fe2 rh2 fh2 rs2 fs2"),
+    ("Vorticity", "Wx Wy Wz Wx2 Wy2 Wz2"),
+    ("RxxBudget", "Rxx_t Bxx Cxx Pxx Exx PIxx Fxx Txxy_y Txxy Gxx Dxx"),
+    ("RyyBudget", "Ryy_t Byy Cyy Pyy Eyy PIyy Fyy Tyyy_y Tyyy Gyy Dyy"),
+    ("RzzBudget", "Rzz_t Bzz Czz Pzz Ezz PIzz Fzz Tzzy_y Tzzy Gzz Dzz"),
+    ("RxyBudget", "Rxy_t Bxy Cxy Pxy Exy PIxy Fxy Txyy_y Txyy Gxy Dxy"),
+    ("RxzBudget", "Rxz_t Bxz Cxz Pxz Exz PIxz Fxz Txzy_y Txzy Gxz Dxz"),
+    ("RyzBudget", "Ryz_t Byz Cyz Pyz Eyz PIyz Fyz Tyzy_y Tyzy Gyz Dyz"),
+    ("TkeBudget", "Tke_t Buo Con Prd Eps Pi Trp Trp1 Trp2 Trp3 "
+                  "Trp1_y Trp2_y Trp3_y G D Phi UgradP"),
+    ("HigherOrder", "rU3 rU4 rV3 rV4 rW3 rW4"),
+    ("DerivativeFluctuations",
+     "U_y1 V_y1 W_y1 U_ii2 "
+     "U_x2 U_y2 U_z2 V_x2 V_y2 V_z2 W_x2 W_y2 W_z2 "
+     "U_x3 U_y3 U_z3 V_x3 V_y3 V_z3 W_x3 W_y3 W_z3 "
+     "U_x4 U_y4 U_z4 V_x4 V_y4 V_z4 W_x4 W_y4 W_z4"),
+    ("Acoustics", "gamma C2 Rho_ac Rho_en T_ac T_en M_t rRP rRT"),
+    ("RhoBudget",
+     "RhoFluxX RhoFluxY RhoFluxZ RhoDil1 RhoDil2 RhoTrp RhoProd RhoConv"),
+    ("Stratification",
+     "Pot rRref rTref BuoyFreq_fr BuoyFreq_eq LapseRate_fr LapseRate_eq "
+     "PotTemp PotTemp_v SaturationPressure rPref RelativeHumidity "
+     "Dewpoint LapseRate_dew"),
+]
+
+SCAL_GROUPS = [
+    ("Mean", "rS fS rS_y fS_y rQ fQ"),
+    ("Fluctuations", "Rsu Rsv Rsw fS2 fS3 fS4 rS2 rS3 rS4"),
+    ("RssBudget", "Rss_t Css Pss Ess Tssy1 Tssy2 Tssy_y Dss Qss"),
+    ("RsuBudget",
+     "Rsu_t Csu Psu Esu PIsu Tsuy1 Tsuy2 Tsuy_y Dsu Gsu Bsu Fsu Qsu"),
+    ("RsvBudget",
+     "Rsv_t Csv Psv Esv PIsv Tsvy1 Tsvy2 Tsvy3 Tsvy_y Dsv Gsv Bsv Fsv Qsv"),
+    ("RswBudget",
+     "Rsw_t Csw Psw Esw PIsw Tswy1 Tswy2 Tswy_y Dsw Gsw Bsw Fsw Qsw"),
+    ("DerivativeFluctuations",
+     "S_x2 S_y2 S_z2 S_x3 S_y3 S_z3 S_x4 S_y4 S_z4"),
+    # CrossScalars columns (Cs<j> Css<j>) are appended per case
+]
+
+# columns of the flow table that only another equation set fills
+_FLOW_INACTIVE = (
+    "rT re rh rs rB fT fe fh fs rR2 rT2 fT2 re2 fe2 rh2 fh2 rs2 fs2 "
+    + FLOW_GROUPS[12][1] + " " + FLOW_GROUPS[13][1] + " "
+    + FLOW_GROUPS[14][1]).split()
+
+
+def _pavg(a):
+    """(x,z)-plane average -> (ny,)."""
+    return torch.mean(a, dim=(0, 2))
+
+
+def _need(p, extras, kw) -> None:
+    for name, val in kw.items():
+        if val is not None:
+            raise NotImplementedError(
+                f"{name}: the compressible columns, ROADMAP A14")
+    if extras:
+        raise NotImplementedError(
+            "extras (build_extras: anelastic, compressible, buoyancy, "
+            "Coriolis and source columns): ROADMAP A14")
+    if p is None:
+        raise NotImplementedError(
+            "statistics without the step's pressure (the diagnostic "
+            "pressure solve of the offline averages): ROADMAP A14")
+
+
+def stats_tables(sim, state, p):
+    """The full avg tables of `state` (counterpart of tlab_tpu's
+    make_stats_tables_fn): (flow dict, [scalar dicts]) of (ny,) NumPy
+    columns, reduced on the state's device and brought to the host as one
+    stacked (ncols, ny) array -- no full field is copied.  p: the
+    projection pressure of the step that produced `state`."""
+    flow = flow_statistics(sim.P, state, sim.nsp.visc, p=p)
+    scals = [scalar_statistics(sim.P, state, sim.nsp.diffusivity(i), i, p=p,
+                               visc=sim.nsp.visc)
+             for i in range(sim.nsp.n_scalars)]
+    cols = [v for table in (flow, *scals) for v in table.values()]
+    stacked = torch.stack(cols).cpu().numpy()        # one small copy
+    k = len(flow)
+    out = [dict(zip(flow, stacked[:k]))]
+    for s in scals:
+        out.append(dict(zip(s, stacked[k:k + len(s)])))
+        k += len(s)
+    return out[0], out[1:]
+
+
+# ---------------------------------------------------------------------------
+# AVG_FLOW_XZ
+# ---------------------------------------------------------------------------
+
+def flow_statistics(P, state, visc, p=None, extras=None):
+    """Full reference flow table: dict name -> (ny,) profile
+    (avg_flow_xz.f90), incompressible set.
+
+    p: the projection pressure the dycore computed this step."""
+    _need(p, extras, {})
+    u, v, w = state.u, state.v, state.w
+    d1y = P.get("d1y")
+    ny = u.shape[1]
+    zero = torch.zeros((ny,), dtype=u.dtype, device=u.device)
+
+    def dy(prof):
+        return (d1y @ prof) if d1y is not None else torch.zeros_like(prof)
+
+    out = {}
+
+    # --- Mean group (Favre == Reynolds) ------------------------------------
+    rU, rV, rW = _pavg(u), _pavg(v), _pavg(w)
+    rU_y, rV_y, rW_y = dy(rU), dy(rV), dy(rW)
+    rP = _pavg(p)
+    pf = p - rP[None, :, None]
+    out["rR"] = torch.ones((ny,), dtype=u.dtype, device=u.device)
+    out["rU"], out["rV"], out["rW"], out["rP"] = rU, rV, rW, rP
+    out["fU"], out["fV"], out["fW"] = rU, rV, rW
+    for n in _FLOW_INACTIVE:
+        out[n] = zero
+
+    # --- Fluctuations -----------------------------------------------------
+    uf = u - rU[None, :, None]
+    vf = v - rV[None, :, None]
+    wf = w - rW[None, :, None]
+    Rxx, Ryy, Rzz = _pavg(uf * uf), _pavg(vf * vf), _pavg(wf * wf)
+    Rxy, Rxz, Ryz = _pavg(uf * vf), _pavg(uf * wf), _pavg(vf * wf)
+    out["Tke"] = 0.5 * (Rxx + Ryy + Rzz)
+    out["Rxx"], out["Ryy"], out["Rzz"] = Rxx, Ryy, Rzz
+    out["Rxy"], out["Rxz"], out["Ryz"] = Rxy, Rxz, Ryz
+    out["rP2"] = _pavg(pf * pf)
+
+    # --- velocity gradient tensor ----------------------------------------
+    g = {}
+    for cname, comp in (("u", u), ("v", v), ("w", w)):
+        for aname, axis in (("x", 0), ("y", 1), ("z", 2)):
+            g[cname + aname] = dyn._d1(P, aname, axis, comp)
+    div = g["ux"] + g["vy"] + g["wz"]
+
+    # --- Vorticity --------------------------------------------------------
+    for nm, om in (("Wx", g["wy"] - g["vz"]),
+                   ("Wy", g["uz"] - g["wx"]),
+                   ("Wz", g["vx"] - g["uy"])):
+        m = _pavg(om)
+        out[nm] = m
+        out[nm + "2"] = _pavg((om - m[None, :, None]) ** 2)
+
+    # --- budget building blocks ------------------------------------------
+    c23 = 2.0 / 3.0
+    tags = ("xx", "yy", "zz", "xy", "xz", "yz")
+    Rm = {"xx": Rxx, "yy": Ryy, "zz": Rzz,
+          "xy": Rxy, "xz": Rxz, "yz": Ryz}
+    Ry = {k: dy(vv) for k, vv in Rm.items()}
+    rmean_y = {"u": rU_y, "v": rV_y, "w": rW_y}
+
+    # mean viscous stresses Tau_iy (avg_flow_xz.f90:1180-1215); the
+    # fluctuating parts feed the transport/dissipation corrections
+    tau_yy_f3 = (g["vy"] * 2.0 - g["ux"] - g["wz"])
+    Tau_yy = _pavg(tau_yy_f3)
+    tau_yy_f3 = (tau_yy_f3 - Tau_yy[None, :, None]) * c23
+    Tau_yy = Tau_yy * visc * c23
+    tau_xy_f3 = g["uy"] + g["vx"]
+    Tau_xy = _pavg(tau_xy_f3)
+    tau_xy_f3 = tau_xy_f3 - Tau_xy[None, :, None]
+    Tau_xy = Tau_xy * visc
+    tau_yz_f3 = g["vz"] + g["wy"]
+    Tau_yz = _pavg(tau_yz_f3)
+    tau_yz_f3 = tau_yz_f3 - Tau_yz[None, :, None]
+    Tau_yz = Tau_yz * visc
+
+    # triple-velocity correlations + pressure + viscous contributions
+    Txxy = _pavg(uf * uf * vf)
+    Tyyy = _pavg(vf * vf * vf)
+    Tzzy = _pavg(wf * wf * vf)
+    Txyy = _pavg(uf * vf * vf)
+    Txzy = _pavg(uf * wf * vf)
+    Tyzy = _pavg(vf * wf * vf)
+    Trp1 = 0.5 * (Txxy + Tyyy + Tzzy)              # Ty1, velocity triples
+    pv_u = _pavg(uf * pf)
+    pv_v = _pavg(vf * pf)
+    pv_w = _pavg(wf * pf)
+    Trp2 = pv_v                                    # Ty2, pressure transport
+    Txyy = Txyy + pv_u
+    Tyyy = Tyyy + 2.0 * pv_v
+    Tyzy = Tyzy + pv_w
+    visc_u = _pavg(tau_xy_f3 * uf)
+    visc_v = _pavg(tau_yy_f3 * vf)
+    visc_w = _pavg(tau_yz_f3 * wf)
+    Trp3 = -visc * (visc_u + visc_v + visc_w)      # Ty3, viscous transport
+    Txxy = Txxy - 2.0 * visc * visc_u
+    Tyyy = Tyyy - 2.0 * visc * visc_v
+    Tzzy = Tzzy - 2.0 * visc * visc_w
+    Txyy = Txyy - visc * (_pavg(tau_yy_f3 * uf) + _pavg(tau_xy_f3 * vf))
+    Txzy = Txzy - visc * (_pavg(tau_yz_f3 * uf) + _pavg(tau_xy_f3 * wf))
+    Tyzy = Tyzy - visc * (_pavg(tau_yz_f3 * vf) + _pavg(tau_yy_f3 * wf))
+    Tiy = {"xx": Txxy, "yy": Tyyy, "zz": Tzzy,
+           "xy": Txyy, "xz": Txzy, "yz": Tyzy}
+    Tiy_y = {k: dy(vv) for k, vv in Tiy.items()}
+
+    # dissipation with deviatoric mean correction (avg_flow_xz.f90:1146+)
+    dil23 = div * c23
+    phi_xx = (g["ux"] * 2.0 - dil23) * g["ux"] \
+        + (g["uy"] + g["vx"]) * g["uy"] + (g["uz"] + g["wx"]) * g["uz"]
+    phi_yy = (g["vy"] * 2.0 - dil23) * g["vy"] \
+        + (g["uy"] + g["vx"]) * g["vx"] + (g["vz"] + g["wy"]) * g["vz"]
+    phi_zz = (g["wz"] * 2.0 - dil23) * g["wz"] \
+        + (g["wy"] + g["vz"]) * g["wy"] + (g["wx"] + g["uz"]) * g["wx"]
+    phi_xy = (g["ux"] * 2.0 - dil23) * g["vx"] \
+        + (g["uy"] + g["vx"]) * g["vy"] + (g["uz"] + g["wx"]) * g["vz"] \
+        + (g["vy"] * 2.0 - dil23) * g["uy"] \
+        + (g["uy"] + g["vx"]) * g["ux"] + (g["vz"] + g["wy"]) * g["uz"]
+    phi_xz = (g["ux"] * 2.0 - dil23) * g["wx"] \
+        + (g["uy"] + g["vx"]) * g["wy"] + (g["uz"] + g["wx"]) * g["wz"] \
+        + (g["wz"] * 2.0 - dil23) * g["uz"] \
+        + (g["uz"] + g["wx"]) * g["ux"] + (g["vz"] + g["wy"]) * g["uy"]
+    phi_yz = (g["vy"] * 2.0 - dil23) * g["wy"] \
+        + (g["uy"] + g["vx"]) * g["wx"] + (g["vz"] + g["wy"]) * g["wz"] \
+        + (g["wz"] * 2.0 - dil23) * g["vz"] \
+        + (g["uz"] + g["wx"]) * g["vx"] + (g["vz"] + g["wy"]) * g["vy"]
+    Eij = {"xx": (_pavg(phi_xx) * visc - Tau_xy * rU_y) * 2.0,
+           "yy": (_pavg(phi_yy) * visc - Tau_yy * rV_y) * 2.0,
+           "zz": (_pavg(phi_zz) * visc - Tau_yz * rW_y) * 2.0,
+           "xy": _pavg(phi_xy) * visc - Tau_xy * rV_y - Tau_yy * rU_y,
+           "xz": _pavg(phi_xz) * visc - Tau_xy * rW_y - Tau_yz * rU_y,
+           "yz": _pavg(phi_yz) * visc - Tau_yy * rW_y - Tau_yz * rV_y}
+
+    # pressure-strain (means need no subtraction: <p'> = 0)
+    PIij = {"xx": 2.0 * _pavg(pf * g["ux"]),
+            "yy": 2.0 * _pavg(pf * g["vy"]),
+            "zz": 2.0 * _pavg(pf * g["wz"]),
+            "xy": _pavg(pf * (g["uy"] + g["vx"])),
+            "xz": _pavg(pf * (g["uz"] + g["wx"])),
+            "yz": _pavg(pf * (g["vz"] + g["wy"]))}
+
+    Cij = {t: -rV * Ry[t] for t in tags}
+    Pij = {"xx": -2.0 * Rxy * rU_y, "yy": -2.0 * Ryy * rV_y,
+           "zz": -2.0 * Ryz * rW_y,
+           "xy": -(Rxy * rV_y + Ryy * rU_y),
+           "xz": -(Rxy * rW_y + Ryz * rU_y),
+           "yz": -(Ryy * rW_y + Ryz * rV_y)}
+
+    # the buoyancy (B), Coriolis (F) and variable-density (G, D) terms
+    # vanish for this equation set
+    for t in tags:
+        out[f"R{t}_t"] = Cij[t] + Pij[t] - Eij[t] + (PIij[t] - Tiy_y[t])
+        out[f"B{t}"] = zero
+        out[f"C{t}"] = Cij[t]
+        out[f"P{t}"] = Pij[t]
+        out[f"E{t}"] = Eij[t]
+        out[f"PI{t}"] = PIij[t]
+        out[f"F{t}"] = zero
+        out[f"T{t}y_y"] = Tiy_y[t]
+        out[f"T{t}y"] = Tiy[t]
+        out[f"G{t}"] = zero
+        out[f"D{t}"] = zero
+
+    # --- TKE budget -------------------------------------------------------
+    Con = 0.5 * (Cij["xx"] + Cij["yy"] + Cij["zz"])
+    Prd = 0.5 * (Pij["xx"] + Pij["yy"] + Pij["zz"])
+    Pi = 0.5 * (PIij["xx"] + PIij["yy"] + PIij["zz"])
+    Eps = 0.5 * (Eij["xx"] + Eij["yy"] + Eij["zz"])
+    Ty_y = 0.5 * (Tiy_y["xx"] + Tiy_y["yy"] + Tiy_y["zz"])
+    Phi = 2.0 * visc * _pavg(
+        g["ux"] ** 2 + g["vy"] ** 2 + g["wz"] ** 2
+        + 0.5 * ((g["uy"] + g["vx"]) ** 2 + (g["uz"] + g["wx"]) ** 2
+                 + (g["vz"] + g["wy"]) ** 2) - div ** 2 / 3.0)
+    dpx = dyn._d1(P, "x", 0, p)
+    dpy = dyn._d1(P, "y", 1, p)
+    dpz = dyn._d1(P, "z", 2, p)
+    out["Tke_t"] = Con + Prd - Eps + (-Ty_y + Pi)
+    out["Buo"], out["Con"], out["Prd"] = zero, Con, Prd
+    out["Eps"], out["Pi"], out["Trp"] = Eps, Pi, Ty_y
+    out["Trp1"], out["Trp2"], out["Trp3"] = Trp1, Trp2, Trp3
+    out["Trp1_y"], out["Trp2_y"], out["Trp3_y"] = dy(Trp1), dy(Trp2), \
+        dy(Trp3)
+    out["G"], out["D"], out["Phi"] = zero, zero, Phi
+    out["UgradP"] = _pavg(u * dpx + v * dpy + w * dpz)
+
+    # --- HigherOrder ------------------------------------------------------
+    out["rU3"] = _pavg(uf ** 3)
+    out["rU4"] = _pavg(uf ** 4)
+    out["rV3"] = _pavg(vf ** 3)
+    out["rV4"] = _pavg(vf ** 4)
+    out["rW3"] = _pavg(wf ** 3)
+    out["rW4"] = _pavg(wf ** 4)
+
+    # --- DerivativeFluctuations ------------------------------------------
+    out["U_y1"], out["V_y1"], out["W_y1"] = rU_y, rV_y, rW_y
+    dil_f = div - rV_y[None, :, None]
+    out["U_ii2"] = _pavg(dil_f * dil_f)
+    for mom in (2, 3, 4):
+        for cn in ("u", "v", "w"):
+            for an in ("x", "y", "z"):
+                gg = g[cn + an]
+                if an == "y":
+                    gg = gg - rmean_y[cn][None, :, None]
+                out[f"{cn.upper()}_{an}{mom}"] = _pavg(gg ** mom)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# AVG_SCAL_XZ
+# ---------------------------------------------------------------------------
+
+def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
+                      rho=None, vis=None):
+    """Full reference scalar table (avg_scal_xz.f90) of scalar i: dict in
+    reference column order, incompressible set.
+
+    rho, vis: the compressible density and viscosity fields, not ported."""
+    _need(p, extras, {"rho": rho, "vis": vis})
+    s = state.s[i]
+    u, v, w = state.u, state.v, state.w
+    d1y = P.get("d1y")
+    if visc is None:
+        visc = float(P.get("visc", diff))
+    ny = s.shape[1]
+    zero = torch.zeros((ny,), dtype=s.dtype, device=s.device)
+    c23 = 2.0 / 3.0
+
+    def dy(prof):
+        return (d1y @ prof) if d1y is not None else torch.zeros_like(prof)
+
+    out = {}
+    rU, rV, rW = _pavg(u), _pavg(v), _pavg(w)
+    rU_y, rV_y, rW_y = dy(rU), dy(rV), dy(rW)
+
+    uf = u - rU[None, :, None]
+    vf = v - rV[None, :, None]
+    wf = w - rW[None, :, None]
+    Rvu = _pavg(vf * uf)
+    Rvv = _pavg(vf * vf)
+    Rvw = _pavg(vf * wf)
+
+    rS = _pavg(s)
+    rS_y = dy(rS)
+    sf = s - rS[None, :, None]
+    out["rS"], out["fS"] = rS, rS
+    out["rS_y"], out["fS_y"] = rS_y, rS_y
+    out["rQ"], out["fQ"] = zero, zero        # no scalar sources
+
+    out["Rsu"] = _pavg(sf * uf)
+    out["Rsv"] = _pavg(sf * vf)
+    out["Rsw"] = _pavg(sf * wf)
+    rS2 = _pavg(sf * sf)
+    rS3 = _pavg(sf ** 3)
+    rS4 = _pavg(sf ** 4)
+    out["fS2"], out["fS3"], out["fS4"] = rS2, rS3, rS4
+    out["rS2"], out["rS3"], out["rS4"] = rS2, rS3, rS4
+    Rss_y = dy(rS2)
+    Rsu_y, Rsv_y, Rsw_y = dy(out["Rsu"]), dy(out["Rsv"]), dy(out["Rsw"])
+
+    # turbulent transport (velocity part, avg_scal_xz.f90:430-443)
+    Tssy1 = _pavg(sf * sf * vf)
+    Tsuy1 = _pavg(sf * uf * vf)
+    Tsvy1 = _pavg(sf * vf * vf)
+    Tswy1 = _pavg(sf * wf * vf)
+
+    # pressure terms
+    rP = _pavg(p)
+    pf = p - rP[None, :, None]
+    dsdx = dyn._d1(P, "x", 0, s)
+    dsdy = dyn._d1(P, "y", 1, s)
+    dsdz = dyn._d1(P, "z", 2, s)
+    Tsvy3 = _pavg(pf * sf)
+    PIsu = _pavg(pf * dsdx)
+    PIsv = _pavg(pf * (dsdy - rS_y[None, :, None]))
+    PIsw = _pavg(pf * dsdz)
+
+    # velocity gradients for dissipation/transport
+    gux = dyn._d1(P, "x", 0, u)
+    gvy = dyn._d1(P, "y", 1, v)
+    gwz = dyn._d1(P, "z", 2, w)
+    guy = dyn._d1(P, "y", 1, u)
+    gvx = dyn._d1(P, "x", 0, v)
+    gwy = dyn._d1(P, "y", 1, w)
+    gvz = dyn._d1(P, "z", 2, v)
+    gwx = dyn._d1(P, "x", 0, w)
+    guz = dyn._d1(P, "z", 2, u)
+
+    # dissipation accumulations (avg_scal_xz.f90:609-706)
+    Ess = 2.0 * diff * _pavg(dsdx * dsdx + dsdy * dsdy + dsdz * dsdz)
+    Esu = _pavg(dsdx * ((gux * 2.0 - gvy - gwz) * c23 * visc + gux * diff)
+                + dsdy * ((guy + gvx) * visc + guy * diff)
+                + dsdz * ((guz + gwx) * visc + guz * diff))
+    Esv = _pavg(dsdy * ((gvy * 2.0 - gux - gwz) * c23 * visc + gvy * diff)
+                + dsdx * ((guy + gvx) * visc + gvx * diff)
+                + dsdz * ((gwy + gvz) * visc + gvz * diff))
+    Esw = _pavg(dsdz * ((gwz * 2.0 - gux - gvy) * c23 * visc + gwz * diff)
+                + dsdy * ((gwy + gvz) * visc + gwy * diff)
+                + dsdx * ((gwx + guz) * visc + gwx * diff))
+
+    # mean viscous stresses / molecular flux + transport contributions
+    tau_yy3 = (gvy * 2.0 - gux - gwz) * c23 * visc
+    Tau_yy = _pavg(tau_yy3)
+    Tsvy2 = -_pavg((tau_yy3 - Tau_yy[None, :, None]) * sf)
+    tau_yx3 = (guy + gvx) * visc
+    Tau_yx = _pavg(tau_yx3)
+    Tsuy2 = -_pavg((tau_yx3 - Tau_yx[None, :, None]) * sf)
+    tau_yz3 = (gwy + gvz) * visc
+    Tau_yz = _pavg(tau_yz3)
+    Tswy2 = -_pavg((tau_yz3 - Tau_yz[None, :, None]) * sf)
+
+    Fy = _pavg(dsdy)                 # molecular scalar flux
+    dsdy_f = dsdy - Fy[None, :, None]
+    Tssy2 = -2.0 * diff * _pavg(dsdy_f * sf)
+    Tsuy2 = Tsuy2 - diff * _pavg(dsdy_f * uf)
+    Tsvy2 = Tsvy2 - diff * _pavg(dsdy_f * vf)
+    Tswy2 = Tswy2 - diff * _pavg(dsdy_f * wf)
+    Fy = Fy * diff
+
+    # dissipation mean-flux corrections (avg_scal_xz.f90:760-763)
+    Ess = Ess - 2.0 * Fy * rS_y
+    Esu = Esu - Tau_yx * rS_y - Fy * rU_y
+    Esv = Esv - Tau_yy * rS_y - Fy * rV_y
+    Esw = Esw - Tau_yz * rS_y - Fy * rW_y
+
+    # transport derivatives
+    Tssy_y = dy(Tssy1 + Tssy2)
+    Tsuy_y = dy(Tsuy1 + Tsuy2)
+    Tsvy_y = dy(Tsvy1 + Tsvy2 + Tsvy3)
+    Tswy_y = dy(Tswy1 + Tswy2)
+
+    Css = -rV * Rss_y
+    Csu = -rV * Rsu_y
+    Csv = -rV * Rsv_y
+    Csw = -rV * Rsw_y
+    Pss = -2.0 * out["Rsv"] * rS_y
+    Psu = -out["Rsv"] * rU_y - Rvu * rS_y
+    Psv = -out["Rsv"] * rV_y - Rvv * rS_y
+    Psw = -out["Rsv"] * rW_y - Rvw * rS_y
+
+    # the variable-density (D, G), buoyancy (B), Coriolis (F) and source
+    # (Q) terms vanish for this equation set
+    out["Rss_t"] = Css + Pss - Ess + (-Tssy_y)
+    out["Css"], out["Pss"], out["Ess"] = Css, Pss, Ess
+    out["Tssy1"], out["Tssy2"], out["Tssy_y"] = Tssy1, Tssy2, Tssy_y
+    out["Dss"], out["Qss"] = zero, zero
+    out["Rsu_t"] = Csu + Psu - Esu + (PIsu - Tsuy_y)
+    out["Csu"], out["Psu"], out["Esu"], out["PIsu"] = Csu, Psu, Esu, PIsu
+    out["Tsuy1"], out["Tsuy2"], out["Tsuy_y"] = Tsuy1, Tsuy2, Tsuy_y
+    out["Rsv_t"] = Csv + Psv - Esv + (PIsv - Tsvy_y)
+    out["Csv"], out["Psv"], out["Esv"], out["PIsv"] = Csv, Psv, Esv, PIsv
+    out["Tsvy1"], out["Tsvy2"], out["Tsvy3"], out["Tsvy_y"] = \
+        Tsvy1, Tsvy2, Tsvy3, Tsvy_y
+    out["Rsw_t"] = Csw + Psw - Esw + (PIsw - Tswy_y)
+    out["Csw"], out["Psw"], out["Esw"], out["PIsw"] = Csw, Psw, Esw, PIsw
+    out["Tswy1"], out["Tswy2"], out["Tswy_y"] = Tswy1, Tswy2, Tswy_y
+    for c in "uvw":
+        for n in "DGBFQ":
+            out[f"{n}s{c}"] = zero
+
+    # derivative moments
+    dsdy_m = dsdy - rS_y[None, :, None]
+    for mom in (2, 3, 4):
+        out[f"S_x{mom}"] = _pavg(dsdx ** mom)
+        out[f"S_y{mom}"] = _pavg(dsdy_m ** mom)
+        out[f"S_z{mom}"] = _pavg(dsdz ** mom)
+
+    # cross-scalar correlations
+    for j in range(state.s.shape[0]):
+        sj = state.s[j]
+        sjf = sj - _pavg(sj)[None, :, None]
+        out[f"Cs{j + 1}"] = _pavg(sjf * sf)
+        out[f"Css{j + 1}"] = _pavg(sjf * sf * sf)
+    return out
+
+
+def scal_groups(ns: int):
+    """SCAL_GROUPS with the per-case CrossScalars columns appended."""
+    cross = " ".join(f"Cs{j + 1} Css{j + 1}" for j in range(ns))
+    return SCAL_GROUPS + [("CrossScalars", cross)] if ns else SCAL_GROUPS
+
+
+# ---------------------------------------------------------------------------
+# I/O -- reference ASCII format (io_averages.f90:95-130) and a simple
+# one-header table kept for auxiliary outputs
+# ---------------------------------------------------------------------------
+
+def write_avg(path: str, y: np.ndarray, out: dict, groups, itime: int,
+              rtime: float) -> None:
+    """Reference `avg<it>` ASCII layout: RTIME line, one GROUP line per
+    group, `I J Y <vars>` header, then rows `1 j y v1 v2 ...`."""
+    names = []
+    with open(path, "w") as fh:
+        fh.write(f"RTIME = {rtime:14.7E}\n")
+        for gname, vars_ in groups:
+            fh.write(f"GROUP = {gname} {vars_}\n")
+            names.extend(vars_.split())
+        fh.write("I J Y " + " ".join(names) + "\n")
+        cols = [np.asarray(out[n]) for n in names]
+        data = np.column_stack([np.asarray(y)] + cols)
+        for j, row in enumerate(data):
+            vals = " ".join(f"{x: .8E}" for x in row)
+            fh.write(f"{1:5d} {j + 1:5d} {vals}\n")
+
+
+def avg_writer(case):
+    """The averages writer for `case`: the ASCII one.  [Main]
+    FileFormat=netcdf (the reference's USE_NETCDF build writes avg<it>.nc,
+    io_averages.f90:64) is not ported."""
+    ini = getattr(case, "ini", None)
+    if ini is not None and ini.get("Main", "FileFormat",
+                                   "mpiio").lower() == "netcdf":
+        raise NotImplementedError(
+            "[Main] FileFormat=netcdf (NetCDF averages files): ROADMAP A14")
+    return write_avg
+
+
+def read_avg(path: str):
+    """Parse a reference-format avg file -> (rtime, groups, dict)."""
+    groups = []
+    with open(path) as fh:
+        line = fh.readline()
+        rtime = float(line.split("=")[1])
+        names = None
+        for line in fh:
+            if line.startswith("GROUP = "):
+                parts = line.split()
+                groups.append((parts[2], " ".join(parts[3:])))
+                continue
+            if line.startswith("I J Y"):
+                names = line.split()[3:]
+                break
+        data = np.loadtxt(fh)
+    data = np.atleast_2d(data)
+    out = {"Y": data[:, 2]}
+    for k, n in enumerate(names):
+        out[n] = data[:, 3 + k]
+    return rtime, groups, out
+
+
+def write_table(path: str, y: np.ndarray, groups: dict, itime: int,
+                rtime: float) -> None:
+    """ASCII table: header line of column names, then y + profiles."""
+    names = list(groups.keys())
+    cols = [np.asarray(groups[n]) for n in names]
+    with open(path, "w") as fh:
+        fh.write(f"# it={itime} rtime={rtime:.8e}\n")
+        fh.write("# " + " ".join(["Y"] + names) + "\n")
+        data = np.column_stack([y] + cols)
+        for row in data:
+            fh.write(" ".join(f"{x: .8e}" for x in row) + "\n")
+
+
+def read_table(path: str):
+    with open(path) as fh:
+        fh.readline()
+        names = fh.readline().split()[1:]
+    data = np.loadtxt(path)
+    return {n: data[:, i] for i, n in enumerate(names)}

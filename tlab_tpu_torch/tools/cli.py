@@ -1,0 +1,111 @@
+"""Command-line entry points sharing one tlab.ini-compatible config (port of
+tlab_tpu/tools/cli.py: pre-processing and the DNS loop).
+
+Usage:  python -m tlab_tpu_torch.tools.cli <command> [--ini tlab.ini] [options]
+Commands: inigrid, ini (aliases inirand, iniflow, iniscal), dns.
+Equivalent surface to the reference executables inigrid.x/inirand.x/
+iniflow.x/iniscal.x/dns.x.  The run is on the CUDA card unless --device
+names another device; --x64 computes in float64 (validation mode).
+
+Files: inigrid writes `grid` and `<ini>.bak`; ini writes
+flow.<Start>.{1,2,3} and scal.<Start>.<i>; dns reads them and writes dns.out,
+tlab.log, restarts at the [Iteration] Restart cadence and avg<it> /
+avg<it>s<i> at the Statistics cadence.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+import torch
+
+# tlab_tpu's other commands and the ROADMAP item that ports each
+UNPORTED = {
+    "inipart": "A15", "averages": "A14", "spectra": "A14", "pdfs": "A14",
+    "superlayer": "A14", "visuals": "A16", "transfields": "A16",
+    "transgrid": "A16", "apriori": "A16", "planes2nc": "A15",
+    "tower2nc": "A15", "stats2nc": "A14", "state": "A16", "smooth": "A16",
+    "saturation": "A16", "reversal": "A16"}
+INI_COMMANDS = ("ini", "inirand", "iniflow", "iniscal")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="tlab-tpu-torch")
+    ap.add_argument("command",
+                    choices=["inigrid", *INI_COMMANDS, "dns", *UNPORTED])
+    ap.add_argument("--inner-steps", type=int, default=1,
+                    help="RK steps per host sync (fixed dt within)")
+    ap.add_argument("--ini", default="tlab.ini")
+    ap.add_argument("--outdir", default=".")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="override [Broadband] Seed (default: ini value)")
+    ap.add_argument("--x64", action="store_true",
+                    help="run in float64 (validation mode)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default: the CUDA card; "
+                         "'cpu' for a run without one)")
+    ap.add_argument("--steps", type=int, default=None)
+    args = ap.parse_args(argv)
+
+    if args.command in UNPORTED:
+        raise SystemExit(f"tlab_tpu_torch: command {args.command!r} is not "
+                         f"ported yet (ROADMAP {UNPORTED[args.command]})")
+    try:
+        return _run(args)
+    except NotImplementedError as e:        # an option that is not ported
+        raise SystemExit(f"tlab_tpu_torch: {e}")
+
+
+def _run(args) -> int:
+    from tlab_tpu_torch.config import load_case
+    from tlab_tpu_torch.convert import state_from_numpy
+    from tlab_tpu_torch.grid import write_reference_grid
+    from tlab_tpu_torch.io import fields_io
+    from tlab_tpu_torch.runtime import Simulation, grid_from_case
+    from tlab_tpu_torch.utils import trace
+
+    case = load_case(args.ini)
+    os.makedirs(args.outdir, exist_ok=True)
+    trace.maybe_init(case, args.outdir)
+    trace.point(f"tool {args.command} starting ({args.ini})")
+
+    if args.command == "inigrid":
+        grid = grid_from_case(case)
+        write_reference_grid(os.path.join(args.outdir, "grid"), grid)
+        case.ini.write_bak(os.path.join(args.outdir,
+                                        os.path.basename(args.ini) + ".bak"))
+        print(f"grid written: {grid.shape}")
+        return 0
+
+    dtype = torch.float64 if args.x64 else torch.float32
+    sim = Simulation.from_case(case, dtype=dtype, device=args.device)
+    flow = os.path.join(args.outdir, "flow")
+    scal = os.path.join(args.outdir, "scal")
+
+    if args.command in INI_COMMANDS:
+        from tlab_tpu_torch.tools.initialize import initial_state
+        with trace.trace("initial_state"):
+            state = initial_state(sim, seed=args.seed)
+        fields_io.write_state(flow, scal, case.it_start, state, 0.0,
+                              sim.nsp.visc)
+        print(f"initial fields written at it={case.it_start}")
+        return 0
+
+    # dns
+    from tlab_tpu_torch.tools import dns as dns_tool
+    it0 = case.it_start
+    u, v, w, s, rtime, visc0 = fields_io.read_state(flow, scal, it0,
+                                                    sim.nsp.n_scalars)
+    state = state_from_numpy(u, v, w, s, sim.device, sim.dtype)
+    run = dns_tool.run(sim, state, outdir=args.outdir, itime=it0,
+                       rtime=float(rtime), n_steps=args.steps,
+                       log_path=os.path.join(args.outdir, "dns.out"),
+                       inner_steps=args.inner_steps,
+                       restart_visc=float(visc0) if visc0 else None)
+    print("\n".join(run.log.lines[-3:]))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,376 @@
+"""The dns.x equivalent time loop (port of tlab_tpu/tools/dns.py,
+the single-device incompressible thread through it).
+
+Outer loop on the host (adaptive dt, logging, checkpoints, statistics);
+each RK step, or window of `inner_steps` steps, is a sequence of device
+calls that the host waits for once, when it reads the window's CFL and
+dilatation extrema.  Structure mirrors reference dns_main.f90:246-361; the
+dns.out step log reproduces the reference's columns (Itn. time dt CFL# D#
+visc DilMin DilMax, dns_main.f90:394-495).
+
+What tlab_tpu's loop has beyond this thread (a device mesh, particles,
+unsteady inflow, filters, planes and towers, phase and spatial statistics,
+in-run pdfs and spectra, the operator self-test) raises NotImplementedError
+naming the ROADMAP item that will port it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from tlab_tpu_torch.dycore import incompressible as dyn
+from tlab_tpu_torch.dycore.state import State
+from tlab_tpu_torch.io import fields_io
+from tlab_tpu_torch.runtime import Simulation
+from tlab_tpu_torch.stats import averages as avg
+from tlab_tpu_torch.utils import trace as _trace
+from tlab_tpu_torch.utils.fortran_fmt import fort_e
+
+
+@dataclasses.dataclass
+class RunLog:
+    path: Optional[str] = None
+    lines: list = dataclasses.field(default_factory=list)
+
+    def header(self):
+        self._write("#" * 93 + "\n"
+                    "#  Itn.    time          dt         CFL#       D#      "
+                    "   visc       DilMin        DilMax     #\n" + "#" * 93)
+
+    def step(self, status, itime, rtime, dt, cfl, dnum, visc, *extra):
+        line = (f"{status} {itime:7d}  {fort_e(rtime, 6)}  {fort_e(dt, 3)}  "
+                f"{fort_e(cfl, 3)}  {fort_e(dnum, 3)}  {fort_e(visc, 3)}")
+        line += " " + "  ".join(fort_e(v, 6) for v in extra)
+        self._write(line)
+
+    def _write(self, text):
+        self.lines.append(text)
+        if self.path:
+            with open(self.path, "a") as fh:
+                fh.write(text + "\n")
+
+
+@dataclasses.dataclass
+class DnsRun:
+    sim: Simulation
+    state: State
+    itime: int
+    rtime: float
+    log: RunLog
+
+
+def make_step_functions(sim: Simulation, inner_steps: int = 1):
+    """(step, cfl_only) for the single-device run.
+
+    step(state, dtime, extra=None) takes `inner_steps` RK steps at a fixed
+    dt (inner_steps > 1: one State<->stack conversion for the window; the
+    CFL-based dt then updates every window instead of every step, where the
+    reference syncs each step, TIME_COURANT) and returns (state, last
+    pressure, diag) with diag the device tensor [CFL max, dilatation min,
+    dilatation max] of the stepped state, which the host reads in one copy.
+    extra: the step's aux dict ({"visc_scale": factor} or None)."""
+    P = sim.P
+
+    def step(state, dtime, extra=None):
+        if inner_steps > 1:
+            new_state, p = dyn.rk_loop_stacked(P, state, dtime, inner_steps,
+                                               aux=extra)
+        else:
+            new_state, p = dyn.rk_step(P, state, dtime, aux=extra)
+        dmin, dmax = dyn.dilatation_minmax(P, new_state)
+        return new_state, p, torch.stack(
+            [dyn.cfl_advective_max(P, new_state), dmin, dmax])
+
+    def cfl_only(state):
+        return dyn.cfl_advective_max(P, state)
+
+    return step, cfl_only
+
+
+def write_statistics(sim: Simulation, state: State, outdir: str,
+                     itime: int, rtime: float, p=None) -> None:
+    """avg<itime> / avg<itime>s<i> plane-statistics tables
+    (reference DNS_STATISTICS_TEMPORAL, dns_statistics.f90:56). p: the
+    projection pressure the step already computed.
+
+    The tables are reduced on the device and come to the host as one
+    (ncols, ny) stack -- no full field is copied (the reference reduces in
+    place via AVG_IK_V, averages.f90:36-333)."""
+    y = sim.grid.y.nodes
+    flow, scals = avg.stats_tables(sim, state, p)
+    _wr = avg.avg_writer(sim.case)
+    _wr(os.path.join(outdir, f"avg{itime}"), y, flow, avg.FLOW_GROUPS,
+        itime, rtime)
+    sgroups = avg.scal_groups(state.s.shape[0])
+    for i, sc in enumerate(scals):
+        _wr(os.path.join(outdir, f"avg{itime}s{i + 1}"), y, sc, sgroups,
+            itime, rtime)
+
+
+def write_obs(sim: Simulation, state: State, outdir: str, itime: int,
+              rtime: float) -> None:
+    """Ekman-case observables to dns.obs (reference dns_main.f90:500-566):
+    bulk velocities, friction velocity and stress angle at the lower wall."""
+    y = sim.grid.y.nodes
+    yt = torch.as_tensor(y).to(state.u.device, state.u.dtype)
+    U = torch.mean(state.u, dim=(0, 2))
+    W = torch.mean(state.w, dim=(0, 2))
+    d1y = sim.P.get("d1y")
+    zero = torch.zeros((), dtype=U.dtype, device=U.device)
+    ub, wb, dUdy, dWdy = torch.stack([
+        torch.trapezoid(U, yt) / (y[-1] - y[0]),
+        torch.trapezoid(W, yt) / (y[-1] - y[0]),
+        (d1y @ U)[0] if d1y is not None else zero,
+        (d1y @ W)[0] if d1y is not None else zero]).tolist()
+    visc = sim.nsp.visc
+    utau = (visc * np.hypot(dUdy, dWdy)) ** 0.5
+    alpha = np.degrees(np.arctan2(dWdy, dUdy))
+    with open(os.path.join(outdir, "dns.obs"), "a") as fh:
+        fh.write(f"{itime:7d} {rtime:.8e} {ub:.8e} {wb:.8e} "
+                 f"{utau:.8e} {alpha:.6f}\n")
+
+
+def _unported(case, mesh, pstate, particle_props, inflow, opr_check):
+    """(option, ROADMAP item) of what this run asks for beyond the port."""
+    found = []
+    if mesh is not None:
+        found.append(("mesh (multi-GPU pencils)", "A17"))
+    if pstate is not None or particle_props is not None:
+        found.append(("particles", "A15"))
+    if inflow is not None:
+        found.append(("unsteady inflow", "A10"))
+    if opr_check:
+        found.append(("opr_check (operator self-test)", "A16"))
+    planes = getattr(case, "planes", None) or {}
+    if any(planes.get(ax) for ax in ("i", "j", "k")):
+        found.append(("[SavePlanes]", "A15"))
+    if (getattr(case, "towers", None) or {}).get("stride"):
+        found.append(("[SaveTowers]", "A15"))
+    ini = getattr(case, "ini", None)
+    if ini is not None:
+        if ini.get_int("Iteration", "PhaseAvg", 0) > 0:
+            found.append(("[Iteration] PhaseAvg", "A14"))
+        for key in ("Pdfs", "Intermittency", "Spectrums"):
+            if ini.get_bool("Statistics", key, False):
+                found.append((f"[Statistics] {key}", "A14"))
+    return found
+
+
+def run(sim: Simulation, state: State, outdir: str = ".",
+        itime: int = 0, rtime: float = 0.0,
+        n_steps: Optional[int] = None, log_path: Optional[str] = None,
+        checkpoint: bool = True, nan_abort: bool = True,
+        opr_check: bool = False, pstate=None, particle_props=None,
+        inner_steps: int = 1, inflow=None,
+        restart_visc: Optional[float] = None, mesh=None) -> DnsRun:
+    case = sim.case
+    missing = _unported(case, mesh, pstate, particle_props, inflow,
+                        opr_check)
+    if missing:
+        raise NotImplementedError(
+            "not ported yet: " + "; ".join(
+                f"{opt} (ROADMAP {item})" for opt, item in missing))
+    ini = getattr(case, "ini", None)
+    n_steps = n_steps if n_steps is not None else (case.it_end - itime)
+    # [Main] FileType=single writes f32 restarts (io_fields.f90:37-40);
+    # read_field autodetects on reload
+    restart_dtype = "<f4" if (ini is not None and ini.get(
+        "Main", "FileType", "double").lower() == "single") else "<f8"
+    _trace.maybe_init(case, outdir)
+
+    def checkpoint_now():
+        fields_io.write_state(os.path.join(outdir, "flow"),
+                              os.path.join(outdir, "scal"), itime, state,
+                              rtime, visc, dtype=restart_dtype)
+
+    # [ViscChange] viscosity ramp: a restart whose stored viscosity
+    # differs from the INI's relaxes linearly over Time toward it
+    # (dns_main.f90:176-184, 261); rides into the step as the visc_scale
+    # factor on every diffusivity.
+    cfla = case.time_cfl
+    cfld = case.time_cfl_diffusive
+    fixed_dt = case.time_step if case.time_step > 0 else None
+    visc = sim.nsp.visc
+    visc_ini = visc
+    ramp_rate = 0.0
+    if restart_visc is not None and restart_visc > 0.0 \
+            and abs(restart_visc - visc_ini) > 1e-14 * visc_ini:
+        vtime = ini.get_float("ViscChange", "Time", 0.0) if ini else 0.0
+        if vtime > 0.0:
+            visc = restart_visc
+            ramp_rate = (visc_ini - restart_visc) / vtime
+
+    def _visc_extra():
+        if ramp_rate == 0.0:
+            return None
+        return {"visc_scale": visc / visc_ini}
+
+    with _trace.trace("building step functions"):
+        step, cfl_only = make_step_functions(sim, inner_steps=inner_steps)
+
+    write_tlab_log(sim, outdir)
+    log = RunLog(path=log_path)
+    log.header()
+
+    obs_log = ini.get("Iteration", "ObsLog", "none").lower() != "none" \
+        if ini else False
+    dconst = sim.P["diffusion_constant"]
+    max_dil = (getattr(case, "control", None)
+               or {}).get("max_dilatation", -1.0)
+
+    # lagged dt ([Iteration] DtLag=yes): the next dt comes from the
+    # PREVIOUS window's CFL, the one-step-stale value compensated by a 0.97
+    # safety factor; disabled when dt is fixed.  Kept so that a case with
+    # the key gives tlab_tpu's numbers.  It hides no latency here: the read
+    # below is a copy on the stream the window was enqueued on, so it still
+    # waits for that window.
+    dt_lag = bool(ini and ini.get_bool("Iteration", "DtLag", False)
+                  and fixed_dt is None)
+    prev_diag = None
+
+    # walltime watchdog (reference [Iteration] Runtime,
+    # dns_main.f90:355-360: write tlab.err so job chains stop)
+    runtime_sec = ini.get_float("Iteration", "Runtime", 1.0e7) \
+        if ini else 1.0e7
+    # per-window profiling (reference USE_PROFILE per-RK-substep timing,
+    # time.f90:228-329)
+    profile = bool(ini and ini.get_bool("Main", "Profiling", False))
+    n_sub = len(sim.P["rk"]["kdt"])
+    prof_samples = []
+    t_start = time.monotonic()
+
+    # initial dt + step-0 log line: one read of [CFL, DilMin, DilMax]
+    cmax, dmin0, dmax0 = torch.stack(
+        [cfl_only(state), *dyn.dilatation_minmax(sim.P, state)]).tolist()
+    dtime = fixed_dt or dyn.next_dt(sim.P, cmax, cfla, cfld)
+    log.step(0, itime, rtime, dtime, dtime * cmax, dtime * dconst, visc,
+             dmin0, dmax0)
+
+    status = 0
+    _trace.point("time loop starts")
+    for _ in range(0, n_steps, inner_steps):
+        t_it = time.monotonic()
+        state, p_cur, diag = step(state, dtime, extra=_visc_extra())
+        itime += inner_steps
+        rtime += dtime * inner_steps      # Python float64, never a tensor
+        if ramp_rate != 0.0 and visc != visc_ini:
+            visc = visc + ramp_rate * dtime * inner_steps
+            if (ramp_rate > 0) == (visc >= visc_ini):
+                visc = visc_ini         # ramp complete
+        if dt_lag and prev_diag is not None:
+            cmax, *extras = prev_diag.tolist()
+            cmax *= 1.0 / 0.97
+            prev_diag = diag
+        else:
+            if dt_lag:
+                prev_diag = diag
+            # the window's one host sync: a 3-element copy
+            cmax, *extras = diag.tolist()
+        if profile:
+            prof_samples.append(time.monotonic() - t_it)
+        if nan_abort and not np.isfinite(cmax):
+            status = 1                   # reference logs_data(1) != 0 path
+            log.step(status, itime, rtime, dtime, np.nan, np.nan, visc,
+                     *extras)
+            break
+        new_dt = fixed_dt or dyn.next_dt(sim.P, cmax, cfla, cfld)
+        dnum = new_dt * dconst
+        # dilatation bound (DNS_BOUNDS_CONTROL bound_d branch): abort when
+        # max |nabla.u| exceeds [Control] MaxDilatation
+        if max_dil > 0 and max(abs(extras[0]), abs(extras[1])) > max_dil:
+            status = 3
+            log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
+                     visc, *extras)
+            with open(os.path.join(outdir, "tlab.err"), "a") as fh:
+                fh.write(f"DNS_CONTROL. Dilatation out of bounds "
+                         f"at It{itime}.\n")
+            if checkpoint and case.it_restart > 0:
+                checkpoint_now()
+            break
+        if itime % case.it_log == 0:
+            log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
+                     visc, *extras)
+            _trace.point(f"iteration {itime} logged (dt={new_dt:.3e})")
+        if time.monotonic() - t_start > runtime_sec:
+            with open(os.path.join(outdir, "tlab.err"), "a") as fh:
+                fh.write(f"Maximum walltime of {runtime_sec:g} seconds "
+                         f"is reached at It{itime}.\n")
+            if checkpoint and case.it_restart > 0:
+                checkpoint_now()
+            break
+        if checkpoint and case.it_restart > 0 \
+                and itime % case.it_restart == 0:
+            with _trace.trace(f"checkpoint {itime}"):
+                checkpoint_now()
+        if case.it_stats > 0 and itime % case.it_stats == 0:
+            with _trace.trace(f"statistics {itime}"):
+                write_statistics(sim, state, outdir, itime, rtime, p=p_cur)
+        if obs_log and itime % case.it_log == 0:
+            write_obs(sim, state, outdir, itime, rtime)
+        dtime = new_dt
+
+    if profile and prof_samples:
+        samples = np.asarray(prof_samples)
+        per_sub = samples / (inner_steps * n_sub)
+        with open(os.path.join(outdir, "dns.prof"), "w") as fh:
+            fh.write("# per-window wall time [s] on "
+                     f"{_device_name(sim.device)}; per-RK-substep [s] "
+                     f"(n_sub={n_sub}, inner_steps={inner_steps})\n")
+            fh.write(f"# windows={len(samples)} "
+                     f"total={samples.sum():.6f}\n")
+            fh.write(f"# substep mean={per_sub.mean():.6e} "
+                     f"min={per_sub.min():.6e} max={per_sub.max():.6e}\n")
+            for s in samples:
+                fh.write(f"{s:.6e}\n")
+        log._write(f"# profiling: {per_sub.mean()*1e3:.3f} ms/RK-substep "
+                   f"(min {per_sub.min()*1e3:.3f})")
+
+    if checkpoint and status != 0 and case.it_restart > 0 \
+            and itime % case.it_restart != 0:
+        checkpoint_now()
+    return DnsRun(sim=sim, state=state, itime=itime, rtime=rtime, log=log)
+
+
+def _device_name(device: torch.device) -> str:
+    if device.type == "cuda":
+        return f"{device} ({torch.cuda.get_device_name(device)})"
+    return str(device)
+
+
+def write_tlab_log(sim: Simulation, outdir: str, extra: str = "") -> None:
+    """Run-provenance narrative log (reference tlab.log written by
+    TLab_Write_ASCII during initialization: banner, option echo, sizes)."""
+    case = sim.case
+    nx, ny, nz = sim.grid.shape
+    lines = [
+        "########################################",
+        "# tlab_tpu_torch DNS",
+        f"# started {datetime.datetime.now().isoformat(timespec='seconds')}",
+        "########################################",
+        f"Devices          : {_device_name(sim.device)}",
+        f"Precision        : {str(sim.dtype).replace('torch.', '')}",
+        f"Grid             : {nx} x {ny} x {nz}",
+        f"Scales           : {sim.grid.x.scale:g} x {sim.grid.y.nodes[-1] - sim.grid.y.nodes[0]:g} x {sim.grid.z.scale:g}",
+        f"Periodicity      : x={sim.grid.x.periodic} y={sim.grid.y.periodic} z={sim.grid.z.periodic}",
+        f"Type             : {case.flow_type}",
+        f"Equations        : {case.equations}",
+        f"SpaceOrder       : {case.space_order1} / {case.space_order2}",
+        f"TimeOrder        : {case.time_order}",
+        f"Reynolds         : {case.reynolds:g}  (visc={sim.nsp.visc:g})",
+        f"Schmidt          : {tuple(case.schmidt)}",
+        f"VelocityBCs      : jmin={case.velocity_bc[0]} jmax={case.velocity_bc[1]}",
+        f"Buffer           : {getattr(getattr(case, 'buffer', None), 'type', 'none')}",
+        f"Stagger          : {getattr(case, 'stagger', False)}",
+        f"EllipticOrder    : {case.elliptic_order or 'factorize (default)'}",
+    ]
+    if extra:
+        lines.append(extra)
+    os.makedirs(outdir, exist_ok=True)
+    with open(os.path.join(outdir, "tlab.log"), "a") as fh:
+        fh.write("\n".join(lines) + "\n")

@@ -1,0 +1,505 @@
+"""Initial-condition generation: inigrid/inirand/iniflow/iniscal equivalents
+(port of tlab_tpu/tools/initialize.py, incompressible part).
+
+Functionally mirrors the reference preprocessing tools
+(src/tools/initialize/{grid,rand,flow,scal}): random fields shaped to a
+target isotropic PSD, velocity construction from broadband vorticity via
+Poisson solves, solenoidal projection, TKE normalization, mean profiles.
+The random fields reproduce the reference's realization EXACTLY: the same
+Numerical Recipes ran0/rang stream (utils/nrrandom.py), consumed in the
+same order as inirand (rand_main.f90: inb_flow fields then inb_scal
+fields), with the same spectral shaping (OPR_Fourier_SetPSD,
+opr_fourier.f90:660-746) and normalization (RAND_NORMALIZE).
+
+The random fields and their spectral shaping are NumPy on the host in
+float64; the curl, the Poisson solves, the solenoidal projection and the
+TKE normalisation run as torch on sim.device in sim.dtype.  The
+compressible initial states are ROADMAP A13, the NormalizeR radiation
+increment A9.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tlab_tpu_torch.constants import BC
+from tlab_tpu_torch.dycore.state import State
+from tlab_tpu_torch.runtime import Simulation
+from tlab_tpu_torch.utils import trace as _trace
+from tlab_tpu_torch.utils.nrrandom import NRStream
+
+
+def _tensor(sim: Simulation, a):
+    """Host array -> tensor on sim.device in sim.dtype."""
+    return torch.as_tensor(np.asarray(a, np.float64)).to(sim.device,
+                                                          sim.dtype)
+
+
+# ---------------------------------------------------------------------------
+# inirand: spectrally shaped random fields
+# ---------------------------------------------------------------------------
+
+def _spectral_shape(kind: str, f, f0: float, sigma: float):
+    """Target 1-D spectrum E(f) (reference distributions.f90:38-50)."""
+    if kind == "uniform":
+        return np.ones_like(f)
+    if kind == "quartic":
+        return f ** 4 * np.exp(-2.0 * (f / f0) ** 2)
+    if kind == "quadratic":
+        return f ** 2 * np.exp(-2.0 * f / f0)
+    if kind == "gaussian":
+        return np.exp(-0.5 * ((f - f0) / sigma) ** 2) / (sigma * np.sqrt(2 * np.pi))
+    raise ValueError(kind)
+
+
+def _psd_amplitude(sim: Simulation) -> np.ndarray:
+    """Target |u_hat| over the (nx//2+1, ny, nz) r2c modes.
+
+    Distributions_Compute with the f0-list clip window, then the
+    isotropic-shell geometric factor 1/(pi f) in 2-D or 1/(2 pi f^2) in
+    3-D, then sqrt (reference OPR_Fourier_SetPSD, opr_fourier.f90:687-722).
+    Frequencies are integer wavenumbers over the domain scale."""
+    nx, ny, nz = sim.grid.shape
+    bb = sim.case.broadband
+    fi = (np.arange(nx // 2 + 1) / sim.grid.x.scale)[:, None, None]
+    fj = (np.fft.fftfreq(ny, d=1.0) * ny / sim.grid.y.scale)[None, :, None] \
+        if ny > 1 else np.zeros((1, 1, 1))
+    fk = (np.fft.fftfreq(nz, d=1.0) * nz / sim.grid.z.scale)[None, None, :] \
+        if nz > 1 else np.zeros((1, 1, 1))
+    f = np.sqrt(fi ** 2 + fj ** 2 + fk ** 2)
+    pow_dst = _spectral_shape(bb["spectrum"], f, bb["f0"], bb["sigma"])
+    lo, hi = bb.get("fclip", (0.0, 1e30))
+    pow_dst = np.where((f - lo) * (hi - f) < 0.0, 0.0, pow_dst)
+    two_d = (ny == 1) or (nz == 1)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        pow_dst = np.where(f == 0.0, 0.0,
+                           pow_dst / (np.pi * f) if two_d
+                           else pow_dst / (2 * np.pi * f ** 2))
+    return np.sqrt(np.maximum(pow_dst, 0.0))
+
+
+def _rand_normalize(variance: float, a: np.ndarray) -> np.ndarray:
+    """RAND_NORMALIZE (rand_local.f90:224-244): remove the 3-D mean, then
+    rescale the second raw moment to `variance`."""
+    a = a - a.mean()
+    msq = (a * a).mean()
+    if msq > 0.0:
+        a = a * np.sqrt(variance / msq)
+    return a
+
+
+def _rand_field(rng: NRStream, variance: float, sim: Simulation) -> np.ndarray:
+    """One RAND_FIELD call (rand_local.f90:116-163), reference-exact.
+
+    Distribution=uniform/gaussian fills the field from the ran0/rang
+    stream in Fortran storage order (x fastest) and rescales spectral
+    amplitudes to the target PSD keeping phases; Distribution=none draws
+    isize_txc_field = (nx+2)*ny*nz uniform values and uses the first
+    (nx//2+1)*ny*nz as random phases under the PSD amplitude, with zero
+    phase on the kx=0 and Nyquist planes."""
+    nx, ny, nz = sim.grid.shape
+    bb = sim.case.broadband
+    n = nx * ny * nz
+    pdf = bb["distribution"]
+    if pdf == "uniform":
+        vals = rng.uniform(n) - 0.5
+    elif pdf == "gaussian":
+        vals = rng.gaussian(n)
+    else:
+        vals = np.zeros(n)
+    a = vals.reshape(nz, ny, nx).transpose(2, 1, 0)   # Fortran (i,j,k)
+
+    if bb["spectrum"] != "none":
+        amp = _psd_amplitude(sim)
+        if pdf != "none":
+            uh = np.fft.rfft(a, axis=0)
+            if nz > 1:
+                uh = np.fft.fft(uh, axis=2)
+            if ny > 1:
+                uh = np.fft.fft(uh, axis=1)
+            mag = np.abs(uh)
+            uh = np.where(mag > 0.0,
+                          uh * (amp / np.where(mag > 0.0, mag, 1.0)), 0.0)
+        else:
+            # random phases: the loop fills the PADDED txc array
+            # (tlab_memory.f90:184-187) so the stream advances by
+            # (nx+2)*ny*nz even though only the r2c block is used
+            ph = rng.uniform((nx + 2) * ny * nz)[: (nx // 2 + 1) * ny * nz]
+            loc = ph.reshape(nz, ny, nx // 2 + 1).transpose(2, 1, 0)
+            phase = (loc - 0.5) * 2.0 * np.pi
+            phase[0] = 0.0
+            if nx % 2 == 0:
+                phase[nx // 2] = 0.0
+            uh = amp * (np.cos(phase) + 1j * np.sin(phase))
+        if ny > 1:
+            uh = np.fft.ifft(uh, axis=1)
+        if nz > 1:
+            uh = np.fft.ifft(uh, axis=2)
+        a = np.fft.irfft(uh, n=nx, axis=0)
+    return _rand_normalize(variance, a)
+
+
+def _rand_covariance(cov, flow, sim: Simulation):
+    """RAND_COVARIANCE (rand_local.f90:168-222): renormalize per-component
+    variances; off-diagonal Rxy via the 2-D eigenframe rotation."""
+    nx, ny, nz = sim.grid.shape
+    Rxx, Ryy, Rzz, Rxy, Rxz, Ryz = cov[:6]
+    if nz > 1:
+        if Rxz != 0.0 or Ryz != 0.0:
+            raise NotImplementedError("Rxz/Ryz covariance (reference "
+                                      "rand_local.f90:186 undeveloped)")
+        flow[2] = _rand_normalize(Rzz, flow[2])
+    if Rxy == 0.0:
+        flow[0] = _rand_normalize(Rxx, flow[0])
+        flow[1] = _rand_normalize(Ryy, flow[1])
+    else:
+        trace = Rxx + Ryy
+        lam1 = 0.5 * (trace + np.sqrt(trace * trace
+                                      - 4.0 * (Rxx * Ryy - Rxy * Rxy)))
+        lam2 = trace - lam1
+        u = _rand_normalize(lam1, flow[0])
+        v = _rand_normalize(lam2, flow[1])
+        alpha = np.arctan((lam1 - Rxx) / Rxy)
+        ca, sa = np.cos(alpha), np.sin(alpha)
+        flow[0] = ca * u - sa * v
+        flow[1] = sa * u + ca * v
+    return flow
+
+
+def inirand_fields(sim: Simulation, seed: int | None = None):
+    """The full inirand program (rand_main.f90:69-88): inb_flow velocity
+    fields then inb_scal scalar fields from ONE continuous ran0 stream,
+    seeded -abs([Broadband] Seed) (rand_local.f90:53-55).
+
+    Returns (flow_fields, scal_fields) as float64 (nx,ny,nz) arrays --
+    the in-memory equivalent of the flow.rand / scal.rand files."""
+    bb = sim.case.broadband
+    if seed is None:
+        seed = bb["seed"]
+    rng = NRStream(-abs(int(seed)))
+    ucov = list(bb.get("covariance", (1.0, 1.0, 1.0, 0.0, 0.0, 0.0)))
+    flow = [_rand_field(rng, ucov[iq], sim) for iq in range(3)]
+    if bb["distribution"] == "gaussian":
+        _rand_covariance(ucov, flow, sim)
+    ns = sim.nsp.n_scalars
+    scal = [_rand_field(rng, ucov[i_s] if i_s < 6 else 1.0, sim)
+            for i_s in range(ns)]
+    return flow, scal
+
+
+# ---------------------------------------------------------------------------
+# iniflow
+# ---------------------------------------------------------------------------
+
+def _flow_shape(sim: Simulation):
+    """Envelope profiles (f, -f') along y (reference FLOW_SHAPE,
+    flow_local.f90:351-400).  For GaussianSurface the envelope is
+    multiplied by tanh((y-yw)/2 thick)^2 at each NO-SLIP wall (with the
+    product-rule correction on the wall-parallel profile) so both
+    velocity components vanish smoothly there; ParabolicSurface squares
+    the envelope for the same reason."""
+    y = sim.grid.y.nodes
+    prof = sim.case.profile_ini_k
+    f = prof(y)
+    mdf = -(sim.fdm.y.d1[BC.DD] @ f)        # profs(:,2): minus derivative
+    noslip_jmin = sim.case.velocity_bc[0] != "freeslip"
+    noslip_jmax = sim.case.velocity_bc[1] != "freeslip"
+    if prof.type == "parabolicsurface":
+        mdf = 2.0 * mdf * f
+        f = f ** 2
+    elif prof.type == "gaussiansurface":
+        if noslip_jmin:
+            yr = 0.5 * (y - y[0]) / prof.thick
+            th, ch = np.tanh(yr), np.cosh(yr)
+            mdf = mdf * th ** 2 - f * th / ch ** 2 / prof.thick
+            f = f * th ** 2
+        if noslip_jmax:
+            yr = 0.5 * (y[-1] - y) / prof.thick
+            th, ch = np.tanh(yr), np.cosh(yr)
+            mdf = mdf * th ** 2 + f * th / ch ** 2 / prof.thick
+            f = f * th ** 2
+    return f, mdf
+
+
+def _normalize_tke(sim: Simulation, u, v, w):
+    """Scale so that the largest plane-mean TKE is [IniFields] NormalizeK
+    (no scaling when it is negative)."""
+    if sim.case.normalize_k < 0.0:
+        return u, v, w
+    tke_prof = 0.5 * (torch.mean(u ** 2, dim=(0, 2))
+                      + torch.mean(v ** 2, dim=(0, 2))
+                      + torch.mean(w ** 2, dim=(0, 2)))
+    amp = torch.sqrt(sim.case.normalize_k / torch.max(tke_prof))
+    return u * amp, v * amp, w * amp
+
+
+def velocity_broadband_vorticity(sim: Simulation, flow_rand):
+    """Velocity from broadband vorticity: lap(u) = -curl(omega)
+    (reference VELOCITY_BROADBAND, flow_local.f90:302-340)."""
+    nx, ny, nz = sim.grid.shape
+    u, v, w = (np.array(flow_rand[0]), np.array(flow_rand[1]),
+               np.array(flow_rand[2]))
+
+    # remove horizontal mean per level
+    for a in (u, v, w):
+        a -= a.mean(axis=(0, 2), keepdims=True)
+
+    fshape, dfshape = _flow_shape(sim)
+    uj, vj, wj = _tensor(sim, u), _tensor(sim, v), _tensor(sim, w)
+    ox, oy, oz = sim.curl(uj, vj, wj)
+    env_t = _tensor(sim, dfshape)[None, :, None]
+    env_n = _tensor(sim, fshape)[None, :, None]
+    ox = -ox * env_t
+    oy = -oy * env_n
+    oz = -oz * env_t
+    rx, ry, rz = sim.curl(ox, oy, oz)
+
+    # free-slip walls -> NN for tangential, DD for normal component;
+    # solved with the reference's OPR_Poisson (factorize by default)
+    wall = BC.NN if sim.case.velocity_bc[0] == "freeslip" else BC.DD
+    uj = sim.poisson_ref(wall, rx)
+    vj = sim.poisson_ref(BC.DD, ry)
+    wj = sim.poisson_ref(wall, rz) if nz > 1 else torch.zeros_like(uj)
+
+    if sim.case.force_dilatation:
+        uj, vj, wj = sim.solenoidal(uj, vj, wj)
+    if nz == 1:
+        wj = torch.zeros_like(uj)
+    return _normalize_tke(sim, uj, vj, wj)
+
+
+def velocity_potential_broadband(sim: Simulation, flow_rand):
+    """Velocity from a random vector potential: u = curl(A) with A the
+    PSD-shaped random fields times the IniK envelope (reference
+    PERT_BROADBAND_POTENTIAL, flow_local.f90:279-300) -- solenoidal by
+    construction."""
+    nx, ny, nz = sim.grid.shape
+    # the reference always reads all THREE random potential components
+    # (flow_local.f90:256-258); in 2-D (kmax=1) A_z is the stream
+    # function and the ONLY one that contributes: u = dA_z/dy,
+    # v = -dA_z/dx
+    ax, ay, az = (np.array(flow_rand[0]), np.array(flow_rand[1]),
+                  np.array(flow_rand[2]))
+    for a in (ax, ay, az):
+        a -= a.mean(axis=(0, 2), keepdims=True)
+    fshape, dfshape = _flow_shape(sim)
+    env_n = _tensor(sim, fshape)[None, :, None]
+    env_t = _tensor(sim, dfshape)[None, :, None]
+    uj, vj, wj = sim.curl(_tensor(sim, ax) * env_n, _tensor(sim, ay) * env_t,
+                          _tensor(sim, az) * env_n)
+    if nz == 1:
+        wj = torch.zeros_like(uj)
+    # reference imposes zero tangential velocity at no-slip walls via the
+    # derivative BC rows (flow_local.f90:287-292)
+    for side, row in ((0, 0), (1, -1)):
+        if sim.case.velocity_bc[side] != "freeslip":
+            uj[:, row, :] = 0.0
+            wj[:, row, :] = 0.0
+    return _normalize_tke(sim, uj, vj, wj)
+
+
+def velocity_discrete(sim: Simulation):
+    """Discrete-mode velocity perturbation (reference VELOCITY_DISCRETE,
+    flow_local.f90:177-238): wall-normal v = sum_m A_m cos(wx x+px)
+    cos(wz z+pz) g(y), wall-parallel components from -g' with the 1/w
+    factors imposing the solenoidal constraint."""
+    nx, ny, nz = sim.grid.shape
+    spec = getattr(sim.case, "discrete", None) or {}
+    amps = spec.get("amplitude", (1e-2,))
+    n_m = len(amps)
+
+    def pad(key, default):
+        vals = tuple(spec.get(key) or ())
+        if len(vals) < n_m:
+            vals = vals + tuple(default(i) for i in range(len(vals), n_m))
+        return vals
+    modex = pad("modex", lambda i: i + 1)
+    modez = pad("modez", lambda i: 0)
+    phasex = pad("phasex", lambda i: 0.0)
+    phasez = pad("phasez", lambda i: 0.0)
+    x = sim.grid.x.nodes[:, None]
+    zc = sim.grid.z.nodes[None, :]
+    wx1 = 2.0 * np.pi / sim.grid.x.scale
+    wz1 = 2.0 * np.pi / sim.grid.z.scale if nz > 1 else 0.0
+    fshape, dfshape = _flow_shape(sim)
+    pv = np.zeros((nx, nz))
+    pu = np.zeros((nx, nz))
+    pw = np.zeros((nx, nz))
+    for A, mx, mz, px_, pz_ in zip(amps, modex, modez, phasex, phasez):
+        wx = mx * wx1
+        wz = mz * wz1
+        if mx == 0 and mz == 0:
+            break
+        elif mz == 0:
+            fx, fz = 1.0 / wx, 0.0
+        elif mx == 0:
+            fx, fz = 0.0, 1.0 / wz
+        else:
+            fx, fz = 0.5 / wx, 0.5 / wz
+        cx = np.cos(wx * x + px_)
+        sx = np.sin(wx * x + px_)
+        cz = np.cos(wz * zc + pz_)
+        sz = np.sin(wz * zc + pz_)
+        pv += A * cx * cz
+        pu += A * sx * cz * fx
+        pw += A * cx * sz * fz
+    u = _tensor(sim, pu[:, None, :] * dfshape[None, :, None])
+    v = _tensor(sim, pv[:, None, :] * fshape[None, :, None])
+    w = _tensor(sim, pw[:, None, :] * dfshape[None, :, None])
+    return u, v, w
+
+
+def initial_state(sim: Simulation, seed: int | None = None) -> State:
+    """Full IC: mean profiles + perturbations per [IniFields].
+
+    `seed` overrides [Broadband] Seed (default: the ini value, as the
+    reference's inirand reads it)."""
+    nx, ny, nz = sim.grid.shape
+    y = sim.grid.y.nodes
+    ini = getattr(sim.case, "ini", None)
+    if ini is not None and ini.get_float("IniFields", "NormalizeR",
+                                         0.0) != 0.0:
+        raise NotImplementedError(
+            "[IniFields] NormalizeR (the radiation increment on the scalar "
+            "initial condition): ROADMAP A9")
+
+    needs_rand = (sim.case.ini_velocity in
+                  ("vorticitybroadband", "velocitybroadband",
+                   "potentialbroadband")
+                  or "broadband" in sim.case.ini_scalar)
+    with _trace.trace("inirand_fields"):        # host work, NumPy
+        flow_rand, scal_rand = (inirand_fields(sim, seed=seed) if needs_rand
+                                else ([], []))
+
+    if sim.case.ini_velocity in ("vorticitybroadband", "velocitybroadband"):
+        u, v, w = velocity_broadband_vorticity(sim, flow_rand)
+    elif sim.case.ini_velocity == "velocitydiscrete":
+        u, v, w = velocity_discrete(sim)
+    elif sim.case.ini_velocity == "potentialbroadband":
+        u, v, w = velocity_potential_broadband(sim, flow_rand)
+    else:
+        u = v = w = torch.zeros((nx, ny, nz), dtype=sim.dtype,
+                                device=sim.device)
+
+    # mean profiles
+    pu, pv, pw = sim.case.vel_profiles
+    u = u + _tensor(sim, pu(y))[None, :, None]
+    v = v + _tensor(sim, pv(y))[None, :, None]
+    w = w + _tensor(sim, pw(y))[None, :, None]
+
+    scals = []
+    for i, prof in enumerate(sim.case.scal_profiles):
+        base = _tensor(sim, prof(y))[None, :, None].expand(nx, ny, nz)
+        mode = sim.case.ini_scalar
+        norm_s = (sim.case.normalize_s[i]
+                  if i < len(sim.case.normalize_s) else 0.0)
+
+        def _scal_shape():
+            """SCAL_SHAPE (scal_local.f90:146-177): the IniS envelope
+            with tanh^2 boundary damping for gaussiansurface."""
+            profs = sim.case.profile_ini_s
+            ps = profs[i] if i < len(profs) else None
+            if ps is None:
+                return sim.case.profile_ini_k(y)
+            env_ = ps(y)
+            if ps.type == "gaussiansurface":
+                th = max(ps.thick, 1e-30)
+                env_ = env_ * np.tanh(0.5 * (y - y[0]) / th) ** 2 \
+                    * np.tanh(-0.5 * (y - y[-1]) / th) ** 2
+            return env_
+
+        def _normalized(fld):
+            """SCAL_NORMALIZE: scale so max-over-y plane rms = norm_s."""
+            ms = torch.max(torch.mean(fld ** 2, dim=(0, 2)))
+            return fld * (norm_s / torch.sqrt(torch.clamp(ms, min=1e-300)))
+
+        if mode in ("layerbroadband", "planebroadband"):
+            # broadband scalar perturbation shaped by the IniS envelope
+            # (reference iniscal LayerBroadband); NormalizeS rescales to
+            # the target max plane rms -- legacy INIs without NormalizeS
+            # keep the NormalizeK amplitude scaling
+            pert = np.array(scal_rand[i]) if i < len(scal_rand) \
+                else np.zeros((nx, ny, nz))
+            pert -= pert.mean(axis=(0, 2), keepdims=True)
+            env = _scal_shape()[None, :, None] if norm_s > 0 \
+                else sim.case.profile_ini_k(y)[None, :, None]
+            fld = _tensor(sim, env * pert)
+            if norm_s > 0:
+                fld = _normalized(fld)
+            else:
+                amp = sim.case.normalize_k if sim.case.normalize_k > 0 \
+                    else 1e-2
+                fld = amp * fld
+            base = base + fld
+        elif mode == "layerdiscrete":
+            # discrete (x,z) modes times the IniS layer envelope
+            # (SCAL_FLUCTUATION_VOLUME PERT_LAYER_DISCRETE,
+            # scal_local.f90:212-231)
+            spec = sim.case.discrete or {}
+            xg = sim.grid.x.nodes[:, None]
+            zg = (sim.grid.z.nodes[None, :] if nz > 1
+                  else np.zeros((1, 1)))
+            wx1 = 2.0 * np.pi / sim.grid.x.scale
+            wz1 = 2.0 * np.pi / sim.grid.z.scale if nz > 1 else 0.0
+            pat = np.zeros((nx, nz))
+            for im, amp_m in enumerate(spec.get("amplitude", ())):
+                wx = spec["modex"][im] * wx1
+                wz = spec["modez"][im] * wz1 if nz > 1 else 0.0
+                pat = pat + amp_m * np.cos(wx * xg + spec["phasex"][im]) \
+                    * np.cos(wz * zg + spec["phasez"][im])
+            fld = _tensor(sim, pat[:, None, :]
+                          * _scal_shape()[None, :, None])
+            if norm_s > 0:
+                fld = _normalized(fld)
+            base = base + fld
+        elif mode in ("deltadiscrete", "planediscrete", "fluxdiscrete"):
+            # discrete-mode displacement field disp(x, z) (reference
+            # SCAL_FLUCTUATION_PLANE, scal_local.f90:275-345):
+            # deltadiscrete perturbs the profile THICKNESS, fluxdiscrete
+            # the MAGNITUDE at constant derivative, planediscrete
+            # shifts the layer position -- both deterministic, so Case10-
+            # family runs have no RNG dependence
+            spec = sim.case.discrete or {}
+            xg = sim.grid.x.nodes[:, None]
+            zg = (sim.grid.z.nodes[None, :] if nz > 1
+                  else np.zeros((1, 1)))
+            wx1 = 2.0 * np.pi / sim.grid.x.scale
+            wz1 = 2.0 * np.pi / sim.grid.z.scale if nz > 1 else 0.0
+            disp = np.zeros((nx, nz))
+            amps = spec.get("amplitude", ())
+            for im, amp_m in enumerate(amps):
+                wx = spec["modex"][im] * wx1 if im < len(spec["modex"]) \
+                    else (im + 1) * wx1
+                wz = spec["modez"][im] * wz1 if im < len(spec["modez"]) \
+                    else 0.0
+                phx = spec["phasex"][im]
+                phz = spec["phasez"][im]
+                disp = disp + amp_m * np.cos(wx * xg + phx) \
+                    * np.cos(wz * zg + phz)
+            field = np.empty((nx, ny, nz))
+            for ii in range(nx):
+                for kk in range(nz):
+                    if mode == "deltadiscrete":
+                        p = dataclasses.replace(
+                            prof, thick=prof.thick + disp[ii, kk])
+                    elif mode == "fluxdiscrete":
+                        # perturb the magnitude at constant derivative
+                        # (scal_local.f90:346-360): delta += disp,
+                        # mean = delta/2, thick scaled with delta
+                        d_loc = prof.delta + disp[ii, kk]
+                        t_loc = (d_loc / prof.delta * prof.thick
+                                 if prof.delta > 0 else prof.thick)
+                        p = dataclasses.replace(prof, delta=d_loc,
+                                                mean=0.5 * d_loc,
+                                                thick=t_loc)
+                    else:
+                        p = None
+                    field[ii, :, kk] = p(y) if p is not None \
+                        else prof(y - disp[ii, kk])
+            base = _tensor(sim, field)
+        scals.append(base)
+    s = torch.stack(scals) if scals else torch.zeros(
+        (0, nx, ny, nz), dtype=sim.dtype, device=sim.device)
+    return State(u=u, v=v, w=w, s=s)

@@ -11,6 +11,12 @@ and the step as a whole).  The events sit on the stream between the
 launches and synchronise nothing, so the parts add up to the stream time.
 Prints the card's name and power limit, then one line per part in
 ms/substep with its share, then the host wall time of the same steps.
+
+Then the same steps as the DNS loop takes them (tools/dns.py::
+make_step_functions: rk_step with the scalar clip, then the CFL and
+dilatation diagnostics, then the host's one read of them): one line per
+part in ms/step, the host wall time a step, whose excess over the stream
+time is the card's idle time at the read, and each step's wall time.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import argparse
 import subprocess
 import sys
 import time
+import types
 
 import torch
 
@@ -25,6 +32,7 @@ from tlab_tpu_torch import entry
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.ops import burgers
 from tlab_tpu_torch.ops import elliptic_factorize as fac
+from tlab_tpu_torch.tools import dns as dns_tool
 
 
 class Spans:
@@ -86,6 +94,43 @@ def profile(shape, steps: int) -> dict:
             "launches": list(burgers.launches)}
 
 
+def profile_dns_step(shape, steps: int) -> dict:
+    """ms per RK step by part of the DNS loop's step, over `steps` steps
+    after one warm-up, each ending in the host's read of the diagnostics."""
+    _, P, state = entry.build(*shape, torch.float32, "cuda", seed=0)
+    P["scal_bounds"] = dyn.scalar_bounds((0.0,), (1.0,), torch.float32,
+                                         "cuda")
+    step, _ = dns_tool.make_step_functions(types.SimpleNamespace(P=P))
+    state, _, diag = step(state, entry.DT)
+    diag.tolist()
+    spans = Spans()
+    names = ("rk_step", "substep_rhs_stacked", "cfl_advective_max",
+             "dilatation_minmax")
+    saved = [getattr(dyn, n) for n in names]
+    for n in names:
+        setattr(dyn, n, spans.wrap(n, getattr(dyn, n)))
+    try:
+        stamps = [time.perf_counter()]
+        for _ in range(steps):
+            state, _, diag = step(state, entry.DT)
+            diag.tolist()                   # the loop's one sync a step
+            stamps.append(time.perf_counter())
+        wall = stamps[-1] - stamps[0]
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(dyn, n, fn)
+    ms = {n: spans.total_ms(n) / steps for n in names}
+    parts = {"substeps (5 x substep_rhs_stacked)": ms["substep_rhs_stacked"],
+             "rest of rk_step (wall values, stack, RK update, scalar clip)":
+                 ms["rk_step"] - ms["substep_rhs_stacked"],
+             "cfl_advective_max": ms["cfl_advective_max"],
+             "dilatation_minmax": ms["dilatation_minmax"]}
+    stream = ms["rk_step"] + ms["cfl_advective_max"] + ms["dilatation_minmax"]
+    return {"parts": parts, "stream_ms": stream,
+            "wall_ms": 1e3 * wall / steps, "steps": steps,
+            "each_ms": [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shape", type=int, nargs=3, default=(512, 256, 256))
@@ -107,6 +152,17 @@ def main(argv=None) -> int:
               f"({100 * v / res['stream_ms']:.1f}%)")
     print(f"[profile] stream {res['stream_ms']:.3f} ms/substep, host wall "
           f"{res['wall_ms']:.3f} ms/substep")
+    del res
+    drv = profile_dns_step(tuple(args.shape), args.steps)
+    print(f"[profile] the DNS loop's step ({drv['steps']} steps, each read by "
+          "the host):")
+    for name, v in drv["parts"].items():
+        print(f"[profile] {name}: {v:.3f} ms/step "
+              f"({100 * v / drv['wall_ms']:.1f}%)")
+    print(f"[profile] stream {drv['stream_ms']:.3f} ms/step, host wall "
+          f"{drv['wall_ms']:.3f} ms/step, idle at the read "
+          f"{drv['wall_ms'] - drv['stream_ms']:.3f} ms/step; each step "
+          + " ".join(f"{v:.1f}" for v in drv["each_ms"]) + " ms")
     return 0
 
 
