@@ -25,9 +25,25 @@ non-zero:
               adaptive-dt steps with a restart and the avg tables at step
               10; (b) the same case at 128x64x64, 8 steps straight against
               4 + 4 through a restart file, bit for bit
+  7. options  `dns` of edited copies of that case from 6a's initial fields,
+              512x256x256 fp32, 5 adaptive-dt steps each: (a) stratified and
+              rotating (buoyancy, Coriolis; K1-K3 launch every substep, the
+              avg table's buoyancy columns are filled); (b) skew-symmetric
+              advection, staggered pressure, compact pressure filter and
+              [Filter] cadence (dense products: no kernel launch, by
+              design; the staggered projection alone held on a smooth
+              field, in fp64 and in fp32); (c) direct eigen Poisson,
+              Helmholtz pressure filter, dealiasing (no launch either; the
+              filter held in fp64 against the operator it inverts); (d)
+              each of a-c at
+              128x64x64, fp32 against fp64; (e) the direct Poisson and
+              Helmholtz solves at 512x256x256, fp32 against fp64, timed
+              beside the factorized solve, and the unstaggered projection
+              of a smooth field in fp32; (f) `dns` of the case with one
+              option of a-c at a time (VARIANTS): what each costs a substep
 The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.  Without a CUDA card the script exits 1 and
-prints no result.
+{"ok": true, "device": {...}}.
+Without a CUDA card the script exits 1 and prints no result.
 """
 from __future__ import annotations
 
@@ -47,11 +63,15 @@ import torch
 
 from tlab_tpu_torch import device as tdevice
 from tlab_tpu_torch import entry
+from tlab_tpu_torch.config import Ini, load_case
 from tlab_tpu_torch.convert import state_to_numpy
 from tlab_tpu_torch.dycore import incompressible as dyn
+from tlab_tpu_torch.fdm.plan import build_fdm_plan
 from tlab_tpu_torch.io import fields_io
-from tlab_tpu_torch.ops import _build, burgers
-from tlab_tpu_torch.ops.derivative import apply_along
+from tlab_tpu_torch.ops import _build, burgers, elliptic
+from tlab_tpu_torch.ops import elliptic_factorize as fac
+from tlab_tpu_torch.ops.derivative import apply_along, der12
+from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.stats import averages
 from tlab_tpu_torch.tools import cli
 from tlab_tpu_torch.tools import dns as dns_tool
@@ -80,6 +100,8 @@ CASE = pathlib.Path(__file__).resolve().parent / "examples" / "shear3d" \
 DNS_STEPS = 10
 CFL_TARGET, CFL_TOL = 1.2, 0.05      # [Main] TimeCFL of the case
 WALL_MEAN, WALL_TOL = 0.5, 1e-3      # |<u>| at the walls: DeltaVelocityX / 2
+OPTION_STEPS = 5
+INITIAL_FILES = ("flow.0.1", "flow.0.2", "flow.0.3", "scal.0.1")
 SOURCE = "tlab_tpu_torch/csrc/burgers.cu"
 REPLACES = ("tlab_tpu/ops/pallas_burgers.py:62",    # _kern_x
             "tlab_tpu/ops/pallas_burgers.py:71",    # _kern_y
@@ -310,8 +332,53 @@ def read_trace(path) -> dict:
     return out
 
 
-def phase_dns_case(card: str) -> list:
-    """6a: inigrid, ini and dns of the full-width case through the CLI."""
+def traced_cli(ini: str, out: str, commands, *more) -> dict:
+    """The CLI's `commands` in turn with tlab.trace on; `dns` comes last,
+    with the kernels' counts set to 0 just before it and read just after.
+    Returns the DnsRun, the counts, dns' peak device memory and the seconds
+    of each command."""
+    os.environ["TLAB_TPU_TRACE"] = "1"         # spans for the timings
+    runs = []
+    run_fn = dns_tool.run
+
+    def keep_run(*args, **kw):
+        runs.append(run_fn(*args, **kw))
+        return runs[-1]
+
+    dns_tool.run = keep_run
+    seconds = {}
+    try:
+        for command in commands:
+            if command == "dns":
+                torch.cuda.reset_peak_memory_stats()
+                burgers.launches[:] = [0, 0, 0]
+            seconds[command] = run_cli(command, ini, out, *more)
+        launches = list(burgers.launches)
+    finally:
+        dns_tool.run = run_fn
+        del os.environ["TLAB_TPU_TRACE"]
+        ttrace.close()
+    return {"run": runs[0], "launches": launches, "seconds": seconds,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def step_rate(trace: dict, steps: int, n_sub: int) -> dict:
+    """Seconds of `steps` logged steps from the trace's stamps, and the
+    rates per substep."""
+    stamps = [trace["time loop starts"][0]] + [
+        trace[f"iteration {k} logged"][0] for k in range(1, steps + 1)]
+    each = [b - a for a, b in zip(stamps, stamps[1:])]
+    total = stamps[-1] - stamps[0]
+    points = MAIN_SHAPE[0] * MAIN_SHAPE[1] * MAIN_SHAPE[2]
+    return {"seconds": total, "each": each,
+            "ms_substep": 1e3 * total / (steps * n_sub),
+            "rate": points * steps * n_sub / total,
+            "others_ms_substep": 1e3 * statistics.median(each[1:]) / n_sub}
+
+
+def phase_dns_case(card: str, keep: str) -> list:
+    """6a: inigrid, ini and dns of the full-width case through the CLI.
+    The initial fields stay in `keep` for phase 7."""
     changes = {("Iteration", "End"): str(DNS_STEPS),
                ("Iteration", "Restart"): str(DNS_STEPS),
                ("Iteration", "Statistics"): str(DNS_STEPS)}
@@ -322,28 +389,11 @@ def phase_dns_case(card: str) -> list:
         ini = os.path.join(out, "tlab.ini")
         with open(ini, "w") as fh:
             fh.write(text)
-        os.environ["TLAB_TPU_TRACE"] = "1"     # spans for the timings below
-        runs = []
-        run_fn = dns_tool.run
-
-        def keep_run(*args, **kw):
-            runs.append(run_fn(*args, **kw))
-            return runs[-1]
-
-        dns_tool.run = keep_run
-        try:
-            run_cli("inigrid", ini, out)
-            ini_s = run_cli("ini", ini, out)
-            torch.cuda.reset_peak_memory_stats()
-            burgers.launches[:] = [0, 0, 0]
-            dns_s = run_cli("dns", ini, out)
-            launches = list(burgers.launches)
-        finally:
-            dns_tool.run = run_fn
-            del os.environ["TLAB_TPU_TRACE"]
-            ttrace.close()
-        peak = torch.cuda.max_memory_allocated()
-        run = runs[0]
+        res = traced_cli(ini, out, ("inigrid", "ini", "dns"))
+        ini_s, dns_s = res["seconds"]["ini"], res["seconds"]["dns"]
+        launches, peak, run = res["launches"], res["peak"], res["run"]
+        for f in INITIAL_FILES:
+            shutil.move(os.path.join(out, f), os.path.join(keep, f))
         n_sub = len(run.sim.P["rk"]["kdt"])
         require(launches == [DNS_STEPS * n_sub] * 3,
                 f"dns launched {launches}, expected "
@@ -385,21 +435,16 @@ def phase_dns_case(card: str) -> list:
         trace = read_trace(os.path.join(out, "tlab.trace"))
 
     ic_s, host_s = trace["initial_state"][1], trace["inirand_fields"][1]
-    stamps = [trace["time loop starts"][0]] + [
-        trace[f"iteration {k} logged"][0] for k in range(1, DNS_STEPS + 1)]
-    steps_s = stamps[-1] - stamps[0]
-    each = [b - a for a, b in zip(stamps, stamps[1:])]
-    points = MAIN_SHAPE[0] * MAIN_SHAPE[1] * MAIN_SHAPE[2]
-    substeps = DNS_STEPS * n_sub
+    rate = step_rate(trace, DNS_STEPS, n_sub)
     print(f"[dns] {card}: ini {ini_s:.3f} s of which initial_state "
           f"{ic_s:.3f} s = random fields on the host {host_s:.3f} s + "
           f"device part {ic_s - host_s:.3f} s")
     print(f"[dns] {card}: dns {dns_s:.3f} s; {DNS_STEPS} adaptive-dt "
-          f"steps with their host syncs {steps_s:.4f} s: "
-          f"{1e3 * steps_s / substeps:.3f} ms/substep, "
-          f"{points * substeps / steps_s:.6e} points/s/substep (first step "
-          f"{each[0]:.4f} s, the others' median "
-          f"{1e3 * statistics.median(each[1:]) / n_sub:.3f} ms/substep); "
+          f"steps with their host syncs {rate['seconds']:.4f} s: "
+          f"{rate['ms_substep']:.3f} ms/substep, "
+          f"{rate['rate']:.6e} points/s/substep (first step "
+          f"{rate['each'][0]:.4f} s, the others' median "
+          f"{rate['others_ms_substep']:.3f} ms/substep); "
           f"launches "
           f"{launches}; CFL {min(cfl):.3f}..{max(cfl):.3f}; dilatation max "
           f"{dil1:.4e} -> {dil_n:.4e}; t = {run.rtime:.6e}")
@@ -454,6 +499,346 @@ def phase_dns_restart() -> None:
           f"(t = {float(tail[a][-1][2]):.6e})")
 
 
+def add_keys(text: str, section: str, lines) -> str:
+    """The case file's text with `lines` (key=value) put at the head of
+    [section], which is appended if the file has none."""
+    body = "".join(ln + "\n" for ln in lines)
+    if f"[{section}]\n" in text:
+        return text.replace(f"[{section}]\n", f"[{section}]\n{body}", 1)
+    return f"{text}\n[{section}]\n{body}"
+
+
+# the Helmholtz pressure filter (1 - w^2/24 Lap) pf = p of 7c and 7e: w is
+# four spacings of the case's x and z grids (2 pi / 512)
+HELMHOLTZ_WIDTH = 0.05
+# phase 7's cases: (changes to keys the file has, sections and keys added)
+OPTION_CASES = {
+    "7a": ("stratified, rotating",
+           {},
+           {"Main": ["TermBodyForce=Linear"],
+            "Parameters": ["Froude=1.0", "Rossby=1.0"],
+            "Gravity": ["Vector=0.0,-1.0,0.0", "Parameters=1.0"],
+            "Rotation": ["Type=explicit", "Vector=0.0,1.0,0.0"]}),
+    "7b": ("skew-symmetric, staggered, filtered",
+           {("Main", "TermAdvection"): "skewsymmetric"},
+           {"Staggering": ["StaggerHorizontalPressure=yes"],
+            "PressureFilter": ["Type=compact", "Parameters=0.49"],
+            "Filter": ["Type=compact", "Parameters=0.49", "Step=2"]}),
+    "7c": ("direct eigen Poisson, Helmholtz pressure filter, dealiasing",
+           {},
+           {"Main": ["EllipticOrder=compactdirect6"],
+            "PressureFilter": ["Type=helmholtz",
+                               f"Parameters={HELMHOLTZ_WIDTH}"],
+            "Dealiasing": ["Type=compact", "Parameters=0.49"]}),
+}
+# 7f: one option at a time on top of the case (changes, keys added)
+VARIANTS = {
+    "buoyancy + Coriolis": ({}, OPTION_CASES["7a"][2]),
+    "skewsymmetric": ({("Main", "TermAdvection"): "skewsymmetric"}, {}),
+    "divergence form": ({("Main", "TermAdvection"): "divergence"}, {}),
+    "dealiasing": ({}, {"Dealiasing": ["Type=compact", "Parameters=0.49"]}),
+    "direct eigen Poisson": ({}, {"Main": ["EllipticOrder=compactdirect6"]}),
+    "Helmholtz pressure filter": (
+        {}, {"PressureFilter": OPTION_CASES["7c"][2]["PressureFilter"]}),
+    "compact pressure filter": (
+        {}, {"PressureFilter": OPTION_CASES["7b"][2]["PressureFilter"]}),
+    "staggered": ({}, {"Staggering": ["StaggerHorizontalPressure=yes"]}),
+    "[Filter] Step=2": ({}, {"Filter": OPTION_CASES["7b"][2]["Filter"]}),
+}
+# dilatation max of the last logged step.  7a projects with the factorized
+# solver, which removes the divergence it measures (6a: 4e-3 at step 1, 7e-4
+# at step 10).  7b's staggered projection is exact only where the
+# interpolation's transfer is ~1, as the reference's, and its pressure is
+# filtered: the run's dilatation (on the pressure nodes) must fall below the
+# initial fields', and the projection alone is held on a smooth field
+# (smooth_projection).  7c's direct solver leaves the D1^2-against-D2
+# mismatch by construction and its Helmholtz-filtered pressure lets the
+# divergence grow from step to step, as the reference's does on this case:
+# the run is held to stay bounded, the filter itself against the operator it
+# inverts (helmholtz_residual)
+OPTION_DIL_TOL = {"7a": 1e-2, "7c": 1e2}
+SMOOTH_TOL = 1e-4        # in fp64; tests/test_stagger.py: 2e-3 at 32x49x16
+# in fp32 the u/dte forcing's round-off through the Poisson solve stays: about
+# three times the 7e-2 (staggered) and 1.1e-1 (unstaggered) read at full width
+SMOOTH_TOL_FP32 = 0.3
+HELMHOLTZ_TOL = 1e-9     # fp64 round-off of the solve and of three products
+BUOYANCY_COLUMNS = ("rB", "Byy", "Buo", "Pot", "Fxx", "Fxz")
+SMALL_GRID = {("Grid", "Imax"): "128", ("Grid", "Jmax"): "64",
+              ("Grid", "Kmax"): "64", ("IniGridOx", "points_1"): "129",
+              ("IniGridOy", "points_1"): "64",
+              ("IniGridOz", "points_1"): "65"}
+
+
+def option_case(tag: str, changes: dict) -> str:
+    """The case file with `changes` and phase 7's case `tag`, or, for a
+    name of VARIANTS, that one option."""
+    edits, added = OPTION_CASES[tag][1:] if tag in OPTION_CASES \
+        else VARIANTS[tag]
+    text = edit_case(CASE.read_text(), {**changes, **edits})
+    for section, lines in added.items():
+        text = add_keys(text, section, lines)
+    return text
+
+
+def link_initial_fields(src: str, out: str) -> None:
+    os.makedirs(out, exist_ok=True)
+    for f in INITIAL_FILES:
+        os.symlink(os.path.join(src, f), os.path.join(out, f))
+
+
+def smooth_projection(grid, P) -> float:
+    """max|divergence| after one substep from a smooth divergent field
+    (tests/test_stagger.py's, on this grid) over the same before, wall rows
+    left out: what the projection removes, for a staggered plan on the
+    pressure nodes, where the interpolation's transfer is ~1."""
+    kw = {"dtype": P["d1y"].dtype, "device": P["d1y"].device}
+    x = torch.as_tensor(grid.x.nodes, **kw)[:, None, None]
+    y = torch.as_tensor(grid.y.nodes, **kw)[None, :, None]
+    z = torch.as_tensor(grid.z.nodes, **kw)[None, None, :]
+    kx, kz = 2 * np.pi / grid.x.scale, 2 * np.pi / grid.z.scale
+    ly = float(grid.y.nodes[-1])
+    env = torch.sin(np.pi * y / ly)
+    one = torch.ones(grid.shape, **kw)
+    Q = torch.stack([
+        (torch.sin(kx * x) + 0.3 * torch.cos(2 * kx * x + kz * z)) * env,
+        0.2 * torch.sin(2 * np.pi * y / ly) * torch.cos(kx * x) * one,
+        0.4 * torch.sin(kz * z) * torch.cos(kx * x) * env,
+        0.0 * one])
+    divergence = dyn.divergence_staggered if P.get("stag") is not None \
+        else dyn.divergence
+    div0 = divergence(P, Q[0], Q[1], Q[2])
+    dte = 0.01
+    H, _ = dyn.substep_rhs_stacked(P, Q, torch.zeros_like(Q), dte)
+    Q = Q + dte * H
+    div = divergence(P, Q[0], Q[1], Q[2])
+    return (div[:, 1:-1].abs().max() / div0[:, 1:-1].abs().max()).item()
+
+
+def helmholtz_residual(P, shape) -> float:
+    """max|(1 - w^2/24 Lap) pf - p| / max|p| off the wall rows, for pf the
+    plan's [PressureFilter] Type=helmholtz of a random field p and Lap the
+    sum of the plan's second-derivative operators: the filter's sign and
+    scale as the step applies it."""
+    gen = torch.Generator(device=P["d1y"].device).manual_seed(2)
+    p = torch.randn(shape, generator=gen, dtype=P["d1y"].dtype,
+                    device=P["d1y"].device)
+    pf = dyn._pressure_filter(P)(p)
+    lap = sum(der12(P[f"d12{name}"], pf, axis)[1]
+              for axis, name in enumerate("xyz"))
+    back = pf + lap / P["pfilter"]["helmholtz_alpha"]
+    return ((back - p)[:, 1:-1].abs().max() / p.abs().max()).item()
+
+
+def phase_option(tag: str, card: str, initial: str) -> list:
+    """7a-7c: `dns` of one edited case at full width from 6a's fields."""
+    what = OPTION_CASES[tag][0]
+    text = option_case(tag, {("Iteration", "End"): str(OPTION_STEPS),
+                             ("Iteration", "Restart"): "1000",
+                             ("Iteration", "Statistics"): str(OPTION_STEPS)})
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = os.path.join(out, "tlab.ini")
+        with open(ini, "w") as fh:
+            fh.write(text)
+        link_initial_fields(initial, out)
+        res = traced_cli(ini, out, ("dns",))
+        run, launches = res["run"], res["launches"]
+        rows = data_rows(os.path.join(out, "dns.out"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        _, _, flow = averages.read_avg(
+            os.path.join(out, f"avg{OPTION_STEPS}"))
+    P = run.sim.P
+    n_sub = len(P["rk"]["kdt"])
+    rate = step_rate(trace, OPTION_STEPS, n_sub)
+    cfl = [float(r[4]) for r in rows[1:]]
+    dil = [max(abs(float(r[7])), abs(float(r[8]))) for r in rows]
+    print(f"[options] {tag} {what} ({card}): {MAIN_SHAPE} fp32, "
+          f"{OPTION_STEPS} adaptive-dt steps with their host syncs "
+          f"{rate['seconds']:.4f} s: {rate['ms_substep']:.3f} ms/substep, "
+          f"{rate['rate']:.6e} points/s/substep (first step "
+          f"{rate['each'][0]:.4f} s, the others' median "
+          f"{rate['others_ms_substep']:.3f} ms/substep); peak device memory "
+          f"{res['peak']} B; launches {launches}")
+    print(f"[options] {tag}: CFL {min(cfl):.3f}..{max(cfl):.3f}; dilatation "
+          f"max {dil[0]:.4e} at the start, {dil[1]:.4e} -> {dil[-1]:.4e} "
+          f"over the steps ("
+          + ("pressure nodes" if P.get("stag") is not None else
+             "velocity nodes")
+          + f"; projection: "
+          + ("factorized" if P.get("ell_fac") is not None else "direct eigen")
+          + f"); t = {run.rtime:.6e}; statistics "
+          f"{trace[f'statistics {OPTION_STEPS}'][1]:.3f} s; "
+          + ", ".join(f"max|{n}| {np.abs(flow[n]).max():.3e}"
+                      for n in BUOYANCY_COLUMNS[:4]))
+    require(len(rows) == OPTION_STEPS + 1 and all(r[0] == "0" for r in rows),
+            f"{tag} dns.out: {len(rows)} rows, status "
+            f"{[r[0] for r in rows]}")
+    for name, a in zip("uvws", state_to_numpy(run.state)):
+        require(np.isfinite(a).all(), f"{tag}: non-finite {name}")
+    require(tuple(run.state.u.shape) == MAIN_SHAPE, f"{tag}: state shape")
+    require(all(abs(c - CFL_TARGET) <= CFL_TOL for c in cfl),
+            f"{tag}: CFL column {cfl} not within {CFL_TOL} of {CFL_TARGET}")
+    if tag in ("7b", "7c"):
+        sim64 = Simulation.from_case(load_case(Ini(text=text)),
+                                     dtype=torch.float64, device="cuda")
+    if tag == "7c":
+        resid = helmholtz_residual(sim64.P, MAIN_SHAPE)
+        print(f"[options] 7c: max|(1 - w^2/24 Lap) pf - p| / max|p| off the "
+              f"wall rows = {resid:.3e} in fp64 (limit {HELMHOLTZ_TOL}), pf "
+              f"the plan's pressure filter of a random p, w = "
+              f"{HELMHOLTZ_WIDTH}")
+        del sim64
+        require(resid <= HELMHOLTZ_TOL,
+                f"7c: the Helmholtz pressure filter leaves {resid}")
+    if tag == "7b":
+        red64 = smooth_projection(sim64.grid, sim64.P)
+        red32 = smooth_projection(run.sim.grid, P)
+        del sim64
+        print(f"[options] 7b: staggered divergence of a smooth field after "
+              f"one substep / before = {red64:.3e} in fp64 (limit "
+              f"{SMOOTH_TOL}), {red32:.3e} in fp32 (round-off of the u/dte "
+              f"forcing; limit {SMOOTH_TOL_FP32})")
+        require(red64 <= SMOOTH_TOL,
+                f"7b: staggered projection leaves {red64}")
+        require(red32 <= SMOOTH_TOL_FP32,
+                f"7b: staggered projection leaves {red32} in fp32")
+        require(dil[-1] < dil[0], f"7b: dilatation max {dil[-1]} at the last "
+                                  f"row, {dil[0]} at the start")
+    else:
+        require(dil[-1] <= OPTION_DIL_TOL[tag],
+                f"{tag}: dilatation max {dil[-1]} > {OPTION_DIL_TOL[tag]}")
+    require(all(np.isfinite(v).all() for v in flow.values()),
+            f"{tag}: non-finite avg column")
+    if tag == "7a":
+        # a stratified convective run goes through the kernels every substep
+        require(P["bodyforce"] is not None, "7a: no body force in the plan")
+        require(launches == [OPTION_STEPS * n_sub] * 3,
+                f"7a launched {launches}, expected {OPTION_STEPS * n_sub} "
+                f"per axis")
+        for n in BUOYANCY_COLUMNS:
+            require(np.abs(flow[n]).max() > 0.0, f"7a: avg column {n} is 0")
+    else:
+        # dense products by design, as in the reference package: the
+        # conservative forms (7b) and a dealiased direction (7c) bypass
+        # the fused kernel
+        require(launches == [0, 0, 0], f"{tag} launched {launches}")
+        require(np.abs(flow["rB"]).max() == 0.0, f"{tag}: rB without "
+                                                 f"a buoyancy")
+    if tag == "7b":
+        require(P.get("stag") is not None and P.get("pfilter") is not None
+                and P.get("adv_form") == "skewsymmetric"
+                and run.sim.filter_matrices() is not None, "7b: plan")
+    if tag == "7c":
+        require(P.get("ell_fac") is None and P.get("dealias") is not None
+                and "helmholtz_alpha" in P["pfilter"], "7c: plan")
+    return launches
+
+
+def phase_options_fp64() -> None:
+    """7d: each of 7a-7c at 128x64x64 through the CLI, fp32 against fp64
+    from the same initial fields."""
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as top:
+        base = os.path.join(top, "base")
+        ini0 = os.path.join(top, "base.ini")
+        with open(ini0, "w") as fh:
+            fh.write(edit_case(CASE.read_text(), SMALL_GRID))
+        run_cli("ini", ini0, base, "--x64")
+        for tag in OPTION_CASES:
+            ini = os.path.join(top, tag + ".ini")
+            with open(ini, "w") as fh:
+                fh.write(option_case(tag, {
+                    **SMALL_GRID, ("Iteration", "End"): str(OPTION_STEPS),
+                    ("Iteration", "Restart"): "1000",
+                    ("Iteration", "Statistics"): "1000"}))
+            out = {}
+            for name, more in (("fp32", ()), ("fp64", ("--x64",))):
+                outdir = os.path.join(top, f"{tag}_{name}")
+                link_initial_fields(base, outdir)
+                out[name] = traced_cli(ini, outdir, ("dns",), *more)["run"]
+            r32, r64 = out["fp32"], out["fp64"]
+            require(r64.state.u.dtype == torch.float64
+                    and r32.state.u.dtype == torch.float32, "7d: dtypes")
+            rel = max(((a.double() - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(r32.state[:3], r64.state[:3]))
+            rel_s = ((r32.state.s.double() - r64.state.s).abs().max()
+                     / r64.state.s.abs().max()).item()
+            print(f"[options] 7d {tag} 128x64x64, {OPTION_STEPS} adaptive-dt "
+                  f"steps: max|q32 - q64| / max|q64| over u, v, w = "
+                  f"{rel:.3e}, scalar {rel_s:.3e} (limit {FP64_TOL}); "
+                  f"t32 - t64 = {r32.rtime - r64.rtime:.3e}")
+            require(max(rel, rel_s) <= FP64_TOL,
+                    f"7d {tag}: fp32 vs fp64 {max(rel, rel_s)} > {FP64_TOL}")
+
+
+def phase_direct_solver(card: str) -> None:
+    """7e: the direct eigen Poisson and Helmholtz solves at full width,
+    fp32 against fp64 on the same forcing, and their times beside the
+    factorized solve's."""
+    grid, P, _ = entry.build(*MAIN_SHAPE, torch.float32, "cuda", seed=0)
+    ell64 = elliptic.device_elliptic_plan(
+        elliptic.build_elliptic_plan(build_fdm_plan(grid)), torch.float64,
+        "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    f64 = torch.randn(MAIN_SHAPE, generator=gen, device="cuda",
+                      dtype=torch.float64)
+    f64 -= f64.mean()
+    f32 = f64.float()
+    alpha = -24.0 / HELMHOLTZ_WIDTH ** 2          # as 7c's pressure filter
+    calls = {
+        "direct Poisson": (lambda: elliptic.poisson(P["ell"], f32),
+                           lambda: elliptic.poisson(ell64, f64)),
+        "Helmholtz": (
+            lambda: elliptic.helmholtz(P["ell"], alpha * f32, alpha),
+            lambda: elliptic.helmholtz(ell64, alpha * f64, alpha)),
+    }
+    parts = []
+    for name, (fn32, fn64) in calls.items():
+        a, b = fn32().double(), fn64()
+        require(bool(torch.isfinite(a).all()), f"7e: non-finite {name}")
+        rel = ((a - b).abs().max() / b.abs().max()).item()
+        del a, b
+        ms = statistics.median(event_ms(fn32) for _ in range(REPS))
+        parts.append(f"{name} max|p32 - p64| / max|p64| = {rel:.3e}, "
+                     f"{ms:.3f} ms")
+    ms = statistics.median(
+        event_ms(lambda: fac.poisson_factorize(P["ell_fac"], f32))
+        for _ in range(REPS))
+    print(f"[options] 7e {card}: {MAIN_SHAPE}, random forcing: "
+          + "; ".join(parts) + f"; factorized Poisson {ms:.3f} ms "
+          f"(fp32, median of {REPS})")
+    del f32, f64, ell64
+    red32 = smooth_projection(grid, P)
+    print(f"[options] 7e: divergence of a smooth field after one substep of "
+          f"the case's own plan (unstaggered, factorized) / before = "
+          f"{red32:.3e} in fp32 (limit {SMOOTH_TOL_FP32})")
+    require(red32 <= SMOOTH_TOL_FP32,
+            f"7e: the factorized projection leaves {red32} in fp32")
+
+
+def phase_variants(card: str, initial: str) -> None:
+    """7f: what each option costs: `dns` of the case with one option at a
+    time, full width, from 6a's fields."""
+    for name in VARIANTS:
+        text = option_case(name, {("Iteration", "End"): str(OPTION_STEPS),
+                                  ("Iteration", "Restart"): "1000",
+                                  ("Iteration", "Statistics"): "1000"})
+        with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+            ini = os.path.join(out, "tlab.ini")
+            with open(ini, "w") as fh:
+                fh.write(text)
+            link_initial_fields(initial, out)
+            res = traced_cli(ini, out, ("dns",))
+            rows = data_rows(os.path.join(out, "dns.out"))
+            trace = read_trace(os.path.join(out, "tlab.trace"))
+        rate = step_rate(trace, OPTION_STEPS,
+                         len(res["run"].sim.P["rk"]["kdt"]))
+        dil = [max(abs(float(r[7])), abs(float(r[8]))) for r in rows]
+        print(f"[options] 7f {name} ({card}): {rate['ms_substep']:.3f} "
+              f"ms/substep (after the first step "
+              f"{rate['others_ms_substep']:.3f}); launches "
+              f"{res['launches']}; peak device memory {res['peak']} B; "
+              f"dilatation max " + " ".join(f"{d:.3e}" for d in dil))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -469,9 +854,16 @@ def main() -> int:
         rec["launches"] = n
     del P, state
     phase_fp64()
-    for rec, n in zip(records, phase_dns_case(smi)):
-        rec["dns_launches"] = n
-    phase_dns_restart()
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as initial:
+        for rec, n in zip(records, phase_dns_case(smi, initial)):
+            rec["dns_launches"] = n
+        phase_dns_restart()
+        for tag in OPTION_CASES:
+            for rec, n in zip(records, phase_option(tag, smi, initial)):
+                rec[f"launches_{tag}"] = n
+        phase_variants(smi, initial)
+    phase_options_fp64()
+    phase_direct_solver(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

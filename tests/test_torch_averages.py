@@ -12,7 +12,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from tlab_tpu.config import load_case as jload_case
+from tlab_tpu.config import Ini as JIni, load_case as jload_case
 from tlab_tpu.dycore import incompressible as jdyn
 from tlab_tpu.runtime import Simulation as JSimulation
 from tlab_tpu.stats import averages as javg
@@ -33,17 +33,38 @@ RTOL, ATOL = 1e-9, 1e-13
 torch.set_num_threads(2)
 
 
+# a linear stratification, an explicit Coriolis force with a component
+# along y, and a second gravity component, so that every buoyancy and
+# Coriolis column is filled
+NUMBERS = "[Parameters]\nFroude=2.0\nRossby=3.0\n"
+FORCES = """
+[Gravity]
+Type=Linear
+Vector=0.5,-1.0,0.0
+Parameters=1.0
+[Rotation]
+Type=explicit
+Vector=0.0,1.0,0.25
+"""
+
+
 @pytest.fixture(scope="module", params=["case01_small.ini",
-                                        "case01_small3d.ini"])
+                                        "case01_small3d.ini",
+                                        "case01_small3d.ini+stratified"])
 def tables(request, tmp_path_factory):
     """Both packages' tables and avg files of one state: tlab_tpu's initial
     state after two of its RK steps, with that step's pressure."""
-    path = os.path.join(DATA, request.param)
-    jsim = JSimulation.from_case(jload_case(path))
+    name, _, variant = request.param.partition("+")
+    with open(os.path.join(DATA, name)) as fh:
+        text = fh.read()
+    if variant:
+        text = text.replace("[Parameters]\n", NUMBERS, 1) + FORCES
+    jsim = JSimulation.from_case(jload_case(JIni(text=text)))
     sj = jinitial_state(jsim, seed=7)
     for _ in range(2):
         sj, pj = jdyn.rk_step(jsim.P, sj, 2e-3)
-    tsim = Simulation.from_case(load_case(path), dtype=F64, device="cpu")
+    tsim = Simulation.from_case(load_case(Ini(text=text)), dtype=F64,
+                                device="cpu")
     st = state_from_numpy(sj.u, sj.v, sj.w, sj.s, "cpu", F64)
     pt = torch.from_numpy(np.array(pj))
     out = tmp_path_factory.mktemp("avg")
@@ -52,7 +73,7 @@ def tables(request, tmp_path_factory):
     jdns.write_statistics(jsim, sj, str(out / "jax"), 2, 4e-3, p=pj)
     tdns.write_statistics(tsim, st, str(out / "torch"), 2, 4e-3, p=pt)
     return (javg.make_stats_tables_fn(jsim)(sj, pj),
-            tavg.stats_tables(tsim, st, pt), out, tsim, st, pt)
+            tavg.stats_tables(tsim, st, pt), out, tsim, st, pt, jsim, sj)
 
 
 def _assert_columns(ref: dict, got: dict, names, rtol=RTOL):
@@ -68,6 +89,29 @@ def test_flow_columns_match_jax(tables):
     assert len(names) == 191 and sorted(flow_t) == sorted(names)
     _assert_columns(flow_j, flow_t, names)
     assert float(np.max(flow_t["Tke"])) > 1e-3 and np.all(flow_t["rR"] == 1)
+
+
+def test_extras_match_jax(tables):
+    """build_extras: the same keys as tlab_tpu's, the same values, and the
+    buoyancy field to 1e-12; the columns they fill are filled exactly where
+    the case has the force."""
+    tsim, st, jsim, sj = tables[3], tables[4], tables[6], tables[7]
+    ext, exj = tavg.build_extras(tsim, st), javg.build_extras(jsim, sj)
+    assert sorted(ext) == sorted(exj)
+    for k in ext:
+        a, b = np.asarray(ext[k]), np.asarray(exj[k])
+        if k == "b":
+            assert np.max(np.abs(a - b)) <= 1e-12 * np.max(np.abs(b))
+        else:
+            assert np.array_equal(a, b), k
+    flow, scal = tables[1][0], tables[1][1][0]
+    forced = "b" in ext
+    assert forced == (tsim.P["bodyforce"] is not None)
+    for n in ("rB", "Bxx", "Byy", "Bxy", "Buo", "Pot", "Fxx", "Fzz", "Fxy",
+              "Fxz", "Fyz"):
+        assert bool(np.any(flow[n])) == forced, n
+    for n in ("Bsv", "Fsu", "Fsw"):
+        assert bool(np.any(scal[n])) == forced, n
 
 
 def test_scalar_columns_match_jax(tables):
@@ -110,7 +154,7 @@ def test_table_round_trip(tmp_path):
 def test_float32_tables_follow_float64(tables):
     """The tables of the float32 state: finite, in float32, and within
     1e-3 of the float64 ones where the column is not round-off."""
-    _, (flow64, _), _, tsim, st, pt = tables
+    _, (flow64, _), _, tsim, st, pt = tables[:6]
     sim32 = Simulation.from_case(tsim.case, dtype=torch.float32,
                                  device="cpu")
     st32 = state_from_numpy(st.u, st.v, st.w, st.s, "cpu", torch.float32)
@@ -122,15 +166,19 @@ def test_float32_tables_follow_float64(tables):
     assert all(np.isfinite(v).all() for v in scal32[0].values())
 
 
-@pytest.mark.parametrize("call", ["no_pressure", "extras", "rho", "netcdf"])
+@pytest.mark.parametrize("call", ["no_pressure", "extras", "extras_rho",
+                                  "rho", "netcdf"])
 def test_unported_statistics_raise(tables, call):
-    tsim, st, pt = tables[3:]
+    tsim, st, pt = tables[3:6]
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         if call == "no_pressure":
             tavg.flow_statistics(tsim.P, st, tsim.nsp.visc)
         elif call == "extras":
             tavg.flow_statistics(tsim.P, st, tsim.nsp.visc, p=pt,
                                  extras={"eqns": "anelastic"})
+        elif call == "extras_rho":
+            tavg.scalar_statistics(tsim.P, st, 1e-3, 0, p=pt,
+                                   extras={"scalar_sources": st.s})
         elif call == "rho":
             tavg.scalar_statistics(tsim.P, st, 1e-3, 0, p=pt, rho=st.u)
         else:

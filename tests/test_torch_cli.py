@@ -103,7 +103,7 @@ def test_unported_command_exits_with_its_item(command, item):
 
 
 @pytest.mark.parametrize("old, new, item", [
-    ("TermAdvection=convective", "TermAdvection=skewsymmetric", "A8"),
+    ("[BufferZone]\nType=none", "[SpecialForcing]\nType=wavemaker", "A9"),
     ("[BufferZone]\nType=none", "[SavePlanes]\nPlanesJ=3", "A15"),
     ("ForceDilatation=yes", "ForceDilatation=yes\nNormalizeR=1.0", "A9")])
 def test_unported_option_exits_with_its_item(rundir, tmp_path, old, new,

@@ -12,13 +12,20 @@ import torch
 import tlab_tpu_torch
 from tlab_tpu_torch import grid as tgrid
 from tlab_tpu_torch.fdm.plan import build_fdm_plan
+from tlab_tpu_torch.config import Ini, load_case
+from tlab_tpu_torch.ops import elliptic
 from tlab_tpu_torch.ops import elliptic_factorize as fac
+from tlab_tpu_torch.ops import filter as filt
+from tlab_tpu_torch.runtime import make_sources
 
 # the entry points known to take a default device; the walk must see them
 KNOWN = ("tlab_tpu_torch.entry.build",
          "tlab_tpu_torch.runtime.Simulation.from_case",
          "tlab_tpu_torch.dycore.incompressible.build_device_plans",
-         "tlab_tpu_torch.ops.elliptic_factorize.device_factorize_plan")
+         "tlab_tpu_torch.ops.elliptic_factorize.device_factorize_plan",
+         "tlab_tpu_torch.ops.elliptic.device_elliptic_plan",
+         "tlab_tpu_torch.ops.filter.build_filter_matrices",
+         "tlab_tpu_torch.runtime.make_sources")
 
 
 def _callables(module):
@@ -74,3 +81,26 @@ def test_factorize_plan_raises_without_a_card():
     dev = fac.device_factorize_plan(plan, torch.float64, "cpu")
     assert all(t.device.type == "cpu" for t in dev.values()
                if isinstance(t, torch.Tensor))
+
+
+@pytest.mark.parametrize("what", ["elliptic", "filter", "sources"])
+def test_new_plans_raise_without_a_card(what):
+    """The direct eigen plan, the filter matrices and the source hook with
+    no device named go to the card, and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("there is a card: the default device exists")
+    grid = tgrid.uniform_grid(16, 12, 8, 2.0, 1.0, 1.5)
+    fdm = build_fdm_plan(grid)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        if what == "elliptic":
+            elliptic.device_elliptic_plan(elliptic.build_elliptic_plan(fdm))
+        elif what == "filter":
+            filt.build_filter_matrices(fdm, filt.FilterSpec(type="compact"))
+        else:
+            make_sources(load_case(Ini(
+                text="[Gravity]\nType=Linear\nVector=0,-1,0\n"
+                     "Parameters=1.0\n")), grid)
+    dev = elliptic.device_elliptic_plan(elliptic.build_elliptic_plan(fdm),
+                                        torch.float64, "cpu")
+    assert all(t.device.type == "cpu" and t.dtype == torch.float64
+               for t in dev.values() if isinstance(t, torch.Tensor))

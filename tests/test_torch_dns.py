@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from tlab_tpu.config import Ini as JIni, load_case as jload_case
+from tlab_tpu.dycore import incompressible as jdyn
 from tlab_tpu.dycore.state import State as JState
+from tlab_tpu.stats import averages as javg
 from tlab_tpu.io import fields_io as jio
 from tlab_tpu.runtime import Simulation as JSimulation
 from tlab_tpu.tools import dns as jdns
@@ -21,6 +23,7 @@ from tlab_tpu_torch.config import Ini, load_case
 from tlab_tpu_torch.convert import state_from_numpy, state_to_numpy
 from tlab_tpu_torch.io import fields_io as tio
 from tlab_tpu_torch.runtime import Simulation
+from tlab_tpu_torch.stats import averages as tavg
 from tlab_tpu_torch.tools import dns as tdns
 from tlab_tpu_torch.tools.initialize import initial_state
 
@@ -104,6 +107,126 @@ def test_ten_adaptive_steps_match_jax(tmp_path, start):
         assert np.array_equal(a, b)
     log = (tmp_path / "torch" / "tlab.log").read_text()
     assert "Devices          : cpu" in log and "float64" in log
+
+
+STRATIFIED = """
+[Gravity]
+Type=Linear
+Vector=0.0,-1.0,0.0
+Parameters=1.0
+
+[Rotation]
+Type=explicit
+Vector=0.0,1.0,0.25
+"""
+CASE_FILTER = os.path.join(DATA, "case_filter_small3d.ini")
+
+
+def _case_runs(tmp_path, text, n_steps=10):
+    """`ini` then `dns` of one case text through both packages.  The two
+    initial states agree to 1e-11 of max|field| (the initializers' limit);
+    both runs then start from tlab_tpu's, so that the fields can be held to
+    1e-12.  Returns (jax run, port run)."""
+    jsim = JSimulation.from_case(jload_case(JIni(text=text)))
+    tsim = Simulation.from_case(load_case(Ini(text=text)), dtype=F64,
+                                device="cpu")
+    sj = jinitial_state(jsim, seed=7)
+    st = initial_state(tsim, seed=7)
+    for a, b in zip(state_to_numpy(st), state_to_numpy(sj)):
+        assert np.max(np.abs(a - b)) <= 1e-11 * max(np.max(np.abs(b)), 1.0)
+    runs = []
+    st = state_from_numpy(*state_to_numpy(sj), "cpu", F64)
+    for mod, sim, state, sub in ((jdns, jsim, sj, "jax"),
+                                 (tdns, tsim, st, "torch")):
+        out = tmp_path / sub
+        out.mkdir()
+        runs.append(mod.run(sim, state, outdir=str(out), n_steps=n_steps,
+                            log_path=str(out / "dns.out")))
+    return runs
+
+
+def _assert_same_files(tmp_path, rj, rt, steps, field_tol):
+    """dns.out to every printed digit, the final fields to `field_tol` of
+    max|field|, every avg column of the files to 1e-8 of its max: they
+    hold 9 printed digits, so two values that differ at round-off can
+    print one unit of the last digit apart (1e-13 absolute for the columns
+    that vanish analytically).  `_tables` holds the tables in memory to
+    1e-9."""
+    text_j = (tmp_path / "jax" / "dns.out").read_text()
+    text_t = (tmp_path / "torch" / "dns.out").read_text()
+    assert text_t == text_j
+    assert len(_rows(rt.log)) == steps + 1
+    for a, b in zip(state_to_numpy(rj.state), state_to_numpy(rt.state)):
+        assert np.max(np.abs(a - b)) <= field_tol * np.max(np.abs(a))
+    for name in (f"avg{steps}", f"avg{steps}s1"):
+        _, gj, cj = javg.read_avg(str(tmp_path / "jax" / name))
+        _, gt, ct = tavg.read_avg(str(tmp_path / "torch" / name))
+        assert gt == gj and list(ct) == list(cj)
+        for n in cj:                 # the files hold 9 printed digits
+            assert np.max(np.abs(cj[n] - ct[n])) <= max(
+                1e-8 * np.max(np.abs(cj[n])), 1e-13), (name, n)
+
+
+def _tables(rj, rt):
+    """Both packages' tables of their final states, with the pressure of
+    one more tlab_tpu step: every column to 1e-9 of its max."""
+    pj = jdyn.rk_step(rj.sim.P, rj.state, 1e-3)[1]
+    flow_j, scal_j = javg.make_stats_tables_fn(rj.sim)(rj.state, pj)
+    flow_t, scal_t = tavg.stats_tables(
+        rt.sim, rt.state, torch.from_numpy(np.array(pj)))
+    for ref, got in ((flow_j, flow_t), (scal_j[0], scal_t[0])):
+        for n in got:
+            a = np.asarray(ref[n], np.float64)
+            b = np.asarray(got[n], np.float64)
+            assert np.isfinite(b).all(), n
+            assert np.max(np.abs(a - b)) <= max(1e-9 * np.max(np.abs(a)),
+                                                1e-13), n
+    return flow_t, scal_t[0]
+
+
+def test_filter_case_matches_jax(tmp_path):
+    """tests/data/case_filter_small3d.ini: the [Filter] cadence (compact,
+    every 2 steps) and the Helmholtz [PressureFilter]."""
+    with open(CASE_FILTER) as fh:
+        text = fh.read()
+    rj, rt = _case_runs(tmp_path, text)
+    assert rt.sim.filter_matrices() is not None
+    assert "helmholtz_alpha" in rt.sim.P["pfilter"]
+    _assert_same_files(tmp_path, rj, rt, 10, 1e-12)
+    _tables(rj, rt)
+    # the filter is applied: the same run without it ends elsewhere
+    (tmp_path / "plain").mkdir()
+    _, plain = _port_run(tmp_path / "plain",
+                         text.replace("[Filter]\nType=compact",
+                                      "[Filter]\nType=none"),
+                         initial_state(rt.sim, seed=7), n_steps=10)
+    assert float((plain.state.u - rt.state.u).abs().max()) > 1e-6
+
+
+def test_stratified_rotating_case_matches_jax(tmp_path):
+    """case01_small3d.ini with a linear stratification and an explicit
+    Coriolis force: dns.out, fields, and the avg tables with their buoyancy
+    and Coriolis columns."""
+    rj, rt = _case_runs(tmp_path, _text(STRATIFIED))
+    assert rt.sim.P["bodyforce"] is not None
+    _assert_same_files(tmp_path, rj, rt, 10, 1e-12)
+    flow, scal = _tables(rj, rt)
+    for n in ("rB", "Byy", "Buo", "Pot", "Fxx", "Fxz"):
+        assert np.max(np.abs(flow[n])) > 0, n
+    for n in ("Bsv", "Fsu", "Fsw"):
+        assert np.max(np.abs(scal[n])) > 0, n
+    assert not np.any(flow["Bxx"]) and not np.any(flow["Fyy"])
+    _, _, written = tavg.read_avg(str(tmp_path / "torch" / "avg10"))
+    assert np.max(np.abs(written["rB"])) > 0
+
+
+def test_filter_cadence_forces_single_steps(tmp_path):
+    """With a [Filter] the window is one step, as in tlab_tpu: the log has
+    a row a step whatever inner_steps asks for."""
+    with open(CASE_FILTER) as fh:
+        text = fh.read()
+    _, run = _port_run(tmp_path, text, n_steps=4, inner_steps=2)
+    assert [int(r[1]) for r in _rows(run.log)] == [0, 1, 2, 3, 4]
 
 
 def test_inner_steps_window_matches_jax(tmp_path, start):

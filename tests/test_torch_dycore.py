@@ -1,6 +1,9 @@
 """The port's incompressible main path against tlab_tpu, float64 on the
 CPU: plans, one stacked substep, one RK4 step, the diagnostics, the
-golden 20-step RK3 slice, and the options the port rejects."""
+golden 20-step RK3 slice, the options that were once refused and now run
+(each against tlab_tpu), and the options the port still rejects."""
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -162,31 +165,124 @@ def test_golden_slice():
         assert abs(got[k] - ref) / scale < 1e-9, (k, got[k], ref)
 
 
-@pytest.mark.parametrize("section, key, value", [
-    ("Main", "TermAdvection", "skewsymmetric"),
-    ("Main", "EllipticOrder", "compactdirect6"),
-    ("Main", "TermDivergence", "none"),
-    ("Filter", "Type", "compact"),
-    ("BoundaryConditions", "Scalar1SfcTypeJmin", "linear"),
+def _with_key(section, key, value):
+    """The golden case's text with [section] key=value set."""
+    if f"[{section}]\n" not in INI:
+        return INI + f"[{section}]\n{key}={value}\n"
+    head, body = INI.split(f"[{section}]\n", 1)
+    body, sep, rest = body.partition("[")
+    body = re.sub(rf"^{key}=[^\n]*\n", "", body, flags=re.M)
+    return f"{head}[{section}]\n{key}={value}\n{body}{sep}{rest}"
+
+
+@pytest.mark.parametrize("section, key, value, item", [
+    ("BoundaryConditions", "Scalar1SfcTypeJmin", "linear", "A10"),
+    ("BufferZone", "Type", "relaxation", "A10"),
+    ("IBMParameter", "Status", "on", "A10"),
+    ("Main", "Type", "spatial", "A10"),
+    ("Main", "TimeOrder", "RungeKuttaDiffusion3", "A11"),
+    ("Main", "Equations", "anelastic", "A9"),
+    ("Main", "Equations", "internal", "A13"),
+    ("Thermodynamics", "Type", "anelastic", "A9"),
+    ("Thermodynamics", "Mixture", "AirWaterLinear", "A9"),
+    ("Infrared", "Type", "grayliquid", "A9"),
+    ("Sedimentation", "Type", "airwatersimplified", "A9"),
+    ("Chemistry", "Type", "quadratic", "A9"),
+    ("SpecialForcing", "Type", "wavemaker", "A9"),
 ])
-def test_from_case_rejects_options_off_the_path(section, key, value):
-    text = INI.replace(f"[{section}]\n", f"[{section}]\n{key}={value}\n", 1)
-    if f"[{section}]" not in INI:
-        text = INI + f"[{section}]\n{key}={value}\n"
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        Simulation.from_case(tconfig.load_case(tconfig.Ini(text=text)),
-                             dtype=F64, device="cpu")
+def test_from_case_rejects_options_off_the_path(section, key, value, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        Simulation.from_case(
+            tconfig.load_case(tconfig.Ini(text=_with_key(section, key,
+                                                         value))),
+            dtype=F64, device="cpu")
+
+
+@pytest.mark.parametrize("section, key, value, plan_key", [
+    ("Main", "TermAdvection", "skewsymmetric", "adv_form"),
+    ("Main", "EllipticOrder", "compactdirect6", "ell"),
+    ("Main", "TermDivergence", "none", "remove_divergence"),
+    ("Filter", "Type", "compact", None),
+])
+def test_from_case_runs_options_once_refused(section, key, value, plan_key):
+    """The case options this file pinned as refused until they were ported:
+    each loads, sets its plan key and steps as tlab_tpu does (1e-10 of
+    max|field|)."""
+    text = _with_key(section, key, value)
+    tsim = Simulation.from_case(tconfig.load_case(tconfig.Ini(text=text)),
+                                dtype=F64, device="cpu")
+    jsim = JSimulation.from_case(load_case(Ini(text=text)))
+    if plan_key is None:
+        assert set(tsim.filter_matrices()) == set(jsim.filter_matrices())
+    else:
+        assert plan_key in tsim.P and plan_key in jsim.P
+        assert ("ell_fac" in tsim.P) == ("ell_fac" in jsim.P)
+    sj = jinitial_state(jsim, seed=3)
+    st = state_from_numpy(sj.u, sj.v, sj.w, sj.s, "cpu", F64)
+    sj, _ = jdyn.rk_step(jsim.P, sj, 2e-3, unroll=True)
+    st, _ = tdyn.rk_step(tsim.P, st, 2e-3)
+    for a, b in zip(st[:4], sj[:4]):
+        assert _rel(a, b) <= 1e-10
 
 
 @pytest.mark.parametrize("key, value", [
-    ("anelastic", {}), ("ibm", {}), ("comm", {}), ("bodyforce", print),
-    ("d1x_banded", {}), ("adv_form", "divergence"),
+    ("anelastic", {}), ("ibm", {}), ("comm", {}), ("buffer", {}),
+    ("d1x_banded", {}), ("surface_bc", {}),
 ])
 def test_step_rejects_plans_off_the_path(key, value):
     _, PT, (u, v, w, s) = _setup()
     PT[key] = value
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         tdyn.rk_step(PT, state_from_numpy(u, v, w, s, "cpu", F64), 1e-3)
+
+
+def test_step_runs_plan_keys_once_refused():
+    """`bodyforce` and `adv_form`, which the step refused until they were
+    ported, against tlab_tpu's step with the same plan entries: a constant
+    force on v through the hook, and the divergence form."""
+    PJ, PT, (u, v, w, s) = _setup()
+
+    def force_j(P, state, h1, h2, h3, hs, aux=None):
+        return h1, h2 + 0.25, h3, hs
+
+    def force_t(P, state, h1, h2, h3, hs, aux=None):
+        h2 += 0.25
+        return h1, h2, h3, hs
+
+    PJ.update(bodyforce=force_j, adv_form="divergence")
+    PT.update(bodyforce=force_t, adv_form="divergence")
+    assert plans_from_jax(PJ, "cpu", F64, bodyforce=force_t)["bodyforce"] \
+        is force_t
+    with pytest.raises(ValueError, match="bodyforce"):
+        plans_from_jax(PJ, "cpu", F64)
+    sj, _ = jdyn.rk_step(PJ, jdyn.State(u=jnp.asarray(u), v=jnp.asarray(v),
+                                        w=jnp.asarray(w), s=jnp.asarray(s)),
+                         1e-3, unroll=True)
+    st, _ = tdyn.rk_step(PT, state_from_numpy(u, v, w, s, "cpu", F64), 1e-3)
+    for a, b in zip(st[:4], sj[:4]):
+        assert _rel(a, b) <= 1e-12
+
+
+def test_step_takes_a_functional_bodyforce():
+    """A hook that returns new tensors, as tlab_tpu's do, instead of adding
+    into the rows it is given: the step copies them into its tendency.  One
+    step against tlab_tpu's with the same hook, to 1e-12."""
+    PJ, PT, (u, v, w, s) = _setup()
+
+    def force(P, state, h1, h2, h3, hs, aux=None):
+        return h1 - 0.5 * state.w, h2 + 0.25, h3, hs + 0.125 * state.s
+
+    PJ["bodyforce"] = PT["bodyforce"] = force
+    sj, _ = jdyn.rk_step(PJ, jdyn.State(u=jnp.asarray(u), v=jnp.asarray(v),
+                                        w=jnp.asarray(w), s=jnp.asarray(s)),
+                         1e-3, unroll=True)
+    st, _ = tdyn.rk_step(PT, state_from_numpy(u, v, w, s, "cpu", F64), 1e-3)
+    free, _ = tdyn.rk_step({**PT, "bodyforce": None},
+                           state_from_numpy(u, v, w, s, "cpu", F64), 1e-3)
+    for a, b in zip(st[:4], sj[:4]):
+        assert _rel(a, b) <= 1e-12
+    # the force is felt: u (from w) and the scalar move
+    assert min(_rel(free[0], sj[0]), _rel(free[3], sj[3])) > 1e-6
 
 
 def _taylor_green(grid, reynolds=100.0):

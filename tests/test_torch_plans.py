@@ -1,5 +1,6 @@
-"""The port's own copies of the NumPy modules (constants, grid, fdm,
-physics.params, config) give exactly what tlab_tpu's originals give: the
+"""The port's own copies of the NumPy modules (constants, grid, fdm with
+its filters and staggered operators, physics.params, config, the plan-time
+part of ops/elliptic.py) give exactly what tlab_tpu's originals give: the
 copies differ from them only in their import lines, so every comparison
 is exact (np.array_equal, ==), with no tolerance."""
 import dataclasses
@@ -12,12 +13,18 @@ import pytest
 from tlab_tpu import config as jconfig
 from tlab_tpu import constants as jconst
 from tlab_tpu import grid as jgrid
+from tlab_tpu.fdm import filters as jfilters
 from tlab_tpu.fdm import plan as jplan
+from tlab_tpu.fdm import stagger as jstagger
+from tlab_tpu.ops import elliptic as jelliptic
 from tlab_tpu.physics import params as jparams
 from tlab_tpu_torch import config as tconfig
 from tlab_tpu_torch import constants as tconst
 from tlab_tpu_torch import grid as tgrid
+from tlab_tpu_torch.fdm import filters as tfilters
 from tlab_tpu_torch.fdm import plan as tplan
+from tlab_tpu_torch.fdm import stagger as tstagger
+from tlab_tpu_torch.ops import elliptic as telliptic
 from tlab_tpu_torch.physics import params as tparams
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
@@ -133,3 +140,90 @@ def test_load_case_matches(name):
 
 def test_case_list_is_not_empty():
     assert len(CASES) >= 7
+
+
+# ---------------------------------------------------------------------------
+# fdm/filters.py, fdm/stagger.py and the NumPy part of ops/elliptic.py
+# ---------------------------------------------------------------------------
+
+def _axis_nodes(kind):
+    gt, _ = _grids(kind)
+    return gt.x.nodes, gt.y.nodes
+
+
+@pytest.mark.parametrize("call", [
+    lambda m, x, y: m.compact4_matrix(x, 0.49, True),
+    lambda m, x, y: m.compact4_matrix(y, 0.45, False),
+    lambda m, x, y: m.compact4_matrix(y, 0.3, False, bcs=("zero", "biased")),
+    lambda m, x, y: m.explicit6_matrix(x.size, True),
+    lambda m, x, y: m.explicit6_matrix(y.size, False),
+    lambda m, x, y: m.explicit4_matrix(x, True),
+    lambda m, x, y: m.explicit4_matrix(y, False),
+    lambda m, x, y: m.tophat_matrix(x, 2, True),
+    lambda m, x, y: m.tophat_matrix(y, 4, False),
+    lambda m, x, y: m.spectral_matrix(x.size, "band", (0.0, 0.6)),
+    lambda m, x, y: m.spectral_matrix(x.size, "erf", (0.5, 0.1)),
+], ids=["compact4_periodic", "compact4_walls", "compact4_zero_wall",
+        "explicit6_periodic", "explicit6_walls", "explicit4_periodic",
+        "explicit4_walls", "tophat_periodic", "tophat_walls",
+        "spectral_band", "spectral_erf"])
+@pytest.mark.parametrize("kind", ["uniform", "stretched"])
+def test_filter_matrices_match(kind, call):
+    x, y = _axis_nodes(kind)
+    _same(call(tfilters, x, y), call(jfilters, x, y), "filter")
+
+
+def test_filters_module_has_the_same_functions():
+    names = [n for n in vars(jfilters) if not n.startswith("__")]
+    assert sorted(n for n in vars(tfilters) if not n.startswith("__")) == \
+        sorted(names)
+    names = [n for n in vars(jstagger) if not n.startswith("__")]
+    assert sorted(n for n in vars(tstagger) if not n.startswith("__")) == \
+        sorted(names)
+
+
+@pytest.mark.parametrize("n, length", [(16, 2.0 * np.pi), (17, 1.0),
+                                       (64, 3.0)])
+def test_stagger_ops_match(n, length):
+    ot = tstagger.build_stagger_ops(n, length / n)
+    oj = jstagger.build_stagger_ops(n, length / n)
+    _same(ot, oj, "stagger")
+    assert sorted(ot) == ["dpv", "dvp", "ipv", "ivp"]
+    _same(tstagger.modified_wavenumber(n, length),
+          jstagger.modified_wavenumber(n, length), "mwn")
+
+
+@pytest.mark.parametrize("ibc", ["NN", "DD", "ND", "DN"])
+@pytest.mark.parametrize("kind", ["uniform", "stretched"])
+def test_elliptic_plan_matches(kind, ibc):
+    """build_pencil and build_elliptic_plan (with _reflection_basis and
+    _pencil_eig behind it): every array of the plan, exactly."""
+    gt, gj = _grids(kind)
+    ft, fj = tplan.build_fdm_plan(gt), jplan.build_fdm_plan(gj)
+    bt, bj = tconst.BC[ibc], jconst.BC[ibc]
+    _same(telliptic.build_pencil(ft.y, bt), jelliptic.build_pencil(fj.y, bj),
+          "pencil")
+    _same(telliptic.build_elliptic_plan(ft, ibc=bt),
+          jelliptic.build_elliptic_plan(fj, ibc=bj), "plan")
+
+
+def test_elliptic_plan_overrides_and_dense_solve_match():
+    gt, gj = _grids("uniform")
+    ft, fj = tplan.build_fdm_plan(gt), jplan.build_fdm_plan(gj)
+    lam_x, lam_z = -np.arange(13.0) ** 2, -np.arange(12.0)
+    pt = telliptic.build_elliptic_plan(ft, shift=0.5, lam_x=lam_x,
+                                       lam_z=lam_z)
+    pj = jelliptic.build_elliptic_plan(fj, shift=0.5, lam_x=lam_x,
+                                       lam_z=lam_z)
+    _same(pt, pj, "plan")
+    rng = np.random.default_rng(0)
+    f_hat = rng.standard_normal((13, 17, 12)) \
+        + 1j * rng.standard_normal((13, 17, 12))
+    for alpha in (0.0, -3.0):
+        _same(telliptic.solve_modal_dense(pt, f_hat, alpha),
+              jelliptic.solve_modal_dense(pj, f_hat, alpha), "dense")
+    for at_max in (False, True):
+        _same(telliptic.neumann_row_coefs(gt.y.nodes, at_max),
+              jelliptic.neumann_row_coefs(gj.y.nodes, at_max), "row")
+    _same(telliptic._reflection_basis(7), jelliptic._reflection_basis(7),
+          "basis")

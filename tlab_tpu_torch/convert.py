@@ -19,17 +19,19 @@ from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.ops import elliptic_factorize as fac
 
 _MATRIX = re.compile(r"^(d1|d12|iod)[xyz]$")
-# direct eigen Poisson plans: tlab_tpu keeps them beside the factorized
-# plan for its initial conditions; the main path does not read them
-_UNUSED = ("dtype", "ell", "ell_dd")
+_ELLIPTIC = ("ell", "ell_dd", "ell_stag")       # direct eigen Poisson plans
+_UNUSED = ("dtype",)
 
 
-def plans_from_jax(P_np: dict, device, dtype) -> dict:
+def plans_from_jax(P_np: dict, device, dtype, bodyforce=None) -> dict:
     """The port's plan dict from a tlab_tpu build_device_plans/
-    Simulation plan (with its factorized Poisson plan in "ell_fac").
+    Simulation plan.
 
-    Raises NotImplementedError for keys that select a path the port lacks
-    (check_main_path), and KeyError for keys it does not know."""
+    tlab_tpu's "bodyforce" is a function of JAX arrays and cannot cross: a
+    plan that has one needs the port's own hook in `bodyforce`
+    (runtime.make_sources of the same case).  Raises NotImplementedError
+    for keys that select a path the port lacks (check_main_path), and
+    KeyError for keys it does not know."""
     dev = _device.resolve(device)
 
     def t(a):
@@ -57,10 +59,29 @@ def plans_from_jax(P_np: dict, device, dtype) -> dict:
         elif key == "scal_bounds":
             if val is not None:
                 P[key] = scalar_bounds(val[0], val[1], dtype, dev)
+        elif key in _ELLIPTIC:
+            P[key] = {k: float(v) if k == "shift" else t(v)
+                      for k, v in val.items() if k not in ("dft",
+                                                           "shardings")}
+        elif key in ("stag", "dealias"):
+            P[key] = {k: None if v is None else t(v) for k, v in val.items()}
+        elif key == "pfilter":
+            if val is None or "helmholtz_alpha" in val:
+                P[key] = val
+            else:
+                P[key] = {k: None if v is None else t(v)
+                          for k, v in val.items()}
+        elif key in ("adv_form", "remove_divergence"):
+            P[key] = val
+        elif key == "bodyforce":
+            if val is not None and bodyforce is None:
+                raise ValueError(
+                    "the tlab_tpu plan has a bodyforce hook: pass the "
+                    "port's own (runtime.make_sources) as `bodyforce`")
+            P[key] = bodyforce if val is not None else None
         elif key in _UNUSED:
             continue
-        elif key in OFF_PATH or key.endswith("_banded") \
-                or key in ("adv_form", "remove_divergence"):
+        elif key in OFF_PATH or key.endswith("_banded"):
             if val is not None:     # check_main_path rejects it
                 P[key] = val
         else:

@@ -1,17 +1,21 @@
-"""Incompressible dynamical core, main path: fused Burgers RHS + pressure
-projection on the stacked carry.  Port of the main-path functions of
+"""Incompressible dynamical core: fused Burgers RHS + pressure projection
+on the stacked carry.  Port of the single-device Boussinesq functions of
 tlab_tpu/dycore/incompressible.py (its module docstring describes the
 substep, after the reference's rhs_global_incompressible_1.f90 and
 time.f90 TIME_RUNGEKUTTA).
 
 Per substep: the Burgers term nu d2(q) - u_i d1(q) along x, y and z for the
-whole (3+ns) stack (on a CUDA float32 stack through the hand-written kernel
-of ops/burgers.py), the factorized pressure projection, then the wall rows
-of the tendencies; q += dte h; the scalars clipped to the plan's bounds;
-h *= kco.
+whole (3+ns) stack (convective form on a CUDA float32 stack: the
+hand-written kernel of ops/burgers.py; the skew-symmetric and divergence
+forms and a dealiased direction: dense products, as in tlab_tpu), the body
+forces (P["bodyforce"]), the pressure projection (factorized or direct
+eigen Poisson, unstaggered or horizontally staggered, optionally filtered),
+then the wall rows of the tendencies; q += dte h; the scalars clipped to
+the plan's bounds; h *= kco.
 
-Only the main path is ported.  A plan that asks for anything else raises
-NotImplementedError naming the ROADMAP item that will port it.
+A plan that asks for a path not ported yet (anelastic weighting, buffers,
+immersed boundaries, the surface BC, banded operators, a device mesh)
+raises NotImplementedError naming the ROADMAP item that will port it.
 """
 from __future__ import annotations
 
@@ -27,8 +31,10 @@ from tlab_tpu_torch import device as _device
 from tlab_tpu_torch.dycore import timemarch
 from tlab_tpu_torch.dycore.state import State, stack, unstack
 from tlab_tpu_torch.ops import burgers
+from tlab_tpu_torch.ops import elliptic
 from tlab_tpu_torch.ops import elliptic_factorize as fac
-from tlab_tpu_torch.ops.derivative import der1, der12
+from tlab_tpu_torch.ops.derivative import apply_along, der1, der12
+from tlab_tpu_torch.ops.filter import apply_filter
 
 
 # ---------------------------------------------------------------------------
@@ -89,18 +95,28 @@ def neumann_value_rows(plan_y: DerivPlan, bot: bool, top: bool):
 def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
                        rk_name: str = "RungeKuttaExplicit4",
                        dtype=torch.float32, device="cuda",
-                       wall_refs=None) -> dict:
+                       wall_refs=None, bodyforce=None,
+                       factorize: bool = True) -> dict:
     """The plan dict of operator tensors and coefficients on `device`.
 
-    Main-path keys of tlab_tpu's build_device_plans, with P["ell_fac"] the
-    factorized Poisson plan.  Every direction uses its dense operators: the
-    banded long-line plans are ROADMAP A12."""
+    The keys of tlab_tpu's build_device_plans: P["ell"] is the direct eigen
+    Poisson plan (Neumann walls), P["bodyforce"] the source hook
+    (runtime.make_sources) or None.  With `factorize` (the reference's
+    default formulation, for ny > 4) P["ell_fac"] holds the factorized
+    Poisson plan, which the projection prefers; a caller that builds its
+    own (staggered wavenumbers) or wants the direct solver passes False.
+    Every direction uses its dense operators: the banded long-line plans
+    are ROADMAP A12."""
     dev = _device.resolve(device)
     _device.full_fp32_matmul()
-    if fdm.y.periodic or fdm.y.size <= 4 or not fdm.x.periodic:
+    if not fdm.x.periodic:
         raise NotImplementedError(
-            "the ported projection needs walls in y (ny > 4) and periodic x "
-            "(ROADMAP A8: direct eigen Poisson)")
+            "the Poisson solvers need periodic x (non-periodic x is the "
+            "spatial mode: ROADMAP A10)")
+    if fdm.y.periodic:
+        raise NotImplementedError(
+            "the pressure projection needs walls in y (periodic y belongs "
+            "to the compressible set: ROADMAP A13)")
     scheme = timemarch.get_scheme(rk_name)
 
     def t(a):
@@ -139,8 +155,12 @@ def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
     P["wall_refs"] = wall_refs or {"u": (0.0, 0.0), "v": (0.0, 0.0),
                                    "w": (0.0, 0.0)}
     P["diffusion_constant"] = timemarch.diffusion_constant(fdm, nsp)
-    P["ell_fac"] = fac.device_factorize_plan(fac.build_factorize_plan(fdm),
-                                             dtype, dev)
+    P["bodyforce"] = bodyforce
+    P["ell"] = elliptic.device_elliptic_plan(
+        elliptic.build_elliptic_plan(fdm, ibc=BC.NN), dtype, dev)
+    if factorize and fdm.y.size > 4:
+        P["ell_fac"] = fac.device_factorize_plan(
+            fac.build_factorize_plan(fdm), dtype, dev)
     return P
 
 
@@ -158,14 +178,10 @@ OFF_PATH = {
     "ibm": "A10 (immersed boundaries)",
     "surface_bc": "A10 (interactive surface BC)",
     "buffer": "A10 (buffer zones)",
-    "bodyforce": "A9 (sources: buoyancy, Coriolis, ...)",
     "anelastic": "A9 (anelastic)",
-    "stag": "A8 (staggered pressure)",
-    "ell_stag": "A8 (staggered pressure)",
-    "pfilter": "A8 (pressure filter)",
-    "dealias": "A8 (dealiasing)",
     "comm": "A17 (multi-GPU pencils)",
 }
+ADV_FORMS = ("convective", "skewsymmetric", "divergence")
 
 
 def check_main_path(P: dict) -> None:
@@ -177,14 +193,9 @@ def check_main_path(P: dict) -> None:
         if key.endswith("_banded"):
             raise NotImplementedError(f"plan key {key!r}: ROADMAP A12 "
                                       "(banded long-line operators)")
-    if P.get("adv_form", "convective") != "convective":
-        raise NotImplementedError(
-            f"advection form {P['adv_form']!r}: ROADMAP A8")
-    if not P.get("remove_divergence", True):
-        raise NotImplementedError("TermDivergence=none: ROADMAP A8")
-    if P.get("ell_fac") is None:
-        raise NotImplementedError("no factorized Poisson plan: ROADMAP A8 "
-                                  "(direct eigen Poisson)")
+    if P.get("adv_form", "convective") not in ADV_FORMS:
+        raise ValueError(f"advection form {P['adv_form']!r}: one of "
+                         f"{ADV_FORMS}")
 
 
 # ---------------------------------------------------------------------------
@@ -202,15 +213,43 @@ def divergence(P, u, v, w):
     return _d1(P, "x", 0, u) + _d1(P, "y", 1, v) + _d1(P, "z", 2, w)
 
 
+def _stag(P, axis_name: str, which: str, a):
+    """Apply a staggered-grid operator (ivp/ipv/dvp/dpv: interpolation or
+    derivative, velocity to pressure nodes or back) along x or z; identity
+    when the axis has no extent (2-D runs).  The operators are dense
+    circulants (fdm/stagger.py), each one product."""
+    M = P["stag"].get(f"{which}{axis_name}")
+    if M is None:
+        return a
+    return der1(M, a, 0 if axis_name == "x" else 2)
+
+
+def divergence_staggered(P, u, v, w):
+    """Divergence on the staggered pressure nodes (what the staggered
+    projection annihilates)."""
+    return (_stag(P, "z", "ivp", _stag(P, "x", "dvp", u))
+            + _stag(P, "z", "ivp",
+                    _stag(P, "x", "ivp", _d1(P, "y", 1, v)))
+            + _stag(P, "x", "ivp", _stag(P, "z", "dvp", w)))
+
+
+def _dealias_matrix(P, axis_name: str):
+    """The dealiasing filter of one direction, or None."""
+    dea = P.get("dealias")
+    return dea.get(axis_name) if dea else None
+
+
 def _fused_burgers_ok(P, axis_name: str, fields) -> bool:
     """Gate for the hand-written CUDA kernel (ops/burgers.py), the
-    counterpart of tlab_tpu's _fused_burgers_ok: a float32 stack on CUDA,
-    no banded plan for this direction, no anelastic weighting, no
-    dealiasing, convective advection.  There is no switch to turn it off:
-    where the gate holds, the kernel runs or the step raises."""
+    counterpart of tlab_tpu's _fused_burgers_ok and its call site: a
+    float32 stack on CUDA, no banded plan for this direction, no anelastic
+    weighting, no dealiasing filter along this direction, convective
+    advection.  There is no switch to turn it off: where the gate holds,
+    the kernel runs or the step raises."""
     return (fields.is_cuda and fields.dtype == torch.float32
             and P.get(f"d1{axis_name}_banded") is None
-            and P.get("anelastic") is None and not P.get("dealias")
+            and P.get("anelastic") is None
+            and _dealias_matrix(P, axis_name) is None
             and P.get("adv_form", "convective") == "convective")
 
 
@@ -218,31 +257,115 @@ def _burgers_all(P, axis_name: str, axis: int, fields, conv, nu):
     """nu d2 f - c d1 f along one direction for ALL fields of the stack.
 
     fields: (F, nx, ny, nz); conv: (nx, ny, nz) advecting velocity; nu:
-    (F, 1, 1, 1) per-field diffusivity."""
+    (F, 1, 1, 1) per-field diffusivity.
+
+    P['adv_form'] selects the advection formulation (reference [Main]
+    TermAdvection, rhs_flow_global_incompressible_1/2/3.f90):
+      convective     nu d2 f - c d1 f            (default, form 1)
+      skewsymmetric  nu d2 f - 0.5 (c d1 f + d1 (c f))   (form 2)
+      divergence     nu d2 f - d1 (c f)                  (form 3)
+    The conservative forms stack [f; c f] into one [D1;D2] product of
+    width 2F.  Like a dealiased direction they are dense products, as in
+    tlab_tpu, whose fused kernel computes the convective form only."""
     d12 = P.get(f"d12{axis_name}")
     if d12 is None:
         return torch.zeros_like(fields)
+    form = P.get("adv_form", "convective")
+    if form in ("divergence", "skewsymmetric"):
+        F = fields.shape[0]
+        dall, d2all = der12(d12, torch.cat([fields, conv[None] * fields]),
+                            axis + 1)
+        da, d2a, dprod = dall[:F], d2all[:F], dall[F:]
+        if form == "divergence":
+            adv = dprod
+        else:
+            adv = 0.5 * (conv[None] * da + dprod)
+        return nu * d2a - adv
     if _fused_burgers_ok(P, axis_name, fields):
         return burgers.fused_burgers(d12, fields, conv, nu.reshape(-1), axis)
     # the dense branch (tlab_tpu's _d12_apply): one [D1;D2] product
     da, d2a = der12(d12, fields, axis + 1)
+    dea = _dealias_matrix(P, axis_name)
+    if dea is not None:
+        # filter the factors of the advection product before multiplying
+        # (reference OPR_Burgers_1D dealiasing, opr_burgers.f90:478-499)
+        return nu * d2a - apply_along(dea, conv, axis)[None] \
+            * apply_along(dea, da, axis + 1)
     return nu * d2a - conv[None] * da
+
+
+def _pressure_filter(P):
+    """The [PressureFilter] as a function of one field, or None: a
+    Helmholtz solve with the direct eigen plan (the marker dict
+    {"helmholtz_alpha": alpha}), or the line-filter matrices."""
+    pfil = P.get("pfilter")
+    if pfil is None:
+        return None
+    if isinstance(pfil, dict) and "helmholtz_alpha" in pfil:
+        # Type=helmholtz: one implicit elliptic solve per field
+        # (opr_filter.f90:285 + opr_elliptic.f90 OPR_Helmholtz)
+        al = pfil["helmholtz_alpha"]
+        return lambda arr: elliptic.helmholtz(P["ell"], al * arr, al)
+    return lambda arr: apply_filter(pfil, arr)
 
 
 def _solve_pressure(P, u, v, w, h1, h2, h3, dte):
     """Pressure projection (reference rhs_global_incompressible_1.f90:
-    177-360): the forcing divergence (with q/dte, which removes the
-    residual divergence too), the factorized Poisson solve with the
-    wall-normal tendency as Neumann data, and the pressure gradient on the
-    velocity nodes -> (dpdx, dpdy, dpdz, p)."""
-    inv_dte = 1.0 / dte
-    fx = h1 + u * inv_dte
-    fy = h2 + v * inv_dte
-    fz = h3 + w * inv_dte
-    div = _d1(P, "y", 1, fy) + _d1(P, "x", 0, fx) + _d1(P, "z", 2, fz)
-    p, dpdy = fac.poisson_factorize(P["ell_fac"], div,
-                                    bcs_b=h2[:, 0, :], bcs_t=h2[:, -1, :])
-    return _d1(P, "x", 0, p), dpdy, _d1(P, "z", 2, p), p
+    177-360): assemble the forcing divergence, solve the Poisson problem
+    with the wall-normal tendency as Neumann data, filter, and return the
+    pressure-gradient components on the velocity nodes
+    -> (dpdx, dpdy, dpdz, p)."""
+    if P.get("remove_divergence", True):
+        # default: the forcing carries q/dte so the projection removes
+        # the RESIDUAL divergence too ([Main] TermDivergence=remove,
+        # rhs_global_incompressible_1.f90:177)
+        inv_dte = 1.0 / dte
+        fx = h1 + u * inv_dte
+        fy = h2 + v * inv_dte
+        fz = h3 + w * inv_dte
+    else:                        # TermDivergence=none
+        fx, fy, fz = h1, h2, h3
+    stag = P.get("stag")
+    if stag is not None:
+        # horizontally staggered pressure (reference stagger_on branch,
+        # rhs_global_incompressible_1.f90:216-320): forcing divergence
+        # assembled on the pressure nodes with the VP operators
+        div = divergence_staggered(P, fx, fy, fz)
+        h2_s = _stag(P, "z", "ivp", _stag(P, "x", "ivp", h2))
+    else:
+        div = _d1(P, "y", 1, fy) + _d1(P, "x", 0, fx) + _d1(P, "z", 2, fz)
+        h2_s = h2
+    bcs_b, bcs_t = h2_s[:, 0, :], h2_s[:, -1, :]
+    if P.get("ell_fac") is not None:
+        # reference-default factorized formulation: stage-consistent dpdy
+        # removes divergence to round-off (opr_elliptic.f90:108-110); when
+        # staggered, the plan carries the staggered-derivative wavenumbers
+        p, dpdy = fac.poisson_factorize(P["ell_fac"], div,
+                                        bcs_b=bcs_b, bcs_t=bcs_t)
+    else:
+        # direct eigen pencil; staggered runs use the staggered-wavenumber
+        # table: the unstaggered one would not annihilate the staggered
+        # divergence
+        ell = P["ell_stag"] if stag is not None else P["ell"]
+        p, dpdy = elliptic.poisson(ell, div, bcs_b=bcs_b, bcs_t=bcs_t,
+                                   d1y=P["d1y"])
+    filt = _pressure_filter(P)
+    if filt is not None:
+        # [PressureFilter]: filter p and dp/dy after the Poisson solve
+        # (rhs_global_incompressible_1.f90:287-291) -- stabilizes the
+        # staggered scheme's near-Nyquist pressure modes
+        p = filt(p)
+        dpdy = filt(dpdy)
+    if stag is not None:
+        # pressure gradient back on velocity nodes with the PV operators
+        # (reference rhs_global_incompressible_1.f90:307-320)
+        dpdx = _stag(P, "z", "ipv", _stag(P, "x", "dpv", p))
+        dpdy = _stag(P, "x", "ipv", _stag(P, "z", "ipv", dpdy))
+        dpdz = _stag(P, "x", "ipv", _stag(P, "z", "dpv", p))
+    else:
+        dpdx = _d1(P, "x", 0, p)
+        dpdz = _d1(P, "z", 2, p)
+    return dpdx, dpdy, dpdz, p
 
 
 def _apply_wall_rows_stacked(H, i, rows):
@@ -281,7 +404,8 @@ def substep_rhs_stacked(P, Q, H, dte, aux=None):
     (3+ns, nx, ny, nz), rows u, v, w, s1..  Returns (H_new, p); H is not
     modified (H_new is a new tensor, updated in place below).  aux:
     {"visc_scale": factor} scales the diffusivities ahead of the Burgers
-    terms."""
+    terms; with a time-dependent forcing it would carry the step's time
+    (not ported)."""
     check_main_path(P)
     u, v, w = Q[0], Q[1], Q[2]
     visc = P["visc"]
@@ -293,6 +417,17 @@ def substep_rhs_stacked(P, Q, H, dte, aux=None):
     adv += _burgers_all(P, "y", 1, Q, v, nu)
     adv += _burgers_all(P, "z", 2, Q, w, nu)
     H = adv.add_(H)
+
+    if P.get("bodyforce") is not None:
+        # the sources add into the rows of H (views), in tlab_tpu's order:
+        # Burgers, sources, projection, wall rows; what a hook returns as a
+        # new tensor (tlab_tpu's hooks are functional) is copied into its row
+        rows = (H[0], H[1], H[2], H[3:])
+        forced = P["bodyforce"](P, State(u=u, v=v, w=w, s=Q[3:]), *rows,
+                                aux=aux)
+        for row, new in zip(rows, forced):
+            if new is not row:
+                row.copy_(new)
 
     dpdx, dpdy, dpdz, p = _solve_pressure(P, u, v, w, H[0], H[1], H[2], dte)
     H[0] -= dpdx
@@ -383,8 +518,10 @@ def cfl_advective_max(P, state: State):
 
 
 def dilatation_minmax(P, state: State):
-    """Dilatation extrema for the step log / bounds control."""
-    d = divergence(P, state.u, state.v, state.w)
+    """Dilatation extrema for the step log / bounds control (on the
+    pressure nodes for a staggered run)."""
+    div = divergence_staggered if P.get("stag") is not None else divergence
+    d = div(P, state.u, state.v, state.w)
     return torch.min(d), torch.max(d)
 
 

@@ -10,12 +10,14 @@ the reference's ASCII `avg<it>` / `avg<it>s<i>` files exactly
 scripts can consume the output.
 
 Incompressible: rR = 1, Favre == Reynolds, and the thermodynamic,
-Acoustics, RhoBudget and Stratification columns are 0, as the reference
-leaves inactive groups.  Left for ROADMAP A14: the equation-set context
-(`extras`: anelastic and compressible columns, buoyancy, Coriolis, scalar
-sources), the diagnostic pressure solve when no pressure is passed in, the
-legacy alias keys (SU, FU, .., Chi, Rss), the NetCDF writer and reader, and
-the conditional (gated) statistics.
+Acoustics and RhoBudget columns are 0, as the reference leaves inactive
+groups.  The equation-set context (`extras`, build_extras) carries the
+Boussinesq body forces: the buoyancy field fills rB, the buoyancy
+production and flux terms (Bxx.., Buo, Bsv) and Pot, the Coriolis vector the
+F terms.  Left for ROADMAP A14: the anelastic and compressible extras, the
+scalar sources, the diagnostic pressure solve when no pressure is passed
+in, the legacy alias keys (SU, FU, .., Chi, Rss), the NetCDF writer and
+reader, and the conditional (gated) statistics.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import numpy as np
 import torch
 
 from tlab_tpu_torch.dycore import incompressible as dyn
+from tlab_tpu_torch.physics import gravity as grav
 
 # ---------------------------------------------------------------------------
 # Table layout (reference avg_flow_xz.f90:102-391, avg_scal_xz.f90:92-236)
@@ -73,9 +76,11 @@ SCAL_GROUPS = [
 
 # columns of the flow table that only another equation set fills
 _FLOW_INACTIVE = (
-    "rT re rh rs rB fT fe fh fs rR2 rT2 fT2 re2 fe2 rh2 fh2 rs2 fs2 "
+    "rT re rh rs fT fe fh fs rR2 rT2 fT2 re2 fe2 rh2 fh2 rs2 fs2 "
     + FLOW_GROUPS[12][1] + " " + FLOW_GROUPS[13][1] + " "
-    + FLOW_GROUPS[14][1]).split()
+    + FLOW_GROUPS[14][1].replace("Pot ", "")).split()
+# the keys of `extras` that the Boussinesq set fills (build_extras)
+_EXTRAS_PORTED = ("eqns", "y", "froude", "coriolis_y", "bvec", "ymean", "b")
 
 
 def _pavg(a):
@@ -88,14 +93,74 @@ def _need(p, extras, kw) -> None:
         if val is not None:
             raise NotImplementedError(
                 f"{name}: the compressible columns, ROADMAP A14")
-    if extras:
+    ex = extras or {}
+    other = [k for k in ex if k not in _EXTRAS_PORTED]
+    if other or ex.get("eqns", "incompressible") != "incompressible":
         raise NotImplementedError(
-            "extras (build_extras: anelastic, compressible, buoyancy, "
-            "Coriolis and source columns): ROADMAP A14")
+            f"extras {other or ex['eqns']!r} (the anelastic and "
+            "compressible columns, the scalar sources): ROADMAP A14")
     if p is None:
         raise NotImplementedError(
             "statistics without the step's pressure (the diagnostic "
             "pressure solve of the offline averages): ROADMAP A14")
+
+
+# ---------------------------------------------------------------------------
+# Extras: equation-set-dependent context assembled from the Simulation
+# ---------------------------------------------------------------------------
+
+def build_extras_static(sim):
+    """State-INDEPENDENT part of the statistics context: equation set,
+    Coriolis/buoyancy parameters."""
+    eqns = sim.case.equations
+    if eqns != "incompressible":
+        raise NotImplementedError(
+            f"statistics of Equations={eqns}: ROADMAP A14")
+    ex = {"eqns": eqns, "y": np.asarray(sim.grid.y.nodes),
+          "froude": sim.nsp.froude or 1.0}
+    buo = sim.case.buoyancy
+    cor = sim.case.coriolis
+    if cor is not None and cor.type != "none":
+        ex["coriolis_y"] = float(cor.vector[1]) if len(cor.vector) > 1 \
+            else 0.0
+    if buo is not None and buo.type != "none":
+        ex["bvec"] = tuple(buo.vector)
+        prof = sim.case.scal_profiles[-1] if sim.case.scal_profiles else None
+        ex["ymean"] = float(getattr(prof, "ymean", 0.0) or 0.0) \
+            if prof is not None else 0.0
+    return ex
+
+
+def add_state_extras(sim, state, ex):
+    """State-DEPENDENT part: the buoyancy field b(s) as the sources use
+    it (unscaled; the table applies 1/froude and the gravity vector as
+    the reference does)."""
+    buo = sim.case.buoyancy
+    if buo is None or buo.type == "none":
+        return ex
+    if buo.type == "explicit":
+        raise NotImplementedError(
+            "the anelastic (explicit) buoyancy: ROADMAP A14")
+    if state.s.shape[0] > 0:
+        # pad with zero profiles so the independent term keeps its
+        # parameters(ns+1) slot (tlab_background.f90:194-221)
+        profs = list(sim.case.scal_profiles)
+        profs += [lambda yv: np.zeros_like(yv)] * \
+            (state.s.shape[0] - len(profs))
+        bback = grav.background_profile(buo, profs, sim.grid.y.nodes)
+        ex["b"] = grav.buoyancy_field(
+            buo, state.s, torch.as_tensor(bback).to(state.s.device,
+                                                    state.s.dtype))
+    return ex
+
+
+def build_extras(sim, state):
+    """Collect the equation-set context flow/scalar_statistics need for
+    the buoyancy, Coriolis and potential-energy columns.
+
+    Mirrors the globals AVG_FLOW_XZ pulls from its modules (buoyancy%,
+    coriolis%)."""
+    return add_state_extras(sim, state, build_extras_static(sim))
 
 
 def stats_tables(sim, state, p):
@@ -104,9 +169,10 @@ def stats_tables(sim, state, p):
     columns, reduced on the state's device and brought to the host as one
     stacked (ncols, ny) array -- no full field is copied.  p: the
     projection pressure of the step that produced `state`."""
-    flow = flow_statistics(sim.P, state, sim.nsp.visc, p=p)
+    ex = build_extras(sim, state)
+    flow = flow_statistics(sim.P, state, sim.nsp.visc, p=p, extras=ex)
     scals = [scalar_statistics(sim.P, state, sim.nsp.diffusivity(i), i, p=p,
-                               visc=sim.nsp.visc)
+                               visc=sim.nsp.visc, extras=ex)
              for i in range(sim.nsp.n_scalars)]
     cols = [v for table in (flow, *scals) for v in table.values()]
     stacked = torch.stack(cols).cpu().numpy()        # one small copy
@@ -126,8 +192,11 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     """Full reference flow table: dict name -> (ny,) profile
     (avg_flow_xz.f90), incompressible set.
 
-    p: the projection pressure the dycore computed this step."""
+    p: the projection pressure the dycore computed this step.  extras:
+    build_extras' context (buoyancy field and vector, Froude number,
+    Coriolis vector, nodes)."""
     _need(p, extras, {})
+    ex = extras or {}
     u, v, w = state.u, state.v, state.w
     d1y = P.get("d1y")
     ny = u.shape[1]
@@ -148,6 +217,13 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     out["fU"], out["fV"], out["fW"] = rU, rV, rW
     for n in _FLOW_INACTIVE:
         out[n] = zero
+
+    # buoyancy field (Gravity_Buoyancy)
+    b3 = ex.get("b")
+    bvec = ex.get("bvec", (0.0, -1.0, 0.0))
+    rB_raw = _pavg(b3) if b3 is not None else zero
+    rB = rB_raw / ex.get("froude", 1.0)
+    out["rB"] = rB
 
     # --- Fluctuations -----------------------------------------------------
     uf = u - rU[None, :, None]
@@ -269,22 +345,44 @@ def flow_statistics(P, state, visc, p=None, extras=None):
            "xz": -(Rxy * rW_y + Ryz * rU_y),
            "yz": -(Ryy * rW_y + Ryz * rV_y)}
 
-    # the buoyancy (B), Coriolis (F) and variable-density (G, D) terms
-    # vanish for this equation set
+    # buoyancy production (avg_flow_xz.f90 Potential-energy section)
+    if b3 is not None:
+        bf = b3 - rB_raw[None, :, None]
+        Bx, By, Bz = _pavg(uf * bf), _pavg(vf * bf), _pavg(wf * bf)
+        Bij = {"xx": 2.0 * Bx * bvec[0], "yy": 2.0 * By * bvec[1],
+               "zz": 2.0 * Bz * bvec[2],
+               "xy": Bx * bvec[1] + By * bvec[0],
+               "xz": Bx * bvec[2] + Bz * bvec[0],
+               "yz": By * bvec[2] + Bz * bvec[1]}
+    else:
+        Bij = {t: zero for t in tags}
+
+    # Coriolis (angular velocity Oy; rotation.f90)
+    om_y = ex.get("coriolis_y", 0.0)
+    if om_y:
+        Fij = {"xx": om_y * 2.0 * Rxz, "yy": zero,
+               "zz": -om_y * 2.0 * Rxz, "xy": om_y * Ryz,
+               "xz": om_y * (Rzz - Rxx), "yz": -om_y * Rxy}
+    else:
+        Fij = {t: zero for t in tags}
+
+    # the variable-density (G, D) terms vanish for this equation set
     for t in tags:
-        out[f"R{t}_t"] = Cij[t] + Pij[t] - Eij[t] + (PIij[t] - Tiy_y[t])
-        out[f"B{t}"] = zero
+        out[f"R{t}_t"] = -Fij[t] + Bij[t] + Cij[t] + Pij[t] - Eij[t] \
+            + (PIij[t] - Tiy_y[t])
+        out[f"B{t}"] = Bij[t]
         out[f"C{t}"] = Cij[t]
         out[f"P{t}"] = Pij[t]
         out[f"E{t}"] = Eij[t]
         out[f"PI{t}"] = PIij[t]
-        out[f"F{t}"] = zero
+        out[f"F{t}"] = Fij[t]
         out[f"T{t}y_y"] = Tiy_y[t]
         out[f"T{t}y"] = Tiy[t]
         out[f"G{t}"] = zero
         out[f"D{t}"] = zero
 
     # --- TKE budget -------------------------------------------------------
+    Buo = 0.5 * (Bij["xx"] + Bij["yy"] + Bij["zz"])
     Con = 0.5 * (Cij["xx"] + Cij["yy"] + Cij["zz"])
     Prd = 0.5 * (Pij["xx"] + Pij["yy"] + Pij["zz"])
     Pi = 0.5 * (PIij["xx"] + PIij["yy"] + PIij["zz"])
@@ -297,8 +395,8 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     dpx = dyn._d1(P, "x", 0, p)
     dpy = dyn._d1(P, "y", 1, p)
     dpz = dyn._d1(P, "z", 2, p)
-    out["Tke_t"] = Con + Prd - Eps + (-Ty_y + Pi)
-    out["Buo"], out["Con"], out["Prd"] = zero, Con, Prd
+    out["Tke_t"] = Buo + Con + Prd - Eps + (-Ty_y + Pi)
+    out["Buo"], out["Con"], out["Prd"] = Buo, Con, Prd
     out["Eps"], out["Pi"], out["Trp"] = Eps, Pi, Ty_y
     out["Trp1"], out["Trp2"], out["Trp3"] = Trp1, Trp2, Trp3
     out["Trp1_y"], out["Trp2_y"], out["Trp3_y"] = dy(Trp1), dy(Trp2), \
@@ -325,6 +423,13 @@ def flow_statistics(P, state, visc, p=None, extras=None):
                 if an == "y":
                     gg = gg - rmean_y[cn][None, :, None]
                 out[f"{cn.upper()}_{an}{mom}"] = _pavg(gg ** mom)
+
+    # --- Stratification: the potential energy ----------------------------
+    if b3 is not None and "y" in ex:
+        yt = torch.as_tensor(ex["y"]).to(u.device, u.dtype)
+        out["Pot"] = -rB * (yt - ex.get("ymean", 0.0))
+    else:
+        out["Pot"] = zero
     return out
 
 
@@ -337,8 +442,10 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
     """Full reference scalar table (avg_scal_xz.f90) of scalar i: dict in
     reference column order, incompressible set.
 
-    rho, vis: the compressible density and viscosity fields, not ported."""
+    rho, vis: the compressible density and viscosity fields, not ported.
+    extras: as flow_statistics."""
     _need(p, extras, {"rho": rho, "vis": vis})
+    ex = extras or {}
     s = state.s[i]
     u, v, w = state.u, state.v, state.w
     d1y = P.get("d1y")
@@ -460,25 +567,33 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
     Psv = -out["Rsv"] * rV_y - Rvv * rS_y
     Psw = -out["Rsv"] * rW_y - Rvw * rS_y
 
-    # the variable-density (D, G), buoyancy (B), Coriolis (F) and source
-    # (Q) terms vanish for this equation set
+    # buoyancy and Coriolis cross terms
+    b3 = ex.get("b")
+    Bsv = _pavg(sf * b3) / ex.get("froude", 1.0) if b3 is not None else zero
+    om_y = ex.get("coriolis_y", 0.0)
+    Fsu = om_y * out["Rsw"] if om_y else zero
+    Fsw = -om_y * out["Rsu"] if om_y else zero
+
+    # the variable-density (D, G) and source (Q) terms vanish for this
+    # equation set
     out["Rss_t"] = Css + Pss - Ess + (-Tssy_y)
     out["Css"], out["Pss"], out["Ess"] = Css, Pss, Ess
     out["Tssy1"], out["Tssy2"], out["Tssy_y"] = Tssy1, Tssy2, Tssy_y
     out["Dss"], out["Qss"] = zero, zero
-    out["Rsu_t"] = Csu + Psu - Esu + (PIsu - Tsuy_y)
+    out["Rsu_t"] = Csu + Psu - Esu - Fsu + (PIsu - Tsuy_y)
     out["Csu"], out["Psu"], out["Esu"], out["PIsu"] = Csu, Psu, Esu, PIsu
     out["Tsuy1"], out["Tsuy2"], out["Tsuy_y"] = Tsuy1, Tsuy2, Tsuy_y
-    out["Rsv_t"] = Csv + Psv - Esv + (PIsv - Tsvy_y)
+    out["Rsv_t"] = Csv + Psv - Esv + Bsv + (PIsv - Tsvy_y)
     out["Csv"], out["Psv"], out["Esv"], out["PIsv"] = Csv, Psv, Esv, PIsv
     out["Tsvy1"], out["Tsvy2"], out["Tsvy3"], out["Tsvy_y"] = \
         Tsvy1, Tsvy2, Tsvy3, Tsvy_y
-    out["Rsw_t"] = Csw + Psw - Esw + (PIsw - Tswy_y)
+    out["Rsw_t"] = Csw + Psw - Esw - Fsw + (PIsw - Tswy_y)
     out["Csw"], out["Psw"], out["Esw"], out["PIsw"] = Csw, Psw, Esw, PIsw
     out["Tswy1"], out["Tswy2"], out["Tswy_y"] = Tswy1, Tswy2, Tswy_y
     for c in "uvw":
         for n in "DGBFQ":
             out[f"{n}s{c}"] = zero
+    out["Bsv"], out["Fsu"], out["Fsw"] = Bsv, Fsu, Fsw
 
     # derivative moments
     dsdy_m = dsdy - rS_y[None, :, None]

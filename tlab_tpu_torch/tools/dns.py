@@ -9,9 +9,9 @@ dns.out step log reproduces the reference's columns (Itn. time dt CFL# D#
 visc DilMin DilMax, dns_main.f90:394-495).
 
 What tlab_tpu's loop has beyond this thread (a device mesh, particles,
-unsteady inflow, filters, planes and towers, phase and spatial statistics,
-in-run pdfs and spectra, the operator self-test) raises NotImplementedError
-naming the ROADMAP item that will port it.
+unsteady inflow, planes and towers, phase and spatial statistics, in-run
+pdfs and spectra, the operator self-test) raises NotImplementedError naming
+the ROADMAP item that will port it.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import torch
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.io import fields_io
+from tlab_tpu_torch.ops.filter import filter_state
 from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.stats import averages as avg
 from tlab_tpu_torch.utils import trace as _trace
@@ -178,6 +179,11 @@ def run(sim: Simulation, state: State, outdir: str = ".",
                 f"{opt} (ROADMAP {item})" for opt, item in missing))
     ini = getattr(case, "ini", None)
     n_steps = n_steps if n_steps is not None else (case.it_end - itime)
+    # the [Filter] cadence is per-step host work: no window across it
+    filt = sim.filter_matrices()
+    filt_step = case.filter.step if case.filter is not None else 0
+    if filt is not None:
+        inner_steps = 1
     # [Main] FileType=single writes f32 restarts (io_fields.f90:37-40);
     # read_field autodetects on reload
     restart_dtype = "<f4" if (ini is not None and ini.get(
@@ -263,6 +269,8 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             visc = visc + ramp_rate * dtime * inner_steps
             if (ramp_rate > 0) == (visc >= visc_ini):
                 visc = visc_ini         # ramp complete
+        if filt is not None and filt_step > 0 and itime % filt_step == 0:
+            state = filter_state(filt, state)   # reference DNS_FILTER cadence
         if dt_lag and prev_diag is not None:
             cmax, *extras = prev_diag.tolist()
             cmax *= 1.0 / 0.97
