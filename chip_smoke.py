@@ -41,6 +41,21 @@ non-zero:
               beside the factorized solve, and the unstaggered projection
               of a smooth field in fp32; (f) `dns` of the case with one
               option of a-c at a time (VARIANTS): what each costs a substep
+  8. moist    (a) examples/cloudtop_anelastic/tlab.ini at its own
+              256x192x128: K1-K3 against their plain version at the shapes
+              its dns gives them (5 fields, its operators), then inigrid,
+              ini and dns, 10 adaptive steps (moist thermodynamics with the
+              Boussinesq set: K1-K3 launch, NewtonRs logged, 0 <= ql <= qt,
+              the source hook against its fp64 evaluation, and on the fp32
+              run's background); (b) that case with Equations=anelastic, gray
+              radiation and sedimentation, 5 steps (dense products: no
+              launch; the background's buoyancy, a background state's
+              stillness and the rho-weighted projection of a smooth field
+              in fp64; the radiation's two y-loops timed); (c) the shear
+              layer with a wavemaker and a chemistry source, 5 steps at
+              512x256x256, one RK step per dns window; (d) each of a-c at a
+              reduced grid, fp32 against fp64 (the velocity's fluctuations
+              and plane means and the scalars, each held)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 Without a CUDA card the script exits 1 and prints no result.
@@ -66,11 +81,13 @@ from tlab_tpu_torch import entry
 from tlab_tpu_torch.config import Ini, load_case
 from tlab_tpu_torch.convert import state_to_numpy
 from tlab_tpu_torch.dycore import incompressible as dyn
+from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.fdm.plan import build_fdm_plan
 from tlab_tpu_torch.io import fields_io
 from tlab_tpu_torch.ops import _build, burgers, elliptic
 from tlab_tpu_torch.ops import elliptic_factorize as fac
 from tlab_tpu_torch.ops.derivative import apply_along, der12
+from tlab_tpu_torch.physics import radiation, thermo
 from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.stats import averages
 from tlab_tpu_torch.tools import cli
@@ -839,6 +856,391 @@ def phase_variants(card: str, initial: str) -> None:
               f"dilatation max " + " ".join(f"{d:.3e}" for d in dil))
 
 
+CLOUDTOP = pathlib.Path(__file__).resolve().parent / "examples" \
+    / "cloudtop_anelastic" / "tlab.ini"
+# the y-shape of the example's VelocityDiscrete perturbation, which its file
+# lacks: without it the fields start at rest and stay horizontally uniform
+PERTURBATION_SHAPE = ["ProfileIniK=Gaussian", "ThickIniK=0.02",
+                      "YMeanRelativeIniK=0.75"]
+CLOUD_SHAPE = (256, 192, 128)
+MOIST_STEPS = {"8a": 10, "8b": 5, "8c": 5}
+# phase 8's cases: (what, case file, changes to keys it has, keys added)
+MOIST_CASES = {
+    "8a": ("cloudtop: Boussinesq set, moist thermodynamics", CLOUDTOP, {},
+           {}),
+    "8b": ("cloudtop: anelastic set, gray radiation, sedimentation",
+           CLOUDTOP, {("Main", "Equations"): "anelastic"},
+           {"IniFields": PERTURBATION_SHAPE,
+            "Parameters": ["Settling=0.05"],
+            "Infrared": ["Type=gray", "Scalar=1",
+                         "BoundaryConditions=0.2, 1.0",
+                         "AbsorptionComponent1=5.0",
+                         "AbsorptionComponent2=0.1",
+                         "AbsorptionComponent3=0.01", "Beta=0.1"],
+            "Sedimentation": ["Type=airwater"]}),
+    "8c": ("shear layer: wavemaker, chemistry", CASE, {},
+           {"SpecialForcing": ["Type=wavemaker", "Parameters=0.5",
+                               "Wave1=0.01, 4.0, 30.0, 2.0",
+                               "Envelope=3.14159, 0.5, 1.5708, 0.2"],
+            "Chemistry": ["Type=quadratic", "Parameters=1.0"]}),
+}
+CLOUD_SMALL = {("Grid", "Imax"): "128", ("Grid", "Jmax"): "96",
+               ("Grid", "Kmax"): "64", ("IniGridOx", "points_1"): "129",
+               ("IniGridOy", "points_1"): "96",
+               ("IniGridOz", "points_1"): "65"}
+# the Newton's last relative step: the saturation adjustment runs in fp64
+# whatever the run's dtype, and converges to fp64 round-off (1.9e-12 to
+# 4.0e-12 in a CPU fp64 run of a 32x24x16 copy of the case); an fp32
+# evaluation of its polynomial reads 2e-3 (tlab_tpu's and the port's alike)
+NEWTON_TOL = 1e-10
+# the fp32 hook against its fp64 evaluation on the same state, per row of
+# max|h32 - h64| / max|h64|: b is the difference of two O(1) densities, and
+# the fp32 run's background (rho, p, T, ep cast once to fp32) carries 6e-8
+# of them whatever max|b| is: 1.5e-4 and 1.3e-4 of max|b| on the v row of
+# 8a and 8b on the card, where the state is near its background, 3.5e-6 on
+# the h and qt rows; a wrong sign or a float32 saturation adjustment reads
+# O(1).  The witness: the fp64 hook on that fp32-rounded background agrees
+# with the fp32 hook to HOOK_ROUNDED_TOL; what is left is the fp32 rounding
+# of the result (7.8e-8 and 9.2e-8 on the v row on the card) and the fp32
+# work of the radiation and the sedimentation (3.9e-6 and 3.0e-6 on 8b's h
+# and qt rows, whether the background is rounded or not)
+HOOK_TOL = 1e-3
+HOOK_ROUNDED_TOL = 1e-5
+# the background's own buoyancy: a difference of two O(1) numbers through
+# the saturation adjustment, whose last Newton step is ~4e-12 of T (4.5e-13
+# in a CPU run at 32x24x16; a flipped sign of the potential energy ep reads
+# ~5e-5); and its velocity after one RK step of dt = 1e-4 (the diffusing
+# erf profiles move it by dt^2: 2.9e-10 in a CPU run at 64x96x32)
+BACKGROUND_B_TOL = 1e-10
+BACKGROUND_DT, BACKGROUND_V_TOL = 1e-4, 1e-8
+# 8d's velocity on the cloudtop cases: it is the 1e-3 perturbation and a
+# horizontally uniform v (the projection's singular mode), so the fp32
+# round-off of a forcing of ~1e-2 (the buoyancy, balanced by the pressure)
+# is large beside it.  That drift is the scheme's: tlab_tpu in fp32, its
+# thermodynamics in fp64 as the port's, reads the same
+# (tests/test_torch_fp32.py, 32x96x16, 5 steps of the start's adaptive dt:
+# 5.5e-4 and 8.7e-4 against the port's 7.1e-4 and 7.6e-4, scalars 5.0e-7
+# in both).  On the card at 128x96x64 the port read 8.1e-4 and 8.3e-4 on
+# the fluctuations about the plane means; the scalars are held to FP64_TOL;
+# a wrong sign in the buoyancy reads O(1)
+CLOUD_FP64_TOL = 3e-3
+STRAT_COLUMNS = ("rR", "rT", "rRref", "rTref", "BuoyFreq_fr",
+                 "LapseRate_eq", "PotTemp", "SaturationPressure", "rPref",
+                 "RelativeHumidity", "Dewpoint")
+
+
+def moist_case(tag: str, changes: dict) -> str:
+    """Phase 8's case `tag` with `changes` to keys its file has."""
+    _, path, edits, added = MOIST_CASES[tag]
+    text = edit_case(path.read_text(), {**changes, **edits})
+    for section, lines in added.items():
+        text = add_keys(text, section, lines)
+    return text
+
+
+def hook_rows(P, state):
+    """The source hook's tendency of `state` on zero tendencies, (3+ns, nx,
+    ny, nz)."""
+    H = torch.zeros((3 + state.s.shape[0],) + tuple(state.u.shape),
+                    dtype=state.u.dtype, device=state.u.device)
+    rows = (H[0], H[1], H[2], H[3:])
+    for row, new in zip(rows, P["bodyforce"](P, state, *rows)):
+        if new is not row:
+            row.copy_(new)
+    return H
+
+
+def hook_against_fp64(tag, text, run) -> list:
+    """max|h32 - h64| / max|h64| of each row of the run's fp32 hook against
+    the fp64 hook of the same case on the same state (the rows the hook
+    leaves zero read 0)."""
+    sim64 = Simulation.from_case(load_case(Ini(text=text)),
+                                 dtype=torch.float64, device="cuda")
+    st64 = State(*(a.double() for a in run.state[:4]))
+    h32 = hook_rows(run.sim.P, run.state).double()
+    h64 = hook_rows(sim64.P, st64)
+    # the witness: the fp64 hook on the fp32 run's background
+    for t in sim64.anelastic["bg"].values():
+        t.copy_(t.float().double())
+    h64r = hook_rows(sim64.P, st64)
+
+    def errs(ref):
+        return [(a - b).abs().max().item() / b.abs().max().item()
+                if b.abs().max().item() > 0 else a.abs().max().item()
+                for a, b in zip(h32, ref)]
+
+    out, rounded = errs(h64), errs(h64r)
+    scales = [b.abs().max().item() for b in h64]
+    del sim64, st64, h32, h64, h64r
+    print(f"[moist] {tag}: fp32 hook against its fp64 evaluation, rows "
+          f"u v w s..: max|h32 - h64| / max|h64| "
+          + " ".join(f"{e:.3e}" for e in out) + f" (limit {HOOK_TOL}); on "
+          f"the fp32 run's background " + " ".join(f"{e:.3e}" for e in
+                                                    rounded)
+          + f" (limit {HOOK_ROUNDED_TOL}); max|h64| "
+          + " ".join(f"{m:.3e}" for m in scales))
+    require(max(out) <= HOOK_TOL, f"{tag}: fp32 hook {out} > {HOOK_TOL}")
+    require(max(rounded) <= HOOK_ROUNDED_TOL,
+            f"{tag}: fp32 hook on its own background {rounded} > "
+            f"{HOOK_ROUNDED_TOL}")
+    return out
+
+
+def background_checks(text) -> None:
+    """8b in fp64 on the card: the background's own buoyancy, a state
+    equal to its background after one RK step, and the rho-weighted
+    projection of a smooth field (div(rho u) after one substep over
+    before, off the wall rows, beside div u)."""
+    sim = Simulation.from_case(load_case(Ini(text=text)),
+                               dtype=torch.float64, device="cuda")
+    P = sim.P
+    nx, ny, nz = sim.grid.shape
+    kw = {"dtype": torch.float64, "device": "cuda"}
+    y = sim.grid.y.nodes
+    s = torch.stack([torch.as_tensor(p(y), **kw)[None, :, None]
+                     .expand(nx, ny, nz) for p in sim.case.scal_profiles])
+    zero = torch.zeros((nx, ny, nz), **kw)
+    rest = State(u=zero, v=zero, w=zero, s=s)
+    ane = sim.anelastic
+    b = thermo.buoyancy_explicit(ane["tp"], s, ane["bg"]).abs().max().item()
+    state, _ = dyn.rk_step(P, rest, BACKGROUND_DT)
+    vmax = state.v.abs().max().item()
+    del state
+    rho = P["anelastic"]["rho"][None, :, None]
+    x = torch.as_tensor(sim.grid.x.nodes, **kw)[:, None, None]
+    yy = torch.as_tensor(y, **kw)[None, :, None]
+    zz = torch.as_tensor(sim.grid.z.nodes, **kw)[None, None, :]
+    kx, kz = 2 * np.pi / sim.grid.x.scale, 2 * np.pi / sim.grid.z.scale
+    ly = float(y[-1])
+    env = torch.sin(np.pi * yy / ly)
+    Q = torch.cat([torch.stack([
+        (torch.sin(kx * x) + 0.3 * torch.cos(2 * kx * x + kz * zz)) * env,
+        0.2 * torch.sin(2 * np.pi * yy / ly) * torch.cos(kx * x) + zero,
+        0.4 * torch.sin(kz * zz) * torch.cos(kx * x) * env]), s])
+
+    def divs(Q):
+        return (dyn.divergence(P, Q[0] * rho, Q[1] * rho, Q[2] * rho),
+                dyn.divergence(P, Q[0], Q[1], Q[2]))
+
+    before = divs(Q)[0][:, 1:-1].abs().max()
+    dte = 0.01
+    H, _ = dyn.substep_rhs_stacked(P, Q, torch.zeros_like(Q), dte)
+    red_r, red_u = (d[:, 1:-1].abs().max().item() / before.item()
+                    for d in divs(Q + dte * H))
+    del sim, P, Q, H
+    print(f"[moist] 8b fp64: max|b| of the background {b:.3e} (limit "
+          f"{BACKGROUND_B_TOL}); max|v| of a state at rest on its "
+          f"background after one RK step of dt = {BACKGROUND_DT} {vmax:.3e} "
+          f"(limit {BACKGROUND_V_TOL}); smooth field after one substep / "
+          f"before: div(rho u) {red_r:.3e} (limit {SMOOTH_TOL}), div u "
+          f"{red_u:.3e}")
+    require(b <= BACKGROUND_B_TOL, f"8b: the background's buoyancy {b}")
+    require(vmax <= BACKGROUND_V_TOL, f"8b: the background moves, {vmax}")
+    require(red_r <= SMOOTH_TOL,
+            f"8b: the anelastic projection leaves {red_r} of div(rho u)")
+
+
+def check_case_kernels(text: str) -> list:
+    """K1-K3 against their plain version at the shapes a case's `dns` gives
+    them: the case's own operators and field count, seeded inputs; the
+    max|kernel - plain| of each."""
+    sim = Simulation.from_case(load_case(Ini(text=text)),
+                               dtype=torch.float32, device="cuda")
+    P, shape = sim.P, tuple(sim.grid.shape)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    nu = torch.tensor((P["visc"],) * 3 + P["diff"], dtype=torch.float32,
+                      device="cuda")
+    x = torch.randn((len(nu),) + shape, generator=gen, device="cuda")
+    conv = torch.randn(shape, generator=gen, device="cuda")
+    out = []
+    for axis in range(3):
+        r = check_kernel(axis, P["d12" + "xyz"[axis]], x, conv, nu, False)
+        print(f"[kernels] {burgers.ENTRY_POINTS[axis]} F={len(nu)} {shape} "
+              f"(the case's operators): max|err| {r['max_abs_err']:.3e} "
+              f"(rel {r['rel_err']:.3e}, limit {KERNEL_TOL})")
+        out.append(r["max_abs_err"])
+    del sim, P, x, conv
+    return out
+
+
+def phase_moist(tag: str, card: str, initial: str) -> list:
+    """8a-8c: `dns` of one moist or forced case at full width through the
+    CLI; the cloudtop cases from their own `ini`, 8c from phase 6a's initial
+    fields in `initial`."""
+    what, path = MOIST_CASES[tag][:2]
+    steps = MOIST_STEPS[tag]
+    shape = CLOUD_SHAPE if path == CLOUDTOP else MAIN_SHAPE
+    text = moist_case(tag, {("Iteration", "End"): str(steps),
+                            ("Iteration", "Restart"): "1000",
+                            ("Iteration", "Statistics"): str(steps)})
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = os.path.join(out, "tlab.ini")
+        with open(ini, "w") as fh:
+            fh.write(text)
+        if path == CLOUDTOP:
+            res = traced_cli(ini, out, ("inigrid", "ini", "dns"))
+        else:
+            link_initial_fields(initial, out)
+            # a dns window of 5 steps, which the time-dependent forcing
+            # must cut to one RK step
+            res = traced_cli(ini, out, ("dns",), "--inner-steps", str(steps))
+        run, launches = res["run"], res["launches"]
+        rows = data_rows(os.path.join(out, "dns.out"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        _, _, flow = averages.read_avg(os.path.join(out, f"avg{steps}"))
+    P = run.sim.P
+    n_sub = len(P["rk"]["kdt"])
+    rate = step_rate(trace, steps, n_sub)
+    points = shape[0] * shape[1] * shape[2]
+    ms_sub = rate["ms_substep"]
+    cfl = [float(r[4]) for r in rows[1:]]
+    dil = [max(abs(float(r[7])), abs(float(r[8]))) for r in rows]
+    ini_s = res["seconds"].get("ini")
+    print(f"[moist] {tag} {what} ({card}): {shape} fp32, {steps} adaptive-dt "
+          f"steps with their host syncs {rate['seconds']:.4f} s: "
+          f"{ms_sub:.3f} ms/substep, "
+          f"{points * steps * n_sub / rate['seconds']:.6e} points/s/substep "
+          f"(first step {rate['each'][0]:.4f} s, the others' median "
+          f"{rate['others_ms_substep']:.3f} ms/substep); peak device memory "
+          f"{res['peak']} B; launches {launches}"
+          + (f"; ini {ini_s:.3f} s" if ini_s is not None else ""))
+    print(f"[moist] {tag}: CFL {min(cfl):.3f}..{max(cfl):.3f}; dilatation "
+          f"max {dil[0]:.4e} at the start, {dil[1]:.4e} -> {dil[-1]:.4e}; "
+          f"t = {run.rtime:.6e}; statistics "
+          f"{trace[f'statistics {steps}'][1]:.3f} s")
+    require(len(rows) == steps + 1 and all(r[0] == "0" for r in rows),
+            f"{tag} dns.out: {len(rows)} rows, status {[r[0] for r in rows]}")
+    for name, a in zip("uvws", state_to_numpy(run.state)):
+        require(np.isfinite(a).all(), f"{tag}: non-finite {name}")
+    require(tuple(run.state.u.shape) == shape, f"{tag}: state shape")
+    require(all(np.isfinite(v).all() for v in flow.values()),
+            f"{tag}: non-finite avg column")
+    expect = [steps * n_sub] * 3 if tag in ("8a", "8c") else [0, 0, 0]
+    require(launches == expect, f"{tag} launched {launches}, expected "
+                                f"{expect}")
+    if tag in ("8a", "8b"):
+        newton = [float(r[9]) for r in rows]
+        print(f"[moist] {tag}: NewtonRs {min(newton):.3e}..{max(newton):.3e}"
+              f" (limit {NEWTON_TOL})")
+        require(max(newton) <= NEWTON_TOL, f"{tag}: NewtonRs {newton}")
+        ane = run.sim.anelastic
+        T, ql = thermo.equilibrium_state(ane["tp"], run.state.s, ane["bg"])
+        qt = run.state.s[1]
+        lo, hi = ql.min().item(), (ql - qt).max().item()
+        print(f"[moist] {tag}: final state min ql {lo:.3e}, max(ql - qt) "
+              f"{hi:.3e}, max ql {ql.max().item():.4e}, T "
+              f"{T.min().item():.5f}..{T.max().item():.5f}")
+        require(lo >= 0.0 and hi <= 0.0, f"{tag}: ql outside [0, qt]")
+        require(ql.max().item() > 0.0, f"{tag}: no liquid in the cloud")
+        hook_against_fp64(tag, text, run)
+        # the thermodynamics' part of a substep: the explicit buoyancy, one
+        # saturation adjustment in fp64
+        ms = statistics.median(event_ms(lambda: thermo.buoyancy_explicit(
+            ane["tp"], run.state.s, ane["bg"])) for _ in range(REPS))
+        print(f"[moist] {tag}: buoyancy_explicit (saturation adjustment in "
+              f"fp64) {ms:.3f} ms a call, {ms:.3f} ms/substep in 8a's hook "
+              f"(median of {REPS})")
+    if tag == "8b":
+        for n in STRAT_COLUMNS:
+            require(np.abs(flow[n]).max() > 0.0, f"8b: avg column {n} is 0")
+        print("[moist] 8b: avg " + ", ".join(
+            f"max|{n}| {np.abs(flow[n]).max():.4e}" for n in STRAT_COLUMNS))
+        rad = P["bodyforce"].rad_props
+        T, ql = thermo.equilibrium_state(ane["tp"], run.state.s, ane["bg"])
+        rho = ane["rho"][None, :, None]
+        a = (rad.kappa * ql + rad.kappa_v * (run.state.s[-1] - ql)
+             + rad.kappa_g) * rho
+        b = rad.beta * radiation.SIGMA * T ** 4
+        ms = statistics.median(event_ms(lambda: radiation.infrared_gray_source(
+            rad, run.sim.grid.y.nodes, a, b, emissivity=rad.emissivity))
+            for _ in range(REPS))
+        print(f"[moist] 8b: the gray radiation's two y-loops "
+              f"({2 * (shape[1] - 1)} plane steps) {ms:.3f} ms a call = "
+              f"ms/substep (median of {REPS})")
+        st = run.state
+        div_u = dyn.divergence(P, st.u, st.v, st.w).abs().max().item()
+        print(f"[moist] 8b: the logged dilatation div(rho u) {dil[-1]:.4e} "
+              f"at the last step; div u of the same state {div_u:.4e}")
+        del a, b, T, ql
+        background_checks(text)
+    if tag == "8c":
+        bf = P["bodyforce"]
+        require(bf.time_dependent, "8c: the hook is not time dependent")
+        h0 = hook_rows(P, run.state)
+        P1 = dict(P, bodyforce=lambda *a, **k: bf(*a, aux={"rtime": 0.3}))
+        h1 = hook_rows(P1, run.state)
+        moved = (h1 - h0)[:2].abs().max().item()
+        print(f"[moist] 8c: max|hook| u {h0[0].abs().max().item():.3e}, v "
+              f"{h0[1].abs().max().item():.3e}, s "
+              f"{h0[3].abs().max().item():.3e}; the wavemaker at t = 0.3 "
+              f"against t = 0 moves it by {moved:.3e}; dns.out rows "
+              f"{[int(r[1]) for r in rows]} (a window of {steps} asked)")
+        require(min(h0[i].abs().max().item() for i in (0, 1, 3)) > 0.0,
+                "8c: the wavemaker or the chemistry adds nothing")
+        require(moved > 0.0, "8c: the wavemaker's phase does not move")
+    return launches
+
+
+def phase_moist_fp64() -> None:
+    """8d: each of 8a-8c at a reduced grid through the CLI, fp32 against
+    fp64 from the same initial fields."""
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as top:
+        for tag in MOIST_CASES:
+            small = CLOUD_SMALL if MOIST_CASES[tag][1] == CLOUDTOP \
+                else SMALL_GRID
+            steps = OPTION_STEPS
+            ini = os.path.join(top, tag + ".ini")
+            text = moist_case(tag, {
+                **small, ("Iteration", "End"): str(steps),
+                ("Iteration", "Restart"): "1000",
+                ("Iteration", "Statistics"): "1000"})
+            if tag == "8a":
+                text = add_keys(text, "IniFields", PERTURBATION_SHAPE)
+            with open(ini, "w") as fh:
+                fh.write(text)
+            base = os.path.join(top, tag + "_ini")
+            run_cli("ini", ini, base, "--x64")
+            out = {}
+            for name, more in (("fp32", ()), ("fp64", ("--x64",))):
+                outdir = os.path.join(top, f"{tag}_{name}")
+                os.makedirs(outdir)
+                for f in os.listdir(base):
+                    if f.startswith(("flow.0.", "scal.0.")):
+                        os.symlink(os.path.join(base, f),
+                                   os.path.join(outdir, f))
+                out[name] = traced_cli(ini, outdir, ("dns",), *more)["run"]
+            r32, r64 = out["fp32"], out["fp64"]
+            # the velocity as one vector, and split into its plane means
+            # and the fluctuations about them: the cloudtop's horizontally
+            # uniform buoyancy grows a uniform v that the projection's
+            # singular mode leaves (a difference of O(1) numbers, tlab_tpu's
+            # as well)
+            vel32 = torch.stack(r32.state[:3]).double()
+            vel64 = torch.stack(r64.state[:3])
+            scale = vel64.abs().max()
+            rel = ((vel32 - vel64).abs().max() / scale).item()
+            mean32 = vel32.mean(dim=(1, 3), keepdim=True)
+            mean64 = vel64.mean(dim=(1, 3), keepdim=True)
+            rel_f = ((vel32 - mean32 - vel64 + mean64).abs().max()
+                     / (vel64 - mean64).abs().max()).item()
+            rel_m = ((mean32 - mean64).abs().max() / scale).item()
+            rel_s = ((r32.state.s.double() - r64.state.s).abs().max()
+                     / r64.state.s.abs().max()).item()
+            tol = FP64_TOL if small is SMALL_GRID else CLOUD_FP64_TOL
+            print(f"[moist] 8d {tag} {tuple(r64.sim.grid.shape)}, {steps} "
+                  f"adaptive-dt steps: max|q32 - q64| / max|q64| over u, v, "
+                  f"w = {rel:.3e} (limit {tol}; max|u64| {scale:.3e}), "
+                  f"scalars {rel_s:.3e} (limit {FP64_TOL}); the velocity "
+                  f"less its plane means {rel_f:.3e}, the plane means "
+                  f"{rel_m:.3e} of max|u64| (max "
+                  f"{mean64.abs().max().item():.3e}); "
+                  f"t32 - t64 = {r32.rtime - r64.rtime:.3e}")
+            require(rel <= tol, f"8d {tag}: fp32 vs fp64 velocity {rel} > "
+                                f"{tol}")
+            require(rel_s <= FP64_TOL, f"8d {tag}: fp32 vs fp64 scalars "
+                                       f"{rel_s} > {FP64_TOL}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -862,8 +1264,19 @@ def main() -> int:
             for rec, n in zip(records, phase_option(tag, smi, initial)):
                 rec[f"launches_{tag}"] = n
         phase_variants(smi, initial)
+        t8 = time.perf_counter()
+        for rec, err in zip(records, check_case_kernels(moist_case("8a", {}))):
+            rec["max_abs_err_8a"] = err
+        for tag in MOIST_CASES:
+            for rec, n in zip(records, phase_moist(tag, smi, initial)):
+                rec[f"launches_{tag}"] = n
+        t8 = time.perf_counter() - t8
     phase_options_fp64()
     phase_direct_solver(smi)
+    t8d = time.perf_counter()
+    phase_moist_fp64()
+    t8d = time.perf_counter() - t8d
+    print(f"[moist] phase 8 took {t8:.1f} s (8a-8c) + {t8d:.1f} s (8d)")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

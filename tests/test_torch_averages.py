@@ -175,7 +175,7 @@ def test_unported_statistics_raise(tables, call):
             tavg.flow_statistics(tsim.P, st, tsim.nsp.visc)
         elif call == "extras":
             tavg.flow_statistics(tsim.P, st, tsim.nsp.visc, p=pt,
-                                 extras={"eqns": "anelastic"})
+                                 extras={"eqns": "internal"})
         elif call == "extras_rho":
             tavg.scalar_statistics(tsim.P, st, 1e-3, 0, p=pt,
                                    extras={"scalar_sources": st.s})

@@ -103,9 +103,9 @@ def test_unported_command_exits_with_its_item(command, item):
 
 
 @pytest.mark.parametrize("old, new, item", [
-    ("[BufferZone]\nType=none", "[SpecialForcing]\nType=wavemaker", "A9"),
+    ("[BufferZone]\nType=none", "[BufferZone]\nType=relaxation", "A10"),
     ("[BufferZone]\nType=none", "[SavePlanes]\nPlanesJ=3", "A15"),
-    ("ForceDilatation=yes", "ForceDilatation=yes\nNormalizeR=1.0", "A9")])
+    ("Equations=incompressible", "Equations=internal", "A13")])
 def test_unported_option_exits_with_its_item(rundir, tmp_path, old, new,
                                              item):
     for name in ("flow.0.1", "flow.0.2", "flow.0.3", "scal.0.1"):

@@ -389,9 +389,13 @@ def test_phase_average_raises(tmp_path, start):
 def test_step_rejects_unported_aux_keys(start):
     sim = Simulation.from_case(load_case(CASE3D), dtype=F64, device="cpu")
     step, _ = tdns.make_step_functions(sim)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
         step(state_from_numpy(*start, "cpu", F64), 1e-3,
-             extra={"rtime": 0.0})
+             extra={"refs_x": None})
+    # the step's time passes through to the body forces
+    state, _, diag = step(state_from_numpy(*start, "cpu", F64), 1e-3,
+                          extra={"rtime": 0.5})
+    assert diag.shape == (3,) and bool(torch.isfinite(diag).all())
 
 
 # ---------------------------------------------------------------------------

@@ -181,14 +181,7 @@ def _with_key(section, key, value):
     ("IBMParameter", "Status", "on", "A10"),
     ("Main", "Type", "spatial", "A10"),
     ("Main", "TimeOrder", "RungeKuttaDiffusion3", "A11"),
-    ("Main", "Equations", "anelastic", "A9"),
     ("Main", "Equations", "internal", "A13"),
-    ("Thermodynamics", "Type", "anelastic", "A9"),
-    ("Thermodynamics", "Mixture", "AirWaterLinear", "A9"),
-    ("Infrared", "Type", "grayliquid", "A9"),
-    ("Sedimentation", "Type", "airwatersimplified", "A9"),
-    ("Chemistry", "Type", "quadratic", "A9"),
-    ("SpecialForcing", "Type", "wavemaker", "A9"),
 ])
 def test_from_case_rejects_options_off_the_path(section, key, value, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -203,6 +196,8 @@ def test_from_case_rejects_options_off_the_path(section, key, value, item):
     ("Main", "EllipticOrder", "compactdirect6", "ell"),
     ("Main", "TermDivergence", "none", "remove_divergence"),
     ("Filter", "Type", "compact", None),
+    ("Infrared", "Type", "grayliquid", "bodyforce"),
+    ("Chemistry", "Type", "quadratic", "bodyforce"),
 ])
 def test_from_case_runs_options_once_refused(section, key, value, plan_key):
     """The case options this file pinned as refused until they were ported:
@@ -226,7 +221,7 @@ def test_from_case_runs_options_once_refused(section, key, value, plan_key):
 
 
 @pytest.mark.parametrize("key, value", [
-    ("anelastic", {}), ("ibm", {}), ("comm", {}), ("buffer", {}),
+    ("ibm", {}), ("comm", {}), ("buffer", {}),
     ("d1x_banded", {}), ("surface_bc", {}),
 ])
 def test_step_rejects_plans_off_the_path(key, value):

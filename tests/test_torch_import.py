@@ -136,6 +136,32 @@ def test_simulation_with_the_new_options_without_jax(tmp_path):
     assert proc.stdout.split() == ["64", "32", "16"]
 
 
+def test_cloudtop_simulation_without_jax(tmp_path):
+    """The same probe on examples/cloudtop_anelastic/tlab.ini (at 32x24x16),
+    as the example and with Equations=anelastic, gray radiation and
+    sedimentation: physics/{thermo,radiation,microphysics}.py and
+    runtime.make_anelastic run where JAX cannot be imported."""
+    text = (REPO / "examples" / "cloudtop_anelastic" / "tlab.ini").read_text()
+    for old, new in (("Imax=256", "Imax=32"), ("Jmax=192", "Jmax=24"),
+                     ("Kmax=128", "Kmax=16"), ("points_1=257", "points_1=33"),
+                     ("points_1=192", "points_1=24"),
+                     ("points_1=129", "points_1=17")):
+        assert old in text
+        text = text.replace(old, new)
+    anelastic = (text.replace("Equations=incompressible",
+                              "Equations=anelastic")
+                 + "\n[Infrared]\nType=gray\nBoundaryConditions=0.2, 1.0\n"
+                 "AbsorptionComponent1=5.0\n[Sedimentation]\nType=airwater\n"
+                 ).replace("[Parameters]\n", "[Parameters]\nSettling=0.1\n")
+    assert "Settling=0.1" in anelastic
+    for i, case in enumerate((text, anelastic)):
+        path = tmp_path / f"tlab{i}.ini"
+        path.write_text(case)
+        proc = _run(_CASE_PROBE, str(path))
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.split() == ["32", "24", "16"]
+
+
 def test_ini_and_dns_run_without_jax(tmp_path):
     """The port's CLI (tools.cli -> tools.initialize, tools.dns,
     io.fields_io, stats.averages, utils.*) writes a case's initial fields

@@ -195,9 +195,17 @@ def test_state_follows_dtype_and_seed():
     assert torch.equal(a.v, tinit.initial_state(sim, seed=3).v)
 
 
-def test_normalize_r_is_not_ported():
+def test_normalize_r_without_radiation_changes_nothing():
+    """[IniFields] NormalizeR acts through the radiation's source; without
+    one the initial state is the plain one, as in tlab_tpu (the increment
+    itself: tests/test_torch_sources_extra.py)."""
     text = _text(**dict(CASES["layerbroadband"], inifields="NormalizeR=1.0"))
     sim = Simulation.from_case(load_case(Ini(text=text)),
                                dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tinit.initial_state(sim)
+    plain = Simulation.from_case(
+        load_case(Ini(text=_text(**CASES["layerbroadband"]))),
+        dtype=torch.float64, device="cpu")
+    a, b = tinit.initial_state(sim, seed=3), tinit.initial_state(plain,
+                                                                  seed=3)
+    for x, y in zip(a[:4], b[:4]):
+        assert torch.equal(x, y)

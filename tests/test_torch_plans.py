@@ -1,8 +1,11 @@
 """The port's own copies of the NumPy modules (constants, grid, fdm with
 its filters and staggered operators, physics.params, config, the plan-time
-part of ops/elliptic.py) give exactly what tlab_tpu's originals give: the
-copies differ from them only in their import lines, so every comparison
-is exact (np.array_equal, ==), with no tolerance."""
+part of ops/elliptic.py) and of the host NumPy parts of the physics modules
+(the thermodynamic constants, the radiation's band tables and integration
+matrices, the wavemaker's tables, the source props) give exactly what
+tlab_tpu's originals give: the copies differ from them only in their import
+lines, so every comparison is exact (np.array_equal, ==), with no
+tolerance."""
 import dataclasses
 import enum
 import pathlib
@@ -17,7 +20,12 @@ from tlab_tpu.fdm import filters as jfilters
 from tlab_tpu.fdm import plan as jplan
 from tlab_tpu.fdm import stagger as jstagger
 from tlab_tpu.ops import elliptic as jelliptic
+from tlab_tpu.physics import chemistry as jchem
+from tlab_tpu.physics import forcing as jforcing
+from tlab_tpu.physics import microphysics as jmic
 from tlab_tpu.physics import params as jparams
+from tlab_tpu.physics import radiation as jrad
+from tlab_tpu.physics import thermo as jthermo
 from tlab_tpu_torch import config as tconfig
 from tlab_tpu_torch import constants as tconst
 from tlab_tpu_torch import grid as tgrid
@@ -25,7 +33,12 @@ from tlab_tpu_torch.fdm import filters as tfilters
 from tlab_tpu_torch.fdm import plan as tplan
 from tlab_tpu_torch.fdm import stagger as tstagger
 from tlab_tpu_torch.ops import elliptic as telliptic
+from tlab_tpu_torch.physics import chemistry as tchem
+from tlab_tpu_torch.physics import forcing as tforcing
+from tlab_tpu_torch.physics import microphysics as tmic
 from tlab_tpu_torch.physics import params as tparams
+from tlab_tpu_torch.physics import radiation as trad
+from tlab_tpu_torch.physics import thermo as tthermo
 
 DATA = pathlib.Path(__file__).resolve().parent / "data"
 CASES = sorted(p.name for p in DATA.glob("*.ini"))
@@ -227,3 +240,84 @@ def test_elliptic_plan_overrides_and_dense_solve_match():
               jelliptic.neumann_row_coefs(gj.y.nodes, at_max), "row")
     _same(telliptic._reflection_basis(7), jelliptic._reflection_basis(7),
           "basis")
+
+
+# ---------------------------------------------------------------------------
+# the host NumPy parts of physics/{thermo,radiation,forcing,...}.py
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T_ref, p_ref", [(298.0, 1.0e5), (1.0, 1.0),
+                                          (290.0, 9.4e4)])
+def test_psat_coeffs_match(T_ref, p_ref):
+    _same(tthermo.psat_coeffs(T_ref, p_ref), jthermo.psat_coeffs(T_ref,
+                                                                 p_ref),
+          "psat")
+    _same(tthermo.FLATAU, jthermo.FLATAU, "flatau")
+
+
+@pytest.mark.parametrize("kwargs", [
+    {}, {"mixture": "airvapor", "scale_height_inv": 0.05},
+    {"nondimensional": False, "scale_height_inv": 9.81},
+    {"T_ref": 290.0, "p_ref": 9.4e4, "dsmooth": 0.1},
+    {"thermo_param": (-11.1, 0.0056)}])
+def test_thermo_params_match(kwargs):
+    pt, pj = tthermo.ThermoParams(**kwargs), jthermo.ThermoParams(**kwargs)
+    _same(pt, pj, "tp")
+    for name, prop in vars(jthermo.ThermoParams).items():
+        if isinstance(prop, property):
+            _same(getattr(pt, name), getattr(pj, name), name)
+
+
+@pytest.mark.parametrize("bcs, comps, beta", [
+    ((0.3, 0.2, 0.9), [(1.0, 2.0), (0.1, 0.2), (0.01, 0.02)],
+     [(0.6,), (1e-3,), (1e-6,)]),
+    ((1.0, 1.0, 1.0), [], [(), (), ()]),
+    ((0.2, 1.0), [(5.0,), (0.1,), (0.01,)], [(), (), ()]),
+    ((), [(3.0,)], [(), (), ()]),
+    ((0.5, 0.4, 0.3, 0.8), [(1.0, 2.0)], [(0.3, 0.2), (), ()])])
+def test_band_tables_match(bcs, comps, beta):
+    _same(trad.derive_band_tables(bcs, comps, beta),
+          jrad.derive_band_tables(bcs, comps, beta), "bands")
+
+
+@pytest.mark.parametrize("kind", ["uniform", "stretched"])
+def test_radiation_integrals_match(kind):
+    gt, gj = _grids(kind)
+    _same(trad.cumulative_matrices(gt.y.nodes),
+          jrad.cumulative_matrices(gj.y.nodes), "trapezoid")
+    _same(trad.int1_cumulative_matrices(tplan.build_fdm_plan(gt).y),
+          jrad.int1_cumulative_matrices(jplan.build_fdm_plan(gj).y), "int1")
+    assert trad.MU_REFERENCE == jrad.MU_REFERENCE
+    assert trad.SIGMA == jrad.SIGMA
+    assert (trad.BETA_DEFAULT_BAND1, trad.BETA_DEFAULT_BAND2) == \
+        (jrad.BETA_DEFAULT_BAND1, jrad.BETA_DEFAULT_BAND2)
+
+
+@pytest.mark.parametrize("text", [
+    "[SpecialForcing]\nType=wavemaker\nParameters=0.5\n"
+    "Wave1=0.05, 4.0, 30.0, 2.0\nWave2=0.02, 2.0, -60.0, 1.0\n"
+    "Envelope=1.0, 0.5, 0.5, -0.3\n",
+    "[SpecialForcing]\nType=WaveMaker\nWave1=1, 1, 0, 1\n",
+    "[SpecialForcing]\nType=wavemaker\n", ""])
+@pytest.mark.parametrize("kind", ["uniform", "stretched"])
+def test_wavemaker_tables_match(text, kind):
+    pt = tforcing.wavemaker_from_ini(tconfig.Ini(text=text))
+    pj = jforcing.wavemaker_from_ini(jconfig.Ini(text=text))
+    if pj is None:
+        assert pt is None
+        return
+    _same(pt, pj, "wavemaker")
+    gt, gj = _grids(kind)
+    if pj.kx:
+        _same(tforcing.wavemaker_fields(pt, gt),
+              jforcing.wavemaker_fields(pj, gj), "fields")
+
+
+def test_source_props_match():
+    _same(trad.RadiationProps(type="gray", kappa=2.0, nbands=2),
+          jrad.RadiationProps(type="gray", kappa=2.0, nbands=2), "rad")
+    _same(tmic.MicrophysicsProps("airwater", (0.1,), 0.5),
+          jmic.MicrophysicsProps("airwater", (0.1,), 0.5), "mic")
+    _same(tchem.ChemistryProps("ozone", (1.0,), (0.5,), 1, (0.2,)),
+          jchem.ChemistryProps("ozone", (1.0,), (0.5,), 1, (0.2,)), "chem")
+    _same(tforcing.WavemakerProps(), jforcing.WavemakerProps(), "wm")

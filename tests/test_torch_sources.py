@@ -266,12 +266,34 @@ def test_no_source_gives_no_hook():
     ([("Thermodynamics", "Mixture", "AirWaterLinear")], "airwaterlinear"),
     (_gravity("explicit", (1.0,)), "explicit"),
 ])
-def test_make_sources_refuses_what_is_not_ported(edits, what):
-    case = load_case(Ini(text=case_text(edits)))
+def test_make_sources_builds_what_tlab_tpu_builds(edits, what):
+    """The options make_sources refused until they were ported: with no
+    anelastic background each gives the hook tlab_tpu's make_sources gives
+    (none for an inactive option: sedimentation without Settling, a
+    wavemaker without waves, the explicit buoyancy without a background),
+    with the same tendency (1e-12 of each row's max)."""
+    text = case_text(edits)
+    case, jcase = load_case(Ini(text=text)), jload_case(JIni(text=text))
     grid = Simulation.from_case(load_case(Ini(text=INI)), dtype=F64,
                                 device="cpu").grid
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A9"):
-        make_sources(case, grid, F64, "cpu")
+    hook = make_sources(case, grid, F64, "cpu")
+    jhook = jmake_sources(jcase, JSimulation.from_case(jcase).grid,
+                          jnp.float64)
+    assert (hook is None) == (jhook is None)
+    if hook is None:
+        return
+    jsim = JSimulation.from_case(jcase)
+    u, v, w, s = _state(jsim)
+    sj = jdyn.State(u=jnp.asarray(u), v=jnp.asarray(v), w=jnp.asarray(w),
+                    s=jnp.asarray(s))
+    zj = jnp.zeros_like(sj.u)
+    want = jhook(jsim.P, sj, zj, zj, zj, jnp.zeros_like(sj.s))
+    H = torch.zeros((3 + s.shape[0],) + u.shape, dtype=F64)
+    P = Simulation.from_case(case, dtype=F64, device="cpu").P
+    got = hook(P, state_from_numpy(u, v, w, s, "cpu", F64), H[0], H[1],
+               H[2], H[3:])
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= TOL
 
 
 def test_subsidence_and_homogeneous_functions_match_jax():

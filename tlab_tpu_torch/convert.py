@@ -73,6 +73,9 @@ def plans_from_jax(P_np: dict, device, dtype, bodyforce=None) -> dict:
                           for k, v in val.items()}
         elif key in ("adv_form", "remove_divergence"):
             P[key] = val
+        elif key == "anelastic":
+            if val is not None:
+                P[key] = {k: t(val[k]) for k in ("rho", "rho_inv")}
         elif key == "bodyforce":
             if val is not None and bodyforce is None:
                 raise ValueError(

@@ -7,15 +7,19 @@ time.f90 TIME_RUNGEKUTTA).
 Per substep: the Burgers term nu d2(q) - u_i d1(q) along x, y and z for the
 whole (3+ns) stack (convective form on a CUDA float32 stack: the
 hand-written kernel of ops/burgers.py; the skew-symmetric and divergence
-forms and a dealiased direction: dense products, as in tlab_tpu), the body
-forces (P["bodyforce"]), the pressure projection (factorized or direct
-eigen Poisson, unstaggered or horizontally staggered, optionally filtered),
-then the wall rows of the tendencies; q += dte h; the scalars clipped to
-the plan's bounds; h *= kco.
+forms, a dealiased direction and the anelastic set: dense products, as in
+tlab_tpu), the body forces (P["bodyforce"]), the pressure projection
+(factorized or direct eigen Poisson, unstaggered or horizontally staggered,
+optionally filtered), then the wall rows of the tendencies; q += dte h; the
+scalars clipped to the plan's bounds; h *= kco.
 
-A plan that asks for a path not ported yet (anelastic weighting, buffers,
-immersed boundaries, the surface BC, banded operators, a device mesh)
-raises NotImplementedError naming the ROADMAP item that will port it.
+The anelastic set (P["anelastic"]: the background density rho_bar(y) and
+its inverse) weights the diffusion by 1/rho_bar, the projection's forcing
+by rho_bar and the pressure gradient by 1/rho_bar, and logs div(rho_bar u).
+
+A plan that asks for a path not ported yet (buffers, immersed boundaries,
+the surface BC, banded operators, a device mesh) raises
+NotImplementedError naming the ROADMAP item that will port it.
 """
 from __future__ import annotations
 
@@ -178,7 +182,6 @@ OFF_PATH = {
     "ibm": "A10 (immersed boundaries)",
     "surface_bc": "A10 (interactive surface BC)",
     "buffer": "A10 (buffer zones)",
-    "anelastic": "A9 (anelastic)",
     "comm": "A17 (multi-GPU pencils)",
 }
 ADV_FORMS = ("convective", "skewsymmetric", "divergence")
@@ -280,11 +283,19 @@ def _burgers_all(P, axis_name: str, axis: int, fields, conv, nu):
             adv = dprod
         else:
             adv = 0.5 * (conv[None] * da + dprod)
+        ane = P.get("anelastic")
+        if ane is not None:
+            d2a = d2a * ane["rho_inv"][None, None, :, None]
         return nu * d2a - adv
     if _fused_burgers_ok(P, axis_name, fields):
         return burgers.fused_burgers(d12, fields, conv, nu.reshape(-1), axis)
     # the dense branch (tlab_tpu's _d12_apply): one [D1;D2] product
     da, d2a = der12(d12, fields, axis + 1)
+    ane = P.get("anelastic")
+    if ane is not None:
+        # mu-constant anelastic diffusion: nu_eff = nu / rho_bar(y)
+        # (reference OPR_Burgers rhoinv weighting, opr_burgers.f90:487-516)
+        d2a = d2a * ane["rho_inv"][None, None, :, None]
     dea = _dealias_matrix(P, axis_name)
     if dea is not None:
         # filter the factors of the advection product before multiplying
@@ -314,7 +325,10 @@ def _solve_pressure(P, u, v, w, h1, h2, h3, dte):
     177-360): assemble the forcing divergence, solve the Poisson problem
     with the wall-normal tendency as Neumann data, filter, and return the
     pressure-gradient components on the velocity nodes
-    -> (dpdx, dpdy, dpdz, p)."""
+    -> (dpdx, dpdy, dpdz, p).  The anelastic set weights the forcing and
+    the Neumann data by rho_bar (the 1/rho_bar weighting of the gradient
+    is the caller's)."""
+    ane = P.get("anelastic")
     if P.get("remove_divergence", True):
         # default: the forcing carries q/dte so the projection removes
         # the RESIDUAL divergence too ([Main] TermDivergence=remove,
@@ -325,6 +339,9 @@ def _solve_pressure(P, u, v, w, h1, h2, h3, dte):
         fz = h3 + w * inv_dte
     else:                        # TermDivergence=none
         fx, fy, fz = h1, h2, h3
+    if ane is not None:
+        rho = ane["rho"][None, :, None]
+        fx, fy, fz = fx * rho, fy * rho, fz * rho
     stag = P.get("stag")
     if stag is not None:
         # horizontally staggered pressure (reference stagger_on branch,
@@ -336,6 +353,9 @@ def _solve_pressure(P, u, v, w, h1, h2, h3, dte):
         div = _d1(P, "y", 1, fy) + _d1(P, "x", 0, fx) + _d1(P, "z", 2, fz)
         h2_s = h2
     bcs_b, bcs_t = h2_s[:, 0, :], h2_s[:, -1, :]
+    if ane is not None:
+        bcs_b = bcs_b * ane["rho"][0]
+        bcs_t = bcs_t * ane["rho"][-1]
     if P.get("ell_fac") is not None:
         # reference-default factorized formulation: stage-consistent dpdy
         # removes divergence to round-off (opr_elliptic.f90:108-110); when
@@ -380,23 +400,23 @@ def _apply_wall_rows_stacked(H, i, rows):
 
 
 # aux keys of tlab_tpu's step that the port does not carry
-_AUX_OFF_PATH = {"rtime": "ROADMAP A9 (time-dependent forcing)",
-                 "refs_x": "ROADMAP A10 (unsteady inflow)",
+_AUX_OFF_PATH = {"refs_x": "ROADMAP A10 (unsteady inflow)",
                  "fac_tables": "ROADMAP 'Do not port' (the factorize tables "
                                "are part of the plan)"}
 
 
 def _visc_scale(aux) -> float:
     """The [ViscChange] ramp's factor on every diffusivity, from the step's
-    aux dict (1.0 without one).  Only 'visc_scale' is ported."""
+    aux dict (1.0 without one).  'rtime', the step's time, passes through
+    to the body forces; the other keys of tlab_tpu's aux raise."""
     if not aux:
         return 1.0
     for key in aux:
-        if key != "visc_scale":
+        if key not in ("visc_scale", "rtime"):
             raise NotImplementedError(
                 f"aux key {key!r}: "
                 + _AUX_OFF_PATH.get(key, "the step knows no such key"))
-    return float(aux["visc_scale"])
+    return float(aux.get("visc_scale", 1.0))
 
 
 def substep_rhs_stacked(P, Q, H, dte, aux=None):
@@ -404,8 +424,8 @@ def substep_rhs_stacked(P, Q, H, dte, aux=None):
     (3+ns, nx, ny, nz), rows u, v, w, s1..  Returns (H_new, p); H is not
     modified (H_new is a new tensor, updated in place below).  aux:
     {"visc_scale": factor} scales the diffusivities ahead of the Burgers
-    terms; with a time-dependent forcing it would carry the step's time
-    (not ported)."""
+    terms; {"rtime": t} is the step's time for a time-dependent forcing
+    (the wavemaker)."""
     check_main_path(P)
     u, v, w = Q[0], Q[1], Q[2]
     visc = P["visc"]
@@ -430,6 +450,10 @@ def substep_rhs_stacked(P, Q, H, dte, aux=None):
                 row.copy_(new)
 
     dpdx, dpdy, dpdz, p = _solve_pressure(P, u, v, w, H[0], H[1], H[2], dte)
+    ane = P.get("anelastic")
+    if ane is not None:
+        ri = ane["rho_inv"][None, :, None]
+        dpdx, dpdy, dpdz = ri * dpdx, ri * dpdy, ri * dpdz
     H[0] -= dpdx
     H[1] -= dpdy
     H[2] -= dpdz
@@ -519,9 +543,18 @@ def cfl_advective_max(P, state: State):
 
 def dilatation_minmax(P, state: State):
     """Dilatation extrema for the step log / bounds control (on the
-    pressure nodes for a staggered run)."""
+    pressure nodes for a staggered run).  Anelastic runs monitor the
+    CONSTRAINT residual div(rho_bar u) -- the reference weights the
+    velocity by rbackground before FI_INVARIANT_P (dns_local.f90:158-166)
+    -- so a healthy anelastic run logs round-off, not the physical
+    div(u) = -v dlnrho/dy."""
     div = divergence_staggered if P.get("stag") is not None else divergence
-    d = div(P, state.u, state.v, state.w)
+    ane = P.get("anelastic")
+    if ane is not None:
+        r = ane["rho"][None, :, None]
+        d = div(P, state.u * r, state.v * r, state.w * r)
+    else:
+        d = div(P, state.u, state.v, state.w)
     return torch.min(d), torch.max(d)
 
 

@@ -1,11 +1,12 @@
 """Simulation context for the port: grid, plans and device operators from a
-CaseSetup, for the incompressible (Boussinesq) equation set on one device
-(port of tlab_tpu/runtime.py: make_sources restricted to buoyancy,
-Coriolis, homogeneous forcing and subsidence, and the incompressible
-branch of Simulation).
+CaseSetup, for the incompressible (Boussinesq) and anelastic equation sets
+on one device (port of tlab_tpu/runtime.py: make_anelastic, make_sources
+and the incompressible/anelastic branch of Simulation).
 
-Every case option not ported yet raises NotImplementedError naming the
-ROADMAP item that will port it; none is dropped silently.
+Every case option not ported yet (the compressible set, the spatial mode,
+buffers, immersed boundaries, the interactive surface BC, semi-implicit
+diffusion) raises NotImplementedError naming the ROADMAP item that will
+port it; none is dropped silently.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import torch
 
 from tlab_tpu_torch.config import CaseSetup, consistency_check, load_case
 from tlab_tpu_torch.constants import BC
-from tlab_tpu_torch.fdm.plan import FdmPlan, build_fdm_plan
+from tlab_tpu_torch.fdm.plan import FdmPlan, build_deriv_plan, build_fdm_plan
 from tlab_tpu_torch.grid import Grid, build_axis_from_segments, make_axis
 from tlab_tpu_torch.physics.params import NSParams
 from tlab_tpu_torch import device as _device
@@ -27,41 +28,15 @@ from tlab_tpu_torch.fdm import stagger as stg
 from tlab_tpu_torch.ops import elliptic
 from tlab_tpu_torch.ops import elliptic_factorize as fac
 from tlab_tpu_torch.ops import filter as filt
+from tlab_tpu_torch.physics import chemistry as chemmod
 from tlab_tpu_torch.physics import forcing as forcmod
 from tlab_tpu_torch.physics import gravity as grav
+from tlab_tpu_torch.physics import microphysics as micmod
+from tlab_tpu_torch.physics import radiation as radmod
 from tlab_tpu_torch.physics import rotation as rot
+from tlab_tpu_torch.physics import thermo
 
 FACTORIZED_ORDERS = ("", "factorize", "compactjacobian6")
-
-
-def _unported_sources(case: CaseSetup):
-    """(option, ROADMAP item) for each source term or thermodynamic option
-    of `case` that make_sources lacks."""
-    ini = case.ini
-
-    def ini_type(section, default="none", key="Type"):
-        return ini.get(section, key, default).lower() if ini is not None \
-            else default
-
-    found = []
-    tcfg = case.thermo or {}
-    if tcfg.get("type", "").lower() == "anelastic":
-        found.append(("[Thermodynamics] Type=anelastic", "A9"))
-    if tcfg.get("mixture", "") == "airwaterlinear":
-        found.append(("Mixture=airwaterlinear", "A9"))
-    buo = case.buoyancy
-    if buo is not None and buo.type == "explicit" and any(buo.active):
-        found.append(("buoyancy Type=explicit (anelastic)", "A9"))
-    for section, alt in (("Infrared", "Radiation"),
-                         ("Sedimentation", "Microphysics"),
-                         ("Chemistry", None)):
-        kind = ini_type(section, ini_type(alt) if alt else "none")
-        if kind != "none":
-            found.append((f"[{section}] Type={kind}", "A9"))
-    kind = ini_type("SpecialForcing")
-    if kind not in ("none", "", "homogeneous"):
-        found.append((f"[SpecialForcing] Type={kind}", "A9"))
-    return found
 
 
 def _refuse(missing) -> None:
@@ -71,44 +46,271 @@ def _refuse(missing) -> None:
                 f"{opt} (ROADMAP {item})" for opt, item in missing))
 
 
+def make_anelastic(case: CaseSetup, grid: Grid, dtype=torch.float32,
+                   device="cuda") -> dict:
+    """Anelastic background state: hydrostatic profiles from the scalar mean
+    profiles (reference TLab_Initialize_Background + Thermo_Anelastic).
+
+    The background is host float64 work (thermo.hydrostatic_background),
+    cast once to the run's dtype on the run's device: {"tp": ThermoParams,
+    "bg": {p, T, rho, ql, ep, rho_inv} as (ny,) tensors, "rho", "rho_inv"}.
+    """
+    dev = _device.resolve(device)
+    tcfg = case.thermo or {}
+    mixture = tcfg.get("mixture", "airwater")
+    if mixture in ("none", ""):
+        mixture = "airwater" if len(case.scal_profiles) >= 2 else "air"
+    sh = tcfg.get("scale_height", 0.0)
+    tp = thermo.ThermoParams(mixture=mixture,
+                             scale_height_inv=(1.0 / sh if sh > 0 else 0.0),
+                             dsmooth=tcfg.get("smooth", 0.0),
+                             thermo_param=tuple(tcfg.get("parameters", ())),
+                             nondimensional=tcfg.get("nondimensional", True))
+    y = grid.y.nodes
+    h_prof = case.scal_profiles[0](y) if case.scal_profiles \
+        else np.ones_like(y)
+    qt_prof = case.scal_profiles[1](y) if len(case.scal_profiles) > 1 \
+        else np.zeros_like(y)
+    # pressure anchor [Flow] Pressure / YMean(Relative)Pressure (reference
+    # pbg read in TLab_Initialize_Background, tlab_background.f90:86-92)
+    ini = case.ini
+    p_ref, y_ref = 1.0, None
+    if ini is not None:
+        p_ref = ini.get_float("Flow", "Pressure", 1.0)
+        ymean_abs = ini.get("Flow", "YMeanPressure", "")
+        rel = ini.get("Flow", "YMeanRelativePressure", "")
+        if ymean_abs:
+            y_ref = float(ymean_abs)
+        elif rel:
+            y_ref = float(y[0]) + (float(y[-1]) - float(y[0])) * float(rel)
+    # compact cumulative integral for the hydrostatic solve (the
+    # reference integrates with FDM_Int1)
+    d1y = build_deriv_plan(grid.y, case.space_order1,
+                           case.space_order2).d1[0]
+    bg = thermo.hydrostatic_background(tp, y, h_prof, qt_prof,
+                                       p_ref=p_ref, y_ref=y_ref, d1y=d1y)
+    dev_bg = {k: torch.as_tensor(v).to(dev, dtype) for k, v in bg.items()}
+    return {"tp": tp, "bg": dev_bg, "rho": dev_bg["rho"],
+            "rho_inv": dev_bg["rho_inv"]}
+
+
+def _radiation_props(ini) -> radmod.RadiationProps:
+    """[Infrared] (or legacy [Radiation]) as RadiationProps.
+
+    The reference layout (radiation.f90:117-163): BoundaryConditions = the
+    per-band downward top fluxes, the LAST value the surface emissivity;
+    AbsorptionComponent<c> = per-band kappas of the c-th radiatively
+    active component (1 liquid, 2 vapor, 3 constant); BetaCoefficient<ic>
+    = the ic-th polynomial coefficient across bands 1..nbands-1
+    (coefficient-major; last band derived from sum beta = 1).  The legacy
+    scalar keys hold where the reference keys are absent, and Bulk1dLocal
+    converts to grayliquid."""
+    rad_bcs = ini.get_floats("Infrared", "BoundaryConditions", ())
+    rad_comps = []
+    _c = 1
+    while True:
+        row = ini.get_floats("Infrared", f"AbsorptionComponent{_c}", ())
+        if not row:
+            break
+        rad_comps.append(row)
+        _c += 1
+    rad_beta_rows = [ini.get_floats("Infrared", f"BetaCoefficient{i}", ())
+                     for i in (1, 2, 3)]
+    nbands, eps_sfc, bcs_top, kappa_table, beta_table = \
+        radmod.derive_band_tables(rad_bcs or (1.0, 1.0), rad_comps,
+                                  rad_beta_rows)
+    ref_layout = bool(rad_bcs) or bool(rad_comps)
+    # legacy scalar keys honoured when the reference keys are absent
+    kap_l = kappa_table[0][0] if rad_comps else \
+        ini.get_float("Infrared", "Kappa", 1.0)
+    kap_v = kappa_table[1][0] if len(rad_comps) > 1 else \
+        ini.get_float("Infrared", "KappaVapor", 0.0)
+    kap_g = kappa_table[2][0] if len(rad_comps) > 2 else \
+        ini.get_float("Infrared", "KappaGas", 0.0)
+    rad = radmod.RadiationProps(
+        type=ini.get("Infrared", "Type",
+                     ini.get("Radiation", "Type", "none")).lower(),
+        scalar=ini.get_int("Infrared", "Scalar", 1) - 1,
+        kappa=kap_l, kappa_v=kap_v, kappa_g=kap_g,
+        beta=ini.get_float("Infrared", "Beta", 1.0),
+        emissivity=eps_sfc if ref_layout else
+        ini.get_float("Infrared", "Emissivity", 1.0),
+        flux_top=bcs_top[0] if rad_bcs else
+        ini.get_float("Infrared", "FluxTop", 1.0),
+        # grayliquid reads the SECOND BoundaryConditions value as the
+        # upward bottom flux (radiation.f90:277-278, auxiliar(2))
+        flux_bottom=rad_bcs[1] if len(rad_bcs) > 1 else
+        ini.get_float("Infrared", "FluxBottom", 0.0),
+        nbands=nbands, kappa_table=kappa_table, beta_table=beta_table,
+        bcs_top=bcs_top)
+    if rad.type == "bulk1dlocal":
+        # backwards-compatible Bulk1dLocal -> grayliquid conversion
+        # (radiation.f90:186-199): Parameters=(F0, delta[, Fb]) with
+        # kappa = 1/delta, flux_top = F0*delta, flux_bottom = Fb*delta
+        par = ini.get_floats("Infrared", "Parameters", (0.0, 1.0))
+        par = tuple(par) + (0.0,) * (3 - len(par))
+        rad = dataclasses.replace(rad, type="grayliquid",
+                                  kappa=1.0 / par[1],
+                                  flux_top=par[0] * par[1],
+                                  flux_bottom=par[2] * par[1])
+    return rad
+
+
 def make_sources(case: CaseSetup, grid: Grid, dtype=torch.float32,
-                 device="cuda"):
-    """Momentum and scalar source-term hook (buoyancy, Coriolis, constant
-    forcing, subsidence), the equivalent of the reference's
-    TLab_Sources_Flow dispatcher (src/physics/tlab_sources.f90).  Returns
-    None when no source is active (keeps the RHS free of dead ops).
+                 device="cuda", anelastic=None):
+    """Momentum and scalar source-term hook, the equivalent of the
+    reference's TLab_Sources_Flow dispatcher (src/physics/tlab_sources.f90):
+    buoyancy (the anelastic explicit one with `anelastic`, make_anelastic's
+    dict), Coriolis, homogeneous forcing, the wavemaker, infrared
+    radiation, sedimentation, chemistry and subsidence.  Returns None when
+    no source is active (keeps the RHS free of dead ops).
 
     The hook, sources(P, state, h1, h2, h3, hs, aux=None), ADDS the terms
     into h1, h2, h3 (nx, ny, nz) and hs (ns, nx, ny, nz) in place -- the
-    step passes the rows of its stacked tendency -- and returns them.
-    Radiation, microphysics, chemistry, the wavemaker and the anelastic and
-    linearized-mixture thermodynamics raise NotImplementedError (ROADMAP
-    A9)."""
+    step passes the rows of its stacked tendency -- and returns them.  The
+    wavemaker reads the step's time aux["rtime"].  Attributes:
+    ir_field(state, rad=None) and rad_props (the radiation, or None),
+    time_dependent, and buoyancy_only / coriolis_only (the isolated terms
+    of the pressure decomposition)."""
     dev = _device.resolve(device)
-    _refuse(_unported_sources(case))
     buo = case.buoyancy
     cor = case.coriolis
     buo_on = buo is not None and buo.type != "none" and any(buo.active)
     cor_on = cor is not None and cor.type != "none"
+    explicit = buo_on and buo.type == "explicit" and anelastic is not None
     ini = case.ini
+
+    rad = _radiation_props(ini)
+    settling = ini.get_float("Parameters", "Settling", 0.0)
+    mic_pars = ini.get_floats("Sedimentation", "Parameters", (1.0,))
+    mic = micmod.MicrophysicsProps(
+        type=ini.get("Sedimentation", "Type",
+                     ini.get("Microphysics", "Type", "none")).lower(),
+        # settling folded into the per-scalar parameters at read time
+        # (microphysics.f90:96-101)
+        parameters=tuple(p * settling for p in mic_pars),
+        exponent=ini.get_float("Sedimentation", "Exponent", 0.0))
     sub = forcmod.SubsidenceProps(
         type=ini.get("Subsidence", "Type",
                      ini.get("Main", "TermSubsidence", "none")).lower(),
         divergence=(ini.get_floats("Subsidence", "Parameters", (0.0,))
                     or (0.0,))[0])
     sub_on = sub.type not in ("none", "") and sub.divergence != 0.0
-    homog = forcmod.homogeneous_from_ini(ini)
-    homog_on = homog is not None and any(abs(f) > 0 for f in homog)
-    if not (buo_on or cor_on or sub_on or homog_on):
-        return None
+
+    da_list = ini.get_floats("Parameters", "Damkohler", (1.0,))
+    da_list = tuple(da_list) + (da_list[-1],) * max(
+        0, len(case.schmidt) - len(da_list))
+    chem = chemmod.ChemistryProps(
+        type=ini.get("Chemistry", "Type", "none").lower(),
+        damkohler=da_list,
+        parameters=ini.get_floats("Chemistry", "Parameters", (1.0, 1.0)),
+        scalar=ini.get_int("Chemistry", "Scalar", 1) - 1,
+        ymean=tuple(getattr(prof, "ymean", 0.0)
+                    for prof in (case.scal_profiles or ())))
+    rad_on = rad.type != "none"
+    mic_on = mic.type != "none" and settling != 0.0
+    chem_on = chem.type != "none"
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64)).to(dev, dtype)
 
+    if rad_on or mic_on:
+        # compact FDM_Int1 tau integrals with the case's y scheme (the
+        # reference radiation integrates with fdm_Int0 = FDM_Int1 plans,
+        # radiation.f90:414)
+        Jt, Jb = radmod.int1_cumulative_matrices(build_deriv_plan(
+            grid.y, case.space_order1, case.space_order2))
+        Jt, Jb = t(Jt), t(Jb)
     y_dev = t(grid.y.nodes)
-    if buo_on:
-        bback = t(grav.background_profile(buo, case.scal_profiles,
-                                          grid.y.nodes))
+
+    wm = forcmod.wavemaker_from_ini(ini)
+    wm_on = wm is not None and bool(wm.amp_x)
+    if wm_on:
+        wm_env, wm_phases = (t(a) for a in forcmod.wavemaker_fields(wm,
+                                                                    grid))
+    homog = forcmod.homogeneous_from_ini(ini)
+    homog_on = homog is not None and any(abs(f) > 0 for f in homog)
+
+    if not (buo_on or cor_on or rad_on or mic_on or chem_on or sub_on
+            or wm_on or homog_on):
+        return None
+
+    # linearized stratocumulus mixture (MIXT_TYPE_AIRWATER_LINEAR): the
+    # normalized liquid is a DIAGNOSTIC scalar appended to the stack for
+    # buoyancy/radiation (reference thermo_airwater.f90:483-516; liquid is
+    # scalar inb_scal_array)
+    tcfg = case.thermo or {}
+    awl_params = tuple(tcfg.get("parameters", ()))
+    awl_on = tcfg.get("mixture", "") == "airwaterlinear" and bool(awl_params)
+
+    def augment(s):
+        if not awl_on or s.shape[0] == 0:
+            return s
+        liq = thermo.airwater_linear(awl_params, s)
+        return torch.cat([s, liq[None]], dim=0)
+
+    if buo_on and not explicit:
+        # bbackground sees a ZERO liquid column for the linear mixture: the
+        # reference fills sbackground only for the prognostic scalars before
+        # computing bbackground (tlab_background.f90:194-221; the diagnostic
+        # column is a fresh allocation, never written in the non-anelastic
+        # path), so c3*ql_bg must NOT enter the reference profile.  The zero
+        # column is kept in the stack so the independent term stays at
+        # parameters(inb_scal_array+1) (gravity.f90:253).
+        profs = case.scal_profiles
+        if awl_on and profs:
+            profs = list(profs) + [lambda yv: np.zeros_like(yv)]
+        bback = t(grav.background_profile(buo, profs, grid.y.nodes))
+
+    def buoyancy(s):
+        if explicit:
+            return thermo.buoyancy_explicit(anelastic["tp"], s,
+                                            anelastic["bg"])
+        return grav.buoyancy_field(buo, augment(s), bback)
+
+    def liquid(state):
+        """(T, liquid, rho_bar): the equilibrium of the anelastic mixture
+        (T None otherwise), the linear mixture's liquid or the last
+        scalar."""
+        if anelastic is not None:
+            T, ql = thermo.equilibrium_state(anelastic["tp"], state.s,
+                                             anelastic["bg"])
+            return T, ql, anelastic["rho"]
+        ones = torch.ones_like(y_dev)
+        if awl_on:
+            return None, thermo.airwater_linear(awl_params, state.s), ones
+        return None, state.s[-1], ones
+
+    def compute_ir(state, rad=None, liq=None):
+        """IR heating-rate field for the active scalar.  rad: optional
+        props override (scaled fluxes for the iniscal NormalizeR
+        accumulated-radiation IC, scal_main.f90:120-131); liq: liquid(state)
+        where the caller has it."""
+        if rad is None:
+            rad = compute_ir.props
+        T, ql, rho_b = liq if liq is not None else liquid(state)
+        if rad.type == "gray" and anelastic is not None:
+            qv = state.s[-1] - ql
+            a_f = (rad.kappa * ql + rad.kappa_v * qv
+                   + rad.kappa_g) * rho_b[None, :, None]
+            # emission by the Stefan-Boltzmann law (radiation.f90:292);
+            # beta is a unit-override knob (1 for reference cases)
+            b_f = rad.beta * radmod.SIGMA * T ** 4
+            return radmod.infrared_gray_source(
+                rad, y_dev, a_f, b_f, emissivity=rad.emissivity)
+        if rad.type == "band" and anelastic is not None:
+            qv = state.s[-1] - ql
+            nb = rad.nbands
+            kt = rad.kappa_table or ((rad.kappa,) * nb,)
+            k_l = kt[0]
+            k_v = kt[1] if len(kt) > 1 else (0.0,) * nb
+            k_c = kt[2] if len(kt) > 2 else (0.0,) * nb
+            a_bands = [(k_l[b] * ql + k_v[b] * qv + k_c[b])
+                       * rho_b[None, :, None] for b in range(nb)]
+            return radmod.infrared_band_source(
+                rad, y_dev, a_bands, T, rad.beta_table,
+                emissivity=rad.emissivity, bcs_top=rad.bcs_top)
+        return radmod.infrared_source(rad, Jt, Jb, ql, rho_b)
 
     def sources(P, state, h1, h2, h3, hs, aux=None):
         if homog_on:
@@ -116,6 +318,17 @@ def make_sources(case: CaseSetup, grid: Grid, dtype=torch.float32,
             for h, f in zip((h1, h2, h3), homog):
                 if abs(f) > 0:
                     h += f
+        if wm_on:
+            # wavemaker relaxation toward the plane-wave field, phase at
+            # the START-of-step rtime exactly as the reference (the
+            # dispatcher passes TLab_Time rtime, tlab_sources.f90:115)
+            rtime = (aux or {}).get("rtime", 0.0)
+            env_l, ph_l = forcmod.localize_wavemaker(wm_env, wm_phases,
+                                                     P.get("comm"))
+            h1 += forcmod.wavemaker_source(wm, env_l, ph_l, 0, state.u,
+                                           rtime)
+            h2 += forcmod.wavemaker_source(wm, env_l, ph_l, 1, state.v,
+                                           rtime)
         if cor_on:
             r1, r2, r3 = rot.coriolis_tendency(cor, state.u, state.v,
                                                state.w)
@@ -123,10 +336,45 @@ def make_sources(case: CaseSetup, grid: Grid, dtype=torch.float32,
             h2 += r2
             h3 += r3
         if buo_on:
-            b = grav.buoyancy_field(buo, state.s, bback)
+            b = buoyancy(state.s)
             for h, g in zip((h1, h2, h3), buo.vector):
                 if abs(g) > 0:
                     h.add_(b, alpha=g)
+        if rad_on or mic_on:
+            # liquid water: diagnostic (anelastic airwater) or a scalar
+            liq = liquid(state)
+            T, ql, rho_b = liq
+            if rad_on:
+                hs[rad.scalar] += compute_ir(state, liq=liq)
+            if mic_on:
+                # driving field = diagnostic liquid (last array scalar),
+                # rho-weighted in anelastic mode (microphysics.f90:133)
+                if anelastic is not None:
+                    s_active = ql * rho_b[None, :, None]
+                else:
+                    s_active = ql
+                stat_l = None
+                if mic.type == "airwater":
+                    stat_l = micmod.liquid_static_energy(
+                        anelastic["tp"], state.s[0], T,
+                        anelastic["bg"]["ep"][None, :, None])
+                for isc in range(state.s.shape[0]):
+                    if mic.type == "airwatersimplified":
+                        sed = micmod.sedimentation_simplified(
+                            mic, P, isc, s_active)
+                    else:
+                        sed = micmod.sedimentation_airwater(
+                            mic, P, isc, state.s, s_active, stat_l)
+                    if anelastic is not None:
+                        # ribackground weighting of the tendency
+                        # (tlab_sources.f90:176-177)
+                        sed = sed / rho_b[None, :, None]
+                    hs[isc] += sed
+        if chem_on:
+            # every scalar with nonzero Damkohler receives its reaction
+            # source (chemistry.f90:78-81,102-155)
+            for isc in chemmod.active_scalars(chem, state.s.shape[0]):
+                hs[isc] += chemmod.source(chem, state.s, isc, y_dev)
         if sub_on:
             # ConstantDivergenceLocal is folded into OPR_Burgers_Y in the
             # reference (opr_burgers.f90:336-340), so it acts on EVERY
@@ -139,6 +387,11 @@ def make_sources(case: CaseSetup, grid: Grid, dtype=torch.float32,
             h3 += forcmod.subsidence_source(sub, P, y_dev, state.w)
         return h1, h2, h3, hs
 
+    compute_ir.props = rad
+    sources.ir_field = compute_ir if rad_on else None
+    sources.rad_props = rad if rad_on else None
+    sources.time_dependent = wm_on
+
     # isolated-term closures for the pressure-decomposition menu
     # (FI_PRESSURE_BOUSSINESQ DCMP_CORIOLIS/DCMP_BUOYANCY,
     # fi_pressure_boussinesq.f90:158-190)
@@ -148,7 +401,7 @@ def make_sources(case: CaseSetup, grid: Grid, dtype=torch.float32,
         sources.coriolis_only = coriolis_only
     if buo_on:
         def buoyancy_only(state):
-            b = grav.buoyancy_field(buo, state.s, bback)
+            b = buoyancy(state.s)
             z = torch.zeros_like(state.u)
             return tuple(g * b if abs(g) > 0 else z for g in buo.vector)
         sources.buoyancy_only = buoyancy_only
@@ -185,10 +438,8 @@ def _off_path_options(case: CaseSetup, grid: Grid):
             else default
 
     found = []
-    if case.equations != "incompressible":
-        item = "A9" if case.equations == "anelastic" else "A13"
-        found.append((f"Equations={case.equations}", item))
-    found += _unported_sources(case)
+    if case.equations not in ("incompressible", "anelastic"):
+        found.append((f"Equations={case.equations}", "A13"))
     if case.flow_type != "temporal" or not grid.x.periodic:
         found.append((f"Type={case.flow_type}", "A10"))
     if on(case.buffer):
@@ -254,6 +505,9 @@ class Simulation:
     ell_plans: dict              # BC -> direct eigen Poisson plan on device
     dtype: torch.dtype
     device: torch.device
+    # make_anelastic's background where the thermodynamics are anelastic
+    # ([Thermodynamics] Type=anelastic or Equations=anelastic), else None
+    anelastic: Optional[dict] = None
 
     @classmethod
     def from_case(cls, case_or_path, dtype=torch.float32, device="cuda",
@@ -292,15 +546,30 @@ class Simulation:
         # O(1) on noisy fields.
         factorized = case.elliptic_order in FACTORIZED_ORDERS \
             and grid.y.size > 4
+        # anelastic THERMODYNAMICS are independent of the momentum set:
+        # [Thermodynamics] Type=anelastic with Equations=incompressible is
+        # the reference's Boussinesq + moist-thermo combination; only
+        # Equations=anelastic also weights the dycore by rho_bar
+        # (P["anelastic"] below)
+        anelastic = make_anelastic(case, grid, dtype, dev) \
+            if (case.equations == "anelastic"
+                or (case.thermo or {}).get("type", "").lower()
+                == "anelastic") else None
         P = dyn.build_device_plans(
             fdm, nsp, bcs, rk_name=case.time_order, dtype=dtype, device=dev,
             wall_refs=wall_refs,
-            bodyforce=make_sources(case, grid, dtype, dev),
+            bodyforce=make_sources(case, grid, dtype, dev,
+                                   anelastic=anelastic),
             factorize=factorized and not case.stagger)
         # [Main] TermAdvection selects the nonlinear formulation
-        # (reference rhs_flow_global_incompressible_1/2/3.f90)
-        if case.term_advection in ("divergence", "skewsymmetric"):
+        # (reference rhs_flow_global_incompressible_1/2/3.f90); the
+        # anelastic set is combined-convective only, as the reference
+        if case.term_advection in ("divergence", "skewsymmetric") \
+                and case.equations != "anelastic":
             P["adv_form"] = case.term_advection
+        if case.equations == "anelastic":
+            P["anelastic"] = {"rho": anelastic["rho"],
+                              "rho_inv": anelastic["rho_inv"]}
         # [Main] TermDivergence=none drops the q/dte residual-divergence
         # term from the projection forcing (dns_read_local.f90:79-83)
         if case.ini is not None and case.ini.get(
@@ -327,7 +596,8 @@ class Simulation:
             P["scal_bounds"] = dyn.scalar_bounds(
                 ctrl["min_scalar"], ctrl["max_scalar"], dtype, dev)
         return cls(case=case, grid=grid, fdm=fdm, nsp=nsp, P=P,
-                   ell_plans={BC.NN: P["ell"]}, dtype=dtype, device=dev)
+                   ell_plans={BC.NN: P["ell"]}, dtype=dtype, device=dev,
+                   anelastic=anelastic)
 
     # -- optional subsystems ------------------------------------------------
     def filter_matrices(self):

@@ -11,13 +11,19 @@ scripts can consume the output.
 
 Incompressible: rR = 1, Favre == Reynolds, and the thermodynamic,
 Acoustics and RhoBudget columns are 0, as the reference leaves inactive
-groups.  The equation-set context (`extras`, build_extras) carries the
-Boussinesq body forces: the buoyancy field fills rB, the buoyancy
-production and flux terms (Bxx.., Buo, Bsv) and Pot, the Coriolis vector the
-F terms.  Left for ROADMAP A14: the anelastic and compressible extras, the
-scalar sources, the diagnostic pressure solve when no pressure is passed
-in, the legacy alias keys (SU, FU, .., Chi, Rss), the NetCDF writer and
-reader, and the conditional (gated) statistics.
+groups.  Anelastic (Equations=anelastic): the density and temperature of
+the equilibrium thermodynamics fill rR, rT, fT, rR2, rT2, fT2 and the
+RhoBudget group, the background fills rRref, rTref and rPref, and the
+Stratification group is filled (Favre == Reynolds still).  The
+equation-set context (`extras`, build_extras) carries the body forces: the
+buoyancy field fills rB, the buoyancy production and flux terms (Bxx..,
+Buo, Bsv) and Pot, the Coriolis vector the F terms.  As in tlab_tpu,
+[Thermodynamics] Type=anelastic with Equations=incompressible fills no
+background here, so its explicit buoyancy reads as zero in these tables.
+Left for ROADMAP A14: the compressible extras, the scalar sources, the
+diagnostic pressure solve when no pressure is passed in, the legacy alias
+keys (SU, FU, .., Chi, Rss), the NetCDF writer and reader, and the
+conditional (gated) statistics.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import torch
 
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.physics import gravity as grav
+from tlab_tpu_torch.physics import thermo
 
 # ---------------------------------------------------------------------------
 # Table layout (reference avg_flow_xz.f90:102-391, avg_scal_xz.f90:92-236)
@@ -79,8 +86,11 @@ _FLOW_INACTIVE = (
     "rT re rh rs fT fe fh fs rR2 rT2 fT2 re2 fe2 rh2 fh2 rs2 fs2 "
     + FLOW_GROUPS[12][1] + " " + FLOW_GROUPS[13][1] + " "
     + FLOW_GROUPS[14][1].replace("Pot ", "")).split()
-# the keys of `extras` that the Boussinesq set fills (build_extras)
-_EXTRAS_PORTED = ("eqns", "y", "froude", "coriolis_y", "bvec", "ymean", "b")
+# the keys of `extras` that the incompressible and anelastic sets fill
+# (build_extras)
+_EXTRAS_PORTED = ("eqns", "y", "froude", "coriolis_y", "bvec", "ymean", "b",
+                  "tp", "bg", "rref", "tref", "pref")
+_EQNS_PORTED = ("incompressible", "anelastic")
 
 
 def _pavg(a):
@@ -95,10 +105,10 @@ def _need(p, extras, kw) -> None:
                 f"{name}: the compressible columns, ROADMAP A14")
     ex = extras or {}
     other = [k for k in ex if k not in _EXTRAS_PORTED]
-    if other or ex.get("eqns", "incompressible") != "incompressible":
+    if other or ex.get("eqns", "incompressible") not in _EQNS_PORTED:
         raise NotImplementedError(
-            f"extras {other or ex['eqns']!r} (the anelastic and "
-            "compressible columns, the scalar sources): ROADMAP A14")
+            f"extras {other or ex['eqns']!r} (the compressible columns, "
+            "the scalar sources): ROADMAP A14")
     if p is None:
         raise NotImplementedError(
             "statistics without the step's pressure (the diagnostic "
@@ -111,9 +121,9 @@ def _need(p, extras, kw) -> None:
 
 def build_extras_static(sim):
     """State-INDEPENDENT part of the statistics context: equation set,
-    Coriolis/buoyancy parameters."""
+    background profiles, Coriolis/buoyancy parameters."""
     eqns = sim.case.equations
-    if eqns != "incompressible":
+    if eqns not in _EQNS_PORTED:
         raise NotImplementedError(
             f"statistics of Equations={eqns}: ROADMAP A14")
     ex = {"eqns": eqns, "y": np.asarray(sim.grid.y.nodes),
@@ -123,6 +133,12 @@ def build_extras_static(sim):
     if cor is not None and cor.type != "none":
         ex["coriolis_y"] = float(cor.vector[1]) if len(cor.vector) > 1 \
             else 0.0
+    if eqns == "anelastic":
+        anel = sim.anelastic
+        ex["tp"], ex["bg"] = anel["tp"], anel["bg"]
+        ex["rref"] = anel["bg"]["rho"]
+        ex["tref"] = anel["bg"]["T"]
+        ex["pref"] = anel["bg"]["p"]
     if buo is not None and buo.type != "none":
         ex["bvec"] = tuple(buo.vector)
         prof = sim.case.scal_profiles[-1] if sim.case.scal_profiles else None
@@ -138,10 +154,12 @@ def add_state_extras(sim, state, ex):
     buo = sim.case.buoyancy
     if buo is None or buo.type == "none":
         return ex
-    if buo.type == "explicit":
-        raise NotImplementedError(
-            "the anelastic (explicit) buoyancy: ROADMAP A14")
-    if state.s.shape[0] > 0:
+    if buo.type == "explicit" and "bg" in ex:
+        ex["b"] = thermo.buoyancy_explicit(ex["tp"], state.s, ex["bg"])
+    elif state.s.shape[0] > 0:
+        # an explicit buoyancy without the anelastic background (the
+        # Boussinesq + moist-thermo combination) gives zeros here, as in
+        # tlab_tpu (gravity.buoyancy_field knows no explicit type)
         # pad with zero profiles so the independent term keeps its
         # parameters(ns+1) slot (tlab_background.f90:194-221)
         profs = list(sim.case.scal_profiles)
@@ -190,13 +208,14 @@ def stats_tables(sim, state, p):
 
 def flow_statistics(P, state, visc, p=None, extras=None):
     """Full reference flow table: dict name -> (ny,) profile
-    (avg_flow_xz.f90), incompressible set.
+    (avg_flow_xz.f90), incompressible and anelastic sets.
 
     p: the projection pressure the dycore computed this step.  extras:
     build_extras' context (buoyancy field and vector, Froude number,
-    Coriolis vector, nodes)."""
+    Coriolis vector, nodes; the anelastic background)."""
     _need(p, extras, {})
     ex = extras or {}
+    anelastic = ex.get("eqns") == "anelastic" and "tp" in ex
     u, v, w = state.u, state.v, state.w
     d1y = P.get("d1y")
     ny = u.shape[1]
@@ -217,6 +236,25 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     out["fU"], out["fV"], out["fW"] = rU, rV, rW
     for n in _FLOW_INACTIVE:
         out[n] = zero
+    rR = out["rR"]
+    if anelastic:
+        # density and temperature of the equilibrium thermodynamics
+        # (Thermo_Anelastic_DENSITY); Favre == Reynolds for the velocity
+        tp, bg = ex["tp"], ex["bg"]
+        T3, ql3 = thermo.equilibrium_state(tp, state.s, bg)
+        qt = state.s[1] if state.s.shape[0] > 1 else \
+            torch.zeros_like(state.s[0])
+        rho3 = bg["p"][None, :, None] / (thermo.mixture_R(tp, qt, ql3) * T3)
+        rR = _pavg(rho3)
+        rT = _pavg(T3)
+        fT = _pavg(rho3 * T3) / rR
+        rf3 = rho3 - rR[None, :, None]
+        Tf3 = T3 - rT[None, :, None]
+        fTf = T3 - fT[None, :, None]
+        out["rR"], out["rT"], out["fT"] = rR, rT, fT
+        out["rR2"] = _pavg(rf3 * rf3)
+        out["rT2"] = _pavg(Tf3 * Tf3)
+        out["fT2"] = _pavg(rho3 * fTf * fTf) / rR
 
     # buoyancy field (Gravity_Buoyancy)
     b3 = ex.get("b")
@@ -366,10 +404,10 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     else:
         Fij = {t: zero for t in tags}
 
-    # the variable-density (G, D) terms vanish for this equation set
+    # the variable-density (G, D) terms vanish where Favre == Reynolds
     for t in tags:
         out[f"R{t}_t"] = -Fij[t] + Bij[t] + Cij[t] + Pij[t] - Eij[t] \
-            + (PIij[t] - Tiy_y[t])
+            + (PIij[t] - Tiy_y[t]) / rR
         out[f"B{t}"] = Bij[t]
         out[f"C{t}"] = Cij[t]
         out[f"P{t}"] = Pij[t]
@@ -395,7 +433,7 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     dpx = dyn._d1(P, "x", 0, p)
     dpy = dyn._d1(P, "y", 1, p)
     dpz = dyn._d1(P, "z", 2, p)
-    out["Tke_t"] = Buo + Con + Prd - Eps + (-Ty_y + Pi)
+    out["Tke_t"] = Buo + Con + Prd - Eps + (-Ty_y + Pi) / rR
     out["Buo"], out["Con"], out["Prd"] = Buo, Con, Prd
     out["Eps"], out["Pi"], out["Trp"] = Eps, Pi, Ty_y
     out["Trp1"], out["Trp2"], out["Trp3"] = Trp1, Trp2, Trp3
@@ -424,12 +462,75 @@ def flow_statistics(P, state, visc, p=None, extras=None):
                     gg = gg - rmean_y[cn][None, :, None]
                 out[f"{cn.upper()}_{an}{mom}"] = _pavg(gg ** mom)
 
-    # --- Stratification: the potential energy ----------------------------
+    # --- RhoBudget (the anelastic density's fluctuations) -----------------
+    if anelastic:
+        fx, fy, fz = _pavg(uf * rf3), _pavg(vf * rf3), _pavg(wf * rf3)
+        out["RhoFluxX"], out["RhoFluxY"], out["RhoFluxZ"] = fx, fy, fz
+        out["RhoDil1"] = 2.0 * rR * _pavg(dil_f * rf3)
+        out["RhoDil2"] = _pavg(dil_f * rf3 * rf3)
+        out["RhoTrp"] = _pavg(vf * rf3 * rf3)
+        out["RhoProd"] = -2.0 * (fy * dy(rR) + out["rR2"] * rV_y)
+        out["RhoConv"] = -rV * dy(out["rR2"])
+
+    # --- Stratification ---------------------------------------------------
     if b3 is not None and "y" in ex:
         yt = torch.as_tensor(ex["y"]).to(u.device, u.dtype)
         out["Pot"] = -rB * (yt - ex.get("ymean", 0.0))
     else:
         out["Pot"] = zero
+    if anelastic:
+        out["rRref"], out["rTref"] = ex["rref"], ex["tref"]
+        out.update(_stratification(P, ex, state, T3, ql3))
+    return out
+
+
+def _stratification(P, ex, state, T3, ql3):
+    """Anelastic Stratification group (avg_flow_xz.f90:703-766 anelastic
+    branch; Thermo_Anelastic_{THETA,THETA_V,LAPSE_FR,LAPSE_EQU,
+    VAPOR_PRESSURE,DEWPOINT,RELATIVEHUMIDITY} in tlab_tpu's
+    nondimensionalization: lapse_fr = g_nd / cp_mix, theta via the Exner
+    function with the surface pressure as reference)."""
+    tp, bg = ex["tp"], ex["bg"]
+    bvec = ex.get("bvec", (0.0, -1.0, 0.0))
+    qt = state.s[1] if state.s.shape[0] > 1 else torch.zeros_like(state.s[0])
+    qv = qt - ql3
+    p3 = bg["p"][None, :, None]
+    g_nd = tp.scale_height_inv
+    out = {}
+    cp_mix = tp.Cd + qt * tp.Cdv + ql3 * tp.Cvl
+    lapse_fr3 = g_nd / cp_mix * torch.ones_like(T3)
+    psat3 = tp.psat(T3)
+    dTdy3 = dyn._d1(P, "y", 1, T3)
+    out["LapseRate_fr"] = _pavg(lapse_fr3)
+    out["BuoyFreq_fr"] = _pavg((lapse_fr3 + dTdy3) / T3) * bvec[1]
+    # saturated (equilibrium) lapse rate, Thermo_Anelastic_LAPSE_EQU
+    qv_ov_qd = (tp.Rd / tp.Rv) / torch.clamp(p3 / psat3 - 1.0, min=1e-30)
+    Lv3 = tp.Lv0 - T3 * tp.Cvl
+    lapse_eq3 = g_nd * (1.0 + qv_ov_qd * Lv3 / (tp.Rd * T3)) / (
+        tp.Cd + qt * tp.Cdl - qv_ov_qd * (1.0 - qt) * tp.Cvl
+        + qv_ov_qd * (1.0 - qt) * (1.0 + qv_ov_qd * tp.Rv / tp.Rd)
+        * Lv3 ** 2 / (tp.Rv * T3 * T3))
+    out["LapseRate_eq"] = _pavg(lapse_eq3)
+    out["BuoyFreq_eq"] = _pavg((lapse_eq3 + dTdy3) / T3) * bvec[1]
+    # potential temperatures via the Exner function (surface p as ref)
+    p0 = float(bg["p"][0])
+    exner_inv = (p0 / p3) ** (tp.Rd / tp.Cd)
+    theta3 = T3 * exner_inv
+    out["PotTemp"] = _pavg(theta3)
+    out["PotTemp_v"] = _pavg(theta3 * (1.0 + qt * (tp.Rdv / tp.Rd)
+                                       - ql3 * (tp.Rv / tp.Rd)))
+    out["SaturationPressure"] = _pavg(psat3)
+    out["rPref"] = ex["pref"]
+    # vapor pressure pv = p qv Rv / R_mix; RH in % as the reference
+    pv3 = p3 * qv * tp.Rv / thermo.mixture_R(tp, qt, ql3)
+    out["RelativeHumidity"] = _pavg(pv3 / psat3 * 100.0)
+    # dewpoint: Newton psat(Td) = pv from T as initial guess
+    Td = T3
+    for _ in range(5):
+        Td = Td - (tp.psat(Td) - pv3) / tp.dpsat(Td)
+    out["Dewpoint"] = _pavg(Td)
+    dpvdy3 = dyn._d1(P, "y", 1, pv3 * torch.ones_like(T3))
+    out["LapseRate_dew"] = _pavg(-dpvdy3 / tp.dpsat(Td))
     return out
 
 

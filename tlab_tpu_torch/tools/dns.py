@@ -6,7 +6,8 @@ each RK step, or window of `inner_steps` steps, is a sequence of device
 calls that the host waits for once, when it reads the window's CFL and
 dilatation extrema.  Structure mirrors reference dns_main.f90:246-361; the
 dns.out step log reproduces the reference's columns (Itn. time dt CFL# D#
-visc DilMin DilMax, dns_main.f90:394-495).
+visc DilMin DilMax, and NewtonRs for the anelastic AirWater mixture,
+dns_main.f90:394-495).
 
 What tlab_tpu's loop has beyond this thread (a device mesh, particles,
 unsteady inflow, planes and towers, phase and spatial statistics, in-run
@@ -28,6 +29,7 @@ from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.io import fields_io
 from tlab_tpu_torch.ops.filter import filter_state
+from tlab_tpu_torch.physics import thermo
 from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.stats import averages as avg
 from tlab_tpu_torch.utils import trace as _trace
@@ -38,16 +40,31 @@ from tlab_tpu_torch.utils.fortran_fmt import fort_e
 class RunLog:
     path: Optional[str] = None
     lines: list = dataclasses.field(default_factory=list)
+    newton: bool = False        # AirWater NewtonRs column (dns_main.f90:406)
 
     def header(self):
-        self._write("#" * 93 + "\n"
-                    "#  Itn.    time          dt         CFL#       D#      "
-                    "   visc       DilMin        DilMax     #\n" + "#" * 93)
+        if self.newton:
+            # anelastic equilibrium AirWater adds the saturation Newton
+            # residual (dns_main.f90:443, imixture==AIRWATER & Da3<=0)
+            h = ("#" * 106 + "\n"
+                 "#  Itn.    time          dt         CFL#       D#         "
+                 "visc       DilMin        DilMax        NewtonRs#\n"
+                 + "#" * 106)
+        else:
+            h = ("#" * 93 + "\n"
+                 "#  Itn.    time          dt         CFL#       D#      "
+                 "   visc       DilMin        DilMax     #\n" + "#" * 93)
+        self._write(h)
 
     def step(self, status, itime, rtime, dt, cfl, dnum, visc, *extra):
         line = (f"{status} {itime:7d}  {fort_e(rtime, 6)}  {fort_e(dt, 3)}  "
                 f"{fort_e(cfl, 3)}  {fort_e(dnum, 3)}  {fort_e(visc, 3)}")
-        line += " " + "  ".join(fort_e(v, 6) for v in extra)
+        if self.newton and len(extra) >= 3:
+            # DilMin DilMax at E13.6, NewtonRs at E10.3 (dns_main 200/400)
+            line += " " + "  ".join(fort_e(v, 6) for v in extra[:2])
+            line += "  " + fort_e(extra[2], 3)
+        else:
+            line += " " + "  ".join(fort_e(v, 6) for v in extra)
         self._write(line)
 
     def _write(self, text):
@@ -66,17 +83,44 @@ class DnsRun:
     log: RunLog
 
 
+def newton_error_fn(sim: Simulation):
+    """The NewtonRs column's function of the state (a 0-d tensor), or None:
+    anelastic thermodynamics with the equilibrium AirWater mixture and
+    [Parameters] Damkohler(3) <= 0 (dns_main.f90:443-493)."""
+    ane = sim.anelastic
+    if ane is None:
+        return None
+    ini = sim.case.ini
+    da = tuple(ini.get_floats("Parameters", "Damkohler", ())) \
+        if ini is not None else ()
+    if ane["tp"].mixture != "airwater" or (da[2] if len(da) > 2
+                                           else 0.0) > 0.0:
+        return None
+    return lambda state: thermo.equilibrium_newton_error(
+        ane["tp"], state.s, ane["bg"])
+
+
 def make_step_functions(sim: Simulation, inner_steps: int = 1):
-    """(step, cfl_only) for the single-device run.
+    """(step, diagnostics) for the single-device run.
 
     step(state, dtime, extra=None) takes `inner_steps` RK steps at a fixed
     dt (inner_steps > 1: one State<->stack conversion for the window; the
     CFL-based dt then updates every window instead of every step, where the
     reference syncs each step, TIME_COURANT) and returns (state, last
-    pressure, diag) with diag the device tensor [CFL max, dilatation min,
-    dilatation max] of the stepped state, which the host reads in one copy.
-    extra: the step's aux dict ({"visc_scale": factor} or None)."""
+    pressure, diagnostics(new state)).  diagnostics(state) is the device
+    tensor [CFL max, dilatation min, dilatation max(, NewtonRs)], which the
+    host reads in one copy.  extra: the step's aux dict ({"visc_scale":
+    factor, "rtime": t} or None).  NewtonRs: where newton_error_fn(sim)
+    gives the column."""
     P = sim.P
+    newton = newton_error_fn(sim)
+
+    def diagnostics(state):
+        vals = [dyn.cfl_advective_max(P, state),
+                *dyn.dilatation_minmax(P, state)]
+        if newton is not None:
+            vals.append(newton(state))
+        return torch.stack(vals)
 
     def step(state, dtime, extra=None):
         if inner_steps > 1:
@@ -84,14 +128,9 @@ def make_step_functions(sim: Simulation, inner_steps: int = 1):
                                                aux=extra)
         else:
             new_state, p = dyn.rk_step(P, state, dtime, aux=extra)
-        dmin, dmax = dyn.dilatation_minmax(P, new_state)
-        return new_state, p, torch.stack(
-            [dyn.cfl_advective_max(P, new_state), dmin, dmax])
+        return new_state, p, diagnostics(new_state)
 
-    def cfl_only(state):
-        return dyn.cfl_advective_max(P, state)
-
-    return step, cfl_only
+    return step, diagnostics
 
 
 def write_statistics(sim: Simulation, state: State, outdir: str,
@@ -179,10 +218,12 @@ def run(sim: Simulation, state: State, outdir: str = ".",
                 f"{opt} (ROADMAP {item})" for opt, item in missing))
     ini = getattr(case, "ini", None)
     n_steps = n_steps if n_steps is not None else (case.it_end - itime)
-    # the [Filter] cadence is per-step host work: no window across it
+    # the [Filter] cadence and a time-dependent forcing (the wavemaker reads
+    # the start-of-step time) are per-step host work: no window across them
     filt = sim.filter_matrices()
     filt_step = case.filter.step if case.filter is not None else 0
-    if filt is not None:
+    timed = bool(getattr(sim.P.get("bodyforce"), "time_dependent", False))
+    if filt is not None or timed:
         inner_steps = 1
     # [Main] FileType=single writes f32 restarts (io_fields.f90:37-40);
     # read_field autodetects on reload
@@ -212,16 +253,20 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             visc = restart_visc
             ramp_rate = (visc_ini - restart_visc) / vtime
 
-    def _visc_extra():
-        if ramp_rate == 0.0:
-            return None
-        return {"visc_scale": visc / visc_ini}
+    def _aux():
+        aux = {}
+        if ramp_rate != 0.0:
+            aux["visc_scale"] = visc / visc_ini
+        if timed:
+            aux["rtime"] = rtime        # the start of the step
+        return aux or None
 
     with _trace.trace("building step functions"):
-        step, cfl_only = make_step_functions(sim, inner_steps=inner_steps)
+        step, diagnostics = make_step_functions(sim, inner_steps=inner_steps)
+    newton = newton_error_fn(sim) is not None
 
     write_tlab_log(sim, outdir)
-    log = RunLog(path=log_path)
+    log = RunLog(path=log_path, newton=newton)
     log.header()
 
     obs_log = ini.get("Iteration", "ObsLog", "none").lower() != "none" \
@@ -251,18 +296,18 @@ def run(sim: Simulation, state: State, outdir: str = ".",
     prof_samples = []
     t_start = time.monotonic()
 
-    # initial dt + step-0 log line: one read of [CFL, DilMin, DilMax]
-    cmax, dmin0, dmax0 = torch.stack(
-        [cfl_only(state), *dyn.dilatation_minmax(sim.P, state)]).tolist()
+    # initial dt + step-0 log line: one read of [CFL, DilMin, DilMax(,
+    # NewtonRs)]
+    cmax, *extras0 = diagnostics(state).tolist()
     dtime = fixed_dt or dyn.next_dt(sim.P, cmax, cfla, cfld)
     log.step(0, itime, rtime, dtime, dtime * cmax, dtime * dconst, visc,
-             dmin0, dmax0)
+             *extras0)
 
     status = 0
     _trace.point("time loop starts")
     for _ in range(0, n_steps, inner_steps):
         t_it = time.monotonic()
-        state, p_cur, diag = step(state, dtime, extra=_visc_extra())
+        state, p_cur, diag = step(state, dtime, extra=_aux())
         itime += inner_steps
         rtime += dtime * inner_steps      # Python float64, never a tensor
         if ramp_rate != 0.0 and visc != visc_ini:
@@ -272,8 +317,13 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         if filt is not None and filt_step > 0 and itime % filt_step == 0:
             state = filter_state(filt, state)   # reference DNS_FILTER cadence
         if dt_lag and prev_diag is not None:
-            cmax, *extras = prev_diag.tolist()
+            # the window's one host sync: the previous window's diagnostics
+            # and this one's, whose NewtonRs (of the stepped state) is what
+            # tlab_tpu logs
+            (cmax, *extras), now = torch.stack((prev_diag, diag)).tolist()
             cmax *= 1.0 / 0.97
+            if newton:
+                extras[2] = now[3]
             prev_diag = diag
         else:
             if dt_lag:

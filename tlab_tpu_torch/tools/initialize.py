@@ -13,9 +13,9 @@ opr_fourier.f90:660-746) and normalization (RAND_NORMALIZE).
 
 The random fields and their spectral shaping are NumPy on the host in
 float64; the curl, the Poisson solves, the solenoidal projection and the
-TKE normalisation run as torch on sim.device in sim.dtype.  The
-compressible initial states are ROADMAP A13, the NormalizeR radiation
-increment A9.
+TKE normalisation run as torch on sim.device in sim.dtype; [IniFields]
+NormalizeR adds the radiation increment to the active scalar.  The
+compressible initial states are ROADMAP A13.
 """
 from __future__ import annotations
 
@@ -359,11 +359,6 @@ def initial_state(sim: Simulation, seed: int | None = None) -> State:
     nx, ny, nz = sim.grid.shape
     y = sim.grid.y.nodes
     ini = getattr(sim.case, "ini", None)
-    if ini is not None and ini.get_float("IniFields", "NormalizeR",
-                                         0.0) != 0.0:
-        raise NotImplementedError(
-            "[IniFields] NormalizeR (the radiation increment on the scalar "
-            "initial condition): ROADMAP A9")
 
     needs_rand = (sim.case.ini_velocity in
                   ("vorticitybroadband", "velocitybroadband",
@@ -502,4 +497,18 @@ def initial_state(sim: Simulation, seed: int | None = None) -> State:
         scals.append(base)
     s = torch.stack(scals) if scals else torch.zeros(
         (0, nx, ny, nz), dtype=sim.dtype, device=sim.device)
+
+    # [IniFields] NormalizeR: accumulated-radiation initial increment on
+    # the radiatively active scalar (reference iniscal,
+    # scal_main.f90:120-131): the IR source with fluxes rescaled so
+    # flux_top -> NormalizeR is ADDED to the scalar IC
+    bf = sim.P.get("bodyforce")
+    norm_r = ini.get_float("IniFields", "NormalizeR", 0.0) \
+        if ini is not None else 0.0
+    rad = getattr(bf, "rad_props", None) if bf is not None else None
+    if norm_r != 0.0 and rad is not None and s.shape[0]:
+        scale = norm_r / rad.flux_top if rad.flux_top else 0.0
+        rad2 = dataclasses.replace(rad, flux_top=rad.flux_top * scale,
+                                   flux_bottom=rad.flux_bottom * scale)
+        s[rad.scalar] += bf.ir_field(State(u=u, v=v, w=w, s=s), rad=rad2)
     return State(u=u, v=v, w=w, s=s)

@@ -100,7 +100,8 @@ def profile_dns_step(shape, steps: int) -> dict:
     _, P, state = entry.build(*shape, torch.float32, "cuda", seed=0)
     P["scal_bounds"] = dyn.scalar_bounds((0.0,), (1.0,), torch.float32,
                                          "cuda")
-    step, _ = dns_tool.make_step_functions(types.SimpleNamespace(P=P))
+    step, _ = dns_tool.make_step_functions(
+        types.SimpleNamespace(P=P, anelastic=None))
     state, _, diag = step(state, entry.DT)
     diag.tolist()
     spans = Spans()
