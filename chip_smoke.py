@@ -56,6 +56,20 @@ non-zero:
               512x256x256, one RK step per dns window; (d) each of a-c at a
               reduced grid, fp32 against fp64 (the velocity's fluctuations
               and plane means and the scalars, each held)
+  9. boundary (a) tests/data/case93_small3d.ini (channel over two mirrored
+              bars) at 512x256x256, the bars 40x64 points: inigrid, ini,
+              dns, 5 RK4 steps (K1-K3 launch after the spline fill; every
+              solid point exactly 0 after every step; the fill on the card
+              against the CPU's in fp64; its tables' bytes and its time a
+              substep); (b) examples/ekman_mesh/tlab.ini at its 128x96x128
+              without its mesh and towers, with its Jmax sponge and an
+              interactive bottom surface, 10 RK3 steps (tau 0 below the
+              strip; the wall scalar moves, its plane mean stays); (c)
+              tests/test_cases.py's spatial jet as a 3-D case at
+              512x256x128 with an inflow box and the filter sponge through
+              dns.run, 5 steps (the Imin strip's v, the jet core, the
+              sponge's amplitude, st5.npz and avg_zt5); (d) each of a-c at a
+              reduced grid, fp32 against fp64
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 Without a CUDA card the script exits 1 and prints no result.
@@ -78,8 +92,10 @@ import torch
 
 from tlab_tpu_torch import device as tdevice
 from tlab_tpu_torch import entry
+from tlab_tpu_torch import ibm
 from tlab_tpu_torch.config import Ini, load_case
 from tlab_tpu_torch.convert import state_to_numpy
+from tlab_tpu_torch.dycore import buffer, inflow
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.fdm.plan import build_fdm_plan
@@ -89,7 +105,7 @@ from tlab_tpu_torch.ops import elliptic_factorize as fac
 from tlab_tpu_torch.ops.derivative import apply_along, der12
 from tlab_tpu_torch.physics import radiation, thermo
 from tlab_tpu_torch.runtime import Simulation
-from tlab_tpu_torch.stats import averages
+from tlab_tpu_torch.stats import averages, spatial
 from tlab_tpu_torch.tools import cli
 from tlab_tpu_torch.tools import dns as dns_tool
 from tlab_tpu_torch.utils import trace as ttrace
@@ -1241,6 +1257,534 @@ def phase_moist_fp64() -> None:
                                        f"{rel_s} > {FP64_TOL}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the boundary machinery
+# ---------------------------------------------------------------------------
+
+ROOT = pathlib.Path(__file__).resolve().parent
+CASE93 = ROOT / "tests" / "data" / "case93_small3d.ini"
+EKMAN = ROOT / "examples" / "ekman_mesh" / "tlab.ini"
+IBM_STEPS, EKMAN_STEPS, JET_STEPS = 5, 10, 5
+EKMAN_SHAPE = (128, 96, 128)
+JET_SHAPE = (512, 256, 128)
+BOUNDARY_SMALL = {"9a": (128, 64, 64), "9b": (64, 48, 64),
+                  "9c": (128, 64, 64)}
+# the spline fill on the card (fp32 weights; the same gather and order of
+# terms) against the same fill on the CPU in fp64, at each solid point over
+# the sum of its terms' sizes, sum_m |w_m u_m|: the fp32 rounding of 4
+# weights, 4 products and 4 sums, <= ~6e-7.  Over max|field| the same
+# error reads 2.5e-6 at 512x256x256 (NVIDIA H100 80GB HBM3, 700 W): the
+# cubic through two fluid points on each side of a 64-point bar has weights
+# whose sum of sizes reaches 33, so the sum cancels terms far larger than
+# its result; a wrong index or weight reads O(1)
+FILL_TOL = 1e-6
+# the interactive surface moves the wall scalar by the flux ANOMALY only, so
+# its plane mean stays but for the fp32 rounding of the plane means (a
+# coupling of the whole flux moves it by dte * cpl * <flux> a substep)
+SFC_MEAN_TOL = 1e-5
+# 9c: the inflow's v (0.03 g(y) at the sweep's peak) imprinted on the Imin
+# strip after 5 steps, and the jet core at mid-x against its inflow value
+INFLOW_V_MIN = 1e-4
+JET_CORE_MIN = 0.5
+# the sweep starts a quarter of the box's length in (lx / 4 Uc), where the
+# inflow plane's v = 0.03 g(y) sin(2 pi Uc t / lx) is at its peak
+JET_T0 = 0.5
+# tests/test_cases.py's SPATIAL_JET (2-D, 64x48) as a 3-D case, its keys
+# kept, z periodic, the strips at its fractions of x (8 and 12 of 65
+# points), relaxation strips and the filter sponge (Type=both), a log line
+# every step
+JET_CASE = """[Main]
+Type=spatial
+Equations=incompressible
+SpaceOrder=CompactJacobian6
+TimeOrder=RungeKuttaExplicit3
+TimeCFL=0.7
+[Control]
+ScalLimit=no
+[Parameters]
+Reynolds=500
+Schmidt=1.0
+[Iteration]
+Start=0
+End={steps}
+Restart={steps}
+Statistics={steps}
+IteraLog=1
+[Flow]
+ProfileVelocityX=Bickley
+ThickVelocityX=0.08
+DeltaVelocityX=1.0
+VelocityX=0.05
+[Scalar]
+ProfileScalar1=Gaussian
+ThickScalar1=0.08
+DeltaScalar1=1.0
+[BoundaryConditions]
+VelocityJmin=freeslip
+VelocityJmax=freeslip
+Scalar1Jmin=neumann
+Scalar1Jmax=neumann
+[BufferZone]
+Type=both
+PointsImin={imin}
+PointsImax={imax}
+ParametersJmin=2.0,2.0
+[IniGridOx]
+periodic=yes
+segments=1
+points_1={nx1}
+scales_1=4.0
+opts_1=uniform
+[IniGridOy]
+periodic=no
+segments=1
+points_1={ny}
+scales_1=2.0
+opts_1=uniform
+[IniGridOz]
+periodic=yes
+segments=1
+points_1={nz1}
+scales_1=2.0
+opts_1=uniform
+"""
+
+
+def grid_keys(shape) -> dict:
+    """[Grid] and [IniGrid*] keys of a case at `shape` (x and z periodic:
+    one point more in their IniGrid segments)."""
+    nx, ny, nz = shape
+    return {("Grid", "Imax"): nx, ("Grid", "Jmax"): ny, ("Grid", "Kmax"): nz,
+            ("IniGridOx", "points_1"): nx + 1,
+            ("IniGridOy", "points_1"): ny, ("IniGridOz", "points_1"): nz + 1}
+
+
+def ibm_case(shape, steps: int) -> str:
+    """tests/data/case93_small3d.ini (channel over two mirrored bars,
+    32x32x16) at `shape`, the bars scaled with the grid: Height 5 of 32
+    points, Width 4 of 16."""
+    return edit_case(CASE93.read_text(), {
+        **grid_keys(shape),
+        ("IBMGeometry", "Height"): shape[1] * 5 // 32,
+        ("IBMGeometry", "Width"): shape[2] * 4 // 16,
+        ("Iteration", "End"): steps, ("Iteration", "Restart"): 1000,
+        ("Iteration", "Statistics"): steps})
+
+
+def ekman_case(shape, steps: int) -> str:
+    """examples/ekman_mesh/tlab.ini at `shape`, without its [Parallel] device
+    mesh (ROADMAP A17: multi-GPU) and its [SaveTowers] (A15), with scalar 1
+    on Dirichlet walls, a linear profile (0.75 at the bottom to 0.25 at the
+    top) and an interactive bottom surface (SfcType=linear, coupling 0.5);
+    its Jmax sponge as the example has it.  The scalar starts with broadband
+    noise of rms 0.01 in a Gaussian layer of thickness 0.01 on the bottom
+    wall: without it the wall flux has no anomaly to couple (the file's
+    scalar starts without perturbation), and the surface's ~4e-9 a substep
+    is below the wall value's fp32 spacing."""
+    text = EKMAN.read_text()
+    for section in ("Parallel", "SaveTowers"):
+        text, n = re.subn(rf"^\[{section}\]\n[^\[]*", "", text, flags=re.M)
+        require(n == 1, f"[{section}] not found in {EKMAN.name}")
+    text = edit_case(text, {
+        **grid_keys(shape), ("Iteration", "End"): steps,
+        ("Iteration", "Restart"): 1000, ("Iteration", "Statistics"): steps,
+        ("Scalar", "ProfileScalar1"): "Linear",
+        ("Scalar", "MeanScalar1"): "0.5",
+        ("BoundaryConditions", "Scalar1Jmin"): "dirichlet",
+        ("BoundaryConditions", "Scalar1Jmax"): "dirichlet",
+        ("IniFields", "Scalar"): "LayerBroadband"})
+    text = add_keys(text, "Scalar", ["DeltaScalar1=0.5", "ThickScalar1=0.2"])
+    text = add_keys(text, "IniFields", [
+        "ProfileIniS=Gaussian", "ThickIniS=0.01", "YMeanRelativeIniS=0.0",
+        "NormalizeS=0.01"])
+    return add_keys(text, "BoundaryConditions",
+                    ["Scalar1SfcTypeJmin=linear", "Scalar1CouplingJmin=0.5"])
+
+
+def jet_case(shape, steps: int) -> str:
+    nx, ny, nz = shape
+    return JET_CASE.format(steps=steps, imin=int(nx * 8 / 65 + 0.5),
+                           imax=int(nx * 12 / 65 + 0.5), nx1=nx + 1, ny=ny,
+                           nz1=nz + 1)
+
+
+def jet_start(sim, dtype):
+    """The start of tests/test_cases.py's spatial jet: the co-flow + Bickley
+    jet and the Gaussian scalar broadcast in x and z, v = w = 0."""
+    y = sim.grid.y.nodes
+    shape = sim.grid.shape
+
+    def field(prof):
+        return torch.as_tensor(prof).to("cuda", dtype)[None, :, None] \
+            .expand(shape).contiguous()
+
+    z = torch.zeros(shape, dtype=dtype, device="cuda")
+    return State(u=field(sim.case.vel_profiles[0](y)), v=z, w=z.clone(),
+                 s=field(sim.case.scal_profiles[0](y))[None])
+
+
+def jet_box(sim, nbox=32, amp=0.03):
+    """tests/test_cases.py:362-375's inflow box: the jet's u and scalar,
+    v = amp g(y) sin(2 pi i / nbox) swept past the inlet at Uc = 1 over
+    lx = 2."""
+    ny = sim.grid.shape[1]
+    y = sim.grid.y.nodes
+    prof = sim.case.vel_profiles[0](y)
+    g = np.exp(-((y - y[ny // 2]) / 0.2) ** 2)
+    phases = np.sin(2 * np.pi * np.arange(nbox) / nbox)
+    return inflow.InflowBox(fields={
+        "u": np.broadcast_to(prof[None, :], (nbox, ny)).copy(),
+        "v": amp * phases[:, None] * g[None, :],
+        "w": np.zeros((nbox, ny)),
+        "s0": np.broadcast_to(sim.case.scal_profiles[0](y)[None, :],
+                              (nbox, ny)).copy()}, u_convect=1.0, lx=2.0)
+
+
+class SolidWatch:
+    """Within the block, each dns step also reads max|u|, |v|, |w|, |s| over
+    the solid points of its plan's immersed boundary (amax of |q| eps, on
+    the card; the host reads them after the run)."""
+
+    def __enter__(self):
+        self.real, self.maxima = dyn.rk_step, []
+
+        def step(P, state, dtime, aux=None):
+            state, p = self.real(P, state, dtime, aux=aux)
+            eps = P["ibm"]["eps"]
+            self.maxima.append(torch.stack(
+                [torch.amax(a.abs() * eps) for a in state[:3]]
+                + [torch.amax(state.s.abs() * eps)]))
+            return state, p
+
+        dyn.rk_step = step
+        return self
+
+    def __exit__(self, *exc):
+        dyn.rk_step = self.real
+
+    def read(self):
+        return torch.stack(self.maxima).tolist()
+
+
+def rate_line(tag: str, card: str, shape, steps: int, n_sub: int, trace,
+              res) -> str:
+    rate = step_rate(trace, steps, n_sub)
+    points = shape[0] * shape[1] * shape[2]
+    return (f"[boundary] {tag} ({card}): {shape} fp32, {steps} adaptive-dt "
+            f"steps with their host syncs {rate['seconds']:.4f} s: "
+            f"{rate['ms_substep']:.3f} ms/substep, "
+            f"{points * steps * n_sub / rate['seconds']:.6e} "
+            f"points/s/substep (first step {rate['each'][0]:.4f} s, the "
+            f"others' median {rate['others_ms_substep']:.3f} ms/substep); "
+            f"peak device memory {res['peak']} B; launches {res['launches']}")
+
+
+def dilatation_text(rows) -> str:
+    dil = [max(abs(float(r[7])), abs(float(r[8]))) for r in rows]
+    return (f"dilatation max {dil[0]:.4e} at the start, {dil[-1]:.4e} at "
+            f"the last step")
+
+
+def step_parts(tag: str, P, state, calls: dict, dt: float = 1e-4) -> None:
+    """Where a phase's step goes, on its final state (CUDA events, median of
+    REPS): one RK step with the plan as it is, and with each of `calls`'
+    plan keys taken out (what that part costs), beside `calls`' other
+    parts alone."""
+    def step(key=None):
+        plan = P if key is None else dict(P, **{key: None})
+        return lambda: dyn.rk_step(plan, state, dt, aux=calls.get("aux"))
+
+    timed = {"one RK step": step()}
+    for key in calls.get("without", ()):
+        timed[f"the step without {key}"] = step(key)
+    timed.update(calls.get("parts", {}))
+    ms = {name: statistics.median(event_ms(fn) for _ in range(REPS))
+          for name, fn in timed.items()}
+    n_sub = len(P["rk"]["kdt"])
+    print(f"[boundary] {tag}: " + "; ".join(
+        f"{name} {v:.3f} ms" for name, v in ms.items())
+        + f" ({n_sub} substeps a step; median of {REPS})")
+
+
+def phase_ibm(card: str) -> list:
+    """9a: inigrid, ini and dns of the channel over mirrored bars at
+    512x256x256 through the CLI; the solids after every step, the fill on
+    the card against the CPU's in fp64, its tables' bytes and its time."""
+    shape = MAIN_SHAPE
+    text = ibm_case(shape, IBM_STEPS)
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = os.path.join(out, "tlab.ini")
+        with open(ini, "w") as fh:
+            fh.write(text)
+        with SolidWatch() as watch:
+            res = traced_cli(ini, out, ("inigrid", "ini", "dns"))
+        rows = data_rows(os.path.join(out, "dns.out"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        _, _, flow = averages.read_avg(os.path.join(out, f"avg{IBM_STEPS}"))
+    run, launches = res["run"], res["launches"]
+    P = run.sim.P
+    n_sub = len(P["rk"]["kdt"])
+    solid = watch.read()
+    print(rate_line("9a channel over mirrored bars", card, shape, IBM_STEPS,
+                    n_sub, trace, res))
+    print(f"[boundary] 9a: ini {res['seconds']['ini']:.3f} s (random fields "
+          f"on the host {trace['inirand_fields'][1]:.3f} s); the fills' "
+          f"set-up (host tables + copy to the card) "
+          f"{trace['immersed boundary fills'][1]:.3f} s in dns; "
+          + dilatation_text(rows))
+    require(len(rows) == IBM_STEPS + 1 and all(r[0] == "0" for r in rows),
+            f"9a dns.out: {len(rows)} rows, status {[r[0] for r in rows]}")
+    require(launches == [IBM_STEPS * n_sub] * 3,
+            f"9a launched {launches}, expected {IBM_STEPS * n_sub} per axis")
+    require(len(solid) == IBM_STEPS
+            and all(m == 0.0 for step in solid for m in step),
+            f"9a: max |u|, |v|, |w|, |s| in the solids after each step "
+            f"{solid}, expected 0")
+    for name, a in zip("uvws", run.state[:4]):
+        require(bool(torch.isfinite(a).all()), f"9a: non-finite {name}")
+    require(all(np.isfinite(v).all() for v in flow.values()),
+            "9a: non-finite avg column")
+    fills = P["ibm"]["fills"]
+    nsolid = int((P["ibm"]["eps"] > 0.5).sum())
+    print(f"[boundary] 9a: {nsolid} solid points of {np.prod(shape)}; "
+          f"directions with weights: "
+          f"{[n for n, f in fills.items() if 'src' in f]}, "
+          f"the others zero tables (tlab_tpu's: its x lines are all solid in "
+          f"the bars, its y tables are lost to a reshape, ROADMAP C); fill "
+          f"tables {ibm.fill_bytes(fills)} B, mask and its complement "
+          f"{2 * P['ibm']['eps'].numel() * P['ibm']['eps'].element_size()} B")
+    # the fill on the card against the same tables' fill on the CPU in fp64
+    eps = (P["ibm"]["eps"] > 0.5).cpu().numpy().astype(np.float64)
+    t0 = time.perf_counter()
+    tables = ibm.spline_tables(eps, run.sim.grid)
+    host_s = time.perf_counter() - t0
+    cpu64 = ibm.device_fills(tables, torch.float64, "cpu")
+    Q = torch.cat([run.state.u[None], run.state.v[None], run.state.w[None],
+                   run.state.s])
+    Q64 = Q.double().cpu()
+    errs, field_errs, wsum = [], [], 0.0
+    for name, fill in fills.items():
+        got = ibm.apply_spline_fill(Q, fill).double().cpu()
+        want = ibm.apply_spline_fill(Q64, cpu64[name])
+        diff = (got - want).reshape(len(Q), -1)
+        field_errs.append((diff.abs().max() / want.abs().max()).item())
+        f64 = cpu64[name]
+        if "src" in f64:      # the size of each solid point's sum of terms
+            terms = Q64.reshape(len(Q), -1).index_select(-1, f64["src"]) \
+                .reshape(len(Q), 4, -1).abs() * f64["w"].abs()
+            size = terms.sum(dim=1) + f64["const"].abs()
+            errs.append((diff[:, f64["index"]].abs()
+                         / size.clamp_min(1e-300)).max().item())
+            wsum = f64["w"].abs().sum(dim=0).max().item()
+            del terms, size
+        else:                 # zero tables: the solids are set to 0
+            errs.append(diff.abs().max().item())
+        del got, want, diff
+    del Q64, cpu64
+
+    def fill_substep():
+        # a substep's fills: the stack and the advecting velocity, each
+        # direction (dycore/incompressible.py _burgers_all)
+        for axis, (name, fill) in enumerate(fills.items()):
+            ibm.apply_spline_fill(Q, fill)
+            ibm.apply_spline_fill(Q[axis], fill)
+
+    ms = statistics.median(event_ms(fill_substep) for _ in range(REPS))
+    print(f"[boundary] 9a: the fill on the card against the CPU's in fp64, "
+          f"max|. - fp64| over each solid point's sum_m |w_m u_m| "
+          + ", ".join(f"{n} {e:.3e}" for n, e in zip(fills, errs))
+          + f" (limit {FILL_TOL}; max sum_m |w_m| {wsum:.3f}), over "
+          f"max|field| " + ", ".join(f"{n} {e:.3e}" for n, e in
+                                     zip(fills, field_errs))
+          + f"; the fills of a substep {ms:.3f} ms (median of {REPS}); "
+          f"host tables {host_s:.3f} s")
+    require(max(errs) <= FILL_TOL, f"9a: fill against fp64 {errs}")
+    del Q
+    step_parts("9a", P, run.state, {"without": ("ibm",)})
+    return launches
+
+
+def phase_ekman(card: str) -> list:
+    """9b: ini and dns of the Ekman layer with its Jmax sponge and an
+    interactive bottom surface at its own 128x96x128 through the CLI."""
+    text = ekman_case(EKMAN_SHAPE, EKMAN_STEPS)
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = os.path.join(out, "tlab.ini")
+        with open(ini, "w") as fh:
+            fh.write(text)
+        res = traced_cli(ini, out, ("inigrid", "ini", "dns"))
+        rows = data_rows(os.path.join(out, "dns.out"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        obs = data_rows(os.path.join(out, "dns.obs"))
+        wall0 = fields_io.read_field(os.path.join(out, "scal.0.1"))[0][:, 0, :]
+    run, launches = res["run"], res["launches"]
+    P = run.sim.P
+    n_sub = len(P["rk"]["kdt"])
+    print(rate_line("9b Ekman layer, Jmax sponge, interactive surface", card,
+                    EKMAN_SHAPE, EKMAN_STEPS, n_sub, trace, res))
+    tau = P["buffer"]["tau"].ravel().cpu().numpy()
+    points = run.sim.case.buffer.points_jmax
+    wall = run.state.s[0, :, 0, :].double().cpu().numpy()
+    moved = np.abs(wall - wall0).max()
+    mean_shift = abs(wall.mean() - wall0.mean())
+    print(f"[boundary] 9b: ini {res['seconds']['ini']:.3f} s; attach_buffer "
+          f"{trace['attach_buffer'][1]:.4f} s; tau 0 below the top "
+          f"{points} points, {tau[-1]:.3f} at the wall; the bottom wall "
+          f"scalar moved by up to {moved:.3e}, its plane mean by "
+          f"{mean_shift:.3e} (limit {SFC_MEAN_TOL} of "
+          f"{np.abs(wall0).max():.3f}); max|sfc| "
+          f"{run.state.sfc.abs().max().item():.3e}; dns.obs {len(obs)} rows; "
+          + dilatation_text(rows))
+    require(len(rows) == EKMAN_STEPS + 1 and all(r[0] == "0" for r in rows),
+            f"9b dns.out: {len(rows)} rows, status {[r[0] for r in rows]}")
+    require(launches == [EKMAN_STEPS * n_sub] * 3,
+            f"9b launched {launches}, expected {EKMAN_STEPS * n_sub} per axis")
+    require(tau[:-points].max() == 0.0 and tau[-1] > 0.0,
+            "9b: the buffer's tau outside its strip")
+    require(mean_shift <= SFC_MEAN_TOL * np.abs(wall0).max(),
+            f"9b: the wall scalar's plane mean moved by {mean_shift}")
+    require(moved > 0.0, "9b: the interactive surface moves nothing")
+    require(len(obs) == EKMAN_STEPS, f"9b: dns.obs has {len(obs)} rows")
+    for name, a in zip("uvws", run.state[:4]):
+        require(bool(torch.isfinite(a).all()), f"9b: non-finite {name}")
+    step_parts("9b", P, run.state, {"without": ("buffer", "surface_bc")})
+    return launches
+
+
+def run_jet(shape, dtype, outdir: str, steps: int):
+    """dns.run of the 3-D spatial jet from its start with the inflow box;
+    returns (run, the kernels' counts over it, peak device memory)."""
+    sim = Simulation.from_case(load_case(Ini(text=jet_case(shape, steps))),
+                               dtype=dtype, device="cuda")
+    state = jet_start(sim, dtype)
+    box = jet_box(sim)
+    torch.cuda.reset_peak_memory_stats()
+    burgers.launches[:] = [0, 0, 0]
+    run = dns_tool.run(sim, state, outdir=outdir, rtime=JET_T0,
+                       n_steps=steps, inflow=box,
+                       log_path=os.path.join(outdir, "dns.out"))
+    torch.cuda.synchronize()
+    return run, list(burgers.launches), torch.cuda.max_memory_allocated()
+
+
+def phase_jet(card: str) -> list:
+    """9c: the spatial jet at 512x256x128 with the inflow box through
+    dns_tool.run: the strips, the sponge, the station statistics."""
+    os.environ["TLAB_TPU_TRACE"] = "1"
+    try:
+        with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+            run, launches, peak = run_jet(JET_SHAPE, torch.float32, out,
+                                          JET_STEPS)
+            ttrace.close()
+            rows = data_rows(os.path.join(out, "dns.out"))
+            trace = read_trace(os.path.join(out, "tlab.trace"))
+            st = spatial.SpatialStats.load(
+                os.path.join(out, f"st{JET_STEPS}.npz"))
+            with open(os.path.join(out, f"avg_zt{JET_STEPS}")) as fh:
+                zt = [ln.split() for ln in fh.read().splitlines()[3:]]
+    finally:
+        del os.environ["TLAB_TPU_TRACE"]
+        ttrace.close()
+    sim = run.sim
+    nx, ny, _ = JET_SHAPE
+    n_sub = len(sim.P["rk"]["kdt"])
+    print(rate_line("9c spatial jet, inflow box, Type=both", card, JET_SHAPE,
+                    JET_STEPS, n_sub, trace,
+                    {"peak": peak, "launches": launches}))
+    prof = sim.case.vel_profiles[0](sim.grid.y.nodes)
+    jc = ny // 2
+    core = run.state.u[nx // 2, jc].mean().item()
+    v_in = run.state.v[:sim.case.buffer.points_imin].abs().max().item()
+    amp = sim.filter_sponge[0].ravel().cpu().numpy()
+    zt_vals = np.array([[float(x) for x in r] for r in zt])
+    print(f"[boundary] 9c: max|v| in the Imin strip {v_in:.3e} (limit "
+          f"{INFLOW_V_MIN}); the jet core at mid-x {core:.4f} against "
+          f"{prof[jc]:.4f} at the inflow (limit {JET_CORE_MIN} of it); the "
+          f"sponge's amp {amp[nx // 2]:.3f} mid-domain, {amp[-1]:.4f} at the "
+          f"outflow; st{JET_STEPS}.npz n_samples {st.n_samples}; "
+          f"avg_zt{JET_STEPS} {zt_vals.shape[0]} rows x "
+          f"{zt_vals.shape[1]} columns; attach_buffer "
+          f"{trace['attach_buffer'][1]:.4f} s; t = {run.rtime:.6e}; "
+          + dilatation_text(rows))
+    require(len(rows) == JET_STEPS + 1 and all(r[0] == "0" for r in rows),
+            f"9c dns.out: {len(rows)} rows, status {[r[0] for r in rows]}")
+    require(launches == [JET_STEPS * n_sub] * 3,
+            f"9c launched {launches}, expected {JET_STEPS * n_sub} per axis")
+    require(v_in > INFLOW_V_MIN, f"9c: max|v| in the Imin strip {v_in}")
+    require(core > JET_CORE_MIN * prof[jc], f"9c: jet core {core}")
+    require(amp[nx // 2] == 0.0 and amp[-1] > 0.9, "9c: the sponge's amp")
+    require(st.n_samples == JET_STEPS,
+            f"9c: st{JET_STEPS}.npz holds {st.n_samples} samples")
+    require(zt_vals.size > 0 and np.isfinite(zt_vals).all(),
+            f"9c: avg_zt{JET_STEPS} empty or not finite")
+    for name, a in zip("uvws", run.state[:4]):
+        require(bool(torch.isfinite(a).all()), f"9c: non-finite {name}")
+    st = run.state
+    box = jet_box(sim)
+    aux = {"refs_x": box.refs_at(run.rtime, st.u.dtype, ny, "cuda")}
+    stats = spatial.SpatialStats.create(nx, ny,
+                                        list(spatial.state_fields(st)))
+    step_parts("9c", sim.P, st, {
+        "aux": aux, "without": ("buffer",),
+        "parts": {
+            "the filter sponge": lambda: buffer.apply_filter_sponge(
+                *sim.filter_sponge, st),
+            "the spatial sums (9 gradients, the reduction, its copy)":
+                lambda: stats.accumulate_device(
+                    spatial.state_fields(st),
+                    grads=dns_tool.velocity_gradients(sim.P, st), p=st.u),
+            "the inflow planes (host, copy)": lambda: box.refs_at(
+                run.rtime, st.u.dtype, ny, "cuda")}})
+    return launches
+
+
+def phase_boundary_fp64() -> None:
+    """9d: each of 9a-9c at a reduced grid, 5 steps, fp32 against fp64 from
+    the same start (9a, 9b through the CLI from one fp64 ini)."""
+    steps = OPTION_STEPS
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as top:
+        for tag, shape in BOUNDARY_SMALL.items():
+            t0 = time.perf_counter()
+            out = {}
+            if tag == "9c":
+                for name, dtype in (("fp32", torch.float32),
+                                    ("fp64", torch.float64)):
+                    outdir = os.path.join(top, f"{tag}_{name}")
+                    os.makedirs(outdir)
+                    out[name] = run_jet(shape, dtype, outdir, steps)[0]
+            else:
+                make = ibm_case if tag == "9a" else ekman_case
+                ini = os.path.join(top, tag + ".ini")
+                with open(ini, "w") as fh:
+                    fh.write(make(shape, steps))
+                base = os.path.join(top, tag + "_ini")
+                run_cli("ini", ini, base, "--x64")
+                for name, more in (("fp32", ()), ("fp64", ("--x64",))):
+                    outdir = os.path.join(top, f"{tag}_{name}")
+                    os.makedirs(outdir)
+                    for f in os.listdir(base):
+                        if f.startswith(("flow.0.", "scal.0.")):
+                            os.symlink(os.path.join(base, f),
+                                       os.path.join(outdir, f))
+                    out[name] = traced_cli(ini, outdir, ("dns",),
+                                           *more)["run"]
+            r32, r64 = out["fp32"], out["fp64"]
+            # the velocity as one vector (9c's w is round-off of a flow
+            # uniform in z), the scalar
+            vel32 = torch.stack(r32.state[:3]).double()
+            vel64 = torch.stack(r64.state[:3])
+            rel = ((vel32 - vel64).abs().max() / vel64.abs().max()).item()
+            rel_s = ((r32.state.s.double() - r64.state.s).abs().max()
+                     / r64.state.s.abs().max()).item()
+            print(f"[boundary] 9d {tag} {shape}, {steps} adaptive-dt steps: "
+                  f"max|q32 - q64| / max|q64| over u, v, w = {rel:.3e}, "
+                  f"scalar {rel_s:.3e} (limit {FP64_TOL}); t32 - t64 = "
+                  f"{r32.rtime - r64.rtime:.3e}; "
+                  f"{time.perf_counter() - t0:.1f} s")
+            require(max(rel, rel_s) <= FP64_TOL,
+                    f"9d {tag}: fp32 vs fp64 {max(rel, rel_s)} > {FP64_TOL}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -1277,6 +1821,20 @@ def main() -> int:
     phase_moist_fp64()
     t8d = time.perf_counter() - t8d
     print(f"[moist] phase 8 took {t8:.1f} s (8a-8c) + {t8d:.1f} s (8d)")
+    t9 = time.perf_counter()
+    for tag, text in (("9b", ekman_case(EKMAN_SHAPE, EKMAN_STEPS)),
+                      ("9c", jet_case(JET_SHAPE, JET_STEPS))):
+        for rec, err in zip(records, check_case_kernels(text)):
+            rec[f"max_abs_err_{tag}"] = err
+    for tag, phase in (("9a", phase_ibm), ("9b", phase_ekman),
+                       ("9c", phase_jet)):
+        for rec, n in zip(records, phase(smi)):
+            rec[f"launches_{tag}"] = n
+    t9 = time.perf_counter() - t9
+    t9d = time.perf_counter()
+    phase_boundary_fp64()
+    t9d = time.perf_counter() - t9d
+    print(f"[boundary] phase 9 took {t9:.1f} s (9a-9c) + {t9d:.1f} s (9d)")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -103,7 +103,8 @@ def test_unported_command_exits_with_its_item(command, item):
 
 
 @pytest.mark.parametrize("old, new, item", [
-    ("[BufferZone]\nType=none", "[BufferZone]\nType=relaxation", "A10"),
+    ("TimeOrder=RungeKuttaExplicit4", "TimeOrder=RungeKuttaDiffusion3",
+     "A11"),
     ("[BufferZone]\nType=none", "[SavePlanes]\nPlanesJ=3", "A15"),
     ("Equations=incompressible", "Equations=internal", "A13")])
 def test_unported_option_exits_with_its_item(rundir, tmp_path, old, new,

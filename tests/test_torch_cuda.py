@@ -132,3 +132,67 @@ def test_dns_run_float32_follows_float64(tmp_path):
     assert sorted(os.listdir(tmp_path / str(torch.float32))) == [
         "avg10", "avg10s1", "avg5", "avg5s1", "dns.out", "flow.10.1",
         "flow.10.2", "flow.10.3", "scal.10.1", "tlab.log"]
+
+
+CASE93 = os.path.join(os.path.dirname(__file__), "data",
+                      "case93_small3d.ini")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ibm_fill_on_the_card_matches_the_cpu(dtype):
+    """The spline fill of every direction of case93_small3d.ini's bars, on
+    the card against the same fill on the CPU in float64: the gather and
+    the weighted sum in the same order (1e-6 of max|field| in fp32)."""
+    dev = _card()
+    sim = Simulation.from_case(load_case(CASE93), dtype=dtype, device=dev)
+    cpu = Simulation.from_case(load_case(CASE93), dtype=torch.float64,
+                               device="cpu")
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((4,) + tuple(sim.grid.shape))
+    from tlab_tpu_torch import ibm
+    for name, fill in sim.P["ibm"]["fills"].items():
+        got = ibm.apply_spline_fill(torch.from_numpy(q).to(dev, dtype),
+                                    fill).double().cpu()
+        want = ibm.apply_spline_fill(torch.from_numpy(q),
+                                     cpu.P["ibm"]["fills"][name])
+        tol = 1e-6 if dtype == torch.float32 else 1e-14
+        assert (got - want).abs().max() <= tol * want.abs().max(), name
+
+
+@pytest.mark.cuda
+def test_surface_step_and_sponge_on_the_card_match_the_cpu():
+    """surface_bc_step (both walls) and the filter sponge's blend on the
+    card in fp64 against the CPU: 1e-13 of max|field|."""
+    dev = _card()
+    text = ("[Main]\nType=temporal\n[Parameters]\nReynolds=100\nSchmidt=1.0\n"
+            "[BoundaryConditions]\nScalar1Jmin=dirichlet\n"
+            "Scalar1Jmax=dirichlet\nScalar1SfcTypeJmin=linear\n"
+            "Scalar1CouplingJmin=0.5\nScalar1SfcTypeJmax=linear\n"
+            "Scalar1CouplingJmax=0.25\n[BufferZone]\nType=filter\n"
+            "PointsImin=6\nPointsImax=8\n"
+            "[IniGridOx]\nperiodic=yes\nsegments=1\npoints_1=33\n"
+            "scales_1=2.0\n[IniGridOy]\nperiodic=no\nsegments=1\n"
+            "points_1=33\nscales_1=1.0\nopts_1=uniform\n[IniGridOz]\n"
+            "periodic=yes\nsegments=1\npoints_1=9\nscales_1=1.0\n")
+    from tlab_tpu_torch.config import Ini
+    from tlab_tpu_torch.convert import state_from_numpy, state_to_numpy
+    from tlab_tpu_torch.dycore import buffer
+    rng = np.random.default_rng(1)
+    shape = (1, 32, 33, 8)
+    s_pre, s_new = rng.standard_normal(shape), rng.standard_normal(shape)
+    sfc = rng.standard_normal((2, 1, 32, 8))
+    uvw = [rng.standard_normal(shape[1:]) for _ in range(3)]
+    out = {}
+    for device in (dev, "cpu"):
+        sim = Simulation.from_case(load_case(Ini(text=text)),
+                                   dtype=torch.float64, device=device)
+        st = state_from_numpy(*uvw, s_pre, device, torch.float64)
+        sim.attach_buffer(st)
+        t = [torch.from_numpy(a).to(device) for a in (s_pre, s_new, sfc)]
+        s1, sfc1 = tdyn.surface_bc_step(sim.P, *t, 1e-3)
+        blended = buffer.apply_filter_sponge(*sim.filter_sponge, st)
+        out[str(device)] = [s1.cpu().numpy(), sfc1.cpu().numpy(),
+                            *state_to_numpy(blended)]
+    for a, b in zip(out[str(dev)], out["cpu"]):
+        assert np.max(np.abs(a - b)) <= 1e-13 * np.max(np.abs(b))

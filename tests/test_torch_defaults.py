@@ -25,7 +25,13 @@ KNOWN = ("tlab_tpu_torch.entry.build",
          "tlab_tpu_torch.ops.elliptic_factorize.device_factorize_plan",
          "tlab_tpu_torch.ops.elliptic.device_elliptic_plan",
          "tlab_tpu_torch.ops.filter.build_filter_matrices",
-         "tlab_tpu_torch.runtime.make_sources")
+         "tlab_tpu_torch.runtime.make_sources",
+         "tlab_tpu_torch.ibm.build_ibm",
+         "tlab_tpu_torch.ibm.build_ibm_spline",
+         "tlab_tpu_torch.ibm.fill_from_dense",
+         "tlab_tpu_torch.dycore.buffer.build_buffer",
+         "tlab_tpu_torch.dycore.buffer.filter_sponge_amp",
+         "tlab_tpu_torch.dycore.inflow.InflowBox.refs_at")
 
 
 def _callables(module):
@@ -104,3 +110,34 @@ def test_new_plans_raise_without_a_card(what):
                                         torch.float64, "cpu")
     assert all(t.device.type == "cpu" and t.dtype == torch.float64
                for t in dev.values() if isinstance(t, torch.Tensor))
+
+
+@pytest.mark.parametrize("what", ["ibm", "fills", "buffer", "sponge",
+                                  "inflow"])
+def test_boundary_tables_raise_without_a_card(what):
+    """The immersed boundary's mask and fills, the buffer's tables, the
+    sponge's amplitude and the inflow planes with no device named go to
+    the card, and raise where there is none; on the CPU where asked."""
+    if torch.cuda.is_available():
+        pytest.skip("there is a card: the default device exists")
+    import numpy as np
+    from tlab_tpu_torch import ibm
+    from tlab_tpu_torch.dycore import buffer, inflow
+    grid = tgrid.uniform_grid(16, 12, 8, 2.0, 1.0, 1.5)
+    eps = ibm.geometry_xbars(grid, 2, 3, 2)
+    y = grid.y.nodes
+    spec = buffer.BufferSpec(type="relaxation", points_jmax=4)
+    box = inflow.InflowBox(fields={"u": np.ones((4, 12))}, u_convect=1.0,
+                           lx=1.0)
+    call = {
+        "ibm": lambda **kw: ibm.build_ibm(eps, **kw)["eps"],
+        "fills": lambda **kw: ibm.build_ibm_spline(eps, grid,
+                                                   **kw)["z"]["index"],
+        "buffer": lambda **kw: buffer.build_buffer(
+            y, spec, {"u": y}, **kw)["tau"],
+        "sponge": lambda **kw: buffer.filter_sponge_amp(grid.x.nodes, 4, 4,
+                                                        **kw),
+        "inflow": lambda **kw: box.refs_at(0.5, **kw)["u"]}[what]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        call()
+    assert call(device="cpu").device.type == "cpu"

@@ -356,7 +356,7 @@ def test_restart_identity(tmp_path, start):
 
 @pytest.mark.parametrize("kw, item", [
     (dict(mesh=object()), "A17"), (dict(pstate=object()), "A15"),
-    (dict(inflow=object()), "A10"), (dict(opr_check=True), "A16")])
+    (dict(opr_check=True), "A16")])
 def test_unported_arguments_raise(tmp_path, start, kw, item):
     sim = Simulation.from_case(load_case(CASE3D), dtype=F64, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -386,12 +386,51 @@ def test_phase_average_raises(tmp_path, start):
                  outdir=str(tmp_path), n_steps=1)
 
 
+def test_inflow_runs_as_jax(tmp_path, start):
+    """dns.run's `inflow`, refused until it was ported: the 3-D case in
+    spatial mode with Imin/Imax strips fed by an inflow box taken from the
+    start (dycore/inflow.from_temporal_snapshot, swept at the co-flow's
+    speed), 4 steps through both packages: dns.out in every printed digit,
+    the final state to 1e-10."""
+    from tlab_tpu.dycore import inflow as jinflow
+    from tlab_tpu_torch.dycore import inflow as tinflow
+    text = _text(replace=[("Type=temporal", "Type=spatial"),
+                          ("[BufferZone]\nType=none",
+                           "[BufferZone]\nType=relaxation\nPointsImin=6\n"
+                           "PointsImax=6")])
+    jsim = JSimulation.from_case(jload_case(JIni(text=text)))
+    tsim = Simulation.from_case(load_case(Ini(text=text)), dtype=F64,
+                                device="cpu")
+    u, v, w, s = start
+    rng = np.random.default_rng(9)
+    box = JState(u=u + 0.1 * rng.standard_normal(u.shape), v=v, w=w, s=s)
+    lx = float(jsim.grid.x.scale)
+    runs = []
+    for mod, sim, state, inflow, sub in (
+            (jdns, jsim, JState(u=u, v=v, w=w, s=s),
+             jinflow.from_temporal_snapshot(box, 1.0, lx, adapt=0.01),
+             "jax"),
+            (tdns, tsim, state_from_numpy(u, v, w, s, "cpu", F64),
+             tinflow.from_temporal_snapshot(box, 1.0, lx, adapt=0.01),
+             "torch")):
+        out = tmp_path / sub
+        out.mkdir()
+        runs.append(mod.run(sim, state, outdir=str(out), n_steps=4,
+                            log_path=str(out / "dns.out"), inflow=inflow))
+    rj, rt = runs
+    assert (tmp_path / "torch" / "dns.out").read_text() == \
+        (tmp_path / "jax" / "dns.out").read_text()
+    for a, b in zip(state_to_numpy(rj.state), state_to_numpy(rt.state)):
+        assert np.max(np.abs(a - b)) <= 1e-10 * np.max(np.abs(a))
+    assert sorted(rt.sim.P["buffer"]) == ["refs_x", "tau_x"]
+
+
 def test_step_rejects_unported_aux_keys(start):
     sim = Simulation.from_case(load_case(CASE3D), dtype=F64, device="cpu")
     step, _ = tdns.make_step_functions(sim)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    with pytest.raises(NotImplementedError, match="Do not port"):
         step(state_from_numpy(*start, "cpu", F64), 1e-3,
-             extra={"refs_x": None})
+             extra={"fac_tables": None})
     # the step's time passes through to the body forces
     state, _, diag = step(state_from_numpy(*start, "cpu", F64), 1e-3,
                           extra={"rtime": 0.5})

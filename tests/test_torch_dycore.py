@@ -176,10 +176,6 @@ def _with_key(section, key, value):
 
 
 @pytest.mark.parametrize("section, key, value, item", [
-    ("BoundaryConditions", "Scalar1SfcTypeJmin", "linear", "A10"),
-    ("BufferZone", "Type", "relaxation", "A10"),
-    ("IBMParameter", "Status", "on", "A10"),
-    ("Main", "Type", "spatial", "A10"),
     ("Main", "TimeOrder", "RungeKuttaDiffusion3", "A11"),
     ("Main", "Equations", "internal", "A13"),
 ])
@@ -198,22 +194,35 @@ def test_from_case_rejects_options_off_the_path(section, key, value, item):
     ("Filter", "Type", "compact", None),
     ("Infrared", "Type", "grayliquid", "bodyforce"),
     ("Chemistry", "Type", "quadratic", "bodyforce"),
+    # the boundary machinery; a value's further lines are keys of its
+    # section (the coupling, the strips)
+    ("BoundaryConditions", "Scalar1SfcTypeJmin",
+     "linear\nScalar1CouplingJmin=0.5", "surface_bc"),
+    ("BufferZone", "Type", "relaxation\nPointsJmax=8\nPointsJmin=6",
+     "buffer"),
+    ("IBMParameter", "Status", "on", "ibm"),
+    # spatial mode keeps x periodic (its x operators), its strips are
+    # tests/test_torch_spatial.py's
+    ("Main", "Type", "spatial", "d12x"),
 ])
 def test_from_case_runs_options_once_refused(section, key, value, plan_key):
     """The case options this file pinned as refused until they were ported:
-    each loads, sets its plan key and steps as tlab_tpu does (1e-10 of
-    max|field|)."""
+    each loads, sets its plan key (the buffer's when the run attaches it to
+    its start) and steps as tlab_tpu does (1e-10 of max|field|)."""
     text = _with_key(section, key, value)
     tsim = Simulation.from_case(tconfig.load_case(tconfig.Ini(text=text)),
                                 dtype=F64, device="cpu")
     jsim = JSimulation.from_case(load_case(Ini(text=text)))
+    sj = jinitial_state(jsim, seed=3)
+    st = state_from_numpy(sj.u, sj.v, sj.w, sj.s, "cpu", F64)
+    if plan_key == "buffer":
+        jsim.attach_buffer(sj)
+        tsim.attach_buffer(st)
     if plan_key is None:
         assert set(tsim.filter_matrices()) == set(jsim.filter_matrices())
     else:
         assert plan_key in tsim.P and plan_key in jsim.P
         assert ("ell_fac" in tsim.P) == ("ell_fac" in jsim.P)
-    sj = jinitial_state(jsim, seed=3)
-    st = state_from_numpy(sj.u, sj.v, sj.w, sj.s, "cpu", F64)
     sj, _ = jdyn.rk_step(jsim.P, sj, 2e-3, unroll=True)
     st, _ = tdyn.rk_step(tsim.P, st, 2e-3)
     for a, b in zip(st[:4], sj[:4]):
@@ -221,8 +230,7 @@ def test_from_case_runs_options_once_refused(section, key, value, plan_key):
 
 
 @pytest.mark.parametrize("key, value", [
-    ("ibm", {}), ("comm", {}), ("buffer", {}),
-    ("d1x_banded", {}), ("surface_bc", {}),
+    ("comm", {}), ("d1x_banded", {}),
 ])
 def test_step_rejects_plans_off_the_path(key, value):
     _, PT, (u, v, w, s) = _setup()
@@ -231,11 +239,60 @@ def test_step_rejects_plans_off_the_path(key, value):
         tdyn.rk_step(PT, state_from_numpy(u, v, w, s, "cpu", F64), 1e-3)
 
 
-def test_step_runs_plan_keys_once_refused():
-    """`bodyforce` and `adv_form`, which the step refused until they were
-    ported, against tlab_tpu's step with the same plan entries: a constant
-    force on v through the hook, and the divergence form."""
+def _boundary_entries(key, PJ):
+    """Both packages' plan entry `key` of the boundary machinery on
+    _setup's 32x33x16 grid: an immersed box on the bottom wall with its
+    fills, Jmin/Jmax relaxation strips toward profiles, an interactive
+    surface on both walls."""
+    from tlab_tpu import ibm as jibm
+    from tlab_tpu.dycore import buffer as jbuf
+    from tlab_tpu_torch import ibm as tibm
+    from tlab_tpu_torch.dycore import buffer as tbuf
+    jg = uniform_grid(32, 33, 16, 2.0 * np.pi, 1.0, np.pi)
+    tg = tgrid.uniform_grid(32, 33, 16, 2.0 * np.pi, 1.0, np.pi)
+    if key == "ibm":
+        eps = jibm.geometry_box(jg, 8, 16, 0, 6, 2, 10)
+        ej = jibm.build_ibm(eps, dtype=jnp.float64)
+        ej["fills"] = jibm.build_ibm_spline(eps, jg, dtype=jnp.float64)
+        et = tibm.build_ibm(eps, dtype=F64, device="cpu")
+        et["fills"] = tibm.build_ibm_spline(eps, tg, dtype=F64,
+                                            device="cpu")
+        return ej, et
+    if key == "buffer":
+        y = jg.y.nodes
+        refs = {"u": np.tanh(y - 0.5), "w": 0.1 * y, "s0": np.cos(y)}
+        spec = dict(type="relaxation", points_jmin=6, points_jmax=8,
+                    strength=3.0, sigma=2.0)
+        return (jbuf.build_buffer(y, jbuf.BufferSpec(**spec), refs),
+                tbuf.build_buffer(y, tbuf.BufferSpec(**spec), refs, F64,
+                                  device="cpu"))
+    entry_ = {"cpl_jmin": (0.5,), "cpl_jmax": (0.25,)}
+    return entry_, dict(entry_)
+
+
+@pytest.mark.parametrize("key", ["bodyforce", "ibm", "buffer",
+                                 "surface_bc"])
+def test_step_runs_plan_keys_once_refused(key):
+    """The plan keys the step refused until they were ported, against
+    tlab_tpu's step with the same plan entries: `bodyforce` and `adv_form`
+    (a constant force on v through the hook, and the divergence form), and
+    the boundary machinery's `ibm`, `buffer` and `surface_bc` (one RK4
+    step from the same state, the surface state created by the step)."""
     PJ, PT, (u, v, w, s) = _setup()
+    if key != "bodyforce":
+        PJ[key], PT[key] = _boundary_entries(key, PJ)
+        sj, _ = jdyn.rk_step(PJ, jdyn.State(
+            u=jnp.asarray(u), v=jnp.asarray(v), w=jnp.asarray(w),
+            s=jnp.asarray(s)), 1e-3, unroll=True)
+        st, _ = tdyn.rk_step(PT, state_from_numpy(u, v, w, s, "cpu", F64),
+                             1e-3)
+        for a, b in zip(st[:4], sj[:4]):
+            assert _rel(a, b) <= 1e-12
+        assert (st.sfc is None) == (key != "surface_bc")
+        if st.sfc is not None:
+            # a sum of flux anomalies (differences of near-equal fluxes)
+            assert _rel(st.sfc, sj.sfc) <= 1e-10
+        return
 
     def force_j(P, state, h1, h2, h3, hs, aux=None):
         return h1, h2 + 0.25, h3, hs
@@ -379,8 +436,14 @@ def test_visc_scale_scales_every_diffusivity():
         s=jnp.asarray(s)), 1e-3, aux={"visc_scale": jnp.asarray(1.5)})
     for a, b, c in zip(got[:4], want[:4], sj[:4]):
         assert _rel(a, b) <= 1e-14 and _rel(a, c) <= 1e-12
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tdyn.rk_step(PT, st, 1e-3, aux={"refs_x": None})
+    # an inflow's planes without a buffer change nothing (as tlab_tpu's);
+    # the factorize tables are the plan's
+    same, _ = tdyn.rk_step(PT, st, 1e-3, aux={"visc_scale": 1.5,
+                                              "refs_x": {}})
+    for a, b in zip(same[:4], got[:4]):
+        assert torch.equal(a, b)
+    with pytest.raises(NotImplementedError, match="Do not port"):
+        tdyn.rk_step(PT, st, 1e-3, aux={"fac_tables": None})
 
 
 def test_two_dimensional_plan_has_no_z_operator():

@@ -176,3 +176,70 @@ def test_ini_and_dns_run_without_jax(tmp_path):
     for want in ("grid", "flow.0.1", "scal.0.1", "dns.out", "tlab.log",
                  "avg2", "avg2s1"):
         assert want in names, names
+
+
+# the boundary machinery where JAX and tlab_tpu cannot be imported: the
+# channel over bars (ibm.py) one step, and a spatial run with its strips,
+# the filter sponge, an inflow box and the station statistics (dycore/
+# buffer.py, dycore/inflow.py, stats/spatial.py, tools/dns.py)
+_BOUNDARY_PROBE = """
+import sys
+for name in ("jax", "jaxlib", "tlab_tpu"):
+    sys.modules[name] = None
+import numpy as np, torch
+from tlab_tpu_torch.config import Ini, load_case
+from tlab_tpu_torch.convert import state_from_numpy
+from tlab_tpu_torch.dycore import incompressible as dyn
+from tlab_tpu_torch.dycore.inflow import InflowBox
+from tlab_tpu_torch.runtime import Simulation
+from tlab_tpu_torch.tools import dns
+from tlab_tpu_torch import entry
+sim = Simulation.from_case(sys.argv[1], dtype=torch.float64, device="cpu")
+assert "ibm" in sim.P
+state = state_from_numpy(*entry.initial_fields(sim.grid, 0, 1),
+                         device="cpu", dtype=torch.float64)
+state, _ = dyn.rk_step(sim.P, state, 1e-3)
+solid = sim.P["ibm"]["eps"] > 0.5
+assert float(state.u[solid].abs().max()) == 0.0
+sim = Simulation.from_case(load_case(Ini(text=open(sys.argv[2]).read())),
+                           dtype=torch.float64, device="cpu")
+nx, ny, nz = sim.grid.shape
+u = np.broadcast_to(sim.case.vel_profiles[0](sim.grid.y.nodes)[None, :, None],
+                    (nx, ny, nz))
+z = np.zeros((nx, ny, nz))
+box = InflowBox(fields={"v": 0.01 * np.ones((8, ny))}, u_convect=1.0, lx=1.0)
+run = dns.run(sim, state_from_numpy(u, z, z, z[None], "cpu", torch.float64),
+              outdir=sys.argv[3], n_steps=2, inflow=box)
+assert sim.filter_sponge is not None and "buffer" in sim.P
+bad = [m for m in sys.modules if sys.modules[m] is not None
+       and m.split(".")[0] in ("jax", "jaxlib", "tlab_tpu")]
+assert not bad, bad
+print(run.itime)
+"""
+
+
+def test_boundary_machinery_runs_without_jax(tmp_path):
+    """tests/data/case93_small3d.ini one RK step (the solids stay at rest)
+    and the spatial jet of tests/test_cases.py with Type=both and an inflow
+    box through dns.run, statistics at step 2: ibm.py, dycore/buffer.py,
+    dycore/inflow.py and stats/spatial.py run where neither JAX nor
+    tlab_tpu can be imported."""
+    sys.path.insert(0, str(REPO / "tests"))
+    try:
+        from test_cases import SPATIAL_JET
+    finally:
+        sys.path.pop(0)
+    jet = tmp_path / "jet.ini"
+    jet.write_text(SPATIAL_JET.replace("Type=relaxation", "Type=both")
+                   .replace("Statistics=0", "Statistics=2")
+                   .replace("Restart=60", "Restart=2"))
+    out = tmp_path / "run"
+    out.mkdir()
+    proc = _run(_BOUNDARY_PROBE, str(REPO / "tests" / "data" /
+                                     "case93_small3d.ini"), str(jet),
+                str(out))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "2"
+    names = sorted(p.name for p in out.iterdir())
+    for want in ("avg_zt2", "st2.npz", "tlab.log"):
+        assert want in names, names

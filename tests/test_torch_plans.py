@@ -321,3 +321,63 @@ def test_source_props_match():
     _same(tchem.ChemistryProps("ozone", (1.0,), (0.5,), 1, (0.2,)),
           jchem.ChemistryProps("ozone", (1.0,), (0.5,), 1, (0.2,)), "chem")
     _same(tforcing.WavemakerProps(), jforcing.WavemakerProps(), "wm")
+
+
+# the boundary machinery's copies: the functions (and SpatialStats' host
+# methods) whose source is tlab_tpu's, word for word
+BOUNDARY_COPIES = [
+    ("ibm", n) for n in ("geometry_xbars", "geometry_box", "geometry_hill",
+                         "geometry_valley", "build_spline_fill")] + [
+    ("dycore.buffer", n) for n in ("BufferSpec", "tau_profile",
+                                   "tau_profile_x")] + [
+    ("dycore.inflow", "_catmull_rom_weights"),
+    ("tools.dns", "_stations"),
+    ("stats.spatial", "write_station_budgets"),
+    ("stats.spatial", "state_fields")] + [
+    ("stats.spatial", f"SpatialStats.{n}") for n in (
+        "create", "mean", "covariance", "skewness", "variance",
+        "station_table", "reduce_station_table", "_raw_pair",
+        "_triple_fluct", "station_budgets")]
+
+
+@pytest.mark.parametrize("module, name", BOUNDARY_COPIES)
+def test_boundary_copies_are_the_originals(module, name):
+    import importlib
+    import inspect
+
+    def get(pkg):
+        obj = importlib.import_module(f"{pkg}.{module}")
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return inspect.getsource(obj)
+
+    assert get("tlab_tpu_torch") == get("tlab_tpu")
+
+
+@pytest.mark.parametrize("kind", ["uniform", "stretched"])
+def test_boundary_copies_give_the_same_numbers(kind):
+    """The copies above on a grid of each kind: the geometries, the fill
+    tables of every direction, the relaxation profiles."""
+    from tlab_tpu import ibm as jibm
+    from tlab_tpu.dycore import buffer as jbuf
+    from tlab_tpu_torch import ibm as tibm
+    from tlab_tpu_torch.dycore import buffer as tbuf
+    gt, gj = _grids(kind)
+
+    def build(mod, g):
+        eps = np.maximum(mod.geometry_xbars(g, 2, 3, 2, mirrored=True),
+                         mod.geometry_hill(g, 0.2, 0.3, 1.0))
+        out = [eps, mod.geometry_valley(g, 3, 1),
+               mod.geometry_box(g, 1, 4, 2, 5, 0, 3)]
+        for axis, ax in enumerate((g.x, g.y, g.z)):
+            out += list(mod.build_spline_fill(
+                eps, axis, ax.nodes, ax.periodic, ax.scale, (0.3, 0.1)))
+        return out
+
+    _same(build(tibm, gt), build(jibm, gj), "ibm")
+    spec = dict(type="both", points_jmin=5, points_jmax=4, points_imin=6,
+                points_imax=3, strength=2.0, sigma=3.0)
+    _same(tbuf.tau_profile(gt.y.nodes, tbuf.BufferSpec(**spec)),
+          jbuf.tau_profile(gj.y.nodes, jbuf.BufferSpec(**spec)), "tau")
+    _same(tbuf.tau_profile_x(gt.x.nodes, tbuf.BufferSpec(**spec)),
+          jbuf.tau_profile_x(gj.x.nodes, jbuf.BufferSpec(**spec)), "tau_x")

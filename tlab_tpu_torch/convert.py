@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from tlab_tpu_torch import device as _device
+from tlab_tpu_torch import ibm as ibmmod
 from tlab_tpu_torch.dycore.incompressible import (OFF_PATH, check_main_path,
                                                   scalar_bounds)
 from tlab_tpu_torch.dycore.state import State
@@ -35,7 +36,7 @@ def plans_from_jax(P_np: dict, device, dtype, bodyforce=None) -> dict:
     dev = _device.resolve(device)
 
     def t(a):
-        return torch.as_tensor(np.asarray(a, np.float64)).to(dev, dtype)
+        return torch.as_tensor(np.array(a, np.float64)).to(dev, dtype)
 
     P = {}
     for key, val in P_np.items():
@@ -76,6 +77,17 @@ def plans_from_jax(P_np: dict, device, dtype, bodyforce=None) -> dict:
         elif key == "anelastic":
             if val is not None:
                 P[key] = {k: t(val[k]) for k in ("rho", "rho_inv")}
+        elif key == "ibm":
+            if val is not None:
+                P[key] = _ibm(val, t, dtype, dev)
+        elif key == "buffer":
+            if val is not None:
+                P[key] = {k: ({n: t(r) for n, r in v.items()}
+                              if isinstance(v, dict) else t(v))
+                          for k, v in val.items()}
+        elif key == "surface_bc":
+            if val is not None:
+                P[key] = {k: tuple(v) for k, v in val.items()}
         elif key == "bodyforce":
             if val is not None and bodyforce is None:
                 raise ValueError(
@@ -93,30 +105,47 @@ def plans_from_jax(P_np: dict, device, dtype, bodyforce=None) -> dict:
     return P
 
 
+def _ibm(val, t, dtype, dev) -> dict:
+    """tlab_tpu's "ibm" entry in the port's layout: eps, fluid (and the
+    scalar values) as tensors, the dense fill tables as the solid points'
+    sparse ones (ibm.fill_from_dense)."""
+    out = {k: t(v) for k, v in val.items() if k != "fills"}
+    if "fills" in val:
+        out["fills"] = {name: ibmmod.fill_from_dense(fill, "xyz".index(name),
+                                                     dtype, dev)
+                        for name, fill in val["fills"].items()}
+    return out
+
+
 def _rows(rows, t):
     if rows is None:
         return None
     return {k: None if rows[k] is None else t(rows[k]) for k in ("nb", "nt")}
 
 
-def state_from_numpy(u, v, w, s, device, dtype) -> State:
+def state_from_numpy(u, v, w, s, device, dtype, sfc=None) -> State:
     """State of tensors from array-likes: u, v, w (nx, ny, nz), s
-    (ns, nx, ny, nz)."""
+    (ns, nx, ny, nz), and the surface state sfc (2, ns, nx, nz) or None."""
     dev = _device.resolve(device)
 
     def t(a):
         return torch.as_tensor(np.array(a, np.float64)).to(dev, dtype)
 
-    return State(u=t(u), v=t(v), w=t(w), s=t(s))
+    return State(u=t(u), v=t(v), w=t(w), s=t(s),
+                 sfc=None if sfc is None else t(sfc))
 
 
-def state_to_numpy(state) -> tuple:
+def state_to_numpy(state, sfc: bool = False) -> tuple:
     """(u, v, w, s) float64 arrays on the host from a State of tensors on
     any device (the inverse of state_from_numpy; array-likes pass through
-    np.asarray, so a tlab_tpu State converts too)."""
+    np.asarray, so a tlab_tpu State converts too); with `sfc`, the surface
+    state (or None) is the fifth."""
     def a(t):
         if isinstance(t, torch.Tensor):
             t = t.detach().cpu().numpy()
         return np.asarray(t, np.float64)
 
-    return a(state.u), a(state.v), a(state.w), a(state.s)
+    out = (a(state.u), a(state.v), a(state.w), a(state.s))
+    if sfc:
+        out += (None if state.sfc is None else a(state.sfc),)
+    return out

@@ -17,9 +17,17 @@ The anelastic set (P["anelastic"]: the background density rho_bar(y) and
 its inverse) weights the diffusion by 1/rho_bar, the projection's forcing
 by rho_bar and the pressure gradient by 1/rho_bar, and logs div(rho_bar u).
 
-A plan that asks for a path not ported yet (buffers, immersed boundaries,
-the surface BC, banded operators, a device mesh) raises
-NotImplementedError naming the ROADMAP item that will port it.
+The boundary machinery: an immersed boundary (P["ibm"]) replaces the solid
+points of the stack and of the advecting velocity by their spline fill
+before each direction's Burgers term, and forces the state in the solids
+after each substep; buffer zones (P["buffer"]) relax the tendency toward
+reference profiles before the projection, their inflow-strip references
+replaced by aux["refs_x"] where an unsteady inflow feeds them; the
+interactive surface BC (P["surface_bc"]) moves the wall scalars with the
+flux anomaly each substep and carries its state as State.sfc.
+
+A plan that asks for a path not ported yet (banded operators, a device
+mesh) raises NotImplementedError naming the ROADMAP item that will port it.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ from tlab_tpu_torch.constants import BC
 from tlab_tpu_torch.fdm.plan import DerivPlan, FdmPlan
 from tlab_tpu_torch.physics.params import NSParams
 from tlab_tpu_torch import device as _device
+from tlab_tpu_torch import ibm as ibmmod
+from tlab_tpu_torch.dycore import buffer as bufmod
 from tlab_tpu_torch.dycore import timemarch
 from tlab_tpu_torch.dycore.state import State, stack, unstack
 from tlab_tpu_torch.ops import burgers
@@ -114,9 +124,15 @@ def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
     dev = _device.resolve(device)
     _device.full_fp32_matmul()
     if not fdm.x.periodic:
+        # tlab_tpu builds no factorized plan for it and gives its direct
+        # eigen plan lam_x = 0 for every x mode (ops/elliptic.py:235), a
+        # solve that leaves d/dx out of the Laplacian; its spatial cases keep
+        # x periodic and damp the ends with the Imin/Imax buffers
         raise NotImplementedError(
-            "the Poisson solvers need periodic x (non-periodic x is the "
-            "spatial mode: ROADMAP A10)")
+            "non-periodic x: the Poisson solvers need periodic x (tlab_tpu "
+            "solves such a case with lam_x = 0 for every x mode, leaving "
+            "d/dx out of the projection; spatial cases keep x periodic and "
+            "damp the ends with [BufferZone] PointsImin/PointsImax)")
     if fdm.y.periodic:
         raise NotImplementedError(
             "the pressure projection needs walls in y (periodic y belongs "
@@ -179,9 +195,6 @@ def scalar_bounds(mins, maxs, dtype, device):
 
 # Plan keys of tlab_tpu that select a path this port does not have yet.
 OFF_PATH = {
-    "ibm": "A10 (immersed boundaries)",
-    "surface_bc": "A10 (interactive surface BC)",
-    "buffer": "A10 (buffer zones)",
     "comm": "A17 (multi-GPU pencils)",
 }
 ADV_FORMS = ("convective", "skewsymmetric", "divergence")
@@ -269,10 +282,22 @@ def _burgers_all(P, axis_name: str, axis: int, fields, conv, nu):
       divergence     nu d2 f - d1 (c f)                  (form 3)
     The conservative forms stack [f; c f] into one [D1;D2] product of
     width 2F.  Like a dealiased direction they are dense products, as in
-    tlab_tpu, whose fused kernel computes the convective form only."""
+    tlab_tpu, whose fused kernel computes the convective form only.
+
+    With an immersed boundary the solid points of `fields` and `conv` are
+    first replaced by the direction's spline fill (new tensors: the stack
+    passed in is the state), then the kernel or the dense product runs as
+    without one (tlab_tpu/dycore/incompressible.py:359-375)."""
     d12 = P.get(f"d12{axis_name}")
     if d12 is None:
         return torch.zeros_like(fields)
+    ibm = P.get("ibm")
+    fill = ibm.get("fills", {}).get(axis_name) if ibm is not None else None
+    if fill is not None:
+        # replace solid regions by smooth interpolants before derivatives
+        # (reference ibm_burgers hook, opr_burgers.f90:468)
+        fields = ibmmod.apply_spline_fill(fields, fill)
+        conv = ibmmod.apply_spline_fill(conv, fill)
     form = P.get("adv_form", "convective")
     if form in ("divergence", "skewsymmetric"):
         F = fields.shape[0]
@@ -400,19 +425,19 @@ def _apply_wall_rows_stacked(H, i, rows):
 
 
 # aux keys of tlab_tpu's step that the port does not carry
-_AUX_OFF_PATH = {"refs_x": "ROADMAP A10 (unsteady inflow)",
-                 "fac_tables": "ROADMAP 'Do not port' (the factorize tables "
+_AUX_OFF_PATH = {"fac_tables": "ROADMAP 'Do not port' (the factorize tables "
                                "are part of the plan)"}
 
 
 def _visc_scale(aux) -> float:
     """The [ViscChange] ramp's factor on every diffusivity, from the step's
     aux dict (1.0 without one).  'rtime', the step's time, passes through
-    to the body forces; the other keys of tlab_tpu's aux raise."""
+    to the body forces, 'refs_x' (an unsteady inflow's planes) to the
+    buffer; the other keys of tlab_tpu's aux raise."""
     if not aux:
         return 1.0
     for key in aux:
-        if key not in ("visc_scale", "rtime"):
+        if key not in ("visc_scale", "rtime", "refs_x"):
             raise NotImplementedError(
                 f"aux key {key!r}: "
                 + _AUX_OFF_PATH.get(key, "the step knows no such key"))
@@ -425,7 +450,8 @@ def substep_rhs_stacked(P, Q, H, dte, aux=None):
     modified (H_new is a new tensor, updated in place below).  aux:
     {"visc_scale": factor} scales the diffusivities ahead of the Burgers
     terms; {"rtime": t} is the step's time for a time-dependent forcing
-    (the wavemaker)."""
+    (the wavemaker); {"refs_x": name -> (1, ny, nz|1)} replaces the
+    buffer's inflow-strip references (an unsteady inflow)."""
     check_main_path(P)
     u, v, w = Q[0], Q[1], Q[2]
     visc = P["visc"]
@@ -449,6 +475,15 @@ def substep_rhs_stacked(P, Q, H, dte, aux=None):
             if new is not row:
                 row.copy_(new)
 
+    buf = P.get("buffer")
+    if buf is not None:
+        # buffer/sponge relaxation before the projection, into H's rows
+        # (reference rhs_global_incompressible_1.f90:172); an unsteady
+        # inflow's planes replace the Imin/Imax strips' references
+        if aux and "refs_x" in aux:
+            buf = dict(buf, refs_x=aux["refs_x"])
+        bufmod.relax_stack(buf, Q, H)
+
     dpdx, dpdy, dpdz, p = _solve_pressure(P, u, v, w, H[0], H[1], H[2], dte)
     ane = P.get("anelastic")
     if ane is not None:
@@ -467,62 +502,160 @@ def substep_rhs_stacked(P, Q, H, dte, aux=None):
     return H, p
 
 
-def _enforce_wall_values(P, state: State) -> State:
-    """Re-impose Dirichlet wall values on the fields (reference applies
-    BcsFlowJmin/Jmax%ref each substep, boundary_bcs.f90): no-penetration
-    v=0 always; u/w pinned for no-slip walls.  Returns a new State; the
-    components it changes are copies."""
+def _enforce_wall_rows(P, Q) -> None:
+    """Re-impose Dirichlet wall values on the stacked carry Q, in place
+    (reference applies BcsFlowJmin/Jmax%ref each substep, boundary_bcs.f90):
+    no-penetration v=0 always; u/w pinned for no-slip walls.  Protects
+    against ICs or round-off drift depositing values on pinned rows."""
     kinds = P["wall_bc_types"]
     refs = P["wall_refs"]
-    comps = {"u": state.u, "v": state.v, "w": state.w}
-    for name in ("v", "u", "w"):
-        sides = [s for s in (0, 1) if kinds[name][s] == "dirichlet"]
-        if sides:
-            a = comps[name].clone()
-            for side in sides:
-                a[:, (0, -1)[side], :] = refs[name][side]
-            comps[name] = a
-    return State(s=state.s, sfc=state.sfc, **comps)
+    for i, name in ((1, "v"), (0, "u"), (2, "w")):
+        for side in (0, 1):
+            if kinds[name][side] == "dirichlet":
+                Q[i, :, (0, -1)[side], :] = refs[name][side]
 
 
-def _rk_core_stacked(P, Q, dtime, kdt, kco, aux=None):
-    """One low-storage RK step on the stacked carry.  Updates Q in place
-    (the callers pass a carry they own) and returns (Q, last p)."""
+def _surface_anomalies(P, s_pre):
+    """The flux anomalies of surface_bc_step from the scalars before the
+    substep's update: (bottom, top), each (ns, nx, nz) or None where that
+    side does not couple.
+
+    Bottom: hfx = diff d1y[0].s, anomaly hfx - <hfx>.  Top: hfx = -diff
+    d1y[-1].s, and its average is the reference's: +diff times the BOTTOM
+    plane's mean derivative (AVG1V2D at j=1, boundary_bcs.f90:531-537), as
+    tlab_tpu mirrors it.  <.> is the plane mean (one device: tlab_tpu's
+    pmean)."""
+    sbc = P.get("surface_bc")
+    d1y = P["d1y"]
+    diff = torch.tensor(P["diff"], dtype=s_pre.dtype,
+                        device=s_pre.device)[:, None, None]
+
+    def pmean(a):
+        return torch.mean(a, dim=(1, 2), keepdim=True)
+
+    def couples(cpl):
+        return cpl is not None and any(c != 0.0 for c in cpl)
+
+    bottom = top = None
+    if couples(sbc.get("cpl_jmin")):
+        hfx = diff * torch.matmul(d1y[0], s_pre)
+        bottom = hfx - pmean(hfx)
+    if couples(sbc.get("cpl_jmax")):
+        hfx = -diff * torch.matmul(d1y[-1], s_pre)
+        top = hfx - pmean(diff * torch.matmul(d1y[0], s_pre))
+    return bottom, top
+
+
+def _surface_update(P, s, sfc, anomalies, dte) -> None:
+    """sfc[side] += cpl anomaly, then the wall row of s += dte sfc[side], in
+    place on s (ns, nx, ny, nz) and sfc (2, ns, nx, nz)."""
+    sbc = P["surface_bc"]
+    for side, (anom, key, j) in enumerate(zip(
+            anomalies, ("cpl_jmin", "cpl_jmax"), (0, -1))):
+        if anom is None:
+            continue
+        cpl = torch.tensor(sbc[key], dtype=s.dtype,
+                           device=s.device)[:, None, None]
+        sfc[side] += cpl * anom
+        s[:, :, j, :] += dte * sfc[side]
+
+
+def surface_bc_step(P, s_pre, s_new, sfc, dte):
+    """Interactive (linear) surface BC (reference BOUNDARY_BCS_SURFACE_Y,
+    boundary_bcs.f90:478-545 + the hs wall-row imposition,
+    rhs_global_incompressible_1.f90:390-396):
+
+        ref += cpl (hfx - <hfx>)        (per substep, flux of the
+                                         PRE-update scalar)
+        wall TENDENCY = ref  =>  s_wall += dte ref
+
+    The persistent surface state ref rides as State.sfc (2, ns, nx, nz);
+    sides with SfcType=static keep ref = 0 (frozen Dirichlet wall).
+    Returns (s_updated, sfc_updated), new tensors; the step does the same
+    in place on its carry."""
+    if P.get("surface_bc") is None or s_new.shape[0] == 0 or sfc is None:
+        return s_new, sfc
+    s_new, sfc = s_new.clone(), sfc.clone()
+    _surface_update(P, s_new, sfc, _surface_anomalies(P, s_pre), dte)
+    return s_new, sfc
+
+
+def _rk_core_stacked(P, Q, dtime, kdt, kco, aux=None, sfc=None):
+    """One low-storage RK step on the stacked carry.  Updates Q (and sfc,
+    the surface state where P["surface_bc"] couples) in place -- the
+    callers pass a carry they own -- and returns (Q, last p).
+
+    A substep, in tlab_tpu's order (_rk_substep): the tendency; q += dte h;
+    the scalars clipped; the interactive surface BC, from the fluxes of the
+    scalars before the update; the immersed boundary's direct forcing;
+    h *= kco."""
     H = torch.zeros_like(Q)
     p = None
     last = len(kdt) - 1
     bounds = P.get("scal_bounds")      # (mins, maxs), each (ns, 1, 1, 1)
+    surface = P.get("surface_bc") is not None and sfc is not None \
+        and Q.shape[0] > 3
+    ibm = P.get("ibm")
     for i, k in enumerate(kdt):
         dte = dtime * k
         H, p = substep_rhs_stacked(P, Q, H, dte, aux)
+        if surface:
+            anomalies = _surface_anomalies(P, Q[3:])
         Q.add_(H, alpha=dte)
         if bounds is not None and Q.shape[0] > 3:
             # per-substep scalar clipping (reference DNS_BOUNDS_LIMIT,
             # dns_local.f90:67-90)
             torch.clamp(Q[3:], min=bounds[0], max=bounds[1], out=Q[3:])
+        if surface:
+            _surface_update(P, Q[3:], sfc, anomalies, dte)
+        if ibm is not None:
+            # direct forcing: zero state in solids after the substep
+            # (reference dns_main.f90:254-257)
+            ibmmod.force_stack(ibm, Q)
         if i < last:
             H.mul_(kco[i])
     return Q, p
 
 
+def _surface_state(P, state: State):
+    """The surface state the step updates: a copy of state.sfc, or zeros
+    (2, ns, nx, nz) where the plan couples and the state has none
+    (tlab_tpu creates it in rk_step, :854-858, and in dns.run); state.sfc
+    itself where nothing couples."""
+    if P.get("surface_bc") is None or not state.s.shape[0]:
+        return state.sfc
+    if state.sfc is None:
+        ns, nx, _, nz = state.s.shape
+        return state.s.new_zeros((2, ns, nx, nz))
+    return state.sfc.clone()
+
+
 def rk_step(P, state: State, dtime, aux=None):
     """One full low-storage RK step; returns (new_state, last pressure)."""
-    state = _enforce_wall_values(P, state)
-    Q, p = _rk_core_stacked(P, stack(state), dtime, P["rk"]["kdt"],
-                            P["rk"]["kco"], aux)
-    return unstack(Q, state.sfc), p
+    sfc = _surface_state(P, state)
+    Q = stack(state)
+    _enforce_wall_rows(P, Q)
+    Q, p = _rk_core_stacked(P, Q, dtime, P["rk"]["kdt"], P["rk"]["kco"],
+                            aux, sfc)
+    return unstack(Q, sfc), p
 
 
 def rk_loop_stacked(P, state: State, dtime, n_steps: int, aux=None):
     """n_steps full RK steps with the State<->stack conversion done once.
-    Returns (state, last p)."""
-    state = _enforce_wall_values(P, state)
+    Returns (state, last p).  With an immersed boundary or a surface BC the
+    walls are pinned again each step, as tlab_tpu's loop of rk_step does
+    for those plans (:900-905); the surface state is created before the
+    loop (tlab_tpu's loop would need it in state.sfc already)."""
+    sfc = _surface_state(P, state)
     Q = stack(state)
     p = torch.zeros_like(Q[0])
-    for _ in range(n_steps):
+    each_step = P.get("ibm") is not None or P.get("surface_bc") is not None
+    for n in range(n_steps):
+        if n == 0 or each_step:
+            _enforce_wall_rows(P, Q)
         Q, p = _rk_core_stacked(P, Q, dtime, P["rk"]["kdt"], P["rk"]["kco"],
-                                aux)
-    return unstack(Q, state.sfc), p
+                                aux, sfc)
+    return unstack(Q, sfc), p
 
 
 # ---------------------------------------------------------------------------

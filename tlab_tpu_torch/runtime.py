@@ -1,10 +1,10 @@
 """Simulation context for the port: grid, plans and device operators from a
 CaseSetup, for the incompressible (Boussinesq) and anelastic equation sets
-on one device (port of tlab_tpu/runtime.py: make_anelastic, make_sources
-and the incompressible/anelastic branch of Simulation).
+on one device (port of tlab_tpu/runtime.py: make_anelastic, make_sources,
+the [IBMParameter] reader, the interactive surface BC, attach_buffer and
+the incompressible/anelastic branch of Simulation).
 
-Every case option not ported yet (the compressible set, the spatial mode,
-buffers, immersed boundaries, the interactive surface BC, semi-implicit
+Every case option not ported yet (the compressible set, semi-implicit
 diffusion) raises NotImplementedError naming the ROADMAP item that will
 port it; none is dropped silently.
 """
@@ -22,6 +22,8 @@ from tlab_tpu_torch.fdm.plan import FdmPlan, build_deriv_plan, build_fdm_plan
 from tlab_tpu_torch.grid import Grid, build_axis_from_segments, make_axis
 from tlab_tpu_torch.physics.params import NSParams
 from tlab_tpu_torch import device as _device
+from tlab_tpu_torch import ibm as ibmmod
+from tlab_tpu_torch.dycore import buffer as bufmod
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.fdm import stagger as stg
@@ -35,6 +37,7 @@ from tlab_tpu_torch.physics import microphysics as micmod
 from tlab_tpu_torch.physics import radiation as radmod
 from tlab_tpu_torch.physics import rotation as rot
 from tlab_tpu_torch.physics import thermo
+from tlab_tpu_torch.utils import trace as _trace
 
 FACTORIZED_ORDERS = ("", "factorize", "compactjacobian6")
 
@@ -426,29 +429,11 @@ def grid_from_case(case: CaseSetup) -> Grid:
     return Grid(*axes)
 
 
-def _off_path_options(case: CaseSetup, grid: Grid):
+def _off_path_options(case: CaseSetup):
     """(option, ROADMAP item) for each option of `case` the port lacks."""
-    ini = case.ini
-
-    def on(spec):
-        return spec is not None and spec.type not in ("none", "")
-
-    def ini_type(section, default="none", key="Type"):
-        return ini.get(section, key, default).lower() if ini is not None \
-            else default
-
     found = []
     if case.equations not in ("incompressible", "anelastic"):
         found.append((f"Equations={case.equations}", "A13"))
-    if case.flow_type != "temporal" or not grid.x.periodic:
-        found.append((f"Type={case.flow_type}", "A10"))
-    if on(case.buffer):
-        found.append(("[BufferZone]", "A10"))
-    if ini_type("IBMParameter", key="Status", default="off") == "on":
-        found.append(("[IBMParameter]", "A10"))
-    if any(d["jmin"] == "linear" or d["jmax"] == "linear"
-           for d in (case.surface_bc or ())):
-        found.append(("interactive surface BC", "A10"))
     if "diffusion" in case.time_order.lower():
         found.append((f"TimeOrder={case.time_order}", "A11"))
     return found
@@ -495,6 +480,41 @@ def _staggered_plans(grid: Grid, fdm: FdmPlan, factorized: bool, dtype,
     return out
 
 
+def _immersed_boundary(case: CaseSetup, grid: Grid, dtype, dev):
+    """[IBMParameter]/[IBMGeometry]: the plan's "ibm" entry (solid mask and
+    spline fills), or None with Status=off (reference IBM_READ_INI +
+    IBM_INITIALIZE_GEOMETRY, ibm_read.f90:47-127; tlab_tpu/runtime.py:
+    614-649)."""
+    ini = case.ini
+    if ini is None or ini.get("IBMParameter", "Status",
+                              "off").lower() != "on":
+        return None
+    gtype = ini.get("IBMGeometry", "Type", "xbars").lower()
+    if gtype in ("xbars", "bars"):
+        eps = ibmmod.geometry_xbars(
+            grid, ini.get_int("IBMGeometry", "Number", 1),
+            ini.get_int("IBMGeometry", "Height", 4),
+            ini.get_int("IBMGeometry", "Width", 4),
+            mirrored=ini.get_bool("IBMGeometry", "Mirrored", False))
+    elif gtype == "hill":
+        eps = ibmmod.geometry_hill(
+            grid, ini.get_float("IBMGeometry", "Height", 0.1),
+            ini.get_float("IBMGeometry", "Width", 0.2),
+            ini.get_float("IBMGeometry", "Center", 0.5 * grid.x.scale))
+    elif gtype == "valley":
+        eps = ibmmod.geometry_valley(
+            grid, ini.get_int("IBMGeometry", "Height", 4),
+            ini.get_int("IBMGeometry", "Alpha", 1))
+    else:
+        raise ValueError(f"[IBMGeometry] Type={gtype!r} unknown")
+    eps = np.asarray(eps, float)
+    with _trace.trace("immersed boundary fills"):
+        ib = ibmmod.build_ibm(eps, dtype=dtype, device=dev)
+        ib["fills"] = ibmmod.build_ibm_spline(eps, grid, dtype=dtype,
+                                              device=dev)
+    return ib
+
+
 @dataclasses.dataclass
 class Simulation:
     case: CaseSetup
@@ -508,6 +528,8 @@ class Simulation:
     # make_anelastic's background where the thermodynamics are anelastic
     # ([Thermodynamics] Type=anelastic or Equations=anelastic), else None
     anelastic: Optional[dict] = None
+    # (amp, filter) of [BufferZone] Type=filter|both, set by attach_buffer
+    filter_sponge: object = None
 
     @classmethod
     def from_case(cls, case_or_path, dtype=torch.float32, device="cuda",
@@ -518,7 +540,7 @@ class Simulation:
         dev = _device.resolve(device)
         if grid is None:
             grid = grid_from_case(case)
-        _refuse(_off_path_options(case, grid))
+        _refuse(_off_path_options(case))
         fdm = build_fdm_plan(grid, case.space_order1, case.space_order2)
         nsp = NSParams(reynolds=case.reynolds, schmidt=tuple(case.schmidt),
                        prandtl=case.prandtl, froude=case.froude,
@@ -595,11 +617,65 @@ class Simulation:
         if ctrl.get("scal_limit") and nsp.n_scalars:
             P["scal_bounds"] = dyn.scalar_bounds(
                 ctrl["min_scalar"], ctrl["max_scalar"], dtype, dev)
+        ibm = _immersed_boundary(case, grid, dtype, dev)
+        if ibm is not None:
+            P["ibm"] = ibm
+        sfc = case.surface_bc or ()
+        if any(d["jmin"] == "linear" or d["jmax"] == "linear" for d in sfc):
+            # interactive surface BC (reference BOUNDARY_BCS_SURFACE_Y)
+            P["surface_bc"] = {
+                "cpl_jmin": tuple(
+                    d["cpl_jmin"] if d["jmin"] == "linear" else 0.0
+                    for d in sfc),
+                "cpl_jmax": tuple(
+                    d["cpl_jmax"] if d["jmax"] == "linear" else 0.0
+                    for d in sfc)}
         return cls(case=case, grid=grid, fdm=fdm, nsp=nsp, P=P,
                    ell_plans={BC.NN: P["ell"]}, dtype=dtype, device=dev,
                    anelastic=anelastic)
 
     # -- optional subsystems ------------------------------------------------
+    def attach_buffer(self, state: State) -> None:
+        """Build sponge-zone relaxation data with reference profiles taken
+        from the given (initial) state, reference
+        BOUNDARY_BUFFER_INITIALIZE: P["buffer"] for Type=relaxation|both,
+        self.filter_sponge for Type=filter|both."""
+        spec = self.case.buffer
+        if spec is None or spec.type == "none":
+            return
+
+        def profile(a):                       # the plane mean, (ny,)
+            return torch.mean(a, dim=(0, 2))
+
+        refs = {"u": profile(state.u), "v": profile(state.v),
+                "w": profile(state.w)}
+        for i in range(state.s.shape[0]):
+            refs[f"s{i}"] = profile(state.s[i])
+        # spatial mode: Imin/Imax strips relax toward the inflow-plane state
+        x = self.grid.x.nodes if self.case.flow_type == "spatial" else None
+        ref_inflow = None
+        if x is not None:
+            ref_inflow = {"u": torch.mean(state.u[0], dim=1),
+                          "v": torch.mean(state.v[0], dim=1),
+                          "w": torch.mean(state.w[0], dim=1)}
+            for i in range(state.s.shape[0]):
+                ref_inflow[f"s{i}"] = torch.mean(state.s[i][0], dim=1)
+        if spec.type in ("relaxation", "both"):
+            self.P["buffer"] = bufmod.build_buffer(
+                self.grid.y.nodes, spec, refs, self.dtype, x=x,
+                ref_inflow=ref_inflow, device=self.device)
+        if spec.type in ("filter", "both"):
+            # filter-type sponge (reference BOUNDARY_BUFFER_FILTER, stubbed
+            # there; tlab_tpu's working blend): post-step blend toward the
+            # filtered state
+            mats = self.filter_matrices() or filt.build_filter_matrices(
+                self.fdm, filt.FilterSpec(type="explicit6"), self.dtype,
+                self.device)
+            amp = bufmod.filter_sponge_amp(
+                self.grid.x.nodes, spec.points_imin, spec.points_imax,
+                self.dtype, self.device)
+            self.filter_sponge = (amp, mats)
+
     def filter_matrices(self):
         """The [Filter] of the case as apply_filter takes it (matrices, or
         the Helmholtz filter's function), or None."""

@@ -9,10 +9,18 @@ dns.out step log reproduces the reference's columns (Itn. time dt CFL# D#
 visc DilMin DilMax, and NewtonRs for the anelastic AirWater mixture,
 dns_main.f90:394-495).
 
+The boundary machinery rides in the loop as in tlab_tpu's: the interactive
+surface state starts at zero, the buffer takes its references from the
+state the run starts from (Simulation.attach_buffer), the filter sponge
+blends the state after each step, an unsteady inflow (`inflow`, an
+dycore/inflow.InflowBox) feeds the Imin/Imax strips each step, and a
+spatial run accumulates its (z, t) station statistics every step
+(st<it>.npz at the restart cadence, avg_zt<it> at the statistics cadence).
+
 What tlab_tpu's loop has beyond this thread (a device mesh, particles,
-unsteady inflow, planes and towers, phase and spatial statistics, in-run
-pdfs and spectra, the operator self-test) raises NotImplementedError naming
-the ROADMAP item that will port it.
+planes and towers, phase statistics, in-run pdfs and spectra, the operator
+self-test) raises NotImplementedError naming the ROADMAP item that will
+port it.
 """
 from __future__ import annotations
 
@@ -26,12 +34,15 @@ import numpy as np
 import torch
 
 from tlab_tpu_torch.dycore import incompressible as dyn
+from tlab_tpu_torch.dycore.buffer import apply_filter_sponge
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.io import fields_io
 from tlab_tpu_torch.ops.filter import filter_state
 from tlab_tpu_torch.physics import thermo
 from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.stats import averages as avg
+from tlab_tpu_torch.stats.spatial import (SpatialStats, state_fields,
+                                          write_station_budgets)
 from tlab_tpu_torch.utils import trace as _trace
 from tlab_tpu_torch.utils.fortran_fmt import fort_e
 
@@ -176,15 +187,39 @@ def write_obs(sim: Simulation, state: State, outdir: str, itime: int,
                  f"{utau:.8e} {alpha:.6f}\n")
 
 
-def _unported(case, mesh, pstate, particle_props, inflow, opr_check):
+def _stations(case, nx: int) -> list:
+    """x-station indices for the spatial-mode tables: [Statistics]
+    Stations list (1-based, reference statavg) or every nx/8 column."""
+    ini = getattr(case, "ini", None)
+    stations = [int(s) - 1 for s in ini.get_floats(
+        "Statistics", "Stations", ())] if ini is not None else []
+    if not stations:
+        stations = list(range(nx // 8, nx, max(nx // 8, 1)))
+    return stations
+
+
+def _host(t):
+    """A plan's operator as a float64 host array (None stays None)."""
+    return None if t is None else t.detach().to("cpu", torch.float64).numpy()
+
+
+def velocity_gradients(P, state) -> dict:
+    """The nine velocity-gradient fields of the spatial statistics (the
+    reference's MA_Ux..MA_Wz correlation families, avgij_map.h:14-37)."""
+    g = {}
+    for cname, comp in (("u", state.u), ("v", state.v), ("w", state.w)):
+        for aname, ax in (("x", 0), ("y", 1), ("z", 2)):
+            g[cname + aname] = dyn._d1(P, aname, ax, comp)
+    return g
+
+
+def _unported(case, mesh, pstate, particle_props, opr_check):
     """(option, ROADMAP item) of what this run asks for beyond the port."""
     found = []
     if mesh is not None:
         found.append(("mesh (multi-GPU pencils)", "A17"))
     if pstate is not None or particle_props is not None:
         found.append(("particles", "A15"))
-    if inflow is not None:
-        found.append(("unsteady inflow", "A10"))
     if opr_check:
         found.append(("opr_check (operator self-test)", "A16"))
     planes = getattr(case, "planes", None) or {}
@@ -210,8 +245,7 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         inner_steps: int = 1, inflow=None,
         restart_visc: Optional[float] = None, mesh=None) -> DnsRun:
     case = sim.case
-    missing = _unported(case, mesh, pstate, particle_props, inflow,
-                        opr_check)
+    missing = _unported(case, mesh, pstate, particle_props, opr_check)
     if missing:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(
@@ -223,13 +257,23 @@ def run(sim: Simulation, state: State, outdir: str = ".",
     filt = sim.filter_matrices()
     filt_step = case.filter.step if case.filter is not None else 0
     timed = bool(getattr(sim.P.get("bodyforce"), "time_dependent", False))
-    if filt is not None or timed:
-        inner_steps = 1
+    spatial = case.flow_type == "spatial"
+    if filt is not None or timed or spatial or inflow is not None:
+        inner_steps = 1     # per-step host work (the sums, the planes)
     # [Main] FileType=single writes f32 restarts (io_fields.f90:37-40);
     # read_field autodetects on reload
     restart_dtype = "<f4" if (ini is not None and ini.get(
         "Main", "FileType", "double").lower() == "single") else "<f8"
     _trace.maybe_init(case, outdir)
+    if sim.P.get("surface_bc") is not None and state.sfc is None \
+            and state.s.shape[0]:
+        # interactive-surface reference state (BcsScal%ref) starts at 0
+        # each run, as the reference (allocated fresh per execution)
+        ns, nx, _, nz = state.s.shape
+        state = state._replace(sfc=state.s.new_zeros((2, ns, nx, nz)))
+    with _trace.trace("attach_buffer"):
+        sim.attach_buffer(state)
+    sponge = sim.filter_sponge
 
     def checkpoint_now():
         fields_io.write_state(os.path.join(outdir, "flow"),
@@ -249,7 +293,7 @@ def run(sim: Simulation, state: State, outdir: str = ".",
     if restart_visc is not None and restart_visc > 0.0 \
             and abs(restart_visc - visc_ini) > 1e-14 * visc_ini:
         vtime = ini.get_float("ViscChange", "Time", 0.0) if ini else 0.0
-        if vtime > 0.0:
+        if vtime > 0.0 and inflow is None:      # as tlab_tpu: no ramp
             visc = restart_visc
             ramp_rate = (visc_ini - restart_visc) / vtime
 
@@ -259,6 +303,12 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             aux["visc_scale"] = visc / visc_ini
         if timed:
             aux["rtime"] = rtime        # the start of the step
+        if inflow is not None:
+            # the inflow planes at the start of the step (host NumPy, one
+            # copy a step)
+            aux["refs_x"] = inflow.refs_at(rtime, dtype=state.u.dtype,
+                                           ny=state.u.shape[1],
+                                           device=sim.device)
         return aux or None
 
     with _trace.trace("building step functions"):
@@ -271,6 +321,18 @@ def run(sim: Simulation, state: State, outdir: str = ".",
 
     obs_log = ini.get("Iteration", "ObsLog", "none").lower() != "none" \
         if ini else False
+    # spatial mode: (z, t) running sums every [Iteration] SaveStats steps
+    # (tlab_tpu's default 1; the reference accumulates once at the end)
+    spatial_stats = None
+    stats_spa = 1
+    it_first = itime
+    if spatial:
+        stats_spa = max(ini.get_int("Iteration", "SaveStats", 1), 1) \
+            if ini is not None else 1
+        nx, ny, _ = sim.grid.shape
+        spatial_stats = SpatialStats.create(
+            nx, ny, ["u", "v", "w"]
+            + [f"s{i + 1}" for i in range(sim.nsp.n_scalars)])
     dconst = sim.P["diffusion_constant"]
     max_dil = (getattr(case, "control", None)
                or {}).get("max_dilatation", -1.0)
@@ -314,6 +376,8 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             visc = visc + ramp_rate * dtime * inner_steps
             if (ramp_rate > 0) == (visc >= visc_ini):
                 visc = visc_ini         # ramp complete
+        if sponge is not None:
+            state = apply_filter_sponge(*sponge, state)
         if filt is not None and filt_step > 0 and itime % filt_step == 0:
             state = filter_state(filt, state)   # reference DNS_FILTER cadence
         if dt_lag and prev_diag is not None:
@@ -369,8 +433,27 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         if case.it_stats > 0 and itime % case.it_stats == 0:
             with _trace.trace(f"statistics {itime}"):
                 write_statistics(sim, state, outdir, itime, rtime, p=p_cur)
+            if spatial_stats is not None and spatial_stats.n_samples:
+                # per-station Rij budget tables from the running (z,t) sums
+                # (reference AVG_FLOW_ZT_REDUCE at the statistics cadence,
+                # dns_statistics.f90:233), before this step's sample
+                tabs = spatial_stats.station_budgets(
+                    _stations(case, sim.grid.shape[0]), sim.nsp.visc,
+                    d1x=_host(sim.P.get("d1x")), d1y=_host(sim.P.get("d1y")))
+                write_station_budgets(
+                    os.path.join(outdir, f"avg_zt{itime}"),
+                    sim.grid.x.nodes, sim.grid.y.nodes, tabs, itime, rtime)
         if obs_log and itime % case.it_log == 0:
             write_obs(sim, state, outdir, itime, rtime)
+        if spatial_stats is not None and (itime - it_first) % stats_spa == 0:
+            # one device reduction; only (K, nx, ny) comes to the host
+            spatial_stats.accumulate_device(
+                state_fields(state), grads=velocity_gradients(sim.P, state),
+                p=p_cur)
+            if checkpoint and case.it_restart > 0 \
+                    and itime % case.it_restart == 0:
+                spatial_stats.save(os.path.join(outdir, f"st{itime}.npz"),
+                                   itime)
         dtime = new_dt
 
     if profile and prof_samples:
