@@ -70,6 +70,32 @@ non-zero:
               dns.run, 5 steps (the Imin strip's v, the jet core, the
               sponge's amplitude, st5.npz and avg_zt5); (d) each of a-c at a
               reduced grid, fp32 against fp64
+ 10. smr91    the semi-implicit diffusion (TimeOrder=RungeKuttaDiffusion3):
+              (a) examples/ekman_mesh/tlab.ini at its 128x96x128 without its
+              mesh and towers, 10 adaptive steps through the CLI (K1-K3
+              against their plain version with nu = 0 at its shapes, then
+              launches 3 a step; the CFL column at TimeCFL while D# passes
+              the explicit limit; v 0 on the walls; the Dirichlet pencil
+              keeps u's and w's no-slip rows); (b) the shear layer at
+              512x256x256 from 6a's fields, 5 steps: ms a stage and a step,
+              peak memory; (c) both at a small grid, fp32 against fp64
+ 11. long     lines of 2304 points or more (ops/thomas.py): (a) the shear
+              layer at 4096x128x64 (x periodic: the substructured d1 and d2,
+              no K1 launch) and (b) at 128x2304x64 (y between walls: the
+              substructured d1, no K2 launch; the direct eigen Poisson
+              solve), inigrid, ini, dns, 5 steps, the banded operators
+              against the dense ones in fp64 and fp32, the plans' host
+              set-up; (c) one banded d1 against the dense product at 2304
+              and 4096 points, periodic and not: the crossover on this card
+ 12. comp     the ideal-gas compressible set: (a) tests/data/
+              case02_small3d.ini (internal energy) at
+              512x256x256, inigrid, ini, dns, 5 adaptive RK4 steps (rho and p
+              positive within the FlowLimit bounds, the CFL column at
+              TimeCFL, the integral of rho conserved, the Favre avg columns
+              finite, no kernel launch: the reference's einsums); (b) its
+              fields in total energy with Equations=total and the divergence
+              form, 5 steps; (c) at its own 128x64x16, fp32 against fp64,
+              held to 2x tlab_tpu's own fp32 drift (tests/test_torch_fp32.py)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 Without a CUDA card the script exits 1 and prints no result.
@@ -94,6 +120,7 @@ from tlab_tpu_torch import device as tdevice
 from tlab_tpu_torch import entry
 from tlab_tpu_torch import ibm
 from tlab_tpu_torch.config import Ini, load_case
+from tlab_tpu_torch.constants import BC
 from tlab_tpu_torch.convert import state_to_numpy
 from tlab_tpu_torch.dycore import buffer, inflow
 from tlab_tpu_torch.dycore import incompressible as dyn
@@ -1056,23 +1083,31 @@ def background_checks(text) -> None:
             f"8b: the anelastic projection leaves {red_r} of div(rho u)")
 
 
-def check_case_kernels(text: str) -> list:
+def check_case_kernels(text: str, nu_zero: bool = False) -> list:
     """K1-K3 against their plain version at the shapes a case's `dns` gives
-    them: the case's own operators and field count, seeded inputs; the
-    max|kernel - plain| of each."""
+    them: the case's own operators and field count, seeded inputs (with
+    `nu_zero`, nu = 0 for every field: the semi-implicit step's advective
+    Burgers term); the max|kernel - plain| of each, None for a direction
+    with a banded plan (its kernel does not launch there)."""
     sim = Simulation.from_case(load_case(Ini(text=text)),
                                dtype=torch.float32, device="cuda")
     P, shape = sim.P, tuple(sim.grid.shape)
     gen = torch.Generator(device="cuda").manual_seed(1)
     nu = torch.tensor((P["visc"],) * 3 + P["diff"], dtype=torch.float32,
                       device="cuda")
+    if nu_zero:
+        nu = torch.zeros_like(nu)
     x = torch.randn((len(nu),) + shape, generator=gen, device="cuda")
     conv = torch.randn(shape, generator=gen, device="cuda")
     out = []
     for axis in range(3):
+        if f"d1{'xyz'[axis]}_banded" in P:
+            out.append(None)
+            continue
         r = check_kernel(axis, P["d12" + "xyz"[axis]], x, conv, nu, False)
         print(f"[kernels] {burgers.ENTRY_POINTS[axis]} F={len(nu)} {shape} "
-              f"(the case's operators): max|err| {r['max_abs_err']:.3e} "
+              f"(the case's operators{', nu = 0' if nu_zero else ''}): "
+              f"max|err| {r['max_abs_err']:.3e} "
               f"(rel {r['rel_err']:.3e}, limit {KERNEL_TOL})")
         out.append(r["max_abs_err"])
     del sim, P, x, conv
@@ -1467,10 +1502,10 @@ class SolidWatch:
 
 
 def rate_line(tag: str, card: str, shape, steps: int, n_sub: int, trace,
-              res) -> str:
+              res, phase: str = "boundary") -> str:
     rate = step_rate(trace, steps, n_sub)
     points = shape[0] * shape[1] * shape[2]
-    return (f"[boundary] {tag} ({card}): {shape} fp32, {steps} adaptive-dt "
+    return (f"[{phase}] {tag} ({card}): {shape} fp32, {steps} adaptive-dt "
             f"steps with their host syncs {rate['seconds']:.4f} s: "
             f"{rate['ms_substep']:.3f} ms/substep, "
             f"{points * steps * n_sub / rate['seconds']:.6e} "
@@ -1785,6 +1820,531 @@ def phase_boundary_fp64() -> None:
                     f"9d {tag}: fp32 vs fp64 {max(rel, rel_s)} > {FP64_TOL}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 10-12: semi-implicit diffusion, long lines, the compressible set
+# ---------------------------------------------------------------------------
+
+CASE02 = ROOT / "tests" / "data" / "case02_small3d.ini"
+SMR91_STEPS, SMR91_SHEAR_STEPS = 10, 5
+LONG_X_SHAPE, LONG_Y_SHAPE, LONG_STEPS = (4096, 128, 64), (128, 2304, 64), 5
+COMP_SHAPE, COMP_SMALL, COMP_STEPS = (512, 256, 256), (128, 64, 16), 5
+# the substructured operators are an exact block LU of the dense ones:
+# round-off in fp64, fp32's own round-off in fp32 (of max|dense|)
+BANDED_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}
+# integral of rho over the box after 5 RK4 steps, relative: what
+# tests/test_compressible.py:92-110 holds tlab_tpu to over 50 steps
+MASS_TOL = 1e-6
+# 12c: the fp32 run's drift of that integral beside the fp64 run's, the
+# rounding of 20 updates of rho (1.9e-9 apart on an H100 in 12c; a
+# step that loses or gains mass in fp32 only reads more)
+MASS_FP32_TOL = 1e-7
+# 12c's witness: tlab_tpu in fp32 on the same inputs on the CPU, 5 RK4 steps
+# of COMP_DT from case02's initial state, max over the conservative fields
+# of max|q32 - q64| / max|q64| (tests/test_torch_fp32.py::
+# test_compressible_steps_in_float32_drift_as_tlab_tpus: 3.760e-06, the port
+# 3.439e-06); the card's run is held to 2x it
+COMP_WITNESS, COMP_DT = 3.760e-6, 2.2e-3
+COMP_FP32_TOL = 2.0 * COMP_WITNESS
+# 10a's witness: tlab_tpu in float64 on the CPU, inigrid, ini and dns of
+# the case 10a runs (ekman_smr91_case(EKMAN_SHAPE, SMR91_STEPS)); max over
+# u and w of |q - ref| on the no-slip wall after the last step.  Its SMR91
+# step pins only v there: the start's noise (1.063e-2) and the pressure
+# gradient's corrections stay (PYTHONPATH=. python
+# tests/test_torch_implicit.py prints it); the card's fp32 run is held to it
+# within FP64_TOL of max|u, w|, the fp32-against-fp64 limit of 10c
+EKMAN_WALL_WITNESS = 1.5344067419802165e-2
+# 11c's lines: F = 4 fields of a 128 x 64 cross-section, as 11a and 11b;
+# 1024 and 2048 bracket the crossover below tlab_tpu's default of 2304
+CROSSOVER_LINES = tuple((n, periodic) for n in (1024, 2048, 2304, 4096)
+                        for periodic in (False, True))
+
+
+def smr91_case(text: str, changes: dict) -> str:
+    """A case file with TimeOrder=RungeKuttaDiffusion3 and `changes`."""
+    return edit_case(text, {("Main", "TimeOrder"): "RungeKuttaDiffusion3",
+                            **changes})
+
+
+def ekman_smr91_case(shape, steps: int) -> str:
+    """examples/ekman_mesh/tlab.ini at `shape` with the SMR91 scheme, as the
+    reference's Ekman cases 85-87 run, without its [Parallel] mesh (A17) and
+    [SaveTowers] (A15); its Jmax sponge as the example has it (tlab_tpu's
+    SMR91 step applies no buffer: the port's neither)."""
+    text = EKMAN.read_text()
+    for section in ("Parallel", "SaveTowers"):
+        text, n = re.subn(rf"^\[{section}\]\n[^\[]*", "", text, flags=re.M)
+        require(n == 1, f"[{section}] not found in {EKMAN.name}")
+    return smr91_case(text, {**grid_keys(shape),
+                             ("Iteration", "End"): steps,
+                             ("Iteration", "Restart"): 1000,
+                             ("Iteration", "Statistics"): steps})
+
+
+def shear_case(shape, steps: int, changes=None) -> str:
+    """examples/shear3d/tlab.ini at `shape`, `steps` steps, statistics at
+    the last, no restart file."""
+    return edit_case(CASE.read_text(), {
+        **grid_keys(shape), ("Iteration", "End"): steps,
+        ("Iteration", "Restart"): 1000, ("Iteration", "Statistics"): steps,
+        **(changes or {})})
+
+
+def comp_case(shape, steps: int, changes=None) -> str:
+    """tests/data/case02_small3d.ini (the reference's Case02 compressible
+    shear layer, reduced) at `shape`: its box and profiles, [Grid] and the
+    [IniGrid*] points together."""
+    return edit_case(CASE02.read_text(), {
+        **grid_keys(shape), ("Iteration", "End"): steps,
+        ("Iteration", "Restart"): 1000, ("Iteration", "Statistics"): steps,
+        **(changes or {})})
+
+
+def write_case(out: str, text: str) -> str:
+    ini = os.path.join(out, "tlab.ini")
+    with open(ini, "w") as fh:
+        fh.write(text)
+    return ini
+
+
+def slice_line(tag: str, card: str, shape, steps: int, n_sub: int, res,
+               trace) -> str:
+    """rate_line for phases 10-12, with ms a step."""
+    rate = step_rate(trace, steps, n_sub)
+    return (rate_line(tag, card, shape, steps, n_sub, trace, res, tag[:2])
+            + f"; {1e3 * rate['seconds'] / steps:.3f} ms/step")
+
+
+def wall_check(P, state) -> tuple:
+    """The SMR91 Helmholtz update of u and w on `state` with their wall
+    pencil (Dirichlet for a no-slip wall) keeps the wall rows it is given
+    (aug q_wall is the solve's boundary value): max over u and w of
+    |x_wall - q_wall| / max|q|; and v's wall rows (exactly 0 after a step)."""
+    from tlab_tpu_torch.dycore import implicit
+    kdt, kim, kex = implicit.KDT[0], implicit.KIM[0], implicit.KEX[0]
+    kef = kex / kim
+    aug = 1.0 + kef
+    dte = 1e-3 * kdt
+    err = 0.0
+    for name, q in (("u", state.u), ("w", state.w)):
+        pair = P["wall_bc_types"][name]
+        x = implicit._helmholtz_update(
+            P, pair, q, aug * q, (aug * q[:, 0, :], aug * q[:, -1, :]),
+            dte * kim * P["visc"], kef)
+        for side, j in zip(pair, (0, -1)):
+            if side == "dirichlet":
+                err = max(err, ((x[:, j] - q[:, j]).abs().max()
+                                / q.abs().max()).item())
+    return err, state.v[:, (0, -1), :].abs().max().item()
+
+
+def phase_smr91_ekman(card: str) -> list:
+    """10a: inigrid, ini and dns of the Ekman layer at its own 128x96x128
+    with the SMR91 scheme: the CFL column at TimeCFL on every step after the
+    first while D# passes the explicit diffusive limit; v's walls 0; u and w
+    keep their no-slip values through the Dirichlet pencil."""
+    text = ekman_smr91_case(EKMAN_SHAPE, SMR91_STEPS)
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        res = traced_cli(write_case(out, text), out,
+                         ("inigrid", "ini", "dns"))
+        rows = data_rows(os.path.join(out, "dns.out"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+    run, launches = res["run"], res["launches"]
+    case, P = run.sim.case, run.sim.P
+    cfl = [float(r[4]) for r in rows]
+    dnum = [float(r[5]) for r in rows]
+    wall_err, v_wall = wall_check(P, run.state)
+    # what the limit would read with the Neumann pencil in the Dirichlet
+    # one's place (tlab_tpu's fallback where a plan lacks ell_dd)
+    wrong_err, _ = wall_check(dict(P, ell_dd=P["ell"]), run.state)
+    yw = np.array([run.sim.grid.y.nodes[0], run.sim.grid.y.nodes[-1]])
+    refs = (case.vel_profiles[0](yw), case.vel_profiles[2](yw))
+    dev = [max(abs(run.state.u[:, j].double() - refs[0][j]).max().item(),
+               abs(run.state.w[:, j].double() - refs[1][j]).max().item())
+           for j in (0, -1)]
+    qmax = max(run.state.u.abs().max().item(), run.state.w.abs().max().item())
+    dev_tol = FP64_TOL * qmax
+    print(slice_line("10a Ekman layer, SMR91", card, EKMAN_SHAPE,
+                     SMR91_STEPS, 3, res, trace))
+    print(f"[10] 10a: CFL column {min(cfl[1:]):.3f}..{max(cfl[1:]):.3f} "
+          f"(TimeCFL {case.time_cfl}); D# {min(dnum):.3f}..{max(dnum):.3f} "
+          f"(the explicit scheme's limit TimeDiffusiveCFL "
+          f"{case.time_cfl_diffusive}); the Dirichlet pencil keeps the wall "
+          f"rows to {wall_err:.3e} of max|q| (the Neumann pencil in its place "
+          f"moves them by {wrong_err:.3e}); max|v| on the walls {v_wall}; "
+          f"|u, w - ref| on the no-slip wall {dev[0]:.6e} (tlab_tpu's fp64 "
+          f"{EKMAN_WALL_WITNESS:.6e}, limit +-{dev_tol:.3e}: its SMR91 step "
+          f"pins only v); t = {run.rtime:.6e}; " + dilatation_text(rows))
+    require(len(rows) == SMR91_STEPS + 1 and all(r[0] == "0" for r in rows),
+            f"10a dns.out: {len(rows)} rows, status {[r[0] for r in rows]}")
+    require(all(abs(c - case.time_cfl) <= 1e-3 for c in cfl[1:]),
+            f"10a: CFL column {cfl} not at {case.time_cfl}")
+    require(max(dnum) > case.time_cfl_diffusive,
+            f"10a: D# {max(dnum)} within the explicit limit: dt diffusive?")
+    require(launches == [SMR91_STEPS * 3] * 3,
+            f"10a launched {launches}, expected {SMR91_STEPS * 3} per axis")
+    require(v_wall == 0.0, f"10a: v on the walls {v_wall}")
+    require(abs(dev[0] - EKMAN_WALL_WITNESS) <= dev_tol,
+            f"10a: u, w on the no-slip wall {dev[0]} from their values, "
+            f"tlab_tpu's {EKMAN_WALL_WITNESS}")
+    require(wall_err <= 1e-6 < wrong_err,
+            f"10a: the wall rows move by {wall_err} ({wrong_err} with the "
+            "Neumann pencil)")
+    require(P["wall_bc_types"]["u"][0] == "dirichlet"
+            and P["wall_bc_types"]["u"][1] == "neumann", "10a: wall kinds")
+    for name, a in zip("uvws", run.state[:4]):
+        require(bool(torch.isfinite(a).all()), f"10a: non-finite {name}")
+    return launches
+
+
+def phase_smr91_shear(card: str, initial: str) -> list:
+    """10b: dns of the shear layer at 512x256x256 with the SMR91 scheme
+    from 6a's initial fields, 5 steps: ms a stage and a step, peak memory."""
+    text = smr91_case(shear_case(MAIN_SHAPE, SMR91_SHEAR_STEPS), {})
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        link_initial_fields(initial, out)
+        res = traced_cli(write_case(out, text), out, ("dns",))
+        rows = data_rows(os.path.join(out, "dns.out"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        _, _, flow = averages.read_avg(
+            os.path.join(out, f"avg{SMR91_SHEAR_STEPS}"))
+    run, launches = res["run"], res["launches"]
+    rate = step_rate(trace, SMR91_SHEAR_STEPS, 3)
+    cfl = [float(r[4]) for r in rows[1:]]
+    print(slice_line("10b shear layer, SMR91", card, MAIN_SHAPE,
+                     SMR91_SHEAR_STEPS, 3, res, trace)
+          .replace("ms/substep", "ms/stage"))
+    print(f"[10] 10b: {rate['ms_substep']:.3f} ms a stage (the others' "
+          f"median {rate['others_ms_substep']:.3f}), "
+          f"{1e3 * rate['seconds'] / SMR91_SHEAR_STEPS:.3f} ms a step; CFL "
+          f"{min(cfl):.3f}..{max(cfl):.3f}; D# {rows[-1][5]}; "
+          + dilatation_text(rows))
+    require(len(rows) == SMR91_SHEAR_STEPS + 1
+            and all(r[0] == "0" for r in rows), "10b dns.out status")
+    require(launches == [SMR91_SHEAR_STEPS * 3] * 3,
+            f"10b launched {launches}")
+    require(all(abs(c - CFL_TARGET) <= CFL_TOL for c in cfl),
+            f"10b: CFL column {cfl}")
+    require(all(np.isfinite(v).all() for v in flow.values()),
+            "10b: avg columns not finite")
+    for name, a in zip("uvws", run.state[:4]):
+        require(bool(torch.isfinite(a).all()), f"10b: non-finite {name}")
+    return launches
+
+
+def cli_fp32_fp64(top: str, tag: str, text: str) -> tuple:
+    """ini once in fp64, then dns in fp32 and in fp64 from those files:
+    (fp32 run, fp64 run)."""
+    ini = os.path.join(top, tag + ".ini")
+    with open(ini, "w") as fh:
+        fh.write(text)
+    base = os.path.join(top, tag + "_ini")
+    run_cli("ini", ini, base, "--x64")
+    out = {}
+    for name, more in (("fp32", ()), ("fp64", ("--x64",))):
+        outdir = os.path.join(top, f"{tag}_{name}")
+        os.makedirs(outdir)
+        for f in os.listdir(base):
+            if f.startswith(("flow.0.", "scal.0.")):
+                os.symlink(os.path.join(base, f), os.path.join(outdir, f))
+        out[name] = traced_cli(ini, outdir, ("dns",), *more)["run"]
+    return out["fp32"], out["fp64"]
+
+
+def phase_smr91_fp64() -> None:
+    """10c: fp32 against fp64 on the card, 5 SMR91 steps, the shear layer at
+    128x64x64 and the Ekman copy at its 128x96x128."""
+    cases = {"shear layer 128x64x64": smr91_case(
+                 shear_case((128, 64, 64), OPTION_STEPS), {}),
+             "Ekman at 128x96x128": ekman_smr91_case(EKMAN_SHAPE,
+                                                  OPTION_STEPS)}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as top:
+        for i, (what, text) in enumerate(cases.items()):
+            r32, r64 = cli_fp32_fp64(top, f"10c{i}", text)
+            vel32 = torch.stack(r32.state[:3]).double()
+            vel64 = torch.stack(r64.state[:3])
+            rel = ((vel32 - vel64).abs().max() / vel64.abs().max()).item()
+            print(f"[10] 10c {what}, {OPTION_STEPS} SMR91 steps: "
+                  f"max|q32 - q64| / max|q64| over u, v, w = {rel:.3e} "
+                  f"(limit {FP64_TOL}); t32 - t64 = "
+                  f"{r32.rtime - r64.rtime:.3e}")
+            require(rel <= FP64_TOL, f"10c {what}: {rel} > {FP64_TOL}")
+
+
+def banded_against_dense(plan, shape, name: str, axis: int,
+                         keys) -> dict:
+    """A long line's substructured d1 (and d2 where the plan has it) on the
+    card against the dense products of the same operators, on 3 seeded
+    normal fields of the run's shape, in fp32 and in fp64 (plans built
+    anew in each): max error over max|dense|.  (On a smooth field the
+    derivative is small beside the field, and fp32's rounding of the field
+    reads larger over max|derivative| than a normal field's.)"""
+    from tlab_tpu_torch.ops import thomas
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q64 = torch.randn((3,) + tuple(shape), generator=gen, device="cuda",
+                      dtype=torch.float64)
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        nt = np.float32 if dtype == torch.float32 else np.float64
+        q = q64.to(dtype)
+        for key, (A, B) in (("d1", (plan.A1, plan.B1)),
+                            ("d2", (plan.A2, plan.B2))):
+            if f"{key}{name}_banded" not in keys:
+                continue
+            bp = thomas.device_plan(thomas.banded_plan(
+                A, B, nt, periodic=plan.periodic), dtype, "cuda")
+            got = thomas.banded_der1(bp, q, axis + 1)
+            dense = der12(torch.as_tensor(plan.d12[BC.DD]).to("cuda", dtype),
+                          q, axis + 1)[0 if key == "d1" else 1]
+            err = ((got - dense).abs().max() / dense.abs().max()).item()
+            out[f"{key}{name} {str(dtype)[6:]}"] = err
+            require(err <= BANDED_TOL[dtype],
+                    f"banded {key}{name} {dtype}: {err}")
+            del got, dense
+        del q
+    del q64
+    return out
+
+
+def long_line_case(shape) -> str:
+    """The shear layer at `shape`, LONG_STEPS steps.  A long y takes the
+    direct eigen Poisson solve (EllipticOrder=compactdirect6): the
+    factorized plan's eigenbases have cond(V) ~3e9 at ny = 2304, beyond
+    what its complex64 sweeps carry, and its float32 plan is refused."""
+    text = shear_case(shape, LONG_STEPS)
+    if shape[1] >= 2304:
+        text = add_keys(text, "Main", ["EllipticOrder=compactdirect6"])
+    return text
+
+
+def phase_long_line(tag: str, card: str, shape, expect: list) -> list:
+    """11a/11b: inigrid, ini and dns of the shear layer with one line of
+    2304 points or more, 5 steps: the launches of K1-K3 (none along the
+    banded direction), the banded operators against the dense ones, the
+    host set-up of the plans; at ny = 2304, the float32 factorized plan
+    refused (cond(V) printed)."""
+    text = long_line_case(shape)
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        res = traced_cli(write_case(out, text), out,
+                         ("inigrid", "ini", "dns"))
+        rows = data_rows(os.path.join(out, "dns.out"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+    run, launches = res["run"], res["launches"]
+    sim = run.sim
+    banded = sorted(k for k in sim.P if k.endswith("_banded"))
+    name = "x" if shape[0] >= 2304 else "y"
+    axis = "xyz".index(name)
+    errs = banded_against_dense((sim.fdm.x, sim.fdm.y)[axis], shape,
+                                name, axis, banded)
+    t0 = time.perf_counter()
+    fac_plan = fac.build_factorize_plan(sim.fdm)
+    fac_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ell_plan = elliptic.build_elliptic_plan(sim.fdm)
+    ell_s = time.perf_counter() - t0
+    conds = (max(fac_plan.emin["cond"], fac_plan.emax["cond"]),
+             ell_plan.eig_condition)
+    refused = ""
+    if "ell_fac" not in sim.P:
+        # the long y's factorized plan in float32 is refused: its solve
+        # would be noise
+        try:
+            fac.device_factorize_plan(fac_plan, torch.float32, "cuda")
+        except ValueError:
+            refused = "; the float32 factorized plan refused"
+        require(bool(refused), f"{tag}: the float32 factorized plan at "
+                f"cond(V) {conds[0]:.3e} was not refused")
+    print(slice_line(f"{tag} shear layer {shape}", card, shape, LONG_STEPS,
+                     5, res, trace))
+    print(f"[11] {tag}: plan keys {banded}; banded against dense "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (limits {BANDED_TOL[torch.float64]} fp64, "
+          f"{BANDED_TOL[torch.float32]} fp32); host set-up (ny = "
+          f"{shape[1]}): the factorized plan {fac_s:.3f} s (cond(V) "
+          f"{conds[0]:.3e}), the direct eigen plan {ell_s:.3f} s (cond "
+          f"{conds[1]:.3e}); the run's Poisson solve "
+          f"{'factorized' if 'ell_fac' in sim.P else 'direct eigen'}"
+          f"{refused}; ini {res['seconds']['ini']:.3f} s; "
+          + dilatation_text(rows))
+    require(len(rows) == LONG_STEPS + 1 and all(r[0] == "0" for r in rows),
+            f"{tag} dns.out status")
+    require(launches == expect, f"{tag} launched {launches}, not {expect}")
+    require(bool(banded), f"{tag}: no banded plan")
+    for n, a in zip("uvws", run.state[:4]):
+        require(bool(torch.isfinite(a).all()), f"{tag}: non-finite {n}")
+    return launches
+
+
+def phase_crossover(card: str) -> None:
+    """11c: one banded_der1 against the dense d1 product, fp32, F = 4 lines
+    of a 128 x 64 cross-section, N = 1024, 2048, 2304 and 4096, periodic
+    and not (CUDA events, median of REPS, in turns)."""
+    from tlab_tpu_torch import grid as tgrid
+    from tlab_tpu_torch.fdm.plan import build_deriv_plan
+    from tlab_tpu_torch.ops import thomas
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for n, periodic in CROSSOVER_LINES:
+        nodes = np.arange(n) * (2 * np.pi / n) if periodic \
+            else np.linspace(0.0, 1.0, n)
+        plan = build_deriv_plan(tgrid.make_axis(nodes, periodic))
+        bp = thomas.device_plan(thomas.banded_plan(
+            plan.A1, plan.B1, np.float32, periodic=periodic),
+            torch.float32, "cuda")
+        d1 = torch.as_tensor(plan.d1[0]).to("cuda", torch.float32)
+        u = torch.randn((4, n, 128, 64), generator=gen, device="cuda")
+        calls = {"dense": lambda: apply_along(d1, u, 1),
+                 "banded": lambda: thomas.banded_der1(bp, u, 1)}
+        times = {k: [] for k in calls}
+        for _ in range(REPS):
+            for k, fn in calls.items():
+                times[k].append(event_ms(fn))
+        ms = {k: statistics.median(v) for k, v in times.items()}
+        err = ((calls["banded"]() - calls["dense"]()).abs().max()
+               / calls["dense"]().abs().max()).item()
+        S = bp["part"]["S"]
+        kind = "periodic" if periodic else "walls"
+        print(f"[11] 11c ({card}) N = {n} {kind}: dense d1 "
+              f"{ms['dense']:.3f} ms, banded "
+              f"{ms['banded']:.3f} ms ({S} segments of {n // S}; "
+              f"dense/banded {ms['dense'] / ms['banded']:.2f}); max|banded - "
+              f"dense| / max {err:.3e}")
+        require(err <= BANDED_TOL[torch.float32], f"11c N={n}: {err}")
+        del u
+
+
+def comp_checks(tag: str, run, rows, steps: int, mass0: float) -> dict:
+    """The compressible run's limits: rho and p finite, positive and within
+    the FlowLimit bounds; the CFL column at TimeCFL; the integral of rho
+    conserved."""
+    sim, U = run.sim, run.state
+    p = dns_tool._primitive(sim, U)[4]
+    bounds = sim.comp["bounds"]
+    rmin, rmax = U.rho.min().item(), U.rho.max().item()
+    pmin, pmax = p.min().item(), p.max().item()
+    mass = U.rho.double().sum().item()
+    drift = abs(mass - mass0) / mass0
+    cfl = [float(r[4]) for r in rows[1:]]
+    require(len(rows) == steps + 1 and all(r[0] == "0" for r in rows),
+            f"{tag} dns.out status {[r[0] for r in rows]}")
+    require(all(np.isfinite(x) and x > 0 for x in (rmin, pmin, rmax, pmax)),
+            f"{tag}: rho {rmin}..{rmax}, p {pmin}..{pmax}")
+    require(bounds["r"][0] <= rmin and rmax <= bounds["r"][1]
+            and bounds["p"][0] <= pmin and pmax <= bounds["p"][1],
+            f"{tag}: out of the FlowLimit bounds {bounds}")
+    require(all(abs(c - sim.case.time_cfl) <= 1e-3 for c in cfl),
+            f"{tag}: CFL column {cfl}")
+    require(drift <= MASS_TOL, f"{tag}: mass drift {drift}")
+    for name, a in zip(("rho", "rhou", "rhov", "rhow", "rhoE"), U[:5]):
+        require(bool(torch.isfinite(a).all()), f"{tag}: non-finite {name}")
+    return {"rho": (rmin, rmax), "p": (pmin, pmax), "mass_drift": drift}
+
+
+def phase_compressible(card: str) -> list:
+    """12a: inigrid, ini and dns of case02_small3d.ini (Equations=internal:
+    the divergence form whatever TermAdvection says, as tlab_tpu's) at
+    512x256x256, 5 adaptive RK4 steps; 12b: its initial
+    state in total energy (rhoE + rho |u|^2 / 2 of the same fields) with
+    Equations=total and TermAdvection=divergence, 5 steps."""
+    launches = []
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        res = traced_cli(write_case(out, comp_case(COMP_SHAPE, COMP_STEPS)),
+                         out, ("inigrid", "ini", "dns"))
+        rows = data_rows(os.path.join(out, "dns.out"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        _, _, flow = averages.read_avg(os.path.join(out,
+                                                    f"avg{COMP_STEPS}"))
+        U0, _, _ = fields_io.read_comp_state(os.path.join(out, "flow"), 0)
+        mass0 = float(U0.rho.sum())
+        run = res["run"]
+        got = comp_checks("12a", run, rows, COMP_STEPS, mass0)
+        favre = ("fU", "fV", "fW", "fT", "fe", "fh", "fs", "Rxx", "C2",
+                 "Rho_ac", "RhoDil1", "Gyy", "Dyy")
+        require(all(np.isfinite(flow[n]).all() for n in favre)
+                and np.abs(flow["rR"] - 1.0).max() > 0.0,
+                "12a: the avg file's Favre columns")
+        print(slice_line("12a case02 (internal energy)",
+                         card, COMP_SHAPE, COMP_STEPS, 5, res, trace))
+        print(f"[12] 12a: rho {got['rho'][0]:.6f}..{got['rho'][1]:.6f}, p "
+              f"{got['p'][0]:.6f}..{got['p'][1]:.6f} (FlowLimit "
+              f"{run.sim.comp['bounds']}); integral of rho drifts "
+              f"{got['mass_drift']:.3e} (limit {MASS_TOL}); ini "
+              f"{res['seconds']['ini']:.3f} s of which initial_state "
+              f"{trace['initial_state'][1]:.3f} s; one "
+              f"write_statistics_compressible "
+              f"{trace[f'statistics {COMP_STEPS}'][1]:.3f} s; the avg "
+              f"file's Favre columns finite, rR "
+              f"{flow['rR'].min():.6f}..{flow['rR'].max():.6f}")
+        require(res["launches"] == [0, 0, 0],
+                f"12a launched {res['launches']}")
+        launches.append(res["launches"])
+        # 12b: the same fields in total energy
+        ke = 0.5 * (U0.rhou ** 2 + U0.rhov ** 2 + U0.rhow ** 2) / U0.rho
+        params = fields_io.read_field(os.path.join(out, "flow.0.5"))[1]
+        out_b = os.path.join(out, "12b")
+        os.makedirs(out_b)
+        for f in os.listdir(out):
+            if f.startswith("flow.0.") and f != "flow.0.5":
+                os.symlink(os.path.join(out, f), os.path.join(out_b, f))
+        fields_io.write_field(os.path.join(out_b, "flow.0.5"),
+                              U0.rhoE + ke, 0, params)
+        text = comp_case(COMP_SHAPE, COMP_STEPS, {
+            ("Main", "Equations"): "total",
+            ("Main", "TermAdvection"): "divergence"})
+        del run, res, U0, ke
+        res = traced_cli(write_case(out_b, text), out_b, ("dns",))
+        rows = data_rows(os.path.join(out_b, "dns.out"))
+        trace = read_trace(os.path.join(out_b, "tlab.trace"))
+        got = comp_checks("12b", res["run"], rows, COMP_STEPS, mass0)
+        print(slice_line("12b case02 (total energy, divergence form)", card,
+                         COMP_SHAPE, COMP_STEPS, 5, res, trace))
+        print(f"[12] 12b: rho {got['rho'][0]:.6f}..{got['rho'][1]:.6f}, p "
+              f"{got['p'][0]:.6f}..{got['p'][1]:.6f}; integral of rho "
+              f"drifts {got['mass_drift']:.3e}; the last row's PMin PMax "
+              f"RMin RMax {' '.join(rows[-1][7:11])}")
+        require(res["launches"] == [0, 0, 0],
+                f"12b launched {res['launches']}")
+        launches.append(res["launches"])
+    return launches
+
+
+def phase_compressible_fp64() -> None:
+    """12c: case02 at its own 128x64x16, 5 RK4 steps of COMP_DT from its
+    initial state, fp32 against fp64 on the card; held to 2x tlab_tpu's
+    fp32 drift on the same inputs (COMP_WITNESS)."""
+    from tlab_tpu_torch.dycore import compressible as comp
+    from tlab_tpu_torch.tools.initialize import compressible_initial_state
+    text = comp_case(COMP_SMALL, COMP_STEPS)
+    start = None
+    out, drift = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        sim = Simulation.from_case(load_case(Ini(text=text)), dtype=dtype,
+                                   device="cuda")
+        if start is None:
+            start = compressible_initial_state(sim, seed=0)
+        c = sim.comp
+        U = comp.CompState(*(a.to(dtype) for a in start))
+        mass0 = U.rho.double().sum().item()
+        for _ in range(COMP_STEPS):
+            U = comp.rk_step_compressible(
+                sim.P, U, COMP_DT, c["gamma"], c["mach"], sim.nsp.visc,
+                c["prandtl"], form=c["form"], energy=c["energy"],
+                gvec=c["gvec"])
+        out[dtype] = [a.double() for a in U]
+        drift[dtype] = (U.rho.double().sum().item() - mass0) / mass0
+    rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in
+              zip(out[torch.float32], out[torch.float64]))
+    ddrift = abs(drift[torch.float32] - drift[torch.float64])
+    print(f"[12] 12c case02 {COMP_SMALL}, {COMP_STEPS} RK4 steps of "
+          f"dt {COMP_DT}: max over the conservative fields of max|q32 - q64| "
+          f"/ max|q64| = {rel:.3e} (limit {COMP_FP32_TOL:.3e}: 2x tlab_tpu's "
+          f"{COMP_WITNESS:.3e} on the CPU); the integral of rho drifts "
+          f"{drift[torch.float64]:.3e} in fp64 (the wall rows' Neumann "
+          f"tendency is not a flux), "
+          f"{drift[torch.float32]:.3e} in fp32 (limit on the difference "
+          f"{MASS_FP32_TOL})")
+    require(rel <= COMP_FP32_TOL, f"12c: {rel} > {COMP_FP32_TOL}")
+    require(ddrift <= MASS_FP32_TOL, f"12c: fp32 mass drift {ddrift}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -1800,21 +2360,23 @@ def main() -> int:
         rec["launches"] = n
     del P, state
     phase_fp64()
-    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as initial:
-        for rec, n in zip(records, phase_dns_case(smi, initial)):
-            rec["dns_launches"] = n
-        phase_dns_restart()
-        for tag in OPTION_CASES:
-            for rec, n in zip(records, phase_option(tag, smi, initial)):
-                rec[f"launches_{tag}"] = n
-        phase_variants(smi, initial)
-        t8 = time.perf_counter()
-        for rec, err in zip(records, check_case_kernels(moist_case("8a", {}))):
-            rec["max_abs_err_8a"] = err
-        for tag in MOIST_CASES:
-            for rec, n in zip(records, phase_moist(tag, smi, initial)):
-                rec[f"launches_{tag}"] = n
-        t8 = time.perf_counter() - t8
+    # 6a's initial fields at 512x256x256, for phases 7, 8c and 10b
+    keep = tempfile.TemporaryDirectory(prefix="tlab_smoke_")
+    initial = keep.name
+    for rec, n in zip(records, phase_dns_case(smi, initial)):
+        rec["dns_launches"] = n
+    phase_dns_restart()
+    for tag in OPTION_CASES:
+        for rec, n in zip(records, phase_option(tag, smi, initial)):
+            rec[f"launches_{tag}"] = n
+    phase_variants(smi, initial)
+    t8 = time.perf_counter()
+    for rec, err in zip(records, check_case_kernels(moist_case("8a", {}))):
+        rec["max_abs_err_8a"] = err
+    for tag in MOIST_CASES:
+        for rec, n in zip(records, phase_moist(tag, smi, initial)):
+            rec[f"launches_{tag}"] = n
+    t8 = time.perf_counter() - t8
     phase_options_fp64()
     phase_direct_solver(smi)
     t8d = time.perf_counter()
@@ -1835,6 +2397,38 @@ def main() -> int:
     phase_boundary_fp64()
     t9d = time.perf_counter() - t9d
     print(f"[boundary] phase 9 took {t9:.1f} s (9a-9c) + {t9d:.1f} s (9d)")
+    t10 = time.perf_counter()
+    text = ekman_smr91_case(EKMAN_SHAPE, SMR91_STEPS)
+    for rec, err in zip(records, check_case_kernels(text, nu_zero=True)):
+        rec["max_abs_err_10a"] = err
+    for rec, n in zip(records, phase_smr91_ekman(smi)):
+        rec["launches_10a"] = n
+    for rec, n in zip(records, phase_smr91_shear(smi, initial)):
+        rec["launches_10b"] = n
+    keep.cleanup()
+    phase_smr91_fp64()
+    t10 = time.perf_counter() - t10
+    t11 = time.perf_counter()
+    for tag, shape, expect in (("11a", LONG_X_SHAPE, [0, 25, 25]),
+                               ("11b", LONG_Y_SHAPE, [25, 0, 25])):
+        errs = check_case_kernels(long_line_case(shape))
+        require([e is not None for e in errs] == [n > 0 for n in expect],
+                f"{tag}: kernels checked {errs}, launches expected {expect}")
+        for rec, err in zip(records, errs):
+            if err is not None:
+                rec[f"max_abs_err_{tag}"] = err
+        for rec, n in zip(records, phase_long_line(tag, smi, shape, expect)):
+            rec[f"launches_{tag}"] = n
+    phase_crossover(smi)
+    t11 = time.perf_counter() - t11
+    t12 = time.perf_counter()
+    for tag, got in zip(("12a", "12b"), phase_compressible(smi)):
+        for rec, n in zip(records, got):
+            rec[f"launches_{tag}"] = n
+    phase_compressible_fp64()
+    t12 = time.perf_counter() - t12
+    print(f"[slice] phase 10 took {t10:.1f} s, 11 {t11:.1f} s, 12 "
+          f"{t12:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

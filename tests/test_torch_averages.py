@@ -174,13 +174,18 @@ def test_unported_statistics_raise(tables, call):
         if call == "no_pressure":
             tavg.flow_statistics(tsim.P, st, tsim.nsp.visc)
         elif call == "extras":
+            # the compressible tables run (tests/test_torch_compressible.py);
+            # a sound-speed profile given in place of <gamma p / rho> not
             tavg.flow_statistics(tsim.P, st, tsim.nsp.visc, p=pt,
-                                 extras={"eqns": "internal"})
+                                 extras={"eqns": "internal",
+                                         "c2": st.u[0, :, 0]})
         elif call == "extras_rho":
             tavg.scalar_statistics(tsim.P, st, 1e-3, 0, p=pt,
                                    extras={"scalar_sources": st.s})
         elif call == "rho":
-            tavg.scalar_statistics(tsim.P, st, 1e-3, 0, p=pt, rho=st.u)
+            # a density field runs the Favre table; its gravity term not
+            tavg.scalar_statistics(tsim.P, st, 1e-3, 0, p=pt, rho=st.u,
+                                   extras={"grav_y": -1.0})
         else:
             tavg.avg_writer(load_case(Ini(
                 text="[Main]\nFileFormat=netcdf\n")))

@@ -102,20 +102,28 @@ def test_unported_command_exits_with_its_item(command, item):
         cli.main([command])
 
 
-@pytest.mark.parametrize("old, new, item", [
-    ("TimeOrder=RungeKuttaExplicit4", "TimeOrder=RungeKuttaDiffusion3",
-     "A11"),
-    ("[BufferZone]\nType=none", "[SavePlanes]\nPlanesJ=3", "A15"),
-    ("Equations=incompressible", "Equations=internal", "A13")])
-def test_unported_option_exits_with_its_item(rundir, tmp_path, old, new,
-                                             item):
+COMPRESSIBLE = ("Equations=incompressible", "Equations=internal")
+
+
+@pytest.mark.parametrize("edits, item", [
+    # the compressible set's characteristic boundaries and its moist
+    # mixture (the semi-implicit diffusion and the ideal gas run now)
+    ((COMPRESSIBLE, ("VelocityJmin=freeslip", "VelocityJmin=outflow")),
+     "A13b"),
+    ((("[BufferZone]\nType=none", "[SavePlanes]\nPlanesJ=3"),), "A15"),
+    ((COMPRESSIBLE, ("[BufferZone]\nType=none",
+                     "[BufferZone]\nType=none\n[Thermodynamics]\n"
+                     "Mixture=AirWater")), "A13b")])
+def test_unported_option_exits_with_its_item(rundir, tmp_path, edits, item):
     for name in ("flow.0.1", "flow.0.2", "flow.0.3", "scal.0.1"):
         shutil.copy(rundir / name, tmp_path / name)
     ini = tmp_path / "tlab.ini"
     with open(CASE3D) as fh:
         text = fh.read()
-    assert old in text
-    ini.write_text(text.replace(old, new))
+    for old, new in edits:
+        assert old in text
+        text = text.replace(old, new)
+    ini.write_text(text)
     common = ["--ini", str(ini), "--outdir", str(tmp_path), "--device",
               "cpu", "--x64", "--steps", "1"]
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):

@@ -196,3 +196,34 @@ def test_surface_step_and_sponge_on_the_card_match_the_cpu():
                             *state_to_numpy(blended)]
     for a, b in zip(out[str(dev)], out["cpu"]):
         assert np.max(np.abs(a - b)) <= 1e-13 * np.max(np.abs(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, periodic", [(2304, False), (2304, True),
+                                         (4096, True)])
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-10),
+                                        (torch.float32, 1e-5)])
+def test_banded_der1_on_the_card_matches_the_dense_product(n, periodic,
+                                                           dtype, tol):
+    """The long lines' substructured first derivative (ops/thomas.py) on
+    the card against the dense D1 product on the same lines: an exact block
+    LU of the same operator, so fp64 agrees to round-off and fp32 to its
+    own round-off."""
+    from tlab_tpu_torch import grid as tgrid
+    from tlab_tpu_torch.constants import BC
+    from tlab_tpu_torch.fdm.plan import build_deriv_plan
+    from tlab_tpu_torch.ops import thomas
+    from tlab_tpu_torch.ops.derivative import der1
+    dev = _card()
+    nodes = np.arange(n) * (2 * np.pi / n) if periodic \
+        else np.linspace(0.0, 1.0, n) ** 1.2
+    plan = build_deriv_plan(tgrid.make_axis(nodes, periodic))
+    nt = np.float64 if dtype == torch.float64 else np.float32
+    bp = thomas.device_plan(thomas.banded_plan(plan.A1, plan.B1, nt,
+                                               periodic=periodic), dtype, dev)
+    d1 = torch.from_numpy(plan.d1[BC.DD]).to(dev, dtype)
+    u = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (4, 8, n))).to(dev, dtype)
+    got = thomas.banded_der1(bp, u, 2)
+    ref = der1(d1, u, 2)
+    assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol

@@ -165,26 +165,32 @@ def test_golden_slice():
         assert abs(got[k] - ref) / scale < 1e-9, (k, got[k], ref)
 
 
-def _with_key(section, key, value):
-    """The golden case's text with [section] key=value set."""
-    if f"[{section}]\n" not in INI:
-        return INI + f"[{section}]\n{key}={value}\n"
-    head, body = INI.split(f"[{section}]\n", 1)
+def _with_key(section, key, value, text=INI):
+    """The golden case's text (or `text`) with [section] key=value set."""
+    if f"[{section}]\n" not in text:
+        return text + f"[{section}]\n{key}={value}\n"
+    head, body = text.split(f"[{section}]\n", 1)
     body, sep, rest = body.partition("[")
     body = re.sub(rf"^{key}=[^\n]*\n", "", body, flags=re.M)
     return f"{head}[{section}]\n{key}={value}\n{body}{sep}{rest}"
 
 
-@pytest.mark.parametrize("section, key, value, item", [
-    ("Main", "TimeOrder", "RungeKuttaDiffusion3", "A11"),
-    ("Main", "Equations", "internal", "A13"),
+@pytest.mark.parametrize("edits, item", [
+    # the compressible set's characteristic boundaries and its moist
+    # mixture (the semi-implicit diffusion and the ideal gas run now:
+    # tests/test_torch_implicit.py, tests/test_torch_compressible.py)
+    ((("Main", "Equations", "internal"),
+      ("BoundaryConditions", "VelocityJmin", "outflow")), "A13b"),
+    ((("Main", "Equations", "internal"),
+      ("Thermodynamics", "Mixture", "AirWater")), "A13b"),
 ])
-def test_from_case_rejects_options_off_the_path(section, key, value, item):
+def test_from_case_rejects_options_off_the_path(edits, item):
+    text = INI
+    for section, key, value in edits:
+        text = _with_key(section, key, value, text)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Simulation.from_case(
-            tconfig.load_case(tconfig.Ini(text=_with_key(section, key,
-                                                         value))),
-            dtype=F64, device="cpu")
+        Simulation.from_case(tconfig.load_case(tconfig.Ini(text=text)),
+                             dtype=F64, device="cpu")
 
 
 @pytest.mark.parametrize("section, key, value, plan_key", [
@@ -230,13 +236,41 @@ def test_from_case_runs_options_once_refused(section, key, value, plan_key):
 
 
 @pytest.mark.parametrize("key, value", [
-    ("comm", {}), ("d1x_banded", {}),
+    ("comm", {}),
 ])
 def test_step_rejects_plans_off_the_path(key, value):
     _, PT, (u, v, w, s) = _setup()
     PT[key] = value
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         tdyn.rk_step(PT, state_from_numpy(u, v, w, s, "cpu", F64), 1e-3)
+
+
+def test_step_with_banded_x_plans_matches_jax():
+    """The plan key this file once pinned as refused ("d1x_banded"): _setup's
+    periodic uniform x with the substructured d1 and d2 of both packages
+    (ops/thomas.py, tlab_tpu's ops/pallas_thomas.py) steps as tlab_tpu's,
+    and the banded pair stands in for the dense [D1;D2] of the x Burgers
+    term."""
+    from tlab_tpu.ops import pallas_thomas as jthomas
+    from tlab_tpu_torch.ops import thomas
+    PJ, PT, (u, v, w, s) = _setup()
+    plan = build_fdm_plan(uniform_grid(32, 33, 16, 2.0 * np.pi, 1.0,
+                                       np.pi)).x
+    for key, (A, B) in (("d1x_banded", (plan.A1, plan.B1)),
+                        ("d2x_banded", (plan.A2, plan.B2))):
+        PJ[key] = jthomas.banded_plan(A, B, jnp.float64, periodic=True)
+        PT[key] = thomas.device_plan(thomas.banded_plan(
+            A, B, np.float64, periodic=True), F64, "cpu")
+    sj, _ = jdyn.rk_step(PJ, jdyn.State(u=jnp.asarray(u), v=jnp.asarray(v),
+                                        w=jnp.asarray(w), s=jnp.asarray(s)),
+                         1e-3)
+    st, _ = tdyn.rk_step(PT, state_from_numpy(u, v, w, s, "cpu", F64), 1e-3)
+    for a, b in zip(st[:4], sj[:4]):
+        assert _rel(a, b) <= 1e-10
+    Q = torch.from_numpy(np.stack([u, v, w]))
+    d1, d2 = tdyn._d12_apply(PT, "x", 0, Q)
+    dense1, dense2 = tdyn.der12(PT["d12x"], Q, 1)
+    assert _rel(d1, dense1) <= 1e-10 and _rel(d2, dense2) <= 1e-10
 
 
 def _boundary_entries(key, PJ):

@@ -1,5 +1,9 @@
 """The port's factorized Poisson solver against tlab_tpu's, float64 on the
-CPU, plus the divergence-removal property of tests/test_factorize.py."""
+CPU, plus the divergence-removal property of tests/test_factorize.py and
+the refusal of a float32 plan past its conditioning."""
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -140,3 +144,66 @@ def test_sing_column_dd_matches_jax():
     assert _rel(ut, uj) <= 1e-11 and _rel(vt, vj) <= 1e-11
     with pytest.raises(ValueError, match="ibc"):
         tfac.solve_modal_factorize(dev_t, None, None, None, ibc="dn")
+
+
+def _shear_text(ny, changes=(), n=8):
+    """examples/shear3d/tlab.ini (its stretched y) at n x ny x n, with
+    `changes` {(section, key): value} (a key it lacks is added)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "examples", "shear3d", "tlab.ini")) as fh:
+        text = fh.read()
+    keys = {("Grid", "Imax"): n, ("Grid", "Jmax"): ny, ("Grid", "Kmax"): n,
+            ("IniGridOx", "points_1"): n + 1, ("IniGridOy", "points_1"): ny,
+            ("IniGridOz", "points_1"): n + 1, **dict(changes)}
+    for (sec, key), v in keys.items():
+        pat = re.compile(rf"(\[{sec}\][^\[]*?^{key}=)[^\n]*", re.M | re.S)
+        text, found = pat.subn(rf"\g<1>{v}", text)
+        if not found:
+            text = text.replace(f"[{sec}]\n", f"[{sec}]\n{key}={v}\n", 1)
+    return text
+
+
+def _fp32_noise_error(ny):
+    """max|p32 - p64| / max|p64| of the factorized solve of a white-noise
+    forcing on the shear layer's y at 16 x ny x 16."""
+    from tlab_tpu_torch.config import Ini, load_case
+    from tlab_tpu_torch.runtime import grid_from_case
+    grid = grid_from_case(load_case(Ini(text=_shear_text(ny, n=16))))
+    plan = tfac.build_factorize_plan(tbuild_fdm_plan(grid))
+    f = np.random.default_rng(0).standard_normal((16, ny, 16))
+    p = [tfac.poisson_factorize(tfac.device_factorize_plan(plan, dt, "cpu"),
+                                torch.tensor(f, dtype=dt))[0].double()
+         for dt in (torch.float32, torch.float64)]
+    return _rel(p[0], p[1]), max(plan.emin["cond"], plan.emax["cond"])
+
+
+def test_float32_factorized_plan_past_its_conditioning_is_refused(
+        monkeypatch):
+    """The shear layer's y at 512 points gives the factorized plan
+    eigenbases of cond(V) ~2e7, past FP32_COND_MAX: Simulation.from_case
+    refuses it in float32 and names the way out (float64, or the direct
+    eigen solve), builds it in float64, and builds the direct eigen solve in
+    float32.  The refusal's premise: a white-noise forcing's float32 solve
+    is off by a tenth of its max and more there, by a few hundredths at 256
+    points (the main case's y, cond(V) ~2e6)."""
+    from tlab_tpu_torch.config import Ini, load_case
+    from tlab_tpu_torch.runtime import Simulation
+    text = _shear_text(512)
+    with pytest.raises(ValueError, match="compactdirect6") as err:
+        Simulation.from_case(load_case(Ini(text=text)), dtype=torch.float32,
+                             device="cpu")
+    assert "--x64" in str(err.value) and "ny = 512" in str(err.value)
+    assert "ell_fac" in Simulation.from_case(
+        load_case(Ini(text=text)), dtype=torch.float64, device="cpu").P
+    direct = Simulation.from_case(load_case(Ini(text=_shear_text(
+        512, {("Main", "EllipticOrder"): "compactdirect6"}))),
+        dtype=torch.float32, device="cpu")
+    assert "ell_fac" not in direct.P
+    assert "ell_fac" in Simulation.from_case(
+        load_case(Ini(text=_shear_text(256))), dtype=torch.float32,
+        device="cpu").P
+    monkeypatch.setattr(tfac, "FP32_COND_MAX", np.inf)
+    err256, cond256 = _fp32_noise_error(256)
+    err512, cond512 = _fp32_noise_error(512)
+    assert cond256 < 2.0 ** 24 < cond512
+    assert err256 < 0.05 and err512 > 0.1

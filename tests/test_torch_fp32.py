@@ -279,3 +279,61 @@ def test_cloudtop_steps_in_float32_drift_as_tlab_tpus(name):
     # the fluctuations measured)
     assert max(_drift(out["port64"], out["jax64"])) <= 1e-6
     assert port[0] <= FACTOR * jax[0] and port[1] <= FACTOR * jax[1]
+
+
+# 4. the compressible shear layer stepped in float32: tests/data/
+# case02_small3d.ini at its own 128x64x16 (Equations=internal,
+# skew-symmetric), 5 RK4 steps of the start's adaptive dt from tlab_tpu's
+# initial state, float32 against float64 in each package.  The port's
+# figure may be no worse than 2x tlab_tpu's: the witness of chip_smoke.py's
+# 12c limit, which holds the card's float32 run to 2x the figure printed
+COMP_TEXT = (REPO / "tests" / "data" / "case02_small3d.ini").read_text()
+COMP_DT, COMP_STEPS = 2.2e-3, 5
+
+
+def _comp_drift(a, b):
+    """max over the conservative fields of max|a - b| / max|b|."""
+    return max(float(np.abs(x - y).max() / np.abs(y).max())
+               for x, y in zip(a, b))
+
+
+def test_compressible_steps_in_float32_drift_as_tlab_tpus():
+    import jax
+    from tlab_tpu.dycore import compressible as jcomp
+    from tlab_tpu.tools.initialize import compressible_initial_state
+    from tlab_tpu_torch.dycore import compressible as tcomp
+    jcase, tcase = jload_case(JIni(text=COMP_TEXT)), \
+        load_case(Ini(text=COMP_TEXT))
+    jsim64 = JSimulation.from_case(jcase)
+    start = [np.asarray(a, np.float64)
+             for a in compressible_initial_state(jsim64, seed=0)]
+    out = {}
+    for bits, jdtype in ((32, jnp.float32), (64, jnp.float64)):
+        jsim = JSimulation.from_case(jcase, dtype=jdtype) if bits == 32 \
+            else jsim64
+        c = jsim.comp
+        step = jax.jit(lambda U, P=jsim.P, c=c: jcomp.rk_step_compressible(
+            P, U, COMP_DT, c["gamma"], c["mach"], jsim.nsp.visc,
+            c["prandtl"], form=c["form"], energy=c["energy"],
+            gvec=c["gvec"]))
+        U = jcomp.CompState(*(jnp.asarray(a, jdtype) for a in start))
+        for _ in range(COMP_STEPS):
+            U = step(U)
+        assert all(a.dtype == jdtype for a in U)
+        out[f"jax{bits}"] = [np.asarray(a, np.float64) for a in U]
+        dtype = {32: torch.float32, 64: torch.float64}[bits]
+        sim = Simulation.from_case(tcase, dtype=dtype, device="cpu")
+        c = sim.comp
+        U = tcomp.CompState(*(torch.tensor(a, dtype=dtype) for a in start))
+        for _ in range(COMP_STEPS):
+            U = tcomp.rk_step_compressible(
+                sim.P, U, COMP_DT, c["gamma"], c["mach"], sim.nsp.visc,
+                c["prandtl"], form=c["form"], energy=c["energy"],
+                gvec=c["gvec"])
+        out[f"port{bits}"] = [a.double().numpy() for a in U]
+    port = _comp_drift(out["port32"], out["port64"])
+    jax_ = _comp_drift(out["jax32"], out["jax64"])
+    print(f"\ncase02 float32 drift over {COMP_STEPS} steps (max over the "
+          f"conservative fields): port {port:.3e}; tlab_tpu {jax_:.3e}")
+    assert _comp_drift(out["port64"], out["jax64"]) <= 1e-10
+    assert port <= FACTOR * jax_

@@ -243,3 +243,64 @@ def test_boundary_machinery_runs_without_jax(tmp_path):
     names = sorted(p.name for p in out.iterdir())
     for want in ("avg_zt2", "st2.npz", "tlab.log"):
         assert want in names, names
+
+
+# this slice's paths where JAX and tlab_tpu cannot be imported: the
+# compressible case02 through the CLI (its initial state, two steps, the
+# Favre tables), and an SMR91 Simulation one semi-implicit step
+_SLICE_PROBE = """
+import os, sys
+for name in ("jax", "jaxlib", "tlab_tpu"):
+    sys.modules[name] = None
+import torch
+from tlab_tpu_torch.config import Ini, load_case
+from tlab_tpu_torch.convert import state_from_numpy
+from tlab_tpu_torch.dycore import implicit
+from tlab_tpu_torch.runtime import Simulation
+from tlab_tpu_torch.tools import cli
+from tlab_tpu_torch import entry
+common = ["--ini", sys.argv[1], "--outdir", sys.argv[3], "--device", "cpu",
+          "--x64"]
+assert cli.main(["ini", *common]) == 0
+assert cli.main(["dns", *common, "--steps", "2"]) == 0
+sim = Simulation.from_case(load_case(Ini(text=open(sys.argv[2]).read())),
+                           dtype=torch.float64, device="cpu")
+assert "ell_dd" in sim.P and sim.comp is None
+state = state_from_numpy(*entry.initial_fields(sim.grid, 0, 1),
+                         device="cpu", dtype=torch.float64)
+state, _ = implicit.rk_step_implicit(sim.P, state, 1e-3)
+assert bool(torch.isfinite(state.u).all())
+bad = [m for m in sys.modules if sys.modules[m] is not None
+       and m.split(".")[0] in ("jax", "jaxlib", "tlab_tpu")]
+assert not bad, bad
+print(*sorted(os.listdir(sys.argv[3])))
+"""
+
+
+def test_compressible_and_implicit_run_without_jax(tmp_path):
+    """tests/data/case02_small3d.ini (Equations=internal) through the CLI,
+    statistics at step 2, and the golden slice's case with
+    TimeOrder=RungeKuttaDiffusion3 one semi-implicit step, where neither
+    JAX nor tlab_tpu can be imported."""
+    sys.path.insert(0, str(REPO / "tests"))
+    try:
+        from test_golden import INI
+    finally:
+        sys.path.pop(0)
+    comp = tmp_path / "case02.ini"
+    text = (REPO / "tests" / "data" / "case02_small3d.ini").read_text()
+    for old, new in (("Statistics=5", "Statistics=2"), ("Imax=128", "Imax=32"),
+                     ("Jmax=64", "Jmax=32"), ("points_1=129", "points_1=33"),
+                     ("points_1=64", "points_1=32")):
+        text = text.replace(old, new)
+    comp.write_text(text)
+    smr = tmp_path / "smr91.ini"
+    smr.write_text(INI.replace("TimeOrder=RungeKuttaExplicit3",
+                               "TimeOrder=RungeKuttaDiffusion3"))
+    out = tmp_path / "run"
+    proc = _run(_SLICE_PROBE, str(comp), str(smr), str(out))
+    assert proc.returncode == 0, proc.stderr
+    names = proc.stdout.split("\n")[-2].split()
+    for want in ("flow.0.4", "flow.0.5", "flow.0.s1", "dns.out", "avg2",
+                 "avg2s1"):
+        assert want in names, names

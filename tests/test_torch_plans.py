@@ -381,3 +381,45 @@ def test_boundary_copies_give_the_same_numbers(kind):
           jbuf.tau_profile(gj.y.nodes, jbuf.BufferSpec(**spec)), "tau")
     _same(tbuf.tau_profile_x(gt.x.nodes, tbuf.BufferSpec(**spec)),
           jbuf.tau_profile_x(gj.x.nodes, jbuf.BufferSpec(**spec)), "tau_x")
+
+
+@pytest.mark.parametrize("kind", ["uniform", "stretched", "walls"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_long_line_plans_match(kind, dtype):
+    """ops/thomas.py's host plans (the partitioned and the banded one) are
+    tlab_tpu's ops/pallas_thomas.py's, array for array: the periodic x axes
+    of both grids (8-point segments: 128 divides neither length) and a
+    stretched 64-point line between walls."""
+    import jax.numpy as jnp
+    from tlab_tpu.ops import pallas_thomas as jthomas
+    from tlab_tpu_torch.ops import thomas
+    if kind == "walls":
+        nodes = np.linspace(0.0, 1.0, 64) ** 1.2
+        axes = (tgrid.make_axis(nodes, False), jgrid.make_axis(nodes, False))
+    else:
+        axes = tuple(g.x for g in _grids(kind))
+    pt, pj = (mod.build_deriv_plan(ax) for mod, ax in zip((tplan, jplan),
+                                                          axes))
+    periodic = kind != "walls"
+    jdt = jnp.float64 if dtype == np.float64 else jnp.float32
+    _same(thomas.banded_plan(pt.A1, pt.B1, dtype, periodic=periodic),
+          jthomas.banded_plan(pj.A1, pj.B1, jdt, periodic=periodic), "d1")
+    _same(thomas.partitioned_plan(pt.A2, 128, dtype, periodic),
+          jthomas.partitioned_plan(pj.A2, 128, jdt, periodic), "A2")
+
+
+def test_eos_copy_matches():
+    """physics/eos.py is tlab_tpu's: the gas parameters field for field
+    and the rational laws on floats to the bit (tests/test_torch_
+    compressible.py holds the transport laws on tensors)."""
+    from tlab_tpu.physics import eos as jeos
+    from tlab_tpu_torch.physics import eos as teos
+    gt = teos.GasParams(gamma=1.3, mach=0.4, transport="powerlaw")
+    gj = jeos.GasParams(gamma=1.3, mach=0.4, transport="powerlaw")
+    _same(gt, gj, "gas")
+    _same(teos.GasParams(), jeos.GasParams(), "default gas")
+    for name in ("temperature_from_e", "energy_from_t", "sound_speed2"):
+        assert getattr(teos, name)(gt, 1.7) == getattr(jeos, name)(gj, 1.7)
+    for name in ("pressure", "density", "temperature_from_rho_p"):
+        assert getattr(teos, name)(gt, 0.9, 1.7) == \
+            getattr(jeos, name)(gj, 0.9, 1.7)

@@ -18,6 +18,7 @@ from tlab_tpu_torch.dycore.incompressible import (OFF_PATH, check_main_path,
                                                   scalar_bounds)
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.ops import elliptic_factorize as fac
+from tlab_tpu_torch.ops import thomas
 
 _MATRIX = re.compile(r"^(d1|d12|iod)[xyz]$")
 _ELLIPTIC = ("ell", "ell_dd", "ell_stag")       # direct eigen Poisson plans
@@ -96,7 +97,11 @@ def plans_from_jax(P_np: dict, device, dtype, bodyforce=None) -> dict:
             P[key] = bodyforce if val is not None else None
         elif key in _UNUSED:
             continue
-        elif key in OFF_PATH or key.endswith("_banded"):
+        elif key.endswith("_banded"):
+            P[key] = thomas.device_plan(val, dtype, dev)
+        elif key == "y_periodic":
+            P[key] = bool(val)
+        elif key in OFF_PATH:
             if val is not None:     # check_main_path rejects it
                 P[key] = val
         else:

@@ -1,0 +1,498 @@
+"""Compressible dynamical core, ideal gas (port of the single-species parts
+of tlab_tpu/dycore/compressible.py; reference rhs_flow_euler_*,
+rhs_flow_viscous_*, time.f90 TIME_SUBSTEP_COMPRESSIBLE).
+
+Conservative formulation U = (rho, rho u, rho v, rho w, rho E) advanced with
+the same low-storage RK schemes; every spatial term is a compact-FD product:
+the Euler fluxes in divergence or skew-symmetric form through the first
+derivative (the substructured solve of ops/thomas.py on a long line, else
+the dense D1), the viscous and conduction terms through the dense [D1;D2]
+operator, as tlab_tpu's einsums.  No Poisson solve: the acoustics are
+integrated (acoustic CFL), and y may be periodic.
+
+Nondimensionalization: velocities by U0, temperature by T0, density by rho0;
+ideal gas
+    p = rho T / (gamma M^2),    e = T / (gamma (gamma-1) M^2)
+with gamma = cp/cv and M the Mach number.  Viscous stress with constant
+viscosity mu = 1/Re (or a transport law mu(T), physics/eos.py), Stokes
+hypothesis; heat conduction with Prandtl.  `energy` selects what the fifth
+field holds: rho(e + |u|^2/2) ('total', reference DNS_EQNS_TOTAL) or rho e
+('internal', DNS_EQNS_INTERNAL).
+
+Boundary conditions: periodic x/z; y walls free-slip adiabatic (v=0,
+d(tangential)/dy=0, dT/dy=0) imposed on the tendencies, or a periodic y.
+The characteristic (NSCBC) boundaries, the multi-species mixtures, the moist
+AirWater set and the compressible buffer are ROADMAP A13b: asking for them
+raises NotImplementedError.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from tlab_tpu_torch.dycore import incompressible as dyn
+from tlab_tpu_torch.dycore.state import State
+from tlab_tpu_torch.physics import eos
+
+A13B = "ROADMAP A13b"
+
+
+class CompState(NamedTuple):
+    rho: torch.Tensor
+    rhou: torch.Tensor
+    rhov: torch.Tensor
+    rhow: torch.Tensor
+    rhoE: torch.Tensor       # total energy rho (e + |u|^2/2), or rho e
+    rhos: Optional[torch.Tensor] = None   # scalars (ns, nx, ny, nz) as rho*s
+
+
+def _refuse(**parts) -> None:
+    """Raise for a part of tlab_tpu's compressible step that is A13b."""
+    for name, val in parts.items():
+        if val is not None:
+            raise NotImplementedError(
+                f"compressible {name}: {A13B} (NSCBC, mixtures, AirWater, "
+                "the compressible buffer)")
+
+
+def primitive(P, U: CompState, gamma: float, mach: float, mix=None):
+    _refuse(mixture=mix)
+    rho = U.rho
+    u = U.rhou / rho
+    v = U.rhov / rho
+    w = U.rhow / rho
+    ke = 0.5 * (u * u + v * v + w * w)
+    e = U.rhoE / rho - ke
+    T = e * gamma * (gamma - 1.0) * mach ** 2
+    p = rho * T / (gamma * mach ** 2)
+    return u, v, w, T, p
+
+
+def mass_fractions(U: CompState):
+    """(nsp, ...) species mass fractions from the transported rho*Y_i
+    scalars, appending the balance species Y_n = 1 - sum (the reference
+    carries nsp-1 scalars and derives the last, thermodynamics.f90
+    inb_scal vs NSP)."""
+    Y = U.rhos / U.rho[None]
+    return torch.cat([Y, (1.0 - torch.sum(Y, dim=0))[None]], dim=0)
+
+
+def primitive_view(U: CompState) -> State:
+    """Primitive velocities/scalars of a conservative state as a dycore
+    State -- the shared shape for the statistics."""
+    rho = U.rho
+    ns = U.rhos.shape[0] if U.rhos is not None else 0
+    s = (U.rhos / rho[None]) if ns else rho.new_zeros((0,) + rho.shape)
+    return State(u=U.rhou / rho, v=U.rhov / rho, w=U.rhow / rho, s=s)
+
+
+def _div(P, fx, fy, fz):
+    return dyn._d1(P, "x", 0, fx) + dyn._d1(P, "y", 1, fy) \
+        + dyn._d1(P, "z", 2, fz)
+
+
+def _grad(P, a):
+    return (dyn._d1(P, "x", 0, a), dyn._d1(P, "y", 1, a),
+            dyn._d1(P, "z", 2, a))
+
+
+def _d12_stack(P, axis_name: str, axis: int, stack):
+    """(d1, d2) of (F, nx, ny, nz) stacked fields along one direction via
+    the dense [D1;D2] product (the same compact-D2-with-Jacobian operator
+    Burgers uses) -- replaces D1(D1(.)) for viscous/conduction terms,
+    which loses the odd-even (grid-scale) modes (reference uses OPR_P2,
+    fdm_derivative.f90:413).  A periodic long line takes its substructured
+    plans, as the incompressible set's (dyn._d12_apply)."""
+    if P.get(f"d12{axis_name}") is None:
+        z = torch.zeros_like(stack)
+        return z, z
+    return dyn._d12_apply(P, axis_name, axis, stack)
+
+
+def _apply_visc_bc(P, dx2, dy2, dz2):
+    """[BoundaryConditions] ViscousI/J/K row zeroing.  In the current
+    reference this flag is a legacy NO-OP (dns_read_local.f90 writes column
+    2 of bcs_inf/bcs_out but opr_partial.f90:91 only reads column 1, and
+    FDM_Der2_Solve takes no bc flag), so the runtime never populates
+    P['visc_bc'] and this returns unchanged; kept, as tlab_tpu keeps it, for
+    the older reference's semantics behind an explicit plan entry."""
+    vb = P.get("visc_bc")
+    if not vb:
+        return dx2, dy2, dz2
+    out = []
+    for axn, d2, axis, normal in (("x", dx2, 1, 0), ("y", dy2, 2, 1),
+                                  ("z", dz2, 3, 2)):
+        kind = vb.get(axn)
+        if kind is None:
+            out.append(d2)
+            continue
+        tang = [i for i in range(d2.shape[0]) if i != normal]
+        d2 = d2.clone()
+        if kind == "outflow":
+            d2.narrow(axis, 0, 1)[tang] = 0.0
+            d2.narrow(axis, d2.shape[axis] - 1, 1)[tang] = 0.0
+        else:   # inflow
+            d2.narrow(axis, d2.shape[axis] - 1, 1)[tang] = 0.0
+            d2.narrow(axis, 0, 1)[normal] = 0.0
+        out.append(d2)
+    return tuple(out)
+
+
+def _visc_terms(P, u, v, w, T, mu, cond, variable_mu: bool):
+    """(divtau_x, divtau_y, divtau_z, conduction, grads, Phi, stresses).
+
+    Constant mu: div(tau)_i = mu [lap(u_i) + 1/3 d_i(div u)] and
+    conduction = cond lap(T), all second derivatives from the compact D2
+    (reference RHS_FLOW_VISCOUS_EXPLICIT / RHS_FLOW_CONDUCTION).
+    Variable mu(T): stress divergence in conservative form (first
+    derivatives of the stress, reference RHS_FLOW_VISCOUS_DIVERGENCE).
+    Returns the velocity gradient tensor and dissipation Phi for the
+    energy equations."""
+    stack = torch.stack([u, v, w, T])
+    dx1, dx2 = _d12_stack(P, "x", 0, stack)
+    dy1, dy2 = _d12_stack(P, "y", 1, stack)
+    dz1, dz2 = _d12_stack(P, "z", 2, stack)
+    dx2, dy2, dz2 = _apply_visc_bc(P, dx2, dy2, dz2)
+    ux, vx, wx, Tx = dx1
+    uy, vy, wy, Ty = dy1
+    uz, vz, wz, Tz = dz1
+    divu = ux + vy + wz
+    lam = -2.0 / 3.0
+    txx = mu * (2.0 * ux + lam * divu)
+    tyy = mu * (2.0 * vy + lam * divu)
+    tzz = mu * (2.0 * wz + lam * divu)
+    txy = mu * (uy + vx)
+    txz = mu * (uz + wx)
+    tyz = mu * (vz + wy)
+    phi = (txx * ux + tyy * vy + tzz * wz
+           + txy * (uy + vx) + txz * (uz + wx) + tyz * (vz + wy))
+    grads = (ux, uy, uz, vx, vy, vz, wx, wy, wz, Tx, Ty, Tz, divu)
+    if variable_mu:
+        dtx = _div(P, txx, txy, txz)
+        dty = _div(P, txy, tyy, tyz)
+        dtz = _div(P, txz, tyz, tzz)
+        qx = cond * Tx
+        qy = cond * Ty
+        qz = cond * Tz
+        conduction = _div(P, qx, qy, qz)
+    else:
+        lap_u = dx2[0] + dy2[0] + dz2[0]
+        lap_v = dx2[1] + dy2[1] + dz2[1]
+        lap_w = dx2[2] + dy2[2] + dz2[2]
+        lap_T = dx2[3] + dy2[3] + dz2[3]
+        gdx, gdy, gdz = _grad(P, divu)
+        third = 1.0 / 3.0
+        dtx = mu * (lap_u + third * gdx)
+        dty = mu * (lap_v + third * gdy)
+        dtz = mu * (lap_w + third * gdz)
+        conduction = cond * lap_T
+    stresses = (txx, tyy, tzz, txy, txz, tyz)
+    return dtx, dty, dtz, conduction, grads, phi, stresses
+
+
+def _mu(gas, visc: float, T):
+    """(mu, variable): the viscosity, a field under a transport law."""
+    variable_mu = gas is not None and gas.transport != "none"
+    return (visc * eos.viscosity(gas, T) if variable_mu else visc), \
+        variable_mu
+
+
+def rhs_compressible(P, U: CompState, gamma: float, mach: float,
+                     visc: float, prandtl: float, gas=None,
+                     form: str = "divergence", mix=None):
+    """Tendency of the conservative state (total energy).
+
+    form: 'divergence' (reference RHS_FLOW_EULER_DIVERGENCE) or
+    'skewsymmetric' (RHS_FLOW_EULER_SKEWSYMMETRIC: the advective terms are
+    the average of divergence and convective forms, which conserves
+    discrete kinetic energy in the inviscid limit).
+    gas: optional physics.eos.GasParams enabling a variable transport law
+    mu(T) (reference THERMO_VISCOSITY powerlaw/sutherland); the stress and
+    conduction coefficients then vary pointwise with temperature.
+    """
+    rho = U.rho
+    u, v, w, T, p = primitive(P, U, gamma, mach, mix=mix)
+
+    h_rho = -_div(P, U.rhou, U.rhov, U.rhow)
+    if form == "skewsymmetric":
+        # 0.5 [ div(rho u phi) + rho u . grad phi + phi div(rho u) ]
+        px_, py_, pz_ = _grad(P, p)
+
+        def skew(phi, rphi):
+            dv = _div(P, rphi * u, rphi * v, rphi * w)
+            gx, gy, gz = _grad(P, phi)
+            conv = U.rhou * gx + U.rhov * gy + U.rhow * gz
+            return -0.5 * (dv + conv - phi * h_rho)
+        h_ru = skew(u, rho * u) - px_
+        h_rv = skew(v, rho * v) - py_
+        h_rw = skew(w, rho * w) - pz_
+        E_sp = U.rhoE / rho
+        h_rE = skew(E_sp, U.rhoE) - _div(P, p * u, p * v, p * w)
+    else:
+        # Euler fluxes, divergence form
+        h_ru = -_div(P, U.rhou * u + p, U.rhou * v, U.rhou * w)
+        h_rv = -_div(P, U.rhov * u, U.rhov * v + p, U.rhov * w)
+        h_rw = -_div(P, U.rhow * u, U.rhow * v, U.rhow * w + p)
+        h_rE = -_div(P, (U.rhoE + p) * u, (U.rhoE + p) * v,
+                     (U.rhoE + p) * w)
+
+    # viscous stress + conduction via compact D2 for constant mu
+    # (reference RHS_FLOW_VISCOUS_EXPLICIT + RHS_FLOW_CONDUCTION);
+    # variable mu(T) falls back to the stress-divergence form
+    mu, variable_mu = _mu(gas, visc, T)
+    cond = _conduction_coef(U, T, mu, prandtl, gamma, mach, mix)
+    dtx, dty, dtz, conduction, grads, phi, _ = _visc_terms(
+        P, u, v, w, T, mu, cond, variable_mu)
+
+    h_ru = h_ru + dtx
+    h_rv = h_rv + dty
+    h_rw = h_rw + dtz
+
+    # viscous work div(u . tau) = u . div(tau) + Phi (avoids another
+    # round of first derivatives of products), + conduction
+    h_rE = h_rE + u * dtx + v * dty + w * dtz + phi + conduction
+
+    h_rs = _rhs_scalars(P, U, u, v, w, visc) if U.rhos is not None else None
+    return CompState(h_rho, h_ru, h_rv, h_rw, h_rE, h_rs)
+
+
+def _conduction_coef(U: CompState, T, mu, prandtl: float, gamma: float,
+                     mach: float, mix):
+    """Heat-conduction coefficient k/(Re Pr): mu cp_nd/(Pr (g0-1) M^2) with
+    cp_nd = 1 for the single-species gas (the reference's k = cp mu/Pr
+    weighting)."""
+    _refuse(mixture=mix)
+    return mu / (prandtl * (gamma - 1.0) * mach ** 2)
+
+
+def primitive_internal(P, U: CompState, gamma: float, mach: float,
+                       mix=None):
+    """Primitive recovery when rhoE carries INTERNAL energy rho e
+    (reference DNS_EQNS_INTERNAL formulation)."""
+    _refuse(mixture=mix)
+    rho = U.rho
+    u = U.rhou / rho
+    v = U.rhov / rho
+    w = U.rhow / rho
+    e = U.rhoE / rho
+    T = e * gamma * (gamma - 1.0) * mach ** 2
+    p = rho * T / (gamma * mach ** 2)
+    return u, v, w, T, p
+
+
+def rhs_compressible_internal(P, U: CompState, gamma: float, mach: float,
+                              visc: float, prandtl: float, gas=None,
+                              mix=None):
+    """Internal-energy formulation (reference rhs_flow_global_2.f90 /
+    DNS_EQNS_INTERNAL): d(rho e)/dt = -div(rho e u) - p div u + Phi +
+    div(k grad T), with Phi = tau : grad u the viscous dissipation."""
+    u, v, w, T, p = primitive_internal(P, U, gamma, mach, mix=mix)
+
+    h_rho = -_div(P, U.rhou, U.rhov, U.rhow)
+    h_ru = -_div(P, U.rhou * u + p, U.rhou * v, U.rhou * w)
+    h_rv = -_div(P, U.rhov * u, U.rhov * v + p, U.rhov * w)
+    h_rw = -_div(P, U.rhow * u, U.rhow * v, U.rhow * w + p)
+
+    mu, variable_mu = _mu(gas, visc, T)
+    cond = _conduction_coef(U, T, mu, prandtl, gamma, mach, mix)
+    dtx, dty, dtz, conduction, grads, phi, _ = _visc_terms(
+        P, u, v, w, T, mu, cond, variable_mu)
+    divu = grads[-1]
+    h_ru = h_ru + dtx
+    h_rv = h_rv + dty
+    h_rw = h_rw + dtz
+
+    h_re = (-_div(P, U.rhoE * u, U.rhoE * v, U.rhoE * w)
+            - p * divu + phi + conduction)
+    h_rs = _rhs_scalars(P, U, u, v, w, visc) if U.rhos is not None else None
+    return CompState(h_rho, h_ru, h_rv, h_rw, h_re, h_rs)
+
+
+def _rhs_scalars(P, U: CompState, u, v, w, visc: float):
+    """Compressible scalar transport d(rho s)/dt = -div(rho s u) +
+    div(rho D grad s) (reference rhs_scal_* divergence form). The
+    diffusion expands to D [rho lap(s) + grad rho . grad s] so the
+    Laplacian uses the compact D2 (no odd-even loss)."""
+    rhos = U.rhos
+    rho = U.rho
+    s = rhos / rho[None]
+    h = -(dyn._d1(P, "x", 1, rhos * u[None])
+          + dyn._d1(P, "y", 2, rhos * v[None])
+          + dyn._d1(P, "z", 3, rhos * w[None]))
+    diff = torch.tensor(P["diff"], dtype=rhos.dtype,
+                        device=rhos.device)[:, None, None, None]
+    sx1, sx2 = _d12_stack(P, "x", 0, s)
+    sy1, sy2 = _d12_stack(P, "y", 1, s)
+    sz1, sz2 = _d12_stack(P, "z", 2, s)
+    rx, ry, rz = _grad(P, rho)
+    lap_s = sx2 + sy2 + sz2
+    h = h + diff * (rho[None] * lap_s
+                    + rx[None] * sx1 + ry[None] * sy1 + rz[None] * sz1)
+    return h
+
+
+def diffusion_number_max(P, U: CompState, schmidt_factor: float):
+    """Compressible diffusion-number density: schmidtfactor *
+    max((1/dx^2 + 1/dy^2 + 1/dz^2)/rho) (TIME_COURANT, time.f90:493).
+    schmidt_factor = visc * max(1, 1/Pr, 1/min(Sc))."""
+    acc = 0.0
+    if "iodx" in P:
+        acc = acc + P["iodx"][:, None, None] ** 2
+    if "iody" in P:
+        acc = acc + P["iody"][None, :, None] ** 2
+    if "iodz" in P:
+        acc = acc + P["iodz"][None, None, :] ** 2
+    return schmidt_factor * torch.max(acc / U.rho)
+
+
+def _clip_scalars(P, U: CompState) -> CompState:
+    """Per-substep scalar bounds on the transported mass fractions
+    (DNS_BOUNDS_LIMIT, dns_local.f90:67-90, [Control] ScalLimit)."""
+    bounds = P.get("scal_bounds")
+    if bounds is None or U.rhos is None:
+        return U
+    lo, hi = bounds                     # (ns, 1, 1, 1) each
+    s = torch.clamp(U.rhos / U.rho[None], min=lo, max=hi)
+    return U._replace(rhos=s * U.rho[None])
+
+
+def _apply_wall_rows(h, rows):
+    """The j=0 / j=ny-1 rows of a tendency per its BC type: Dirichlet rows
+    0, Neumann rows the value with zero wall-normal derivative (the nt row
+    sees the updated j=0 row).  Returns a new tensor."""
+    h = h.clone()
+    nb = nt = None
+    if rows is not None:
+        nb, nt = rows["nb"], rows["nt"]
+    h[:, 0, :] = torch.matmul(nb, h) if nb is not None else 0.0
+    h[:, -1, :] = torch.matmul(nt, h) if nt is not None else 0.0
+    return h
+
+
+def _apply_wall_bcs(P, h: CompState) -> CompState:
+    """Free-slip adiabatic walls at jmin/jmax: zero normal-momentum tendency;
+    tangential/energy/density tendencies take their Neumann wall values."""
+    if P["sizes"][1] == 1 or P.get("y_periodic", False):
+        return h
+    rows = P["bc_rows"]
+    hv = h.rhov.clone()
+    hv[:, 0, :] = 0.0
+    hv[:, -1, :] = 0.0
+    hu = _apply_wall_rows(h.rhou, rows["u"])
+    hw = _apply_wall_rows(h.rhow, rows["w"])
+    nn = rows["u"]     # reuse the NN rows for scalars-like fields
+    hrho = _apply_wall_rows(h.rho, nn)
+    hE = _apply_wall_rows(h.rhoE, nn)
+    hs = h.rhos
+    if hs is not None:
+        srows = rows.get("s", ())
+        hs = torch.stack([
+            _apply_wall_rows(hs[i], srows[i] if i < len(srows) else nn)
+            for i in range(hs.shape[0])])
+    return CompState(hrho, hu, hv, hw, hE, hs)
+
+
+def _add_gravity(h: CompState, U: CompState, gvec, energy: str):
+    """Momentum + g_i rho; total energy adds the work rho g . u
+    (reference rhs_flow_euler_*: hq_i += g_i rho, hq4 +=
+    CRATIO_INV rho g.u -- the CRATIO_INV cancels in these code-units e)."""
+    if not any(gvec):
+        return h
+    rho = U.rho
+    h_ru = h.rhou + gvec[0] * rho
+    h_rv = h.rhov + gvec[1] * rho
+    h_rw = h.rhow + gvec[2] * rho
+    h_rE = h.rhoE
+    if energy == "total":
+        h_rE = h_rE + (gvec[0] * U.rhou + gvec[1] * U.rhov
+                       + gvec[2] * U.rhow)
+    return CompState(h.rho, h_ru, h_rv, h_rw, h_rE, h.rhos)
+
+
+def rk_step_compressible(P, U: CompState, dtime, gamma: float, mach: float,
+                         visc: float, prandtl: float, nscbc=None,
+                         ly: float = 1.0, gas=None, lx: float = 1.0,
+                         form: str = "divergence", energy: str = "total",
+                         mix=None, gvec=(0.0, 0.0, 0.0), buffer=None):
+    """One low-storage RK step of the conservative state (the scheme of
+    P["rk"]); returns the new state.  nscbc, mix and buffer are A13b."""
+    _refuse(nscbc=nscbc, mixture=mix, buffer=buffer)
+    dyn.check_main_path(P)
+    kdt = P["rk"]["kdt"]
+    kco = P["rk"]["kco"]
+    h = CompState(*(torch.zeros_like(x) if x is not None else None
+                    for x in U))
+    for i, k in enumerate(kdt):
+        dte = dtime * k
+        if energy == "internal":
+            dh = rhs_compressible_internal(P, U, gamma, mach, visc,
+                                           prandtl, gas=gas)
+        else:
+            dh = rhs_compressible(P, U, gamma, mach, visc, prandtl,
+                                  gas=gas, form=form)
+        dh = _add_gravity(dh, U, gvec, energy)
+        h = CompState(*(a + b if a is not None else None
+                        for a, b in zip(h, dh)))
+        h = _apply_wall_bcs(P, h)
+        U = CompState(*(q + dte * hq if q is not None else None
+                        for q, hq in zip(U, h)))
+        U = _clip_scalars(P, U)
+        if i < len(kdt) - 1:
+            a = kco[i]
+            h = CompState(*(a * x if x is not None else None for x in h))
+    return U
+
+
+def acoustic_cfl_max(P, U: CompState, gamma: float, mach: float, mix=None,
+                     energy: str = "total"):
+    """max((|u|+c)/dx + ...) with c the sound speed (reference TIME_COURANT
+    compressible branch).  `energy` must match the formulation the rhoE
+    slot is stored in, else c is ke-contaminated (the reference derives
+    p once per step from the matching conservative set, time.f90:429)."""
+    if energy == "internal":
+        u, v, w, T, p = primitive_internal(P, U, gamma, mach, mix=mix)
+    else:
+        u, v, w, T, p = primitive(P, U, gamma, mach, mix=mix)
+    c = torch.sqrt(torch.clamp(T, min=1e-12)) / mach
+    acc = 0.0
+    if "iodx" in P:
+        acc = acc + (torch.abs(u) + c) * P["iodx"][:, None, None]
+    if "iody" in P:
+        acc = acc + (torch.abs(v) + c) * P["iody"][None, :, None]
+    if "iodz" in P:
+        acc = acc + (torch.abs(w) + c) * P["iodz"][None, None, :]
+    return torch.max(acc)
+
+
+def from_primitive(rho, u, v, w, T, gamma: float, mach: float,
+                   s=None, mix=None, energy: str = "total") -> CompState:
+    """Conservative state from primitives.  `energy` selects the
+    formulation the 5th field is stored in: 'total' rho(e + ke) for
+    DNS_EQNS_TOTAL, 'internal' rho e for DNS_EQNS_INTERNAL (the
+    reference's conservative arrays differ the same way, dns_main)."""
+    _refuse(mixture=mix)
+    e = T / (gamma * (gamma - 1.0) * mach ** 2)
+    ke = 0.5 * (u * u + v * v + w * w) if energy == "total" else 0.0
+    return CompState(rho=rho, rhou=rho * u, rhov=rho * v, rhow=rho * w,
+                     rhoE=rho * (e + ke),
+                     rhos=rho[None] * s if s is not None else None)
+
+
+def mixture_thermal(*args, **kw):
+    """The multi-species caloric tables (THERMO_CALORIC_TEMPERATURE with a
+    mixture): ROADMAP A13b."""
+    raise NotImplementedError(f"compressible mixtures: {A13B}")
+
+
+def rk_step_airwater(*args, **kw):
+    """The compressible AirWater set (RHS_FLOW_GLOBAL_2): ROADMAP A13b."""
+    raise NotImplementedError(f"compressible AirWater: {A13B}")
+
+
+def rhs_airwater_internal(*args, **kw):
+    raise NotImplementedError(f"compressible AirWater: {A13B}")
+
+
+def acoustic_cfl_max_airwater(*args, **kw):
+    raise NotImplementedError(f"compressible AirWater: {A13B}")

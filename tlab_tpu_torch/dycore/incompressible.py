@@ -26,8 +26,14 @@ replaced by aux["refs_x"] where an unsteady inflow feeds them; the
 interactive surface BC (P["surface_bc"]) moves the wall scalars with the
 flux anomaly each substep and carries its state as State.sfc.
 
-A plan that asks for a path not ported yet (banded operators, a device
-mesh) raises NotImplementedError naming the ROADMAP item that will port it.
+Long lines (ops/thomas.py): a direction of 2304 points or more (the
+`banded_min_n` of build_device_plans) takes the substructured first
+derivative instead of the dense product, and a periodic uniform one also
+the substructured second derivative in its Burgers term, which then skips
+the kernel (as tlab_tpu's gate does).
+
+A plan that asks for a path not ported yet (a device mesh) raises
+NotImplementedError naming the ROADMAP item that will port it.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from tlab_tpu_torch.dycore.state import State, stack, unstack
 from tlab_tpu_torch.ops import burgers
 from tlab_tpu_torch.ops import elliptic
 from tlab_tpu_torch.ops import elliptic_factorize as fac
+from tlab_tpu_torch.ops import thomas
 from tlab_tpu_torch.ops.derivative import apply_along, der1, der12
 from tlab_tpu_torch.ops.filter import apply_filter
 
@@ -106,11 +113,18 @@ def neumann_value_rows(plan_y: DerivPlan, bot: bool, top: bool):
 # Device plan assembly
 # ---------------------------------------------------------------------------
 
+# the line length from which a direction takes the substructured operators
+# of ops/thomas.py: tlab_tpu's default crossover, set between the power-of-two
+# sizes its TPU measurement put on either side (2048 dense, 4096 banded)
+BANDED_MIN_N = 2304
+
+
 def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
                        rk_name: str = "RungeKuttaExplicit4",
                        dtype=torch.float32, device="cuda",
                        wall_refs=None, bodyforce=None,
-                       factorize: bool = True) -> dict:
+                       factorize: bool = True, with_elliptic: bool = True,
+                       banded_min_n: int = BANDED_MIN_N) -> dict:
     """The plan dict of operator tensors and coefficients on `device`.
 
     The keys of tlab_tpu's build_device_plans: P["ell"] is the direct eigen
@@ -119,11 +133,17 @@ def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
     default formulation, for ny > 4) P["ell_fac"] holds the factorized
     Poisson plan, which the projection prefers; a caller that builds its
     own (staggered wavenumbers) or wants the direct solver passes False.
-    Every direction uses its dense operators: the banded long-line plans
-    are ROADMAP A12."""
+    with_elliptic=False builds no Poisson plan at all (the compressible set,
+    which has no projection and allows a periodic y).
+
+    A line of `banded_min_n` points or more gets the substructured plans of
+    ops/thomas.py under tlab_tpu's conditions (its TLAB_TPU_THOMAS_MIN_N and
+    TLAB_TPU_PARTITION_MIN_N, both 2304 by default): a non-periodic line
+    "d1<x>_banded", a periodic uniform one "d1<x>_banded" and
+    "d2<x>_banded"."""
     dev = _device.resolve(device)
     _device.full_fp32_matmul()
-    if not fdm.x.periodic:
+    if with_elliptic and not fdm.x.periodic:
         # tlab_tpu builds no factorized plan for it and gives its direct
         # eigen plan lam_x = 0 for every x mode (ops/elliptic.py:235), a
         # solve that leaves d/dx out of the Laplacian; its spatial cases keep
@@ -133,15 +153,18 @@ def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
             "solves such a case with lam_x = 0 for every x mode, leaving "
             "d/dx out of the projection; spatial cases keep x periodic and "
             "damp the ends with [BufferZone] PointsImin/PointsImax)")
-    if fdm.y.periodic:
+    if with_elliptic and fdm.y.periodic:
         raise NotImplementedError(
-            "the pressure projection needs walls in y (periodic y belongs "
-            "to the compressible set: ROADMAP A13)")
+            "the pressure projection needs walls in y (a periodic y is the "
+            "compressible set's, which builds its plans with_elliptic=False)")
     scheme = timemarch.get_scheme(rk_name)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, np.float64)).to(dev, dtype)
 
+    # the banded plans are rounded to the run's precision on the host, as
+    # tlab_tpu's are (the fused operator F is formed from the rounded Tinv)
+    nt = np.dtype(str(dtype).replace("torch.", ""))
     P = {
         "rk": {"kdt": tuple(scheme.kdt), "kco": tuple(scheme.kco),
                "ktime": tuple(scheme.ktime),
@@ -155,12 +178,24 @@ def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
             P[f"d1{name}"] = t(plan.d1[BC.DD])
             P[f"d12{name}"] = t(plan.d12[BC.DD])
             P[f"iod{name}"] = t(1.0 / plan.jac)
+            if plan.size < banded_min_n:
+                continue
+            if not plan.periodic:
+                P[f"d1{name}_banded"] = thomas.device_plan(
+                    thomas.banded_plan(plan.A1, plan.B1, nt), dtype, dev)
+            elif plan.uniform:
+                P[f"d1{name}_banded"] = thomas.device_plan(
+                    thomas.banded_plan(plan.A1, plan.B1, nt, periodic=True),
+                    dtype, dev)
+                P[f"d2{name}_banded"] = thomas.device_plan(
+                    thomas.banded_plan(plan.A2, plan.B2, nt, periodic=True),
+                    dtype, dev)
 
     # wall-tendency BC rows along y
     def rows_for(pair):
         bot = pair[0] == "neumann"
         top = pair[1] == "neumann"
-        if not (bot or top):
+        if not (bot or top) or fdm.y.periodic:
             return None
         # the reference uses the matched-ibc reduction; for mixed cases the
         # difference is only in the far-wall rows, which are unused
@@ -176,6 +211,8 @@ def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
                                    "w": (0.0, 0.0)}
     P["diffusion_constant"] = timemarch.diffusion_constant(fdm, nsp)
     P["bodyforce"] = bodyforce
+    if not with_elliptic:
+        return P
     P["ell"] = elliptic.device_elliptic_plan(
         elliptic.build_elliptic_plan(fdm, ibc=BC.NN), dtype, dev)
     if factorize and fdm.y.size > 4:
@@ -205,10 +242,6 @@ def check_main_path(P: dict) -> None:
     for key, item in OFF_PATH.items():
         if P.get(key) is not None:
             raise NotImplementedError(f"plan key {key!r}: ROADMAP {item}")
-    for key in P:
-        if key.endswith("_banded"):
-            raise NotImplementedError(f"plan key {key!r}: ROADMAP A12 "
-                                      "(banded long-line operators)")
     if P.get("adv_form", "convective") not in ADV_FORMS:
         raise ValueError(f"advection form {P['adv_form']!r}: one of "
                          f"{ADV_FORMS}")
@@ -219,10 +252,28 @@ def check_main_path(P: dict) -> None:
 # ---------------------------------------------------------------------------
 
 def _d1(P, axis_name: str, axis: int, a):
+    """First derivative along one direction of a 3-D field or a 4-D stack
+    (`axis` is valid for `a` itself): the substructured solve where the
+    direction has a banded plan, else the dense product."""
     M = P.get(f"d1{axis_name}")
     if M is None:
         return torch.zeros_like(a)
+    bp = P.get(f"d1{axis_name}_banded")
+    if bp is not None:
+        return thomas.banded_der1(bp, a, axis)
     return der1(M, a, axis)
+
+
+def _d12_apply(P, axis_name: str, axis: int, arr):
+    """(d1 arr, d2 arr) along axis+1 of a 4-D stack: the substructured
+    circulant plans of a periodic long line (2(L+2b) instead of 2N
+    multiply-adds a point), else one dense [D1;D2] product."""
+    b1 = P.get(f"d1{axis_name}_banded")
+    b2 = P.get(f"d2{axis_name}_banded")
+    if b1 is not None and b2 is not None and b1.get("periodic"):
+        return (thomas.banded_der1(b1, arr, axis + 1),
+                thomas.banded_der1(b2, arr, axis + 1))
+    return der12(P[f"d12{axis_name}"], arr, axis + 1)
 
 
 def divergence(P, u, v, w):
@@ -301,8 +352,8 @@ def _burgers_all(P, axis_name: str, axis: int, fields, conv, nu):
     form = P.get("adv_form", "convective")
     if form in ("divergence", "skewsymmetric"):
         F = fields.shape[0]
-        dall, d2all = der12(d12, torch.cat([fields, conv[None] * fields]),
-                            axis + 1)
+        dall, d2all = _d12_apply(P, axis_name, axis,
+                                 torch.cat([fields, conv[None] * fields]))
         da, d2a, dprod = dall[:F], d2all[:F], dall[F:]
         if form == "divergence":
             adv = dprod
@@ -314,8 +365,9 @@ def _burgers_all(P, axis_name: str, axis: int, fields, conv, nu):
         return nu * d2a - adv
     if _fused_burgers_ok(P, axis_name, fields):
         return burgers.fused_burgers(d12, fields, conv, nu.reshape(-1), axis)
-    # the dense branch (tlab_tpu's _d12_apply): one [D1;D2] product
-    da, d2a = der12(d12, fields, axis + 1)
+    # the dense branch: one [D1;D2] product, or a long line's substructured
+    # operators
+    da, d2a = _d12_apply(P, axis_name, axis, fields)
     ane = P.get("anelastic")
     if ane is not None:
         # mu-constant anelastic diffusion: nu_eff = nu / rho_bar(y)

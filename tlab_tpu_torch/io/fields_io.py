@@ -10,16 +10,20 @@ The in-memory convention is C-ordered (nx, ny, nz); on disk that is the
 transpose (nz, ny, nx) written contiguously.  A State's tensors come to the
 host through convert.state_to_numpy (float64, which holds a float32 value
 exactly), so a restart written by this package is read by tlab_tpu and the
-other way round.  The threaded native engine and the compressible and
-visualization formats are ROADMAP A13/A15.
+other way round.  The compressible restart (write_comp_state) holds the
+five conservative fields and the rho*s scalars.  The threaded native engine
+and the visualization formats are ROADMAP A15.
 """
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
+import torch
 
 from tlab_tpu_torch.convert import state_to_numpy
+from tlab_tpu_torch.dycore.compressible import CompState
 
 _HDR = struct.Struct("<5i")
 _HDR_BE = struct.Struct(">5i")
@@ -105,3 +109,46 @@ def read_state(prefix_flow: str, prefix_scal: str, itime: int, n_scalars: int):
     rtime = params[0] if len(params) > 0 else 0.0
     visc = params[1] if len(params) > 1 else 0.0
     return u, v, w, s, rtime, visc
+
+
+def _host(a) -> np.ndarray:
+    """A tensor (any device) or array-like as a float64 host array."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float64)
+
+
+def write_comp_state(prefix_flow: str, itime: int, U, rtime: float,
+                     visc: float, dtype: str = "<f8") -> None:
+    """Compressible restart: conservative components as flow.<it>.1..5
+    (reference file-per-variable convention; 4=rho, 5=rhoE follow the
+    q-array ordering rho u, rho v, rho w, rho, rho e), the transported
+    rho*s as flow.<it>.s<i>."""
+    comps = (U.rhou, U.rhov, U.rhow, U.rho, U.rhoE)
+    for tag, comp in zip("12345", comps):
+        write_field(f"{prefix_flow}.{itime}.{tag}", _host(comp), itime,
+                    (rtime, visc), dtype=dtype)
+    if getattr(U, "rhos", None) is not None:
+        for i in range(U.rhos.shape[0]):
+            write_field(f"{prefix_flow}.{itime}.s{i + 1}", _host(U.rhos[i]),
+                        itime, (rtime, visc), dtype=dtype)
+
+
+def read_comp_state(prefix_flow: str, itime: int):
+    """Inverse of write_comp_state: (CompState of float64 host arrays,
+    rtime, visc); rhos is None without scalar files."""
+    arrs = []
+    rtime = visc = 0.0
+    for tag in "12345":
+        a, params, _ = read_field(f"{prefix_flow}.{itime}.{tag}")
+        arrs.append(a)
+        if len(params) >= 2:
+            rtime, visc = float(params[0]), float(params[1])
+    rhos = []
+    i = 1
+    while os.path.exists(f"{prefix_flow}.{itime}.s{i}"):
+        rhos.append(read_field(f"{prefix_flow}.{itime}.s{i}")[0])
+        i += 1
+    return CompState(rhou=arrs[0], rhov=arrs[1], rhow=arrs[2],
+                     rho=arrs[3], rhoE=arrs[4],
+                     rhos=np.stack(rhos) if rhos else None), rtime, visc

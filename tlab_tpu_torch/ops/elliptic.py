@@ -184,8 +184,12 @@ def _pencil_eig(K: np.ndarray):
     channel grid). Block-diagonalizing by parity first splits the pairs;
     each block is then well-conditioned."""
     n = K.shape[0]
-    J = np.eye(n)[::-1]
-    use_sym = np.linalg.norm(K @ J - J @ K) <= 1e-10 * np.linalg.norm(K)
+    # K J - J K with J the index flip: the products permute columns and
+    # rows exactly, so they are taken as such (a product with the flipped
+    # identity's negative-stride view misses BLAS and runs as an unblocked
+    # O(n^3) loop: minutes at a long line's n)
+    use_sym = np.linalg.norm(K[:, ::-1] - K[::-1, :]) \
+        <= 1e-10 * np.linalg.norm(K)
     if use_sym:
         T, ne = _reflection_basis(n)
         Ks = T @ K @ T.T

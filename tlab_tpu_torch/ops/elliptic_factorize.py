@@ -147,11 +147,28 @@ def build_factorize_plan(fdm: FdmPlan, shift: float = 1.0,
 # Device plan
 # ---------------------------------------------------------------------------
 
+# complex64 carries 24 bits: past cond(V) = 2^24 the float32 sweeps'
+# round-off is as large as the solution (a white-noise forcing's solve is
+# off by ~1e-8 cond(V) of its max in float32).  The shear layer's y line
+# reaches it at ny = 512 (2.0e7); at ny = 2304 (3.0e9) one RK4 step of the
+# factorized projection takes max|v| to 1e10
+FP32_COND_MAX = 2.0 ** 24
+
+
 def device_factorize_plan(plan: FactorizePlan, dtype=torch.float32,
                           device="cuda") -> dict:
     """Device plan dict: the eigen data as complex tensors plus the per-mode
     tables (built here, once), on the card unless the caller names another
-    device."""
+    device.  Below float64, a plan whose eigenbases' cond(V) passes
+    FP32_COND_MAX is refused (ValueError): its solve would be noise."""
+    cond = max(plan.emin["cond"], plan.emax["cond"])
+    if dtype != torch.float64 and cond > FP32_COND_MAX:
+        raise ValueError(
+            f"the factorized Poisson plan at ny = {plan.ny} has eigenbases "
+            f"of cond(V) {cond:.3e}, past the 2^24 that {dtype}'s complex "
+            "sweeps carry: its solve would be noise.  Run in float64 "
+            "(--x64) or with the direct eigen solve ([Main] "
+            "EllipticOrder=compactdirect6)")
     arrays = {
         "Vmin": plan.emin["V"], "Wmin": plan.emin["W"],
         "Vmax": plan.emax["V"], "Wmax": plan.emax["W"],

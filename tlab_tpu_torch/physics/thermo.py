@@ -37,7 +37,7 @@ tlab_tpu; the field functions take torch tensors on any device.  The
 background profiles (bg) may be tensors or host arrays: they are moved to
 the field's dtype and device where they are used.  The compressible half of
 tlab_tpu's module (airwater_rp/_re, thermal_*, caloric_*, the compressible
-background) belongs to ROADMAP A13.
+background) belongs to ROADMAP A13b.
 """
 from __future__ import annotations
 
@@ -155,7 +155,7 @@ class ThermoParams:
         if self.rratio or self.cratio_inv != 1.0:
             raise NotImplementedError(
                 "the compressible units (rratio, cratio_inv) are not ported "
-                "yet (ROADMAP A13)")
+                "yet (ROADMAP A13b)")
 
     # -- constants (cp-scaled nondimensional, or SI when Nondimensional=no)
     @property

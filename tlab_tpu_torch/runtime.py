@@ -1,12 +1,12 @@
 """Simulation context for the port: grid, plans and device operators from a
-CaseSetup, for the incompressible (Boussinesq) and anelastic equation sets
-on one device (port of tlab_tpu/runtime.py: make_anelastic, make_sources,
-the [IBMParameter] reader, the interactive surface BC, attach_buffer and
-the incompressible/anelastic branch of Simulation).
+CaseSetup, for the incompressible (Boussinesq), anelastic and ideal-gas
+compressible equation sets on one device (port of tlab_tpu/runtime.py:
+make_anelastic, make_sources, the [IBMParameter] reader, the interactive
+surface BC, attach_buffer and Simulation without its device mesh).
 
-Every case option not ported yet (the compressible set, semi-implicit
-diffusion) raises NotImplementedError naming the ROADMAP item that will
-port it; none is dropped silently.
+Every case option not ported yet (the characteristic boundaries, mixtures,
+AirWater and the buffer of the compressible set) raises NotImplementedError
+naming the ROADMAP item that will port it; none is dropped silently.
 """
 from __future__ import annotations
 
@@ -34,9 +34,11 @@ from tlab_tpu_torch.physics import chemistry as chemmod
 from tlab_tpu_torch.physics import forcing as forcmod
 from tlab_tpu_torch.physics import gravity as grav
 from tlab_tpu_torch.physics import microphysics as micmod
+from tlab_tpu_torch.physics import mixtures as mixmod
 from tlab_tpu_torch.physics import radiation as radmod
 from tlab_tpu_torch.physics import rotation as rot
 from tlab_tpu_torch.physics import thermo
+from tlab_tpu_torch.physics.eos import GasParams
 from tlab_tpu_torch.utils import trace as _trace
 
 FACTORIZED_ORDERS = ("", "factorize", "compactjacobian6")
@@ -429,14 +431,81 @@ def grid_from_case(case: CaseSetup) -> Grid:
     return Grid(*axes)
 
 
+COMPRESSIBLE = ("compressible", "total", "internal")
+
+
 def _off_path_options(case: CaseSetup):
-    """(option, ROADMAP item) for each option of `case` the port lacks."""
+    """(option, ROADMAP item) for each option of `case` the port lacks: in
+    the compressible set the characteristic (NSCBC) boundaries, a mixture
+    (the combustion tables, CHEMKIN, AirWater) and a buffer zone."""
     found = []
-    if case.equations not in ("incompressible", "anelastic"):
-        found.append((f"Equations={case.equations}", "A13"))
-    if "diffusion" in case.time_order.lower():
-        found.append((f"TimeOrder={case.time_order}", "A11"))
+    if case.equations not in COMPRESSIBLE:
+        return found
+    for side, kind in zip(("Jmin", "Jmax"), case.velocity_bc):
+        if kind in ("outflow", "inflow"):
+            found.append((f"compressible Velocity{side}={kind} (NSCBC)",
+                          "A13b"))
+    tcfg = case.thermo or {}
+    mixname = tcfg.get("mixture", "none")
+    if mixname in mixmod.MIXTURES or mixname == "airwater" or (
+            mixname == "chemkin" and tcfg.get("chemkin_file")):
+        found.append((f"compressible Mixture={mixname}", "A13b"))
+    if case.buffer is not None and case.buffer.type != "none":
+        found.append((f"compressible [BufferZone] Type={case.buffer.type}",
+                      "A13b"))
     return found
+
+
+def _compressible(case: CaseSetup, grid: Grid, nsp: NSParams, P: dict,
+                  dtype, dev) -> dict:
+    """The compressible set's context (tlab_tpu's Simulation.comp for the
+    ideal gas): the gas, the [Control] FlowLimit bounds, the gravity vector,
+    the diffusion-number factor, the Euler form and the energy variable;
+    sets P["y_periodic"] and the scalar clip P["scal_bounds"]."""
+    tcfg = case.thermo or {}
+    gas = GasParams(gamma=case.gamma, mach=case.mach,
+                    transport=tcfg.get("transport", "none"))
+    P["y_periodic"] = grid.y.periodic
+    # [BoundaryConditions] ViscousI/J/K are accepted but inert, exactly
+    # like the current reference (opr_partial.f90:91 reads column 1 of
+    # bcs_inf/bcs_out only): P["visc_bc"] stays unset
+    gvec = tuple(case.buoyancy.vector) if case.buoyancy is not None \
+        else (0.0, 0.0, 0.0)
+    sfactor = (1.0 / case.reynolds) * max(
+        1.0, 1.0 / case.prandtl,
+        1.0 / min(case.schmidt) if case.schmidt else 1.0)
+    # compressible bounds control ([Control] FlowLimit; defaults
+    # pbg/rbg mean * 1e-/+6, dns_main.f90:211-214)
+    bounds = None
+    ctrl = case.control or {}
+    if ctrl.get("flow_limit", True):
+        ini = case.ini
+        p_mean = ini.get_float("Flow", "Pressure",
+                               1.0 / (case.gamma * case.mach ** 2)) \
+            if ini is not None else 1.0 / (case.gamma * case.mach ** 2)
+        r_mean = ini.get_float("Flow", "Density", 1.0) \
+            if ini is not None else 1.0
+        pmin = ctrl.get("min_pressure", -1.0)
+        pmax = ctrl.get("max_pressure", -1.0)
+        rmin = ctrl.get("min_density", -1.0)
+        rmax = ctrl.get("max_density", -1.0)
+        bounds = {"p": (pmin if pmin >= 0 else p_mean * 1e-6,
+                        pmax if pmax >= 0 else p_mean * 1e6),
+                  "r": (rmin if rmin >= 0 else r_mean * 1e-6,
+                        rmax if rmax >= 0 else r_mean * 1e6)}
+    if ctrl.get("scal_limit") and nsp.n_scalars:
+        # per-substep clipping of the transported scalars (DNS_BOUNDS_LIMIT)
+        P["scal_bounds"] = dyn.scalar_bounds(
+            ctrl["min_scalar"], ctrl["max_scalar"], dtype, dev)
+    return {"gamma": case.gamma, "mach": case.mach, "bounds": bounds,
+            "gvec": gvec, "sfactor": sfactor, "prandtl": case.prandtl,
+            "gas": gas,
+            "form": ("skewsymmetric" if case.term_advection == "skewsymmetric"
+                     else "divergence"),
+            "energy": "internal" if case.equations == "internal"
+            else "total",
+            "ly": float(grid.y.nodes[-1] - grid.y.nodes[0]),
+            "lx": float(grid.x.scale)}
 
 
 def _staggered_plans(grid: Grid, fdm: FdmPlan, factorized: bool, dtype,
@@ -530,10 +599,16 @@ class Simulation:
     anelastic: Optional[dict] = None
     # (amp, filter) of [BufferZone] Type=filter|both, set by attach_buffer
     filter_sponge: object = None
+    # the compressible set's context (_compressible), else None
+    comp: Optional[dict] = None
 
     @classmethod
     def from_case(cls, case_or_path, dtype=torch.float32, device="cuda",
-                  grid: Optional[Grid] = None) -> "Simulation":
+                  grid: Optional[Grid] = None,
+                  banded_min_n: int = dyn.BANDED_MIN_N) -> "Simulation":
+        """The simulation of a case file (or CaseSetup).  A line of
+        `banded_min_n` points or more takes the substructured operators
+        (dycore.incompressible.build_device_plans)."""
         case = case_or_path if isinstance(case_or_path, CaseSetup) \
             else load_case(case_or_path)
         consistency_check(case)
@@ -560,6 +635,17 @@ class Simulation:
             "v": (0.0, 0.0),
             "w": tuple(float(v) for v in case.vel_profiles[2](yw)),
         }
+        if case.equations in COMPRESSIBLE:
+            # no pressure Poisson, acoustic integration (reference
+            # DNS_EQNS_TOTAL/INTERNAL); the Poisson solves of the initial
+            # conditions build their plans at first use
+            P = dyn.build_device_plans(
+                fdm, nsp, bcs, rk_name=case.time_order, dtype=dtype,
+                device=dev, wall_refs=wall_refs, with_elliptic=False,
+                banded_min_n=banded_min_n)
+            comp = _compressible(case, grid, nsp, P, dtype, dev)
+            return cls(case=case, grid=grid, fdm=fdm, nsp=nsp, P=P,
+                       ell_plans={}, dtype=dtype, device=dev, comp=comp)
         # EllipticOrder: the factorized formulation is the default (as the
         # reference): its D1-consistent integrals make the projection
         # remove the D1-measured divergence to round-off. The direct eigen
@@ -582,7 +668,8 @@ class Simulation:
             wall_refs=wall_refs,
             bodyforce=make_sources(case, grid, dtype, dev,
                                    anelastic=anelastic),
-            factorize=factorized and not case.stagger)
+            factorize=factorized and not case.stagger,
+            banded_min_n=banded_min_n)
         # [Main] TermAdvection selects the nonlinear formulation
         # (reference rhs_flow_global_incompressible_1/2/3.f90); the
         # anelastic set is combined-convective only, as the reference
@@ -630,9 +717,16 @@ class Simulation:
                 "cpl_jmax": tuple(
                     d["cpl_jmax"] if d["jmax"] == "linear" else 0.0
                     for d in sfc)}
-        return cls(case=case, grid=grid, fdm=fdm, nsp=nsp, P=P,
-                   ell_plans={BC.NN: P["ell"]}, dtype=dtype, device=dev,
-                   anelastic=anelastic)
+        sim = cls(case=case, grid=grid, fdm=fdm, nsp=nsp, P=P,
+                  ell_plans={BC.NN: P["ell"]}, dtype=dtype, device=dev,
+                  anelastic=anelastic)
+        if "diffusion" in case.time_order.lower():
+            # the Dirichlet pencil of the semi-implicit step's Helmholtz
+            # solves (a no-slip wall, v, a Dirichlet scalar); tlab_tpu builds
+            # it for every case, the explicit steps never read it (and
+            # implicit._plan_for raises where a plan lacks it)
+            P["ell_dd"] = sim.ell(BC.DD)
+        return sim
 
     # -- optional subsystems ------------------------------------------------
     def attach_buffer(self, state: State) -> None:
@@ -722,7 +816,14 @@ class Simulation:
         factorized formulation when active (the default), else the direct
         eigen pencil.  The initial conditions share it with the dycore
         (flow_local.f90:315-337, fi_vectorcalculus.f90:94)."""
-        dev = self.P.get("ell_fac")
+        dev = self.P.get("ell_fac") or self.P.get("ell_fac_ic")
+        if dev is None and self.case.elliptic_order in FACTORIZED_ORDERS \
+                and self.grid.y.size > 4 and self.grid.x.periodic:
+            # the compressible set has no Poisson plan: the initial
+            # conditions' factorized one is built at first use
+            dev = fac.device_factorize_plan(
+                fac.build_factorize_plan(self.fdm), self.dtype, self.device)
+            self.P["ell_fac_ic"] = dev
         if dev is not None:
             p, _ = fac.poisson_factorize(dev, f,
                                          ibc="nn" if bc == BC.NN else "dd")

@@ -1,7 +1,7 @@
 """Plane-averaged statistics (temporal mode): the AVG_FLOW_XZ / AVG_SCAL_XZ
-tables (reference src/statistics/avg_flow_xz.f90, avg_scal_xz.f90) for the
-incompressible equation set.  Port of the part of tlab_tpu/stats/averages.py
-that the DNS loop's in-run statistics reach.
+tables (reference src/statistics/avg_flow_xz.f90, avg_scal_xz.f90).  Port
+of the part of tlab_tpu/stats/averages.py that the DNS loop's in-run
+statistics reach.
 
 Profiles are horizontal (x,z)-plane averages as functions of y, reduced on
 the state's device.  The table layout, group names and column names match
@@ -11,8 +11,15 @@ scripts can consume the output.
 
 Incompressible: rR = 1, Favre == Reynolds, and the thermodynamic,
 Acoustics and RhoBudget columns are 0, as the reference leaves inactive
-groups.  Anelastic (Equations=anelastic): the density and temperature of
-the equilibrium thermodynamics fill rR, rT, fT, rR2, rT2, fT2 and the
+groups.  Compressible (the ideal gas; dns.write_statistics_compressible
+passes the primitive state and the EOS pressure): the density field makes
+the f* columns and the Reynolds stresses Favre (rho-weighted) averages and
+fills the variable-density G and D terms, the temperature, energy,
+enthalpy and entropy fields fill the thermodynamic columns, and the
+Acoustics and RhoBudget groups are filled; a transport law's viscosity
+field weights the scalar table's molecular terms.  Anelastic
+(Equations=anelastic): the density and temperature of the equilibrium
+thermodynamics fill rR, rT, fT, rR2, rT2, fT2 and the
 RhoBudget group, the background fills rRref, rTref and rPref, and the
 Stratification group is filled (Favre == Reynolds still).  The
 equation-set context (`extras`, build_extras) carries the body forces: the
@@ -20,10 +27,10 @@ buoyancy field fills rB, the buoyancy production and flux terms (Bxx..,
 Buo, Bsv) and Pot, the Coriolis vector the F terms.  As in tlab_tpu,
 [Thermodynamics] Type=anelastic with Equations=incompressible fills no
 background here, so its explicit buoyancy reads as zero in these tables.
-Left for ROADMAP A14: the compressible extras, the scalar sources, the
-diagnostic pressure solve when no pressure is passed in, the legacy alias
-keys (SU, FU, .., Chi, Rss), the NetCDF writer and reader, and the
-conditional (gated) statistics.
+Left for ROADMAP A14: the scalar sources, the diagnostic pressure solve
+when no pressure is passed in, the legacy alias keys (SU, FU, .., Chi,
+Rss), the NetCDF writer and reader, and the conditional (gated)
+statistics.
 """
 from __future__ import annotations
 
@@ -87,10 +94,12 @@ _FLOW_INACTIVE = (
     + FLOW_GROUPS[12][1] + " " + FLOW_GROUPS[13][1] + " "
     + FLOW_GROUPS[14][1].replace("Pot ", "")).split()
 # the keys of `extras` that the incompressible and anelastic sets fill
-# (build_extras)
+# (build_extras) and the compressible writer's (dns.py)
 _EXTRAS_PORTED = ("eqns", "y", "froude", "coriolis_y", "bvec", "ymean", "b",
-                  "tp", "bg", "rref", "tref", "pref")
-_EQNS_PORTED = ("incompressible", "anelastic")
+                  "tp", "bg", "rref", "tref", "pref",
+                  "rho", "T", "e", "h", "entropy", "gamma_field")
+_COMPRESSIBLE = ("compressible", "total", "internal")
+_EQNS_PORTED = ("incompressible", "anelastic") + _COMPRESSIBLE
 
 
 def _pavg(a):
@@ -98,17 +107,16 @@ def _pavg(a):
     return torch.mean(a, dim=(0, 2))
 
 
-def _need(p, extras, kw) -> None:
-    for name, val in kw.items():
-        if val is not None:
-            raise NotImplementedError(
-                f"{name}: the compressible columns, ROADMAP A14")
+def _need(p, extras) -> None:
     ex = extras or {}
     other = [k for k in ex if k not in _EXTRAS_PORTED]
     if other or ex.get("eqns", "incompressible") not in _EQNS_PORTED:
         raise NotImplementedError(
-            f"extras {other or ex['eqns']!r} (the compressible columns, "
-            "the scalar sources): ROADMAP A14")
+            f"extras {other or ex['eqns']!r} (the scalar sources, the "
+            "compressible sound-speed and gravity inputs): ROADMAP A14")
+    if ex.get("eqns") in _COMPRESSIBLE and "rho" not in ex:
+        raise ValueError("compressible statistics need the density field "
+                         "(extras['rho'])")
     if p is None:
         raise NotImplementedError(
             "statistics without the step's pressure (the diagnostic "
@@ -192,6 +200,12 @@ def stats_tables(sim, state, p):
     scals = [scalar_statistics(sim.P, state, sim.nsp.diffusivity(i), i, p=p,
                                visc=sim.nsp.visc, extras=ex)
              for i in range(sim.nsp.n_scalars)]
+    return to_host(flow, scals)
+
+
+def to_host(flow: dict, scals: list):
+    """The device tables (name -> (ny,) tensor) as NumPy columns, through
+    one stacked (ncols, ny) copy: (flow dict, [scalar dicts])."""
     cols = [v for table in (flow, *scals) for v in table.values()]
     stacked = torch.stack(cols).cpu().numpy()        # one small copy
     k = len(flow)
@@ -208,14 +222,17 @@ def stats_tables(sim, state, p):
 
 def flow_statistics(P, state, visc, p=None, extras=None):
     """Full reference flow table: dict name -> (ny,) profile
-    (avg_flow_xz.f90), incompressible and anelastic sets.
+    (avg_flow_xz.f90), incompressible, anelastic and compressible sets.
 
-    p: the projection pressure the dycore computed this step.  extras:
-    build_extras' context (buoyancy field and vector, Froude number,
-    Coriolis vector, nodes; the anelastic background)."""
-    _need(p, extras, {})
+    p: the projection pressure the dycore computed this step (the EOS
+    pressure in the compressible set).  extras: build_extras' context
+    (buoyancy field and vector, Froude number, Coriolis vector, nodes; the
+    anelastic background), or the compressible writer's (the density,
+    temperature, energy, enthalpy, entropy and gamma fields)."""
+    _need(p, extras)
     ex = extras or {}
     anelastic = ex.get("eqns") == "anelastic" and "tp" in ex
+    compressible = ex.get("eqns") in _COMPRESSIBLE
     u, v, w = state.u, state.v, state.w
     d1y = P.get("d1y")
     ny = u.shape[1]
@@ -226,7 +243,7 @@ def flow_statistics(P, state, visc, p=None, extras=None):
 
     out = {}
 
-    # --- Mean group (Favre == Reynolds) ------------------------------------
+    # --- Mean group (Favre == Reynolds but in the compressible set) -------
     rU, rV, rW = _pavg(u), _pavg(v), _pavg(w)
     rU_y, rV_y, rW_y = dy(rU), dy(rV), dy(rW)
     rP = _pavg(p)
@@ -237,6 +254,8 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     for n in _FLOW_INACTIVE:
         out[n] = zero
     rR = out["rR"]
+    fU, fV, fW = rU, rV, rW
+    rho3 = T3 = rf3 = None
     if anelastic:
         # density and temperature of the equilibrium thermodynamics
         # (Thermo_Anelastic_DENSITY); Favre == Reynolds for the velocity
@@ -245,6 +264,9 @@ def flow_statistics(P, state, visc, p=None, extras=None):
         qt = state.s[1] if state.s.shape[0] > 1 else \
             torch.zeros_like(state.s[0])
         rho3 = bg["p"][None, :, None] / (thermo.mixture_R(tp, qt, ql3) * T3)
+    elif compressible:
+        rho3, T3 = ex["rho"], ex["T"]
+    if rho3 is not None:
         rR = _pavg(rho3)
         rT = _pavg(T3)
         fT = _pavg(rho3 * T3) / rR
@@ -255,6 +277,22 @@ def flow_statistics(P, state, visc, p=None, extras=None):
         out["rR2"] = _pavg(rf3 * rf3)
         out["rT2"] = _pavg(Tf3 * Tf3)
         out["fT2"] = _pavg(rho3 * fTf * fTf) / rR
+    if compressible:
+        # density-weighted (Favre) means and the caloric columns
+        fU = _pavg(rho3 * u) / rR
+        fV = _pavg(rho3 * v) / rR
+        fW = _pavg(rho3 * w) / rR
+        out["fU"], out["fV"], out["fW"] = fU, fV, fW
+        for nm in ("e", "h", "s"):
+            f3 = ex["entropy" if nm == "s" else nm]
+            rm = _pavg(f3)
+            fm = _pavg(rho3 * f3) / rR
+            g = f3 - rm[None, :, None]
+            gf = f3 - fm[None, :, None]
+            out[f"r{nm}"], out[f"f{nm}"] = rm, fm
+            out[f"r{nm}2"] = _pavg(g * g)
+            out[f"f{nm}2"] = _pavg(rho3 * gf * gf) / rR
+    fU_y, fV_y, fW_y = dy(fU), dy(fV), dy(fW)
 
     # buoyancy field (Gravity_Buoyancy)
     b3 = ex.get("b")
@@ -263,12 +301,20 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     rB = rB_raw / ex.get("froude", 1.0)
     out["rB"] = rB
 
-    # --- Fluctuations -----------------------------------------------------
-    uf = u - rU[None, :, None]
-    vf = v - rV[None, :, None]
-    wf = w - rW[None, :, None]
-    Rxx, Ryy, Rzz = _pavg(uf * uf), _pavg(vf * vf), _pavg(wf * wf)
-    Rxy, Rxz, Ryz = _pavg(uf * vf), _pavg(uf * wf), _pavg(vf * wf)
+    # --- Fluctuations (about the Favre means, rho-weighted: compressible) -
+    uf = u - fU[None, :, None]
+    vf = v - fV[None, :, None]
+    wf = w - fW[None, :, None]
+    if compressible:
+        Rxx = _pavg(rho3 * uf * uf) / rR
+        Ryy = _pavg(rho3 * vf * vf) / rR
+        Rzz = _pavg(rho3 * wf * wf) / rR
+        Rxy = _pavg(rho3 * uf * vf) / rR
+        Rxz = _pavg(rho3 * uf * wf) / rR
+        Ryz = _pavg(rho3 * vf * wf) / rR
+    else:
+        Rxx, Ryy, Rzz = _pavg(uf * uf), _pavg(vf * vf), _pavg(wf * wf)
+        Rxy, Rxz, Ryz = _pavg(uf * vf), _pavg(uf * wf), _pavg(vf * wf)
     out["Tke"] = 0.5 * (Rxx + Ryy + Rzz)
     out["Rxx"], out["Ryy"], out["Rzz"] = Rxx, Ryy, Rzz
     out["Rxy"], out["Rxz"], out["Ryz"] = Rxy, Rxz, Ryz
@@ -311,6 +357,7 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     Tau_yz = _pavg(tau_yz_f3)
     tau_yz_f3 = tau_yz_f3 - Tau_yz[None, :, None]
     Tau_yz = Tau_yz * visc
+    Tau_xy_y, Tau_yy_y, Tau_yz_y = dy(Tau_xy), dy(Tau_yy), dy(Tau_yz)
 
     # triple-velocity correlations + pressure + viscous contributions
     Txxy = _pavg(uf * uf * vf)
@@ -376,12 +423,27 @@ def flow_statistics(P, state, visc, p=None, extras=None):
             "xz": _pavg(pf * (g["uz"] + g["wx"])),
             "yz": _pavg(pf * (g["vz"] + g["wy"]))}
 
-    Cij = {t: -rV * Ry[t] for t in tags}
-    Pij = {"xx": -2.0 * Rxy * rU_y, "yy": -2.0 * Ryy * rV_y,
-           "zz": -2.0 * Ryz * rW_y,
-           "xy": -(Rxy * rV_y + Ryy * rU_y),
-           "xz": -(Rxy * rW_y + Ryz * rU_y),
-           "yz": -(Ryy * rW_y + Ryz * rV_y)}
+    Cij = {t: -fV * Ry[t] for t in tags}
+    Pij = {"xx": -2.0 * Rxy * fU_y, "yy": -2.0 * Ryy * fV_y,
+           "zz": -2.0 * Ryz * fW_y,
+           "xy": -(Rxy * fV_y + Ryy * fU_y),
+           "xz": -(Rxy * fW_y + Ryz * fU_y),
+           "yz": -(Ryy * fW_y + Ryz * fV_y)}
+
+    # pressure / viscous variable-density terms (zero where Favre ==
+    # Reynolds)
+    if compressible:
+        rUf, rVf, rWf = rU - fU, rV - fV, rW - fW
+        rP_y = dy(rP)
+        Gij = {"xx": zero, "yy": 2.0 * rVf * rP_y, "zz": zero,
+               "xy": rUf * rP_y, "xz": zero, "yz": rWf * rP_y}
+        Dij = {"xx": 2.0 * rUf * Tau_xy_y, "yy": 2.0 * rVf * Tau_yy_y,
+               "zz": 2.0 * rWf * Tau_yz_y,
+               "xy": rUf * Tau_yy_y + rVf * Tau_xy_y,
+               "xz": rUf * Tau_yz_y + rWf * Tau_xy_y,
+               "yz": rVf * Tau_yz_y + rWf * Tau_yy_y}
+    else:
+        Gij = Dij = {t: zero for t in tags}
 
     # buoyancy production (avg_flow_xz.f90 Potential-energy section)
     if b3 is not None:
@@ -404,10 +466,9 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     else:
         Fij = {t: zero for t in tags}
 
-    # the variable-density (G, D) terms vanish where Favre == Reynolds
     for t in tags:
         out[f"R{t}_t"] = -Fij[t] + Bij[t] + Cij[t] + Pij[t] - Eij[t] \
-            + (PIij[t] - Tiy_y[t]) / rR
+            + (PIij[t] - Tiy_y[t] - Gij[t] + Dij[t]) / rR
         out[f"B{t}"] = Bij[t]
         out[f"C{t}"] = Cij[t]
         out[f"P{t}"] = Pij[t]
@@ -416,8 +477,8 @@ def flow_statistics(P, state, visc, p=None, extras=None):
         out[f"F{t}"] = Fij[t]
         out[f"T{t}y_y"] = Tiy_y[t]
         out[f"T{t}y"] = Tiy[t]
-        out[f"G{t}"] = zero
-        out[f"D{t}"] = zero
+        out[f"G{t}"] = Gij[t]
+        out[f"D{t}"] = Dij[t]
 
     # --- TKE budget -------------------------------------------------------
     Buo = 0.5 * (Bij["xx"] + Bij["yy"] + Bij["zz"])
@@ -426,6 +487,8 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     Pi = 0.5 * (PIij["xx"] + PIij["yy"] + PIij["zz"])
     Eps = 0.5 * (Eij["xx"] + Eij["yy"] + Eij["zz"])
     Ty_y = 0.5 * (Tiy_y["xx"] + Tiy_y["yy"] + Tiy_y["zz"])
+    Gkin = 0.5 * (Gij["xx"] + Gij["yy"] + Gij["zz"])
+    Dkin = 0.5 * (Dij["xx"] + Dij["yy"] + Dij["zz"])
     Phi = 2.0 * visc * _pavg(
         g["ux"] ** 2 + g["vy"] ** 2 + g["wz"] ** 2
         + 0.5 * ((g["uy"] + g["vx"]) ** 2 + (g["uz"] + g["wx"]) ** 2
@@ -433,13 +496,13 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     dpx = dyn._d1(P, "x", 0, p)
     dpy = dyn._d1(P, "y", 1, p)
     dpz = dyn._d1(P, "z", 2, p)
-    out["Tke_t"] = Buo + Con + Prd - Eps + (-Ty_y + Pi) / rR
+    out["Tke_t"] = Buo + Con + Prd - Eps + (-Ty_y + Pi - Gkin + Dkin) / rR
     out["Buo"], out["Con"], out["Prd"] = Buo, Con, Prd
     out["Eps"], out["Pi"], out["Trp"] = Eps, Pi, Ty_y
     out["Trp1"], out["Trp2"], out["Trp3"] = Trp1, Trp2, Trp3
     out["Trp1_y"], out["Trp2_y"], out["Trp3_y"] = dy(Trp1), dy(Trp2), \
         dy(Trp3)
-    out["G"], out["D"], out["Phi"] = zero, zero, Phi
+    out["G"], out["D"], out["Phi"] = Gkin, Dkin, Phi
     out["UgradP"] = _pavg(u * dpx + v * dpy + w * dpz)
 
     # --- HigherOrder ------------------------------------------------------
@@ -462,13 +525,35 @@ def flow_statistics(P, state, visc, p=None, extras=None):
                     gg = gg - rmean_y[cn][None, :, None]
                 out[f"{cn.upper()}_{an}{mom}"] = _pavg(gg ** mom)
 
-    # --- RhoBudget (the anelastic density's fluctuations) -----------------
-    if anelastic:
-        fx, fy, fz = _pavg(uf * rf3), _pavg(vf * rf3), _pavg(wf * rf3)
+    # --- Acoustics (compressible) ----------------------------------------
+    if compressible:
+        gam3 = ex["gamma_field"]
+        c2 = _pavg(gam3 * p / rho3)              # <gamma p / rho>
+        out["gamma"], out["C2"] = _pavg(gam3), c2
+        rho_ac3 = pf / c2[None, :, None]
+        rho_en3 = rf3 - rho_ac3
+        T_ac3 = (pf / rP[None, :, None]
+                 - rho_ac3 / rR[None, :, None]) * fT[None, :, None]
+        T_en3 = T3 - fT[None, :, None] - T_ac3
+        out["Rho_ac"] = _pavg(rho_ac3 * rho_ac3)
+        out["Rho_en"] = _pavg(rho_en3 * rho_en3)
+        out["T_ac"] = _pavg(T_ac3 * T_ac3)
+        out["T_en"] = _pavg(T_en3 * T_en3)
+        out["M_t"] = torch.sqrt((Rxx + Ryy + Rzz) / torch.clamp(
+            c2, min=torch.finfo(u.dtype).tiny))
+        out["rRP"] = _pavg(rf3 * pf)
+        out["rRT"] = _pavg(rf3 * (T3 - fT[None, :, None]))
+
+    # --- RhoBudget (the density's fluctuations; Reynolds velocity ones) ---
+    if rf3 is not None:
+        urf = u - rU[None, :, None]
+        vrf = v - rV[None, :, None]
+        wrf = w - rW[None, :, None]
+        fx, fy, fz = _pavg(urf * rf3), _pavg(vrf * rf3), _pavg(wrf * rf3)
         out["RhoFluxX"], out["RhoFluxY"], out["RhoFluxZ"] = fx, fy, fz
         out["RhoDil1"] = 2.0 * rR * _pavg(dil_f * rf3)
         out["RhoDil2"] = _pavg(dil_f * rf3 * rf3)
-        out["RhoTrp"] = _pavg(vf * rf3 * rf3)
+        out["RhoTrp"] = _pavg(vrf * rf3 * rf3)
         out["RhoProd"] = -2.0 * (fy * dy(rR) + out["rR2"] * rV_y)
         out["RhoConv"] = -rV * dy(out["rR2"])
 
@@ -541,11 +626,15 @@ def _stratification(P, ex, state, T3, ql3):
 def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
                       rho=None, vis=None):
     """Full reference scalar table (avg_scal_xz.f90) of scalar i: dict in
-    reference column order, incompressible set.
+    reference column order.
 
-    rho, vis: the compressible density and viscosity fields, not ported.
-    extras: as flow_statistics."""
-    _need(p, extras, {"rho": rho, "vis": vis})
+    rho: the compressible density field -> Favre (density-weighted) means,
+    second moments, transports and the variable-density D/G terms
+    (avg_scal_xz.f90:313-400, :421-423, :580-597, :760-763).  vis: the
+    normalized viscosity field of a transport law multiplying the
+    visc/diff molecular terms (EQNS_TRANS_SUTHERLAND/POWERLAW branches,
+    avg_scal_xz.f90:610+).  extras: as flow_statistics."""
+    _need(p, extras)
     ex = extras or {}
     s = state.s[i]
     u, v, w = state.u, state.v, state.w
@@ -555,44 +644,73 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
     ny = s.shape[1]
     zero = torch.zeros((ny,), dtype=s.dtype, device=s.device)
     c23 = 2.0 / 3.0
+    comp = rho is not None
 
     def dy(prof):
         return (d1y @ prof) if d1y is not None else torch.zeros_like(prof)
 
+    def vw(f3):
+        # molecular-term viscosity multiplier (vis field) where active
+        return f3 * vis if vis is not None else f3
+
     out = {}
     rU, rV, rW = _pavg(u), _pavg(v), _pavg(w)
+    if comp:
+        rR = _pavg(rho)
+        fU = _pavg(rho * u) / rR
+        fV = _pavg(rho * v) / rR
+        fW = _pavg(rho * w) / rR
+    else:
+        rR = torch.ones((ny,), dtype=s.dtype, device=s.device)
+        fU, fV, fW = rU, rV, rW
     rU_y, rV_y, rW_y = dy(rU), dy(rV), dy(rW)
+    fU_y, fV_y, fW_y = dy(fU), dy(fV), dy(fW)
 
-    uf = u - rU[None, :, None]
-    vf = v - rV[None, :, None]
-    wf = w - rW[None, :, None]
-    Rvu = _pavg(vf * uf)
-    Rvv = _pavg(vf * vf)
-    Rvw = _pavg(vf * wf)
+    uf = u - fU[None, :, None]
+    vf = v - fV[None, :, None]
+    wf = w - fW[None, :, None]
+    if comp:
+        Rvu = _pavg(rho * v * u) / rR - fV * fU
+        Rvv = _pavg(rho * v * v) / rR - fV * fV
+        Rvw = _pavg(rho * v * w) / rR - fV * fW
+    else:
+        Rvu = _pavg(vf * uf)
+        Rvv = _pavg(vf * vf)
+        Rvw = _pavg(vf * wf)
 
     rS = _pavg(s)
-    rS_y = dy(rS)
-    sf = s - rS[None, :, None]
-    out["rS"], out["fS"] = rS, rS
-    out["rS_y"], out["fS_y"] = rS_y, rS_y
+    fS = _pavg(rho * s) / rR if comp else rS
+    rS_y, fS_y = dy(rS), dy(fS)
+    sf = s - fS[None, :, None]
+    srf = s - rS[None, :, None]
+    out["rS"], out["fS"] = rS, fS
+    out["rS_y"], out["fS_y"] = rS_y, fS_y
     out["rQ"], out["fQ"] = zero, zero        # no scalar sources
 
-    out["Rsu"] = _pavg(sf * uf)
-    out["Rsv"] = _pavg(sf * vf)
-    out["Rsw"] = _pavg(sf * wf)
-    rS2 = _pavg(sf * sf)
-    rS3 = _pavg(sf ** 3)
-    rS4 = _pavg(sf ** 4)
-    out["fS2"], out["fS3"], out["fS4"] = rS2, rS3, rS4
+    # density-weighted fluctuation field for cross terms
+    sfw = sf * rho if comp else sf
+    out["Rsu"] = _pavg(sfw * uf) / rR
+    out["Rsv"] = _pavg(sfw * vf) / rR
+    out["Rsw"] = _pavg(sfw * wf) / rR
+    rS2 = _pavg(srf * srf)
+    rS3 = _pavg(srf ** 3)
+    rS4 = _pavg(srf ** 4)
+    if comp:
+        out["fS2"] = _pavg(rho * sf * sf) / rR
+        out["fS3"] = _pavg(rho * sf ** 3) / rR
+        out["fS4"] = _pavg(rho * sf ** 4) / rR
+    else:
+        out["fS2"], out["fS3"], out["fS4"] = rS2, rS3, rS4
     out["rS2"], out["rS3"], out["rS4"] = rS2, rS3, rS4
-    Rss_y = dy(rS2)
+    Rss_y = dy(out["fS2"])
     Rsu_y, Rsv_y, Rsw_y = dy(out["Rsu"]), dy(out["Rsv"]), dy(out["Rsw"])
 
-    # turbulent transport (velocity part, avg_scal_xz.f90:430-443)
-    Tssy1 = _pavg(sf * sf * vf)
-    Tsuy1 = _pavg(sf * uf * vf)
-    Tsvy1 = _pavg(sf * vf * vf)
-    Tswy1 = _pavg(sf * wf * vf)
+    # turbulent transport (velocity part; rho-weighted for compressible,
+    # avg_scal_xz.f90:430-443)
+    Tssy1 = _pavg(sfw * sf * vf)
+    Tsuy1 = _pavg(sfw * uf * vf)
+    Tsvy1 = _pavg(sfw * vf * vf)
+    Tswy1 = _pavg(sfw * wf * vf)
 
     # pressure terms
     rP = _pavg(p)
@@ -602,8 +720,9 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
     dsdz = dyn._d1(P, "z", 2, s)
     Tsvy3 = _pavg(pf * sf)
     PIsu = _pavg(pf * dsdx)
-    PIsv = _pavg(pf * (dsdy - rS_y[None, :, None]))
+    PIsv = _pavg(pf * (dsdy - fS_y[None, :, None]))
     PIsw = _pavg(pf * dsdz)
+    Gsv = (rS - fS) * dy(rP)         # zero where Favre == Reynolds
 
     # velocity gradients for dissipation/transport
     gux = dyn._d1(P, "x", 0, u)
@@ -616,42 +735,59 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
     gwx = dyn._d1(P, "x", 0, w)
     guz = dyn._d1(P, "z", 2, u)
 
-    # dissipation accumulations (avg_scal_xz.f90:609-706)
-    Ess = 2.0 * diff * _pavg(dsdx * dsdx + dsdy * dsdy + dsdz * dsdz)
-    Esu = _pavg(dsdx * ((gux * 2.0 - gvy - gwz) * c23 * visc + gux * diff)
-                + dsdy * ((guy + gvx) * visc + guy * diff)
-                + dsdz * ((guz + gwx) * visc + guz * diff))
-    Esv = _pavg(dsdy * ((gvy * 2.0 - gux - gwz) * c23 * visc + gvy * diff)
-                + dsdx * ((guy + gvx) * visc + gvx * diff)
-                + dsdz * ((gwy + gvz) * visc + gvz * diff))
-    Esw = _pavg(dsdz * ((gwz * 2.0 - gux - gvy) * c23 * visc + gwz * diff)
-                + dsdy * ((gwy + gvz) * visc + gwy * diff)
-                + dsdx * ((gwx + guz) * visc + gwx * diff))
+    # dissipation accumulations (avg_scal_xz.f90:609-706; vis multiplies
+    # every molecular term under Sutherland/powerlaw transport)
+    Ess = 2.0 * diff * _pavg(vw(dsdx * dsdx + dsdy * dsdy + dsdz * dsdz))
+    Esu = _pavg(vw(dsdx * ((gux * 2.0 - gvy - gwz) * c23 * visc + gux * diff)
+                   + dsdy * ((guy + gvx) * visc + guy * diff)
+                   + dsdz * ((guz + gwx) * visc + guz * diff)))
+    Esv = _pavg(vw(dsdy * ((gvy * 2.0 - gux - gwz) * c23 * visc + gvy * diff)
+                   + dsdx * ((guy + gvx) * visc + gvx * diff)
+                   + dsdz * ((gwy + gvz) * visc + gvz * diff)))
+    Esw = _pavg(vw(dsdz * ((gwz * 2.0 - gux - gvy) * c23 * visc + gwz * diff)
+                   + dsdy * ((gwy + gvz) * visc + gwy * diff)
+                   + dsdx * ((gwx + guz) * visc + gwx * diff)))
 
     # mean viscous stresses / molecular flux + transport contributions
-    tau_yy3 = (gvy * 2.0 - gux - gwz) * c23 * visc
+    tau_yy3 = vw((gvy * 2.0 - gux - gwz) * c23 * visc)
     Tau_yy = _pavg(tau_yy3)
     Tsvy2 = -_pavg((tau_yy3 - Tau_yy[None, :, None]) * sf)
-    tau_yx3 = (guy + gvx) * visc
+    tau_yx3 = vw((guy + gvx) * visc)
     Tau_yx = _pavg(tau_yx3)
     Tsuy2 = -_pavg((tau_yx3 - Tau_yx[None, :, None]) * sf)
-    tau_yz3 = (gwy + gvz) * visc
+    tau_yz3 = vw((gwy + gvz) * visc)
     Tau_yz = _pavg(tau_yz3)
     Tswy2 = -_pavg((tau_yz3 - Tau_yz[None, :, None]) * sf)
 
-    Fy = _pavg(dsdy)                 # molecular scalar flux
-    dsdy_f = dsdy - Fy[None, :, None]
+    flux3 = vw(dsdy)                 # molecular scalar flux field
+    Fy = _pavg(flux3)
+    dsdy_f = flux3 - Fy[None, :, None]
     Tssy2 = -2.0 * diff * _pavg(dsdy_f * sf)
     Tsuy2 = Tsuy2 - diff * _pavg(dsdy_f * uf)
     Tsvy2 = Tsvy2 - diff * _pavg(dsdy_f * vf)
     Tswy2 = Tswy2 - diff * _pavg(dsdy_f * wf)
     Fy = Fy * diff
+    Fy_y = dy(Fy)
 
-    # dissipation mean-flux corrections (avg_scal_xz.f90:760-763)
-    Ess = Ess - 2.0 * Fy * rS_y
-    Esu = Esu - Tau_yx * rS_y - Fy * rU_y
-    Esv = Esv - Tau_yy * rS_y - Fy * rV_y
-    Esw = Esw - Tau_yz * rS_y - Fy * rW_y
+    # dissipation mean-flux corrections, /rR (avg_scal_xz.f90:760-763)
+    Ess = (Ess - 2.0 * Fy * rS_y) / rR
+    Esu = (Esu - Tau_yx * rS_y - Fy * rU_y) / rR
+    Esv = (Esv - Tau_yy * rS_y - Fy * rV_y) / rR
+    Esw = (Esw - Tau_yz * rS_y - Fy * rW_y) / rR
+
+    # buoyancy cross term (compressible: rho*g_y, avg_scal_xz.f90:768-783)
+    b3 = ex.get("b")
+    if comp:
+        Bsv = _pavg(sf * rho) * ex.get("grav_y", 0.0) / rR
+    elif b3 is not None:
+        Bsv = _pavg(sf * b3) / ex.get("froude", 1.0)
+    else:
+        Bsv = zero
+
+    # Coriolis
+    om_y = ex.get("coriolis_y", 0.0)
+    Fsu = om_y * out["Rsw"] if om_y else zero
+    Fsw = -om_y * out["Rsu"] if om_y else zero
 
     # transport derivatives
     Tssy_y = dy(Tssy1 + Tssy2)
@@ -659,41 +795,38 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
     Tsvy_y = dy(Tsvy1 + Tsvy2 + Tsvy3)
     Tswy_y = dy(Tswy1 + Tswy2)
 
-    Css = -rV * Rss_y
-    Csu = -rV * Rsu_y
-    Csv = -rV * Rsv_y
-    Csw = -rV * Rsw_y
-    Pss = -2.0 * out["Rsv"] * rS_y
-    Psu = -out["Rsv"] * rU_y - Rvu * rS_y
-    Psv = -out["Rsv"] * rV_y - Rvv * rS_y
-    Psw = -out["Rsv"] * rW_y - Rvw * rS_y
+    Css = -fV * Rss_y
+    Csu = -fV * Rsu_y
+    Csv = -fV * Rsv_y
+    Csw = -fV * Rsw_y
+    Pss = -2.0 * out["Rsv"] * fS_y
+    Psu = -out["Rsv"] * fU_y - Rvu * fS_y
+    Psv = -out["Rsv"] * fV_y - Rvv * fS_y
+    Psw = -out["Rsv"] * fW_y - Rvw * fS_y
+    Dss = (rS - fS) * Fy_y * 2.0
+    Dsu = (rS - fS) * dy(Tau_yx) + (rU - fU) * Fy_y
+    Dsv = (rS - fS) * dy(Tau_yy) + (rV - fV) * Fy_y
+    Dsw = (rS - fS) * dy(Tau_yz) + (rW - fW) * Fy_y
 
-    # buoyancy and Coriolis cross terms
-    b3 = ex.get("b")
-    Bsv = _pavg(sf * b3) / ex.get("froude", 1.0) if b3 is not None else zero
-    om_y = ex.get("coriolis_y", 0.0)
-    Fsu = om_y * out["Rsw"] if om_y else zero
-    Fsw = -om_y * out["Rsu"] if om_y else zero
-
-    # the variable-density (D, G) and source (Q) terms vanish for this
-    # equation set
-    out["Rss_t"] = Css + Pss - Ess + (-Tssy_y)
+    # the source (Q) terms vanish: no scalar sources in these tables
+    out["Rss_t"] = Css + Pss - Ess + (Dss - Tssy_y) / rR
     out["Css"], out["Pss"], out["Ess"] = Css, Pss, Ess
     out["Tssy1"], out["Tssy2"], out["Tssy_y"] = Tssy1, Tssy2, Tssy_y
-    out["Dss"], out["Qss"] = zero, zero
-    out["Rsu_t"] = Csu + Psu - Esu - Fsu + (PIsu - Tsuy_y)
+    out["Dss"], out["Qss"] = Dss, zero
+    out["Rsu_t"] = Csu + Psu - Esu - Fsu + (PIsu + Dsu - Tsuy_y) / rR
     out["Csu"], out["Psu"], out["Esu"], out["PIsu"] = Csu, Psu, Esu, PIsu
     out["Tsuy1"], out["Tsuy2"], out["Tsuy_y"] = Tsuy1, Tsuy2, Tsuy_y
-    out["Rsv_t"] = Csv + Psv - Esv + Bsv + (PIsv - Tsvy_y)
+    out["Rsv_t"] = Csv + Psv - Esv + Bsv + (PIsv + Dsv - Gsv - Tsvy_y) / rR
     out["Csv"], out["Psv"], out["Esv"], out["PIsv"] = Csv, Psv, Esv, PIsv
     out["Tsvy1"], out["Tsvy2"], out["Tsvy3"], out["Tsvy_y"] = \
         Tsvy1, Tsvy2, Tsvy3, Tsvy_y
-    out["Rsw_t"] = Csw + Psw - Esw - Fsw + (PIsw - Tswy_y)
+    out["Rsw_t"] = Csw + Psw - Esw - Fsw + (PIsw + Dsw - Tswy_y) / rR
     out["Csw"], out["Psw"], out["Esw"], out["PIsw"] = Csw, Psw, Esw, PIsw
     out["Tswy1"], out["Tswy2"], out["Tswy_y"] = Tswy1, Tswy2, Tswy_y
     for c in "uvw":
-        for n in "DGBFQ":
+        for n in "GBFQ":
             out[f"{n}s{c}"] = zero
+    out["Dsu"], out["Dsv"], out["Dsw"], out["Gsv"] = Dsu, Dsv, Dsw, Gsv
     out["Bsv"], out["Fsu"], out["Fsw"] = Bsv, Fsu, Fsw
 
     # derivative moments

@@ -10,7 +10,7 @@ the host, where they add into float64 sums.  The sums, the station tables
 and the files are tlab_tpu's NumPy code, copied.
 
 The density-weighted (Favre) families, the MA_* register set and their
-station tables belong to the compressible set (ROADMAP A13).
+station tables belong to the compressible set (ROADMAP A13b).
 """
 from __future__ import annotations
 

@@ -8,9 +8,10 @@ iniflow.x/iniscal.x/dns.x.  The run is on the CUDA card unless --device
 names another device; --x64 computes in float64 (validation mode).
 
 Files: inigrid writes `grid` and `<ini>.bak`; ini writes
-flow.<Start>.{1,2,3} and scal.<Start>.<i>; dns reads them and writes dns.out,
-tlab.log, restarts at the [Iteration] Restart cadence and avg<it> /
-avg<it>s<i> at the Statistics cadence.
+flow.<Start>.{1,2,3} and scal.<Start>.<i> (the compressible set: the
+conservative flow.<Start>.{1..5} and flow.<Start>.s<i>); dns reads them and
+writes dns.out, tlab.log, restarts at the [Iteration] Restart cadence and
+avg<it> / avg<it>s<i> at the Statistics cadence.
 """
 from __future__ import annotations
 
@@ -84,20 +85,37 @@ def _run(args) -> int:
     scal = os.path.join(args.outdir, "scal")
 
     if args.command in INI_COMMANDS:
-        from tlab_tpu_torch.tools.initialize import initial_state
-        with trace.trace("initial_state"):
-            state = initial_state(sim, seed=args.seed)
-        fields_io.write_state(flow, scal, case.it_start, state, 0.0,
-                              sim.nsp.visc)
+        from tlab_tpu_torch.tools import initialize
+        if sim.comp is not None:
+            # compressible restart: the conservative fields (reference
+            # inb_flow=5, io_fields flow.<it>.1-5)
+            with trace.trace("initial_state"):
+                U = initialize.compressible_initial_state(sim,
+                                                          seed=args.seed)
+            fields_io.write_comp_state(flow, case.it_start, U, 0.0,
+                                       sim.nsp.visc)
+        else:
+            with trace.trace("initial_state"):
+                state = initialize.initial_state(sim, seed=args.seed)
+            fields_io.write_state(flow, scal, case.it_start, state, 0.0,
+                                  sim.nsp.visc)
         print(f"initial fields written at it={case.it_start}")
         return 0
 
     # dns
     from tlab_tpu_torch.tools import dns as dns_tool
     it0 = case.it_start
-    u, v, w, s, rtime, visc0 = fields_io.read_state(flow, scal, it0,
-                                                    sim.nsp.n_scalars)
-    state = state_from_numpy(u, v, w, s, sim.device, sim.dtype)
+    if sim.comp is not None:
+        from tlab_tpu_torch.dycore.compressible import CompState
+        # as tlab_tpu's: no [ViscChange] ramp in the compressible set
+        U0, rtime, _ = fields_io.read_comp_state(flow, it0)
+        visc0 = None
+        state = CompState(*(None if a is None else torch.as_tensor(a).to(
+            sim.device, sim.dtype) for a in U0))
+    else:
+        u, v, w, s, rtime, visc0 = fields_io.read_state(flow, scal, it0,
+                                                        sim.nsp.n_scalars)
+        state = state_from_numpy(u, v, w, s, sim.device, sim.dtype)
     run = dns_tool.run(sim, state, outdir=args.outdir, itime=it0,
                        rtime=float(rtime), n_steps=args.steps,
                        log_path=os.path.join(args.outdir, "dns.out"),

@@ -1,5 +1,6 @@
 """The dns.x equivalent time loop (port of tlab_tpu/tools/dns.py,
-the single-device incompressible thread through it).
+the single-device incompressible and ideal-gas compressible threads
+through it).
 
 Outer loop on the host (adaptive dt, logging, checkpoints, statistics);
 each RK step, or window of `inner_steps` steps, is a sequence of device
@@ -7,7 +8,17 @@ calls that the host waits for once, when it reads the window's CFL and
 dilatation extrema.  Structure mirrors reference dns_main.f90:246-361; the
 dns.out step log reproduces the reference's columns (Itn. time dt CFL# D#
 visc DilMin DilMax, and NewtonRs for the anelastic AirWater mixture,
-dns_main.f90:394-495).
+dns_main.f90:394-495).  TimeOrder=RungeKuttaDiffusion3 steps with the
+semi-implicit diffusion of dycore/implicit.py, one step at a time within a
+window.
+
+The compressible set (sim.comp) steps its conservative state with
+dycore/compressible.py in a loop of its own (_run_compressible), one step
+a window: the acoustic CFL and the diffusion-number density set dt, the
+log prints the pressure and density extrema (PMin PMax RMin RMax,
+dns_main.f90:434-439), the restarts hold the conservative fields
+(fields_io.write_comp_state) and the statistics are the Favre tables of
+write_statistics_compressible.
 
 The boundary machinery rides in the loop as in tlab_tpu's: the interactive
 surface state starts at zero, the buffer takes its references from the
@@ -33,13 +44,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tlab_tpu_torch.dycore import compressible as comp_mod
+from tlab_tpu_torch.dycore import implicit
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.buffer import apply_filter_sponge
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.io import fields_io
 from tlab_tpu_torch.ops.filter import filter_state
-from tlab_tpu_torch.physics import thermo
-from tlab_tpu_torch.runtime import Simulation
+from tlab_tpu_torch.physics import eos, thermo
+from tlab_tpu_torch.runtime import COMPRESSIBLE, Simulation
 from tlab_tpu_torch.stats import averages as avg
 from tlab_tpu_torch.stats.spatial import (SpatialStats, state_fields,
                                           write_station_budgets)
@@ -52,9 +65,17 @@ class RunLog:
     path: Optional[str] = None
     lines: list = dataclasses.field(default_factory=list)
     newton: bool = False        # AirWater NewtonRs column (dns_main.f90:406)
+    comp: bool = False          # the compressible PMin..RMax columns
 
     def header(self):
-        if self.newton:
+        if self.comp:
+            # compressible columns (reference DNS_LOGS_INITIALIZE,
+            # dns_main.f90:434-439): p and rho extrema
+            h = ("#" * 93 + "\n"
+                 "#  Itn.    time          dt         CFL#       D#      "
+                 "   visc       PMin       PMax       RMin       RMax #\n"
+                 + "#" * 93)
+        elif self.newton:
             # anelastic equilibrium AirWater adds the saturation Newton
             # residual (dns_main.f90:443, imixture==AIRWATER & Da3<=0)
             h = ("#" * 106 + "\n"
@@ -70,7 +91,9 @@ class RunLog:
     def step(self, status, itime, rtime, dt, cfl, dnum, visc, *extra):
         line = (f"{status} {itime:7d}  {fort_e(rtime, 6)}  {fort_e(dt, 3)}  "
                 f"{fort_e(cfl, 3)}  {fort_e(dnum, 3)}  {fort_e(visc, 3)}")
-        if self.newton and len(extra) >= 3:
+        if self.comp:
+            line += "".join(f" {fort_e(v, 3)}" for v in extra)
+        elif self.newton and len(extra) >= 3:
             # DilMin DilMax at E13.6, NewtonRs at E10.3 (dns_main 200/400)
             line += " " + "  ".join(fort_e(v, 6) for v in extra[:2])
             line += "  " + fort_e(extra[2], 3)
@@ -124,7 +147,13 @@ def make_step_functions(sim: Simulation, inner_steps: int = 1):
     factor, "rtime": t} or None).  NewtonRs: where newton_error_fn(sim)
     gives the column."""
     P = sim.P
+    if sim.comp is not None:
+        return _compressible_step_functions(sim)
     newton = newton_error_fn(sim)
+    # TimeOrder=RungeKuttaDiffusion3: the SMR91 semi-implicit diffusion step
+    # (reference RKM_IMP3_DIFFUSION, time.f90:114-134), which is what drops
+    # the diffusion-number limit on dt; it does not take the stacked loop
+    implicit_diff = "diffusion" in sim.case.time_order.lower()
 
     def diagnostics(state):
         vals = [dyn.cfl_advective_max(P, state),
@@ -134,12 +163,55 @@ def make_step_functions(sim: Simulation, inner_steps: int = 1):
         return torch.stack(vals)
 
     def step(state, dtime, extra=None):
-        if inner_steps > 1:
+        if implicit_diff:
+            new_state = state
+            for _ in range(inner_steps):
+                new_state, p = implicit.rk_step_implicit(P, new_state, dtime,
+                                                         aux=extra)
+        elif inner_steps > 1:
             new_state, p = dyn.rk_loop_stacked(P, state, dtime, inner_steps,
                                                aux=extra)
         else:
             new_state, p = dyn.rk_step(P, state, dtime, aux=extra)
         return new_state, p, diagnostics(new_state)
+
+    return step, diagnostics
+
+
+def _primitive(sim: Simulation, U):
+    """(u, v, w, T, p) of the conservative state in the set's energy
+    formulation."""
+    c = sim.comp
+    fn = comp_mod.primitive if c["energy"] == "total" \
+        else comp_mod.primitive_internal
+    return fn(sim.P, U, c["gamma"], c["mach"])
+
+
+def _compressible_step_functions(sim: Simulation):
+    """(step, diagnostics) of the compressible set, one RK step a call.
+    diagnostics(U) is the device tensor [acoustic CFL max, PMin, PMax, RMin,
+    RMax, diffusion-number density] (the density, max(sfactor (sum
+    1/ds^2)/rho), is TIME_COURANT's compressible branch), read in one copy;
+    step(U, dtime, extra=None) returns (U, p, diagnostics(U)) with p the EOS
+    pressure of the new state."""
+    P, c = sim.P, sim.comp
+
+    def diagnostics(U, p=None):
+        if p is None:
+            p = _primitive(sim, U)[4]
+        cfl = comp_mod.acoustic_cfl_max(P, U, c["gamma"], c["mach"],
+                                        energy=c["energy"])
+        return torch.stack([cfl, p.min(), p.max(), U.rho.min(), U.rho.max(),
+                            comp_mod.diffusion_number_max(P, U,
+                                                          c["sfactor"])])
+
+    def step(U, dtime, extra=None):
+        new_U = comp_mod.rk_step_compressible(
+            P, U, dtime, c["gamma"], c["mach"], sim.nsp.visc, c["prandtl"],
+            ly=c["ly"], gas=c["gas"], lx=c["lx"], form=c["form"],
+            energy=c["energy"], gvec=c["gvec"])
+        p = _primitive(sim, new_U)[4]
+        return new_U, p, diagnostics(new_U, p)
 
     return step, diagnostics
 
@@ -153,15 +225,55 @@ def write_statistics(sim: Simulation, state: State, outdir: str,
     The tables are reduced on the device and come to the host as one
     (ncols, ny) stack -- no full field is copied (the reference reduces in
     place via AVG_IK_V, averages.f90:36-333)."""
+    _write_tables(sim, outdir, itime, rtime,
+                  *avg.stats_tables(sim, state, p))
+
+
+def _write_tables(sim: Simulation, outdir: str, itime: int, rtime: float,
+                  flow: dict, scals: list) -> None:
+    """avg<itime> and avg<itime>s<i> from the host tables."""
     y = sim.grid.y.nodes
-    flow, scals = avg.stats_tables(sim, state, p)
     _wr = avg.avg_writer(sim.case)
     _wr(os.path.join(outdir, f"avg{itime}"), y, flow, avg.FLOW_GROUPS,
         itime, rtime)
-    sgroups = avg.scal_groups(state.s.shape[0])
+    sgroups = avg.scal_groups(len(scals))
     for i, sc in enumerate(scals):
         _wr(os.path.join(outdir, f"avg{itime}s{i + 1}"), y, sc, sgroups,
             itime, rtime)
+
+
+def write_statistics_compressible(sim: Simulation, U, outdir: str,
+                                  itime: int, rtime: float) -> None:
+    """Compressible avg<itime> / avg<itime>s<i> tables: the primitive
+    decomposition feeds the density-weighted (Favre) columns, the
+    thermodynamic ones, Acoustics and RhoBudget of the reference
+    AVG_FLOW_XZ (compressible branch, avg_flow_xz.f90:768-940); reduced on
+    the device, one (ncols, ny) copy to the host."""
+    c = sim.comp
+    gamma, mach = c["gamma"], c["mach"]
+    rho = U.rho
+    u, v, w, T, p = _primitive(sim, U)
+    e = T / (gamma * (gamma - 1.0) * mach ** 2)
+    h = e + p / rho
+    # ideal-gas entropy s = ln(T)/(gamma-1) - ln(rho) (THERMO_ENTROPY analog
+    # in this nondimensionalization)
+    s_ent = torch.log(T) / (gamma - 1.0) - torch.log(rho)
+    ns = U.rhos.shape[0] if U.rhos is not None else 0
+    s_scal = (U.rhos / rho[None]) if ns else rho.new_zeros((0,) + rho.shape)
+    state = State(u=u, v=v, w=w, s=s_scal)
+    extras = {"eqns": "compressible", "rho": rho, "T": T, "e": e, "h": h,
+              "entropy": s_ent, "gamma_field": torch.full_like(T, gamma),
+              "y": np.asarray(sim.grid.y.nodes)}
+    gas = c.get("gas")
+    vis = None
+    if gas is not None and gas.transport in ("powerlaw", "sutherland"):
+        vis = eos.viscosity(gas, T)
+    flow = avg.flow_statistics(sim.P, state, sim.nsp.visc, p=p,
+                               extras=extras)
+    scals = [avg.scalar_statistics(sim.P, state, sim.nsp.diffusivity(i), i,
+                                   p=p, visc=sim.nsp.visc, extras=extras,
+                                   rho=rho, vis=vis) for i in range(ns)]
+    _write_tables(sim, outdir, itime, rtime, *avg.to_host(flow, scals))
 
 
 def write_obs(sim: Simulation, state: State, outdir: str, itime: int,
@@ -228,6 +340,9 @@ def _unported(case, mesh, pstate, particle_props, opr_check):
     if (getattr(case, "towers", None) or {}).get("stride"):
         found.append(("[SaveTowers]", "A15"))
     ini = getattr(case, "ini", None)
+    if case.equations in COMPRESSIBLE and case.flow_type == "spatial":
+        found.append(("compressible Type=spatial (Favre station "
+                      "statistics)", "A13b"))
     if ini is not None:
         if ini.get_int("Iteration", "PhaseAvg", 0) > 0:
             found.append(("[Iteration] PhaseAvg", "A14"))
@@ -235,6 +350,78 @@ def _unported(case, mesh, pstate, particle_props, opr_check):
             if ini.get_bool("Statistics", key, False):
                 found.append((f"[Statistics] {key}", "A14"))
     return found
+
+
+def _restart_dtype(ini) -> str:
+    """[Main] FileType=single writes f32 restarts (io_fields.f90:37-40);
+    read_field autodetects on reload."""
+    return "<f4" if (ini is not None and ini.get(
+        "Main", "FileType", "double").lower() == "single") else "<f8"
+
+
+def _visc_ramp(ini, visc_ini: float, restart_visc, ramp: bool = True):
+    """(visc, ramp rate) of the [ViscChange] viscosity ramp: a restart
+    whose stored viscosity differs from the INI's relaxes linearly over
+    Time toward it (dns_main.f90:176-184, 261)."""
+    if ramp and restart_visc is not None and restart_visc > 0.0 \
+            and abs(restart_visc - visc_ini) > 1e-14 * visc_ini:
+        vtime = ini.get_float("ViscChange", "Time", 0.0) if ini else 0.0
+        if vtime > 0.0:
+            return restart_visc, (visc_ini - restart_visc) / vtime
+    return visc_ini, 0.0
+
+
+def _ramped(visc: float, visc_ini: float, rate: float, dt: float) -> float:
+    """The viscosity `dt` later along the ramp, held at visc_ini once it
+    gets there."""
+    if rate == 0.0 or visc == visc_ini:
+        return visc
+    visc = visc + rate * dt
+    return visc_ini if (rate > 0) == (visc >= visc_ini) else visc
+
+
+def _loop_keys(ini, fixed_dt):
+    """(dt_lag, runtime_sec, profile) of the loop's [Iteration] and [Main]
+    keys.  Lagged dt (DtLag=yes): the next dt comes from the PREVIOUS
+    window's CFL, the one-step-stale value compensated by a 0.97 safety
+    factor; disabled when dt is fixed.  Kept so that a case with the key
+    gives tlab_tpu's numbers.  It hides no latency here: the read is a copy
+    on the stream the window was enqueued on, so it still waits for that
+    window.  Runtime: the walltime watchdog (dns_main.f90:355-360: write
+    tlab.err so job chains stop).  Profiling: per-window wall times
+    (reference USE_PROFILE per-RK-substep timing, time.f90:228-329)."""
+    dt_lag = bool(ini and ini.get_bool("Iteration", "DtLag", False)
+                  and fixed_dt is None)
+    runtime_sec = ini.get_float("Iteration", "Runtime", 1.0e7) \
+        if ini else 1.0e7
+    profile = bool(ini and ini.get_bool("Main", "Profiling", False))
+    return dt_lag, runtime_sec, profile
+
+
+def _stop(outdir: str, text: str) -> None:
+    """The line of tlab.err that says why the run stopped."""
+    with open(os.path.join(outdir, "tlab.err"), "a") as fh:
+        fh.write(text + "\n")
+
+
+def _write_profile(sim: Simulation, outdir: str, log: RunLog, samples,
+                   n_sub: int, inner_steps: int) -> None:
+    """dns.prof: the per-window wall times, and their mean per substep at
+    the end of the step log."""
+    samples = np.asarray(samples)
+    per_sub = samples / (inner_steps * n_sub)
+    with open(os.path.join(outdir, "dns.prof"), "w") as fh:
+        fh.write("# per-window wall time [s] on "
+                 f"{_device_name(sim.device)}; per-RK-substep [s] "
+                 f"(n_sub={n_sub}, inner_steps={inner_steps})\n")
+        fh.write(f"# windows={len(samples)} "
+                 f"total={samples.sum():.6f}\n")
+        fh.write(f"# substep mean={per_sub.mean():.6e} "
+                 f"min={per_sub.min():.6e} max={per_sub.max():.6e}\n")
+        for s in samples:
+            fh.write(f"{s:.6e}\n")
+    log._write(f"# profiling: {per_sub.mean()*1e3:.3f} ms/RK-substep "
+               f"(min {per_sub.min()*1e3:.3f})")
 
 
 def run(sim: Simulation, state: State, outdir: str = ".",
@@ -252,6 +439,10 @@ def run(sim: Simulation, state: State, outdir: str = ".",
                 f"{opt} (ROADMAP {item})" for opt, item in missing))
     ini = getattr(case, "ini", None)
     n_steps = n_steps if n_steps is not None else (case.it_end - itime)
+    if sim.comp is not None:
+        return _run_compressible(sim, state, outdir, itime, rtime, n_steps,
+                                 log_path, checkpoint, nan_abort,
+                                 restart_visc)
     # the [Filter] cadence and a time-dependent forcing (the wavemaker reads
     # the start-of-step time) are per-step host work: no window across them
     filt = sim.filter_matrices()
@@ -260,10 +451,7 @@ def run(sim: Simulation, state: State, outdir: str = ".",
     spatial = case.flow_type == "spatial"
     if filt is not None or timed or spatial or inflow is not None:
         inner_steps = 1     # per-step host work (the sums, the planes)
-    # [Main] FileType=single writes f32 restarts (io_fields.f90:37-40);
-    # read_field autodetects on reload
-    restart_dtype = "<f4" if (ini is not None and ini.get(
-        "Main", "FileType", "double").lower() == "single") else "<f8"
+    restart_dtype = _restart_dtype(ini)
     _trace.maybe_init(case, outdir)
     if sim.P.get("surface_bc") is not None and state.sfc is None \
             and state.s.shape[0]:
@@ -280,22 +468,14 @@ def run(sim: Simulation, state: State, outdir: str = ".",
                               os.path.join(outdir, "scal"), itime, state,
                               rtime, visc, dtype=restart_dtype)
 
-    # [ViscChange] viscosity ramp: a restart whose stored viscosity
-    # differs from the INI's relaxes linearly over Time toward it
-    # (dns_main.f90:176-184, 261); rides into the step as the visc_scale
-    # factor on every diffusivity.
+    # the [ViscChange] ramp rides into the step as the visc_scale factor on
+    # every diffusivity (as tlab_tpu: no ramp with an unsteady inflow)
     cfla = case.time_cfl
     cfld = case.time_cfl_diffusive
     fixed_dt = case.time_step if case.time_step > 0 else None
-    visc = sim.nsp.visc
-    visc_ini = visc
-    ramp_rate = 0.0
-    if restart_visc is not None and restart_visc > 0.0 \
-            and abs(restart_visc - visc_ini) > 1e-14 * visc_ini:
-        vtime = ini.get_float("ViscChange", "Time", 0.0) if ini else 0.0
-        if vtime > 0.0 and inflow is None:      # as tlab_tpu: no ramp
-            visc = restart_visc
-            ramp_rate = (visc_ini - restart_visc) / vtime
+    visc_ini = sim.nsp.visc
+    visc, ramp_rate = _visc_ramp(ini, visc_ini, restart_visc,
+                                 ramp=inflow is None)
 
     def _aux():
         aux = {}
@@ -337,23 +517,8 @@ def run(sim: Simulation, state: State, outdir: str = ".",
     max_dil = (getattr(case, "control", None)
                or {}).get("max_dilatation", -1.0)
 
-    # lagged dt ([Iteration] DtLag=yes): the next dt comes from the
-    # PREVIOUS window's CFL, the one-step-stale value compensated by a 0.97
-    # safety factor; disabled when dt is fixed.  Kept so that a case with
-    # the key gives tlab_tpu's numbers.  It hides no latency here: the read
-    # below is a copy on the stream the window was enqueued on, so it still
-    # waits for that window.
-    dt_lag = bool(ini and ini.get_bool("Iteration", "DtLag", False)
-                  and fixed_dt is None)
+    dt_lag, runtime_sec, profile = _loop_keys(ini, fixed_dt)
     prev_diag = None
-
-    # walltime watchdog (reference [Iteration] Runtime,
-    # dns_main.f90:355-360: write tlab.err so job chains stop)
-    runtime_sec = ini.get_float("Iteration", "Runtime", 1.0e7) \
-        if ini else 1.0e7
-    # per-window profiling (reference USE_PROFILE per-RK-substep timing,
-    # time.f90:228-329)
-    profile = bool(ini and ini.get_bool("Main", "Profiling", False))
     n_sub = len(sim.P["rk"]["kdt"])
     prof_samples = []
     t_start = time.monotonic()
@@ -372,10 +537,7 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         state, p_cur, diag = step(state, dtime, extra=_aux())
         itime += inner_steps
         rtime += dtime * inner_steps      # Python float64, never a tensor
-        if ramp_rate != 0.0 and visc != visc_ini:
-            visc = visc + ramp_rate * dtime * inner_steps
-            if (ramp_rate > 0) == (visc >= visc_ini):
-                visc = visc_ini         # ramp complete
+        visc = _ramped(visc, visc_ini, ramp_rate, dtime * inner_steps)
         if sponge is not None:
             state = apply_filter_sponge(*sponge, state)
         if filt is not None and filt_step > 0 and itime % filt_step == 0:
@@ -409,9 +571,8 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             status = 3
             log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
                      visc, *extras)
-            with open(os.path.join(outdir, "tlab.err"), "a") as fh:
-                fh.write(f"DNS_CONTROL. Dilatation out of bounds "
-                         f"at It{itime}.\n")
+            _stop(outdir, f"DNS_CONTROL. Dilatation out of bounds "
+                  f"at It{itime}.")
             if checkpoint and case.it_restart > 0:
                 checkpoint_now()
             break
@@ -420,9 +581,8 @@ def run(sim: Simulation, state: State, outdir: str = ".",
                      visc, *extras)
             _trace.point(f"iteration {itime} logged (dt={new_dt:.3e})")
         if time.monotonic() - t_start > runtime_sec:
-            with open(os.path.join(outdir, "tlab.err"), "a") as fh:
-                fh.write(f"Maximum walltime of {runtime_sec:g} seconds "
-                         f"is reached at It{itime}.\n")
+            _stop(outdir, f"Maximum walltime of {runtime_sec:g} seconds "
+                  f"is reached at It{itime}.")
             if checkpoint and case.it_restart > 0:
                 checkpoint_now()
             break
@@ -457,25 +617,119 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         dtime = new_dt
 
     if profile and prof_samples:
-        samples = np.asarray(prof_samples)
-        per_sub = samples / (inner_steps * n_sub)
-        with open(os.path.join(outdir, "dns.prof"), "w") as fh:
-            fh.write("# per-window wall time [s] on "
-                     f"{_device_name(sim.device)}; per-RK-substep [s] "
-                     f"(n_sub={n_sub}, inner_steps={inner_steps})\n")
-            fh.write(f"# windows={len(samples)} "
-                     f"total={samples.sum():.6f}\n")
-            fh.write(f"# substep mean={per_sub.mean():.6e} "
-                     f"min={per_sub.min():.6e} max={per_sub.max():.6e}\n")
-            for s in samples:
-                fh.write(f"{s:.6e}\n")
-        log._write(f"# profiling: {per_sub.mean()*1e3:.3f} ms/RK-substep "
-                   f"(min {per_sub.min()*1e3:.3f})")
-
+        _write_profile(sim, outdir, log, prof_samples, n_sub, inner_steps)
     if checkpoint and status != 0 and case.it_restart > 0 \
             and itime % case.it_restart != 0:
         checkpoint_now()
     return DnsRun(sim=sim, state=state, itime=itime, rtime=rtime, log=log)
+
+
+def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
+                      rtime: float, n_steps: int, log_path, checkpoint: bool,
+                      nan_abort: bool, restart_visc) -> DnsRun:
+    """run() of the compressible set (sim.comp): one RK step a window; dt
+    from the acoustic CFL and the diffusion-number density (TIME_COURANT's
+    compressible branch); the log's PMin PMax RMin RMax; the [Control]
+    pressure and density bounds (DNS_BOUNDS_CONTROL, dns_local.f90:136-158);
+    write_comp_state restarts and the Favre statistics.  As tlab_tpu's
+    compressible thread: no [Filter], ObsLog or dilatation bound, and the
+    [ViscChange] ramp moves only the log's visc column."""
+    case = sim.case
+    ini = case.ini
+    restart_dtype = _restart_dtype(ini)
+    _trace.maybe_init(case, outdir)
+    cfla = case.time_cfl
+    cfld = case.time_cfl_diffusive
+    fixed_dt = case.time_step if case.time_step > 0 else None
+    visc_ini = sim.nsp.visc
+    visc, ramp_rate = _visc_ramp(ini, visc_ini, restart_visc)
+    dt_lag, runtime_sec, profile = _loop_keys(ini, fixed_dt)
+    bnd = sim.comp.get("bounds")
+    with _trace.trace("building step functions"):
+        step, diagnostics = _compressible_step_functions(sim)
+    write_tlab_log(sim, outdir)
+    log = RunLog(path=log_path, comp=True)
+    log.header()
+
+    def checkpoint_now():
+        fields_io.write_comp_state(os.path.join(outdir, "flow"), itime, U,
+                                   rtime, visc, dtype=restart_dtype)
+
+    def next_dt(cmax, dden):
+        dt = fixed_dt or min(cfla / cmax if cmax > 0 else np.inf,
+                             cfld / dden if dden > 0 else np.inf)
+        return dt, dt * dden
+
+    # initial dt + step-0 log line: one read of [CFL, PMin, PMax, RMin,
+    # RMax, diffusion-number density]
+    cmax, *extras, dden = diagnostics(U).tolist()
+    dtime, dnum = next_dt(cmax, dden)
+    log.step(0, itime, rtime, dtime, dtime * cmax, dnum, visc, *extras)
+
+    status = 0
+    prev_diag = None
+    prof_samples = []
+    t_start = time.monotonic()
+    _trace.point("time loop starts")
+    for _ in range(n_steps):
+        t_it = time.monotonic()
+        U, _, diag = step(U, dtime)
+        itime += 1
+        rtime += dtime
+        visc = _ramped(visc, visc_ini, ramp_rate, dtime)
+        # the window's one host sync: a 6-element copy (the previous
+        # window's with DtLag)
+        cmax, *extras, dden = (prev_diag if dt_lag and prev_diag is not None
+                               else diag).tolist()
+        if dt_lag and prev_diag is not None:
+            cmax *= 1.0 / 0.97
+        if dt_lag:
+            prev_diag = diag
+        if profile:
+            prof_samples.append(time.monotonic() - t_it)
+        if nan_abort and not np.isfinite(cmax):
+            status = 1
+            log.step(status, itime, rtime, dtime, np.nan, np.nan, visc,
+                     *extras)
+            break
+        new_dt, dnum = next_dt(cmax, dden)
+        if bnd is not None and (
+                extras[0] < bnd["p"][0] or extras[1] > bnd["p"][1]
+                or extras[2] < bnd["r"][0] or extras[3] > bnd["r"][1]):
+            status = 2              # DNS_ERROR_NEGDENS/NEGPRESS analog
+            log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
+                     visc, *extras)
+            _stop(outdir, f"DNS_CONTROL. Pressure/density out of bounds "
+                  f"at It{itime}.")
+            if checkpoint and case.it_restart > 0:
+                checkpoint_now()
+            break
+        if itime % case.it_log == 0:
+            log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
+                     visc, *extras)
+            _trace.point(f"iteration {itime} logged (dt={new_dt:.3e})")
+        if time.monotonic() - t_start > runtime_sec:
+            _stop(outdir, f"Maximum walltime of {runtime_sec:g} seconds "
+                  f"is reached at It{itime}.")
+            if checkpoint and case.it_restart > 0:
+                checkpoint_now()
+            break
+        if checkpoint and case.it_restart > 0 \
+                and itime % case.it_restart == 0:
+            with _trace.trace(f"checkpoint {itime}"):
+                checkpoint_now()
+        if case.it_stats > 0 and itime % case.it_stats == 0:
+            with _trace.trace(f"statistics {itime}"):
+                write_statistics_compressible(sim, U, outdir, itime, rtime)
+        dtime = new_dt
+
+    if profile and prof_samples:
+        _write_profile(sim, outdir, log, prof_samples,
+                       len(sim.P["rk"]["kdt"]), 1)
+    if checkpoint and status != 0 and case.it_restart > 0 \
+            and itime % case.it_restart != 0:
+        checkpoint_now()
+    return DnsRun(sim=sim, state=U, itime=itime, rtime=rtime, log=log)
 
 
 def _device_name(device: torch.device) -> str:

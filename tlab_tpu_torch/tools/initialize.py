@@ -15,7 +15,9 @@ The random fields and their spectral shaping are NumPy on the host in
 float64; the curl, the Poisson solves, the solenoidal projection and the
 TKE normalisation run as torch on sim.device in sim.dtype; [IniFields]
 NormalizeR adds the radiation increment to the active scalar.  The
-compressible initial states are ROADMAP A13.
+ideal-gas compressible state (compressible_initial_state) adds the density
+and pressure profiles and the NormalizeP pressure fluctuation; the
+compressible AirWater state is ROADMAP A13b.
 """
 from __future__ import annotations
 
@@ -24,7 +26,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from tlab_tpu_torch.config import _read_profile
 from tlab_tpu_torch.constants import BC
+from tlab_tpu_torch.dycore import incompressible as dyn
+from tlab_tpu_torch.dycore.compressible import CompState, from_primitive
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.utils import trace as _trace
@@ -512,3 +517,55 @@ def initial_state(sim: Simulation, seed: int | None = None) -> State:
                                    flux_bottom=rad.flux_bottom * scale)
         s[rad.scalar] += bf.ir_field(State(u=u, v=v, w=w, s=s), rad=rad2)
     return State(u=u, v=v, w=w, s=s)
+
+
+def compressible_initial_state(sim: Simulation,
+                               seed: int | None = None) -> CompState:
+    """Compressible ICs of the ideal gas (reference iniflow compressible
+    branch, flow_main.f90): velocity mean profiles + perturbations as in the
+    incompressible path; rho/p from the [Flow] ProfileDensity /
+    ProfilePressure mean profiles (p nondimensionalized by rho0 U0^2, so
+    a uniform p = 1/(gamma Ma^2) gives T = 1); optional [IniFields]
+    NormalizeP adds the pressure fluctuation consistent with the velocity
+    field -- lap p' = -d2(rho ui uj)/dxi dxj with p' = 0 at the walls --
+    and the isentropic density update rho *= 1 + p'/(gamma p)
+    (PRESSURE_FLUCTUATION, flow_local.f90:554-609).  The conservative
+    energy matches the set's formulation (sim.comp["energy"])."""
+    st = initial_state(sim, seed=seed)
+    gamma, mach = sim.comp["gamma"], sim.comp["mach"]
+    nx, ny, nz = sim.grid.shape
+    y = sim.grid.y.nodes
+    ini = getattr(sim.case, "ini", None)
+    rho = torch.ones_like(st.u)
+    p = torch.full_like(st.u, 1.0 / (gamma * mach ** 2))
+    if ini is not None:
+        jscale = float(y[-1] - y[0])
+        rprof = _read_profile(ini, "flow", "Density", jscale)
+        pprof = _read_profile(ini, "flow", "Pressure", jscale)
+        if ini.get("Flow", "Density", ""):
+            rho = _tensor(sim, np.broadcast_to(rprof(y)[None, :, None],
+                                               (nx, ny, nz)).copy())
+        if ini.get("Flow", "Pressure", ""):
+            p = _tensor(sim, np.broadcast_to(pprof(y)[None, :, None],
+                                             (nx, ny, nz)).copy())
+        norm_p = ini.get_float("IniFields", "NormalizeP", -1.0)
+        if norm_p >= 0.0:
+            P = sim.P
+            ru, rv, rw = rho * st.u, rho * st.v, rho * st.w
+            tx = dyn._d1(P, "x", 0, ru * st.u) \
+                + 2.0 * (dyn._d1(P, "y", 1, ru * st.v)
+                         + dyn._d1(P, "z", 2, ru * st.w))
+            rhs = dyn._d1(P, "x", 0, tx)
+            ty = dyn._d1(P, "y", 1, rv * st.v) \
+                + 2.0 * dyn._d1(P, "z", 2, rv * st.w)
+            rhs = rhs + dyn._d1(P, "y", 1, ty)
+            rhs = rhs + dyn._d1(P, "z", 2, dyn._d1(P, "z", 2, rw * st.w))
+            # reference OPR_Poisson ibc=0 = BCS_DD through the factorize
+            # solver (flow_local.f90:600-603)
+            pprime = sim.poisson_ref(BC.DD, -rhs)
+            rho = (norm_p * pprime / p / gamma + 1.0) * rho
+            p = p + norm_p * pprime
+    s = st.s if st.s.shape[0] else None
+    T = gamma * mach ** 2 * p / rho
+    return from_primitive(rho, st.u, st.v, st.w, T, gamma, mach, s=s,
+                          energy=sim.comp.get("energy", "total"))
