@@ -96,12 +96,27 @@ non-zero:
               fields in total energy with Equations=total and the divergence
               form, 5 steps; (c) at its own 128x64x16, fp32 against fp64,
               held to 2x tlab_tpu's own fp32 drift (tests/test_torch_fp32.py)
+ 13. comp+    the rest of the compressible set: (a) tests/data/
+              case14_small3d.ini's physics (compressible AirWater, NSCBC
+              outflow, a relaxation buffer) at 256x192x128, inigrid, ini,
+              dns, 5 adaptive RK4 steps (rho and p positive within the
+              bounds, 0 <= ql <= qt, NewtonRs against tlab_tpu's and its fp64
+              evaluation, the CFL column at TimeCFL, the buffer's wall rows
+              at their references); (b1) case02 at 512x256x256 with outflow
+              NSCBC and a buffer, (b2) with the unidecomp mixture and a
+              buffer, 5 steps each; (c) case14 as it is in fp64, dns.out
+              equal to tlab_tpu's float64 rows in every printed digit; (d)
+              case14 fp32 against fp64, each field held to 2x tlab_tpu's
+              own fp32 drift; (e) case02 Type=spatial at 256x128x128,
+              avg_zt5 and avgMA_zt5, the device (z, t) reduction against
+              fp64 on the host; K1-K3 launch in none of them
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 Without a CUDA card the script exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import pathlib
@@ -2345,6 +2360,396 @@ def phase_compressible_fp64() -> None:
     require(ddrift <= MASS_FP32_TOL, f"12c: fp32 mass drift {ddrift}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the rest of the compressible set (NSCBC, mixtures, AirWater, the
+# compressible buffer, the compressible spatial statistics)
+# ---------------------------------------------------------------------------
+
+CASE14 = ROOT / "tests" / "data" / "case14_small3d.ini"
+# 13a: the width of the repo's cloud-top example (examples/cloudtop_anelastic)
+AW_SHAPE, AW_STEPS = (256, 192, 128), 5
+# 13e: the compressible spatial mode, and 13c/13d: case14 as the file has it
+SPATIAL_COMP_SHAPE, SPATIAL_COMP_STEPS = (256, 128, 128), 5
+C14_SHAPE, C14_STEPS = (32, 48, 8), 10
+# 13c's witness: tlab_tpu in float64 on the CPU, inigrid, ini and dns of
+# tests/data/case14_small3d.ini as it is (tests/test_torch_airwater.py
+# reruns it and holds these rows to its dns.out): every data row of dns.out
+C14_ROWS = (
+    "0 0 0.000000E+00 0.128E-04 0.120E+01 0.510E-05 0.100E-04 0.820E+05 "
+    "0.821E+05 0.957E+00 0.985E+00 0.000E+00",
+) + tuple(
+    f"0 {k} {t} 0.128E-04 0.120E+01 0.510E-05 0.100E-04 0.820E+05 "
+    "0.821E+05 0.957E+00 0.985E+00 0.917E-04"
+    for k, t in enumerate(("0.128074E-04", "0.256149E-04", "0.384223E-04",
+                           "0.512297E-04", "0.640372E-04", "0.768446E-04",
+                           "0.896520E-04", "0.102459E-03", "0.115267E-03",
+                           "0.128074E-03"), start=1))
+# and its final state in more digits than the log prints: max over y of
+# the plane means |<rho v>|, <rho>, <rho e>, <rho qt>, and max|rho u|.  The
+# x momentum is the imbalance of p ~ 8.2e4 at M = 0.0029 (its plane mean
+# ~1e-14): the packages agree on it to the problem's round-off floor, which
+# tlab_tpu shows against itself (ROADMAP C)
+C14_MEANS = {"rhov_mean": 0.0244773256337293,
+             "rho_mean": 0.9831605363667723,
+             "rhoE_mean": 0.6727332575107033,
+             "rhos_mean": 0.010814765900034495,
+             "rhou_max": 0.00015518166507574272}
+C14_MEANS_TOL = {"rhov_mean": 1e-8, "rho_mean": 1e-12, "rhoE_mean": 1e-12,
+                 "rhos_mean": 1e-12, "rhou_max": 1e-4}
+# 13d's witness: tlab_tpu in fp32 against fp64 on the same inputs on the CPU
+# (tests/test_torch_fp32.py::test_airwater_steps_in_float32_drift_as_tlab_
+# tpus), its saturation Newton in fp64 as the port's; the card's fp32 run is
+# held to 2x it, field by field
+C14_DT = 1.28e-5
+C14_WITNESS = {"rho": 2.9071130335412818e-05, "rhou": 0.6680860740519406,
+               "rhov": 1.0325934031140778, "rhoE": 0.0002015440611103037,
+               "rhos": 2.930627309384125e-05}
+# 13a's NewtonRs: the saturation Newton's last step over T (three steps from
+# the unsaturated guess, as the reference: not converged to round-off);
+# tlab_tpu's float64 run of case14 reads 0.917E-04 (C14_ROWS); an fp32
+# polynomial reads ~1e-3.  The card's fp32 run's column may not pass 2x it,
+# and the final state's NewtonRs in fp64 on the card agrees with the fp32
+# state's to NEWTON_FP32_TOL of it (the state's fp32 rounding)
+NEWTON_WITNESS = 9.174444447565667e-05
+NEWTON_FP32_TOL = 1e-2
+# 13a: the buffer's wall rows' plane means against their references
+# (relative; the relaxation holds them where the 5 steps leave them)
+BUFFER_WALL_TOL = 1e-5
+# 13b: the ideal gas with characteristic boundaries, and a mixture
+MIX_NAME = "unidecomp"
+# 13e: the device reduction against an fp64 host evaluation of the same sums
+# on the same state, per row: max|dev - host| over the size of the terms the
+# row sums, every sum taken in magnitudes (|D1| and |fields|, the z-mean of
+# |products|), so that a derivative's own terms count: a derivative of
+# T ~ 1 or p ~ 7.9 cancels ~1e3 of its terms, and fp32 keeps ~1e-7 of them
+SPATIAL_SUMS_TOL = 1e-5
+
+
+def aw_case(shape, steps: int) -> str:
+    """tests/data/case14_small3d.ini at `shape`: its box, profiles, NSCBC
+    and [BufferZone] kept, [Grid] and [IniGrid*] points together."""
+    return edit_case(CASE14.read_text(), {
+        **grid_keys(shape), ("Iteration", "End"): steps,
+        ("Iteration", "Restart"): 1000, ("Iteration", "Statistics"): steps})
+
+
+def open_case(shape, steps: int) -> str:
+    """case02_small3d.ini at `shape` with outflow (NSCBC) y boundaries and
+    a relaxation buffer of 16 points a side (13b1)."""
+    text = comp_case(shape, steps, {
+        ("BoundaryConditions", "VelocityJmin"): "outflow",
+        ("BoundaryConditions", "VelocityJmax"): "outflow",
+        ("BufferZone", "Type"): "relaxation"})
+    return add_keys(text, "BufferZone", ["PointsJmin=16", "PointsJmax=16",
+                                         "Parameters=1.0,2.0"])
+
+
+def mix_case(shape, steps: int, nscbc: bool = False) -> str:
+    """case02_small3d.ini at `shape` with the relaxation buffer and the
+    unidecomp combustion mixture (2 species: its one scalar is Y_1), its
+    free-slip walls (13b2), or with the outflow boundaries of open_case
+    too: tlab_tpu's characteristic corrections leave the balance species'
+    formation enthalpy out of the energy (ROADMAP C), and that run turns
+    its pressure negative at the first step in both packages."""
+    text = open_case(shape, steps)
+    if not nscbc:
+        text = edit_case(text, {
+            ("BoundaryConditions", "VelocityJmin"): "freeslip",
+            ("BoundaryConditions", "VelocityJmax"): "freeslip"})
+    return add_keys(text, "Thermodynamics", [f"Mixture={MIX_NAME}"])
+
+
+def comp_bounds(sim) -> dict:
+    """The case's [Control] FlowLimit bounds, or the ones the reference
+    takes by default (the mean pressure and density 1e-6 and 1e6 times)
+    where the case sets FlowLimit=no."""
+    if sim.comp["bounds"] is not None:
+        return sim.comp["bounds"]
+    ini = sim.case.ini
+    gamma, mach = sim.comp["gamma"], sim.comp["mach"]
+    p = ini.get_float("Flow", "Pressure", 1.0 / (gamma * mach ** 2))
+    r = ini.get_float("Flow", "Density", 1.0)
+    return {"p": (p * 1e-6, p * 1e6), "r": (r * 1e-6, r * 1e6)}
+
+
+def comp_open_checks(tag: str, run, rows, steps: int) -> dict:
+    """comp_checks without the integral of rho (open boundaries let mass
+    out): rho and p finite, positive, inside the bounds; the CFL column at
+    TimeCFL after the first step."""
+    sim, U = run.sim, run.state
+    p = dns_tool._primitive(sim, U)[4]
+    bounds = comp_bounds(sim)
+    rmin, rmax = U.rho.min().item(), U.rho.max().item()
+    pmin, pmax = p.min().item(), p.max().item()
+    cfl = [float(r[4]) for r in rows[1:]]
+    require(len(rows) == steps + 1 and all(r[0] == "0" for r in rows),
+            f"{tag} dns.out status {[r[0] for r in rows]}")
+    require(all(np.isfinite(x) and x > 0 for x in (rmin, pmin, rmax, pmax)),
+            f"{tag}: rho {rmin}..{rmax}, p {pmin}..{pmax}")
+    require(bounds["r"][0] <= rmin and rmax <= bounds["r"][1]
+            and bounds["p"][0] <= pmin and pmax <= bounds["p"][1],
+            f"{tag}: out of the FlowLimit bounds {bounds}")
+    require(all(abs(c - sim.case.time_cfl) <= 1e-3 for c in cfl),
+            f"{tag}: CFL column {cfl}")
+    for name, a in zip(("rho", "rhou", "rhov", "rhow", "rhoE"), U[:5]):
+        require(bool(torch.isfinite(a).all()), f"{tag}: non-finite {name}")
+    if U.rhos is not None:
+        require(bool(torch.isfinite(U.rhos).all()), f"{tag}: non-finite rhos")
+    return {"rho": (rmin, rmax), "p": (pmin, pmax), "bounds": bounds}
+
+
+def phase_airwater(card: str) -> list:
+    """13a: inigrid, ini and dns of case14_small3d.ini's physics (the
+    moist cloud top in the compressible internal-energy set, NSCBC outflow,
+    a relaxation buffer) at 256x192x128 fp32, 5 adaptive RK4 steps."""
+    from tlab_tpu_torch.dycore import compressible as comp
+    text = aw_case(AW_SHAPE, AW_STEPS)
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        res = traced_cli(write_case(out, text), out,
+                         ("inigrid", "ini", "dns"))
+        rows = data_rows(os.path.join(out, "dns.out"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        _, _, flow = averages.read_avg(os.path.join(out, f"avg{AW_STEPS}"))
+    run = res["run"]
+    sim, U = run.sim, run.state
+    got = comp_open_checks("13a", run, rows, AW_STEPS)
+    aw = sim.comp["aw"]
+    u, v, w, T, p, ql, newton_end = comp.primitive_airwater(U, aw)
+    qt = U.rhos[0] / U.rho
+    ql_min = ql.min().item()
+    ql_over = (ql - qt).max().item()
+    newton = [float(r[11]) for r in rows[1:]]
+    U64 = comp.CompState(*(a.double() for a in U))
+    newton64 = comp.primitive_airwater(U64, aw)[6].item()
+    newton_rel = abs(newton_end.item() - newton64) / newton64
+    # the buffer's wall rows against their references
+    buf = sim.comp["buffer"]
+    wall = 0.0
+    for name in ("rho", "rhoE"):
+        ref = buf["refs"][name][0, :, 0].double()
+        mean = getattr(U, name).double().mean(dim=(0, 2))
+        wall = max(wall, ((mean - ref)[[0, -1]].abs().max()
+                          / ref.abs().max()).item())
+    ref = buf["refs"]["rs0"][0, :, 0].double()
+    mean = U.rhos[0].double().mean(dim=(0, 2))
+    wall = max(wall, ((mean - ref)[[0, -1]].abs().max()
+                      / ref.abs().max()).item())
+    spec = sim.comp["nscbc"]
+    print(slice_line("13a case14 AirWater, NSCBC, buffer", card, AW_SHAPE,
+                     AW_STEPS, 5, res, trace))
+    print(f"[13] 13a: rho {got['rho'][0]:.6f}..{got['rho'][1]:.6f}, p "
+          f"{got['p'][0]:.6e}..{got['p'][1]:.6e} (bounds {got['bounds']}); "
+          f"ql {ql_min:.3e}..{ql.max().item():.3e}, max(ql - qt) "
+          f"{ql_over:.3e}; NewtonRs column {newton} (tlab_tpu's fp64 on "
+          f"case14 {NEWTON_WITNESS:.6e}); the final state's NewtonRs "
+          f"{newton_end.item():.6e} (fp32 state), {newton64:.6e} (fp64), "
+          f"{newton_rel:.3e} apart; NSCBC {spec.ymin}/{spec.ymax} sigma "
+          f"{spec.sigma} cinf {spec.cinf} ctan {spec.ctan}, p_ref "
+          f"{spec.refs_ymin[4]:.6e} / {spec.refs_ymax[4]:.6e}; the buffer's "
+          f"wall rows {wall:.3e} from their references (limit "
+          f"{BUFFER_WALL_TOL}); ini {res['seconds']['ini']:.3f} s of which "
+          f"the pointwise (p, h) inversion "
+          f"{trace['airwater pointwise (p, h) inversion'][1]:.3f} s; one "
+          f"write_statistics_compressible "
+          f"{trace[f'statistics {AW_STEPS}'][1]:.3f} s")
+    require(res["launches"] == [0, 0, 0], f"13a launched {res['launches']}")
+    require(ql_min >= 0.0 and ql_over <= 0.0,
+            f"13a: ql {ql_min}, ql - qt {ql_over}")
+    require(all(0.0 < n <= 2.0 * NEWTON_WITNESS for n in newton),
+            f"13a: NewtonRs {newton} against {NEWTON_WITNESS}")
+    require(newton_rel <= NEWTON_FP32_TOL,
+            f"13a: NewtonRs fp32 state {newton_end.item()} fp64 {newton64}")
+    require(wall <= BUFFER_WALL_TOL, f"13a: buffer wall rows {wall}")
+    require(all(np.isfinite(v).all() for v in flow.values()),
+            "13a: avg columns not finite")
+    return res["launches"]
+
+
+def phase_open(tag: str, card: str, text: str) -> list:
+    """13b1/13b2: inigrid, ini and dns of an edited case02 at 512x256x256,
+    5 adaptive RK4 steps: 13b1 outflow NSCBC and the buffer (the ideal gas),
+    13b2 the unidecomp mixture and the buffer between free-slip walls."""
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        res = traced_cli(write_case(out, text), out,
+                         ("inigrid", "ini", "dns"))
+        rows = data_rows(os.path.join(out, "dns.out"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        _, _, flow = averages.read_avg(os.path.join(out, f"avg{COMP_STEPS}"))
+    run = res["run"]
+    got = comp_open_checks(tag, run, rows, COMP_STEPS)
+    c = run.sim.comp
+    s = run.state.rhos[0] / run.state.rho
+    what = (f"NSCBC {c['nscbc'].ymin}/{c['nscbc'].ymax}" if c["nscbc"]
+            else f"mixture {c['mixture'].name} (gama0 "
+            f"{c['mixture'].gama0:.6f})")
+    print(slice_line(f"{tag} case02 {what}, buffer", card, COMP_SHAPE,
+                     COMP_STEPS, 5, res, trace))
+    print(f"[13] {tag}: rho {got['rho'][0]:.6f}..{got['rho'][1]:.6f}, p "
+          f"{got['p'][0]:.6f}..{got['p'][1]:.6f} (FlowLimit "
+          f"{got['bounds']}); s {s.min().item():.6f}..{s.max().item():.6f}; "
+          f"ini {res['seconds']['ini']:.3f} s; the last row's PMin PMax "
+          f"RMin RMax {' '.join(rows[-1][7:11])}")
+    require(res["launches"] == [0, 0, 0],
+            f"{tag} launched {res['launches']}")
+    require("buffer" in c and (c["nscbc"] is not None) == (tag == "13b1")
+            and (c["mixture"] is not None) == (tag == "13b2"),
+            f"{tag}: the case's parts")
+    require(all(np.isfinite(v).all() for v in flow.values()),
+            f"{tag}: avg columns not finite")
+    return res["launches"]
+
+
+def plane_means(U) -> dict:
+    """13c's numbers of a final state (the keys of C14_MEANS)."""
+    def mean(a):
+        return a.double().mean(dim=(0, 2)).abs().max().item()
+    return {"rhov_mean": mean(U.rhov), "rho_mean": mean(U.rho),
+            "rhoE_mean": mean(U.rhoE), "rhos_mean": mean(U.rhos[0]),
+            "rhou_max": U.rhou.abs().max().item()}
+
+
+def phase_case14_fp64(card: str) -> None:
+    """13c: tests/data/case14_small3d.ini as it is (32x48x8), inigrid, ini
+    and dns in float64 on the card, 10 steps: dns.out equal to tlab_tpu's
+    float64 rows in every printed digit, and the final plane means to
+    C14_MEANS_TOL of tlab_tpu's."""
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        res = traced_cli(write_case(out, CASE14.read_text()), out,
+                         ("inigrid", "ini", "dns"), "--x64")
+        rows = data_rows(os.path.join(out, "dns.out"))
+    got = [" ".join(r) for r in rows]
+    means = plane_means(res["run"].state)
+    dev = {k: abs(means[k] - C14_MEANS[k]) / abs(C14_MEANS[k])
+           for k in C14_MEANS}
+    print(f"[13] 13c case14 {C14_SHAPE} fp64 on the card ({card}), "
+          f"{C14_STEPS} steps: dns.out rows equal to tlab_tpu's fp64 "
+          f"{sum(a == b for a, b in zip(got, C14_ROWS))} of {len(C14_ROWS)}; "
+          f"last row {got[-1]}; the final plane means against tlab_tpu's: "
+          + ", ".join(f"{k} {means[k]:.12e} ({dev[k]:.1e}, limit "
+                      f"{C14_MEANS_TOL[k]})" for k in C14_MEANS))
+    require(tuple(got) == C14_ROWS, f"13c: dns.out {got}")
+    require(all(dev[k] <= C14_MEANS_TOL[k] for k in dev), f"13c: {dev}")
+    require(res["launches"] == [0, 0, 0], f"13c launched {res['launches']}")
+
+
+def phase_case14_fp32() -> None:
+    """13d: case14 as it is, 5 RK4 steps of C14_DT from its initial state
+    (ini in fp64), fp32 against fp64 on the card, each field held to 2x
+    tlab_tpu's own fp32 drift on the same inputs (C14_WITNESS)."""
+    from tlab_tpu_torch.dycore import compressible as comp
+    from tlab_tpu_torch.tools.initialize import compressible_initial_state
+    text = CASE14.read_text()
+    start, out = None, {}
+    for dtype in (torch.float64, torch.float32):
+        sim = Simulation.from_case(load_case(Ini(text=text)), dtype=dtype,
+                                   device="cuda")
+        if start is None:
+            start = compressible_initial_state(sim)
+        U = comp.CompState(*(a.to(dtype) for a in start))
+        sim.attach_buffer_compressible(U)
+        c = sim.comp
+        for _ in range(5):
+            U, _ = comp.rk_step_airwater(
+                sim.P, U, C14_DT, c["aw"], sim.nsp.visc, c["prandtl"],
+                c["schmidt"], nscbc=c["nscbc"], ly=c["ly"], gvec=c["gvec"],
+                buffer=c["buffer"])
+        out[dtype] = {"rho": U.rho, "rhou": U.rhou, "rhov": U.rhov,
+                      "rhoE": U.rhoE, "rhos": U.rhos[0]}
+    drift = {k: ((out[torch.float32][k].double() - out[torch.float64][k])
+                 .abs().max() / out[torch.float64][k].abs().max()).item()
+             for k in C14_WITNESS}
+    print("[13] 13d case14 fp32 against fp64 on the card, 5 RK4 steps of dt "
+          f"{C14_DT}: " + ", ".join(
+              f"{k} {drift[k]:.3e} (limit 2 x tlab_tpu's "
+              f"{C14_WITNESS[k]:.3e})" for k in drift))
+    require(all(drift[k] <= 2.0 * C14_WITNESS[k] for k in drift),
+            f"13d: {drift}")
+
+
+def spatial_row_names(stats) -> list:
+    """The names of make_comp_spatial_reducer's rows, in its order."""
+    from tlab_tpu_torch.stats import spatial_registers
+    names = [f"{n}^{k}" for n in stats.names for k in range(1, 5)]
+    names += [f"{a}{b}" for a, b in stats.pairs]
+    names += [f"{g}^{k}" for g in stats.GRAD_NAMES for k in (1, 2)]
+    names += [f"{stats.GRAD_NAMES[a]}*{stats.GRAD_NAMES[b]}"
+              for a, b in stats.GRADX_PAIRS]
+    names += ["p", "p^2", "pu", "pv", "pw"] + [f"p*{g}"
+                                               for g in stats.GRAD_NAMES]
+    names += ["".join(t) for t in stats.TRIPLES]
+    names += [f"comp {n}" for n in stats.COMP_NAMES]
+    return names + list(spatial_registers.NAMES)
+
+
+def phase_spatial_comp(card: str) -> list:
+    """13e: case02_small3d.ini with Type=spatial at 256x128x128, inigrid,
+    ini and dns, 5 steps: avg_zt5 and avgMA_zt5 written and finite; the
+    device reduction of the final state against an fp64 host evaluation of
+    the same sums on the same state."""
+    text = comp_case(SPATIAL_COMP_SHAPE, SPATIAL_COMP_STEPS,
+                     {("Main", "Type"): "spatial"})
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        res = traced_cli(write_case(out, text), out,
+                         ("inigrid", "ini", "dns"))
+        rows = data_rows(os.path.join(out, "dns.out"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        tabs = {}
+        for name in (f"avg_zt{SPATIAL_COMP_STEPS}",
+                     f"avgMA_zt{SPATIAL_COMP_STEPS}"):
+            path = os.path.join(out, name)
+            require(os.path.exists(path), f"13e: no {name}")
+            tabs[name] = np.loadtxt(path, skiprows=3)
+    run = res["run"]
+    got = comp_open_checks("13e", run, rows, SPATIAL_COMP_STEPS)
+    sim, U = run.sim, run.state
+    stats = spatial.SpatialStats.create(
+        sim.grid.x.size, sim.grid.y.size,
+        ["u", "v", "w"] + [f"s{i + 1}" for i in range(sim.nsp.n_scalars)])
+    t0 = time.perf_counter()
+    dev = spatial.make_comp_spatial_reducer(sim, stats)(U)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    sim64 = Simulation.from_case(load_case(Ini(text=text)),
+                                 dtype=torch.float64, device="cpu")
+    U64 = type(U)(*(a.to("cpu", torch.float64) for a in U))
+    t0 = time.perf_counter()
+    host = spatial.make_comp_spatial_reducer(sim64, stats)(U64)
+    host_s = time.perf_counter() - t0
+    # the term sizes: the same sums of |fields| with |D1| and |[D1;D2]|
+    P_abs = {k: v.abs() if k.startswith("d1") and torch.is_tensor(v) else v
+             for k, v in sim64.P.items()}
+    scale = spatial.make_comp_spatial_reducer(
+        dataclasses.replace(sim64, P=P_abs), stats)(
+        type(U)(*(a.abs() for a in U64))).flatten(1).max(dim=1).values
+    dev = dev.to("cpu", torch.float64)
+    err = ((dev - host).abs().flatten(1).max(dim=1).values
+           / torch.where(scale > 0, scale, torch.ones_like(scale)))
+    row_names = spatial_row_names(stats)
+    require(len(row_names) == dev.shape[0], "13e: the reducer's rows")
+    worst = row_names[int(err.argmax())]
+    print(rate_line("13e case02 Type=spatial", card, SPATIAL_COMP_SHAPE,
+                    SPATIAL_COMP_STEPS, 5, trace, res, "13"))
+    print(f"[13] 13e: rho {got['rho'][0]:.6f}..{got['rho'][1]:.6f}; "
+          + "; ".join(f"{k} {v.shape[0]} rows x {v.shape[1]} columns, "
+                      f"finite {bool(np.isfinite(v).all())}"
+                      for k, v in tabs.items())
+          + f"; the device reduction ({dev.shape[0]} rows, {dev_s:.3f} s) "
+          f"against fp64 on the host ({host_s:.3f} s), over each row's "
+          f"term size: max {err.max().item():.3e} (limit "
+          f"{SPATIAL_SUMS_TOL}; the largest "
+          + ", ".join(f"{row_names[i]} {err[i].item():.2e}"
+                      for i in err.argsort(descending=True)[:4].tolist())
+          + "); "
+          f"the spatial sums a step "
+          f"{trace[f'spatial sums {SPATIAL_COMP_STEPS}'][1]:.3f} s")
+    require(all(np.isfinite(v).all() and v.size for v in tabs.values()),
+            "13e: station tables empty or not finite")
+    require(err.max().item() <= SPATIAL_SUMS_TOL,
+            f"13e: device sums {err.max().item()} from fp64 (row {worst})")
+    require(res["launches"] == [0, 0, 0], f"13e launched {res['launches']}")
+    return res["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -2427,8 +2832,20 @@ def main() -> int:
             rec[f"launches_{tag}"] = n
     phase_compressible_fp64()
     t12 = time.perf_counter() - t12
+    t13 = time.perf_counter()
+    for rec, n in zip(records, phase_airwater(smi)):
+        rec["launches_13a"] = n
+    for tag, text in (("13b1", open_case(COMP_SHAPE, COMP_STEPS)),
+                      ("13b2", mix_case(COMP_SHAPE, COMP_STEPS))):
+        for rec, n in zip(records, phase_open(tag, smi, text)):
+            rec[f"launches_{tag}"] = n
+    phase_case14_fp64(smi)
+    phase_case14_fp32()
+    for rec, n in zip(records, phase_spatial_comp(smi)):
+        rec["launches_13e"] = n
+    t13 = time.perf_counter() - t13
     print(f"[slice] phase 10 took {t10:.1f} s, 11 {t11:.1f} s, 12 "
-          f"{t12:.1f} s")
+          f"{t12:.1f} s, 13 {t13:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

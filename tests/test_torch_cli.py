@@ -106,14 +106,12 @@ COMPRESSIBLE = ("Equations=incompressible", "Equations=internal")
 
 
 @pytest.mark.parametrize("edits, item", [
-    # the compressible set's characteristic boundaries and its moist
-    # mixture (the semi-implicit diffusion and the ideal gas run now)
-    ((COMPRESSIBLE, ("VelocityJmin=freeslip", "VelocityJmin=outflow")),
-     "A13b"),
+    # the options the case file can ask for beyond the port (the
+    # compressible set's characteristic boundaries and moist mixture run
+    # now: test_compressible_option_once_refused_runs_as_jax)
     ((("[BufferZone]\nType=none", "[SavePlanes]\nPlanesJ=3"),), "A15"),
-    ((COMPRESSIBLE, ("[BufferZone]\nType=none",
-                     "[BufferZone]\nType=none\n[Thermodynamics]\n"
-                     "Mixture=AirWater")), "A13b")])
+    ((("[BufferZone]\nType=none",
+       "[BufferZone]\nType=none\n[Statistics]\nPdfs=yes"),), "A14")])
 def test_unported_option_exits_with_its_item(rundir, tmp_path, edits, item):
     for name in ("flow.0.1", "flow.0.2", "flow.0.3", "scal.0.1"):
         shutil.copy(rundir / name, tmp_path / name)
@@ -129,3 +127,30 @@ def test_unported_option_exits_with_its_item(rundir, tmp_path, edits, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         cli.main(["ini", *common])
         cli.main(["dns", *common])
+
+
+def test_compressible_option_once_refused_runs_as_jax(tmp_path):
+    """The characteristic (NSCBC) outflow at Jmin of the compressible set,
+    refused until it was ported: inigrid, ini and dns (3 steps) of the 3-D
+    case with Equations=internal through both command lines, dns.out in
+    every printed digit."""
+    from tlab_tpu.tools import cli as jcli
+    with open(CASE3D) as fh:
+        text = fh.read()
+    for old, new in (COMPRESSIBLE,
+                     ("VelocityJmin=freeslip", "VelocityJmin=outflow")):
+        assert old in text
+        text = text.replace(old, new)
+    for name, main, extra in (("torch", cli.main, ["--device", "cpu"]),
+                              ("jax", jcli.main, ["--cpu"])):
+        out = tmp_path / name
+        out.mkdir()
+        (out / "tlab.ini").write_text(text)
+        common = ["--ini", str(out / "tlab.ini"), "--outdir", str(out),
+                  "--x64", "--steps", "3", *extra]
+        for command in ("inigrid", "ini", "dns"):
+            assert main([command, *common]) == 0
+    got = (tmp_path / "torch" / "dns.out").read_text()
+    assert got == (tmp_path / "jax" / "dns.out").read_text()
+    rows = [r.split() for r in got.splitlines() if not r.startswith("#")]
+    assert len(rows) == 4 and all(r[0] == "0" for r in rows)

@@ -8,7 +8,10 @@ and the diffusion number, the initial state of tests/data/
 case02_small3d.ini with and without NormalizeP, the restart files byte for
 byte, that case through both command lines (dns.out with its pressure and
 density columns, the avg tables), a 3 + 2 = 5 restart, and the parts that
-are ROADMAP A13b raising."""
+raised until ROADMAP A13b ported them (the characteristic boundaries, a
+mixture and the buffer of the step; the case options) built and stepped
+as tlab_tpu's (tests/test_torch_{nscbc,mixtures,airwater}.py hold them
+whole)."""
 import os
 import shutil
 
@@ -209,17 +212,39 @@ def test_cfl_and_diffusion_number_match_jax(energy):
         <= 1e-13 * dj
 
 
-def test_a13b_parts_raise():
+def test_a13b_arguments_step_as_jax():
+    """rk_step_compressible's nscbc, mix and buffer arguments, which raised
+    until ROADMAP A13b: one RK4 step with each, to 1e-10 of each field's
+    max (an outflow at ymin over a wall at ymax; the unidecomp mixture of
+    the state's one scalar; a buffer relaxing toward plane means)."""
+    from tlab_tpu.dycore import nscbc as jn
+    from tlab_tpu.physics import mixtures as jmx
+    from tlab_tpu_torch.dycore import nscbc as tn
+    from tlab_tpu_torch.physics import mixtures as tmx
     PJ, PT = _plans(False)
-    _, Ut = _states(PT)
-    for kw in ({"nscbc": object()}, {"mix": object()},
-               {"buffer": {}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-            tcomp.rk_step_compressible(PT, Ut, 1e-3, GAMMA, MACH, 0.0, 1.0,
-                                       **kw)
-    for fn in (tcomp.rk_step_airwater, tcomp.mixture_thermal):
-        with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-            fn()
+    Uj, _ = _states(PT, "internal")
+    Ut = tcomp.CompState(*(torch.from_numpy(np.array(a)) for a in Uj))
+    tau = np.linspace(1.0, 0.0, PT["sizes"][1]) ** 2
+    refs = {k: np.asarray(getattr(Uj, k)).mean(axis=(0, 2))
+            for k in ("rho", "rhou", "rhov", "rhow", "rhoE")}
+    spec = dict(ymin="outflow", ymax="wall", p_inf=1.0 / (GAMMA * MACH ** 2))
+    for kj, kt in (
+            ({"nscbc": jn.NSCBCSpec(**spec)}, {"nscbc": tn.NSCBCSpec(**spec)}),
+            ({"mix": jmx.build_mixture("unidecomp")},
+             {"mix": tmx.build_mixture("unidecomp")}),
+            ({"buffer": {"tau": jnp.asarray(tau)[None, :, None],
+                         "refs": {k: jnp.asarray(v)[None, :, None]
+                                  for k, v in refs.items()}}},
+             {"buffer": {"tau": torch.from_numpy(tau)[None, :, None],
+                         "refs": {k: torch.from_numpy(v)[None, :, None]
+                                  for k, v in refs.items()}}})):
+        a = tcomp.rk_step_compressible(PT, Ut, 1e-3, GAMMA, MACH, 1 / 300,
+                                       0.7, energy="internal", **kt)
+        b = jcomp.rk_step_compressible(PJ, Uj, 1e-3, GAMMA, MACH, 1 / 300,
+                                       0.7, energy="internal", **kj)
+        for x, y in zip(a, b):
+            if y is not None:
+                assert _rel(x, y) <= TOL, list(kt)
 
 
 @pytest.mark.parametrize("edit, item", [
@@ -228,13 +253,43 @@ def test_a13b_parts_raise():
                                 "PointsJmax=8"),
     ("[Flow]", "[Thermodynamics]\nMixture=AirWater\n[Flow]"),
 ])
-def test_from_case_refuses_a13b_options(edit, item):
+def test_from_case_builds_the_a13b_options(edit, item):
+    """The case options that raised until ROADMAP A13b: case02 with an
+    outflow at Jmin, a relaxation buffer, or the AirWater mixture builds
+    tlab_tpu's context (the NSCBC spec, the AirWater units with outflow
+    at both y ends), and the buffer attaches tlab_tpu's references."""
+    import dataclasses
     with open(CASE02) as fh:
         text = fh.read()
     assert edit in text
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        Simulation.from_case(load_case(Ini(text=text.replace(edit, item))),
-                             dtype=F64, device="cpu")
+    text = text.replace(edit, item)
+    tsim = Simulation.from_case(load_case(Ini(text=text)), dtype=F64,
+                                device="cpu")
+    jsim = JSimulation.from_case(jload_case(JIni(text=text)))
+    tc, jc = tsim.comp, jsim.comp
+    assert (tc["nscbc"] is None) == (jc["nscbc"] is None)
+    if tc["nscbc"] is not None:
+        assert dataclasses.asdict(tc["nscbc"]) == \
+            dataclasses.asdict(jc["nscbc"])
+    assert (tc["aw"] is None) == (jc["aw"] is None)
+    if tc["aw"] is not None:
+        assert dataclasses.asdict(tc["aw"]) == dataclasses.asdict(jc["aw"])
+        assert tc["gamma"] == jc["gamma"] != GAMMA
+        return
+    Uj = jcomp_state(jsim, seed=5)
+    Ut = tcomp.CompState(*(torch.from_numpy(np.array(a)) for a in Uj))
+    jsim.attach_buffer_compressible(Uj)
+    tsim.attach_buffer_compressible(Ut)
+    assert ("buffer" in tc) == ("buffer" in jc) == ("relaxation" in item)
+    if "buffer" in tc:
+        assert _rel(tc["buffer"]["tau"], jc["buffer"]["tau"]) == 0.0
+        # plane means in another summation order than XLA's: 1e-13 of the
+        # largest (a mean that vanishes, <rho v>, is round-off in both)
+        big = max(float(np.max(np.abs(np.asarray(v))))
+                  for v in jc["buffer"]["refs"].values())
+        for k, v in jc["buffer"]["refs"].items():
+            assert np.max(np.abs(np.asarray(tc["buffer"]["refs"][k])
+                                 - np.asarray(v))) <= 1e-13 * big, k
 
 
 def _case02(normalize_p=None, steps=None, start=0, restart=None,

@@ -304,3 +304,42 @@ def test_compressible_and_implicit_run_without_jax(tmp_path):
     for want in ("flow.0.4", "flow.0.5", "flow.0.s1", "dns.out", "avg2",
                  "avg2s1"):
         assert want in names, names
+
+
+# the rest of the compressible set where JAX and tlab_tpu cannot be
+# imported: Case14 (AirWater, NSCBC outflow, the buffer) through the CLI,
+# and case02 with a combustion mixture and Type=spatial one step
+_AIRWATER_PROBE = """
+import os, sys
+for name in ("jax", "jaxlib", "tlab_tpu"):
+    sys.modules[name] = None
+import torch
+from tlab_tpu_torch.config import load_case
+from tlab_tpu_torch.runtime import Simulation
+from tlab_tpu_torch.tools import cli
+sim = Simulation.from_case(sys.argv[1], dtype=torch.float64, device="cpu")
+assert sim.comp["aw"] is not None and sim.comp["nscbc"].ymin == "outflow"
+common = ["--ini", sys.argv[1], "--outdir", sys.argv[2], "--device", "cpu",
+          "--x64"]
+for command in ("inigrid", "ini"):
+    assert cli.main([command, *common]) == 0
+assert cli.main(["dns", *common, "--steps", "2"]) == 0
+text = open(os.path.join(sys.argv[2], "dns.out")).read()
+assert "NewtonRs" in text
+bad = [m for m in sys.modules if sys.modules[m] is not None
+       and m.split(".")[0] in ("jax", "jaxlib", "tlab_tpu")]
+assert not bad, bad
+print(len([r for r in text.splitlines() if not r.startswith("#")]))
+"""
+
+
+def test_airwater_nscbc_simulation_without_jax(tmp_path):
+    """An AirWater NSCBC Simulation from tests/data/case14_small3d.ini,
+    and its inigrid, ini and two dns steps through the CLI, where neither
+    JAX nor tlab_tpu can be imported."""
+    ini = tmp_path / "tlab.ini"
+    ini.write_text((REPO / "tests" / "data" / "case14_small3d.ini")
+                   .read_text())
+    proc = _run(_AIRWATER_PROBE, str(ini), str(tmp_path / "run"))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split()[-1] == "3"

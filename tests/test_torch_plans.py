@@ -423,3 +423,84 @@ def test_eos_copy_matches():
     for name in ("pressure", "density", "temperature_from_rho_p"):
         assert getattr(teos, name)(gt, 0.9, 1.7) == \
             getattr(jeos, name)(gj, 0.9, 1.7)
+
+
+# ROADMAP A13b: the MA_* register set and the combustion mixtures' tables
+
+SREG_FUNCTIONS = ("_pairs", "_reg", "_build_register_table", "build_base",
+                  "accumulate", "as_table")
+
+
+@pytest.mark.parametrize("name", SREG_FUNCTIONS)
+def test_spatial_registers_copy_is_the_original(name):
+    """stats/spatial_registers.py is tlab_tpu's, function for function."""
+    import inspect
+    from tlab_tpu.stats import spatial_registers as jsreg
+    from tlab_tpu_torch.stats import spatial_registers as tsreg
+    assert inspect.getsource(getattr(tsreg, name)) == \
+        inspect.getsource(getattr(jsreg, name))
+
+
+def test_spatial_registers_give_the_same_numbers():
+    """The register table (238 names, their addends) and one accumulation
+    of random base fields, exactly."""
+    from tlab_tpu.stats import spatial_registers as jsreg
+    from tlab_tpu_torch.stats import spatial_registers as tsreg
+    assert tsreg.NAMES == jsreg.NAMES and len(tsreg.NAMES) == 238
+    _same(tsreg.REGISTERS, jsreg.REGISTERS, "REGISTERS")
+    rng = np.random.default_rng(0)
+    shape = (5, 4, 3)
+    keys = ("u", "v", "w", "p", "rho", "T")
+    f = {k: rng.standard_normal(shape) for k in keys}
+    grads = {a + b: rng.standard_normal(shape) for a in "uvw" for b in "xyz"}
+    sgrads = {a + b: rng.standard_normal(shape) for a in "rpT"
+              for b in "xyz"}
+    out = []
+    for mod in (tsreg, jsreg):
+        base = mod.build_base(*(f[k] for k in keys), grads, sgrads,
+                              visc=1e-3, z1=f["u"] ** 2)
+        sums = np.zeros((len(mod.NAMES), 5, 4))
+        mod.accumulate(sums, base)
+        out.append(mod.as_table(sums, 2))
+    _same(out[0], out[1], "as_table")
+
+
+MIXTURE_COPIES = ("MixtureTable", "build_mixture", "_chemkin_molar_mass",
+                  "read_chemkin")
+
+
+@pytest.mark.parametrize("name", MIXTURE_COPIES)
+def test_mixture_tables_code_is_the_original(name):
+    import inspect
+    from tlab_tpu.physics import mixtures as jmx
+    from tlab_tpu_torch.physics import mixtures as tmx
+    assert inspect.getsource(getattr(tmx, name)) == \
+        inspect.getsource(getattr(jmx, name))
+
+
+@pytest.mark.parametrize("nondimensional", [True, False])
+def test_mixture_tables_match(nondimensional):
+    """Every named mixture's caloric table, field for field, exactly; the
+    species data and the mixture list alike."""
+    from tlab_tpu.physics import mixtures as jmx
+    from tlab_tpu_torch.physics import mixtures as tmx
+    assert tmx.MIXTURES == jmx.MIXTURES
+    assert tmx._COMBUSTION_SPECIES == jmx._COMBUSTION_SPECIES
+    for name in tmx.MIXTURES:
+        _same(tmx.build_mixture(name, nondimensional),
+              jmx.build_mixture(name, nondimensional), name)
+
+
+@pytest.mark.parametrize("name", ["SpatialStats._c",
+                                  "SpatialStats.favre_station_table"])
+def test_favre_table_code_is_the_original(name):
+    import importlib
+    import inspect
+
+    def get(pkg):
+        obj = importlib.import_module(f"{pkg}.stats.spatial")
+        for part in name.split("."):
+            obj = getattr(obj, part)
+        return inspect.getsource(obj)
+
+    assert get("tlab_tpu_torch") == get("tlab_tpu")

@@ -9,6 +9,8 @@ Type=both, dns.out equal in every printed digit and the final state to
 1e-10 of max|field|; the running (z, t) sums of the same fields agree to
 1e-12 (those of the two runs to 1e-10) and the station budget files
 (avg_zt<it>) to their printed digits."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -275,3 +277,241 @@ def test_non_periodic_x_is_refused_with_what_jax_does():
     with pytest.raises(NotImplementedError, match="lam_x = 0"):
         Simulation.from_case(load_case(Ini(text=text)), dtype=F64,
                              device="cpu")
+
+
+# the compressible spatial mode: the density-weighted (Favre) families and
+# the MA_* registers (make_comp_spatial_reducer, accumulate_comp_stack,
+# favre_station_table, register_station_table; tlab_tpu/stats/spatial.py
+# :465-767), against tlab_tpu's on the same states
+
+def _comp_spatial_text(kind="ideal", steps=4, shape=(32, 24, 8)):
+    """A compressible case with Type=spatial: tests/data/
+    case02_small3d.ini (the ideal gas, or its unidecomp mixture) or
+    case14_small3d.ini (AirWater) at `shape`, `steps` steps, statistics
+    and the restart file at the last."""
+    import os
+    import re
+    data = os.path.join(os.path.dirname(__file__), "data")
+    name = "case14_small3d.ini" if kind == "airwater" \
+        else "case02_small3d.ini"
+    with open(os.path.join(data, name)) as fh:
+        text = fh.read()
+    nx, ny, nz = shape
+    for section, key, value in (
+            ("Main", "Type", "spatial"), ("Iteration", "End", steps),
+            ("Iteration", "Restart", steps),
+            ("Iteration", "Statistics", steps),
+            ("Grid", "Imax", nx), ("Grid", "Jmax", ny), ("Grid", "Kmax", nz),
+            ("IniGridOx", "points_1", nx + 1),
+            ("IniGridOy", "points_1", ny),
+            ("IniGridOz", "points_1", nz + 1)):
+        text, n = re.subn(rf"(\[{section}\][^\[]*?^{key}=)[^\n]*",
+                          rf"\g<1>{value}", text, flags=re.M | re.S)
+        assert n == 1, (section, key)
+    if kind == "mixture":
+        text = text.replace("[Flow]", "[Thermodynamics]\nMixture=unidecomp\n"
+                                      "[Flow]", 1)
+    return text
+
+
+def _comp_sims(text):
+    return (JSimulation.from_case(jload_case(JIni(text=text))),
+            Simulation.from_case(load_case(Ini(text=text)), dtype=F64,
+                                 device="cpu"))
+
+
+def _comp_states(jsim, n=2):
+    """n seeded perturbations of the case's initial state (a velocity of
+    ~0.1, density and energy of ~1%: a pressure that varies, whose
+    derivatives are not round-off), as tlab_tpu's CompState."""
+    from tlab_tpu.dycore import compressible as jcomp
+    from tlab_tpu.tools.initialize import compressible_initial_state
+    U0 = compressible_initial_state(jsim, seed=1)
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(n):
+        arrs = [np.array(a) for a in U0]
+        shape = arrs[0].shape
+        for i in (1, 2, 3):
+            arrs[i] = arrs[i] + 0.1 * arrs[0] * rng.standard_normal(shape)
+        for i in (0, 4):
+            arrs[i] = arrs[i] * (1.0 + 0.01 * rng.standard_normal(shape))
+        out.append(jcomp.CompState(*(jnp.asarray(a) for a in arrs)))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["ideal", "mixture", "airwater"])
+def test_comp_spatial_reducer_matches_jax(kind):
+    """The one device reduction of a conservative state (primitive
+    decomposition of the set's kind, 18 gradients, the stress tensor,
+    every family and the 238 registers): each row to 1e-12 of the size of
+    the terms it sums, every sum taken in magnitudes (|D1|, |fields|), so
+    that a row that vanishes analytically (the z-mean of a z-derivative)
+    or a derivative of a field with a large mean (p) is held to its
+    round-off as chip_smoke.py's 13e holds the card's.  AirWater's T comes
+    out of the saturation inversion 6e-13 apart (ROADMAP C 18): its powers
+    to 1e-11 (2.4e-12 read for T^4)."""
+    from tlab_tpu.stats.spatial import make_comp_spatial_reducer as jred
+    from tlab_tpu_torch.dycore.compressible import CompState
+    from tlab_tpu_torch.stats.spatial import make_comp_spatial_reducer
+    jsim, tsim = _comp_sims(_comp_spatial_text(kind))
+    nx, ny, _ = tsim.grid.shape
+    names = ["u", "v", "w"] + [f"s{i + 1}"
+                               for i in range(tsim.nsp.n_scalars)]
+    jst = JSpatialStats.create(nx, ny, names)
+    tst = SpatialStats.create(nx, ny, names)
+    fj, ft = jred(jsim, jst), make_comp_spatial_reducer(tsim, tst)
+    P_abs = {k: v.abs() if k.startswith("d1") and torch.is_tensor(v) else v
+             for k, v in tsim.P.items()}
+    fabs = make_comp_spatial_reducer(dataclasses.replace(tsim, P=P_abs),
+                                     tst)
+    for Uj in _comp_states(jsim):
+        Ut = CompState(*(torch.from_numpy(np.array(a)) for a in Uj))
+        got, want = ft(Ut), np.asarray(fj(Uj))
+        scale = fabs(CompState(*(a.abs() for a in Ut))).flatten(1) \
+            .max(dim=1).values.numpy()
+        err = np.abs(got.numpy() - want).reshape(len(want), -1).max(axis=1)
+        assert got.shape == want.shape
+        tol = 1e-11 if kind == "airwater" else 1e-12
+        assert np.all(err <= tol * np.where(scale > 0, scale, 1.0))
+        jst.accumulate_comp_stack(want)
+        tst.accumulate_comp_stack(got)
+    for key in ("sums", "pair_sums", "grad_sums", "gradx_sums", "p_sums",
+                "triple_sums", "comp_sums", "reg_sums"):
+        assert getattr(tst, key).shape == getattr(jst, key).shape, key
+
+
+def test_favre_and_register_tables_match_jax(tmp_path):
+    """accumulate_comp_stack of the same stacks, the Favre station table
+    and the MA_* register table to 1e-12; the sums survive st<it>.npz
+    (read by either package)."""
+    from tlab_tpu.stats import spatial as jspatial
+    from tlab_tpu_torch.stats import spatial as tspatial
+    rng = np.random.default_rng(4)
+    nx, ny = 9, 6
+    names = ["u", "v", "w", "s1"]
+    jst = JSpatialStats.create(nx, ny, names)
+    tst = SpatialStats.create(nx, ny, names)
+    k = (4 * 4 + len(tst.pairs) + 18 + len(tst.GRADX_PAIRS) + 14
+         + len(tst.TRIPLES) + len(tst.COMP_NAMES)
+         + len(tspatial.sreg.NAMES))
+    for _ in range(3):
+        stack = rng.standard_normal((k, nx, ny))
+        stack[4 * 4 + len(tst.pairs) + 18 + len(tst.GRADX_PAIRS) + 14
+              + len(tst.TRIPLES)] += 3.0          # <rho> away from 0
+        jst.accumulate_comp_stack(stack)
+        tst.accumulate_comp_stack(torch.from_numpy(stack))
+    stations = [1, 4, 7]
+    for got, want in ((tst.favre_station_table(stations),
+                       jst.favre_station_table(stations)),
+                      (tspatial.register_station_table(tst, stations),
+                       jspatial.register_station_table(jst, stations))):
+        assert sorted(got) == sorted(want)
+        for ix in want:
+            assert list(got[ix]) == list(want[ix])
+            for c in want[ix]:
+                assert _rel(got[ix][c], want[ix][c]) <= 1e-12, (ix, c)
+    tst.save(str(tmp_path / "st.npz"), 3)
+    back = JSpatialStats.load(str(tmp_path / "st.npz"))
+    for key in ("comp_sums", "reg_sums"):
+        assert np.array_equal(getattr(back, key), getattr(tst, key))
+    jst.save(str(tmp_path / "sj.npz"), 3)
+    back = SpatialStats.load(str(tmp_path / "sj.npz"))
+    assert np.array_equal(back.reg_sums, jst.reg_sums)
+
+
+def test_favre_station_table_matches_direct():
+    """tests/test_spatial_stats.py:178 on the port: the Favre columns from
+    the accumulated COMP_NAMES sums match their direct (z, t) averages."""
+    nx, ny, nz = 8, 10, 12
+    rng = np.random.default_rng(5)
+    ss = SpatialStats.create(nx, ny, ("u", "v", "w"))
+    ss.comp_sums = np.zeros((len(ss.COMP_NAMES), nx, ny))
+    snaps = []
+    for _ in range(3):
+        f = {k: rng.standard_normal((nx, ny, nz)) for k in ("u", "v", "w")}
+        rho = 1.0 + 0.4 * rng.uniform(size=(nx, ny, nz))
+        T = 1.0 + 0.2 * rng.standard_normal((nx, ny, nz))
+        snaps.append((f, rho, T))
+        prods = {"r": rho, "T": T, "ru": rho * f["u"], "rv": rho * f["v"],
+                 "rw": rho * f["w"], "rT": rho * T,
+                 "ruu": rho * f["u"] ** 2, "ruv": rho * f["u"] * f["v"],
+                 "rvv": rho * f["v"] ** 2, "rvT": rho * f["v"] * T,
+                 "ruuv": rho * f["u"] ** 2 * f["v"]}
+        for i, name in enumerate(ss.COMP_NAMES):
+            if name in prods:
+                ss.comp_sums[i] += prods[name].mean(axis=2)
+        ss.n_samples += 1
+    tab = ss.favre_station_table([2])[2]
+
+    def zt(arrs):
+        return np.mean([a[2].mean(axis=-1) for a in arrs], axis=0)
+
+    rR = zt([r for _, r, _ in snaps])
+    fU = zt([r * f["u"] for f, r, _ in snaps]) / rR
+    fV = zt([r * f["v"] for f, r, _ in snaps]) / rR
+    fT = zt([r * T for _, r, T in snaps]) / rR
+    assert np.allclose(tab["rR"], rR, rtol=1e-12)
+    assert np.allclose(tab["fU"], fU, rtol=1e-12)
+    assert np.allclose(tab["fT"], fT, rtol=1e-12)
+    Ruv = zt([r * f["u"] * f["v"] for f, r, _ in snaps]) / rR - fU * fV
+    assert np.allclose(tab["fRuv"], Ruv, rtol=1e-12)
+    RvT = zt([r * f["v"] * T for f, r, T in snaps]) / rR - fV * fT
+    assert np.allclose(tab["fRvT"], RvT, rtol=1e-12)
+    ruuv = zt([r * f["u"] ** 2 * f["v"] for f, r, _ in snaps])
+    ruu = zt([r * f["u"] ** 2 for f, r, _ in snaps])
+    ruv = zt([r * f["u"] * f["v"] for f, r, _ in snaps])
+    Tuu = ruuv - 2.0 * fU * ruv - fV * ruu + 2.0 * rR * fU * fU * fV
+    assert np.allclose(tab["fTuuy"], Tuu, rtol=1e-11)
+
+
+@pytest.mark.parametrize("kind", ["ideal", "airwater"])
+def test_compressible_spatial_runs_as_jax(tmp_path, kind):
+    """A compressible Type=spatial case through both packages' dns.run
+    from tlab_tpu's initial state, 4 steps: dns.out in every printed
+    digit; st4.npz's sums (the Favre and register families included) to
+    1e-10 of their max; avg_zt4 (the Favre station table) and avgMA_zt4
+    (the registers) written, 3 samples, to 1e-8 of each column's max
+    (1e-13 absolute)."""
+    from tlab_tpu.tools.initialize import compressible_initial_state
+    from tlab_tpu_torch.dycore.compressible import CompState
+    text = _comp_spatial_text(kind)
+    jsim, tsim = _comp_sims(text)
+    Uj = compressible_initial_state(jsim, seed=1)
+    Ut = CompState(*(torch.from_numpy(np.array(a)) for a in Uj))
+    for pkg, mod, sim, U in (("jax", jdns, jsim, Uj),
+                             ("port", tdns, tsim, Ut)):
+        out = tmp_path / pkg
+        out.mkdir()
+        mod.run(sim, U, outdir=str(out), log_path=str(out / "dns.out"))
+    dj, dt = tmp_path / "jax", tmp_path / "port"
+    if kind == "ideal":
+        assert (dt / "dns.out").read_text() == (dj / "dns.out").read_text()
+    else:
+        # Case14's momenta are the pressure's round-off floor (ROADMAP C):
+        # the log's columns agree, the files' momenta are held below
+        assert (dt / "dns.out").read_text().splitlines()[-1].split()[7:] \
+            == (dj / "dns.out").read_text().splitlines()[-1].split()[7:]
+    ss_t = SpatialStats.load(str(dt / "st4.npz"))
+    ss_j = JSpatialStats.load(str(dj / "st4.npz"))
+    assert ss_t.n_samples == ss_j.n_samples == 4
+    keys = ("sums", "pair_sums", "grad_sums", "gradx_sums", "p_sums",
+            "triple_sums", "comp_sums", "reg_sums")
+    if kind == "ideal":
+        for key in keys:
+            assert _rel(getattr(ss_t, key), getattr(ss_j, key)) <= TOL, key
+    else:
+        # the density, energy and thermodynamic moments to 1e-10
+        for i, name in enumerate(ss_t.COMP_NAMES):
+            if name in ("r", "r2", "T", "T2", "p", "rT"):
+                assert _rel(ss_t.comp_sums[i], ss_j.comp_sums[i]) <= TOL
+    for name in ("avg_zt4", "avgMA_zt4"):
+        lj = (dj / name).read_text().splitlines()
+        lt = (dt / name).read_text().splitlines()
+        assert lt[:3] == lj[:3] and len(lt) == len(lj)
+        if kind != "ideal":
+            continue
+        vj = np.array([[float(x) for x in ln.split()] for ln in lj[3:]])
+        vt = np.array([[float(x) for x in ln.split()] for ln in lt[3:]])
+        scale = np.max(np.abs(vj), axis=0)
+        assert np.all(np.abs(vt - vj) <= np.maximum(1e-8 * scale, 1e-13))

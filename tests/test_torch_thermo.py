@@ -91,15 +91,29 @@ def test_thermo_params_match_exactly(name):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(psat_mode="bolton"), "Flatau"),
-    (dict(rratio=0.7, cratio_inv=0.4), "A13"),
-    (dict(cratio_inv=0.4), "A13")], ids=["bolton", "compressible", "cratio"])
+    (dict(psat_mode="bolton"), "Flatau")], ids=["bolton"])
 def test_unported_thermo_options_raise(kw, item):
-    """The exponential psat fit (no case file selects it) and the
-    compressible units keep their fields, as in tlab_tpu, and are refused."""
+    """The exponential psat fit (no case file selects it) keeps its field,
+    as in tlab_tpu, and is refused."""
     jt.ThermoParams(**kw)
     with pytest.raises(NotImplementedError, match=item):
         tt.ThermoParams(**kw)
+
+
+@pytest.mark.parametrize("kw", [dict(rratio=0.7, cratio_inv=0.4),
+                                dict(cratio_inv=0.4)],
+                         ids=["compressible", "cratio"])
+def test_compressible_units_match_jax(kw):
+    """The compressible units, refused until ROADMAP A13b: RRATIO scales
+    Rd and the psat table, CRATIO_INV stays a field; every property and
+    psat on T equal tlab_tpu's."""
+    j, t = jt.ThermoParams(**kw), tt.ThermoParams(**kw)
+    props = [n for n, v in vars(jt.ThermoParams).items()
+             if isinstance(v, property)]
+    for prop in props:
+        assert getattr(t, prop) == getattr(j, prop), prop
+    T = np.linspace(0.85, 1.05, 11)
+    assert _rel(t.psat(torch.from_numpy(T)), j.psat(jnp.asarray(T))) <= TOL
 
 
 @pytest.mark.parametrize("name", list(PARAMS))

@@ -1,6 +1,6 @@
-"""Compressible dynamical core, ideal gas (port of the single-species parts
-of tlab_tpu/dycore/compressible.py; reference rhs_flow_euler_*,
-rhs_flow_viscous_*, time.f90 TIME_SUBSTEP_COMPRESSIBLE).
+"""Compressible dynamical core (port of tlab_tpu/dycore/compressible.py;
+reference rhs_flow_euler_*, rhs_flow_viscous_*, rhs_flow_global_2, time.f90
+TIME_SUBSTEP_COMPRESSIBLE).
 
 Conservative formulation U = (rho, rho u, rho v, rho w, rho E) advanced with
 the same low-storage RK schemes; every spatial term is a compact-FD product:
@@ -20,10 +20,16 @@ field holds: rho(e + |u|^2/2) ('total', reference DNS_EQNS_TOTAL) or rho e
 ('internal', DNS_EQNS_INTERNAL).
 
 Boundary conditions: periodic x/z; y walls free-slip adiabatic (v=0,
-d(tangential)/dy=0, dT/dy=0) imposed on the tendencies, or a periodic y.
-The characteristic (NSCBC) boundaries, the multi-species mixtures, the moist
-AirWater set and the compressible buffer are ROADMAP A13b: asking for them
-raises NotImplementedError.
+d(tangential)/dy=0, dT/dy=0) imposed on the tendencies, a periodic y, or
+characteristic (NSCBC) open boundaries (dycore/nscbc.py) via the nscbc
+argument.  A [BufferZone] relaxes the conservative fields toward their
+plane-mean initial profiles (the buffer argument).
+
+Mixtures: a combustion table (physics/mixtures.py; `mix`) gives T, p and
+cp from the caloric table by a fixed-count Newton; the moist AirWater set
+(primitive_airwater .. acoustic_cfl_max_airwater) carries rho e in the
+reference's thermal units with rhos[0] = rho qt, its saturation adjustment
+in float64 (physics/thermo.py).
 """
 from __future__ import annotations
 
@@ -34,8 +40,8 @@ import torch
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.physics import eos
-
-A13B = "ROADMAP A13b"
+from tlab_tpu_torch.physics import mixtures as mx
+from tlab_tpu_torch.physics import thermo as th
 
 
 class CompState(NamedTuple):
@@ -47,23 +53,16 @@ class CompState(NamedTuple):
     rhos: Optional[torch.Tensor] = None   # scalars (ns, nx, ny, nz) as rho*s
 
 
-def _refuse(**parts) -> None:
-    """Raise for a part of tlab_tpu's compressible step that is A13b."""
-    for name, val in parts.items():
-        if val is not None:
-            raise NotImplementedError(
-                f"compressible {name}: {A13B} (NSCBC, mixtures, AirWater, "
-                "the compressible buffer)")
-
-
 def primitive(P, U: CompState, gamma: float, mach: float, mix=None):
-    _refuse(mixture=mix)
     rho = U.rho
     u = U.rhou / rho
     v = U.rhov / rho
     w = U.rhow / rho
     ke = 0.5 * (u * u + v * v + w * w)
     e = U.rhoE / rho - ke
+    if mix is not None and U.rhos is not None:
+        T, p, _ = mixture_thermal(U, e, mach, mix)
+        return u, v, w, T, p
     T = e * gamma * (gamma - 1.0) * mach ** 2
     p = rho * T / (gamma * mach ** 2)
     return u, v, w, T, p
@@ -76,6 +75,39 @@ def mass_fractions(U: CompState):
     inb_scal vs NSP)."""
     Y = U.rhos / U.rho[None]
     return torch.cat([Y, (1.0 - torch.sum(Y, dim=0))[None]], dim=0)
+
+
+def mixture_thermal(U: CompState, e, mach: float, mix, n_newton: int = 8):
+    """(T, p, cp) from nondimensional internal energy via the mixture
+    caloric table (reference THERMO_CALORIC_TEMPERATURE Newton +
+    THERMO_THERMAL_PRESSURE, thermo_caloric.f90/thermo_thermal.f90).
+
+    Units follow the reference convention: e_code scaled by U0^2 with
+    U0^2 = M^2 gama0 Rref T0, so e_nd (by cpref*T0) = e_code*(gama0-1)*M^2
+    and e_nd = h_nd(T,Y) - (1-1/gama0) R_nd(Y) T.  A fixed-count Newton
+    (the reference iterates to a tolerance): no host sync."""
+    Y = mass_fractions(U)
+    if Y.shape[0] != mix.nsp:
+        raise ValueError(f"mixture {mix.name!r} expects {mix.nsp - 1} "
+                         f"transported scalars, got {Y.shape[0] - 1}")
+    g0 = mix.gama0
+    e_nd = e * (g0 - 1.0) * mach ** 2
+    R = mx.gas_constant(mix, Y)
+    rfac = (g0 - 1.0) / g0          # rref/cpref
+    # initial guess from the leading (constant-cp) caloric term so flame
+    # temperatures T/TREF ~ 5-8 start near the root; the fixed-count
+    # Newton then converges quadratically
+    cp0 = torch.sum(mx._coef(mix.ai[0], e_nd) * Y, dim=0)
+    h0 = torch.sum(mx._coef(mix.ai[5], e_nd) * Y, dim=0)
+    T = torch.clamp((e_nd - h0) / torch.clamp(cp0 - rfac * R, min=1e-12),
+                    min=0.05)
+    for _ in range(n_newton):
+        res = mx.h_mixture(mix, T, Y) - rfac * R * T - e_nd
+        cv = mx.cp_mixture(mix, T, Y) - rfac * R
+        T = T - res / cv
+    cp = mx.cp_mixture(mix, T, Y)
+    p = U.rho * R * T / (g0 * mach ** 2)
+    return T, p, cp
 
 
 def primitive_view(U: CompState) -> State:
@@ -243,7 +275,7 @@ def rhs_compressible(P, U: CompState, gamma: float, mach: float,
     mu, variable_mu = _mu(gas, visc, T)
     cond = _conduction_coef(U, T, mu, prandtl, gamma, mach, mix)
     dtx, dty, dtz, conduction, grads, phi, _ = _visc_terms(
-        P, u, v, w, T, mu, cond, variable_mu)
+        P, u, v, w, T, mu, cond, variable_mu or mix is not None)
 
     h_ru = h_ru + dtx
     h_rv = h_rv + dty
@@ -259,23 +291,27 @@ def rhs_compressible(P, U: CompState, gamma: float, mach: float,
 
 def _conduction_coef(U: CompState, T, mu, prandtl: float, gamma: float,
                      mach: float, mix):
-    """Heat-conduction coefficient k/(Re Pr): mu cp_nd/(Pr (g0-1) M^2) with
-    cp_nd = 1 for the single-species gas (the reference's k = cp mu/Pr
-    weighting)."""
-    _refuse(mixture=mix)
-    return mu / (prandtl * (gamma - 1.0) * mach ** 2)
+    """Heat-conduction coefficient k/(Re Pr): mu cp_nd/(Pr (g0-1) M^2);
+    cp_nd = 1 for the single-species gas, a field for mixtures (the
+    reference's k = cp mu/Pr weighting)."""
+    if mix is None or U.rhos is None:
+        return mu / (prandtl * (gamma - 1.0) * mach ** 2)
+    cp = mx.cp_mixture(mix, T, mass_fractions(U))
+    return mu * cp / (prandtl * (mix.gama0 - 1.0) * mach ** 2)
 
 
 def primitive_internal(P, U: CompState, gamma: float, mach: float,
                        mix=None):
     """Primitive recovery when rhoE carries INTERNAL energy rho e
     (reference DNS_EQNS_INTERNAL formulation)."""
-    _refuse(mixture=mix)
     rho = U.rho
     u = U.rhou / rho
     v = U.rhov / rho
     w = U.rhow / rho
     e = U.rhoE / rho
+    if mix is not None and U.rhos is not None:
+        T, p, _ = mixture_thermal(U, e, mach, mix)
+        return u, v, w, T, p
     T = e * gamma * (gamma - 1.0) * mach ** 2
     p = rho * T / (gamma * mach ** 2)
     return u, v, w, T, p
@@ -297,7 +333,7 @@ def rhs_compressible_internal(P, U: CompState, gamma: float, mach: float,
     mu, variable_mu = _mu(gas, visc, T)
     cond = _conduction_coef(U, T, mu, prandtl, gamma, mach, mix)
     dtx, dty, dtz, conduction, grads, phi, _ = _visc_terms(
-        P, u, v, w, T, mu, cond, variable_mu)
+        P, u, v, w, T, mu, cond, variable_mu or mix is not None)
     divu = grads[-1]
     h_ru = h_ru + dtx
     h_rv = h_rv + dty
@@ -370,11 +406,27 @@ def _apply_wall_rows(h, rows):
     return h
 
 
-def _apply_wall_bcs(P, h: CompState) -> CompState:
+def _apply_wall_bcs(P, h: CompState, sides=(True, True)) -> CompState:
     """Free-slip adiabatic walls at jmin/jmax: zero normal-momentum tendency;
-    tangential/energy/density tendencies take their Neumann wall values."""
-    if P["sizes"][1] == 1 or P.get("y_periodic", False):
+    tangential/energy/density tendencies take their Neumann wall values.
+    sides masks (jmin, jmax) so open (NSCBC) sides are left alone."""
+    if P["sizes"][1] == 1 or P.get("y_periodic", False) or not any(sides):
         return h
+    if sides != (True, True):
+        # apply to the full state, then restore the untouched side's rows
+        full = _apply_wall_bcs(P, h, (True, True))
+        out = []
+        for a, b in zip(h, full):
+            if a is None:
+                out.append(None)
+                continue
+            c = b.clone()
+            if not sides[0]:
+                c[..., 0, :] = a[..., 0, :]
+            if not sides[1]:
+                c[..., -1, :] = a[..., -1, :]
+            out.append(c)
+        return CompState(*out)
     rows = P["bc_rows"]
     hv = h.rhov.clone()
     hv[:, 0, :] = 0.0
@@ -410,14 +462,38 @@ def _add_gravity(h: CompState, U: CompState, gvec, energy: str):
     return CompState(h.rho, h_ru, h_rv, h_rw, h_rE, h.rhos)
 
 
+def _apply_buffer(h: CompState, U: CompState, buf):
+    """Compressible buffer relaxation (BOUNDARY_BUFFER RELAX_BLOCK_CF /
+    RELAX_BLOCK_RHO): conservative fields relax toward the plane-mean
+    initial profiles; h_q -= tau(y) (q - ref(y))."""
+    tau = buf["tau"]            # (1, ny, 1)
+    refs = buf["refs"]          # name -> (1, ny, 1) conservative refs
+
+    def rx(hc, qc, name):
+        return hc - tau * (qc - refs[name])
+    hs = h.rhos
+    if hs is not None and "rs0" in refs:
+        hs = torch.stack([rx(hs[i], U.rhos[i], f"rs{i}")
+                          for i in range(hs.shape[0])])
+    return CompState(rx(h.rho, U.rho, "rho"),
+                     rx(h.rhou, U.rhou, "rhou"),
+                     rx(h.rhov, U.rhov, "rhov"),
+                     rx(h.rhow, U.rhow, "rhow"),
+                     rx(h.rhoE, U.rhoE, "rhoE"), hs)
+
+
 def rk_step_compressible(P, U: CompState, dtime, gamma: float, mach: float,
                          visc: float, prandtl: float, nscbc=None,
                          ly: float = 1.0, gas=None, lx: float = 1.0,
                          form: str = "divergence", energy: str = "total",
                          mix=None, gvec=(0.0, 0.0, 0.0), buffer=None):
     """One low-storage RK step of the conservative state (the scheme of
-    P["rk"]); returns the new state.  nscbc, mix and buffer are A13b."""
-    _refuse(nscbc=nscbc, mixture=mix, buffer=buffer)
+    P["rk"]); returns the new state.  nscbc: an nscbc.NSCBCSpec (open
+    sides take the characteristic corrections, 'wall' sides the wall
+    rows); mix: a combustion MixtureTable; buffer: the relaxation of
+    Simulation.attach_buffer_compressible, applied after the boundary
+    conditions as the reference (time.f90:808)."""
+    from tlab_tpu_torch.dycore.nscbc import apply_nscbc
     dyn.check_main_path(P)
     kdt = P["rk"]["kdt"]
     kco = P["rk"]["kco"]
@@ -427,14 +503,25 @@ def rk_step_compressible(P, U: CompState, dtime, gamma: float, mach: float,
         dte = dtime * k
         if energy == "internal":
             dh = rhs_compressible_internal(P, U, gamma, mach, visc,
-                                           prandtl, gas=gas)
+                                           prandtl, gas=gas, mix=mix)
         else:
             dh = rhs_compressible(P, U, gamma, mach, visc, prandtl,
-                                  gas=gas, form=form)
+                                  gas=gas, form=form, mix=mix)
         dh = _add_gravity(dh, U, gvec, energy)
         h = CompState(*(a + b if a is not None else None
                         for a, b in zip(h, dh)))
-        h = _apply_wall_bcs(P, h)
+        if nscbc is not None:
+            # y 'wall' sides keep the wall treatment; open sides get the
+            # additive characteristic corrections (the reference composes
+            # BOUNDARY_BCS_Y on top of the full-domain RHS)
+            h = _apply_wall_bcs(P, h, sides=(nscbc.ymin == "wall",
+                                             nscbc.ymax == "wall"))
+            h = apply_nscbc(P, U, h, gamma, mach, nscbc, ly, lx=lx,
+                            energy=energy, mix=mix)
+        else:
+            h = _apply_wall_bcs(P, h)
+        if buffer is not None:
+            h = _apply_buffer(h, U, buffer)
         U = CompState(*(q + dte * hq if q is not None else None
                         for q, hq in zip(U, h)))
         U = _clip_scalars(P, U)
@@ -442,6 +529,18 @@ def rk_step_compressible(P, U: CompState, dtime, gamma: float, mach: float,
             a = kco[i]
             h = CompState(*(a * x if x is not None else None for x in h))
     return U
+
+
+def _cfl_sum(P, u, v, w, c):
+    """max((|u|+c)/dx + (|v|+c)/dy + (|w|+c)/dz) over the box."""
+    acc = 0.0
+    if "iodx" in P:
+        acc = acc + (torch.abs(u) + c) * P["iodx"][:, None, None]
+    if "iody" in P:
+        acc = acc + (torch.abs(v) + c) * P["iody"][None, :, None]
+    if "iodz" in P:
+        acc = acc + (torch.abs(w) + c) * P["iodz"][None, None, :]
+    return torch.max(acc)
 
 
 def acoustic_cfl_max(P, U: CompState, gamma: float, mach: float, mix=None,
@@ -454,15 +553,13 @@ def acoustic_cfl_max(P, U: CompState, gamma: float, mach: float, mix=None,
         u, v, w, T, p = primitive_internal(P, U, gamma, mach, mix=mix)
     else:
         u, v, w, T, p = primitive(P, U, gamma, mach, mix=mix)
-    c = torch.sqrt(torch.clamp(T, min=1e-12)) / mach
-    acc = 0.0
-    if "iodx" in P:
-        acc = acc + (torch.abs(u) + c) * P["iodx"][:, None, None]
-    if "iody" in P:
-        acc = acc + (torch.abs(v) + c) * P["iody"][None, :, None]
-    if "iodz" in P:
-        acc = acc + (torch.abs(w) + c) * P["iodz"][None, None, :]
-    return torch.max(acc)
+    if mix is not None and U.rhos is not None:
+        # c = sqrt(gama0 p/rho): the reference courant uses the CONSTANT
+        # gama0 with the mixture pressure (time.f90:429)
+        c = torch.sqrt(torch.clamp(mix.gama0 * p, min=1e-12) / U.rho)
+    else:
+        c = torch.sqrt(torch.clamp(T, min=1e-12)) / mach
+    return _cfl_sum(P, u, v, w, c)
 
 
 def from_primitive(rho, u, v, w, T, gamma: float, mach: float,
@@ -471,28 +568,163 @@ def from_primitive(rho, u, v, w, T, gamma: float, mach: float,
     formulation the 5th field is stored in: 'total' rho(e + ke) for
     DNS_EQNS_TOTAL, 'internal' rho e for DNS_EQNS_INTERNAL (the
     reference's conservative arrays differ the same way, dns_main)."""
-    _refuse(mixture=mix)
-    e = T / (gamma * (gamma - 1.0) * mach ** 2)
+    if mix is not None and s is not None:
+        Y = torch.cat([s, (1.0 - torch.sum(s, dim=0))[None]], dim=0)
+        g0 = mix.gama0
+        e_nd = (mx.h_mixture(mix, T, Y)
+                - (g0 - 1.0) / g0 * mx.gas_constant(mix, Y) * T)
+        e = e_nd / ((g0 - 1.0) * mach ** 2)
+    else:
+        e = T / (gamma * (gamma - 1.0) * mach ** 2)
     ke = 0.5 * (u * u + v * v + w * w) if energy == "total" else 0.0
     return CompState(rho=rho, rhou=rho * u, rhov=rho * v, rhow=rho * w,
                      rhoE=rho * (e + ke),
                      rhos=rho[None] * s if s is not None else None)
 
 
-def mixture_thermal(*args, **kw):
-    """The multi-species caloric tables (THERMO_CALORIC_TEMPERATURE with a
-    mixture): ROADMAP A13b."""
-    raise NotImplementedError(f"compressible mixtures: {A13B}")
+# ---------------------------------------------------------------------------
+# AirWater (moist two-phase) compressible path -- reference MIXT_TYPE_AIRWATER
+# with Equations=internal (RHS_FLOW_GLOBAL_2 + RHS_SCAL_GLOBAL_2).
+# The prognostic energy is stored in the reference's THERMAL units
+# (cp0 T0; thermodynamics.f90:543-549): mechanical terms in the energy
+# equation carry the CRATIO_INV = (gama0-1) M^2 conversion and the
+# pressure/gas constants ride the RRATIO scaling inside ThermoParams.
+# ---------------------------------------------------------------------------
+
+def primitive_airwater(U: CompState, tp, nr: int = 3):
+    """(u, v, w, T, p, ql, newton_err) from the conservative state with
+    rhoE = rho e in thermal units (internal-energy formulation) and
+    rhos[0] = rho qt.  Saturation adjustment via THERMO_AIRWATER_RE in
+    float64 (the per-substep FI_DIAGNOSTIC -> THERMO_CALORIC_TEMPERATURE
+    path); newton_err, a 0-d tensor on the state's device, is the
+    reference's NEWTONRAPHSON_ERROR log column."""
+    rho = U.rho
+    u = U.rhou / rho
+    v = U.rhov / rho
+    w = U.rhow / rho
+    e = U.rhoE / rho
+    qt = U.rhos[0] / rho
+    T, ql, err = th.airwater_re(tp, qt, e, rho, nr=nr)
+    p = th.thermal_pressure(tp, qt, ql, rho, T)
+    return u, v, w, T, p, ql, torch.max(err)
 
 
-def rk_step_airwater(*args, **kw):
-    """The compressible AirWater set (RHS_FLOW_GLOBAL_2): ROADMAP A13b."""
-    raise NotImplementedError(f"compressible AirWater: {A13B}")
+def gamma_airwater(tp, qt, ql, T):
+    """Local cp/cv field (THERMO_GAMMA airwater branch,
+    thermo_caloric.f90:223)."""
+    cpm = tp.Cd + qt * tp.Cdv + ql * tp.Cvl
+    return cpm / (cpm - tp.cratio_inv * th.mixture_R(tp, qt, ql))
 
 
-def rhs_airwater_internal(*args, **kw):
-    raise NotImplementedError(f"compressible AirWater: {A13B}")
+def from_primitive_airwater(tp, rho, u, v, w, T, qt, ql) -> CompState:
+    """Conservative state with e from THERMO_CALORIC_ENERGY (airwater)."""
+    e = th.caloric_energy(tp, qt, ql, T)
+    return CompState(rho=rho, rhou=rho * u, rhov=rho * v, rhow=rho * w,
+                     rhoE=rho * e, rhos=(rho * qt)[None])
 
 
-def acoustic_cfl_max_airwater(*args, **kw):
-    raise NotImplementedError(f"compressible AirWater: {A13B}")
+def rhs_airwater_internal(P, U: CompState, tp, visc: float, prandtl: float,
+                          schmidt: float, gvec=(0.0, 0.0, 0.0)):
+    """Reference RHS_FLOW_GLOBAL_2 + RHS_SCAL_GLOBAL_2 for the AirWater
+    mixture: skewsymmetric advection, explicit viscous/diffusion,
+    internal-energy equation
+
+      d(rho e)/dt = -skew(rho e u) + CRATIO_INV (Phi - p div u)
+                    + (visc/Pr) lap(h(T, q))
+
+    (conduction as the Laplacian of the caloric ENTHALPY, not T), gravity
+    g_i rho in the momentum equations (no gravity work in the internal
+    form), and plain diff lap(qt) scalar diffusion.  The enthalpy-diffusion
+    cross term for Sc != Pr (rhs_scal_global_2.f90:96-130) is left out, as
+    tlab_tpu leaves it out: the reference cases run Sc = Pr.  Returns the
+    tendency and the primitives (u, v, w, T, p, ql, newton_err)."""
+    rho = U.rho
+    u, v, w, T, p, ql, err = primitive_airwater(U, tp)
+    qt = U.rhos[0] / rho
+    ci = tp.cratio_inv
+
+    h_rho = -_div(P, U.rhou, U.rhov, U.rhow)
+    px_, py_, pz_ = _grad(P, p)
+
+    def skew(phi, rphi):
+        dv = _div(P, rphi * u, rphi * v, rphi * w)
+        gx, gy, gz = _grad(P, phi)
+        conv = U.rhou * gx + U.rhov * gy + U.rhow * gz
+        return -0.5 * (dv + conv - phi * h_rho)
+
+    h_ru = skew(u, U.rhou) - px_ + gvec[0] * rho
+    h_rv = skew(v, U.rhov) - py_ + gvec[1] * rho
+    h_rw = skew(w, U.rhow) - pz_ + gvec[2] * rho
+    e_sp = U.rhoE / rho
+    h_re = skew(e_sp, U.rhoE)
+
+    # viscous terms (constant mu) with the caloric enthalpy riding the
+    # stacked D2 slot normally used by T: conduction = cond lap(h)
+    h_enth = th.caloric_enthalpy(tp, qt, ql, T)
+    cond = visc / prandtl
+    dtx, dty, dtz, conduction, grads, phi, _ = _visc_terms(
+        P, u, v, w, h_enth, visc, cond, False)
+    divu = grads[-1]
+    h_ru = h_ru + dtx
+    h_rv = h_rv + dty
+    h_rw = h_rw + dtz
+    h_re = h_re + ci * (phi - p * divu) + conduction
+
+    # scalar qt: skewsymmetric advection + diff lap(qt)
+    diff = visc / schmidt
+    _, qx2 = _d12_stack(P, "x", 0, qt[None])
+    _, qy2 = _d12_stack(P, "y", 1, qt[None])
+    _, qz2 = _d12_stack(P, "z", 2, qt[None])
+    h_rs = skew(qt, U.rhos[0])[None] + diff * (qx2 + qy2 + qz2)
+
+    return CompState(h_rho, h_ru, h_rv, h_rw, h_re, h_rs), \
+        (u, v, w, T, p, ql, err)
+
+
+def rk_step_airwater(P, U: CompState, dtime, tp, visc: float,
+                     prandtl: float, schmidt: float, nscbc=None,
+                     ly: float = 1.0, gvec=(0.0, 0.0, 0.0), buffer=None):
+    """Low-storage RK step for the AirWater internal-energy core
+    (TIME_SUBSTEP_COMPRESSIBLE with RHS_FLOW_GLOBAL_2).  Returns the new
+    state and the max Newton residual across substeps (NewtonRs), a 0-d
+    tensor on the device: the host reads it with the step's diagnostics."""
+    from tlab_tpu_torch.dycore.nscbc import apply_nscbc_airwater
+    dyn.check_main_path(P)
+    kdt = P["rk"]["kdt"]
+    kco = P["rk"]["kco"]
+    h = CompState(*(torch.zeros_like(x) if x is not None else None
+                    for x in U))
+    err_max = U.rho.new_zeros(())
+    for i, k in enumerate(kdt):
+        dte = dtime * k
+        dh, prim = rhs_airwater_internal(P, U, tp, visc, prandtl, schmidt,
+                                         gvec=gvec)
+        err_max = torch.maximum(err_max, prim[6])
+        h = CompState(*(a + b if a is not None else None
+                        for a, b in zip(h, dh)))
+        if nscbc is not None:
+            h = apply_nscbc_airwater(P, U, h, tp, nscbc, ly, prim,
+                                     gvec=gvec)
+        else:
+            h = _apply_wall_bcs(P, h)
+        if buffer is not None:
+            h = _apply_buffer(h, U, buffer)
+        U = CompState(*(q + dte * hq if q is not None else None
+                        for q, hq in zip(U, h)))
+        U = _clip_scalars(P, U)
+        if i < len(kdt) - 1:
+            a = kco[i]
+            h = CompState(*(a * x if x is not None else None for x in h))
+    return U, err_max
+
+
+def acoustic_cfl_max_airwater(P, U: CompState, tp, prim=None):
+    """max((|u|+c)/dx + ...) with c = sqrt(gama0 p / rho) -- the
+    reference's TIME_COURANT compressible branch uses the CONSTANT
+    gama0, not the local mixture gamma (time.f90:429).  prim: the state's
+    primitive_airwater, where the caller has it."""
+    u, v, w, T, p, ql, _ = prim if prim is not None \
+        else primitive_airwater(U, tp)
+    gama0 = tp.Cpd_dim / (tp.Cpd_dim - tp.Rd_dim)
+    c = torch.sqrt(gama0 * torch.clamp(p, min=1e-30) / U.rho)
+    return _cfl_sum(P, u, v, w, c)

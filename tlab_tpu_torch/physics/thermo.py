@@ -35,9 +35,12 @@ changes nothing.
 psat_coeffs and ThermoParams' constants are host NumPy/float, copied from
 tlab_tpu; the field functions take torch tensors on any device.  The
 background profiles (bg) may be tensors or host arrays: they are moved to
-the field's dtype and device where they are used.  The compressible half of
-tlab_tpu's module (airwater_rp/_re, thermal_*, caloric_*, the compressible
-background) belongs to ROADMAP A13b.
+the field's dtype and device where they are used.
+
+The compressible half (the AirWater inversions from (rho, p), (rho, e) and
+(p, h), the thermal and caloric equations of state, the compressible units
+and the compressible hydrostatic background) keeps the same rule: the
+saturation Newton and psat run in float64 and return the caller's dtype.
 """
 from __future__ import annotations
 
@@ -152,10 +155,6 @@ class ThermoParams:
             raise NotImplementedError(
                 f"psat_mode={self.psat_mode!r}: only the reference's Flatau "
                 "polynomial is ported (no case file selects another)")
-        if self.rratio or self.cratio_inv != 1.0:
-            raise NotImplementedError(
-                "the compressible units (rratio, cratio_inv) are not ported "
-                "yet (ROADMAP A13b)")
 
     # -- constants (cp-scaled nondimensional, or SI when Nondimensional=no)
     @property
@@ -180,6 +179,10 @@ class ThermoParams:
 
     @property
     def Rd(self):
+        if self.rratio:
+            # compressible units: Rd/Rref = 1, scaled by RRATIO
+            # (thermodynamics.f90:548 THERMO_R *= RRATIO)
+            return self.rratio
         return self.Rd_dim / self._cp_norm
 
     @property
@@ -222,7 +225,12 @@ class ThermoParams:
         Nondimensional=no, thermodynamics.f90:537-542 skipped)."""
         if not self.nondimensional:
             return psat_coeffs(1.0, 1.0)
-        return psat_coeffs(self.T_ref, self.p_ref)
+        cf = psat_coeffs(self.T_ref, self.p_ref)
+        if self.rratio:
+            # compressible: psat in rho0 U0^2 units
+            # (thermodynamics.f90:547 THERMO_PSAT *= RRATIO)
+            cf = tuple(c * self.rratio for c in cf)
+        return cf
 
     # formation-enthalpy differences (airwater family: Lv = Ld = Ldv = 0,
     # Lvl = Ldl = -Lv0, thermodynamics.f90:580-585)
@@ -376,6 +384,30 @@ def mixture_R(tp: ThermoParams, qt, ql):
     return tp.Rd + qt * tp.Rdv - ql * tp.Rv
 
 
+def _cumulative_integral(y: np.ndarray, d1y: np.ndarray = None):
+    """f -> its integral from y[0] (host float64): the compact cumulative
+    integral (FDM_Int1_Solve BCS_MIN: the dense D1 matrix d1y with its
+    first row replaced by the condition F(y0) = 0), or the trapezoid rule
+    without d1y."""
+    if d1y is not None:
+        D = np.array(d1y, dtype=np.float64)
+        D[0, :] = 0.0
+        D[0, 0] = 1.0
+
+        def cumint(f):
+            rhs = np.array(f, dtype=np.float64)
+            rhs[0] = 0.0
+            return np.linalg.solve(D, rhs)
+    else:
+        dy_ = np.diff(y)
+
+        def cumint(f):
+            out = np.zeros_like(f)
+            out[1:] = np.cumsum(0.5 * (f[1:] + f[:-1]) * dy_)
+            return out
+    return cumint
+
+
 def hydrostatic_background(tp: ThermoParams, y: np.ndarray,
                            h_prof: np.ndarray, qt_prof: np.ndarray,
                            p_ref: float = 1.0, y_ref: float = None,
@@ -406,22 +438,7 @@ def hydrostatic_background(tp: ThermoParams, y: np.ndarray,
         y_ref = float(y[0])
     ep = tp.gratio * g_nd * (y - y_ref)
 
-    if d1y is not None:
-        D = np.array(d1y, dtype=np.float64)
-        D[0, :] = 0.0
-        D[0, 0] = 1.0
-
-        def cumint(f):
-            rhs = np.array(f, dtype=np.float64)
-            rhs[0] = 0.0
-            return np.linalg.solve(D, rhs)
-    else:
-        dy_ = np.diff(y)
-
-        def cumint(f):
-            out = np.zeros_like(f)
-            out[1:] = np.cumsum(0.5 * (f[1:] + f[:-1]) * dy_)
-            return out
+    cumint = _cumulative_integral(y, d1y)
 
     def t64(a):
         return torch.as_tensor(np.asarray(a, np.float64))
@@ -492,6 +509,189 @@ def airwater_pt(tp: ThermoParams, qt, p, T):
         x = (qt - qs_true) / dsl
         ql = dsl * dqldqt * torch.logaddexp(x, torch.zeros_like(x))
     return ql
+
+
+# ---------------------------------------------------------------------------
+# The compressible AirWater thermodynamics (reference thermo_airwater.f90,
+# thermo_thermal.f90, thermo_caloric.f90 with MIXT_TYPE_AIRWATER): T and ql
+# from the conservative state, in the compressible units of
+# compressible_airwater_params.  The Newton polynomials run in float64.
+# ---------------------------------------------------------------------------
+
+def _wide_all(*arrays):
+    """The arrays as float64 tensors on the first tensor's device, and the
+    dtype of the first tensor among them (float64 if there is none)."""
+    like = next((a for a in arrays if isinstance(a, torch.Tensor)), None)
+    dev = like.device if like is not None else None
+    dtype = like.dtype if like is not None else torch.float64
+    return tuple(torch.as_tensor(a, dtype=torch.float64, device=dev)
+                 for a in arrays), dtype
+
+
+def airwater_rp(tp: ThermoParams, qt, p, rho, nr: int = 3):
+    """(T, ql, err) from (rho, p, qt) via the thermal EOS
+    (THERMO_AIRWATER_RP, thermo_airwater.f90:74-209, dsmooth=0 branch).
+
+    Unsaturated: T = p/(rho R(qt, 0)); saturated points re-solve
+    psat(T) = p - (1-qt) rho Rd T (Newton on the polynomial).  Evaluated in
+    float64; returned in the dtype of the first tensor argument."""
+    (qt, p, rho), dtype = _wide_all(qt, p, rho)
+    cf = tp.psat_cf
+    Rd, Rv, Rdv = tp.Rd, tp.Rv, tp.Rdv
+    T0 = p / (rho * (Rd + qt * Rdv))
+    qsat0 = psat_polynomial(cf, T0) / (rho * T0 * Rv)
+    saturated = qsat0 <= qt
+    # saturated branch: polynomial root with modified b1, b2
+    b = [torch.full_like(T0, c) for c in cf]
+    b[0] = b[0] - p
+    b[1] = b[1] + (1.0 - qt) * rho * Rd
+    T_sat, err = _newton_psat_poly(b, T0, nr=nr)
+    qsat_sat = psat_polynomial(cf, T_sat) / (rho * T_sat * Rv)
+    T = torch.where(saturated, T_sat, T0)
+    ql = torch.where(saturated, qt - qsat_sat, 0.0)
+    return T.to(dtype), ql.to(dtype), err.to(dtype)
+
+
+def _airwater_re64(tp: ThermoParams, qt, e, rho, nr: int):
+    """airwater_re on float64 tensors."""
+    cf = tp.psat_cf
+    ci = tp.cratio_inv
+    Cd, Cdv, Cvl, Cdl = tp.Cd, tp.Cdv, tp.Cvl, tp.Cdl
+    Rd, Rv, Rdv = tp.Rd, tp.Rv, tp.Rdv
+    Ld, Ldv, Lvl, Ldl = tp.Ld, tp.Ldv, tp.Lvl, tp.Ldl
+
+    cpm = Cd + qt * Cdv
+    rm = Rd + qt * Rdv
+    T0 = (e - (Ld + qt * Ldv)) / (cpm - rm * ci)
+    qsat0 = psat_polynomial(cf, T0) / (rho * T0 * Rv)
+    saturated = qsat0 < qt
+
+    # saturated: B = psat*Lvl (+ shifted HEAT_CAPACITY_LV) + rho Rv terms
+    hc_lv = Cvl + ci * Rv
+    hc_ld = Cdl + ci * Rd
+    n = len(cf)
+    b = [torch.full_like(T0, c * Lvl) for c in cf] + [torch.zeros_like(T0)]
+    for i in range(1, n + 1):
+        b[i] = b[i] + cf[i - 1] * hc_lv
+    b[1] = b[1] + rho * Rv * (e - qt * Ldl - Ld)
+    b[2] = b[2] - rho * Rv * (qt * hc_ld + Cd - ci * Rd)
+    T_sat, err = _newton_psat_poly(b, T0, nr=nr)
+    qsat_sat = psat_polynomial(cf, T_sat) / (rho * T_sat * Rv)
+    T = torch.where(saturated, T_sat, T0)
+    ql = torch.where(saturated, qt - qsat_sat, 0.0)
+    # NEWTONRAPHSON_ERROR only tracks points that took the saturated
+    # Newton branch (thermo_airwater.f90:266, 300-325)
+    err = torch.where(saturated, err, 0.0)
+    return T, ql, err
+
+
+def airwater_re(tp: ThermoParams, qt, e, rho, nr: int = 3):
+    """(T, ql, err) from (rho, e, qt) via the caloric EOS
+    (THERMO_AIRWATER_RE, thermo_airwater.f90:254-425, dsmooth=0 branch).
+
+    Unsaturated: T = (e - Ld - qt Ldv)/(Cv_mix); saturated points solve
+    psat(T) (Lvl + HEAT_CAPACITY_LV T) + rho Rv T [...] = 0.  err is the
+    last Newton step over T at the saturated points, 0 elsewhere.
+    Evaluated in float64; returned in the dtype of the first tensor
+    argument."""
+    (qt, e, rho), dtype = _wide_all(qt, e, rho)
+    return tuple(a.to(dtype) for a in _airwater_re64(tp, qt, e, rho, nr))
+
+
+def thermal_density(tp: ThermoParams, qt, ql, p, T):
+    """rho = p/(R_mix T) (THERMO_THERMAL_DENSITY)."""
+    return p / (mixture_R(tp, qt, ql) * T)
+
+
+def thermal_pressure(tp: ThermoParams, qt, ql, rho, T):
+    """p = rho R_mix T (THERMO_THERMAL_PRESSURE, airwater branch)."""
+    return rho * mixture_R(tp, qt, ql) * T
+
+
+def caloric_enthalpy(tp: ThermoParams, qt, ql, T):
+    """h(T, q) = (Cd + qt Cdv + ql Cvl) T + Ld + qt Ldv + ql Lvl
+    (THERMO_CALORIC_ENTHALPY airwater branch, thermo_caloric.f90)."""
+    return ((tp.Cd + qt * tp.Cdv + ql * tp.Cvl) * T
+            + tp.Ld + qt * tp.Ldv + ql * tp.Lvl)
+
+
+def caloric_energy(tp: ThermoParams, qt, ql, T):
+    """e(T, q) = h(T, q) - CRATIO_INV R_mix T (THERMO_CALORIC_ENERGY
+    airwater branch): internal energy in the reference's cp T0 units."""
+    return (caloric_enthalpy(tp, qt, ql, T)
+            - tp.cratio_inv * mixture_R(tp, qt, ql) * T)
+
+
+def compressible_airwater_params(mach: float, dsmooth: float = 0.0,
+                                 **kw) -> ThermoParams:
+    """ThermoParams in the reference's compressible-AirWater units
+    (thermodynamics.f90:543-549): gama0 = Cpd/(Cpd - Rd) from the
+    property tables (overrides any INI HeatCapacityRatio when a mixture
+    is selected, :505-507), gas constants and psat scaled by
+    RRATIO = 1/(gama0 M^2), CRATIO_INV = (gama0-1) M^2."""
+    base = ThermoParams(**kw)
+    gama0 = base.Cpd_dim / (base.Cpd_dim - base.Rd_dim)
+    return dataclasses.replace(
+        base, mixture="airwater", dsmooth=dsmooth,
+        rratio=1.0 / (gama0 * mach ** 2),
+        cratio_inv=(gama0 - 1.0) * mach ** 2)
+
+
+def hydrostatic_background_compressible(tp: ThermoParams, y: np.ndarray,
+                                        h_prof: np.ndarray,
+                                        qt_prof: np.ndarray,
+                                        p_ref: float, y_ref: float,
+                                        g2: float, d1y: np.ndarray = None,
+                                        niter: int = 10):
+    """Compressible-branch Gravity_Hydrostatic_Enthalpy
+    (gravity.f90:121-227, THERMO_TYPE_COMPRESSIBLE path): iterate
+    T, ql = AIRWATER_PH_RE(qt, p, h); integrate d ln p/dy = g2/(R T)
+    with the same cumulative-integral operator as the anelastic branch;
+    normalize p(yref) = pref. g2 = buoyancy vector y-component / Froude
+    (negative for downward gravity).  Host work in float64 (the
+    inversions as float64 tensors on the CPU).  Returns (ny,) NumPy
+    profiles p, T, rho, ql."""
+    ny = y.shape[0]
+    cumint = _cumulative_integral(y, d1y)
+
+    def t64(a):
+        return torch.as_tensor(np.asarray(a, np.float64))
+
+    h64 = np.asarray(h_prof, np.float64)
+    qt64 = np.asarray(qt_prof, np.float64)
+    p = np.full(ny, p_ref, dtype=np.float64)
+    T = np.ones(ny)
+    ql = np.zeros(ny)
+    for _ in range(max(niter, 1)):
+        Tj, qlj, _ = airwater_ph_re(tp, t64(qt64), t64(p), t64(h64))
+        T = Tj.numpy()
+        ql = qlj.numpy()
+        # r_aux = g2 * (1/(R T)) (THERMO_THERMAL_DENSITY at p=1)
+        R = np.asarray(mixture_R(tp, qt64, ql), np.float64)
+        lnp = cumint(g2 / (R * T))
+        p = np.exp(lnp)
+        p *= p_ref / np.interp(y_ref, y, p)
+    R = np.asarray(mixture_R(tp, qt64, ql), np.float64)
+    rho = p / (R * T)
+    return {"p": p, "T": T, "rho": rho, "ql": ql}
+
+
+def airwater_ph_re(tp: ThermoParams, qt, p, h, niter: int = 5,
+                   nr: int = 3):
+    """(T, ql, err) from (p, h, qt): iterative (rho, e) method
+    (THERMO_AIRWATER_PH_RE, thermo_airwater.f90:213-249).  Evaluated in
+    float64 (one vectorised pass over every point); returned in the dtype
+    of the first tensor argument."""
+    (qt, p, h), dtype = _wide_all(qt, p, h)
+    ci = tp.cratio_inv
+    ql = torch.zeros_like(h)
+    T = (h - tp.Ld - qt * tp.Ldv) / (tp.Cd + qt * tp.Cdv)
+    err = None
+    for _ in range(niter):
+        rho = thermal_density(tp, qt, ql, p, T)
+        e = h - ci * p / rho
+        T, ql, err = _airwater_re64(tp, qt, e, rho, nr)
+    return T.to(dtype), ql.to(dtype), err.to(dtype)
 
 
 # ---------------------------------------------------------------------------

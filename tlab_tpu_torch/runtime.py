@@ -1,12 +1,14 @@
 """Simulation context for the port: grid, plans and device operators from a
-CaseSetup, for the incompressible (Boussinesq), anelastic and ideal-gas
-compressible equation sets on one device (port of tlab_tpu/runtime.py:
-make_anelastic, make_sources, the [IBMParameter] reader, the interactive
-surface BC, attach_buffer and Simulation without its device mesh).
+CaseSetup, for the incompressible (Boussinesq), anelastic and compressible
+equation sets on one device (port of tlab_tpu/runtime.py: make_anelastic,
+make_sources, the [IBMParameter] reader, the interactive surface BC,
+attach_buffer, attach_buffer_compressible and Simulation without its device
+mesh).  The compressible set takes its characteristic (NSCBC) boundaries,
+the combustion mixtures, CHEMKIN tables and the moist AirWater mixture.
 
-Every case option not ported yet (the characteristic boundaries, mixtures,
-AirWater and the buffer of the compressible set) raises NotImplementedError
-naming the ROADMAP item that will port it; none is dropped silently.
+A case option not ported yet raises NotImplementedError naming the ROADMAP
+item that will port it (the device mesh's is A17); none is dropped
+silently.
 """
 from __future__ import annotations
 
@@ -42,13 +44,6 @@ from tlab_tpu_torch.physics.eos import GasParams
 from tlab_tpu_torch.utils import trace as _trace
 
 FACTORIZED_ORDERS = ("", "factorize", "compactjacobian6")
-
-
-def _refuse(missing) -> None:
-    if missing:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(
-                f"{opt} (ROADMAP {item})" for opt, item in missing))
 
 
 def make_anelastic(case: CaseSetup, grid: Grid, dtype=torch.float32,
@@ -434,34 +429,38 @@ def grid_from_case(case: CaseSetup) -> Grid:
 COMPRESSIBLE = ("compressible", "total", "internal")
 
 
-def _off_path_options(case: CaseSetup):
-    """(option, ROADMAP item) for each option of `case` the port lacks: in
-    the compressible set the characteristic (NSCBC) boundaries, a mixture
-    (the combustion tables, CHEMKIN, AirWater) and a buffer zone."""
-    found = []
-    if case.equations not in COMPRESSIBLE:
-        return found
-    for side, kind in zip(("Jmin", "Jmax"), case.velocity_bc):
-        if kind in ("outflow", "inflow"):
-            found.append((f"compressible Velocity{side}={kind} (NSCBC)",
-                          "A13b"))
-    tcfg = case.thermo or {}
-    mixname = tcfg.get("mixture", "none")
-    if mixname in mixmod.MIXTURES or mixname == "airwater" or (
-            mixname == "chemkin" and tcfg.get("chemkin_file")):
-        found.append((f"compressible Mixture={mixname}", "A13b"))
-    if case.buffer is not None and case.buffer.type != "none":
-        found.append((f"compressible [BufferZone] Type={case.buffer.type}",
-                      "A13b"))
-    return found
+def _nscbc_spec(case: CaseSetup, grid: Grid, aw):
+    """The characteristic-boundary spec of a compressible case, or None:
+    a Velocity<side>=outflow|inflow side is open (the other a wall); the
+    AirWater mixture opens any non-periodic y as outflow, with SigmaOut,
+    SigmaInf and BetaTransverse of [BoundaryConditions] (the reference
+    applies characteristic BCs there, time.f90:792-796)."""
+    from tlab_tpu_torch.dycore.nscbc import NSCBCSpec
+    vb = case.velocity_bc
+    if any(k in ("outflow", "inflow") for k in vb):
+        return NSCBCSpec(
+            ymin=vb[0] if vb[0] in ("outflow", "inflow") else "wall",
+            ymax=vb[1] if vb[1] in ("outflow", "inflow") else "wall",
+            p_inf=1.0 / (case.gamma * case.mach ** 2))
+    if aw is None or grid.y.periodic:
+        return None
+    ini = case.ini
+
+    def key(name):
+        return max(ini.get_float("BoundaryConditions", name, -1.0), 0.0) \
+            if ini is not None else 0.0
+    return NSCBCSpec(ymin="outflow", ymax="outflow", sigma=key("SigmaOut"),
+                     cinf=key("SigmaInf"), ctan=key("BetaTransverse"))
 
 
 def _compressible(case: CaseSetup, grid: Grid, nsp: NSParams, P: dict,
                   dtype, dev) -> dict:
-    """The compressible set's context (tlab_tpu's Simulation.comp for the
-    ideal gas): the gas, the [Control] FlowLimit bounds, the gravity vector,
-    the diffusion-number factor, the Euler form and the energy variable;
-    sets P["y_periodic"] and the scalar clip P["scal_bounds"]."""
+    """The compressible set's context (tlab_tpu's Simulation.comp): the gas,
+    the mixture (a combustion table, or the AirWater ThermoParams "aw" in
+    compressible units, whose gamma0 replaces the case's), the NSCBC spec,
+    the [Control] FlowLimit bounds, the gravity vector, the
+    diffusion-number factor, the Euler form and the energy variable; sets
+    P["y_periodic"] and the scalar clip P["scal_bounds"]."""
     tcfg = case.thermo or {}
     gas = GasParams(gamma=case.gamma, mach=case.mach,
                     transport=tcfg.get("transport", "none"))
@@ -469,6 +468,27 @@ def _compressible(case: CaseSetup, grid: Grid, nsp: NSParams, P: dict,
     # [BoundaryConditions] ViscousI/J/K are accepted but inert, exactly
     # like the current reference (opr_partial.f90:91 reads column 1 of
     # bcs_inf/bcs_out only): P["visc_bc"] stays unset
+    # multi-species mixtures ([Main] Mixture=BS/PETERS1991/...): caloric
+    # tables for the combustion families (thermodynamics.f90:217-430)
+    mixname = tcfg.get("mixture", "none")
+    mixture = None
+    if mixname in mixmod.MIXTURES:
+        mixture = mixmod.build_mixture(mixname)
+    elif mixname == "chemkin" and tcfg.get("chemkin_file"):
+        mixture = mixmod.read_chemkin(tcfg["chemkin_file"])
+    # moist air with the compressible solver (MIXT_TYPE_AIRWATER +
+    # Equations=internal, the Case14 family): ThermoParams in compressible
+    # units (RRATIO-scaled R and psat)
+    aw = None
+    gama = case.gamma
+    if mixname == "airwater":
+        aw = thermo.compressible_airwater_params(
+            mach=case.mach, dsmooth=tcfg.get("smooth", 0.0))
+        gama = aw.Cpd_dim / (aw.Cpd_dim - aw.Rd_dim)
+        if case.equations != "internal":
+            raise NotImplementedError(
+                "Mixture=AirWater compressible: internal-energy "
+                "formulation only (reference RHS_FLOW_GLOBAL_2)")
     gvec = tuple(case.buoyancy.vector) if case.buoyancy is not None \
         else (0.0, 0.0, 0.0)
     sfactor = (1.0 / case.reynolds) * max(
@@ -481,8 +501,8 @@ def _compressible(case: CaseSetup, grid: Grid, nsp: NSParams, P: dict,
     if ctrl.get("flow_limit", True):
         ini = case.ini
         p_mean = ini.get_float("Flow", "Pressure",
-                               1.0 / (case.gamma * case.mach ** 2)) \
-            if ini is not None else 1.0 / (case.gamma * case.mach ** 2)
+                               1.0 / (gama * case.mach ** 2)) \
+            if ini is not None else 1.0 / (gama * case.mach ** 2)
         r_mean = ini.get_float("Flow", "Density", 1.0) \
             if ini is not None else 1.0
         pmin = ctrl.get("min_pressure", -1.0)
@@ -497,13 +517,15 @@ def _compressible(case: CaseSetup, grid: Grid, nsp: NSParams, P: dict,
         # per-substep clipping of the transported scalars (DNS_BOUNDS_LIMIT)
         P["scal_bounds"] = dyn.scalar_bounds(
             ctrl["min_scalar"], ctrl["max_scalar"], dtype, dev)
-    return {"gamma": case.gamma, "mach": case.mach, "bounds": bounds,
-            "gvec": gvec, "sfactor": sfactor, "prandtl": case.prandtl,
-            "gas": gas,
+    return {"gamma": gama, "mach": case.mach, "bounds": bounds,
+            "mixture": mixture, "aw": aw, "gvec": gvec,
+            "schmidt": case.schmidt[0] if case.schmidt else 1.0,
+            "sfactor": sfactor, "prandtl": case.prandtl, "gas": gas,
             "form": ("skewsymmetric" if case.term_advection == "skewsymmetric"
                      else "divergence"),
             "energy": "internal" if case.equations == "internal"
             else "total",
+            "nscbc": _nscbc_spec(case, grid, aw),
             "ly": float(grid.y.nodes[-1] - grid.y.nodes[0]),
             "lx": float(grid.x.scale)}
 
@@ -615,7 +637,6 @@ class Simulation:
         dev = _device.resolve(device)
         if grid is None:
             grid = grid_from_case(case)
-        _refuse(_off_path_options(case))
         fdm = build_fdm_plan(grid, case.space_order1, case.space_order2)
         nsp = NSParams(reynolds=case.reynolds, schmidt=tuple(case.schmidt),
                        prandtl=case.prandtl, froude=case.froude,
@@ -769,6 +790,57 @@ class Simulation:
                 self.grid.x.nodes, spec.points_imin, spec.points_imax,
                 self.dtype, self.device)
             self.filter_sponge = (amp, mats)
+
+    def attach_buffer_compressible(self, U) -> None:
+        """Compressible buffer zones and the characteristic-BC reference
+        states (BOUNDARY_BUFFER_INITIALIZE with RELAX_BLOCK_CF semantics +
+        boundary_bcs.f90:224-287): self.comp["buffer"] relaxes the
+        CONSERVATIVE fields toward their plane-mean initial profiles, and
+        with AirWater the y NSCBC reference state of each side is the
+        buffer mean at its wall row (T, ql from airwater_re in float64,
+        p from thermal_pressure)."""
+        spec = self.case.buffer
+        if spec is None or spec.type not in ("relaxation", "both"):
+            return
+        if not (spec.points_jmin > 1 or spec.points_jmax > 1):
+            return
+        tau = bufmod.tau_profile(self.grid.y.nodes, spec)
+
+        def profile(a):                       # the plane mean, (ny,)
+            return torch.mean(a, dim=(0, 2))
+
+        refs = {"rho": profile(U.rho), "rhou": profile(U.rhou),
+                "rhov": profile(U.rhov), "rhow": profile(U.rhow),
+                "rhoE": profile(U.rhoE)}
+        if U.rhos is not None:
+            for i in range(U.rhos.shape[0]):
+                refs[f"rs{i}"] = profile(U.rhos[i])
+        self.comp["buffer"] = {
+            "tau": torch.as_tensor(np.asarray(tau, np.float64)).to(
+                self.device, self.dtype)[None, :, None],
+            "refs": {k: v[None, :, None] for k, v in refs.items()}}
+        nscbc, aw = self.comp.get("nscbc"), self.comp.get("aw")
+        if nscbc is None or aw is None:
+            return
+        # one host read of the wall rows of the plane means
+        names = ["rho", "rhov", "rhou", "rhow", "rhoE"] \
+            + (["rs0"] if "rs0" in refs else [])
+        walls = torch.stack([refs[n][[0, -1]] for n in names]).to(
+            "cpu", torch.float64)
+        sides = {}
+        for k, side in enumerate(("refs_ymin", "refs_ymax")):
+            r0 = float(walls[0, k])
+            un0, v10, v20, e0, *qt = (float(walls[i, k]) / r0
+                                      for i in range(1, len(names)))
+            qt0 = qt[0] if qt else 0.0
+            T0, ql0, _ = thermo.airwater_re(
+                aw, torch.tensor(qt0, dtype=torch.float64),
+                torch.tensor(e0, dtype=torch.float64),
+                torch.tensor(r0, dtype=torch.float64))
+            p0 = float(thermo.thermal_pressure(aw, qt0, float(ql0), r0,
+                                               float(T0)))
+            sides[side] = (r0, un0, v10, v20, p0, qt0)
+        self.comp["nscbc"] = dataclasses.replace(nscbc, **sides)
 
     def filter_matrices(self):
         """The [Filter] of the case as apply_filter takes it (matrices, or

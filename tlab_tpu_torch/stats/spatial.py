@@ -1,4 +1,4 @@
-"""Spatial-mode running statistics, the incompressible half (port of
+"""Spatial-mode running statistics (port of
 tlab_tpu/stats/spatial.py, after the reference's
 src/statistics/avg_spatial.f90 + tools/dns/avg_flow_zt_reduce.f90).
 
@@ -9,8 +9,11 @@ reduction on the run's device; only the stacked (K, nx, ny) z-means come to
 the host, where they add into float64 sums.  The sums, the station tables
 and the files are tlab_tpu's NumPy code, copied.
 
-The density-weighted (Favre) families, the MA_* register set and their
-station tables belong to the compressible set (ROADMAP A13b).
+The compressible set adds the density-weighted (Favre) families and the
+full MA_* register set (stats/spatial_registers.py): one device reduction
+of a conservative state (make_comp_spatial_reducer) gives every family's
+z-means as one (K, nx, ny) stack, which accumulate_comp_stack copies to the
+host once; favre_station_table and register_station_table read the sums.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from tlab_tpu_torch.stats import spatial_registers as sreg
 
 
 _DEFAULT_PAIRS = (("u", "v"), ("u", "w"), ("v", "w"))
@@ -46,6 +51,14 @@ class SpatialStats:
     # third moments for Rij turbulent transport: the six <ui uj v> and the
     # six <ui uj u> raw products (y- and x-direction fluxes): (12, nx, ny)
     triple_sums: np.ndarray = None
+    # density-weighted (Favre) accumulators for the compressible spatial
+    # mode: the MA_R/RR/R3/R4, MA_T..T4, MA_VIS/VIS2, MA_RU.., MA_RUU..,
+    # MA_RTT, MA_TU.. families of avgij_map.h:5-58,70,231-242 as raw
+    # (z,t)-sums: (len(COMP_NAMES), nx, ny)
+    comp_sums: np.ndarray = None
+    # the FULL reference register set (238 MA_* sums, avgij_map.h;
+    # stats/spatial_registers.py): (len(NAMES), nx, ny)
+    reg_sums: np.ndarray = None
 
     GRAD_NAMES = ("ux", "uy", "uz", "vx", "vy", "vz", "wx", "wy", "wz")
     # first 6: vorticity/dilatation pairs; last 9: dissipation pairs
@@ -58,6 +71,12 @@ class SpatialStats:
                   ("u", "v"), ("u", "w"), ("v", "w"))
     TRIPLES = tuple((a, b, "v") for a, b in COMP_PAIRS) \
         + tuple((a, b, "u") for a, b in COMP_PAIRS)
+    COMP_NAMES = ("r", "r2", "r3", "r4", "T", "T2", "T3", "T4",
+                  "vis", "vis2",
+                  "ru", "rv", "rw", "rT", "p", "p2",
+                  "ruu", "rvv", "rww", "ruv", "ruw", "rvw",
+                  "rTT", "ruT", "rvT", "rwT",
+                  "ruuv", "rvvv", "rwwv", "ruvv", "ruwv", "rvwv")
 
     @classmethod
     def create(cls, nx: int, ny: int, names=("u", "v", "w", "s1"),
@@ -148,6 +167,38 @@ class SpatialStats:
             nt = self.triple_sums.shape[0]
             self.triple_sums += stacked[k:k + nt]
             k += len(self.TRIPLES)
+        self.n_samples += 1
+
+    def accumulate_comp_stack(self, stacked) -> None:
+        """Add one make_comp_spatial_reducer stack (a device tensor, copied
+        to the host here in one piece, or a host array) into the running
+        sums, in the family order the reducer fills."""
+        if isinstance(stacked, torch.Tensor):
+            stacked = stacked.to("cpu", torch.float64).numpy()
+        nxy = self.sums.shape[2:]
+        k = 0
+        nv = len(self.names)
+        self.sums += stacked[k:k + 4 * nv].reshape((nv, 4) + nxy)
+        k += 4 * nv
+        self.pair_sums += stacked[k:k + len(self.pairs)]
+        k += len(self.pairs)
+        self.grad_sums += stacked[k:k + 18].reshape((9, 2) + nxy)
+        k += 18
+        self.gradx_sums += stacked[k:k + len(self.GRADX_PAIRS)]
+        k += len(self.GRADX_PAIRS)
+        self.p_sums += stacked[k:k + 14]
+        k += 14
+        self.triple_sums += stacked[k:k + len(self.TRIPLES)]
+        k += len(self.TRIPLES)
+        if self.comp_sums is None:
+            self.comp_sums = np.zeros((len(self.COMP_NAMES),) + nxy)
+        self.comp_sums += stacked[k:k + len(self.COMP_NAMES)]
+        k += len(self.COMP_NAMES)
+        if self.reg_sums is None:
+            self.reg_sums = np.zeros((len(sreg.NAMES),) + nxy)
+        self.reg_sums += stacked[k:k + len(sreg.NAMES)]
+        k += len(sreg.NAMES)
+        assert k == stacked.shape[0], (k, stacked.shape)
         self.n_samples += 1
 
     def mean(self, name: str) -> np.ndarray:
@@ -357,10 +408,77 @@ class SpatialStats:
         m = self.mean(name)
         return self.sums[i, 1] / max(self.n_samples, 1) - m * m
 
+    # -- density-weighted (Favre) station tables ---------------------------
+    def _c(self, nm: str) -> np.ndarray:
+        return self.comp_sums[self.COMP_NAMES.index(nm)] \
+            / max(self.n_samples, 1)
+
+    def favre_station_table(self, stations) -> dict:
+        """Per-station Favre tables from the density-weighted sums, the
+        compressible AVG_FLOW_ZT_REDUCE analog (avg_flow_zt_reduce.f90:
+        mean/fluctuation blocks built on the avgij_map.h MA_R*/MA_RU*/
+        MA_RUU* accumulators): mean density moments, Favre velocities,
+        Favre Reynolds stresses, Favre temperature stats, turbulent heat
+        fluxes, Favre turbulent-transport fluxes of the stresses."""
+        if self.comp_sums is None:
+            return {}
+        rR = self._c("r")
+        rR2 = self._c("r2") - rR * rR
+        rR3 = self._c("r3") - 3 * rR * self._c("r2") + 2 * rR ** 3
+        rR4 = self._c("r4") - 4 * rR * self._c("r3") \
+            + 6 * rR ** 2 * self._c("r2") - 3 * rR ** 4
+        fU = self._c("ru") / rR
+        fV = self._c("rv") / rR
+        fW = self._c("rw") / rR
+        fT = self._c("rT") / rR
+        rT = self._c("T")
+        rT2 = self._c("T2") - rT * rT
+        rP = self._c("p")
+        rP2 = self._c("p2") - rP * rP
+        fmean = {"u": fU, "v": fV, "w": fW}
+        Rf = {}
+        for (a, b), nm in zip(self.COMP_PAIRS,
+                              ("ruu", "rvv", "rww", "ruv", "ruw", "rvw")):
+            Rf[a + b] = self._c(nm) / rR - fmean[a] * fmean[b]
+        fT2 = self._c("rTT") / rR - fT * fT
+        heat = {c: self._c("r" + c + "T") / rR - fmean[c] * fT
+                for c in ("u", "v", "w")}
+        # Favre turbulent transport <rho ui'' uj'' v''> from the raw
+        # quartic sums (expansion around the Favre means)
+        quart = {"uu": "ruuv", "vv": "rvvv", "ww": "rwwv",
+                 "uv": "ruvv", "uw": "ruwv", "vw": "rvwv"}
+        Tf = {}
+        for (a, b), _ in zip(self.COMP_PAIRS, quart):
+            tag = a + b
+            raw = self._c(quart[tag])
+            rab = self._c("r" + tag)
+            rav = self._c({"u": "ruv", "v": "rvv", "w": "rvw"}[a])
+            rbv = self._c({"u": "ruv", "v": "rvv", "w": "rvw"}[b])
+            A, B, Vm = fmean[a], fmean[b], fV
+            Tf[tag] = raw - A * rbv - B * rav - Vm * rab \
+                + 2.0 * rR * A * B * Vm
+        out = {}
+        for ix in stations:
+            cols = {"rR": rR[ix], "rR2": rR2[ix], "rR3": rR3[ix],
+                    "rR4": rR4[ix],
+                    "fU": fU[ix], "fV": fV[ix], "fW": fW[ix],
+                    "rT": rT[ix], "fT": fT[ix], "rT2": rT2[ix],
+                    "fT2": fT2[ix], "rP": rP[ix], "rP2": rP2[ix],
+                    "rVis": self._c("vis")[ix]}
+            for tag, m in Rf.items():
+                cols[f"fR{tag}"] = m[ix]
+            for c, m in heat.items():
+                cols[f"fR{c}T"] = m[ix]
+            for tag, m in Tf.items():
+                cols[f"fT{tag}y"] = m[ix]
+            out[ix] = cols
+        return out
+
     # -- restart (reference st<itime>, avg_spatial.f90:19-29) ---------------
     def save(self, path: str, itime: int) -> None:
         extra = {}
-        for key in ("grad_sums", "gradx_sums", "p_sums", "triple_sums"):
+        for key in ("grad_sums", "gradx_sums", "p_sums", "triple_sums",
+                    "comp_sums", "reg_sums"):
             v = getattr(self, key)
             if v is not None:
                 extra[key] = v
@@ -371,18 +489,150 @@ class SpatialStats:
 
     @classmethod
     def load(cls, path: str) -> "SpatialStats":
-        """A SpatialStats from a st<itime>.npz of either package (the
-        compressible families of tlab_tpu's files are not read)."""
+        """A SpatialStats from a st<itime>.npz of either package."""
         d = np.load(path, allow_pickle=False)
         pairs = tuple(tuple(s.split("|")) for s in d["pairs"]) \
             if "pairs" in d else ()
         opt = {k: d[k] if k in d else None
                for k in ("grad_sums", "gradx_sums", "p_sums",
-                         "triple_sums")}
+                         "triple_sums", "comp_sums", "reg_sums")}
         return cls(names=tuple(str(n) for n in d["names"]), sums=d["sums"],
                    pairs=pairs,
                    pair_sums=d["pair_sums"] if "pair_sums" in d else None,
                    n_samples=int(d["n_samples"]), **opt)
+
+
+def make_comp_spatial_reducer(sim, stats: "SpatialStats"):
+    """CompState -> (K, nx, ny) stacked z-means for the COMPRESSIBLE spatial
+    mode, on the state's device: the primitive decomposition (the mixture's
+    or AirWater's where the set has one), the nine velocity and nine scalar
+    gradients, the stress tensor, and EVERY running-sum family (moments,
+    pairs, grad/gradx, p, triples, the Favre COMP_NAMES products, and the
+    full MA_* register set); only the stack comes to the host, through
+    stats.accumulate_comp_stack (the reference reduces rank-local with no
+    gather, avg_flow_zt_reduce.f90:1-60 + avg_spatial.f90:19-29)."""
+    from tlab_tpu_torch.dycore import compressible as comp_mod
+    from tlab_tpu_torch.dycore import incompressible as dyn
+    from tlab_tpu_torch.physics import eos
+
+    P = sim.P
+    c = sim.comp
+    visc = sim.nsp.visc
+    names = stats.names
+    pairs = stats.pairs
+    gnames = stats.GRAD_NAMES
+    gx_pairs = stats.GRADX_PAIRS
+    triples = stats.TRIPLES
+    comp_names = stats.COMP_NAMES
+
+    def d1(axis_name, ax, f):
+        return dyn._d1(P, axis_name, ax, f)
+
+    def zm(a):
+        return torch.mean(a, dim=2)
+
+    def compute(U):
+        rho = U.rho
+        if c.get("aw") is not None:
+            u, v, w, T, p, _, _ = comp_mod.primitive_airwater(U, c["aw"])
+        else:
+            mix = c.get("mixture")
+            fn = comp_mod.primitive if c["energy"] == "total" \
+                else comp_mod.primitive_internal
+            u, v, w, T, p = fn(P, U, c["gamma"], c["mach"], mix=mix)
+        ns = U.rhos.shape[0] if U.rhos is not None else 0
+        za = {"u": u, "v": v, "w": w}
+        for i in range(ns):
+            za[f"s{i + 1}"] = U.rhos[i] / rho
+        vis = None
+        gas = c.get("gas")
+        if gas is not None and getattr(gas, "transport", "none") != "none":
+            vis = eos.viscosity(gas, T)
+        g = {}
+        for cname, comp_f in (("u", u), ("v", v), ("w", w)):
+            for aname, ax in (("x", 0), ("y", 1), ("z", 2)):
+                g[cname + aname] = d1(aname, ax, comp_f)
+        sg = {}
+        for nm, fld in (("r", rho), ("p", p), ("T", T)):
+            for aname, ax in (("x", 0), ("y", 1), ("z", 2)):
+                sg[nm + aname] = d1(aname, ax, fld)
+        tkk = (d1("x", 0, sg["Tx"]) + d1("y", 1, sg["Ty"])
+               + d1("z", 2, sg["Tz"]))
+        base = sreg.build_base(u, v, w, p, rho, T, g, sg, vis=vis,
+                               visc=visc, z1=za.get("s1"), Tkk=tkk)
+        base["tauxkk"] = (d1("x", 0, base["tauxx"])
+                          + d1("y", 1, base["tauxy"])
+                          + d1("z", 2, base["tauxz"]))
+        base["tauykk"] = (d1("x", 0, base["tauxy"])
+                          + d1("y", 1, base["tauyy"])
+                          + d1("z", 2, base["tauyz"]))
+        base["tauzkk"] = (d1("x", 0, base["tauxz"])
+                          + d1("y", 1, base["tauyz"])
+                          + d1("z", 2, base["tauzz"]))
+
+        outs = []
+        for n in names:                      # moments, host-accumulate order
+            a = za[n]
+            a2 = a * a
+            outs += [zm(a), zm(a2), zm(a2 * a), zm(a2 * a2)]
+        for na, nb in pairs:
+            outs.append(zm(za[na] * za[nb]))
+        gl = [g[n] for n in gnames]
+        for k in range(9):
+            outs += [zm(gl[k]), zm(gl[k] * gl[k])]
+        for ka, kb in gx_pairs:
+            outs.append(zm(gl[ka] * gl[kb]))
+        outs += [zm(p), zm(p * p)]
+        for n in ("u", "v", "w"):
+            outs.append(zm(p * za[n]))
+        for k in range(9):
+            outs.append(zm(p * gl[k]))
+        for na, nb, nc in triples:
+            outs.append(zm(za[na] * za[nb] * za[nc]))
+        vis_f = base["vis"]
+        uf, vf, wf = za["u"], za["v"], za["w"]
+        prods = {
+            "r": rho, "r2": rho * rho, "r3": rho ** 3, "r4": rho ** 4,
+            "T": T, "T2": T * T, "T3": T ** 3, "T4": T ** 4,
+            "vis": vis_f, "vis2": vis_f * vis_f,
+            "ru": rho * uf, "rv": rho * vf, "rw": rho * wf,
+            "rT": rho * T, "p": p, "p2": p * p,
+            "ruu": rho * uf * uf, "rvv": rho * vf * vf,
+            "rww": rho * wf * wf,
+            "ruv": rho * uf * vf, "ruw": rho * uf * wf,
+            "rvw": rho * vf * wf,
+            "rTT": rho * T * T,
+            "ruT": rho * uf * T, "rvT": rho * vf * T, "rwT": rho * wf * T,
+            "ruuv": rho * uf * uf * vf, "rvvv": rho * vf ** 3,
+            "rwwv": rho * wf * wf * vf, "ruvv": rho * uf * vf * vf,
+            "ruwv": rho * uf * wf * vf, "rvwv": rho * vf * wf * vf,
+        }
+        for nm in comp_names:
+            outs.append(zm(prods[nm]))
+        for name in sreg.NAMES:
+            acc = None
+            for addend in sreg.REGISTERS[name]:
+                prod = None
+                for key in addend:
+                    f = base[key]
+                    prod = f if prod is None else prod * f
+                acc = prod if acc is None else acc + prod
+            outs.append(zm(acc))
+        return torch.stack(outs)
+
+    return compute
+
+
+def register_station_table(stats: "SpatialStats", stations) -> dict:
+    """The full MA_* register table at the x-stations, keyed by station
+    for write_station_budgets: {station: {MA_name: (ny,)}} -- the
+    AVG_FLOW_ZT raw-register output with the reference's names
+    (avgij_map.h)."""
+    if stats.reg_sums is None:
+        return {}
+    tab = sreg.as_table(stats.reg_sums, stats.n_samples)
+    return {int(ix): {name: v[int(ix)] for name, v in tab.items()}
+            for ix in stations}
 
 
 def write_station_budgets(path: str, x_nodes, y_nodes, tables: dict,

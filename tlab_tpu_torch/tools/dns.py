@@ -16,9 +16,14 @@ The compressible set (sim.comp) steps its conservative state with
 dycore/compressible.py in a loop of its own (_run_compressible), one step
 a window: the acoustic CFL and the diffusion-number density set dt, the
 log prints the pressure and density extrema (PMin PMax RMin RMax,
-dns_main.f90:434-439), the restarts hold the conservative fields
-(fields_io.write_comp_state) and the statistics are the Favre tables of
-write_statistics_compressible.
+dns_main.f90:434-439) and, for the AirWater mixture, the saturation
+Newton's NewtonRs, all read in one copy a step; the buffer and the NSCBC
+reference states attach at the start (Simulation.attach_buffer_compressible);
+the restarts hold the conservative fields (fields_io.write_comp_state), the
+statistics are the Favre tables of write_statistics_compressible, and a
+spatial run accumulates the density-weighted (z, t) sums and the MA_*
+registers on the device (stats/spatial.make_comp_spatial_reducer; avg_zt
+and avgMA_zt at the statistics cadence).
 
 The boundary machinery rides in the loop as in tlab_tpu's: the interactive
 surface state starts at zero, the buffer takes its references from the
@@ -51,10 +56,13 @@ from tlab_tpu_torch.dycore.buffer import apply_filter_sponge
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.io import fields_io
 from tlab_tpu_torch.ops.filter import filter_state
-from tlab_tpu_torch.physics import eos, thermo
-from tlab_tpu_torch.runtime import COMPRESSIBLE, Simulation
+from tlab_tpu_torch.physics import eos, mixtures, thermo
+from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.stats import averages as avg
-from tlab_tpu_torch.stats.spatial import (SpatialStats, state_fields,
+from tlab_tpu_torch.stats.spatial import (SpatialStats,
+                                          make_comp_spatial_reducer,
+                                          register_station_table,
+                                          state_fields,
                                           write_station_budgets)
 from tlab_tpu_torch.utils import trace as _trace
 from tlab_tpu_torch.utils.fortran_fmt import fort_e
@@ -68,7 +76,12 @@ class RunLog:
     comp: bool = False          # the compressible PMin..RMax columns
 
     def header(self):
-        if self.comp:
+        if self.comp and self.newton:
+            h = ("#" * 122 + "\n"
+                 "#  Itn.    time          dt         CFL#       D#      "
+                 "   visc       PMin       PMax       RMin       RMax     "
+                 "  NewtonRs#\n" + "#" * 122)
+        elif self.comp:
             # compressible columns (reference DNS_LOGS_INITIALIZE,
             # dns_main.f90:434-439): p and rho extrema
             h = ("#" * 93 + "\n"
@@ -180,36 +193,63 @@ def make_step_functions(sim: Simulation, inner_steps: int = 1):
 
 def _primitive(sim: Simulation, U):
     """(u, v, w, T, p) of the conservative state in the set's energy
-    formulation."""
+    formulation and mixture."""
     c = sim.comp
+    if c.get("aw") is not None:
+        return comp_mod.primitive_airwater(U, c["aw"])[:5]
     fn = comp_mod.primitive if c["energy"] == "total" \
         else comp_mod.primitive_internal
-    return fn(sim.P, U, c["gamma"], c["mach"])
+    return fn(sim.P, U, c["gamma"], c["mach"], mix=c.get("mixture"))
 
 
 def _compressible_step_functions(sim: Simulation):
     """(step, diagnostics) of the compressible set, one RK step a call.
     diagnostics(U) is the device tensor [acoustic CFL max, PMin, PMax, RMin,
-    RMax, diffusion-number density] (the density, max(sfactor (sum
-    1/ds^2)/rho), is TIME_COURANT's compressible branch), read in one copy;
-    step(U, dtime, extra=None) returns (U, p, diagnostics(U)) with p the EOS
-    pressure of the new state."""
+    RMax, (NewtonRs,) diffusion-number density] (the density, max(sfactor
+    (sum 1/ds^2)/rho), is TIME_COURANT's compressible branch; NewtonRs, the
+    AirWater mixture's, is the step's max over its substeps and 0 before
+    the first step), read in one copy; step(U, dtime, extra=None) returns
+    (U, p, diagnostics(U)) with p the EOS pressure of the new state."""
     P, c = sim.P, sim.comp
+    aw, mix = c.get("aw"), c.get("mixture")
+
+    def stack(U, cfl, p, newton=None):
+        vals = [cfl, p.min(), p.max(), U.rho.min(), U.rho.max()]
+        if aw is not None:
+            vals.append(newton if newton is not None
+                        else U.rho.new_zeros(()))
+        vals.append(comp_mod.diffusion_number_max(P, U, c["sfactor"]))
+        return torch.stack(vals)
+
+    if aw is not None:
+        def diagnostics(U, newton=None):
+            prim = comp_mod.primitive_airwater(U, aw)
+            cfl = comp_mod.acoustic_cfl_max_airwater(P, U, aw, prim=prim)
+            return stack(U, cfl, prim[4], newton), prim[4]
+
+        def step(U, dtime, extra=None):
+            new_U, newton = comp_mod.rk_step_airwater(
+                P, U, dtime, aw, sim.nsp.visc, c["prandtl"], c["schmidt"],
+                nscbc=c["nscbc"], ly=c["ly"], gvec=c["gvec"],
+                buffer=c.get("buffer"))
+            diag, p = diagnostics(new_U, newton)
+            return new_U, p, diag
+
+        return step, lambda U: diagnostics(U)[0]
 
     def diagnostics(U, p=None):
         if p is None:
             p = _primitive(sim, U)[4]
         cfl = comp_mod.acoustic_cfl_max(P, U, c["gamma"], c["mach"],
-                                        energy=c["energy"])
-        return torch.stack([cfl, p.min(), p.max(), U.rho.min(), U.rho.max(),
-                            comp_mod.diffusion_number_max(P, U,
-                                                          c["sfactor"])])
+                                        mix=mix, energy=c["energy"])
+        return stack(U, cfl, p)
 
     def step(U, dtime, extra=None):
         new_U = comp_mod.rk_step_compressible(
             P, U, dtime, c["gamma"], c["mach"], sim.nsp.visc, c["prandtl"],
-            ly=c["ly"], gas=c["gas"], lx=c["lx"], form=c["form"],
-            energy=c["energy"], gvec=c["gvec"])
+            nscbc=c["nscbc"], ly=c["ly"], gas=c["gas"], lx=c["lx"],
+            form=c["form"], energy=c["energy"], mix=mix, gvec=c["gvec"],
+            buffer=c.get("buffer"))
         p = _primitive(sim, new_U)[4]
         return new_U, p, diagnostics(new_U, p)
 
@@ -247,22 +287,45 @@ def write_statistics_compressible(sim: Simulation, U, outdir: str,
     """Compressible avg<itime> / avg<itime>s<i> tables: the primitive
     decomposition feeds the density-weighted (Favre) columns, the
     thermodynamic ones, Acoustics and RhoBudget of the reference
-    AVG_FLOW_XZ (compressible branch, avg_flow_xz.f90:768-940); reduced on
-    the device, one (ncols, ny) copy to the host."""
+    AVG_FLOW_XZ (compressible branch, avg_flow_xz.f90:768-940), with the
+    AirWater or combustion mixture's energy, enthalpy, entropy and gamma;
+    reduced on the device, one (ncols, ny) copy to the host."""
     c = sim.comp
     gamma, mach = c["gamma"], c["mach"]
     rho = U.rho
-    u, v, w, T, p = _primitive(sim, U)
-    e = T / (gamma * (gamma - 1.0) * mach ** 2)
-    h = e + p / rho
-    # ideal-gas entropy s = ln(T)/(gamma-1) - ln(rho) (THERMO_ENTROPY analog
-    # in this nondimensionalization)
-    s_ent = torch.log(T) / (gamma - 1.0) - torch.log(rho)
+    aw, mix = c.get("aw"), c.get("mixture")
+    if aw is not None:
+        u, v, w, T, p, ql, _ = comp_mod.primitive_airwater(U, aw)
+        qt = U.rhos[0] / rho
+        e = U.rhoE / rho
+        h = thermo.caloric_enthalpy(aw, qt, ql, T)
+        s_ent = torch.log(T) / (gamma - 1.0) - torch.log(rho)
+        gamma_field = comp_mod.gamma_airwater(aw, qt, ql, T)
+    else:
+        u, v, w, T, p = _primitive(sim, U)
+        if mix is not None and U.rhos is not None:
+            Y = comp_mod.mass_fractions(U)
+            cp = mixtures.cp_mixture(mix, T, Y)
+            R = mixtures.gas_constant(mix, Y)
+            rfac = (mix.gama0 - 1.0) / mix.gama0
+            h_nd = mixtures.h_mixture(mix, T, Y)
+            e = (h_nd - rfac * R * T) / ((mix.gama0 - 1.0) * mach ** 2)
+            h = h_nd / ((mix.gama0 - 1.0) * mach ** 2)
+            s_ent = (torch.log(torch.clamp(T, min=1e-30)) * cp
+                     - rfac * R * torch.log(torch.clamp(p, min=1e-30)))
+            gamma_field = cp / (cp - rfac * R)
+        else:
+            e = T / (gamma * (gamma - 1.0) * mach ** 2)
+            h = e + p / rho
+            # ideal-gas entropy s = ln(T)/(gamma-1) - ln(rho)
+            # (THERMO_ENTROPY analog in this nondimensionalization)
+            s_ent = torch.log(T) / (gamma - 1.0) - torch.log(rho)
+            gamma_field = torch.full_like(T, gamma)
     ns = U.rhos.shape[0] if U.rhos is not None else 0
     s_scal = (U.rhos / rho[None]) if ns else rho.new_zeros((0,) + rho.shape)
     state = State(u=u, v=v, w=w, s=s_scal)
     extras = {"eqns": "compressible", "rho": rho, "T": T, "e": e, "h": h,
-              "entropy": s_ent, "gamma_field": torch.full_like(T, gamma),
+              "entropy": s_ent, "gamma_field": gamma_field,
               "y": np.asarray(sim.grid.y.nodes)}
     gas = c.get("gas")
     vis = None
@@ -340,9 +403,6 @@ def _unported(case, mesh, pstate, particle_props, opr_check):
     if (getattr(case, "towers", None) or {}).get("stride"):
         found.append(("[SaveTowers]", "A15"))
     ini = getattr(case, "ini", None)
-    if case.equations in COMPRESSIBLE and case.flow_type == "spatial":
-        found.append(("compressible Type=spatial (Favre station "
-                      "statistics)", "A13b"))
     if ini is not None:
         if ini.get_int("Iteration", "PhaseAvg", 0) > 0:
             found.append(("[Iteration] PhaseAvg", "A14"))
@@ -629,11 +689,14 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
                       nan_abort: bool, restart_visc) -> DnsRun:
     """run() of the compressible set (sim.comp): one RK step a window; dt
     from the acoustic CFL and the diffusion-number density (TIME_COURANT's
-    compressible branch); the log's PMin PMax RMin RMax; the [Control]
+    compressible branch); the log's PMin PMax RMin RMax (and NewtonRs for
+    AirWater), read with the CFL in one copy a step; the [Control]
     pressure and density bounds (DNS_BOUNDS_CONTROL, dns_local.f90:136-158);
-    write_comp_state restarts and the Favre statistics.  As tlab_tpu's
-    compressible thread: no [Filter], ObsLog or dilatation bound, and the
-    [ViscChange] ramp moves only the log's visc column."""
+    the buffer attached at the start (Simulation.attach_buffer_compressible);
+    write_comp_state restarts, the Favre statistics and, in a spatial run,
+    the density-weighted station sums.  As tlab_tpu's compressible thread:
+    no [Filter], ObsLog or dilatation bound, and the [ViscChange] ramp
+    moves only the log's visc column."""
     case = sim.case
     ini = case.ini
     restart_dtype = _restart_dtype(ini)
@@ -645,11 +708,27 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
     visc, ramp_rate = _visc_ramp(ini, visc_ini, restart_visc)
     dt_lag, runtime_sec, profile = _loop_keys(ini, fixed_dt)
     bnd = sim.comp.get("bounds")
+    with _trace.trace("attach_buffer"):
+        sim.attach_buffer_compressible(U)
     with _trace.trace("building step functions"):
         step, diagnostics = _compressible_step_functions(sim)
     write_tlab_log(sim, outdir)
-    log = RunLog(path=log_path, comp=True)
+    log = RunLog(path=log_path, comp=True,
+                 newton=sim.comp.get("aw") is not None)
     log.header()
+    # spatial mode: the density-weighted (z, t) sums every [Iteration]
+    # SaveStats steps, reduced on the device (one (K, nx, ny) copy)
+    spatial_stats = reducer = None
+    stats_spa = 1
+    it_first = itime
+    if case.flow_type == "spatial":
+        stats_spa = max(ini.get_int("Iteration", "SaveStats", 1), 1) \
+            if ini is not None else 1
+        nx, ny, _ = sim.grid.shape
+        spatial_stats = SpatialStats.create(
+            nx, ny, ["u", "v", "w"]
+            + [f"s{i + 1}" for i in range(sim.nsp.n_scalars)])
+        reducer = make_comp_spatial_reducer(sim, spatial_stats)
 
     def checkpoint_now():
         fields_io.write_comp_state(os.path.join(outdir, "flow"), itime, U,
@@ -661,7 +740,7 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
         return dt, dt * dden
 
     # initial dt + step-0 log line: one read of [CFL, PMin, PMax, RMin,
-    # RMax, diffusion-number density]
+    # RMax, (NewtonRs,) diffusion-number density]
     cmax, *extras, dden = diagnostics(U).tolist()
     dtime, dnum = next_dt(cmax, dden)
     log.step(0, itime, rtime, dtime, dtime * cmax, dnum, visc, *extras)
@@ -677,7 +756,7 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
         itime += 1
         rtime += dtime
         visc = _ramped(visc, visc_ini, ramp_rate, dtime)
-        # the window's one host sync: a 6-element copy (the previous
+        # the window's one host sync: a 6- or 7-element copy (the previous
         # window's with DtLag)
         cmax, *extras, dden = (prev_diag if dt_lag and prev_diag is not None
                                else diag).tolist()
@@ -721,6 +800,27 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
         if case.it_stats > 0 and itime % case.it_stats == 0:
             with _trace.trace(f"statistics {itime}"):
                 write_statistics_compressible(sim, U, outdir, itime, rtime)
+            if spatial_stats is not None and spatial_stats.n_samples:
+                # Favre station tables from the density-weighted (z, t)
+                # sums (avg_flow_zt_reduce.f90), before this step's sample,
+                # and the full MA_* register table (avgij_map.h families)
+                sta = _stations(case, sim.grid.shape[0])
+                for name, tabs in (
+                        (f"avg_zt{itime}",
+                         spatial_stats.favre_station_table(sta)),
+                        (f"avgMA_zt{itime}",
+                         register_station_table(spatial_stats, sta))):
+                    if tabs:
+                        write_station_budgets(
+                            os.path.join(outdir, name), sim.grid.x.nodes,
+                            sim.grid.y.nodes, tabs, itime, rtime)
+        if spatial_stats is not None and (itime - it_first) % stats_spa == 0:
+            with _trace.trace(f"spatial sums {itime}"):
+                spatial_stats.accumulate_comp_stack(reducer(U))
+            if checkpoint and case.it_restart > 0 \
+                    and itime % case.it_restart == 0:
+                spatial_stats.save(os.path.join(outdir, f"st{itime}.npz"),
+                                   itime)
         dtime = new_dt
 
     if profile and prof_samples:

@@ -15,9 +15,10 @@ The random fields and their spectral shaping are NumPy on the host in
 float64; the curl, the Poisson solves, the solenoidal projection and the
 TKE normalisation run as torch on sim.device in sim.dtype; [IniFields]
 NormalizeR adds the radiation increment to the active scalar.  The
-ideal-gas compressible state (compressible_initial_state) adds the density
-and pressure profiles and the NormalizeP pressure fluctuation; the
-compressible AirWater state is ROADMAP A13b.
+compressible state (compressible_initial_state) adds the density and
+pressure profiles and the NormalizeP pressure fluctuation, the temperature
+of a combustion mixture, or, for the AirWater mixture, the hydrostatic
+column and the pointwise (p, h) inversion (_airwater_compressible_state).
 """
 from __future__ import annotations
 
@@ -29,8 +30,11 @@ import torch
 from tlab_tpu_torch.config import _read_profile
 from tlab_tpu_torch.constants import BC
 from tlab_tpu_torch.dycore import incompressible as dyn
-from tlab_tpu_torch.dycore.compressible import CompState, from_primitive
+from tlab_tpu_torch.dycore.compressible import (CompState, from_primitive,
+                                                from_primitive_airwater)
 from tlab_tpu_torch.dycore.state import State
+from tlab_tpu_torch.physics import mixtures as mx
+from tlab_tpu_torch.physics import thermo as th
 from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.utils import trace as _trace
 from tlab_tpu_torch.utils.nrrandom import NRStream
@@ -519,6 +523,109 @@ def initial_state(sim: Simulation, seed: int | None = None) -> State:
     return State(u=u, v=v, w=w, s=s)
 
 
+def _discrete_displacement(sim: Simulation):
+    """disp(x, z) of the [Discrete] modes (flow_local.f90:522-540)."""
+    nx, _, nz = sim.grid.shape
+    spec = sim.case.discrete or {}
+    xg = sim.grid.x.nodes[:, None]
+    zg = sim.grid.z.nodes[None, :] if nz > 1 else np.zeros((1, 1))
+    wx1 = 2.0 * np.pi / sim.grid.x.scale
+    wz1 = 2.0 * np.pi / sim.grid.z.scale if nz > 1 else 0.0
+    disp = np.zeros((nx, nz))
+    for im, amp_m in enumerate(spec.get("amplitude", ())):
+        wx = spec["modex"][im] * wx1
+        wz = spec["modez"][im] * wz1 if nz > 1 else 0.0
+        disp = disp + amp_m * np.cos(wx * xg + spec["phasex"][im]) \
+            * np.cos(wz * zg + spec["phasez"][im])
+    return disp
+
+
+def _airwater_compressible_state(sim: Simulation, st: State) -> CompState:
+    """Compressible AirWater ICs (reference iniflow, flow_main.f90:106-119
+    with Mixture=AirWater + gravity):
+
+    1. PRESSURE_MEAN: hydrostatic p(y), T(y), ql(y) from the [Flow]
+       Enthalpy profile + mean qt via Gravity_Hydrostatic_Enthalpy's
+       compressible branch (THERMO_AIRWATER_PH_RE iteration).
+    2. DENSITY_MEAN: rho = p/(R(q) T) (THERMO_THERMAL_DENSITY).
+    3. DENSITY_FLUCTUATION ([IniFields] Temperature=PlaneDiscrete): the
+       enthalpy profile displaced per (x,z) by the [Discrete] modes
+       (ymean += disp, delta += (uslope-lslope) disp Ly, mean +=
+       0.5 (uslope+lslope) disp Ly, flow_local.f90:522-540), re-solving
+       PH_RE pointwise with the (already perturbed) scalar field: one
+       vectorised float64 pass over every point on sim.device.
+    4. e from THERMO_CALORIC_ENERGY; velocities from the standard path.
+    """
+    aw = sim.comp["aw"]
+    ini = sim.case.ini
+    nx, ny, nz = sim.grid.shape
+    y = sim.grid.y.nodes
+    jscale = float(sim.grid.y.scale)
+    ystart = float(y[0])
+    hbg = _read_profile(ini, "flow", "Enthalpy", jscale, ystart=ystart)
+    p_ref = ini.get_float("Flow", "Pressure", 1.0)
+    ymean_abs = ini.get("Flow", "YMeanPressure", "")
+    rel = ini.get_float("Flow", "YMeanRelativePressure", 0.5)
+    y_ref = float(ymean_abs) if ymean_abs else ystart + rel * jscale
+    qt_prof = sim.case.scal_profiles[0](y) if sim.case.scal_profiles \
+        else np.zeros_like(y)
+    g2 = sim.comp["gvec"][1]
+
+    # the host column in float64 with the plan's own D1 (tlab_tpu takes
+    # the device copy, in the run's dtype)
+    d1y = np.asarray(sim.fdm.y.d1[BC.DD], np.float64) \
+        if sim.grid.y.size > 1 else None
+    if g2 != 0.0 and hbg.type != "none":
+        bg = th.hydrostatic_background_compressible(
+            aw, y, hbg(y), qt_prof, p_ref, y_ref, g2, d1y=d1y)
+        p_y = bg["p"]
+    else:
+        p_y = np.full(ny, p_ref)
+
+    def wide(a):                   # host array -> float64 on the device
+        return torch.as_tensor(np.asarray(a, np.float64)).to(sim.device)
+
+    p = wide(p_y)[None, :, None].expand(nx, ny, nz)
+    qt = st.s[0].to(torch.float64) if st.s.shape[0] \
+        else torch.zeros((nx, ny, nz), dtype=torch.float64,
+                         device=sim.device)
+
+    # per-point enthalpy with the discrete-mode displacement
+    if (ini.get("IniFields", "Temperature", "none").lower()
+            == "planediscrete"):
+        disp = _discrete_displacement(sim)
+    else:
+        disp = np.zeros((nx, nz))
+    # Profile evaluation is plain NumPy arithmetic, so the displaced
+    # parameters broadcast: shape (ncol, 1) fields against y (ny,) give
+    # all columns in one vectorized call (the crop families use scalar
+    # max() and keep the per-column loop)
+    d = disp.reshape(-1)[:, None]               # (nx*nz, 1)
+    if hbg.type in ("linearcrop", "mixedlayer"):
+        h_cols = np.empty((d.shape[0], ny))
+        for i_c in range(d.shape[0]):
+            ploc = dataclasses.replace(
+                hbg, ymean=hbg.ymean + float(d[i_c, 0]),
+                delta=hbg.delta + (hbg.uslope - hbg.lslope)
+                * float(d[i_c, 0]) * jscale,
+                mean=hbg.mean + 0.5 * (hbg.uslope + hbg.lslope)
+                * float(d[i_c, 0]) * jscale)
+            h_cols[i_c] = ploc(y)
+    else:
+        pvec = dataclasses.replace(
+            hbg, ymean=hbg.ymean + d,
+            delta=hbg.delta + (hbg.uslope - hbg.lslope) * d * jscale,
+            mean=hbg.mean + 0.5 * (hbg.uslope + hbg.lslope) * d * jscale)
+        h_cols = pvec(y)                        # (nx*nz, ny)
+    h_field = wide(h_cols).reshape(nx, nz, ny).permute(0, 2, 1)
+    with _trace.trace("airwater pointwise (p, h) inversion"):
+        T, ql, _ = th.airwater_ph_re(aw, qt, p, h_field)
+        rho = th.thermal_density(aw, qt, ql, p, T)
+    dt = sim.dtype
+    return from_primitive_airwater(aw, rho.to(dt), st.u, st.v, st.w,
+                                   T.to(dt), qt.to(dt), ql.to(dt))
+
+
 def compressible_initial_state(sim: Simulation,
                                seed: int | None = None) -> CompState:
     """Compressible ICs of the ideal gas (reference iniflow compressible
@@ -530,8 +637,12 @@ def compressible_initial_state(sim: Simulation,
     field -- lap p' = -d2(rho ui uj)/dxi dxj with p' = 0 at the walls --
     and the isentropic density update rho *= 1 + p'/(gamma p)
     (PRESSURE_FLUCTUATION, flow_local.f90:554-609).  The conservative
-    energy matches the set's formulation (sim.comp["energy"])."""
+    energy matches the set's formulation (sim.comp["energy"]).  A
+    combustion mixture takes T from p = rho R(Y) T / (gama0 M^2); the
+    AirWater mixture takes _airwater_compressible_state."""
     st = initial_state(sim, seed=seed)
+    if sim.comp.get("aw") is not None:
+        return _airwater_compressible_state(sim, st)
     gamma, mach = sim.comp["gamma"], sim.comp["mach"]
     nx, ny, nz = sim.grid.shape
     y = sim.grid.y.nodes
@@ -566,6 +677,13 @@ def compressible_initial_state(sim: Simulation,
             rho = (norm_p * pprime / p / gamma + 1.0) * rho
             p = p + norm_p * pprime
     s = st.s if st.s.shape[0] else None
-    T = gamma * mach ** 2 * p / rho
+    mix = sim.comp.get("mixture")
+    if mix is not None and s is not None:
+        # multi-species: T from p = rho R(Y) T / (gama0 M^2)
+        Y = torch.cat([s, (1.0 - torch.sum(s, dim=0))[None]], dim=0)
+        T = mix.gama0 * mach ** 2 * p / (rho * mx.gas_constant(mix, Y))
+    else:
+        T = gamma * mach ** 2 * p / rho
+        mix = None
     return from_primitive(rho, st.u, st.v, st.w, T, gamma, mach, s=s,
-                          energy=sim.comp.get("energy", "total"))
+                          mix=mix, energy=sim.comp.get("energy", "total"))

@@ -1,7 +1,7 @@
 """Where one RK substep's device time goes, by part, on one CUDA card.
 
     python3 -m tlab_tpu_torch.tools.profile_step [--shape 512 256 256]
-                                                 [--steps 2]
+                                                 [--steps 2] [--compressible]
 
 Builds the shear layer of ``entry.build`` in float32, takes one warm-up
 step, then times `--steps` RK steps with CUDA events recorded around each
@@ -17,6 +17,19 @@ make_step_functions: rk_step with the scalar clip, then the CFL and
 dilatation diagnostics, then the host's one read of them): one line per
 part in ms/step, the host wall time a step, whose excess over the stream
 time is the card's idle time at the read, and each step's wall time.
+
+--compressible profiles the compressible set's step instead, as the DNS
+loop takes it (tools/dns.py::_compressible_step_functions, one host read a
+step), for two case files of the repo in float32: tests/data/
+case02_small3d.ini at 512x256x256 (chip_smoke.py's 12a: the ideal gas,
+internal energy) and tests/data/case14_small3d.ini at 256x192x128 (13a: the
+compressible AirWater set with NSCBC outflow and its buffer), each from its
+initial state (compressible_initial_state; case02's random fields are
+drawn on the host, ~25 s).  The parts: the dense first-derivative products
+(dyn._d1), the [D1;D2] products (dyn._d12_apply), the fp64 saturation
+adjustment (thermo.airwater_re), the mixture's caloric Newton, the NSCBC
+corrections, the buffer, and the rest of the step (the elementwise
+passes, the RK update, the diagnostics).
 """
 from __future__ import annotations
 
@@ -29,10 +42,16 @@ import types
 import torch
 
 from tlab_tpu_torch import entry
+from tlab_tpu_torch.config import Ini, load_case
+from tlab_tpu_torch.dycore import compressible as comp_mod
 from tlab_tpu_torch.dycore import incompressible as dyn
+from tlab_tpu_torch.dycore import nscbc
 from tlab_tpu_torch.ops import burgers
 from tlab_tpu_torch.ops import elliptic_factorize as fac
+from tlab_tpu_torch.physics import thermo
+from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.tools import dns as dns_tool
+from tlab_tpu_torch.tools.initialize import compressible_initial_state
 
 
 class Spans:
@@ -132,10 +151,87 @@ def profile_dns_step(shape, steps: int) -> dict:
             "each_ms": [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]}
 
 
+# the compressible cases: (tag, case file, shape); the files' [Grid] and
+# [IniGrid*] keys are set together, as chip_smoke.py's comp_case does
+COMPRESSIBLE_CASES = (
+    ("12a case02 (ideal gas)", "tests/data/case02_small3d.ini",
+     (512, 256, 256)),
+    ("13a case14 (AirWater, NSCBC, buffer)", "tests/data/case14_small3d.ini",
+     (256, 192, 128)))
+# (module, attribute, part) of the compressible step's wrapped calls
+COMPRESSIBLE_PARTS = (
+    (dyn, "_d1", "d1 products"),
+    (dyn, "_d12_apply", "[D1;D2] products"),
+    (thermo, "airwater_re", "fp64 saturation adjustment (airwater_re)"),
+    (comp_mod, "mixture_thermal", "mixture caloric Newton"),
+    (nscbc, "apply_nscbc", "NSCBC corrections"),
+    (nscbc, "apply_nscbc_airwater", "NSCBC corrections"),
+    (comp_mod, "_apply_buffer", "buffer relaxation"))
+
+
+def _case_at(path: str, shape) -> str:
+    """The case file's text with [Grid] and [IniGrid*] at `shape`."""
+    import re
+    nx, ny, nz = shape
+    with open(path) as fh:
+        text = fh.read()
+    for section, key, value in (("Grid", "Imax", nx), ("Grid", "Jmax", ny),
+                                ("Grid", "Kmax", nz),
+                                ("IniGridOx", "points_1", nx + 1),
+                                ("IniGridOy", "points_1", ny),
+                                ("IniGridOz", "points_1", nz + 1)):
+        text, n = re.subn(rf"(\[{section}\][^\[]*?^{key}=)[^\n]*",
+                          rf"\g<1>{value}", text, flags=re.M | re.S)
+        assert n == 1, (section, key)
+    return text
+
+
+def profile_compressible(path: str, shape, steps: int) -> dict:
+    """ms per RK step by part of the compressible DNS loop's step, over
+    `steps` steps after one warm-up, each ending in the host's read."""
+    sim = Simulation.from_case(load_case(Ini(text=_case_at(path, shape))),
+                               dtype=torch.float32, device="cuda")
+    U = compressible_initial_state(sim, seed=0)
+    sim.attach_buffer_compressible(U)
+    step, diagnostics = dns_tool._compressible_step_functions(sim)
+    dt = 0.5 * sim.case.time_cfl / diagnostics(U)[0].item()
+    U, _, diag = step(U, dt)
+    diag.tolist()
+    spans = Spans()
+    saved = [(mod, attr, getattr(mod, attr))
+             for mod, attr, _ in COMPRESSIBLE_PARTS]
+    for mod, attr, part in COMPRESSIBLE_PARTS:
+        setattr(mod, attr, spans.wrap(part, getattr(mod, attr)))
+    whole = spans.wrap("step", step)
+    try:
+        stamps = [time.perf_counter()]
+        for _ in range(steps):
+            U, _, diag = whole(U, dt)
+            diag.tolist()                   # the loop's one sync a step
+            stamps.append(time.perf_counter())
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    n_sub = len(sim.P["rk"]["kdt"])
+    parts = {part: spans.total_ms(part) / (steps * n_sub)
+             for part in dict.fromkeys(p for _, _, p in COMPRESSIBLE_PARTS)
+             if part in spans.pairs}
+    stream = spans.total_ms("step") / (steps * n_sub)
+    parts["the rest (elementwise passes, RK update, diagnostics)"] = \
+        stream - sum(parts.values())
+    wall = stamps[-1] - stamps[0]
+    return {"parts": parts, "stream_ms": stream,
+            "wall_ms": 1e3 * wall / (steps * n_sub), "steps": steps,
+            "n_sub": n_sub, "dt": dt,
+            "each_ms": [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shape", type=int, nargs=3, default=(512, 256, 256))
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--compressible", action="store_true",
+                    help="profile the compressible cases instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_step: no CUDA card; device times come only from one",
@@ -145,6 +241,20 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
+    if args.compressible:
+        for tag, path, shape in COMPRESSIBLE_CASES:
+            res = profile_compressible(path, shape, args.steps)
+            print(f"[profile] {smi}; {tag} {shape} fp32, {res['steps']} "
+                  f"steps of dt {res['dt']:.3e}, {res['n_sub']} substeps a "
+                  "step, each read by the host:")
+            for name, v in res["parts"].items():
+                print(f"[profile] {name}: {v:.3f} ms/substep "
+                      f"({100 * v / res['stream_ms']:.1f}%)")
+            print(f"[profile] stream {res['stream_ms']:.3f} ms/substep, host "
+                  f"wall {res['wall_ms']:.3f} ms/substep; each step "
+                  + " ".join(f"{v:.1f}" for v in res["each_ms"]) + " ms")
+            del res
+        return 0
     res = profile(tuple(args.shape), args.steps)
     print(f"[profile] {smi}; {tuple(args.shape)} fp32, {res['substeps']} "
           f"substeps; kernel launches {res['launches']}")
