@@ -110,6 +110,21 @@ non-zero:
               own fp32 drift; (e) case02 Type=spatial at 256x128x128,
               avg_zt5 and avgMA_zt5, the device (z, t) reduction against
               fp64 on the host; K1-K3 launch in none of them
+ 14. stats    the statistics: K1-K3 against their plain version at the
+              diagnostic pressure's shapes (F = 3 at 512x256x256, the
+              case's operators, once with conv = 0); `dns` of the shear
+              layer from 6a's fields, 4 steps with [Statistics] Pdfs/
+              Intermittency/Spectrums/Correlations and [Iteration]
+              PhaseAvg=2, then averages, pdfs, spectra, superlayer and
+              stats2nc of its restart through the CLI, the launches of each
+              (5 a step + 1 a phase accumulation in dns, 1 in averages and
+              pdfs: one diagnostic pressure solve each, 0 in the others);
+              the offline avg against the in-run one, the pdf files against
+              NumPy's tables, a volume row past 2^24 against an int64
+              count, Parseval, the phase means, the superlayer heights, the
+              NetCDF table; the diagnostic pressure in fp64 against the
+              Poisson problem it solves, in fp32 against fp64 (at 128x64x64
+              held to 2x tlab_tpu's drift)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 Without a CUDA card the script exits 1 and prints no result.
@@ -136,7 +151,7 @@ from tlab_tpu_torch import entry
 from tlab_tpu_torch import ibm
 from tlab_tpu_torch.config import Ini, load_case
 from tlab_tpu_torch.constants import BC
-from tlab_tpu_torch.convert import state_to_numpy
+from tlab_tpu_torch.convert import state_from_numpy, state_to_numpy
 from tlab_tpu_torch.dycore import buffer, inflow
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.state import State
@@ -1098,30 +1113,41 @@ def background_checks(text) -> None:
             f"8b: the anelastic projection leaves {red_r} of div(rho u)")
 
 
-def check_case_kernels(text: str, nu_zero: bool = False) -> list:
+def check_case_kernels(text: str, nu_zero: bool = False,
+                       fields: int = 0, zero_conv: bool = False) -> list:
     """K1-K3 against their plain version at the shapes a case's `dns` gives
     them: the case's own operators and field count, seeded inputs (with
     `nu_zero`, nu = 0 for every field: the semi-implicit step's advective
-    Burgers term); the max|kernel - plain| of each, None for a direction
-    with a banded plan (its kernel does not launch there)."""
+    Burgers term; with `fields`, that many fields of viscosity nu: the
+    diagnostic pressure's velocity stack; with `zero_conv`, a zero
+    convecting velocity: its diffusion-only pass); the max|kernel - plain|
+    of each, None for a direction with a banded plan (its kernel does not
+    launch there)."""
     sim = Simulation.from_case(load_case(Ini(text=text)),
                                dtype=torch.float32, device="cuda")
     P, shape = sim.P, tuple(sim.grid.shape)
     gen = torch.Generator(device="cuda").manual_seed(1)
     nu = torch.tensor((P["visc"],) * 3 + P["diff"], dtype=torch.float32,
                       device="cuda")
+    if fields:
+        nu = torch.full((fields,), P["visc"], dtype=torch.float32,
+                        device="cuda")
     if nu_zero:
         nu = torch.zeros_like(nu)
     x = torch.randn((len(nu),) + shape, generator=gen, device="cuda")
     conv = torch.randn(shape, generator=gen, device="cuda")
+    if zero_conv:
+        conv = torch.zeros_like(conv)
     out = []
     for axis in range(3):
         if f"d1{'xyz'[axis]}_banded" in P:
             out.append(None)
             continue
         r = check_kernel(axis, P["d12" + "xyz"[axis]], x, conv, nu, False)
+        how = (", nu = 0" if nu_zero else "") + \
+            (", conv = 0" if zero_conv else "")
         print(f"[kernels] {burgers.ENTRY_POINTS[axis]} F={len(nu)} {shape} "
-              f"(the case's operators{', nu = 0' if nu_zero else ''}): "
+              f"(the case's operators{how}): "
               f"max|err| {r['max_abs_err']:.3e} "
               f"(rel {r['rel_err']:.3e}, limit {KERNEL_TOL})")
         out.append(r["max_abs_err"])
@@ -2750,6 +2776,396 @@ def phase_spatial_comp(card: str) -> list:
     return res["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the statistics (A14) -- the diagnostic pressure through K1-K3,
+# the in-run pdfs, spectra and phase averages, the post-processing commands
+# ---------------------------------------------------------------------------
+
+STATS_STEPS = 4          # dns steps; the restart and the statistics at 4
+PHASE_STRIDE = 2         # [Iteration] PhaseAvg: accumulations at 2 and 4
+STATS_KEYS = ["Pdfs=yes", "Intermittency=yes", "Spectrums=yes",
+              "Correlations=yes"]
+# (command, its arguments, diagnostic pressure solves): one solve a snapshot
+# in `averages` (shared by the flow and the scalar tables; tlab_tpu solves
+# it again for each scalar table) and in `pdfs`; `dns` solves one a PhaseAvg
+# accumulation.  Each solve launches each of K1-K3 once on the velocity
+# stack (F = 3), twice with PressureDecomposition=advection|diffusion
+POST_COMMANDS = (("averages", ["--gate-scalar", "1"], 1), ("pdfs", [], 1),
+                 ("spectra", [], 0), ("superlayer", [], 0),
+                 ("stats2nc", [], 0))
+POISSON_TOL = 1e-9       # fp64 round-off; a wrong sign or boundary value O(1)
+# the fp32 diagnostic pressure against fp64 on one seeded state of the
+# shear layer at 128x64x64 (pressure_witness_fields), per decomposition:
+# tlab_tpu's own fp32 drift there (tests/test_torch_fp32.py::
+# test_diagnostic_pressure_in_float32_drifts_as_tlab_tpus); the card's run
+# is held to 2x it
+PRESSURE_SMALL = (128, 64, 64)
+PRESSURE_WITNESS = {"total": 1.363e-6, "advection": 1.065e-6}
+COLUMN_TOL = 1e-6        # offline avg against the in-run avg of one state
+PARSEVAL_TOL = 1e-5      # a plane's spectrum sums against its variance, fp32
+SPECTRUM_FILE_TOL = 1e-6  # a spectrum file against its fp32 evaluation
+PHASE_TOL = 1e-6         # a phavg slot mean against the field's z-mean
+
+
+def pressure_witness_fields(shape, y, seed: int = 14):
+    """u, v, w, s1 (float64 NumPy) of a perturbed shear layer: tanh
+    profiles of the case's thickness and seeded noise under a Gaussian
+    envelope."""
+    rng = np.random.default_rng(seed)
+    yc = (y - 0.5 * (y[0] + y[-1]))[None, :, None]
+    env = np.exp(-(yc / 0.1) ** 2)
+    prof = np.tanh(yc / 0.0234375) * np.ones(shape)
+
+    def noise(a):
+        return a * env * rng.standard_normal(shape)
+
+    return (0.5 * prof + noise(0.05), noise(0.05), noise(0.05),
+            (0.5 - 0.5 * prof + noise(0.02))[None])
+
+
+def stats_case() -> str:
+    """The shear layer at full width with the in-run statistics and the
+    phase averages: STATS_STEPS steps, the restart and the statistics at
+    the last."""
+    text = edit_case(CASE.read_text(), {
+        ("Iteration", "End"): str(STATS_STEPS),
+        ("Iteration", "Restart"): str(STATS_STEPS),
+        ("Iteration", "Statistics"): str(STATS_STEPS)})
+    text = add_keys(text, "Iteration", [f"PhaseAvg={PHASE_STRIDE}"])
+    return add_keys(text, "Statistics", STATS_KEYS)
+
+
+def pressure_columns(sim, state, p) -> set:
+    """The columns of the avg tables that read the pressure: those that
+    move when it does (the scalar table's as "s:<name>")."""
+    ex = averages.build_extras(sim, state)
+    tabs = []
+    for q in (p, 2.0 * p + 1.0):
+        flow = averages.flow_statistics(sim.P, state, sim.nsp.visc, p=q,
+                                        extras=ex)
+        scal = averages.scalar_statistics(
+            sim.P, state, sim.nsp.diffusivity(0), 0, p=q,
+            visc=sim.nsp.visc, extras=ex)
+        tabs.append(averages.to_host(flow, [scal]))
+    (fa, (sa,)), (fb, (sb,)) = tabs
+    return {k for k in fa if not np.array_equal(fa[k], fb[k])} | \
+        {f"s:{k}" for k in sa if not np.array_equal(sa[k], sb[k])}
+
+
+def volume_bins(vol: np.ndarray, nbins: int) -> np.ndarray:
+    """The bin of each counted sample of the whole-volume row: the
+    reference's two-pass range (reference_formats.pdf1v2d + pdf_analize),
+    the truncated bin indices, the outliers dropped."""
+    from tlab_tpu_torch.io import reference_formats as rf
+    lo, hi = rf.pdf_analize(nbins, rf.pdf1v2d(vol, nbins, ilim=1))
+    step = (hi - lo) / nbins
+    up = ((vol - lo) / (step if step != 0.0 else 1.0)).astype(np.int64)
+    return up[(up >= 0) & (up <= nbins - 1)]
+
+
+def check_pdf_file(path: str, field, y, nbins: int = 32) -> np.ndarray:
+    """A pdf file of `field` (on the card) against NumPy's host table of
+    the same float32 field, byte for byte after the time stamp; the
+    device table against it bin for bin; the counts' sums.  Returns the
+    device table."""
+    from tlab_tpu_torch.io import reference_formats as rf
+    from tlab_tpu_torch.stats.pdfs import pdf1v_plane_table_device
+    nx, ny, nz = field.shape
+    host = rf.pdf1v_plane_table(field.cpu().numpy(), nbins)
+    dev = pdf1v_plane_table_device(field, nbins).cpu().numpy()
+    moved = int(np.abs(dev[:, :nbins] - host[:, :nbins]).sum())
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as hdir:
+        ref = open(rf.write_pdf_file(hdir, "ref", 0.0, y, host, nbins),
+                   "rb").read()
+    with open(path, "rb") as fh:
+        body = fh.read()
+    require(body[4:] == ref[4:] and moved == 0,
+            f"14 {os.path.basename(path)}: the file or the device table "
+            f"differs from NumPy's ({moved} samples moved)")
+    require(np.all(dev[:-1, :nbins].sum(1) <= nx * nz)
+            and dev[-1, :nbins].sum() <= nx * ny * nz,
+            f"14 {os.path.basename(path)}: counts beyond the samples")
+    return dev
+
+
+def count_beyond_fp32(sim, st) -> dict:
+    """The whole-volume row of |grad s1|^2 (pdfs mode 2's GiGi): the free
+    streams put most of the 33.5 M samples in its first bin, past 2^24.
+    The device table against an int64 count of the same range, and what a
+    float32 counter of the field's dtype (tlab_tpu's) holds there."""
+    from tlab_tpu_torch import mappings
+    from tlab_tpu_torch.stats.pdfs import pdf1v_plane_table_device
+    g = mappings.gradient_magnitude2(sim.P, st.s[0])
+    dev = pdf1v_plane_table_device(g, 32)[-1, :32].cpu().numpy()
+    vol = g.reshape(-1).cpu().numpy()
+    bins = volume_bins(vol, 32)
+    ref64 = np.bincount(bins, minlength=32)
+    require(np.array_equal(dev.astype(np.int64), ref64),
+            "14 GiGi: the volume row against an int64 count")
+    top = int(np.argmax(ref64))
+    require(ref64[top] > 2 ** 24, f"14 GiGi: the largest bin {ref64[top]} "
+            f"<= 2^24")
+    # a float32 counter, one atomic addition of 1 a sample as tlab_tpu's
+    # scatter-add in the field's dtype: its largest bin stops at 2^24
+    idx = torch.as_tensor(bins, device="cuda")
+    fp32 = torch.zeros(32, dtype=torch.float32, device="cuda").index_add_(
+        0, idx, torch.ones(idx.shape, dtype=torch.float32, device="cuda"))
+    return {"top": int(ref64[top]), "top_fp32": float(fp32[top].item()),
+            "counted": (int(ref64.sum()), vol.size)}
+
+
+def diagnostic_pressure_checks(text: str, fields) -> dict:
+    """The diagnostic pressure of the restart's `fields` in fp64 on the
+    card against the discrete Poisson problem it solves, in fp32 (K1-K3)
+    against fp64 at full width; and at PRESSURE_SMALL on seeded fields, fp32
+    against fp64 for two decompositions, held to 2x tlab_tpu's drift."""
+    from tlab_tpu_torch.dycore.pressure import (pressure_boussinesq,
+                                                pressure_forcing)
+    res = {}
+    p = {}
+    for dtype in (torch.float64, torch.float32):
+        sim = Simulation.from_case(load_case(Ini(text=text)), dtype=dtype,
+                                   device="cuda")
+        st = state_from_numpy(*fields, "cuda", dtype)
+        burgers.launches[:] = [0, 0, 0]
+        if dtype == torch.float64:
+            div, bcs_b, bcs_t = pressure_forcing(sim.P, st)
+            p[dtype] = elliptic.poisson(sim.P["ell"], div, bcs_b=bcs_b,
+                                        bcs_t=bcs_t)
+            res["residual"] = elliptic.poisson_residual(
+                sim.fdm, p[dtype], div, bcs_b, bcs_t)
+            res["residual_flipped"] = elliptic.poisson_residual(
+                sim.fdm, -p[dtype], div, bcs_b, bcs_t)
+            del div, bcs_b, bcs_t
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p[dtype] = pressure_boussinesq(sim.P, st)
+            torch.cuda.synchronize()
+            res["ms"] = 1e3 * (time.perf_counter() - t0)
+        res[f"launches_{dtype}"] = list(burgers.launches)
+        del sim, st
+    p64 = p[torch.float64]
+    res["full"] = ((p[torch.float32].double() - p64).abs().max()
+                   / p64.abs().max()).item()
+    del p, p64
+    small = shear_case(PRESSURE_SMALL, 1)
+    for dcmp in PRESSURE_WITNESS:
+        ps = {}
+        for dtype in (torch.float64, torch.float32):
+            sim = Simulation.from_case(load_case(Ini(text=small)),
+                                       dtype=dtype, device="cuda")
+            st = state_from_numpy(*pressure_witness_fields(
+                PRESSURE_SMALL, sim.grid.y.nodes), "cuda", dtype)
+            burgers.launches[:] = [0, 0, 0]
+            ps[dtype] = pressure_boussinesq(sim.P, st, dcmp).double()
+            ps[f"launches_{dtype}"] = list(burgers.launches)
+        res[f"small_{dcmp}"] = ((ps[torch.float32] - ps[torch.float64])
+                                .abs().max()
+                                / ps[torch.float64].abs().max()).item()
+        res[f"small_launches_{dcmp}"] = ps[f"launches_{torch.float32}"]
+    return res
+
+
+def phase_stats(card: str, initial: str) -> dict:
+    """14: `dns` of the shear layer at 512x256x256 fp32 from 6a's fields
+    with [Statistics] Pdfs/Intermittency/Spectrums/Correlations and
+    [Iteration] PhaseAvg, then averages, pdfs, spectra, superlayer and
+    stats2nc of its restart through the CLI, the kernels' counts set to 0
+    before each command and read after; each output held."""
+    from tlab_tpu_torch.dycore.pressure import pressure_boussinesq
+    from tlab_tpu_torch.stats import spectra
+    text = stats_case()
+    it = STATS_STEPS
+    launches, seconds, peaks = {}, {}, {}
+    out_info = {}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = write_case(out, text)
+        link_initial_fields(initial, out)
+        res = traced_cli(ini, out, ("dns",))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        sim = res["run"].sim
+        del res["run"]
+        launches["dns"], peaks["dns"] = res["launches"], res["peak"]
+        seconds["dns"] = res["seconds"]["dns"]
+        n_sub = len(sim.P["rk"]["kdt"])
+        n_phase = STATS_STEPS // PHASE_STRIDE
+        want = [STATS_STEPS * n_sub + n_phase] * 3
+        require(launches["dns"] == want,
+                f"14 dns launched {launches['dns']}, expected {want}")
+        # the in-run tables of step `it`, before `averages` and `pdfs`
+        # rewrite them
+        inrun = {n: averages.read_avg(os.path.join(out, n))[2]
+                 for n in (f"avg{it}", f"avg{it}s1")}
+        inrun_pdf = {t: open(os.path.join(out, f"pdf{it}.{t}"), "rb").read()
+                     for t in ("u", "v", "w", "s1")}
+        for command, extra, solves in POST_COMMANDS:
+            burgers.launches[:] = [0, 0, 0]
+            torch.cuda.reset_peak_memory_stats()
+            seconds[command] = run_cli(command, ini, out, "--files", str(it),
+                                       *extra)
+            launches[command] = list(burgers.launches)
+            peaks[command] = torch.cuda.max_memory_allocated()
+            require(launches[command] == [solves] * 3,
+                    f"14 {command} launched {launches[command]}, expected "
+                    f"{[solves] * 3}")
+        names = set(os.listdir(out))
+        need = {f"phavg{it}.npz", f"int{it}", f"cavg{it}", f"sl{it}.npz",
+                f"avg{it}.nc"} | {f"pdf{it}.{t}" for t in
+                                  ("u", "v", "w", "p", "s1")} | {
+            f"{k}{it}.{e}{t}" for k, e in (("xsp", "E"), ("zsp", "E"),
+                                           ("xcr", "C"), ("zcr", "C"),
+                                           ("rsp", "E"))
+            for t in ("uu", "vv", "ww", "11") if k != "rsp" or e == "E"}
+        require(need <= names, f"14: missing {sorted(need - names)}")
+
+        # the restart's fields on the card, as the commands read them
+        fields = [np.ascontiguousarray(a) for a in fields_io.read_state(
+            os.path.join(out, "flow"), os.path.join(out, "scal"), it, 1)[:4]]
+        st = state_from_numpy(*fields, "cuda", torch.float32)
+        nx, ny, nz = MAIN_SHAPE
+        y = sim.grid.y.nodes
+        p = pressure_boussinesq(sim.P, st)
+
+        # the offline avg against the in-run one of the same state: the
+        # columns that read no pressure; the pressure columns finite
+        pcols = pressure_columns(sim, st, p)
+        col_err, worst = 0.0, ""
+        for name, table in inrun.items():
+            _, _, off = averages.read_avg(os.path.join(out, name))
+            tag = "s:" if name.endswith("s1") else ""
+            for k, ref in table.items():
+                require(np.isfinite(off[k]).all(), f"14 {name} {k} finite")
+                if k == "Y" or tag + k in pcols:
+                    continue
+                e = float(np.abs(off[k] - ref).max()
+                          / max(np.abs(ref).max(), 1e-300))
+                if e > col_err:
+                    col_err, worst = e, f"{name} {k}"
+        require(col_err <= COLUMN_TOL,
+                f"14 offline avg against in-run: {worst} {col_err}")
+
+        # pdfs: the offline (pdfs) files against NumPy's host tables of the
+        # same fields, the in-run (dns) ones of the same step equal to them
+        for tag, field in (("s1", st.s[0]), ("u", st.u), ("p", p)):
+            dev = check_pdf_file(os.path.join(out, f"pdf{it}.{tag}"), field,
+                                 y)
+            out_info[f"top_{tag}"] = int(dev[-1, :32].max())
+        for tag, body in inrun_pdf.items():
+            require(open(os.path.join(out, f"pdf{it}.{tag}"), "rb").read()
+                    == body, f"14 pdf{it}.{tag}: in-run and offline differ")
+        out_info.update(count_beyond_fp32(sim, st))
+
+        # spectra: Parseval on the card; the files their fp32 evaluation
+        spec_err, file_err = 0.0, 0.0
+        for tag, field in (("uu", st.u), ("11", st.s[0])):
+            a = field - field.mean(dim=(0, 2), keepdim=True)
+            var = (a * a).mean(dim=(0, 2))
+            for e in (spectra.spectrum_x(a), spectra.spectrum_z(a)):
+                spec_err = max(spec_err, ((e.sum(0) - var).abs().max()
+                                          / var.max()).item())
+            want_x = (0.5 * spectra.spectrum_x(field)[: nx // 2]).cpu()
+            have = np.fromfile(os.path.join(out, f"xsp{it}.E{tag}"), "<f4")
+            file_err = max(file_err, float(
+                np.abs(have - want_x.numpy().T.ravel()).max()
+                / want_x.abs().max()))
+        require(spec_err <= PARSEVAL_TOL, f"14 Parseval {spec_err}")
+        require(file_err <= SPECTRUM_FILE_TOL, f"14 xsp file {file_err}")
+
+        # the phase averages: one accumulation in each of the 2 slots;
+        # slot 0 holds step `it`, its means the fields' z-means
+        ph = np.load(os.path.join(out, f"phavg{it}.npz"))
+        require(list(ph["counts"]) == [1] * n_phase,
+                f"14 phavg counts {list(ph['counts'])}")
+        names_ph = [str(n) for n in ph["names"]]
+        ph_err = 0.0
+        for k, f in (("u", st.u), ("v", st.v), ("w", st.w), ("s1", st.s[0]),
+                     ("p", p)):
+            zm = f.double().mean(dim=2).cpu().numpy()
+            ph_err = max(ph_err, float(
+                np.abs(ph["sums"][0, names_ph.index(k)] - zm).max()
+                / max(np.abs(zm).max(), 1e-30)))
+        require(ph_err <= PHASE_TOL, f"14 phavg slot means {ph_err}")
+
+        # superlayer: heights inside the grid, each height pdf all points
+        sl = np.load(os.path.join(out, f"sl{it}.npz"))
+        for k in ("y_upper", "y_lower"):
+            require(sl[k].min() >= y[0] and sl[k].max() <= y[-1],
+                    f"14 {k} outside the grid")
+        for k in ("up_pdf", "lo_pdf"):
+            require(round(float(sl[k].sum()) * nx * nz) == nx * nz,
+                    f"14 {k} sums to {sl[k].sum()}")
+        require(sl["up_mean"] > sl["lo_mean"], "14 the interfaces' order")
+        out_info["sl"] = (float(sl["lo_mean"]), float(sl["up_mean"]))
+
+        # stats2nc: the NetCDF table is the ASCII one to float32 rounding
+        _, g_nc, c_nc = averages.read_avg_nc(os.path.join(out,
+                                                          f"avg{it}.nc"))
+        _, g_a, c_a = averages.read_avg(os.path.join(out, f"avg{it}"))
+        require(g_nc == g_a and all(np.array_equal(
+            c_nc[k], np.float32(c_a[k]).astype(float)) for k in c_a),
+            "14 avg.nc differs from avg")
+        del st, p, sim
+    diag = diagnostic_pressure_checks(text, fields)
+    return {"launches": launches, "seconds": seconds, "peaks": peaks,
+            "trace": trace, "n_sub": n_sub, "col_err": col_err,
+            "pcols": len(pcols), "spec_err": spec_err,
+            "file_err": file_err, "ph_err": ph_err, "diag": diag,
+            **out_info}
+
+
+def report_stats(card: str, r: dict) -> None:
+    """Phase 14's lines, and its limits on the diagnostic pressure."""
+    rate = step_rate(r["trace"], STATS_STEPS, r["n_sub"])
+    d = r["diag"]
+    print(f"[14] dns with [Statistics] Pdfs/Intermittency/Spectrums/"
+          f"Correlations and PhaseAvg={PHASE_STRIDE} ({card}): "
+          f"{MAIN_SHAPE} fp32, {STATS_STEPS} adaptive-dt steps with their "
+          f"host syncs {rate['seconds']:.4f} s: {rate['ms_substep']:.3f} "
+          f"ms/substep, {rate['rate']:.6e} points/s/substep (first step "
+          f"{rate['each'][0]:.4f} s, the others' median "
+          f"{rate['others_ms_substep']:.3f} ms/substep); one statistics "
+          f"(tables, pdfs, spectra) "
+          f"{r['trace'][f'statistics {STATS_STEPS}'][1]:.3f} s")
+    for cmd in ["dns"] + [c for c, _, _ in POST_COMMANDS]:
+        print(f"[14] {cmd}: {r['seconds'][cmd]:.3f} s, peak device memory "
+              f"{r['peaks'][cmd]} B, launches {r['launches'][cmd]}")
+    print(f"[14] offline avg{STATS_STEPS} against the in-run one: "
+          f"{r['col_err']:.3e} of each column's max (limit {COLUMN_TOL}; "
+          f"{r['pcols']} pressure columns finite); pdf files of s1, u, p "
+          f"equal to NumPy's tables of the fields byte for byte; the "
+          f"volume row of |grad s1|^2: largest bin {r['top']} > 2^24 = "
+          f"{2 ** 24} ({r['counted'][0]} of {r['counted'][1]} samples), "
+          f"equal to an int64 count (a float32 counter: "
+          f"{r['top_fp32']:.0f}; the largest volume bin of s1 "
+          f"{r['top_s1']}, u {r['top_u']}, p {r['top_p']}); Parseval {r['spec_err']:.3e} (limit "
+          f"{PARSEVAL_TOL}); xsp files {r['file_err']:.3e} (limit "
+          f"{SPECTRUM_FILE_TOL}); phavg slot means {r['ph_err']:.3e} "
+          f"(limit {PHASE_TOL}); interfaces at y = {r['sl'][0]:.4f} and "
+          f"{r['sl'][1]:.4f}")
+    print(f"[14] the diagnostic pressure of the restart: fp64 against the "
+          f"Poisson problem it solves {d['residual']:.3e} (limit "
+          f"{POISSON_TOL}; -p reads {d['residual_flipped']:.3e}); fp32 "
+          f"{d['ms']:.3f} ms with launches "
+          f"{d['launches_torch.float32']}, against fp64 "
+          f"{d['full']:.3e}; at {PRESSURE_SMALL}: "
+          + "; ".join(f"{k} {d[f'small_{k}']:.3e} (limit "
+                      f"{2.0 * w:.3e}: 2x tlab_tpu's {w:.3e}), launches "
+                      f"{d[f'small_launches_{k}']}"
+                      for k, w in PRESSURE_WITNESS.items()))
+    require(d["residual"] <= POISSON_TOL,
+            f"14 Poisson residual {d['residual']}")
+    require(d["launches_torch.float64"] == [0, 0, 0]
+            and d["launches_torch.float32"] == [1, 1, 1],
+            f"14 pressure launches {d['launches_torch.float32']}")
+    for k, w in PRESSURE_WITNESS.items():
+        require(d[f"small_{k}"] <= 2.0 * w,
+                f"14 fp32 pressure ({k}) {d[f'small_{k}']} > 2x {w}")
+        want = [2, 2, 2] if k == "advection" else [1, 1, 1]
+        require(d[f"small_launches_{k}"] == want,
+                f"14 {k} launches {d[f'small_launches_{k}']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -2810,7 +3226,6 @@ def main() -> int:
         rec["launches_10a"] = n
     for rec, n in zip(records, phase_smr91_shear(smi, initial)):
         rec["launches_10b"] = n
-    keep.cleanup()
     phase_smr91_fp64()
     t10 = time.perf_counter() - t10
     t11 = time.perf_counter()
@@ -2844,8 +3259,21 @@ def main() -> int:
     for rec, n in zip(records, phase_spatial_comp(smi)):
         rec["launches_13e"] = n
     t13 = time.perf_counter() - t13
+    t14 = time.perf_counter()
+    errs = [max(a, b) for a, b in zip(
+        check_case_kernels(stats_case(), fields=3),
+        check_case_kernels(stats_case(), fields=3, zero_conv=True))]
+    for rec, err in zip(records, errs):
+        rec["max_abs_err_14"] = err
+    stats = phase_stats(smi, initial)
+    keep.cleanup()
+    report_stats(smi, stats)
+    for cmd, got in stats["launches"].items():
+        for rec, n in zip(records, got):
+            rec[f"launches_14{cmd}"] = n
+    t14 = time.perf_counter() - t14
     print(f"[slice] phase 10 took {t10:.1f} s, 11 {t11:.1f} s, 12 "
-          f"{t12:.1f} s, 13 {t13:.1f} s")
+          f"{t12:.1f} s, 13 {t13:.1f} s, 14 {t14:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

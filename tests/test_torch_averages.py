@@ -76,18 +76,36 @@ def tables(request, tmp_path_factory):
             tavg.stats_tables(tsim, st, pt), out, tsim, st, pt, jsim, sj)
 
 
+# the legacy skewness/flatness aliases, the variance they divide by and
+# the mean whose digits the fluctuation loses
+_MOMENT_OF = {"SU": ("Rxx", "rU"), "FU": ("Rxx", "rU"),
+              "SV": ("Ryy", "rV"), "FV": ("Ryy", "rV"),
+              "SW": ("Rzz", "rW"), "FW": ("Rzz", "rW"),
+              "Ss": ("rS2", "rS"), "Fs": ("rS2", "rS")}
+
+
 def _assert_columns(ref: dict, got: dict, names, rtol=RTOL):
     for n in names:
         a, b = np.asarray(ref[n], np.float64), np.asarray(got[n], np.float64)
         assert a.shape == b.shape and np.isfinite(b).all(), n
+        if n in _MOMENT_OF:
+            # a quotient of two round-off numbers where the variance is
+            # round-off of the field (a free stream): held where it is not
+            var, mean = (np.asarray(ref[k], np.float64)
+                         for k in _MOMENT_OF[n])
+            keep = var > 1e-10 * max(np.max(var), np.max(mean ** 2))
+            if keep.any():              # else a field that is 0 (2-D w)
+                a, b = a[keep], b[keep]
         assert np.max(np.abs(a - b)) <= max(rtol * np.max(np.abs(a)), ATOL), n
 
 
 def test_flow_columns_match_jax(tables):
     (flow_j, _), (flow_t, _) = tables[:2]
     names = [n for _, vars_ in tavg.FLOW_GROUPS for n in vars_.split()]
-    assert len(names) == 191 and sorted(flow_t) == sorted(names)
-    _assert_columns(flow_j, flow_t, names)
+    aliases = ["SU", "FU", "SV", "FV", "SW", "FW", "Prod"]
+    assert len(names) == 191
+    assert sorted(flow_t) == sorted(names + aliases) == sorted(flow_j)
+    _assert_columns(flow_j, flow_t, names + aliases)
     assert float(np.max(flow_t["Tke"])) > 1e-3 and np.all(flow_t["rR"] == 1)
 
 
@@ -117,8 +135,9 @@ def test_extras_match_jax(tables):
 def test_scalar_columns_match_jax(tables):
     (_, scal_j), (_, scal_t) = tables[:2]
     names = [n for _, vars_ in tavg.scal_groups(1) for n in vars_.split()]
-    assert len(scal_t) == len(scal_j) == 1 and len(names) == 75
-    assert sorted(scal_t[0]) == sorted(names)
+    names += ["Ss", "Fs", "Chi", "Rss"]               # the legacy aliases
+    assert len(scal_t) == len(scal_j) == 1 and len(names) == 79
+    assert sorted(scal_t[0]) == sorted(names) == sorted(scal_j[0])
     _assert_columns(scal_j[0], scal_t[0], names)
 
 
@@ -168,24 +187,61 @@ def test_float32_tables_follow_float64(tables):
 
 @pytest.mark.parametrize("call", ["no_pressure", "extras", "extras_rho",
                                   "rho", "netcdf"])
-def test_unported_statistics_raise(tables, call):
-    tsim, st, pt = tables[3:6]
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        if call == "no_pressure":
-            tavg.flow_statistics(tsim.P, st, tsim.nsp.visc)
-        elif call == "extras":
-            # the compressible tables run (tests/test_torch_compressible.py);
-            # a sound-speed profile given in place of <gamma p / rho> not
-            tavg.flow_statistics(tsim.P, st, tsim.nsp.visc, p=pt,
-                                 extras={"eqns": "internal",
-                                         "c2": st.u[0, :, 0]})
-        elif call == "extras_rho":
-            tavg.scalar_statistics(tsim.P, st, 1e-3, 0, p=pt,
-                                   extras={"scalar_sources": st.s})
-        elif call == "rho":
-            # a density field runs the Favre table; its gravity term not
-            tavg.scalar_statistics(tsim.P, st, 1e-3, 0, p=pt, rho=st.u,
-                                   extras={"grav_y": -1.0})
-        else:
-            tavg.avg_writer(load_case(Ini(
-                text="[Main]\nFileFormat=netcdf\n")))
+def test_statistics_once_refused_match_jax(tables, tmp_path, call):
+    """What raised until ROADMAP A14, against tlab_tpu on the same state:
+    the tables without a pressure (the diagnostic pressure solved), a
+    sound-speed profile, the scalar sources, a density field with the
+    compressible gravity, and the NetCDF writer."""
+    tsim, st, pt, jsim, sj = tables[3], tables[4], tables[5], tables[6], \
+        tables[7]
+    ext, exj = tavg.build_extras(tsim, st), javg.build_extras(jsim, sj)
+    if call == "no_pressure":
+        got = [tavg.flow_statistics(tsim.P, st, tsim.nsp.visc, extras=ext),
+               tavg.scalar_statistics(tsim.P, st, 1e-3, 0,
+                                      visc=tsim.nsp.visc, extras=ext)]
+        ref = [javg.flow_statistics(jsim.P, sj, jsim.nsp.visc, extras=exj),
+               javg.scalar_statistics(jsim.P, sj, 1e-3, 0,
+                                      visc=jsim.nsp.visc, extras=exj)]
+    elif call == "extras":
+        c2 = st.u[0, :, 0] ** 2 + 1.0
+        got = [tavg.flow_statistics(tsim.P, st, tsim.nsp.visc, p=pt,
+                                    extras={**ext, "c2": c2})]
+        ref = [javg.flow_statistics(jsim.P, sj, jsim.nsp.visc,
+                                    p=jnp.asarray(pt.numpy()),
+                                    extras={**exj, "c2": jnp.asarray(
+                                        c2.numpy())})]
+        assert np.array_equal(got[0]["C2"].numpy(), c2.numpy())
+    elif call == "extras_rho":
+        q = torch.sin(st.s) + st.u[None]
+        got = [tavg.scalar_statistics(tsim.P, st, 1e-3, 0, p=pt,
+                                      extras={"scalar_sources": q})]
+        ref = [javg.scalar_statistics(jsim.P, sj, 1e-3, 0,
+                                      p=jnp.asarray(pt.numpy()),
+                                      extras={"scalar_sources":
+                                              jnp.asarray(q.numpy())})]
+        assert float(torch.amax(torch.abs(got[0]["Qss"]))) > 1e-6
+    elif call == "rho":
+        rho = 1.0 + 0.1 * st.u
+        got = [tavg.scalar_statistics(tsim.P, st, 1e-3, 0, p=pt, rho=rho,
+                                      extras={"grav_y": -1.0})]
+        ref = [javg.scalar_statistics(jsim.P, sj, 1e-3, 0,
+                                      p=jnp.asarray(pt.numpy()),
+                                      rho=jnp.asarray(rho.numpy()),
+                                      extras={"grav_y": -1.0})]
+        assert float(torch.amax(torch.abs(got[0]["Bsv"]))) > 0.0
+    else:
+        case = load_case(Ini(text="[Main]\nFileFormat=netcdf\n"))
+        assert tavg.avg_writer(case) is tavg.write_avg_nc
+        flow = tables[1][0]
+        y = tsim.grid.y.nodes
+        tavg.avg_writer(case)(str(tmp_path / "t"), y, flow, tavg.FLOW_GROUPS,
+                              3, 0.5)
+        javg.write_avg_nc(str(tmp_path / "j"), y, flow, javg.FLOW_GROUPS, 3,
+                          0.5)
+        assert (tmp_path / "t.nc").read_bytes() == \
+            (tmp_path / "j.nc").read_bytes()
+        got = [tavg.read_avg_nc(str(tmp_path / "t.nc"))[2]]
+        ref = [javg.read_avg_nc(str(tmp_path / "j.nc"))[2]]
+    for g, r in zip(got, ref):
+        assert sorted(g) == sorted(r)
+        _assert_columns(r, g, list(r))

@@ -94,7 +94,7 @@ def test_default_device_is_the_card(tmp_path):
         cli.main(["ini", "--ini", CASE3D, "--outdir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("command, item", [("averages", "A14"),
+@pytest.mark.parametrize("command, item", [("transgrid", "A16"),
                                            ("inipart", "A15"),
                                            ("visuals", "A16")])
 def test_unported_command_exits_with_its_item(command, item):
@@ -108,10 +108,11 @@ COMPRESSIBLE = ("Equations=incompressible", "Equations=internal")
 @pytest.mark.parametrize("edits, item", [
     # the options the case file can ask for beyond the port (the
     # compressible set's characteristic boundaries and moist mixture run
-    # now: test_compressible_option_once_refused_runs_as_jax)
+    # now: test_compressible_option_once_refused_runs_as_jax; the
+    # [Statistics] pdfs and spectra: tests/test_torch_postprocess.py)
     ((("[BufferZone]\nType=none", "[SavePlanes]\nPlanesJ=3"),), "A15"),
     ((("[BufferZone]\nType=none",
-       "[BufferZone]\nType=none\n[Statistics]\nPdfs=yes"),), "A14")])
+       "[BufferZone]\nType=none\n[SaveTowers]\nStride=4,4,4"),), "A15")])
 def test_unported_option_exits_with_its_item(rundir, tmp_path, edits, item):
     for name in ("flow.0.1", "flow.0.2", "flow.0.3", "scal.0.1"):
         shutil.copy(rundir / name, tmp_path / name)

@@ -169,13 +169,15 @@ def _assert_same_files(tmp_path, rj, rt, steps, field_tol):
 
 def _tables(rj, rt):
     """Both packages' tables of their final states, with the pressure of
-    one more tlab_tpu step: every column to 1e-9 of its max."""
+    one more tlab_tpu step: every written column to 1e-9 of its max."""
     pj = jdyn.rk_step(rj.sim.P, rj.state, 1e-3)[1]
     flow_j, scal_j = javg.make_stats_tables_fn(rj.sim)(rj.state, pj)
     flow_t, scal_t = tavg.stats_tables(
         rt.sim, rt.state, torch.from_numpy(np.array(pj)))
-    for ref, got in ((flow_j, flow_t), (scal_j[0], scal_t[0])):
-        for n in got:
+    for ref, got, groups in ((flow_j, flow_t, tavg.FLOW_GROUPS),
+                             (scal_j[0], scal_t[0], tavg.scal_groups(1))):
+        # the written columns (the tables also carry the legacy aliases)
+        for n in (n for _, names in groups for n in names.split()):
             a = np.asarray(ref[n], np.float64)
             b = np.asarray(got[n], np.float64)
             assert np.isfinite(b).all(), n
@@ -366,9 +368,7 @@ def test_unported_arguments_raise(tmp_path, start, kw, item):
 
 @pytest.mark.parametrize("extra, item", [
     ("\n[SavePlanes]\nPlanesJ=3\n", "A15"),
-    ("\n[SaveTowers]\nStride=4,4,4\n", "A15"),
-    ("\n[Statistics]\nPdfs=yes\n", "A14"),
-    ("\n[Statistics]\nSpectrums=yes\n", "A14")])
+    ("\n[SaveTowers]\nStride=4,4,4\n", "A15")])
 def test_unported_case_options_raise(tmp_path, start, extra, item):
     sim = Simulation.from_case(load_case(Ini(text=_text(extra))), dtype=F64,
                                device="cpu")
@@ -377,13 +377,51 @@ def test_unported_case_options_raise(tmp_path, start, extra, item):
                  outdir=str(tmp_path), n_steps=1)
 
 
-def test_phase_average_raises(tmp_path, start):
-    text = _text(replace=[("IteraLog=1", "IteraLog=1\nPhaseAvg=2")])
-    sim = Simulation.from_case(load_case(Ini(text=text)), dtype=F64,
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        tdns.run(sim, state_from_numpy(*start, "cpu", F64),
-                 outdir=str(tmp_path), n_steps=1)
+@pytest.mark.parametrize("key", ["Pdfs", "Spectrums", "Intermittency"])
+def test_inrun_statistics_match_jax(tmp_path, start, key):
+    """[Statistics] Pdfs / Spectrums / Intermittency (+ Correlations), once
+    refused: 2 steps with statistics every step through both packages: the
+    same files; the spectra to 1e-6 of their max (float32 files of states
+    1e-14 apart), the plane fractions to tlab_tpu's float32 rounding, the
+    pdf counts within one sample a row (the sample on a trimmed edge,
+    ROADMAP C 24)."""
+    from tlab_tpu_torch.io import reference_formats as rf
+    extra = f"\n[Statistics]\n{key}=yes\nCorrelations=yes\n"
+    rj, rt = _run_both(tmp_path, start, _text(extra, [(
+        "Statistics=5", "Statistics=1")]), n_steps=2)
+    names = sorted(n for n in os.listdir(tmp_path / "jax")
+                   if n[:3] in ("pdf", "int", "xsp", "zsp", "xcr", "zcr"))
+    assert names == sorted(n for n in os.listdir(tmp_path / "torch")
+                           if n[:3] in ("pdf", "int", "xsp", "zsp", "xcr",
+                                        "zcr"))
+    assert len(names) == {"Pdfs": 8, "Spectrums": 32, "Intermittency": 2}[key]
+    for n in names:
+        a, b = tmp_path / "torch" / n, tmp_path / "jax" / n
+        if n.startswith("pdf"):
+            ca, cb = rf.read_pdf_file(str(a))[2], rf.read_pdf_file(str(b))[2]
+            assert np.all(np.abs(ca[:, :32] - cb[:, :32]).sum(1) <= 1), n
+        elif n.startswith("int"):
+            ga = tavg.read_table(str(a))["gamma"]
+            gb = javg.read_table(str(b))["gamma"]
+            assert np.max(np.abs(ga - gb)) <= 1e-7, n
+        else:
+            fa, fb = np.fromfile(a, "<f4"), np.fromfile(b, "<f4")
+            assert np.max(np.abs(fa - fb)) <= 1e-6 * np.max(np.abs(fb)), n
+
+
+def test_phase_average_matches_jax(tmp_path, start):
+    """[Iteration] PhaseAvg=2, once refused: 4 steps with a restart at 4
+    through both packages: phavg4.npz with 2 accumulations in 2 slots, the
+    sums (the diagnostic pressure's among them) to 1e-10."""
+    text = _text(replace=[("IteraLog=1", "IteraLog=1\nPhaseAvg=2"),
+                          ("Restart=10", "Restart=4")])
+    _run_both(tmp_path, start, text, n_steps=4)
+    a = np.load(tmp_path / "torch" / "phavg4.npz")
+    b = np.load(tmp_path / "jax" / "phavg4.npz")
+    assert sorted(a.files) == sorted(b.files)
+    assert list(a["counts"]) == list(b["counts"]) == [1, 1]
+    for k in ("sums", "stress_sums"):
+        assert np.max(np.abs(a[k] - b[k])) <= 1e-10 * np.max(np.abs(b[k]))
 
 
 def test_inflow_runs_as_jax(tmp_path, start):

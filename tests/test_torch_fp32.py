@@ -446,3 +446,43 @@ def test_airwater_with_tlab_tpus_float32_polynomial():
     print(f"\ncase14 float32 drift, tlab_tpu with its fp32 polynomial: "
           f"{poly}")
     assert all(np.isfinite(v) for v in poly.values())
+
+
+# 6. the diagnostic pressure (dycore/pressure.py) of chip_smoke.py's seeded
+# shear-layer state at its 128x64x64 (pressure_witness_fields), float32
+# against float64 in each package, for the decompositions phase 14 holds.
+# The port's figure may be no worse than 2x tlab_tpu's; tlab_tpu's is the
+# witness of phase 14's limit (PRESSURE_WITNESS)
+@pytest.mark.parametrize("dcmp", ["total", "advection"])
+def test_diagnostic_pressure_in_float32_drifts_as_tlab_tpus(dcmp):
+    import chip_smoke
+    from tlab_tpu.dycore.pressure import pressure_boussinesq as jpressure
+    from tlab_tpu.dycore.state import State as JState
+    from tlab_tpu_torch.convert import state_from_numpy
+    from tlab_tpu_torch.dycore.pressure import pressure_boussinesq
+    text = chip_smoke.shear_case(chip_smoke.PRESSURE_SMALL, 1)
+    jcase, tcase = jload_case(JIni(text=text)), load_case(Ini(text=text))
+    out = {}
+    for bits, jdtype, dtype in ((32, jnp.float32, torch.float32),
+                                (64, jnp.float64, torch.float64)):
+        jsim = JSimulation.from_case(jcase, dtype=jdtype)
+        fields = chip_smoke.pressure_witness_fields(
+            chip_smoke.PRESSURE_SMALL, jsim.grid.y.nodes)
+        js = JState(*(jnp.asarray(a, jdtype) for a in fields))
+        out[f"jax{bits}"] = np.asarray(jpressure(jsim.P, js, dcmp),
+                                       np.float64)
+        sim = Simulation.from_case(tcase, dtype=dtype, device="cpu")
+        out[f"port{bits}"] = pressure_boussinesq(
+            sim.P, state_from_numpy(*fields, "cpu", dtype), dcmp).double() \
+            .numpy()
+
+    def drift(a, b):
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    port, jax_ = drift(out["port32"], out["port64"]), \
+        drift(out["jax32"], out["jax64"])
+    print(f"\ndiagnostic pressure ({dcmp}) at {chip_smoke.PRESSURE_SMALL}, "
+          f"float32 against float64: port {port:.3e}; tlab_tpu {jax_:.3e}")
+    assert drift(out["port64"], out["jax64"]) <= 1e-10
+    assert port <= FACTOR * jax_
+    assert chip_smoke.PRESSURE_WITNESS[dcmp] == pytest.approx(jax_, rel=0.05)

@@ -343,3 +343,51 @@ def test_airwater_nscbc_simulation_without_jax(tmp_path):
     proc = _run(_AIRWATER_PROBE, str(ini), str(tmp_path / "run"))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split()[-1] == "3"
+
+
+# the statistics slice where JAX and tlab_tpu cannot be imported: dns with
+# the in-run pdfs, spectra and phase averages, then every post-processing
+# command of the port's CLI on its restart
+_STATS_PROBE = """
+import os, sys
+for name in ("jax", "jaxlib", "tlab_tpu"):
+    sys.modules[name] = None
+from tlab_tpu_torch.tools import cli
+common = ["--ini", sys.argv[1], "--outdir", sys.argv[2], "--device", "cpu",
+          "--x64"]
+for command in ("inigrid", "ini", "dns", "averages", "pdfs", "spectra",
+                "superlayer", "stats2nc"):
+    extra = ["--files", "2"] if command not in ("inigrid", "ini",
+                                                "dns") else []
+    assert cli.main([command, *common, *extra]) == 0, command
+bad = [m for m in sys.modules if sys.modules[m] is not None
+       and m.split(".")[0] in ("jax", "jaxlib", "tlab_tpu")]
+assert not bad, bad
+print(" ".join(sorted(os.listdir(sys.argv[2]))))
+"""
+
+
+def test_statistics_run_without_jax(tmp_path):
+    """inigrid, ini, dns (2 steps, [Statistics] pdfs/spectra, PhaseAvg) and
+    averages, pdfs, spectra, superlayer, stats2nc of a 32x24x16 copy of
+    tests/data/case01_small3d.ini where neither JAX nor tlab_tpu can be
+    imported."""
+    text = (REPO / "tests" / "data" / "case01_small3d.ini").read_text()
+    for old, new in (("Imax=128", "Imax=32"), ("Jmax=64", "Jmax=24"),
+                     ("points_1=129", "points_1=33"),
+                     ("points_1=64", "points_1=24"), ("End=10", "End=2"),
+                     ("Restart=10", "Restart=2"),
+                     ("Statistics=5", "Statistics=2"),
+                     ("IteraLog=1", "IteraLog=1\nPhaseAvg=1"),
+                     ("[BufferZone]", "[Statistics]\nPdfs=yes\n"
+                      "Spectrums=yes\n\n[BufferZone]")):
+        assert old in text
+        text = text.replace(old, new)
+    ini = tmp_path / "tlab.ini"
+    ini.write_text(text)
+    proc = _run(_STATS_PROBE, str(ini), str(tmp_path / "run"))
+    assert proc.returncode == 0, proc.stderr
+    names = proc.stdout.split("\n")[-2].split()
+    for want in ("avg2.nc", "phavg2.npz", "pdf2.p", "pdf2.s1", "xsp2.Euu",
+                 "rsp2.E11", "sl2.npz"):
+        assert want in names, names

@@ -504,3 +504,11 @@ def test_favre_table_code_is_the_original(name):
         return inspect.getsource(obj)
 
     assert get("tlab_tpu_torch") == get("tlab_tpu")
+
+
+def test_reference_formats_copy_is_the_original():
+    """io/reference_formats.py (NumPy only) is tlab_tpu's, line for line."""
+    import inspect
+    from tlab_tpu.io import reference_formats as jrf
+    from tlab_tpu_torch.io import reference_formats as trf
+    assert inspect.getsource(trf) == inspect.getsource(jrf)

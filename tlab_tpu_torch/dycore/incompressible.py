@@ -264,6 +264,16 @@ def _d1(P, axis_name: str, axis: int, a):
     return der1(M, a, axis)
 
 
+def _d2(P, axis_name: str, axis: int, a):
+    """Compact second derivative along one direction (the OPR_P2 analog):
+    the second half of the stacked [D1;D2] product (dense, as tlab_tpu's
+    _d2 whatever the line's length)."""
+    d12 = P.get(f"d12{axis_name}")
+    if d12 is None:
+        return torch.zeros_like(a)
+    return der12(d12, a, axis)[1]
+
+
 def _d12_apply(P, axis_name: str, axis: int, arr):
     """(d1 arr, d2 arr) along axis+1 of a 4-D stack: the substructured
     circulant plans of a periodic long line (2(L+2b) instead of 2N

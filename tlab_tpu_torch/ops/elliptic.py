@@ -358,6 +358,39 @@ def poisson(plan_dev: dict, f, bcs_b=None, bcs_t=None, d1y=None):
     return p
 
 
+def poisson_residual(fdm: FdmPlan, p, f, bcs_b=None, bcs_t=None) -> float:
+    """How far `p` is from solving the discrete problem poisson() inverts
+    with the Neumann (NN) plan of `fdm`: max over the horizontal modes of
+    |(M0 - lambda M1) p_hat - R f_hat| (the mean mode against its
+    Dirichlet-bottom system, as solve_modal pins it), over the largest sum
+    of the three terms' magnitudes |M0 p_hat| + lambda |M1 p_hat| +
+    |R f_hat| (their cancellation's round-off); in float64 on p's device.
+    A float64 solve reads round-off; a wrong sign, scale or boundary value
+    O(1)."""
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), device=p.device)
+
+    nx, _, nz = p.shape
+    M0, M1, R = (t(m) for m in build_pencil(fdm.y, BC.NN))
+    M0s, _, Rs = (t(m) for m in build_pencil(fdm.y, BC.DN))
+    lam_z = fdm.z.mwn2 if nz > 1 else np.zeros(1)
+    lam = t(fdm.x.mwn2[: nx // 2 + 1][:, None] + lam_z[None, :])
+    u_hat = _forward_fft(p.to(torch.float64))
+    f_hat = _forward_fft(_with_wall_rows(f.to(torch.float64), bcs_b, bcs_t))
+    rf = _lmul_real(R, f_hat)
+    m0 = _lmul_real(M0, u_hat)
+    m1 = lam[:, None, :] * _lmul_real(M1, u_hat)
+    res = m0 - m1 - rf
+    size = torch.abs(m0) + torch.abs(m1) + torch.abs(rf)
+    f0 = f_hat[0, :, 0].clone()
+    f0[0] = 0.0
+    rf0 = torch.matmul(Rs.to(f0.dtype), f0)
+    m00 = torch.matmul(M0s.to(f0.dtype), u_hat[0, :, 0])
+    res[0, :, 0] = m00 - rf0
+    size[0, :, 0] = torch.abs(m00) + torch.abs(rf0)
+    return float(torch.amax(torch.abs(res)) / torch.amax(size))
+
+
 def helmholtz(plan_dev: dict, f, alpha, bcs_b=None, bcs_t=None):
     """Solve Lap a + alpha a = f; modal system u'' - (lambda - alpha) u = f."""
     nx, _, nz = f.shape

@@ -27,10 +27,12 @@ buoyancy field fills rB, the buoyancy production and flux terms (Bxx..,
 Buo, Bsv) and Pot, the Coriolis vector the F terms.  As in tlab_tpu,
 [Thermodynamics] Type=anelastic with Equations=incompressible fills no
 background here, so its explicit buoyancy reads as zero in these tables.
-Left for ROADMAP A14: the scalar sources, the diagnostic pressure solve
-when no pressure is passed in, the legacy alias keys (SU, FU, .., Chi,
-Rss), the NetCDF writer and reader, and the conditional (gated)
-statistics.
+Without a pressure the tables solve the diagnostic Boussinesq pressure
+(dycore.pressure, as the reference's offline averages.x); the scalar
+sources, a sound-speed profile (c2) and the compressible gravity (grav_y)
+are optional extras; the legacy alias keys (SU, FU, .., Prod; Ss, Fs, Chi,
+Rss) follow the written columns.  Also here: the NetCDF writer and reader
+behind [Main] FileFormat=netcdf, and the conditional (gated) statistics.
 """
 from __future__ import annotations
 
@@ -93,11 +95,6 @@ _FLOW_INACTIVE = (
     "rT re rh rs fT fe fh fs rR2 rT2 fT2 re2 fe2 rh2 fh2 rs2 fs2 "
     + FLOW_GROUPS[12][1] + " " + FLOW_GROUPS[13][1] + " "
     + FLOW_GROUPS[14][1].replace("Pot ", "")).split()
-# the keys of `extras` that the incompressible and anelastic sets fill
-# (build_extras) and the compressible writer's (dns.py)
-_EXTRAS_PORTED = ("eqns", "y", "froude", "coriolis_y", "bvec", "ymean", "b",
-                  "tp", "bg", "rref", "tref", "pref",
-                  "rho", "T", "e", "h", "entropy", "gamma_field")
 _COMPRESSIBLE = ("compressible", "total", "internal")
 _EQNS_PORTED = ("incompressible", "anelastic") + _COMPRESSIBLE
 
@@ -107,20 +104,16 @@ def _pavg(a):
     return torch.mean(a, dim=(0, 2))
 
 
-def _need(p, extras) -> None:
-    ex = extras or {}
-    other = [k for k in ex if k not in _EXTRAS_PORTED]
-    if other or ex.get("eqns", "incompressible") not in _EQNS_PORTED:
-        raise NotImplementedError(
-            f"extras {other or ex['eqns']!r} (the scalar sources, the "
-            "compressible sound-speed and gravity inputs): ROADMAP A14")
-    if ex.get("eqns") in _COMPRESSIBLE and "rho" not in ex:
+def _pressure(P, state, p, extras):
+    """The table's pressure: `p`, else the diagnostic Boussinesq pressure
+    (as the reference's offline averages.x re-solves it)."""
+    if (extras or {}).get("eqns") in _COMPRESSIBLE and "rho" not in extras:
         raise ValueError("compressible statistics need the density field "
                          "(extras['rho'])")
     if p is None:
-        raise NotImplementedError(
-            "statistics without the step's pressure (the diagnostic "
-            "pressure solve of the offline averages): ROADMAP A14")
+        from tlab_tpu_torch.dycore.pressure import pressure_boussinesq
+        p = pressure_boussinesq(P, state)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -132,8 +125,7 @@ def build_extras_static(sim):
     background profiles, Coriolis/buoyancy parameters."""
     eqns = sim.case.equations
     if eqns not in _EQNS_PORTED:
-        raise NotImplementedError(
-            f"statistics of Equations={eqns}: ROADMAP A14")
+        raise ValueError(f"no statistics for Equations={eqns}")
     ex = {"eqns": eqns, "y": np.asarray(sim.grid.y.nodes),
           "froude": sim.nsp.froude or 1.0}
     buo = sim.case.buoyancy
@@ -228,8 +220,10 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     pressure in the compressible set).  extras: build_extras' context
     (buoyancy field and vector, Froude number, Coriolis vector, nodes; the
     anelastic background), or the compressible writer's (the density,
-    temperature, energy, enthalpy, entropy and gamma fields)."""
-    _need(p, extras)
+    temperature, energy, enthalpy, entropy and gamma fields; a sound-speed
+    profile "c2" replaces <gamma p / rho>).  Legacy alias keys (SU, FU,
+    SV, FV, SW, FW, Prod) follow the written columns."""
+    p = _pressure(P, state, p, extras)
     ex = extras or {}
     anelastic = ex.get("eqns") == "anelastic" and "tp" in ex
     compressible = ex.get("eqns") in _COMPRESSIBLE
@@ -525,11 +519,15 @@ def flow_statistics(P, state, visc, p=None, extras=None):
                     gg = gg - rmean_y[cn][None, :, None]
                 out[f"{cn.upper()}_{an}{mom}"] = _pavg(gg ** mom)
 
-    # --- Acoustics (compressible) ----------------------------------------
-    if compressible:
-        gam3 = ex["gamma_field"]
+    # --- Acoustics (a density field and a sound speed) --------------------
+    gam3, c2 = ex.get("gamma_field"), ex.get("c2")
+    if gam3 is not None:
+        out["gamma"] = _pavg(gam3)
+    if c2 is None and rho3 is not None and gam3 is not None:
         c2 = _pavg(gam3 * p / rho3)              # <gamma p / rho>
-        out["gamma"], out["C2"] = _pavg(gam3), c2
+    if c2 is not None:
+        out["C2"] = c2
+    if rho3 is not None and c2 is not None:
         rho_ac3 = pf / c2[None, :, None]
         rho_en3 = rf3 - rho_ac3
         T_ac3 = (pf / rP[None, :, None]
@@ -566,6 +564,13 @@ def flow_statistics(P, state, visc, p=None, extras=None):
     if anelastic:
         out["rRref"], out["rTref"] = ex["rref"], ex["tref"]
         out.update(_stratification(P, ex, state, T3, ql3))
+
+    # --- legacy aliases (not written by write_avg) ------------------------
+    tiny = torch.finfo(u.dtype).tiny
+    for c, R in (("U", Rxx), ("V", Ryy), ("W", Rzz)):
+        out[f"S{c}"] = out[f"r{c}3"] / torch.clamp(R ** 1.5, min=tiny)
+        out[f"F{c}"] = out[f"r{c}4"] / torch.clamp(R ** 2, min=tiny)
+    out["Prod"] = Prd
     return out
 
 
@@ -633,8 +638,10 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
     (avg_scal_xz.f90:313-400, :421-423, :580-597, :760-763).  vis: the
     normalized viscosity field of a transport law multiplying the
     visc/diff molecular terms (EQNS_TRANS_SUTHERLAND/POWERLAW branches,
-    avg_scal_xz.f90:610+).  extras: as flow_statistics."""
-    _need(p, extras)
+    avg_scal_xz.f90:610+).  extras: as flow_statistics, and the scalar
+    sources "scalar_sources" ((ns,) + shape or shape) for the Q columns.
+    Legacy alias keys (Ss, Fs, Chi, Rss) follow the written columns."""
+    p = _pressure(P, state, p, extras)
     ex = extras or {}
     s = state.s[i]
     u, v, w = state.u, state.v, state.w
@@ -685,7 +692,13 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
     srf = s - rS[None, :, None]
     out["rS"], out["fS"] = rS, fS
     out["rS_y"], out["fS_y"] = rS_y, fS_y
-    out["rQ"], out["fQ"] = zero, zero        # no scalar sources
+
+    # source terms (radiation/evaporation/sedimentation): optional extras
+    q3 = ex.get("scalar_sources")
+    q3 = q3[i] if (q3 is not None and q3.ndim == 4) else q3
+    rQ = _pavg(q3) if q3 is not None else zero
+    fQ = (_pavg(rho * q3) / rR) if (q3 is not None and comp) else rQ
+    out["rQ"], out["fQ"] = rQ, fQ
 
     # density-weighted fluctuation field for cross terms
     sfw = sf * rho if comp else sf
@@ -784,6 +797,16 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
     else:
         Bsv = zero
 
+    # source-correlation terms (rho-weighted total source, then /rR)
+    if q3 is not None:
+        q3w = q3 * rho if comp else q3
+        Qss = 2.0 * _pavg(sf * q3w) / rR
+        Qsu = _pavg(uf * q3w) / rR
+        Qsv = _pavg(vf * q3w) / rR
+        Qsw = _pavg(wf * q3w) / rR
+    else:
+        Qss = Qsu = Qsv = Qsw = zero
+
     # Coriolis
     om_y = ex.get("coriolis_y", 0.0)
     Fsu = om_y * out["Rsw"] if om_y else zero
@@ -808,19 +831,19 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
     Dsv = (rS - fS) * dy(Tau_yy) + (rV - fV) * Fy_y
     Dsw = (rS - fS) * dy(Tau_yz) + (rW - fW) * Fy_y
 
-    # the source (Q) terms vanish: no scalar sources in these tables
-    out["Rss_t"] = Css + Pss - Ess + (Dss - Tssy_y) / rR
+    out["Rss_t"] = Css + Pss - Ess + Qss + (Dss - Tssy_y) / rR
     out["Css"], out["Pss"], out["Ess"] = Css, Pss, Ess
     out["Tssy1"], out["Tssy2"], out["Tssy_y"] = Tssy1, Tssy2, Tssy_y
-    out["Dss"], out["Qss"] = Dss, zero
-    out["Rsu_t"] = Csu + Psu - Esu - Fsu + (PIsu + Dsu - Tsuy_y) / rR
+    out["Dss"], out["Qss"] = Dss, Qss
+    out["Rsu_t"] = Csu + Psu - Esu - Fsu + Qsu + (PIsu + Dsu - Tsuy_y) / rR
     out["Csu"], out["Psu"], out["Esu"], out["PIsu"] = Csu, Psu, Esu, PIsu
     out["Tsuy1"], out["Tsuy2"], out["Tsuy_y"] = Tsuy1, Tsuy2, Tsuy_y
-    out["Rsv_t"] = Csv + Psv - Esv + Bsv + (PIsv + Dsv - Gsv - Tsvy_y) / rR
+    out["Rsv_t"] = Csv + Psv - Esv + Bsv + Qsv \
+        + (PIsv + Dsv - Gsv - Tsvy_y) / rR
     out["Csv"], out["Psv"], out["Esv"], out["PIsv"] = Csv, Psv, Esv, PIsv
     out["Tsvy1"], out["Tsvy2"], out["Tsvy3"], out["Tsvy_y"] = \
         Tsvy1, Tsvy2, Tsvy3, Tsvy_y
-    out["Rsw_t"] = Csw + Psw - Esw - Fsw + (PIsw + Dsw - Tswy_y) / rR
+    out["Rsw_t"] = Csw + Psw - Esw - Fsw + Qsw + (PIsw + Dsw - Tswy_y) / rR
     out["Csw"], out["Psw"], out["Esw"], out["PIsw"] = Csw, Psw, Esw, PIsw
     out["Tswy1"], out["Tswy2"], out["Tswy_y"] = Tswy1, Tswy2, Tswy_y
     for c in "uvw":
@@ -828,6 +851,7 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
             out[f"{n}s{c}"] = zero
     out["Dsu"], out["Dsv"], out["Dsw"], out["Gsv"] = Dsu, Dsv, Dsw, Gsv
     out["Bsv"], out["Fsu"], out["Fsw"] = Bsv, Fsu, Fsw
+    out["Qsu"], out["Qsv"], out["Qsw"] = Qsu, Qsv, Qsw
 
     # derivative moments
     dsdy_m = dsdy - rS_y[None, :, None]
@@ -842,6 +866,13 @@ def scalar_statistics(P, state, diff, i, p=None, visc=None, extras=None,
         sjf = sj - _pavg(sj)[None, :, None]
         out[f"Cs{j + 1}"] = _pavg(sjf * sf)
         out[f"Css{j + 1}"] = _pavg(sjf * sf * sf)
+
+    # legacy aliases
+    tiny = torch.finfo(s.dtype).tiny
+    out["Ss"] = rS3 / torch.clamp(rS2 ** 1.5, min=tiny)
+    out["Fs"] = rS4 / torch.clamp(rS2 ** 2, min=tiny)
+    out["Chi"] = Ess
+    out["Rss"] = rS2
     return out
 
 
@@ -875,15 +906,59 @@ def write_avg(path: str, y: np.ndarray, out: dict, groups, itime: int,
 
 
 def avg_writer(case):
-    """The averages writer for `case`: the ASCII one.  [Main]
-    FileFormat=netcdf (the reference's USE_NETCDF build writes avg<it>.nc,
-    io_averages.f90:64) is not ported."""
+    """Select the averages writer: NetCDF when [Main] FileFormat=netcdf
+    (the reference's USE_NETCDF build writes avg<it>.nc,
+    io_averages.f90:64), ASCII otherwise."""
     ini = getattr(case, "ini", None)
     if ini is not None and ini.get("Main", "FileFormat",
                                    "mpiio").lower() == "netcdf":
-        raise NotImplementedError(
-            "[Main] FileFormat=netcdf (NetCDF averages files): ROADMAP A14")
+        return write_avg_nc
     return write_avg
+
+
+def write_avg_nc(path: str, y: np.ndarray, out: dict, groups, itime: int,
+                 rtime: float) -> None:
+    """NetCDF averages file with the reference's layout
+    (io_averages.f90:64-89 USE_NETCDF branch): dims t (unlimited record)
+    and y; variables t/y (float), it (int), one float profile per column
+    with dims (y,t) and a 'group' attribute. Written as NetCDF3 classic
+    (scipy) -- same variable/dimension layout as the reference's
+    NetCDF4 files, readable by every nc tool."""
+    from scipy.io import netcdf_file
+    with netcdf_file(path if path.endswith(".nc") else path + ".nc",
+                     "w") as f:
+        f.createDimension("t", None)
+        f.createDimension("y", len(y))
+        vt = f.createVariable("t", "f4", ("t",))
+        vy = f.createVariable("y", "f4", ("y",))
+        vit = f.createVariable("it", "i4", ("t",))
+        vy[:] = np.asarray(y, np.float32)
+        vt[0] = np.float32(rtime)
+        vit[0] = np.int32(itime)
+        for gname, vars_ in groups:
+            for n in vars_.split():
+                v = f.createVariable(n, "f4", ("t", "y"))
+                v.group = gname
+                v[0, :] = np.asarray(out[n], np.float32)
+
+
+def read_avg_nc(path: str):
+    """Parse a .nc averages file -> (rtime, groups, dict) like read_avg."""
+    from scipy.io import netcdf_file
+    # mmap=False: the arrays are copied out, so the file closes cleanly
+    with netcdf_file(path, "r", mmap=False) as f:
+        rtime = float(f.variables["t"][0])
+        out = {"Y": np.array(f.variables["y"][:], float)}
+        gmap = {}
+        for n, v in f.variables.items():
+            if n in ("t", "y", "it"):
+                continue
+            out[n] = np.array(v[0, :], float)
+            g = getattr(v, "group", b"")
+            g = g.decode() if isinstance(g, bytes) else str(g)
+            gmap.setdefault(g, []).append(n)
+    groups = [(g, " ".join(ns)) for g, ns in gmap.items()]
+    return rtime, groups, out
 
 
 def read_avg(path: str):
@@ -928,3 +1003,34 @@ def read_table(path: str):
         names = fh.readline().split()[1:]
     data = np.loadtxt(path)
     return {n: data[:, i] for i, n in enumerate(names)}
+
+
+# ---------------------------------------------------------------------------
+# Conditional (gated) statistics -- intermittency analysis
+# (reference src/statistics/cavg.f90, FI_GATE conditioning)
+# ---------------------------------------------------------------------------
+
+def intermittency(gate):
+    """gamma(y): plane fraction of gated (gate > 0) points, in float64
+    (tlab_tpu's is float32: ~1e-7 apart)."""
+    return _pavg((gate > 0).to(torch.float64))
+
+
+def conditional_average(a, gate):
+    """Plane average of `a` over gated points; (cond_avg(ny,), gamma(ny,))."""
+    g = (gate > 0).to(a.dtype)
+    num = _pavg(a * g)
+    den = _pavg(g)
+    return num / torch.clamp(den, min=torch.finfo(a.dtype).tiny), den
+
+
+def conditional_flow_statistics(P, state, gate):
+    """Gated means and second moments of the velocity components."""
+    out = {}
+    for name, comp in (("U", state.u), ("V", state.v), ("W", state.w)):
+        mean, gamma = conditional_average(comp, gate)
+        out[f"c{name}"] = mean
+        var, _ = conditional_average(comp * comp, gate)
+        out[f"c{name}2"] = var - mean ** 2
+    out["gamma"] = gamma
+    return out

@@ -1,17 +1,25 @@
 """Command-line entry points sharing one tlab.ini-compatible config (port of
-tlab_tpu/tools/cli.py: pre-processing and the DNS loop).
+tlab_tpu/tools/cli.py: pre-processing, the DNS loop and the statistics
+post-processing).
 
 Usage:  python -m tlab_tpu_torch.tools.cli <command> [--ini tlab.ini] [options]
-Commands: inigrid, ini (aliases inirand, iniflow, iniscal), dns.
-Equivalent surface to the reference executables inigrid.x/inirand.x/
-iniflow.x/iniscal.x/dns.x.  The run is on the CUDA card unless --device
-names another device; --x64 computes in float64 (validation mode).
+Commands: inigrid, ini (aliases inirand, iniflow, iniscal), dns, averages,
+spectra, pdfs, superlayer, stats2nc.  Equivalent surface to the reference
+executables inigrid.x/inirand.x/iniflow.x/iniscal.x/dns.x/averages.x/
+spectra.x/pdfs.x, the superlayer tools and stats2nc.py.  The run is on the
+CUDA card unless --device names another device; --x64 computes in float64
+(validation mode).
 
 Files: inigrid writes `grid` and `<ini>.bak`; ini writes
 flow.<Start>.{1,2,3} and scal.<Start>.<i> (the compressible set: the
 conservative flow.<Start>.{1..5} and flow.<Start>.s<i>); dns reads them and
 writes dns.out, tlab.log, restarts at the [Iteration] Restart cadence and
-avg<it> / avg<it>s<i> at the Statistics cadence.
+avg<it> / avg<it>s<i> at the Statistics cadence.  The post-processing
+commands read the restarts of --files (else [PostProcessing] Files):
+averages writes avg<it>, avg<it>s<i> (and cavg<it>, int<it> with
+--gate-scalar; the ParamAverages analysis table), spectra xsp/zsp/rsp (and
+xcr/zcr, pow/pha), pdfs pdf<it>.<tag> (ParamPdfs), superlayer sl<it>.npz,
+stats2nc avg<it>.nc.
 """
 from __future__ import annotations
 
@@ -23,18 +31,19 @@ import torch
 
 # tlab_tpu's other commands and the ROADMAP item that ports each
 UNPORTED = {
-    "inipart": "A15", "averages": "A14", "spectra": "A14", "pdfs": "A14",
-    "superlayer": "A14", "visuals": "A16", "transfields": "A16",
+    "inipart": "A15", "visuals": "A16", "transfields": "A16",
     "transgrid": "A16", "apriori": "A16", "planes2nc": "A15",
-    "tower2nc": "A15", "stats2nc": "A14", "state": "A16", "smooth": "A16",
+    "tower2nc": "A15", "state": "A16", "smooth": "A16",
     "saturation": "A16", "reversal": "A16"}
 INI_COMMANDS = ("ini", "inirand", "iniflow", "iniscal")
+POST_COMMANDS = ("averages", "spectra", "pdfs", "superlayer")
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="tlab-tpu-torch")
     ap.add_argument("command",
-                    choices=["inigrid", *INI_COMMANDS, "dns", *UNPORTED])
+                    choices=["inigrid", *INI_COMMANDS, "dns", *POST_COMMANDS,
+                             "stats2nc", *UNPORTED])
     ap.add_argument("--inner-steps", type=int, default=1,
                     help="RK steps per host sync (fixed dt within)")
     ap.add_argument("--ini", default="tlab.ini")
@@ -47,6 +56,18 @@ def main(argv=None):
                     help="torch device to run on (default: the CUDA card; "
                          "'cpu' for a run without one)")
     ap.add_argument("--steps", type=int, default=None)
+    ap.add_argument("--files", default="",
+                    help="comma-separated snapshot iterations for "
+                         "postprocessing")
+    ap.add_argument("--cross", action="store_true",
+                    help="spectra: add pair cross-spectra (pow/pha)")
+    ap.add_argument("--correlations", action="store_true",
+                    help="spectra: add two-point correlations (xcr/zcr)")
+    ap.add_argument("--y-blocks", type=int, default=0,
+                    help="spectra: write 2-D (kx,kz) spectra in y blocks")
+    ap.add_argument("--gate-scalar", type=int, default=0,
+                    help="averages: condition on scalar # > gate level")
+    ap.add_argument("--gate-level", type=float, default=0.0)
     args = ap.parse_args(argv)
 
     if args.command in UNPORTED:
@@ -79,6 +100,17 @@ def _run(args) -> int:
         print(f"grid written: {grid.shape}")
         return 0
 
+    # [PostProcessing] Files = iteration list (the reference tools' batch
+    # input, dns_read_times.h), unless --files names them
+    its = [int(t) for t in args.files.split(",") if t] or [
+        int(v) for v in case.ini.get_floats("PostProcessing", "Files", ())]
+    if args.command == "stats2nc":
+        # scripts/python stats2nc.py: ASCII avg tables -> NetCDF (host only)
+        from tlab_tpu_torch.tools import convert
+        out = convert.stats_to_nc(args.outdir, its)
+        print(f"{args.command}: wrote {out}")
+        return 0
+
     dtype = torch.float64 if args.x64 else torch.float32
     sim = Simulation.from_case(case, dtype=dtype, device=args.device)
     flow = os.path.join(args.outdir, "flow")
@@ -100,6 +132,29 @@ def _run(args) -> int:
             fields_io.write_state(flow, scal, case.it_start, state, 0.0,
                                   sim.nsp.visc)
         print(f"initial fields written at it={case.it_start}")
+        return 0
+
+    if args.command in POST_COMMANDS:
+        from tlab_tpu_torch.tools import postprocess as pp
+        if args.command == "averages":
+            pp.run_averages(sim, args.outdir, its,
+                            gate_scalar=args.gate_scalar,
+                            gate_level=args.gate_level)
+        elif args.command == "spectra":
+            cross, corr = args.cross, args.correlations
+            psp = case.ini.get_floats("PostProcessing", "ParamSpectra", ())
+            if psp and not (cross or corr or args.y_blocks):
+                # ParamSpectra: 1 spectra, 2 cross-spectra,
+                # 3 correlations, 4 cross-correlations (spectra.f90 menu)
+                cross = int(psp[0]) in (2, 4)
+                corr = int(psp[0]) in (3, 4)
+            pp.run_spectra(sim, args.outdir, its, cross=cross,
+                           correlations=corr, y_blocks=args.y_blocks)
+        elif args.command == "pdfs":
+            pp.run_pdfs(sim, args.outdir, its)
+        else:
+            pp.run_superlayer(sim, args.outdir, its)
+        print(f"{args.command} done for {its}")
         return 0
 
     # dns

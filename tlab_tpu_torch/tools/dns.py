@@ -33,10 +33,16 @@ dycore/inflow.InflowBox) feeds the Imin/Imax strips each step, and a
 spatial run accumulates its (z, t) station statistics every step
 (st<it>.npz at the restart cadence, avg_zt<it> at the statistics cadence).
 
+At the statistics cadence the [Statistics] Pdfs/Intermittency/Spectrums/
+Correlations are computed on the device in one call and copied to the host
+as one flat tensor (_inrun_pdfs_spectra); an incompressible run with
+[Iteration] PhaseAvg accumulates the phase-locked z-means of u, v, w, the
+diagnostic pressure and the scalars every PhaseAvg steps (phavg<it>.npz at
+the restart cadence).
+
 What tlab_tpu's loop has beyond this thread (a device mesh, particles,
-planes and towers, phase statistics, in-run pdfs and spectra, the operator
-self-test) raises NotImplementedError naming the ROADMAP item that will
-port it.
+planes and towers, the operator self-test) raises NotImplementedError
+naming the ROADMAP item that will port it.
 """
 from __future__ import annotations
 
@@ -53,12 +59,17 @@ from tlab_tpu_torch.dycore import compressible as comp_mod
 from tlab_tpu_torch.dycore import implicit
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.buffer import apply_filter_sponge
+from tlab_tpu_torch.dycore.pressure import pressure_boussinesq
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.io import fields_io
+from tlab_tpu_torch.io import reference_formats as rf
 from tlab_tpu_torch.ops.filter import filter_state
 from tlab_tpu_torch.physics import eos, mixtures, thermo
 from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.stats import averages as avg
+from tlab_tpu_torch.stats import spectra
+from tlab_tpu_torch.stats.pdfs import pdf1v_plane_table_device
+from tlab_tpu_torch.stats.phaseavg import PhaseAverage
 from tlab_tpu_torch.stats.spatial import (SpatialStats,
                                           make_comp_spatial_reducer,
                                           register_station_table,
@@ -267,6 +278,7 @@ def write_statistics(sim: Simulation, state: State, outdir: str,
     place via AVG_IK_V, averages.f90:36-333)."""
     _write_tables(sim, outdir, itime, rtime,
                   *avg.stats_tables(sim, state, p))
+    _inrun_pdfs_spectra(sim, state, outdir, itime, rtime)
 
 
 def _write_tables(sim: Simulation, outdir: str, itime: int, rtime: float,
@@ -337,6 +349,68 @@ def write_statistics_compressible(sim: Simulation, U, outdir: str,
                                    p=p, visc=sim.nsp.visc, extras=extras,
                                    rho=rho, vis=vis) for i in range(ns)]
     _write_tables(sim, outdir, itime, rtime, *avg.to_host(flow, scals))
+    _inrun_pdfs_spectra(sim, state, outdir, itime, rtime)
+
+
+def _inrun_pdfs_spectra(sim: Simulation, state: State, outdir: str,
+                        itime: int, rtime: float) -> None:
+    """[Statistics] Pdfs / Intermittency / Spectrums / Correlations at
+    the statistics cadence (DNS_STATISTICS_TEMPORAL branches) -- shared
+    by the incompressible and compressible (primitive-view) writers.
+
+    Every table of every field is computed on the device and packed into
+    one flat float64 tensor, copied to the host once; the host slices the
+    pack and writes the files (the reference reduces everything in one
+    pass, averages.f90:36-333).  float64 keeps the pdf counts exact above
+    2^24 (the files hold float32, as the reference's)."""
+    ini = sim.case.ini
+    want_pdf = ini.get_bool("Statistics", "Pdfs", False)
+    want_int = bool(state.s.shape[0]) and \
+        ini.get_bool("Statistics", "Intermittency", False)
+    want_spec = ini.get_bool("Statistics", "Spectrums", False)
+    if not (want_pdf or want_int or want_spec):
+        return
+    nx, ny, nz = state.u.shape
+    nb = 32
+    want_corr = ini.get_bool("Statistics", "Correlations", False)
+    fields = dict(u=state.u, v=state.v, w=state.w)
+    for i in range(state.s.shape[0]):
+        fields[f"s{i + 1}"] = state.s[i]
+    plan = []                       # (kind, tag, table) per piece
+    if want_pdf:
+        plan += [("pdf", n, pdf1v_plane_table_device(f, nb))
+                 for n, f in fields.items()]
+    if want_int:
+        gate_level = ini.get_float("Statistics", "GateLevel", 0.5)
+        plan.append(("int", "gamma",
+                     avg.intermittency(state.s[0] > gate_level)))
+    if want_spec:
+        for n, f in fields.items():
+            t2 = "E" + 2 * (n[1:] if n.startswith("s") else n)
+            plan.append(("xsp", t2, 0.5 * spectra.spectrum_x(f)[: nx // 2]))
+            if nz > 1:
+                plan.append(("zsp", t2,
+                             0.5 * spectra.spectrum_z(f)[: nz // 2]))
+            if want_corr:
+                c2 = "C" + t2[1:]
+                plan.append(("xcr", c2, spectra.correlation_x(f)[: nx // 2]))
+                if nz > 1:
+                    plan.append(("zcr", c2,
+                                 spectra.correlation_z(f)[: nz // 2]))
+    flat = torch.cat([a.to(torch.float64).reshape(-1)
+                      for _, _, a in plan]).cpu().numpy()   # the one copy
+    y = sim.grid.y.nodes
+    off = 0
+    for kind, tag, a in plan:
+        a = flat[off:off + a.numel()].reshape(a.shape)
+        off += a.size
+        if kind == "pdf":
+            rf.write_pdf_file(outdir, f"pdf{itime}.{tag}", rtime, y, a, nb)
+        elif kind == "int":
+            avg.write_table(os.path.join(outdir, f"int{itime}"), y,
+                            {"gamma": a}, itime, rtime)
+        else:
+            rf.write_spectrum_file(outdir, kind, itime, tag, a)
 
 
 def write_obs(sim: Simulation, state: State, outdir: str, itime: int,
@@ -402,13 +476,6 @@ def _unported(case, mesh, pstate, particle_props, opr_check):
         found.append(("[SavePlanes]", "A15"))
     if (getattr(case, "towers", None) or {}).get("stride"):
         found.append(("[SaveTowers]", "A15"))
-    ini = getattr(case, "ini", None)
-    if ini is not None:
-        if ini.get_int("Iteration", "PhaseAvg", 0) > 0:
-            found.append(("[Iteration] PhaseAvg", "A14"))
-        for key in ("Pdfs", "Intermittency", "Spectrums"):
-            if ini.get_bool("Statistics", key, False):
-                found.append((f"[Statistics] {key}", "A14"))
     return found
 
 
@@ -576,6 +643,14 @@ def run(sim: Simulation, state: State, outdir: str = ".",
     dconst = sim.P["diffusion_constant"]
     max_dil = (getattr(case, "control", None)
                or {}).get("max_dilatation", -1.0)
+    # [Iteration] PhaseAvg: phase-locked z-means every `stride` steps
+    ph_stride = ini.get_int("Iteration", "PhaseAvg", 0) if ini else 0
+    phavg = None
+    if ph_stride > 0:
+        nx, ny, _ = sim.grid.shape
+        phavg = PhaseAverage.create(ph_stride,
+                                    max(case.it_restart, ph_stride), nx, ny,
+                                    n_scalars=sim.nsp.n_scalars)
 
     dt_lag, runtime_sec, profile = _loop_keys(ini, fixed_dt)
     prev_diag = None
@@ -665,6 +740,15 @@ def run(sim: Simulation, state: State, outdir: str = ".",
                     sim.grid.x.nodes, sim.grid.y.nodes, tabs, itime, rtime)
         if obs_log and itime % case.it_log == 0:
             write_obs(sim, state, outdir, itime, rtime)
+        if phavg is not None and phavg.wants(itime):
+            pfields = {"u": state.u, "v": state.v, "w": state.w,
+                       "p": pressure_boussinesq(sim.P, state)}
+            for i in range(sim.nsp.n_scalars):
+                pfields[f"s{i + 1}"] = state.s[i]
+            phavg.accumulate(itime, pfields)
+            if checkpoint and case.it_restart > 0 \
+                    and itime % case.it_restart == 0:
+                phavg.save(os.path.join(outdir, f"phavg{itime}.npz"), itime)
         if spatial_stats is not None and (itime - it_first) % stats_spa == 0:
             # one device reduction; only (K, nx, ny) comes to the host
             spatial_stats.accumulate_device(
