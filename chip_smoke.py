@@ -125,6 +125,27 @@ non-zero:
               NetCDF table; the diagnostic pressure in fp64 against the
               Poisson problem it solves, in fp32 against fp64 (at 128x64x64
               held to 2x tlab_tpu's drift)
+ 15. io+part  I/O and Lagrangian particles: K1-K3 against their plain
+              version at examples/particle_shear's shapes; (a) that case
+              (256x128x64, 100,000 tracers, RK4) through inigrid, ini,
+              inipart and dns, 10 steps (every particle inside the domain
+              after every step, part.10 with 100,000 unique tags, the 32
+              tagged trajectories every step, K1-K3 launch 5 a step and
+              once a pressure solve of the statistics, the particles' share
+              of a step, the scatter-add against fp64), tracers in a
+              uniform flow against x0 + u t, fp32 positions against fp64
+              (the CPU witness case,
+              held to 2x tlab_tpu's drift, and the case at full width);
+              (b) Type=Inertia on (a)'s fields and BilinearCloudFour on a
+              radiating two-scalar AirWaterLinear case at 256x128x64, 5
+              steps each (finite, liquid >= 0, residence clocks never
+              decrease); (c) the shear layer at 512x256x256 from 6a's
+              fields with [SavePlanes], 5 steps (the planes at the restart's
+              step equal to its fields cast to f4, planes2nc equal to the
+              files) and examples/ekman_mesh with its [SaveTowers] (the
+              tower means against the avg plane means, tower2nc); (d) one
+              512x256x256 restart field through the native engine and
+              through NumPy (the same bytes, both timed)
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 Without a CUDA card the script exits 1 and prints no result.
@@ -3166,6 +3187,547 @@ def report_stats(card: str, r: dict) -> None:
                 f"14 {k} launches {d[f'small_launches_{k}']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: I/O and Lagrangian particles (A15) -- the particle step through
+# K1-K3 from inipart's file, the part/trajectory/pdf files, [SavePlanes] and
+# [SaveTowers] with their NetCDF converters, the restart engine
+# ---------------------------------------------------------------------------
+
+PARTICLE_CASE = ROOT / "examples" / "particle_shear" / "tlab.ini"
+PARTICLE_SHAPE = (256, 128, 64)
+PARTICLE_STEPS = 10          # 15a; the case's End=40 cut
+OTHER_PARTICLE_STEPS = 5     # 15b
+N_TRAJ = 32                  # the case's [Particles] TrajNumber
+# tests/test_torch_particles.py's witness: its 32x24x16 copy of
+# tests/data/case01_small3d.ini, 300 tracers, 5 steps of dt 0.01, fp32
+# against fp64: tlab_tpu's own drift there (x64 off, as its CLI runs), the
+# port's is held to 2x it (both read 2.583e-07 on the CPU)
+PARTICLE_WITNESS = 2.583e-07
+WITNESS_STEPS, WITNESS_DT, WITNESS_N = 5, 0.01, 300
+# tracers in a uniform u = 0.7 for 20 steps of dt 0.01 (tests/
+# test_particles.py::test_tracer_uniform_advection) against x0 + u t: fp32
+# rounding of ~2.0 over 100 substeps; a sign error reads 0.28
+UNIFORM_TOL = 1e-5
+# the full-width fp32 positions against fp64 from the same files, 10 steps
+# of the same fixed dt: a wrong sign or index reads O(1)
+FULL_POS_TOL = 1e-3
+# the scatter-add (index_put_ with accumulate: atomics in any order on the
+# card) of a seeded value a particle at 15a's final positions, fp32 against
+# the fp64 scatter of the same values and positions, and the field's total
+# against the values' sum, each over the size of its terms: fp32 rounding of
+# the weights and of a few sums (~1e-7); a dropped corner reads ~0.1
+SCATTER_TOL = 1e-5
+PLANES_STEPS = 5             # 15c shear layer: planes and restart at 5
+PLANES = {"j": (1, 128, 255), "k": (0, 100)}     # 0-based node indices
+TOWER_STEPS = 4              # 15c Ekman layer: statistics and restart at 4
+TOWER_TOL = 1e-6             # tower means against the avg plane means
+
+
+def particle_case(changes=None, keys=()) -> str:
+    """examples/particle_shear/tlab.ini (256x128x64, 100,000 tracers), its
+    End cut to PARTICLE_STEPS, restart and statistics there."""
+    text = edit_case(PARTICLE_CASE.read_text(), {
+        ("Iteration", "End"): PARTICLE_STEPS,
+        ("Iteration", "Restart"): PARTICLE_STEPS,
+        ("Iteration", "Statistics"): PARTICLE_STEPS, **(changes or {})})
+    return add_keys(text, "Particles", list(keys)) if keys else text
+
+
+def cloud_particle_case(shape, steps: int) -> str:
+    """tests/test_particles.py::test_bil_cloud_radiation_coupling's case
+    (tests/data/case01_small.ini with two Tanh scalars and [Infrared]
+    grayliquid on scalar 1) at `shape` (z periodic), with the AirWaterLinear
+    mixture
+    whose liquid the droplets start from (l = 0.1 softplus((1 - 2 s1 +
+    0.5 s2) / 0.1): ~0 in the upper stream, ~1 in the lower) and 100,000
+    BilinearCloudFour particles (droplet constants (-2, 0.5, 0.1))."""
+    text = (ROOT / "tests" / "data" / "case01_small.ini").read_text()
+    text = text.replace("Schmidt=1.0", "Schmidt=1.0,1.0").replace(
+        "[Scalar]\nProfileScalar1=Tanh", "[Scalar]\nProfileScalar2=Tanh\n"
+        "ThickScalar2=0.05\nDeltaScalar2=-1.0\nMeanScalar2=0.5\n"
+        "Scalar2Jmin=neumann\nScalar2Jmax=neumann\nProfileScalar1=Tanh")
+    require("ProfileScalar2" in text, "15b: the two-scalar case")
+    text = edit_case(text, {**grid_keys(shape), ("Grid", "ZPeriodic"): "yes",
+                            ("IniGridOz", "periodic"): "yes",
+                            ("Iteration", "End"): steps,
+                            ("Iteration", "Restart"): steps,
+                            ("Iteration", "Statistics"): steps})
+    return text + (
+        "\n[Infrared]\nType=grayliquid\nScalar=1\n"
+        "BoundaryConditions=1.0, 0.0\nAbsorptionComponent1=10.0\n"
+        "\n[Thermodynamics]\nType=anelastic\nMixture=AirWaterLinear\n"
+        "Parameters=-2.0,0.5,0.1\n"
+        "\n[Particles]\nType=BilinearCloudFour\nNumber=100000\n"
+        "DiamIniP=0.3\nYMeanRelativeIniP=0.5\n")
+
+
+def recording_particle_step(store: list):
+    """dns' particle step wrapped: after each step the positions' per-axis
+    min and max and the props, kept on the card (no sync)."""
+    inner = dns_tool.rk_step_with_particles
+
+    def step(*args):
+        state, ps = inner(*args)
+        store.append((torch.stack([ps.x.amin(0), ps.x.amax(0)]),
+                      ps.props.clone()))
+        return state, ps
+    return inner, step
+
+
+def particle_cli(text: str, out: str, initial=None) -> dict:
+    """inigrid, ini (or the given initial fields), inipart and dns of `text`
+    through the CLI with the particle step recorded; the traced_cli result
+    with the records and the trace."""
+    ini = write_case(out, text)
+    commands = ("inigrid", "ini", "inipart", "dns")
+    if initial is not None:
+        link_initial_fields(initial, out)
+        commands = ("inipart", "dns")
+    store = []
+    inner, dns_tool.rk_step_with_particles = recording_particle_step(store)
+    try:
+        res = traced_cli(ini, out, commands)
+    finally:
+        dns_tool.rk_step_with_particles = inner
+    res["records"] = store
+    res["trace"] = read_trace(os.path.join(out, "tlab.trace"))
+    return res
+
+
+def particle_launches(sim, steps: int) -> list:
+    """K1-K3 launches of `dns` with particles over `steps` steps with the
+    statistics at the last: one a substep, and one diagnostic pressure
+    solve for the flow table and one for each scalar table (the particle
+    step returns no projection pressure, as tlab_tpu's, so the tables
+    solve for it as tlab_tpu's do)."""
+    return [steps * len(sim.P["rk"]["kdt"]) + 1 + sim.nsp.n_scalars] * 3
+
+
+def check_inside(tag: str, grid, records) -> None:
+    """x and z in [x0, x0 + L], y in [y0, y1] after every step (the fp32
+    wrap of a position a rounding below x0 lands on x0 + L, the same point
+    of the periodic axis)."""
+    lo = [grid.x.nodes[0], grid.y.nodes[0], grid.z.nodes[0]]
+    hi = [grid.x.nodes[0] + grid.x.scale, grid.y.nodes[-1],
+          grid.z.nodes[0] + grid.z.scale]
+    for n, (ext, _) in enumerate(records):
+        mn, mx = ext.double().cpu().numpy()
+        require(all(mn[d] >= lo[d] for d in range(3))
+                and all(mx[d] <= hi[d] for d in range(3)),
+                f"{tag}: a particle outside the domain after step {n + 1}: "
+                f"{mn} {mx}")
+
+
+def particle_share(sim, run, pprops) -> dict:
+    """ms of one RK step with the particles (rk_step_with_particles) on the
+    run's final state and of its particle work alone (per substep: the
+    gather of u, v, w, the update and the wrap), CUDA events, median of
+    REPS."""
+    from tlab_tpu_torch.particles import core as pcore
+    locate = pcore.make_locator(sim.grid)
+    state, ps = run.state, run.pstate
+    kdt = sim.P["rk"]["kdt"]
+    dt = 1e-3
+
+    def full():
+        dns_tool.rk_step_with_particles(sim.P, sim.grid, locate, pprops,
+                                        state, ps, dt)
+
+    def particles():
+        x = ps
+        for k in kdt:
+            dx, dv = pcore.particle_rhs(pprops, x, locate, state.u, state.v,
+                                        state.w)
+            x = x._replace(x=pcore.wrap_positions(sim.grid, x.x + dt * k * dx),
+                           v=x.v + dt * k * dv)
+
+    out = {}
+    for key, fn in (("step", full), ("particles", particles)):
+        fn()
+        out[key] = statistics.median(event_ms(fn) for _ in range(REPS))
+    return out
+
+
+def scatter_check(sim, pstate) -> dict:
+    """particles_to_field on the card at `pstate`'s positions (SCATTER_TOL):
+    max|f32 - f64| / max|f64| and |sum f32 - sum values| / sum |values|."""
+    from tlab_tpu_torch.particles import core as pcore
+    locate = pcore.make_locator(sim.grid)
+    gen = torch.Generator(device=pstate.x.device).manual_seed(3)
+    vals = torch.randn(pstate.x.shape[0], generator=gen,
+                       device=pstate.x.device)
+    f32 = pcore.particles_to_field(vals, locate(pstate.x), sim.grid.shape)
+    f64 = pcore.particles_to_field(vals.double(), locate(pstate.x.double()),
+                                   sim.grid.shape)
+    v64 = vals.double()
+    return {"field": ((f32.double() - f64).abs().max()
+                      / f64.abs().max()).item(),
+            "total": ((f32.double().sum() - v64.sum()).abs()
+                      / v64.abs().sum()).item()}
+
+
+def uniform_advection() -> float:
+    """tests/test_particles.py::test_tracer_uniform_advection on the card in
+    fp32: 100 tracers in u = 0.7, 20 steps of dt 0.01 through
+    rk_step_with_particles (K1-K3 at 32x33x16); max over the tracers of
+    |x - (x0 + u t)| modulo the box, and of the y drift."""
+    from tlab_tpu_torch.fdm.plan import build_fdm_plan as fdm_plan
+    from tlab_tpu_torch.grid import uniform_grid
+    from tlab_tpu_torch.particles import core as pcore
+    from tlab_tpu_torch.physics.params import NSParams
+    grid = uniform_grid(32, 33, 16, 2.0, 1.0, 1.5)
+    dev = tdevice.resolve("cuda")
+    P = dyn.build_device_plans(
+        fdm_plan(grid), NSParams(reynolds=1e6, schmidt=()),
+        dyn.WallBCs.from_velocity_kind("freeslip", "freeslip", scalar_bcs=()),
+        dtype=torch.float32, device=dev)
+    u0, dt, n = 0.7, 0.01, 20
+    z = torch.zeros(grid.shape, device=dev)
+    state = State(u=torch.full(grid.shape, u0, device=dev), v=z, w=z,
+                  s=z.new_zeros((0,) + grid.shape))
+    ps = pcore.init_particles(grid, 100, seed=3, dtype=torch.float32)
+    x0 = ps.x.double().cpu().numpy()
+    locate = pcore.make_locator(grid)
+    for _ in range(n):
+        state, ps = dns_tool.rk_step_with_particles(
+            P, grid, locate, pcore.ParticleProps(), state, ps, dt)
+    x = ps.x.double().cpu().numpy()
+    d = np.abs(np.mod(x[:, 0], grid.x.scale)
+               - np.mod(x0[:, 0] + u0 * dt * n, grid.x.scale))
+    return max(float(np.minimum(d, grid.x.scale - d).max()),
+               float(np.abs(x[:, 1] - x0[:, 1]).max()))
+
+
+def witness_case() -> str:
+    """tests/test_torch_particles.py's SMALL: tests/data/case01_small3d.ini
+    at 32x24x16."""
+    text = (ROOT / "tests" / "data" / "case01_small3d.ini").read_text()
+    return edit_case(text, grid_keys((32, 24, 16)))
+
+
+def positions_fp32_fp64(text: str, steps: int, dt: float, n_part: int,
+                        seed: int, ymean_rel: float, diam: float) -> float:
+    """`steps` particle steps of fixed dt from the case's initial state
+    (tools/initialize.initial_state, seed 7) and the same init_particles
+    draw (the slab at ymean_rel of the y scale, `diam` wide), in fp32 and in
+    fp64 on the card: max|x32 - x64| / max|x64|."""
+    from tlab_tpu_torch.particles import core as pcore
+    from tlab_tpu_torch.tools.initialize import initial_state
+    x = {}
+    fields = None
+    for dtype in (torch.float64, torch.float32):
+        sim = Simulation.from_case(load_case(Ini(text=text)), dtype=dtype,
+                                   device="cuda")
+        if fields is None:
+            fields = state_to_numpy(initial_state(sim, seed=7))
+        st = state_from_numpy(*fields, "cuda", dtype)
+        ymean = float(sim.grid.y.nodes[0]) + ymean_rel * float(
+            sim.grid.y.scale)
+        ps = pcore.init_particles(sim.grid, n_part, seed=seed, ymean=ymean,
+                                  diam=diam, dtype=dtype)
+        locate = pcore.make_locator(sim.grid)
+        for _ in range(steps):
+            st, ps = dns_tool.rk_step_with_particles(
+                sim.P, sim.grid, locate, pcore.ParticleProps(), st, ps, dt)
+        x[dtype] = ps.x.double()
+        del sim, st
+    ref = x[torch.float64]
+    return ((x[torch.float32] - ref).abs().max() / ref.abs().max()).item()
+
+
+def phase_particles(card: str) -> dict:
+    """15a: examples/particle_shear/tlab.ini at 256x128x64 through the CLI
+    (inigrid, ini, inipart, dns of PARTICLE_STEPS steps); 15b: Type=Inertia
+    on the same case from 15a's fields, and BilinearCloudFour on the
+    radiating two-scalar case, OTHER_PARTICLE_STEPS steps each."""
+    from tlab_tpu_torch.particles import io as pio
+    from tlab_tpu_torch.particles.core import props_from_ini
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        r = particle_cli(particle_case(), out)
+        run, n_sub = r["run"], len(r["run"].sim.P["rk"]["kdt"])
+        sim = run.sim
+        check_inside("15a", sim.grid, r["records"])
+        require(len(r["records"]) == PARTICLE_STEPS,
+                f"15a: {len(r['records'])} particle steps")
+        ps, it = pio.read_particles(os.path.join(out,
+                                                 f"part.{PARTICLE_STEPS}"),
+                                    dtype=torch.float32)
+        tags = ps.tags.cpu().numpy()
+        require(it == PARTICLE_STEPS and ps.x.shape == (100000, 3)
+                and np.unique(tags).size == 100000,
+                f"15a part.{PARTICLE_STEPS}: {tuple(ps.x.shape)}, "
+                f"{np.unique(tags).size} unique tags")
+        require(torch.equal(ps.x, run.pstate.x),
+                "15a: part file and the run's positions differ")
+        traj = np.load(os.path.join(out, f"trajectories.1-{PARTICLE_STEPS}"
+                                    ".npz"))
+        require(traj["x"].shape == (PARTICLE_STEPS, N_TRAJ, 3)
+                and list(traj["itimes"]) == list(range(1, PARTICLE_STEPS + 1))
+                and list(traj["tags"]) == list(range(N_TRAJ)),
+                f"15a trajectories: {traj['x'].shape}")
+        require(np.array_equal(traj["x"][-1],
+                                run.pstate.x[:N_TRAJ].cpu().numpy()),
+                "15a: the trajectories' last row against the run")
+        want = particle_launches(sim, PARTICLE_STEPS)
+        require(r["launches"] == want,
+                f"15a launched {r['launches']}, expected {want}")
+        share = particle_share(sim, run, props_from_ini(sim.case.ini))
+        res["scatter"] = scatter_check(sim, run.pstate)
+        print(rate_line("15a particle_shear, 100,000 tracers", card,
+                        PARTICLE_SHAPE, PARTICLE_STEPS, n_sub, r["trace"], r,
+                        "particles")
+              + f"; ini {r['seconds']['ini']:.3f} s, inipart "
+              f"{r['seconds']['inipart']:.3f} s; one RK step on the final "
+              f"state {share['step']:.3f} ms, its particle work alone "
+              f"{share['particles']:.3f} ms "
+              f"({100 * share['particles'] / share['step']:.1f}%)")
+        res["15a"] = r["launches"]
+        # 15b: inertial particles on the same fields
+        initial = out
+        with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out2:
+            text = particle_case(
+                {("Particles", "Type"): "Inertia",
+                 ("Iteration", "End"): OTHER_PARTICLE_STEPS,
+                 ("Iteration", "Restart"): OTHER_PARTICLE_STEPS,
+                 ("Iteration", "Statistics"): OTHER_PARTICLE_STEPS},
+                ["Parameters=0.05,0.5"])
+            r2 = particle_cli(text, out2, initial=initial)
+            check_inside("15b inertia", r2["run"].sim.grid, r2["records"])
+            v = r2["run"].pstate.v
+            require(bool(torch.isfinite(r2["run"].pstate.x).all()
+                         and torch.isfinite(v).all())
+                    and v.abs().max().item() > 0.0,
+                    "15b inertia: velocities non-finite or at rest")
+            want = particle_launches(r2["run"].sim, OTHER_PARTICLE_STEPS)
+            require(r2["launches"] == want,
+                    f"15b inertia launched {r2['launches']}, expected {want}")
+            print(rate_line("15b Type=Inertia (Stokes 0.05, settling 0.5)",
+                            card, PARTICLE_SHAPE, OTHER_PARTICLE_STEPS, n_sub,
+                            r2["trace"], r2, "particles")
+                  + f"; max|v_p| {v.abs().max().item():.4f}")
+            res["15b_inertia"] = r2["launches"]
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        r3 = particle_cli(cloud_particle_case(PARTICLE_SHAPE,
+                                              OTHER_PARTICLE_STEPS), out)
+        sim3 = r3["run"].sim
+        n3 = len(sim3.P["rk"]["kdt"])
+        check_inside("15b bil_cloud", sim3.grid, r3["records"])
+        liq_min = min(p[:, :2].min().item() for _, p in r3["records"])
+        prev = r3["records"][0][1][:, 2:4]
+        clocks_ok = True
+        for _, p in r3["records"][1:]:
+            clocks_ok &= bool((p[:, 2:4] >= prev).all())
+            prev = p[:, 2:4]
+        final = r3["run"].pstate.props
+        require(bool(torch.isfinite(final).all())
+                and bool(torch.isfinite(r3["run"].state.s).all()),
+                "15b bil_cloud: non-finite props or scalars")
+        require(liq_min >= 0.0, f"15b bil_cloud: liquid {liq_min} < 0")
+        require(clocks_ok, "15b bil_cloud: a residence clock decreased")
+        require(final[:, :2].abs().max().item() > 0.0,
+                "15b bil_cloud: no liquid on the droplets")
+        want = particle_launches(sim3, OTHER_PARTICLE_STEPS)
+        require(r3["launches"] == want,
+                f"15b bil_cloud launched {r3['launches']}, expected {want}")
+        print(rate_line("15b BilinearCloudFour, [Infrared] grayliquid", card,
+                        PARTICLE_SHAPE, OTHER_PARTICLE_STEPS, n3, r3["trace"],
+                        r3, "particles")
+              + f"; liquid min {liq_min:.3e}, max "
+              f"{final[:, :2].max().item():.4f}; residence clocks up to "
+              f"{final[:, 2:4].max().item():.4e}, never decreasing")
+        res["15b_bil_cloud"] = r3["launches"]
+    del r, r2, r3, run, sim, sim3
+    res["uniform"] = uniform_advection()
+    res["witness"] = positions_fp32_fp64(witness_case(), WITNESS_STEPS,
+                                         WITNESS_DT, WITNESS_N, 1, 0.5, 0.3)
+    res["full"] = positions_fp32_fp64(particle_case(), PARTICLE_STEPS, 1e-3,
+                                      100000, 7, 0.5, 0.3)
+    print(f"[particles] 15a tracers in a uniform flow (32x33x16 fp32, 20 "
+          f"steps) against x0 + u t: {res['uniform']:.3e} (limit "
+          f"{UNIFORM_TOL}); fp32 positions against fp64 on the card: the "
+          f"witness case {res['witness']:.3e} (limit "
+          f"{2.0 * PARTICLE_WITNESS:.3e}: 2x tlab_tpu's "
+          f"{PARTICLE_WITNESS:.3e}), particle_shear at {PARTICLE_SHAPE} "
+          f"{PARTICLE_STEPS} steps of dt 1e-3 {res['full']:.3e} (limit "
+          f"{FULL_POS_TOL}); the scatter-add of 100,000 values at 15a's "
+          f"final positions, fp32 against fp64 {res['scatter']['field']:.3e}"
+          f", its total against the values' sum "
+          f"{res['scatter']['total']:.3e} (limit {SCATTER_TOL} each)")
+    require(res["uniform"] <= UNIFORM_TOL,
+            f"15a uniform advection {res['uniform']}")
+    require(0.0 < res["witness"] <= 2.0 * PARTICLE_WITNESS,
+            f"15a fp32 positions {res['witness']} > 2x {PARTICLE_WITNESS}")
+    require(res["full"] <= FULL_POS_TOL, f"15a fp32 positions {res['full']}")
+    require(max(res["scatter"].values()) <= SCATTER_TOL,
+            f"15a scatter-add {res['scatter']}")
+    return res
+
+
+def planes_case() -> str:
+    """The shear layer at 512x256x256 with [SavePlanes] (three j planes, two
+    k planes) every PLANES_STEPS steps, the restart at PLANES_STEPS."""
+    text = edit_case(CASE.read_text(), {
+        ("Iteration", "End"): PLANES_STEPS,
+        ("Iteration", "Restart"): PLANES_STEPS,
+        ("Iteration", "Statistics"): 1000})
+    text = add_keys(text, "Iteration", [f"SavePlanes={PLANES_STEPS}"])
+    return text + "\n[SavePlanes]\n" + planes_keys() + "\n"
+
+
+def planes_keys() -> str:
+    return "\n".join(f"Planes{ax.upper()}=" + ",".join(map(str, idx))
+                     for ax, idx in PLANES.items())
+
+
+def towers_case() -> str:
+    """examples/ekman_mesh/tlab.ini at its 128x96x128 with its [SaveTowers]
+    Stride=16,1,16, without its [Parallel] mesh (ROADMAP A17); statistics
+    and restart (the towers' flush) at TOWER_STEPS."""
+    text = EKMAN.read_text()
+    text, n = re.subn(r"^\[Parallel\]\n[^\[]*", "", text, flags=re.M)
+    require(n == 1 and "[SaveTowers]\nStride=16,1,16" in text,
+            "15c: the Ekman case's sections")
+    return edit_case(text, {("Iteration", "End"): TOWER_STEPS,
+                            ("Iteration", "Restart"): TOWER_STEPS,
+                            ("Iteration", "Statistics"): TOWER_STEPS})
+
+
+def nc_variables(path: str) -> dict:
+    from scipy.io import netcdf_file
+    with netcdf_file(path, "r", mmap=False) as f:
+        return {k: np.array(v[:]) for k, v in f.variables.items()}
+
+
+def phase_planes_towers(card: str, initial: str) -> dict:
+    """15c: the shear layer's planes from 6a's fields and the Ekman layer's
+    towers through the CLI, each held to the restart and the avg tables
+    of its own run, and read back through planes2nc and tower2nc; 15d: one
+    512x256x256 restart field through the engine and through NumPy."""
+    from tlab_tpu_torch.io import reference_formats as rf
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = write_case(out, planes_case())
+        link_initial_fields(initial, out)
+        r = traced_cli(ini, out, ("dns",))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        n_sub = len(r["run"].sim.P["rk"]["kdt"])
+        res["launches_planes"] = r["launches"]
+        want = [PLANES_STEPS * n_sub] * 3
+        require(r["launches"] == want,
+                f"15c planes launched {r['launches']}, expected {want}")
+        it = PLANES_STEPS
+        fields = fields_io.read_state(os.path.join(out, "flow"),
+                                      os.path.join(out, "scal"), it, 1)[:4]
+        vars_ = list(fields[:3]) + [fields[3][0]]
+        names = ["VelocityX", "VelocityY", "VelocityZ", "Scalar1"]
+        nc_t = time.perf_counter()
+        run_cli("planes2nc", ini, out, "--files", str(it))
+        nc_t = time.perf_counter() - nc_t
+        for axis, idx in PLANES.items():
+            path = os.path.join(out, f"planes{axis.upper()}.{it}")
+            data = rf.read_planes_file(path, axis, MAIN_SHAPE, 5, len(idx))
+            ax = "ijk".index(axis)
+            for iv, f in enumerate(vars_):
+                want32 = np.take(f, idx, axis=ax).astype("<f4")
+                got = np.moveaxis(data[iv], 0, ax)
+                require(np.array_equal(got, want32),
+                        f"15c planes{axis.upper()}.{it} variable {iv}: not "
+                        "the restart's field cast to f4")
+            require(np.isfinite(data[4]).all() and np.abs(data[4]).max() > 0,
+                    f"15c planes{axis.upper()}.{it}: the pressure")
+            nc = nc_variables(path + ".nc")
+            for iv, nm in enumerate(names + ["Pressure"]):
+                require(np.array_equal(nc[nm], data[iv]),
+                        f"15c planes2nc {axis} {nm}")
+        res["checkpoint_s"] = trace[f"checkpoint {it}"][1]
+        print(rate_line("15c shear layer with [SavePlanes] "
+                        + planes_keys().replace("\n", " "), card, MAIN_SHAPE,
+                        PLANES_STEPS, n_sub, trace, r, "planes")
+              + f"; planesJ/planesK at {it} equal to the restart's fields "
+              f"cast to f4 bit for bit, planes2nc {nc_t:.3f} s equal to the "
+              f"files; the checkpoint of 4 fields through the engine "
+              f"{res['checkpoint_s']:.3f} s")
+        # 15d: one restart field through the engine and through NumPy
+        a = np.ascontiguousarray(fields[0])
+        paths = {k: os.path.join(out, k) for k in ("engine", "numpy")}
+        t = {}
+        for key, fn in (("engine_write", lambda: fields_io.write_field(
+                            paths["engine"], a, it, (0.0, 1e-3))),
+                        ("numpy_write", lambda: fields_io.write_field_plain(
+                            paths["numpy"], a, it, (0.0, 1e-3))),
+                        ("engine_read", lambda: fields_io.read_field(
+                            paths["numpy"])),
+                        ("numpy_read", lambda: fields_io.read_field_plain(
+                            paths["engine"]))):
+            t0 = time.perf_counter()
+            got = fn()
+            t[key] = time.perf_counter() - t0
+            if got is not None:
+                require(np.array_equal(got[0], a), f"15d {key}: the field")
+        with open(paths["engine"], "rb") as fa, open(paths["numpy"],
+                                                     "rb") as fb:
+            same = fa.read() == fb.read()
+        require(same, "15d: the engine's file differs from NumPy's")
+        res["io"] = t
+        print(f"[io] 15d one {MAIN_SHAPE} float64 restart field "
+              f"({a.nbytes} B; {os.cpu_count()} host cores): engine write "
+              f"{t['engine_write']:.3f} s, NumPy {t['numpy_write']:.3f} s "
+              f"(files equal byte for byte); read engine "
+              f"{t['engine_read']:.3f} s, NumPy {t['numpy_read']:.3f} s")
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = write_case(out, towers_case())
+        r = traced_cli(ini, out, ("ini", "dns"))
+        trace = read_trace(os.path.join(out, "tlab.trace"))
+        n_sub = len(r["run"].sim.P["rk"]["kdt"])
+        res["launches_towers"] = r["launches"]
+        want = [TOWER_STEPS * n_sub] * 3
+        require(r["launches"] == want,
+                f"15c towers launched {r['launches']}, expected {want}")
+        ny = EKMAN_SHAPE[1]
+        means = sorted(n for n in os.listdir(out)
+                       if n.startswith("tower.mean."))
+        require(len(means) == 4, f"15c: tower mean files {means}")
+        span = means[0].split(".")[2]
+        _, _, flow = averages.read_avg(os.path.join(out,
+                                                    f"avg{TOWER_STEPS}"))
+        _, _, scal = averages.read_avg(os.path.join(out,
+                                                    f"avg{TOWER_STEPS}s1"))
+        err = 0.0
+        for iv, col in ((1, flow["rU"]), (2, flow["rV"]), (3, flow["rW"]),
+                        (5, scal["rS"])):
+            t_, its, d = rf.read_tower_file(
+                os.path.join(out, f"tower.mean.{span}.{iv}"), ny)
+            require(list(its) == list(range(1, TOWER_STEPS + 1)),
+                    f"15c tower.mean {iv}: iterations {list(its)}")
+            err = max(err, float(np.abs(d[-1] - col).max()
+                                 / max(np.abs(col).max(), 1e-30)))
+        cols = sorted(n for n in os.listdir(out) if n.startswith("tower.0"))
+        n_cols = (EKMAN_SHAPE[0] // 16) * (EKMAN_SHAPE[2] // 16)
+        require(len(cols) == 4 * n_cols,
+                f"15c: {len(cols)} tower column files, expected "
+                f"{4 * n_cols}")
+        run_cli("tower2nc", ini, out)
+        nc = nc_variables(os.path.join(out, "towers.nc"))
+        first = cols[0]
+        i_pos, k_pos = int(first[6:12]), int(first[13:19])
+        ci = [(int(c[6:12]), int(c[13:19])) for c in cols
+              if c.endswith(".1")].index((i_pos, k_pos))
+        _, _, d = rf.read_tower_file(os.path.join(out, first), ny)
+        require(np.array_equal(nc["VelocityX"][:, :, ci],
+                               d.astype(np.float32)),
+                "15c tower2nc: VelocityX of the first tower")
+        print(rate_line("15c Ekman layer with [SaveTowers] Stride=16,1,16",
+                        card, EKMAN_SHAPE, TOWER_STEPS, n_sub, trace, r,
+                        "planes")
+              + f"; {len(cols)} tower files, the means at step "
+              f"{TOWER_STEPS} against avg{TOWER_STEPS}'s rU rV rW rS "
+              f"{err:.3e} of each column's max (limit {TOWER_TOL}); "
+              f"towers.nc {tuple(nc['VelocityX'].shape)} equal to the files")
+        require(err <= TOWER_TOL, f"15c tower means {err}")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -3266,14 +3828,27 @@ def main() -> int:
     for rec, err in zip(records, errs):
         rec["max_abs_err_14"] = err
     stats = phase_stats(smi, initial)
-    keep.cleanup()
     report_stats(smi, stats)
     for cmd, got in stats["launches"].items():
         for rec, n in zip(records, got):
             rec[f"launches_14{cmd}"] = n
     t14 = time.perf_counter() - t14
+    t15 = time.perf_counter()
+    for rec, err in zip(records, check_case_kernels(particle_case())):
+        rec["max_abs_err_15a"] = err
+    parts = phase_particles(smi)
+    planes = phase_planes_towers(smi, initial)
+    keep.cleanup()
+    for key, got in (("15a", parts["15a"]),
+                     ("15b_inertia", parts["15b_inertia"]),
+                     ("15b_bil_cloud", parts["15b_bil_cloud"]),
+                     ("15c", planes["launches_planes"]),
+                     ("15c_towers", planes["launches_towers"])):
+        for rec, n in zip(records, got):
+            rec[f"launches_{key}"] = n
+    t15 = time.perf_counter() - t15
     print(f"[slice] phase 10 took {t10:.1f} s, 11 {t11:.1f} s, 12 "
-          f"{t12:.1f} s, 13 {t13:.1f} s, 14 {t14:.1f} s")
+          f"{t12:.1f} s, 13 {t13:.1f} s, 14 {t14:.1f} s, 15 {t15:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -95,11 +95,79 @@ def test_default_device_is_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("command, item", [("transgrid", "A16"),
-                                           ("inipart", "A15"),
                                            ("visuals", "A16")])
 def test_unported_command_exits_with_its_item(command, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         cli.main([command])
+
+
+def test_inipart_once_refused_matches_jax(tmp_path):
+    """`inipart`, refused until the particles were ported: the 3-D case
+    with [Particles] through both command lines, part.0 byte for byte."""
+    with open(CASE3D) as fh:
+        text = fh.read() + ("\n[Particles]\nType=Tracer\nNumber=500\n"
+                            "DiamIniP=0.2\nYMeanRelativeIniP=0.4\n")
+    for name, main, extra in (("torch", cli.main, ["--device", "cpu"]),
+                              ("jax", jcli.main, ["--cpu"])):
+        out = tmp_path / name
+        out.mkdir()
+        (out / "tlab.ini").write_text(text)
+        assert main(["inipart", "--ini", str(out / "tlab.ini"), "--outdir",
+                     str(out), "--x64", *extra]) == 0
+    assert (tmp_path / "torch" / "part.0").read_bytes() == \
+        (tmp_path / "jax" / "part.0").read_bytes()
+
+
+@pytest.mark.parametrize("section, prefix", [
+    ("[SavePlanes]\nPlanesJ=3,40\nPlanesK=2\n", "planes"),
+    ("[SaveTowers]\nStride=16,4,8\nPressure=yes\n", "tower.")])
+def test_saveplanes_and_savetowers_through_both_clis(rundir, tmp_path,
+                                                      section, prefix):
+    """[SavePlanes] and [SaveTowers], refused until this slice: dns of 2
+    steps of the 3-D case from the port's initial fields through both
+    command lines (planes every step, the towers flushed at the restart of
+    step 2), then planes2nc / tower2nc: dns.out in every printed digit, the
+    same files, equal to the runs' round-off (planes in float32, towers in
+    float64), and the NetCDF variables of each to the same round-off."""
+    with open(CASE3D) as fh:
+        text = fh.read().replace("Restart=10", "Restart=2").replace(
+            "IteraLog=1", "IteraLog=1\nSavePlanes=1") + "\n" + section
+    for name, main, extra in (("torch", cli.main, ["--device", "cpu"]),
+                              ("jax", jcli.main, ["--cpu"])):
+        out = tmp_path / name
+        out.mkdir()
+        (out / "tlab.ini").write_text(text)
+        for f in ("flow.0.1", "flow.0.2", "flow.0.3", "scal.0.1"):
+            shutil.copy(rundir / f, out / f)
+        common = ["--ini", str(out / "tlab.ini"), "--outdir", str(out),
+                  "--x64", *extra]
+        assert main(["dns", *common, "--steps", "2"]) == 0
+        conv = "planes2nc" if prefix == "planes" else "tower2nc"
+        assert main([conv, *common, "--files", "1,2"]) == 0
+    t, j = tmp_path / "torch", tmp_path / "jax"
+    assert (t / "dns.out").read_text() == (j / "dns.out").read_text()
+    names = sorted(n for n in os.listdir(j) if n.startswith(prefix)
+                   and not n.endswith(".nc"))
+    assert names == sorted(n for n in os.listdir(t) if n.startswith(prefix)
+                           and not n.endswith(".nc"))
+    assert len(names) == (4 if prefix == "planes" else 5 * 8 * 2 + 5)
+    dt, tol = ("<f4", 1e-6) if prefix == "planes" else ("<f8", 1e-10)
+    for n in names:
+        a, b = np.fromfile(t / n, dt), np.fromfile(j / n, dt)
+        assert np.abs(a - b).max() <= tol * np.abs(b).max(), n
+    from scipy.io import netcdf_file
+    ncs = sorted(n for n in os.listdir(j) if n.endswith(".nc"))
+    assert ncs and ncs == sorted(n for n in os.listdir(t)
+                                 if n.endswith(".nc"))
+    for n in ncs:
+        with netcdf_file(t / n, "r", mmap=False) as ft, \
+                netcdf_file(j / n, "r", mmap=False) as fj:
+            assert sorted(ft.variables) == sorted(fj.variables)
+            for k, v in fj.variables.items():
+                a, b = np.array(ft.variables[k][:]), np.array(v[:])
+                assert a.shape == b.shape, (n, k)
+                assert np.abs(a - b).max() <= 1e-6 * max(np.abs(b).max(),
+                                                           1e-30), (n, k)
 
 
 COMPRESSIBLE = ("Equations=incompressible", "Equations=internal")
@@ -109,10 +177,11 @@ COMPRESSIBLE = ("Equations=incompressible", "Equations=internal")
     # the options the case file can ask for beyond the port (the
     # compressible set's characteristic boundaries and moist mixture run
     # now: test_compressible_option_once_refused_runs_as_jax; the
-    # [Statistics] pdfs and spectra: tests/test_torch_postprocess.py)
-    ((("[BufferZone]\nType=none", "[SavePlanes]\nPlanesJ=3"),), "A15"),
+    # [Statistics] pdfs and spectra: tests/test_torch_postprocess.py;
+    # [SavePlanes] and [SaveTowers]: tests/test_torch_planes.py and
+    # test_saveplanes_and_savetowers_through_both_clis below)
     ((("[BufferZone]\nType=none",
-       "[BufferZone]\nType=none\n[SaveTowers]\nStride=4,4,4"),), "A15")])
+       "[BufferZone]\nType=none\n[Parallel]\nMesh=4,2"),), "A17")])
 def test_unported_option_exits_with_its_item(rundir, tmp_path, edits, item):
     for name in ("flow.0.1", "flow.0.2", "flow.0.3", "scal.0.1"):
         shutil.copy(rundir / name, tmp_path / name)

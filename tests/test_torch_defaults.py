@@ -31,7 +31,9 @@ KNOWN = ("tlab_tpu_torch.entry.build",
          "tlab_tpu_torch.ibm.fill_from_dense",
          "tlab_tpu_torch.dycore.buffer.build_buffer",
          "tlab_tpu_torch.dycore.buffer.filter_sponge_amp",
-         "tlab_tpu_torch.dycore.inflow.InflowBox.refs_at")
+         "tlab_tpu_torch.dycore.inflow.InflowBox.refs_at",
+         "tlab_tpu_torch.particles.core.init_particles",
+         "tlab_tpu_torch.particles.io.read_particles")
 
 
 def _callables(module):

@@ -357,8 +357,7 @@ def test_restart_identity(tmp_path, start):
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(mesh=object()), "A17"), (dict(pstate=object()), "A15"),
-    (dict(opr_check=True), "A16")])
+    (dict(mesh=object()), "A17"), (dict(opr_check=True), "A16")])
 def test_unported_arguments_raise(tmp_path, start, kw, item):
     sim = Simulation.from_case(load_case(CASE3D), dtype=F64, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -366,15 +365,67 @@ def test_unported_arguments_raise(tmp_path, start, kw, item):
                  outdir=str(tmp_path), n_steps=1, **kw)
 
 
-@pytest.mark.parametrize("extra, item", [
-    ("\n[SavePlanes]\nPlanesJ=3\n", "A15"),
-    ("\n[SaveTowers]\nStride=4,4,4\n", "A15")])
-def test_unported_case_options_raise(tmp_path, start, extra, item):
-    sim = Simulation.from_case(load_case(Ini(text=_text(extra))), dtype=F64,
-                               device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tdns.run(sim, state_from_numpy(*start, "cpu", F64),
-                 outdir=str(tmp_path), n_steps=1)
+def test_particles_once_refused_run_as_jax(tmp_path, start):
+    """dns.run with particles (pstate, particle_props), refused until they
+    were ported: 4 steps of the 3-D case with 200 tracers through both
+    packages, restarts at step 2 and 4: dns.out in its printed digits, the
+    final flow and positions to 1e-10 of their max, part.2 and part.4."""
+    from tlab_tpu.particles import core as jpc
+    from tlab_tpu_torch.particles import core as tpc
+    from tlab_tpu_torch.particles.io import read_particles
+    text = _text(replace=[("Restart=10", "Restart=2")])
+    jsim = JSimulation.from_case(jload_case(JIni(text=text)))
+    tsim = Simulation.from_case(load_case(Ini(text=text)), dtype=F64,
+                                device="cpu")
+    u, v, w, s = start
+    runs = []
+    for mod, sim, state, pmod, kw, sub in (
+            (jdns, jsim, JState(u=u, v=v, w=w, s=s), jpc, {}, "jax"),
+            (tdns, tsim, state_from_numpy(u, v, w, s, "cpu", F64), tpc,
+             {"device": "cpu"}, "torch")):
+        out = tmp_path / sub
+        out.mkdir()
+        ps = pmod.init_particles(sim.grid, 200, seed=4, **kw)
+        runs.append(mod.run(sim, state, outdir=str(out), n_steps=4,
+                            log_path=str(out / "dns.out"), pstate=ps,
+                            particle_props=pmod.ParticleProps()))
+    rj, rt = runs
+    _assert_same_run(rj, rt, 5)
+    x = rt.pstate.x.numpy()
+    assert np.max(np.abs(x - np.asarray(rj.pstate.x))) <= 1e-10 * \
+        np.max(np.abs(x))
+    for it in (2, 4):
+        a, _ = read_particles(str(tmp_path / "jax" / f"part.{it}"),
+                              device="cpu")
+        b, _ = read_particles(str(tmp_path / "torch" / f"part.{it}"),
+                              device="cpu")
+        assert torch.equal(a.tags, b.tags)
+        assert float((a.x - b.x).abs().max()) <= 1e-10 * float(
+            a.x.abs().max())
+
+
+@pytest.mark.parametrize("extra, prefix", [
+    ("\n[SavePlanes]\nPlanesJ=3\n", "planes"),
+    ("\n[SaveTowers]\nStride=4,4,4\n", "tower.")])
+def test_case_options_once_refused_run_as_jax(tmp_path, start, extra,
+                                              prefix):
+    """[SavePlanes] and [SaveTowers], refused until this slice: 4 steps of
+    the 3-D case (planes every 2 steps, restarts and the towers' flush at
+    2 and 4) through both packages: the same run, the same files, each
+    equal to the run's round-off."""
+    text = _text(extra, replace=[("Restart=10", "Restart=2"),
+                                 ("IteraLog=1", "IteraLog=1\nSavePlanes=2")])
+    rj, rt = _run_both(tmp_path, start, text, n_steps=4)
+    _assert_same_run(rj, rt, 5)
+    names = sorted(n for n in os.listdir(tmp_path / "jax")
+                   if n.startswith(prefix))
+    assert names and names == sorted(
+        n for n in os.listdir(tmp_path / "torch") if n.startswith(prefix))
+    dt, tol = ("<f4", 1e-6) if prefix == "planes" else ("<f8", 1e-10)
+    for n in names:
+        a = np.fromfile(tmp_path / "jax" / n, dt)
+        b = np.fromfile(tmp_path / "torch" / n, dt)
+        assert np.abs(a - b).max() <= tol * np.abs(a).max(), n
 
 
 @pytest.mark.parametrize("key", ["Pdfs", "Spectrums", "Intermittency"])

@@ -391,3 +391,52 @@ def test_statistics_run_without_jax(tmp_path):
     for want in ("avg2.nc", "phavg2.npz", "pdf2.p", "pdf2.s1", "xsp2.Euu",
                  "rsp2.E11", "sl2.npz"):
         assert want in names, names
+
+
+# the I/O and particles slice where JAX and tlab_tpu cannot be imported:
+# ini, inipart, dns with tracers, planes and towers, then planes2nc and
+# tower2nc through the port's CLI; the restart engine built from
+# native/tlabio.cpp
+_PARTICLE_PROBE = """
+import os, sys
+for name in ("jax", "jaxlib", "tlab_tpu"):
+    sys.modules[name] = None
+from tlab_tpu_torch.tools import cli
+from tlab_tpu_torch.io import fields_io
+common = ["--ini", sys.argv[1], "--outdir", sys.argv[2], "--device", "cpu",
+          "--x64"]
+for command in ("ini", "inipart", "dns", "planes2nc", "tower2nc"):
+    extra = ["--files", "2"] if command == "planes2nc" else []
+    assert cli.main([command, *common, *extra]) == 0, command
+assert fields_io._engine().__name__ == "_tlabio"
+bad = [m for m in sys.modules if sys.modules[m] is not None
+       and m.split(".")[0] in ("jax", "jaxlib", "tlab_tpu")]
+assert not bad, bad
+print(" ".join(sorted(os.listdir(sys.argv[2]))))
+"""
+
+
+def test_particles_planes_and_towers_run_without_jax(tmp_path):
+    """ini, inipart, dns (2 steps: tracers with trajectories, planes and
+    towers), planes2nc and tower2nc of a 32x24x16 copy of
+    tests/data/case01_small3d.ini where neither JAX nor tlab_tpu can be
+    imported."""
+    text = (REPO / "tests" / "data" / "case01_small3d.ini").read_text()
+    for old, new in (("Imax=128", "Imax=32"), ("Jmax=64", "Jmax=24"),
+                     ("points_1=129", "points_1=33"),
+                     ("points_1=64", "points_1=24"), ("End=10", "End=2"),
+                     ("Restart=10", "Restart=2"),
+                     ("Statistics=5", "Statistics=2"),
+                     ("IteraLog=1", "IteraLog=1\nSavePlanes=2")):
+        assert old in text
+        text = text.replace(old, new)
+    text += ("\n[Particles]\nType=Tracer\nNumber=100\nTrajNumber=4\n"
+             "\n[SavePlanes]\nPlanesJ=3\n\n[SaveTowers]\nStride=8,2,8\n")
+    ini = tmp_path / "tlab.ini"
+    ini.write_text(text)
+    proc = _run(_PARTICLE_PROBE, str(ini), str(tmp_path / "run"))
+    assert proc.returncode == 0, proc.stderr
+    names = proc.stdout.split("\n")[-2].split()
+    for want in ("part.0", "part.2", "trajectories.1-2.npz", "planesJ.2",
+                 "planesJ.2.nc", "towers.nc", "tower.mean.000002-000002.1"):
+        assert want in names, names

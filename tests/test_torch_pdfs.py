@@ -366,5 +366,8 @@ def test_locator_matches_jax(pair):
     ref = jcore.interpolate_to_particles(
         js.u, jcore.make_locator(jsim.grid)(jnp.asarray(pos)))
     _close(got, ref, "gather", 1e-13)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        tcore.init_particles
+    # the particles themselves, once refused (ROADMAP A15): the same
+    # positions from the same draw
+    ps = tcore.init_particles(tsim.grid, 64, seed=3, device="cpu")
+    assert np.array_equal(ps.x.numpy(), np.asarray(
+        jcore.init_particles(jsim.grid, 64, seed=3).x))

@@ -1,5 +1,5 @@
 """Restart/field file I/O in the reference's on-disk format (port of
-tlab_tpu/io/fields_io.py, NumPy path).
+tlab_tpu/io/fields_io.py).
 
 Layout (cf. reference src/base/io_fields.f90:534-596, stream access, no
 record markers): header of 5 int32 (offset, nx, ny, nz, nt) followed by
@@ -11,8 +11,15 @@ transpose (nz, ny, nx) written contiguously.  A State's tensors come to the
 host through convert.state_to_numpy (float64, which holds a float32 value
 exactly), so a restart written by this package is read by tlab_tpu and the
 other way round.  The compressible restart (write_comp_state) holds the
-five conservative fields and the rho*s scalars.  The threaded native engine
-and the visualization formats are ROADMAP A15.
+five conservative fields and the rho*s scalars.
+
+A little-endian float64 field goes through the threaded engine of
+native/tlabio.cpp (cache-blocked transpose on every core, then one write or
+read), built with g++ on first use (ops/_build.host_extension) where
+tlab_tpu uses it; a failed build raises.  write_field_plain and
+read_field_plain, the NumPy path, take the other formats (float32,
+big-endian) and are the engine's plain version.  write_visual/read_visual
+are the visualization files ([PostProcessing] Format).
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 
 from tlab_tpu_torch.convert import state_to_numpy
 from tlab_tpu_torch.dycore.compressible import CompState
+from tlab_tpu_torch.ops import _build
 
 _HDR = struct.Struct("<5i")
 _HDR_BE = struct.Struct(">5i")
@@ -35,10 +43,30 @@ def _header_sane(offset, nx, ny, nz, nt) -> bool:
             and 0 <= nt < 2 ** 30)
 
 
+def _engine():
+    """The native restart-file engine (native/tlabio.cpp), built on first
+    use."""
+    return _build.host_extension("tlabio")
+
+
 def write_field(path: str, arr: np.ndarray, itime: int = 0,
                 params=(0.0, 0.0), dtype="<f8", byteorder: str = "<") -> None:
     """byteorder '>' writes the big-endian layout of the reference's
-    -fconvert=big builds (config/mpipc.cmake BIG)."""
+    -fconvert=big builds (config/mpipc.cmake BIG).  A little-endian float64
+    file goes through the native engine, any other through NumPy."""
+    if dtype == "<f8" and byteorder == "<":
+        a = np.ascontiguousarray(arr, dtype=np.float64)
+        nx, ny, nz = a.shape
+        _engine().write_field(path, a, nx, ny, nz, int(itime),
+                              np.asarray(params, "<f8").tobytes())
+        return
+    write_field_plain(path, arr, itime, params, dtype, byteorder)
+
+
+def write_field_plain(path: str, arr: np.ndarray, itime: int = 0,
+                      params=(0.0, 0.0), dtype="<f8",
+                      byteorder: str = "<") -> None:
+    """write_field through NumPy: a strided transpose on one core."""
     arr = np.asarray(arr)
     nx, ny, nz = arr.shape
     params = np.asarray(params, dtype=byteorder + "f8")
@@ -52,21 +80,39 @@ def write_field(path: str, arr: np.ndarray, itime: int = 0,
                  .tobytes())
 
 
+def _header(path: str):
+    """(byteorder, offset, nx, ny, nz, nt) of a field file's header."""
+    with open(path, "rb") as fh:
+        head = fh.read(_HDR.size)
+    offset, nx, ny, nz, nt = _HDR.unpack(head)
+    if not _header_sane(offset, nx, ny, nz, nt):
+        vals = _HDR_BE.unpack(head)
+        if _header_sane(*vals):
+            return (">",) + vals
+    return "<", offset, nx, ny, nz, nt
+
+
 def read_field(path: str, dtype="<f8"):
     """Returns (arr (nx, ny, nz) float64, params array, itime).
 
     Endianness is AUTODETECTED from the 5-int32 header sanity check
     (offset/shape ranges): the reference's example fixtures were written
-    by per-machine -fconvert builds in either byte order."""
+    by per-machine -fconvert builds in either byte order.  A little-endian
+    double-precision file is read by the native engine."""
+    byteorder, offset, nx, ny, nz, _ = _header(path)
+    if dtype == "<f8" and byteorder == "<" \
+            and os.path.getsize(path) - offset == nx * ny * nz * 8:
+        out = np.empty((nx, ny, nz), np.float64)
+        _, _, _, it, praw = _engine().read_field(path, out)
+        return out, np.frombuffer(praw, dtype="<f8"), it
+    return read_field_plain(path, dtype)
+
+
+def read_field_plain(path: str, dtype="<f8"):
+    """read_field through NumPy (any byte order, float32 or float64)."""
     with open(path, "rb") as fh:
         data = fh.read()
-    byteorder = "<"
-    offset, nx, ny, nz, nt = _HDR.unpack(data[:_HDR.size])
-    if not _header_sane(offset, nx, ny, nz, nt):
-        vals = _HDR_BE.unpack(data[:_HDR.size])
-        if _header_sane(*vals):
-            byteorder = ">"
-            offset, nx, ny, nz, nt = vals
+    byteorder, offset, nx, ny, nz, nt = _header(path)
     nparams = (offset - _HDR.size) // 8
     params = np.frombuffer(data, dtype=byteorder + "f8", count=nparams,
                            offset=_HDR.size)
@@ -152,3 +198,28 @@ def read_comp_state(prefix_flow: str, itime: int):
     return CompState(rhou=arrs[0], rhov=arrs[1], rhow=arrs[2],
                      rho=arrs[3], rhoE=arrs[4],
                      rhos=np.stack(rhos) if rhos else None), rtime, visc
+
+
+def write_visual(path: str, arr, itime: int = 0, params=(0.0,),
+                 fmt: str = "single") -> None:
+    """Visualization field ([PostProcessing] Format, visuals.f90
+    FORMAT_SINGLE default): 'single' = RAW float32, no header, x
+    innermost (what the reference's xdmf/python readers mmap);
+    'general' = the restart stream format.  arr: an (nx, ny, nz) array or
+    tensor (any device)."""
+    if fmt == "general":
+        write_field(path, _host(arr), itime, params)
+        return
+    np.ascontiguousarray(_host(arr).transpose(2, 1, 0)).astype(
+        "<f4").tofile(path)
+
+
+def read_visual(path: str, shape):
+    """Read a visualization field written by write_visual: raw f32 when
+    the file size matches shape exactly, else the restart format."""
+    nx, ny, nz = shape
+    if os.path.getsize(path) == nx * ny * nz * 4:
+        raw = np.fromfile(path, "<f4")
+        return raw.reshape(nz, ny, nx).transpose(2, 1, 0).astype(
+            np.float64)
+    return read_field(path)[0]

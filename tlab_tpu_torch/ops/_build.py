@@ -6,17 +6,21 @@ sm_90a (Hopper) on its first use in a process, into
 sources and flags: an unchanged source loads the existing library, a
 changed one builds anew.  ``host_library`` does the same for a plain C
 source with the host compiler alone (native/nrrand.c, the reference's random
-stream).  Importing this module builds nothing.  A failed build raises with
-the compiler's stderr.
+stream), and ``host_extension`` for a CPython extension in C++
+(native/tlabio.cpp, the threaded restart-file engine), compiled with g++
+against this interpreter's headers and imported as a module.  Importing this
+module builds nothing.  A failed build raises with the compiler's stderr.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.util
 import os
 import pathlib
 import shutil
 import subprocess
+import sysconfig
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
@@ -52,12 +56,10 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _load(key: str, so: pathlib.Path, compiler: str, flags, src, libs=()):
-    """The library `so`, compiled from `src` first where it is not there
-    yet; loaded once a process under `key`."""
-    lib = _loaded.get(key)
-    if lib is not None:
-        return lib
+def _compile(key: str, so: pathlib.Path, compiler: str, flags, src,
+             libs=()) -> None:
+    """Compile `src` into `so` where it is not there yet (atomically: a
+    concurrent build of the same key leaves one whole file)."""
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
@@ -73,6 +75,15 @@ def _load(key: str, so: pathlib.Path, compiler: str, flags, src, libs=()):
         builds[key] = {"path": str(so),
                        "seconds": time.perf_counter() - t0,
                        "log": proc.stderr}
+
+
+def _load(key: str, so: pathlib.Path, compiler: str, flags, src, libs=()):
+    """The library `so`, compiled from `src` first where it is not there
+    yet; loaded once a process under `key`."""
+    lib = _loaded.get(key)
+    if lib is not None:
+        return lib
+    _compile(key, so, compiler, flags, src, libs)
     lib = _loaded[key] = ctypes.CDLL(str(so))
     return lib
 
@@ -112,3 +123,42 @@ def host_library(name: str) -> ctypes.CDLL:
     h.update(src.read_bytes())
     return _load(key, BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so",
                  cc_path(), CC_FLAGS, src, libs=("-lm",))
+
+
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+
+
+def cxx_path() -> str:
+    for name in ("g++", "c++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (g++, c++) found; the native "
+                       "extension cannot be built")
+
+
+def host_extension(name: str):
+    """The CPython extension module built from native/<name>.cpp with g++
+    against this interpreter's headers (built if needed), keyed by the hash
+    of source, flags, include path and extension suffix; imported once a
+    process as the module _<name>, as native/build.py names it (the
+    source's init function is PyInit__<name>)."""
+    key = f"ext:{name}"
+    if key in _loaded:
+        return _loaded[key]
+    src = NATIVE / f"{name}.cpp"
+    if not src.exists():
+        raise RuntimeError(f"{src} not found; the native extension cannot "
+                           "be built")
+    include = sysconfig.get_paths()["include"]
+    flags = (*CXX_FLAGS, f"-I{include}")
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(str(sysconfig.get_config_var("EXT_SUFFIX")).encode())
+    h.update(src.read_bytes())
+    so = BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    _compile(key, so, cxx_path(), flags, src)
+    spec = importlib.util.spec_from_file_location(f"_{name}", so)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    _loaded[key] = module
+    return module

@@ -40,9 +40,19 @@ as one flat tensor (_inrun_pdfs_spectra); an incompressible run with
 diagnostic pressure and the scalars every PhaseAvg steps (phavg<it>.npz at
 the restart cadence).
 
-What tlab_tpu's loop has beyond this thread (a device mesh, particles,
-planes and towers, the operator self-test) raises NotImplementedError
-naming the ROADMAP item that will port it.
+Lagrangian particles (`pstate`, `particle_props`) ride the step
+(particles/stepping.rk_step_with_particles, one RK step a window), with the
+part.<it> restarts, the tagged trajectories (trajectories.<a>-<b>.npz at
+the restart cadence) and the particle PDFs (particle_pdf.<it> at the
+statistics cadence).  [SavePlanes] writes planesI/J/K.<it> every
+[Iteration] SavePlanes steps (u, v, w, the scalars and the pressure: the
+step's own, else the diagnostic one), [SaveTowers] accumulates its strided
+columns and plane means every step and flushes them at the restart cadence;
+both in the compressible set too (the primitive view, the EOS pressure).
+
+What tlab_tpu's loop has beyond this thread (a device mesh, the operator
+self-test) raises NotImplementedError naming the ROADMAP item that will
+port it.
 """
 from __future__ import annotations
 
@@ -63,7 +73,11 @@ from tlab_tpu_torch.dycore.pressure import pressure_boussinesq
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.io import fields_io
 from tlab_tpu_torch.io import reference_formats as rf
+from tlab_tpu_torch.io.planes import PlaneSpec, TowerAccumulator, write_planes
 from tlab_tpu_torch.ops.filter import filter_state
+from tlab_tpu_torch.particles import io as pio
+from tlab_tpu_torch.particles.core import make_locator, n_props
+from tlab_tpu_torch.particles.stepping import rk_step_with_particles
 from tlab_tpu_torch.physics import eos, mixtures, thermo
 from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.stats import averages as avg
@@ -139,6 +153,7 @@ class DnsRun:
     itime: int
     rtime: float
     log: RunLog
+    pstate: object = None
 
 
 def newton_error_fn(sim: Simulation):
@@ -158,7 +173,8 @@ def newton_error_fn(sim: Simulation):
         ane["tp"], state.s, ane["bg"])
 
 
-def make_step_functions(sim: Simulation, inner_steps: int = 1):
+def make_step_functions(sim: Simulation, inner_steps: int = 1,
+                        particles=None):
     """(step, diagnostics) for the single-device run.
 
     step(state, dtime, extra=None) takes `inner_steps` RK steps at a fixed
@@ -169,9 +185,18 @@ def make_step_functions(sim: Simulation, inner_steps: int = 1):
     tensor [CFL max, dilatation min, dilatation max(, NewtonRs)], which the
     host reads in one copy.  extra: the step's aux dict ({"visc_scale":
     factor, "rtime": t} or None).  NewtonRs: where newton_error_fn(sim)
-    gives the column."""
+    gives the column.
+
+    particles (a ParticleProps): step(state, pstate, dtime) takes one RK
+    step of the flow and the particles (rk_step_with_particles, whatever the
+    case's TimeOrder, as tlab_tpu) and returns (state, pstate,
+    diagnostics(new state))."""
     P = sim.P
     if sim.comp is not None:
+        if particles is not None:
+            raise NotImplementedError(
+                "particles in the compressible set: tlab_tpu has no "
+                "particle step for it")
         return _compressible_step_functions(sim)
     newton = newton_error_fn(sim)
     # TimeOrder=RungeKuttaDiffusion3: the SMR91 semi-implicit diffusion step
@@ -198,6 +223,14 @@ def make_step_functions(sim: Simulation, inner_steps: int = 1):
         else:
             new_state, p = dyn.rk_step(P, state, dtime, aux=extra)
         return new_state, p, diagnostics(new_state)
+
+    if particles is not None:
+        locate = make_locator(sim.grid)
+
+        def step(state, pstate, dtime):
+            new_state, new_ps = rk_step_with_particles(
+                P, sim.grid, locate, particles, state, pstate, dtime)
+            return new_state, new_ps, diagnostics(new_state)
 
     return step, diagnostics
 
@@ -462,21 +495,36 @@ def velocity_gradients(P, state) -> dict:
     return g
 
 
-def _unported(case, mesh, pstate, particle_props, opr_check):
+def _unported(mesh, opr_check):
     """(option, ROADMAP item) of what this run asks for beyond the port."""
     found = []
     if mesh is not None:
         found.append(("mesh (multi-GPU pencils)", "A17"))
-    if pstate is not None or particle_props is not None:
-        found.append(("particles", "A15"))
     if opr_check:
         found.append(("opr_check (operator self-test)", "A16"))
-    planes = getattr(case, "planes", None) or {}
-    if any(planes.get(ax) for ax in ("i", "j", "k")):
-        found.append(("[SavePlanes]", "A15"))
-    if (getattr(case, "towers", None) or {}).get("stride"):
-        found.append(("[SaveTowers]", "A15"))
     return found
+
+
+def _plane_specs(case, n_steps: int):
+    """([PlaneSpec], the planes' cadence) of [SavePlanes]; [Iteration]
+    SavePlanes <= 0 is clamped to the run length (dns_read_local.f90:538),
+    i.e. no in-run planes without the key."""
+    cfg = getattr(case, "planes", None) or {}
+    specs = [PlaneSpec(axis=ax, indices=cfg[ax]) for ax in ("i", "j", "k")
+             if cfg.get(ax)]
+    step = cfg.get("step", -1)
+    return specs, (step if step > 0 else n_steps + 1)
+
+
+def _towers(case):
+    """The TowerAccumulator of [SaveTowers], or None.  Stride is (si, sj,
+    sk) -- ALL three, including the y subsampling (dns_tower.f90:4-8);
+    a short list is padded with its last value, like LIST_INT."""
+    st = tuple(int(v) for v in
+               (getattr(case, "towers", None) or {}).get("stride", ()))
+    if not st:
+        return None
+    return TowerAccumulator(stride=(st + st[-1:] * 3)[:3])
 
 
 def _restart_dtype(ini) -> str:
@@ -559,14 +607,20 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         inner_steps: int = 1, inflow=None,
         restart_visc: Optional[float] = None, mesh=None) -> DnsRun:
     case = sim.case
-    missing = _unported(case, mesh, pstate, particle_props, opr_check)
+    missing = _unported(mesh, opr_check)
     if missing:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(
                 f"{opt} (ROADMAP {item})" for opt, item in missing))
     ini = getattr(case, "ini", None)
     n_steps = n_steps if n_steps is not None else (case.it_end - itime)
+    if pstate is not None and inflow is not None:
+        raise NotImplementedError("unsteady inflow with particles")
     if sim.comp is not None:
+        if pstate is not None:
+            raise NotImplementedError(
+                "particles in the compressible set: tlab_tpu has no "
+                "particle step for it")
         return _run_compressible(sim, state, outdir, itime, rtime, n_steps,
                                  log_path, checkpoint, nan_abort,
                                  restart_visc)
@@ -576,8 +630,9 @@ def run(sim: Simulation, state: State, outdir: str = ".",
     filt_step = case.filter.step if case.filter is not None else 0
     timed = bool(getattr(sim.P.get("bodyforce"), "time_dependent", False))
     spatial = case.flow_type == "spatial"
-    if filt is not None or timed or spatial or inflow is not None:
-        inner_steps = 1     # per-step host work (the sums, the planes)
+    if filt is not None or timed or spatial or inflow is not None \
+            or pstate is not None:
+        inner_steps = 1     # per-step host work (the sums, the particles)
     restart_dtype = _restart_dtype(ini)
     _trace.maybe_init(case, outdir)
     if sim.P.get("surface_bc") is not None and state.sfc is None \
@@ -596,13 +651,23 @@ def run(sim: Simulation, state: State, outdir: str = ".",
                               rtime, visc, dtype=restart_dtype)
 
     # the [ViscChange] ramp rides into the step as the visc_scale factor on
-    # every diffusivity (as tlab_tpu: no ramp with an unsteady inflow)
+    # every diffusivity (as tlab_tpu: no ramp with an unsteady inflow or
+    # with particles)
     cfla = case.time_cfl
     cfld = case.time_cfl_diffusive
     fixed_dt = case.time_step if case.time_step > 0 else None
     visc_ini = sim.nsp.visc
     visc, ramp_rate = _visc_ramp(ini, visc_ini, restart_visc,
-                                 ramp=inflow is None)
+                                 ramp=inflow is None and pstate is None)
+    if pstate is not None and particle_props is not None:
+        # the droplet types need their property columns (a file from
+        # inipart carries none): padded with zeros, else the droplet
+        # integration would not run
+        need = n_props(particle_props) - pstate.props.shape[1]
+        if need > 0:
+            pstate = pstate._replace(props=torch.cat(
+                [pstate.props, pstate.x.new_zeros((pstate.x.shape[0],
+                                                   need))], dim=1))
 
     def _aux():
         aux = {}
@@ -619,7 +684,9 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         return aux or None
 
     with _trace.trace("building step functions"):
-        step, diagnostics = make_step_functions(sim, inner_steps=inner_steps)
+        step, diagnostics = make_step_functions(
+            sim, inner_steps=inner_steps,
+            particles=particle_props if pstate is not None else None)
     newton = newton_error_fn(sim) is not None
 
     write_tlab_log(sim, outdir)
@@ -628,6 +695,23 @@ def run(sim: Simulation, state: State, outdir: str = ".",
 
     obs_log = ini.get("Iteration", "ObsLog", "none").lower() != "none" \
         if ini else False
+    plane_specs, plane_step = _plane_specs(case, n_steps)
+    towers = _towers(case)
+    tower_pressure = bool((case.towers or {}).get("pressure"))
+    # in-run particle trajectories and PDFs ([Particles] TrajNumber /
+    # CalculatePDF, reference particle_trajectories.f90, particle_pdf.f90)
+    traj = part_pdf = None
+    if pstate is not None and ini is not None:
+        tn = ini.get_int("Particles", "TrajNumber", 0)
+        if tn > 0:
+            traj = pio.TrajectoryAccumulator(
+                tag_ids=np.arange(min(tn, pstate.x.shape[0])))
+        if ini.get_bool("Particles", "CalculatePDF", False):
+            part_pdf = {
+                "subdomain": ini.get_floats("Particles", "PdfSubdomain", ()),
+                "max": ini.get_float("Particles", "PdfMax", 10.0),
+                "interval": ini.get_float("Particles", "PdfInterval", 0.5),
+                "locate": make_locator(sim.grid)}
     # spatial mode: (z, t) running sums every [Iteration] SaveStats steps
     # (tlab_tpu's default 1; the reference accumulates once at the end)
     spatial_stats = None
@@ -669,7 +753,11 @@ def run(sim: Simulation, state: State, outdir: str = ".",
     _trace.point("time loop starts")
     for _ in range(0, n_steps, inner_steps):
         t_it = time.monotonic()
-        state, p_cur, diag = step(state, dtime, extra=_aux())
+        if pstate is not None:
+            state, pstate, diag = step(state, pstate, dtime)
+            p_cur = None
+        else:
+            state, p_cur, diag = step(state, dtime, extra=_aux())
         itime += inner_steps
         rtime += dtime * inner_steps      # Python float64, never a tensor
         visc = _ramped(visc, visc_ini, ramp_rate, dtime * inner_steps)
@@ -721,10 +809,14 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             if checkpoint and case.it_restart > 0:
                 checkpoint_now()
             break
-        if checkpoint and case.it_restart > 0 \
-                and itime % case.it_restart == 0:
+        restart_now = checkpoint and case.it_restart > 0 \
+            and itime % case.it_restart == 0
+        if restart_now:
             with _trace.trace(f"checkpoint {itime}"):
                 checkpoint_now()
+                if pstate is not None:
+                    pio.write_particles(
+                        os.path.join(outdir, f"part.{itime}"), pstate, itime)
         if case.it_stats > 0 and itime % case.it_stats == 0:
             with _trace.trace(f"statistics {itime}"):
                 write_statistics(sim, state, outdir, itime, rtime, p=p_cur)
@@ -738,24 +830,41 @@ def run(sim: Simulation, state: State, outdir: str = ".",
                 write_station_budgets(
                     os.path.join(outdir, f"avg_zt{itime}"),
                     sim.grid.x.nodes, sim.grid.y.nodes, tabs, itime, rtime)
+        if traj is not None:
+            traj.accumulate(itime, rtime, pstate)
+            if restart_now:
+                traj.flush(outdir)
+        if part_pdf is not None and case.it_stats > 0 \
+                and itime % case.it_stats == 0:
+            _particle_pdf(sim, state, pstate, part_pdf, outdir, itime)
         if obs_log and itime % case.it_log == 0:
             write_obs(sim, state, outdir, itime, rtime)
+        if plane_specs and (itime - it_first) % plane_step == 0:
+            # every plane set carries the pressure too (planes.f90
+            # PLANES_INITIALIZE sizes flow + scalars + 1)
+            write_planes(outdir, itime, state, plane_specs,
+                         pressure=p_cur if p_cur is not None
+                         else pressure_boussinesq(sim.P, state))
+        if towers is not None:
+            towers.accumulate(itime, rtime, state, pressure=(
+                pressure_boussinesq(sim.P, state) if tower_pressure
+                else None))
+            if restart_now:
+                towers.flush(outdir)
         if phavg is not None and phavg.wants(itime):
             pfields = {"u": state.u, "v": state.v, "w": state.w,
                        "p": pressure_boussinesq(sim.P, state)}
             for i in range(sim.nsp.n_scalars):
                 pfields[f"s{i + 1}"] = state.s[i]
             phavg.accumulate(itime, pfields)
-            if checkpoint and case.it_restart > 0 \
-                    and itime % case.it_restart == 0:
+            if restart_now:
                 phavg.save(os.path.join(outdir, f"phavg{itime}.npz"), itime)
         if spatial_stats is not None and (itime - it_first) % stats_spa == 0:
             # one device reduction; only (K, nx, ny) comes to the host
             spatial_stats.accumulate_device(
                 state_fields(state), grads=velocity_gradients(sim.P, state),
                 p=p_cur)
-            if checkpoint and case.it_restart > 0 \
-                    and itime % case.it_restart == 0:
+            if restart_now:
                 spatial_stats.save(os.path.join(outdir, f"st{itime}.npz"),
                                    itime)
         dtime = new_dt
@@ -765,7 +874,25 @@ def run(sim: Simulation, state: State, outdir: str = ".",
     if checkpoint and status != 0 and case.it_restart > 0 \
             and itime % case.it_restart != 0:
         checkpoint_now()
-    return DnsRun(sim=sim, state=state, itime=itime, rtime=rtime, log=log)
+    if traj is not None:
+        traj.flush(outdir)
+    return DnsRun(sim=sim, state=state, itime=itime, rtime=rtime, log=log,
+                  pstate=pstate)
+
+
+def _particle_pdf(sim: Simulation, state: State, pstate, cfg: dict,
+                  outdir: str, itime: int) -> None:
+    """particle_pdf.<it>: the reference PARTICLE_PDF on the LAST scalar
+    (the diagnostic AirWaterLinear liquid where the mixture is that,
+    s(:,inb_scal_array))."""
+    tcfg = sim.case.thermo or {}
+    sf = state.s[-1] if state.s.shape[0] else torch.zeros_like(state.u)
+    if tcfg.get("mixture", "") == "airwaterlinear" \
+            and tcfg.get("parameters"):
+        sf = thermo.airwater_linear(tuple(tcfg["parameters"]), state.s)
+    pio.particle_pdf_reference(
+        sim.grid, pstate, sf, cfg["locate"], cfg["subdomain"], cfg["max"],
+        cfg["interval"], os.path.join(outdir, f"particle_pdf.{itime}"))
 
 
 def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
@@ -778,9 +905,11 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
     pressure and density bounds (DNS_BOUNDS_CONTROL, dns_local.f90:136-158);
     the buffer attached at the start (Simulation.attach_buffer_compressible);
     write_comp_state restarts, the Favre statistics and, in a spatial run,
-    the density-weighted station sums.  As tlab_tpu's compressible thread:
-    no [Filter], ObsLog or dilatation bound, and the [ViscChange] ramp
-    moves only the log's visc column."""
+    the density-weighted station sums; the planes and towers of the
+    primitive view (comp_mod.primitive_view) with the EOS pressure of the
+    step.  As tlab_tpu's compressible thread: no [Filter], ObsLog or
+    dilatation bound, and the [ViscChange] ramp moves only the log's visc
+    column."""
     case = sim.case
     ini = case.ini
     restart_dtype = _restart_dtype(ini)
@@ -813,6 +942,9 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
             nx, ny, ["u", "v", "w"]
             + [f"s{i + 1}" for i in range(sim.nsp.n_scalars)])
         reducer = make_comp_spatial_reducer(sim, spatial_stats)
+    plane_specs, plane_step = _plane_specs(case, n_steps)
+    towers = _towers(case)
+    tower_pressure = bool((case.towers or {}).get("pressure"))
 
     def checkpoint_now():
         fields_io.write_comp_state(os.path.join(outdir, "flow"), itime, U,
@@ -836,7 +968,7 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
     _trace.point("time loop starts")
     for _ in range(n_steps):
         t_it = time.monotonic()
-        U, _, diag = step(U, dtime)
+        U, p_cur, diag = step(U, dtime)
         itime += 1
         rtime += dtime
         visc = _ramped(visc, visc_ini, ramp_rate, dtime)
@@ -877,8 +1009,9 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
             if checkpoint and case.it_restart > 0:
                 checkpoint_now()
             break
-        if checkpoint and case.it_restart > 0 \
-                and itime % case.it_restart == 0:
+        restart_now = checkpoint and case.it_restart > 0 \
+            and itime % case.it_restart == 0
+        if restart_now:
             with _trace.trace(f"checkpoint {itime}"):
                 checkpoint_now()
         if case.it_stats > 0 and itime % case.it_stats == 0:
@@ -898,11 +1031,18 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
                         write_station_budgets(
                             os.path.join(outdir, name), sim.grid.x.nodes,
                             sim.grid.y.nodes, tabs, itime, rtime)
+        if plane_specs and (itime - it_first) % plane_step == 0:
+            write_planes(outdir, itime, comp_mod.primitive_view(U),
+                         plane_specs, pressure=p_cur)
+        if towers is not None:
+            towers.accumulate(itime, rtime, comp_mod.primitive_view(U),
+                              pressure=p_cur if tower_pressure else None)
+            if restart_now:
+                towers.flush(outdir)
         if spatial_stats is not None and (itime - it_first) % stats_spa == 0:
             with _trace.trace(f"spatial sums {itime}"):
                 spatial_stats.accumulate_comp_stack(reducer(U))
-            if checkpoint and case.it_restart > 0 \
-                    and itime % case.it_restart == 0:
+            if restart_now:
                 spatial_stats.save(os.path.join(outdir, f"st{itime}.npz"),
                                    itime)
         dtime = new_dt
