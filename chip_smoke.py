@@ -146,6 +146,27 @@ non-zero:
               tower means against the avg plane means, tower2nc); (d) one
               512x256x256 restart field through the native engine and
               through NumPy (the same bytes, both timed)
+ 16. tools    K1-K3 against their plain version at the diagnostic
+              pressure's shapes of 16a's case; (a) `visuals` of 6a's
+              fields at 512x256x256 with 7a's stratified, rotating case and
+              a ParamVisuals menu of 13 entries (the Pressure family with
+              PressureDecomposition=resolved): the launches against the
+              names' pressure solves, Enstrophy = |VorticityVector|^2,
+              Strain = 2 S:S of StrainTensor, VelocityMagnitude, Pressure =
+              hydrostatic + hydrodynamic, PressureTotal = the sum of its
+              four parts (the forcing's parts checked first), VelocityX =
+              the restart's u in f4 bit for bit, then a Subdomain call
+              against the slice of the whole field; (b) `apriori` modes 1
+              and 2 (Ksgs against the tau table's trace, every column
+              finite, fp32 against fp64 at 128x64x64); (c) dns.run with
+              opr_check (the report before dns.out's header, fp32 within
+              limits from the fp64 values of the same grid, fp64 at
+              128x64x64 against tlab_tpu's); (d) `transfields` onto
+              256x128x128 (against fp64) and onto a y-refined grid (back
+              onto the old nodes), a constant and a cubic in y, `transgrid`
+              against NumPy's file byte for byte; (e) the cloud-state
+              commands on the card against the CPU, the cloud-top pair's
+              buoyancy reversal
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 Without a CUDA card the script exits 1 and prints no result.
@@ -3728,6 +3749,611 @@ def phase_planes_towers(card: str, initial: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the tools (A16) -- visuals with the ParamVisuals menu, apriori,
+# opr_check, transfields/transgrid and the cloud-state commands
+# ---------------------------------------------------------------------------
+
+# 16a's menu numbers (iscal_offset 9 without a mixture): the velocity files,
+# vector and magnitude, the Pressure family (PressureDecomposition=resolved),
+# the scalar, VorticityVector, the Enstrophy block, StrainTensor, the Strain
+# block, the invariants, Tke and the Reynolds tensor
+VISUAL_MENU = (1, 2, 3, 4, 5, 8, 9, 13, 15, 16, 18, 19, 24)
+# the diagnostic pressure solves of each name that needs one: each solve
+# launches K1-K3 once on the velocity stack (F = 3); PressureHydrodynamic
+# solves the hydrostatic part and the whole, PressureAdvection the whole and
+# the diffusion-only pass; Coriolis and Buoyancy solve with no Burgers term
+PRESSURE_SOLVES = {
+    "Pressure": 1, "PressureGradientPower": 1, "PressureStrainX": 1,
+    "PressureStrainY": 1, "PressureStrainZ": 1, "PressureHydrostatic": 1,
+    "PressureHydrodynamic": 2, "PressureCoriolis": 0, "PressureBuoyancy": 0,
+    "PressureDiffusion": 1, "PressureAdvection": 2, "PressureAdvDiff": 1,
+    "PressureTotal": 1, "StressTensor": 1, "StrainPressure": 1,
+    "PressureGradientY": 1}
+# 16a's second call: [PostProcessing] Subdomain (1-based, inclusive) and the
+# names it writes
+SUBDOMAIN = (129, 384, 33, 224, 65, 192)
+SUB_FIELDS = ("VelocityX", "Enstrophy", "Pressure")
+IDENTITY_TOL = 1e-5      # two sides of an identity between f4 files, over
+                         # the largest max|file| of its terms: fp32 rounding
+FORCING_TOL = 1e-5       # the total forcing against its four parts, fp32
+# 16a's pressure files against references: 7a's case at SMALL_GRID on the
+# seeded fields of pressure_witness_fields; `visuals` of PRESSURE_VISUALS in
+# fp32 on the card against the port's fp64 solve of the same fields on the
+# card, over max|fp64|: within 2x tlab_tpu's own fp32 drift there plus the
+# file's f4 rounding; that fp64 solve's pressure_stats within
+# PRESSURE_VISUAL_TOL of max|p| of tlab_tpu's float64 ones (both printed by
+# PYTHONPATH=. python tests/test_torch_visuals.py)
+PRESSURE_VISUALS = ("Pressure", "PressureHydrostatic")
+PRESSURE_POINT = (31, 21, 13)
+PRESSURE_VISUAL_FP64 = {
+    "Pressure": (-0.4824929108579948, 0.0006543499584690017,
+                 0.27983389288428206, -0.33103250586231614),
+    "PressureHydrostatic": (-0.4569838207165978, 5.059371363069911e-05,
+                            0.27981801077807295, -0.3315505143752997)}
+PRESSURE_VISUAL_WITNESS = {"Pressure": 1.612e-06,
+                           "PressureHydrostatic": 1.611e-06}
+PRESSURE_VISUAL_TOL = 1e-9   # fp64 round-off; a wrong solve reads O(1)
+# 16b: Ksgs against the tau table's trace, both written in 9 digits from
+# fp32 plane means; the fp32 tables against fp64 at SMALL_GRID, over each
+# column's max (the plane mean of an x or z derivative vanishes: over the
+# max rms of that derivative, sqrt of its "2" column): tau = G(uu) - G(u)G(u)
+# of the weak compact filter cancels; a CPU run of this check read 4.8e-5
+# (Tauxx)
+KSGS_TOL = 1e-6
+APRIORI_FP32_TOL = 1e-4
+# 16c: tlab_tpu's float64 values of opr_check's deterministic keys on the
+# shear layer at 128x64x64 (PYTHONPATH=. python tests/test_torch_check.py)
+OPR_CHECK_SMALL = (128, 64, 64)
+OPR_CHECK_FP64 = {"d1x_mode1_error": 6.673328556416891e-12,
+                  "poisson_error": 2.1934229987863318e-07}
+# within 1e-8 of tlab_tpu's value and 1e-15 for round-off
+OPR_CHECK_REL_TOL, OPR_CHECK_ROUND_OFF = 1e-8, 1e-15
+FFT_TOL = 1e-5           # the fp32 round trip over max|u|: ~2e-7 on the CPU
+# the fp32 errors over their fp64 values at full width: the derivative's
+# rounding is 2^-24 a term of a row of |D1| (8x its row sum: 6.5e-6 at 128
+# and 1.0e-5 at 256 points on the CPU, against 1.4e-5 and 2.9e-5 allowed);
+# the solve's rounding on a field of max 1 (4.2e-7 and 6.6e-7 at 128x64x64
+# and 256x128x128 on the CPU)
+D1_ROUNDING = 8 * 2.0 ** -24
+POISSON_ROUNDING = 1e-5
+# 16d: transfields onto a coarser grid and a y-refined one (every old node
+# among the new ones); cubic Lagrange is exact on cubics and constants
+REMESH_COARSE = (256, 128, 128)
+REMESH_FINE = (512, 511, 256)
+REMESH_TOL = 1e-6        # fp32 against fp64, over max|field|
+# 16e: the cloud tools on the card (fp64) against the CPU's
+CLOUD_TOL = 1e-12
+CLOUD_COMMANDS = (
+    ("state", ["--h", "0.97", "--qt", "0.02"], "state.dat"),
+    ("smooth", ["--h", "0.97", "--range", "0.0,0.05,51"], "vapor.dat"),
+    ("saturation", ["--p", "0.9"], "sat.dat"),
+    # tests/test_thermo.py:90-103's cloud-top pair
+    ("reversal", ["--h", "0.95", "--qt", "0.02", "--h2", "1.01", "--qt2",
+                  "0.004"], "reversal.dat"))
+
+
+def visuals_case() -> str:
+    """7a's stratified, rotating shear layer with 16a's ParamVisuals menu
+    and the resolved pressure decomposition."""
+    menu = ",".join(map(str, VISUAL_MENU))
+    return option_case("7a", {}) + (
+        "\n[PostProcessing]\nFiles=0\nPressureDecomposition=resolved\n"
+        f"ParamVisuals={menu}\n")
+
+
+def read_vis(out: str, name: str) -> np.ndarray:
+    """vis0.<name> (raw f4, z slowest) as float64 (nz, ny, nx)."""
+    nx, ny, nz = MAIN_SHAPE
+    return np.fromfile(os.path.join(out, f"vis0.{name}"),
+                       "<f4").astype(np.float64).reshape(nz, ny, nx)
+
+
+def identity_error(lhs, terms) -> float:
+    """max|lhs - sum(terms)| over the largest max|.| among lhs and terms."""
+    scale = max(float(np.abs(t).max()) for t in (lhs, *terms))
+    return float(np.abs(lhs - sum(terms)).max()) / scale
+
+
+def forcing_parts(sim) -> float:
+    """The diagnostic pressure's total forcing (and its Neumann data)
+    against the sum of its advection, diffusion, Coriolis and buoyancy
+    parts on seeded fields, fp32 on the card: the case's body force has
+    those two terms only, so PressureTotal is the sum of the four solves."""
+    from tlab_tpu_torch.dycore.pressure import pressure_forcing
+    st = state_from_numpy(*pressure_witness_fields(
+        tuple(sim.grid.shape), sim.grid.y.nodes), "cuda", torch.float32)
+    total = pressure_forcing(sim.P, st, "total")
+    parts = [pressure_forcing(sim.P, st, d) for d in
+             ("advection", "diffusion", "coriolis", "buoyancy")]
+    err = 0.0
+    for i in range(3):
+        scale = max(p[i].abs().max().item() for p in parts)
+        err = max(err, (total[i] - sum(p[i] for p in parts)).abs().max()
+                  .item() / scale)
+    return err
+
+
+def pressure_stats(p) -> tuple:
+    """(min, max, rms, value at PRESSURE_POINT) of a float64 tensor."""
+    return (p.min().item(), p.max().item(),
+            p.square().mean().sqrt().item(), p[PRESSURE_POINT].item())
+
+
+def pressure_reference() -> dict:
+    """16a's pressure files against references (PRESSURE_VISUALS): the
+    seeded fields at SMALL_GRID written as a float64 restart, `visuals` of
+    those names through the CLI in fp32 on the card, each file against the
+    port's fp64 solve on the card; that solve's stats against tlab_tpu's."""
+    from tlab_tpu_torch.dycore.pressure import pressure_boussinesq
+    text = edit_case(visuals_case(), SMALL_GRID)
+    sim = Simulation.from_case(load_case(Ini(text=text)),
+                               dtype=torch.float64, device="cuda")
+    fields = pressure_witness_fields(tuple(sim.grid.shape),
+                                     sim.grid.y.nodes)
+    st = state_from_numpy(*fields, "cuda", torch.float64)
+    zero = torch.zeros_like(st.u)
+    ref = {"Pressure": pressure_boussinesq(sim.P, st, "resolved"),
+           "PressureHydrostatic": pressure_boussinesq(
+               sim.P, st._replace(u=zero, v=zero, w=zero))}
+    nx, ny, nz = sim.grid.shape
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = write_case(out, text)
+        fields_io.write_state(os.path.join(out, "flow"),
+                              os.path.join(out, "scal"), 0,
+                              state_from_numpy(*fields, "cpu",
+                                               torch.float64),
+                              0.0, sim.nsp.visc)
+        burgers.launches[:] = [0, 0, 0]
+        run_cli("visuals", ini, out, "--fields", ",".join(PRESSURE_VISUALS))
+        res["launches"] = list(burgers.launches)
+        for name, p64 in ref.items():
+            f4 = np.fromfile(os.path.join(out, f"vis0.{name}"), "<f4")
+            got = torch.from_numpy(f4.reshape(nz, ny, nx).transpose(
+                2, 1, 0).astype(np.float64)).to("cuda")
+            scale = p64.abs().max().item()
+            stats = pressure_stats(p64)
+            res[name] = {
+                "fp32": (got - p64).abs().max().item() / scale,
+                "fp32_limit": 2.0 * PRESSURE_VISUAL_WITNESS[name]
+                + 2.0 ** -24,
+                "fp64": max(abs(a - b) for a, b in zip(
+                    stats, PRESSURE_VISUAL_FP64[name])) / scale,
+                "stats": stats}
+    require(res["launches"] == [sum(PRESSURE_SOLVES[n]
+                                    for n in PRESSURE_VISUALS)] * 3,
+            f"16a pressure reference launched {res['launches']}")
+    for name in PRESSURE_VISUALS:
+        r = res[name]
+        require(r["fp32"] <= r["fp32_limit"],
+                f"16a {name}: the fp32 file against fp64 {r['fp32']} > "
+                f"{r['fp32_limit']}")
+        require(r["fp64"] <= PRESSURE_VISUAL_TOL,
+                f"16a {name}: fp64 {r['stats']} against tlab_tpu's "
+                f"{PRESSURE_VISUAL_FP64[name]}")
+    return res
+
+
+def phase_visuals(card: str, initial: str) -> dict:
+    """16a: `visuals` of 6a's initial fields at 512x256x256 fp32 through the
+    CLI with 7a's case and VISUAL_MENU, then with a Subdomain; the files'
+    identities, the launches against the names' solves."""
+    text = visuals_case()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = write_case(out, text)
+        link_initial_fields(initial, out)
+        u = fields_io.read_field(os.path.join(out, "flow.0.1"))[0]
+        small = Simulation.from_case(load_case(Ini(text=edit_case(
+            text, SMALL_GRID))), dtype=torch.float32, device="cuda")
+        res["forcing"] = forcing_parts(small)
+        require(res["forcing"] <= FORCING_TOL,
+                f"16a: the total forcing against its parts {res['forcing']}")
+        names = cli.visual_menu(small.case, small)
+        del small
+        want = sum(PRESSURE_SOLVES.get(n, 0) for n in names)
+        burgers.launches[:] = [0, 0, 0]
+        torch.cuda.reset_peak_memory_stats()
+        res["seconds"] = run_cli("visuals", ini, out)
+        res["launches"] = list(burgers.launches)
+        res["peak"] = torch.cuda.max_memory_allocated()
+        require(res["launches"] == [want] * 3,
+                f"16a visuals launched {res['launches']}, expected "
+                f"{[want] * 3} ({len(names)} names)")
+        files = sorted(n for n in os.listdir(out) if n.startswith("vis0."))
+        res["files"] = len(files)
+        res["bytes"] = sum(os.path.getsize(os.path.join(out, n))
+                           for n in files)
+        nx, ny, nz = MAIN_SHAPE
+        require(all(os.path.getsize(os.path.join(out, n)) == 4 * nx * ny * nz
+                    for n in files), "16a: a visual file's size")
+        u32 = u.transpose(2, 1, 0).astype("<f4")
+        with open(os.path.join(out, "vis0.VelocityX"), "rb") as fh:
+            require(fh.read() == u32.tobytes(),
+                    "16a: VelocityX is not the restart's u cast to f4")
+        del u, u32
+
+        def vec(stem, n):
+            return [read_vis(out, f"{stem}{i}") for i in range(1, n + 1)]
+
+        ident = {}
+        om = vec("VorticityVector", 3)
+        ident["Enstrophy"] = identity_error(read_vis(out, "Enstrophy"),
+                                            [c * c for c in om])
+        del om
+        s = vec("StrainTensor", 6)
+        ident["Strain"] = identity_error(
+            read_vis(out, "Strain"),
+            [2 * c * c for c in s[:3]] + [4 * c * c for c in s[3:]])
+        del s
+        vv = vec("VelocityVector", 3)
+        ident["VelocityMagnitude"] = identity_error(
+            read_vis(out, "VelocityMagnitude"), [c * c for c in vv])
+        del vv
+        ident["PressureTotal"] = identity_error(
+            read_vis(out, "PressureTotal"),
+            [read_vis(out, "Pressure" + n) for n in
+             ("Advection", "Diffusion", "Coriolis", "Buoyancy")])
+        res["identities"] = ident
+        for k, v in ident.items():
+            require(v <= IDENTITY_TOL, f"16a: the {k} identity {v}")
+        full = {n: read_vis(out, n).astype("<f4") for n in SUB_FIELDS}
+        for n in files:
+            os.remove(os.path.join(out, n))
+
+        # the second call: a Subdomain, the names of SUB_FIELDS
+        sub_text = text + "Subdomain=" + ",".join(map(str, SUBDOMAIN)) + "\n"
+        ini = write_case(out, sub_text)
+        burgers.launches[:] = [0, 0, 0]
+        res["sub_seconds"] = run_cli("visuals", ini, out, "--fields",
+                                     ",".join(SUB_FIELDS))
+        res["sub_launches"] = list(burgers.launches)
+        require(res["sub_launches"] == [1, 1, 1],
+                f"16a Subdomain launched {res['sub_launches']}")
+        i0, i1, j0, j1, k0, k1 = SUBDOMAIN
+        for n in SUB_FIELDS:
+            got = np.fromfile(os.path.join(out, f"vis0.{n}"), "<f4")
+            want_ = np.ascontiguousarray(
+                full[n][k0 - 1:k1, j0 - 1:j1, i0 - 1:i1])
+            require(np.array_equal(got, want_.ravel()),
+                    f"16a Subdomain {n}: not the slice of the whole field")
+    res["reference"] = pressure_reference()
+    return res
+
+
+def apriori_case(mode: int, changes=None) -> str:
+    return edit_case(CASE.read_text(), changes or {}) + (
+        f"\n[PostProcessing]\nFiles=0\nParamStructure={mode}\n")
+
+
+def apriori_tables(out: str, mode: int) -> dict:
+    names = ("tau0", "sgs0") if mode == 1 else ("gradU0",)
+    return {n: averages.read_table(os.path.join(out, n)) for n in names}
+
+
+def apriori_scale(table: dict, k: str) -> float:
+    """The size of column k's terms: its max, or for a plane mean of a
+    derivative (gradU's Ux..Wz) the max rms of that derivative."""
+    if k + "2" in table:
+        return max(float(np.sqrt(np.abs(table[k + "2"]).max())),
+                   float(np.abs(table[k]).max()))
+    return float(np.abs(table[k]).max())
+
+
+def phase_apriori(card: str, initial: str) -> dict:
+    """16b: `apriori` modes 1 and 2 of 6a's initial fields at full width
+    (the fallback compact test filter); at SMALL_GRID, fp32 against
+    --x64."""
+    res = {"seconds": {}, "launches": {}}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        link_initial_fields(initial, out)
+        for mode in (1, 2):
+            ini = write_case(out, apriori_case(mode))
+            burgers.launches[:] = [0, 0, 0]
+            res["seconds"][mode] = run_cli("apriori", ini, out)
+            res["launches"][mode] = list(burgers.launches)
+            require(res["launches"][mode] == [0, 0, 0],
+                    f"16b apriori launched {res['launches'][mode]}")
+            for n, table in apriori_tables(out, mode).items():
+                for k, col in table.items():
+                    require(len(col) == MAIN_SHAPE[1]
+                            and np.isfinite(col).all(), f"16b {n} {k}")
+        tab = apriori_tables(out, 1)
+        tau, sgs = tab["tau0"], tab["sgs0"]
+        trace = 0.5 * (tau["Tauxx"] + tau["Tauyy"] + tau["Tauzz"])
+        res["ksgs"] = float(np.abs(sgs["Ksgs"] - trace).max()
+                            / np.abs(trace).max())
+        require(res["ksgs"] <= KSGS_TOL, f"16b Ksgs {res['ksgs']}")
+    err = {}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as top:
+        dirs = {}
+        for mode in (1, 2):
+            for tag, more in (("fp64", ["--x64"]), ("fp32", [])):
+                d = os.path.join(top, f"{mode}{tag}")
+                os.makedirs(d)
+                ini = write_case(d, apriori_case(mode, SMALL_GRID))
+                if mode == 1 and tag == "fp64":
+                    run_cli("ini", ini, d, "--x64")
+                    src = d
+                else:
+                    for f in INITIAL_FILES:
+                        shutil.copy(os.path.join(src, f), d)
+                run_cli("apriori", ini, d, *more)
+                dirs[mode, tag] = d
+            t64 = apriori_tables(dirs[mode, "fp64"], mode)
+            t32 = apriori_tables(dirs[mode, "fp32"], mode)
+            for n, table in t64.items():
+                for k, col in table.items():
+                    if k != "Y":
+                        err[f"{n}:{k}"] = float(
+                            np.abs(t32[n][k] - col).max()
+                            / apriori_scale(table, k))
+    worst = max(err, key=err.get)
+    res["fp32"], res["fp32_worst"] = err[worst], worst
+    require(err[worst] <= APRIORI_FP32_TOL,
+            f"16b fp32 against fp64: {worst} {err[worst]}")
+    return res
+
+
+def phase_opr_check(card: str, initial: str) -> dict:
+    """16c: dns.run(opr_check=True) of the shear layer at 512x256x256 fp32
+    from 6a's fields, one step: the report in dns.out before its header,
+    its fp32 errors within their fp64 values (the same grid in fp64 on the
+    card) and the rounding allowances; fp64 at OPR_CHECK_SMALL against
+    tlab_tpu's."""
+    from tlab_tpu_torch.ops.check import opr_check
+    res = {}
+    text = shear_case(MAIN_SHAPE, 1)
+    sim = Simulation.from_case(load_case(Ini(text=text)),
+                               dtype=torch.float32, device="cuda")
+    u, v, w, s = fields_io.read_state(os.path.join(initial, "flow"),
+                                      os.path.join(initial, "scal"), 0,
+                                      1)[:4]
+    state = state_from_numpy(*(np.ascontiguousarray(a) for a in (u, v, w,
+                                                                 s)),
+                             "cuda", torch.float32)
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        log = os.path.join(out, "dns.out")
+        t0 = time.perf_counter()
+        dns_tool.run(sim, state, outdir=out, n_steps=1, checkpoint=False,
+                     opr_check=True, log_path=log)
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        with open(log) as fh:
+            lines = fh.read().splitlines()
+    require(lines[0] == "# OPR_CHECK startup self-test",
+            f"16c: dns.out starts with {lines[0]!r}")
+    head = min(i for i, ln in enumerate(lines) if ln.startswith("#####"))
+    rep = dict(ln[4:].split(": ") for ln in lines[1:head])
+    got = {k: float(v) for k, v in rep.items()}
+    require(list(got) == ["fft_roundtrip_residual", "fft_time_s",
+                          "d1x_mode1_error", "poisson_time_s",
+                          "poisson_error"], f"16c: the report's keys {got}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    umax = torch.randn(MAIN_SHAPE, generator=gen, device="cuda").abs() \
+        .max().item()
+    d1_rows = sim.P["d1x"].double().abs().sum(1).max().item()
+    del sim, state
+    sim64 = Simulation.from_case(load_case(Ini(text=text)),
+                                 dtype=torch.float64, device="cuda")
+    full64 = opr_check(sim64)
+    del sim64
+    limits = {"fft_roundtrip_residual": FFT_TOL * umax,
+              "d1x_mode1_error": full64["d1x_mode1_error"]
+              + D1_ROUNDING * d1_rows,
+              "poisson_error": full64["poisson_error"] + POISSON_ROUNDING}
+    for k, lim in limits.items():
+        require(got[k] <= lim, f"16c fp32 {k} {got[k]} > {lim}")
+    small = Simulation.from_case(load_case(Ini(text=shear_case(
+        OPR_CHECK_SMALL, 1))), dtype=torch.float64, device="cuda")
+    small64 = opr_check(small)
+    del small
+    for k, ref in OPR_CHECK_FP64.items():
+        require(abs(small64[k] - ref) <= OPR_CHECK_REL_TOL * abs(ref)
+                + OPR_CHECK_ROUND_OFF,
+                f"16c fp64 {k} {small64[k]} against tlab_tpu's {ref}")
+    res.update(fp32=got, limits=limits, full64=full64, small64=small64,
+               head=head)
+    return res
+
+
+def remesh_checks(grid, grid2) -> dict:
+    """A constant and a cubic in y through remesh_field on the card, fp32,
+    grid -> grid2."""
+    from tlab_tpu_torch.ops.interpolate import remesh_field
+    kw = {"dtype": torch.float32, "device": "cuda"}
+    one = torch.ones(grid.shape, **kw)
+    out = {"constant": (remesh_field(one, grid, grid2) - 1.0).abs().max()
+           .item()}
+
+    def cubic(y):
+        y = torch.as_tensor(y, dtype=torch.float64)
+        return (1.0 - 2.0 * y + 0.5 * y ** 2 - 3.0 * y ** 3)[None, :, None]
+
+    got = remesh_field(cubic(grid.y.nodes).to(**kw) * one, grid, grid2)
+    want = cubic(grid2.y.nodes).to("cuda")
+    out["cubic"] = ((got.double() - want).abs().max()
+                    / want.abs().max()).item()
+    return out
+
+
+def grid_bytes(path: str, refine: int) -> bytes:
+    """transgrid's file as NumPy writes it: each axis's nodes resampled
+    linearly in the arc parameter, the Fortran records of sizes, scales and
+    nodes (periodic scales with the wrap-around spacing)."""
+    import struct
+    from tlab_tpu_torch.grid import read_reference_grid
+    g = read_reference_grid(path)
+    sizes, scales, nodes = [], [], []
+    for ax in (g.x, g.y, g.z):
+        n = ax.size * refine
+        x = np.interp(np.linspace(0.0, 1.0, n), np.linspace(0.0, 1.0,
+                                                            ax.size),
+                      ax.nodes)
+        span = float(x[-1] - x[0])
+        sizes.append(n)
+        scales.append(span * (1.0 + 1.0 / (n - 1)) if ax.periodic else span)
+        nodes.append(x)
+
+    def rec(payload: bytes) -> bytes:
+        return struct.pack("<i", len(payload)) + payload + \
+            struct.pack("<i", len(payload))
+
+    return (rec(np.asarray(sizes, "<i4").tobytes())
+            + rec(np.asarray(scales, "<f8").tobytes())
+            + b"".join(rec(x.astype("<f8").tobytes()) for x in nodes))
+
+
+def phase_remesh(card: str, initial: str) -> dict:
+    """16d: `transfields` of 6a's initial fields onto REMESH_COARSE and
+    REMESH_FINE through the CLI, `transgrid` of its grid file."""
+    from tlab_tpu_torch.ops.interpolate import remesh_field
+    from tlab_tpu_torch.runtime import grid_from_case
+    res = {"seconds": {}}
+    base = shear_case(MAIN_SHAPE, 1)
+    grid = grid_from_case(load_case(Ini(text=base)))
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = write_case(out, base)
+        link_initial_fields(initial, out)
+        fields = [np.ascontiguousarray(a) for a in fields_io.read_state(
+            os.path.join(out, "flow"), os.path.join(out, "scal"), 0, 1)[:4]]
+        names = ("flow_rm.0.1", "flow_rm.0.2", "flow_rm.0.3", "scal_rm.0.1")
+        for tag, shape in (("coarse", REMESH_COARSE), ("fine", REMESH_FINE)):
+            ini2 = os.path.join(out, f"{tag}.ini")
+            with open(ini2, "w") as fh:
+                fh.write(shear_case(shape, 1))
+            grid2 = grid_from_case(load_case(ini2))
+            res[tag] = remesh_checks(grid, grid2)
+            require(max(res[tag].values()) <= REMESH_TOL,
+                    f"16d {tag}: {res[tag]}")
+            burgers.launches[:] = [0, 0, 0]
+            res["seconds"][tag] = run_cli("transfields", ini, out, "--ini2",
+                                          ini2, "--files", "0")
+            require(burgers.launches == [0, 0, 0], "16d: a kernel launched")
+            err = 0.0
+            for name, f in zip(names, (*fields[:3], fields[3][0])):
+                got = fields_io.read_field(os.path.join(out, name))[0]
+                require(got.shape == shape and np.isfinite(got).all(),
+                        f"16d {tag} {name}: {got.shape}")
+                f_dev = torch.as_tensor(f, device="cuda")
+                if tag == "coarse":
+                    ref = remesh_field(f_dev, grid, grid2)
+                else:
+                    # back onto the original nodes, in fp32 as the files'
+                    ref = f_dev.float()
+                    got = remesh_field(torch.as_tensor(
+                        got, dtype=torch.float32, device="cuda"), grid2,
+                        grid).cpu().numpy()
+                err = max(err, float(np.abs(got - ref.cpu().numpy()).max()
+                                     / ref.abs().max().item()))
+                del f_dev, ref, got
+                os.remove(os.path.join(out, name))
+            res[f"{tag}_fields"] = err
+            require(err <= REMESH_TOL, f"16d {tag}: the fields {err}")
+        run_cli("inigrid", ini, out)
+        t0 = time.perf_counter()
+        rc = cli.main(["transgrid", "--outdir", out, "--refine", "2"])
+        res["seconds"]["transgrid"] = time.perf_counter() - t0
+        require(rc == 0, "16d transgrid")
+        with open(os.path.join(out, "grid.ref"), "rb") as fh:
+            require(fh.read() == grid_bytes(os.path.join(out, "grid"), 2),
+                    "16d transgrid: grid.ref differs from NumPy's")
+    return res
+
+
+def phase_cloud(card: str) -> dict:
+    """16e: the cloud-state commands with --device cuda (fp64 on the card)
+    against --device cpu; the cloud-top pair's reversal."""
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as top:
+        for command, flags, name in CLOUD_COMMANDS:
+            tabs = {}
+            for dev in ("cuda", "cpu"):
+                d = os.path.join(top, dev)
+                t0 = time.perf_counter()
+                rc = cli.main([command, "--ini", os.path.join(top, "none"),
+                               "--outdir", d, "--device", dev, *flags])
+                require(rc == 0, f"16e {command} on {dev}")
+                res[f"{command}_{dev}_s"] = time.perf_counter() - t0
+                tabs[dev] = np.atleast_2d(np.loadtxt(os.path.join(d, name)))
+            a, b = tabs["cuda"], tabs["cpu"]
+            require(a.shape == b.shape and np.isfinite(a).all(),
+                    f"16e {name}: {a.shape}")
+            res[command] = float((np.abs(a - b) / np.maximum(
+                np.abs(b).max(0), 1e-300)).max())
+            require(res[command] <= CLOUD_TOL,
+                    f"16e {name}: cuda against cpu {res[command]}")
+        with open(os.path.join(top, "cuda", "reversal.dat")) as fh:
+            head = dict(kv.split("=") for kv in fh.readline().split()
+                        if "=" in kv)
+    res["chi_star"], res["b_star"] = float(head["chi_star"]), \
+        float(head["b_star"])
+    require(0.0 <= res["chi_star"] <= 1.0 and res["b_star"] <= 0.0,
+            f"16e reversal: chi_star {res['chi_star']}, b_star "
+            f"{res['b_star']}")
+    return res
+
+
+def phase_tools(card: str, initial: str) -> dict:
+    """Phase 16, each part's line."""
+    t16 = time.perf_counter()
+    vis = phase_visuals(card, initial)
+    print(f"[16] 16a visuals of 7a's case ({card}): {MAIN_SHAPE} fp32, "
+          f"menu {','.join(map(str, VISUAL_MENU))}: {vis['files']} files "
+          f"({vis['bytes']} B) in {vis['seconds']:.3f} s, peak device "
+          f"memory {vis['peak']} B, launches {vis['launches']}; the "
+          f"forcing's parts {vis['forcing']:.3e}; identities "
+          + ", ".join(f"{k} {v:.3e}" for k, v in vis["identities"].items())
+          + f" (limit {IDENTITY_TOL}); VelocityX = the restart's u in f4; "
+          f"Subdomain {SUBDOMAIN} {vis['sub_seconds']:.3f} s, launches "
+          f"{vis['sub_launches']}, the slice of the whole field")
+    ref = vis["reference"]
+    print(f"[16] 16a pressure files at 128x64x64 ({card}): launches "
+          f"{ref['launches']}; "
+          + "; ".join(f"{n} fp32 file against fp64 {ref[n]['fp32']:.3e} "
+                      f"(limit {ref[n]['fp32_limit']:.3e}), fp64 stats "
+                      f"{ref[n]['stats']} against tlab_tpu's "
+                      f"{ref[n]['fp64']:.3e} (limit {PRESSURE_VISUAL_TOL})"
+                      for n in PRESSURE_VISUALS))
+    ap = phase_apriori(card, initial)
+    print(f"[16] 16b apriori ({card}): mode 1 {ap['seconds'][1]:.3f} s, "
+          f"mode 2 {ap['seconds'][2]:.3f} s, launches "
+          f"{ap['launches'][1]}; Ksgs against the tau trace {ap['ksgs']:.3e} "
+          f"(limit {KSGS_TOL}); fp32 against fp64 at 128x64x64 "
+          f"{ap['fp32']:.3e} ({ap['fp32_worst']}; limit {APRIORI_FP32_TOL})")
+    oc = phase_opr_check(card, initial)
+    print(f"[16] 16c opr_check ({card}): dns.run of one step "
+          f"{oc['seconds']:.3f} s, the report's {oc['head'] - 1} lines "
+          f"before the header; fp32 at {MAIN_SHAPE}: "
+          + ", ".join(f"{k} {oc['fp32'][k]:.6e} (limit {v:.3e})"
+                      for k, v in oc["limits"].items())
+          + f"; fft {oc['fp32']['fft_time_s']:.6f} s, Poisson "
+          f"{oc['fp32']['poisson_time_s']:.6f} s; fp64 there "
+          + ", ".join(f"{k} {oc['full64'][k]:.6e}" for k in OPR_CHECK_FP64)
+          + f"; fp64 at {OPR_CHECK_SMALL} "
+          + ", ".join(f"{k} {oc['small64'][k]:.16e}"
+                      for k in OPR_CHECK_FP64)
+          + f" (tlab_tpu's within {OPR_CHECK_REL_TOL} and "
+          f"{OPR_CHECK_ROUND_OFF})")
+    rm = phase_remesh(card, initial)
+    print(f"[16] 16d transfields ({card}): onto {REMESH_COARSE} "
+          f"{rm['seconds']['coarse']:.3f} s (fields against fp64 "
+          f"{rm['coarse_fields']:.3e}), onto {REMESH_FINE} "
+          f"{rm['seconds']['fine']:.3f} s (back onto the old nodes "
+          f"{rm['fine_fields']:.3e}); a constant and a cubic in y "
+          f"{rm['coarse']}, {rm['fine']} (limit {REMESH_TOL}); transgrid "
+          f"{rm['seconds']['transgrid']:.3f} s, equal to NumPy's file")
+    cl = phase_cloud(card)
+    print(f"[16] 16e cloud tools ({card}): cuda against cpu "
+          + ", ".join(f"{c} {cl[c]:.3e}" for c, _, _ in CLOUD_COMMANDS)
+          + f" (limit {CLOUD_TOL}); reversal chi_star {cl['chi_star']:.6e},"
+          f" b_star {cl['b_star']:.6e}")
+    t16 = time.perf_counter() - t16
+    print(f"[16] phase 16 took {t16:.1f} s")
+    return {"launches_16a": vis["launches"], "seconds": t16}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -3838,6 +4464,13 @@ def main() -> int:
         rec["max_abs_err_15a"] = err
     parts = phase_particles(smi)
     planes = phase_planes_towers(smi, initial)
+    t15 = time.perf_counter() - t15
+    errs = [max(a, b) for a, b in zip(
+        check_case_kernels(visuals_case(), fields=3),
+        check_case_kernels(visuals_case(), fields=3, zero_conv=True))]
+    for rec, err in zip(records, errs):
+        rec["max_abs_err_16a"] = err
+    tools = phase_tools(smi, initial)
     keep.cleanup()
     for key, got in (("15a", parts["15a"]),
                      ("15b_inertia", parts["15b_inertia"]),
@@ -3846,9 +4479,11 @@ def main() -> int:
                      ("15c_towers", planes["launches_towers"])):
         for rec, n in zip(records, got):
             rec[f"launches_{key}"] = n
-    t15 = time.perf_counter() - t15
+    for rec, n in zip(records, tools["launches_16a"]):
+        rec["launches_16a"] = n
     print(f"[slice] phase 10 took {t10:.1f} s, 11 {t11:.1f} s, 12 "
-          f"{t12:.1f} s, 13 {t13:.1f} s, 14 {t14:.1f} s, 15 {t15:.1f} s")
+          f"{t12:.1f} s, 13 {t13:.1f} s, 14 {t14:.1f} s, 15 {t15:.1f} s, "
+          f"16 {tools['seconds']:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,8 +1,10 @@
 """The port's command line (tlab_tpu_torch/tools/cli.py) on the CPU: the
 files `ini` and `dns` leave behind, against tlab_tpu's CLI on the same case,
-and the messages for what is not ported."""
+tlab_tpu's commands, and the message for what is not ported."""
+import argparse
 import os
 import shutil
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -94,11 +96,43 @@ def test_default_device_is_the_card(tmp_path):
         cli.main(["ini", "--ini", CASE3D, "--outdir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("command, item", [("transgrid", "A16"),
-                                           ("visuals", "A16")])
-def test_unported_command_exits_with_its_item(command, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        cli.main([command])
+def command_choices(main) -> list:
+    """The `command` choices of the parser that a CLI's main builds, read
+    where it calls parse_args (which then exits before parsing)."""
+    found = []
+
+    def grab(parser, *args, **kwargs):
+        found.extend(next(a.choices for a in parser._actions
+                          if a.dest == "command"))
+        raise SystemExit(0)
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", grab):
+        with pytest.raises(SystemExit):
+            main([])
+    return found
+
+
+# tlab_tpu's commands, from its parser; the port refuses none
+JAX_COMMANDS = command_choices(jcli.main)
+
+
+def test_the_port_has_tlab_tpus_commands():
+    assert len(JAX_COMMANDS) > 1
+    assert sorted(command_choices(cli.main)) == sorted(JAX_COMMANDS)
+
+
+@pytest.mark.parametrize("command", JAX_COMMANDS)
+def test_every_command_of_tlab_tpu_is_a_command(command, capsys):
+    """Each of tlab_tpu's commands parses in the port's CLI (`--help`
+    exits 0; an unknown command exits 2); tests/test_torch_{visuals,
+    apriori,interpolate,cloudstate}.py hold the ones ported last."""
+    with pytest.raises(SystemExit) as e:
+        cli.main([command, "--help"])
+    assert e.value.code == 0
+    with pytest.raises(SystemExit) as e:
+        cli.main([command + "x", "--help"])
+    assert e.value.code == 2
+    capsys.readouterr()
 
 
 def test_inipart_once_refused_matches_jax(tmp_path):

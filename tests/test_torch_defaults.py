@@ -33,7 +33,12 @@ KNOWN = ("tlab_tpu_torch.entry.build",
          "tlab_tpu_torch.dycore.buffer.filter_sponge_amp",
          "tlab_tpu_torch.dycore.inflow.InflowBox.refs_at",
          "tlab_tpu_torch.particles.core.init_particles",
-         "tlab_tpu_torch.particles.io.read_particles")
+         "tlab_tpu_torch.particles.io.read_particles",
+         "tlab_tpu_torch.tools.cloudstate.equilibrium_state",
+         "tlab_tpu_torch.tools.cloudstate.mixing_diagram",
+         "tlab_tpu_torch.tools.cloudstate.saturation_curve",
+         "tlab_tpu_torch.tools.cloudstate.vapor_table",
+         "tlab_tpu_torch.tools.cloudstate.buoyancy_reversal")
 
 
 def _callables(module):

@@ -356,8 +356,7 @@ def test_restart_identity(tmp_path, start):
     assert second.log.lines[-4:] == straight.log.lines[-4:]
 
 
-@pytest.mark.parametrize("kw, item", [
-    (dict(mesh=object()), "A17"), (dict(opr_check=True), "A16")])
+@pytest.mark.parametrize("kw, item", [(dict(mesh=object()), "A17")])
 def test_unported_arguments_raise(tmp_path, start, kw, item):
     sim = Simulation.from_case(load_case(CASE3D), dtype=F64, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -512,3 +512,22 @@ def test_reference_formats_copy_is_the_original():
     from tlab_tpu.io import reference_formats as jrf
     from tlab_tpu_torch.io import reference_formats as trf
     assert inspect.getsource(trf) == inspect.getsource(jrf)
+
+
+@pytest.mark.parametrize("kind", ["uniform", "stretched"])
+@pytest.mark.parametrize("factor", [1.5, 0.5, 2.0])
+def test_interpolation_matrix_matches(kind, factor):
+    """ops/interpolate.interpolation_matrix (host NumPy): the cubic Lagrange
+    matrix onto a coarser and a finer axis, and onto nodes past the old
+    ends (clipped where the axis has walls, wrapped where it is
+    periodic), exactly tlab_tpu's."""
+    from tlab_tpu.ops import interpolate as jinterp
+    from tlab_tpu_torch.ops import interpolate as tinterp
+    tg, jg = _grids(kind)
+    for ta, ja in zip((tg.x, tg.y, tg.z), (jg.x, jg.y, jg.z)):
+        lo, hi = ta.nodes[0], ta.nodes[-1]
+        pad = 0.1 * (hi - lo)
+        new = np.linspace(lo - pad, hi + pad, int(ta.size * factor))
+        got = tinterp.interpolation_matrix(ta, new)
+        assert np.array_equal(got, jinterp.interpolation_matrix(ja, new))
+        assert np.max(np.abs(got.sum(1) - 1.0)) <= 1e-13

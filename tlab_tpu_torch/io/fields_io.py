@@ -210,8 +210,10 @@ def write_visual(path: str, arr, itime: int = 0, params=(0.0,),
     if fmt == "general":
         write_field(path, _host(arr), itime, params)
         return
-    np.ascontiguousarray(_host(arr).transpose(2, 1, 0)).astype(
-        "<f4").tofile(path)
+    # rounded to f4 and transposed on its device: one copy of 4 bytes a
+    # point (the same rounding as NumPy's astype)
+    torch.as_tensor(arr).detach().to(torch.float32).permute(2, 1, 0) \
+        .contiguous().cpu().numpy().tofile(path)
 
 
 def read_visual(path: str, shape):

@@ -351,7 +351,10 @@ def _equilibrium_T_ql(tp: ThermoParams, h, qt, p, ep, n_newton, with_err):
     T0 = H / (tp.Cd + qt * tp.Cdv)
     eps = tp.rd_ov_rv
     ps0 = tp.psat(T0)
-    r0 = eps / (p / ps0 - 1.0)
+    # a Python number over a tensor is its reciprocal times the number in
+    # torch: a 0-d tensor numerator divides as NumPy (and tlab_tpu) does
+    eps_t = H.new_tensor(eps)
+    r0 = eps_t / (p / ps0 - 1.0)
     qsat0 = r0 / (1.0 + r0)
     saturated = qsat0 < qt
 
@@ -367,7 +370,7 @@ def _equilibrium_T_ql(tp: ThermoParams, h, qt, p, ep, n_newton, with_err):
     b[9] = cf[8] * beta
     T_sat, nerr = _newton_psat_poly(b, T0, nr=max(n_newton, 5))
     ps = tp.psat(T_sat)
-    ql_sat = qt - eps / (p / ps - 1.0) * (1.0 - qt)
+    ql_sat = qt - eps_t / (p / ps - 1.0) * (1.0 - qt)
     T = torch.where(saturated, T_sat, T0)
     ql = torch.where(saturated,
                      torch.minimum(torch.clamp(ql_sat, min=0.0), qt), 0.0)

@@ -495,14 +495,9 @@ def velocity_gradients(P, state) -> dict:
     return g
 
 
-def _unported(mesh, opr_check):
+def _unported(mesh):
     """(option, ROADMAP item) of what this run asks for beyond the port."""
-    found = []
-    if mesh is not None:
-        found.append(("mesh (multi-GPU pencils)", "A17"))
-    if opr_check:
-        found.append(("opr_check (operator self-test)", "A16"))
-    return found
+    return [("mesh (multi-GPU pencils)", "A17")] if mesh is not None else []
 
 
 def _plane_specs(case, n_steps: int):
@@ -607,7 +602,7 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         inner_steps: int = 1, inflow=None,
         restart_visc: Optional[float] = None, mesh=None) -> DnsRun:
     case = sim.case
-    missing = _unported(mesh, opr_check)
+    missing = _unported(mesh)
     if missing:
         raise NotImplementedError(
             "not ported yet: " + "; ".join(
@@ -621,6 +616,10 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             raise NotImplementedError(
                 "particles in the compressible set: tlab_tpu has no "
                 "particle step for it")
+        if opr_check:
+            raise ValueError(
+                "opr_check in the compressible set: its step has no "
+                "Poisson plan to check (tlab_tpu's opr_check raises too)")
         return _run_compressible(sim, state, outdir, itime, rtime, n_steps,
                                  log_path, checkpoint, nan_abort,
                                  restart_visc)
@@ -691,6 +690,11 @@ def run(sim: Simulation, state: State, outdir: str = ".",
 
     write_tlab_log(sim, outdir)
     log = RunLog(path=log_path, newton=newton)
+    if opr_check:
+        # startup operator self-test + micro-benchmark (reference OPR_CHECK)
+        from tlab_tpu_torch.ops.check import format_report, \
+            opr_check as run_check
+        log._write(format_report(run_check(sim)))
     log.header()
 
     obs_log = ini.get("Iteration", "ObsLog", "none").lower() != "none" \

@@ -4,8 +4,8 @@ tlab_tpu/tools/postprocess.py).
 
 Each function loops over a snapshot iteration list, reads the restart
 fields onto the simulation's device, computes there, and writes analysis
-files.  visuals.x (run_visuals) and apriori.x (run_apriori) are ROADMAP
-A16.
+files: averages.x, spectra.x, pdfs.x, visuals.x (run_visuals), apriori.x
+(run_apriori) and the superlayer tools.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 
 from tlab_tpu_torch import mappings
 from tlab_tpu_torch.convert import state_from_numpy
+from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.pressure import pressure_boussinesq
 from tlab_tpu_torch.io import fields_io
 from tlab_tpu_torch.io import reference_formats as rf
@@ -236,15 +237,397 @@ def run_pdfs(sim: Simulation, outdir: str, iterations, nbins=32) -> None:
                           gate_level=gate_level)
 
 
+def run_apriori(sim: Simulation, outdir: str, iterations) -> None:
+    """apriori.x equivalent: [PostProcessing] ParamStructure = 1 (the
+    subgrid-stress profiles tau<it> and the Smagorinsky study sgs<it>) or
+    2 (filtered velocity derivatives, gradU<it>) using the [Filter] domain
+    filter as the test filter (apriori.f90:156-340); without an active
+    [Filter], the compact 0.49 filter in every direction (the reference's
+    apriori.x requires one)."""
+    from tlab_tpu_torch.ops.filter import FilterSpec, build_filter_matrices
+    from tlab_tpu_torch.tools import apriori as ap
+    pvec = sim.case.ini.get_floats("PostProcessing", "ParamStructure", (1,))
+    mode = int(pvec[0]) if pvec else 1
+    mats = sim.filter_matrices()
+    if mats is None:
+        spec = sim.case.filter
+        if spec is None or spec.type == "none":
+            spec = FilterSpec(type="compact", parameters=(0.49,),
+                              active=(True, True, True), step=0)
+        mats = build_filter_matrices(sim.fdm, spec, sim.dtype, sim.device)
+    dx = sim.grid.x.scale / max(sim.grid.x.size, 1)
+    y = sim.grid.y.nodes
+    for it in iterations:
+        st, rtime = load_snapshot(sim, outdir, it)
+        if mode == 2:
+            tab, name = ap.filtered_gradients(sim.P, mats, st), f"gradU{it}"
+        else:
+            # reference tau<it> table: plane profiles of the six subgrid
+            # stresses tagged Tauxx..Tauyz (apriori.f90:248-295 AVG_N_XZ)
+            tau, _ = ap.subgrid_stress(mats, st.u, st.v, st.w)
+            tab = {"Tau" + b: averages._pavg(tau[a]) for a, b in
+                   (("uu", "xx"), ("vv", "yy"), ("ww", "zz"),
+                    ("uv", "xy"), ("uw", "xz"), ("vw", "yz"))}
+            del tau
+            averages.write_table(os.path.join(outdir, f"tau{it}"), y,
+                                 _host_table(tab), it, float(rtime))
+            # the Smagorinsky-coefficient study in a side table
+            tab = ap.apriori_statistics(sim.P, mats, st, delta=2.0 * dx)
+            name = f"sgs{it}"
+        averages.write_table(os.path.join(outdir, name), y,
+                             _host_table(tab), it, float(rtime))
+
+
+def subdomain_slices(sim):
+    """[PostProcessing] Subdomain=i0,i1,j0,j1,k0,k1 (1-based inclusive,
+    reference REDUCE_BLOCK_INPLACE consumption, visuals.f90:274-292);
+    None when absent/incomplete."""
+    vec = sim.case.ini.get_floats("PostProcessing", "Subdomain", ())
+    if len(vec) < 6:
+        return None
+    i = [int(v) for v in vec[:6]]
+    return (slice(i[0] - 1, i[1]), slice(i[2] - 1, i[3]),
+            slice(i[4] - 1, i[5]))
+
+
+def _get_ane(sim, box: dict):
+    """Anelastic background, built once per tool invocation (the
+    hydrostatic integration is iteration-independent)."""
+    if "ane" not in box:
+        from tlab_tpu_torch import runtime as rt
+        box["ane"] = rt.make_anelastic(sim.case, sim.grid, sim.dtype,
+                                       sim.device)
+    return box["ane"]
+
+
+def _visual_buoyancy(sim, st, box: dict):
+    """b(s)/Froude as visuals.f90 evaluates it (741-747): the anelastic
+    Thermo_Anelastic_BUOYANCY for Type=explicit, Gravity_Buoyancy with a
+    zero reference otherwise, zeros when no [BodyForce] is active."""
+    from tlab_tpu_torch.physics import thermo as th
+    from tlab_tpu_torch.physics.gravity import buoyancy_field
+    props = sim.case.buoyancy
+    froude = getattr(sim.nsp, "froude", 1.0) or 1.0
+    if props is None or props.type == "none":
+        return torch.zeros_like(st.u)
+    if props.type == "explicit":
+        ane = _get_ane(sim, box)
+        return th.buoyancy_explicit(ane["tp"], st.s, ane["bg"]) / froude
+    ref = st.u.new_zeros(sim.grid.y.size)
+    return buoyancy_field(props, st.s, ref) / froude
+
+
+def _anelastic_liquid(sim, st, box: dict):
+    """The diagnostic liquid slot s(:, inb_scal+1) for the anelastic
+    mixtures: prognostic when Damkohler>0 (3-scalar non-equilibrium),
+    else airwater equilibrium / the airwaterlinear closure."""
+    from tlab_tpu_torch.physics import thermo as th
+    tcfg = sim.case.thermo or {}
+    if tcfg.get("mixture", "") == "airwaterlinear" \
+            and tcfg.get("parameters"):
+        return th.airwater_linear(tuple(tcfg["parameters"]), st.s)
+    if st.s.shape[0] > 2:
+        return st.s[2]
+    ane = _get_ane(sim, box)
+    return th.diagnostic_fields(ane["tp"], st.s[:2], ane["bg"])["ql"]
+
+
+def _plane_fluct(a):
+    """a minus its (x,z)-plane mean."""
+    return a - a.mean(dim=(0, 2))[None, :, None]
+
+
+def _file_set(name: str, st, P, visc, pressure):
+    """(file name suffix, field) of a vector or tensor name's file set,
+    or None for a scalar name; `pressure()` solves the diagnostic
+    pressure."""
+    if name == "ScalarGradientVector":
+        return [("G" + t, dyn._d1(P, t, ax, st.s[0]))
+                for ax, t in enumerate("xyz")]
+    if name == "Vorticity":
+        return list(zip(("Wx", "Wy", "Wz"), mappings.curl(P, st.u, st.v,
+                                                          st.w)))
+    if name == "VelocityVector":
+        # three-component file set (visuals.f90:495-498, IO_WRITE_VISUALS
+        # nfield=3 -> per-component subarrays)
+        return [(f"VelocityVector{i}", c)
+                for i, c in enumerate((st.u, st.v, st.w), 1)]
+    if name == "VorticityVector":
+        # FI_CURL components (visuals.f90:725-727)
+        return [(f"VorticityVector{i}", c) for i, c in
+                enumerate(mappings.curl(P, st.u, st.v, st.w), 1)]
+    if name == "StrainTensor":
+        # FI_STRAIN_TENSOR order Sxx,Syy,Szz,Sxy,Sxz,Syz
+        # (fi_strain.f90:29-63; visuals.f90:776-779)
+        g = mappings.velocity_gradient(P, st.u, st.v, st.w)
+        comps = (g["ux"], g["vy"], g["wz"], 0.5 * (g["uy"] + g["vx"]),
+                 0.5 * (g["uz"] + g["wx"]), 0.5 * (g["vz"] + g["wy"]))
+        return [(f"StrainTensor{i}", c) for i, c in enumerate(comps, 1)]
+    if name == "StressTensor":
+        # 2 visc S_ij - p delta_ij, six components (visuals.f90 Total
+        # stress tensor)
+        g = mappings.velocity_gradient(P, st.u, st.v, st.w)
+        p = pressure()
+        return [("StressTensorxx", 2 * visc * g["ux"] - p),
+                ("StressTensoryy", 2 * visc * g["vy"] - p),
+                ("StressTensorzz", 2 * visc * g["wz"] - p),
+                ("StressTensorxy", visc * (g["uy"] + g["vx"])),
+                ("StressTensorxz", visc * (g["uz"] + g["wx"])),
+                ("StressTensoryz", visc * (g["vz"] + g["wy"]))]
+    if name == "ReynoldsTensor":
+        # u_i' u_j' about the plane means
+        f = {t: _plane_fluct(c) for t, c in (("u", st.u), ("v", st.v),
+                                              ("w", st.w))}
+        return [(f"ReynoldsTensor{a}{b}", f[a] * f[b])
+                for a, b in (("u", "u"), ("v", "v"), ("w", "w"),
+                             ("u", "v"), ("u", "w"), ("v", "w"))]
+    return None
+
+
+def _visual_field(sim, name: str, st, comp_f, box: dict, dcmp: str, outdir,
+                  it):
+    """The field of one scalar visual name (visuals.f90's menu)."""
+    from tlab_tpu_torch.physics import thermo as th
+    P, visc = sim.P, sim.nsp.visc
+    if name == "Enstrophy":
+        return mappings.vorticity_magnitude2(P, st.u, st.v, st.w)
+    if name == "Strain":
+        # the reference's Strain file is 2 s_ij s_ij (visuals.f90:786)
+        return 2.0 * mappings.strain2(P, st.u, st.v, st.w)
+    if name == "LogStrain":
+        # iscal_offset+8: log10(2 s_ij s_ij + small)
+        return torch.log10(2.0 * mappings.strain2(P, st.u, st.v, st.w)
+                           + 1e-30)
+    if name in ("InvariantP", "InvariantQ", "InvariantR"):
+        inv = mappings.invariants(P, st.u, st.v, st.w)
+        return inv["PQR".index(name[-1])]
+    if name == "Dilatation":
+        return dyn.divergence(P, st.u, st.v, st.w)
+    if name == "Dissipation":
+        return mappings.dissipation(P, st.u, st.v, st.w, visc)
+    if name == "ScalarGradient":
+        return mappings.gradient_magnitude2(P, st.s[0])
+    if name == "VelocityMagnitude":
+        return st.u ** 2 + st.v ** 2 + st.w ** 2
+    if name == "Pressure":
+        # [PostProcessing] PressureDecomposition selects which tendency
+        # pieces feed the diagnostic Poisson (visuals.f90:136-149 DCMP_*)
+        return pressure_boussinesq(P, st, decomposition=dcmp)
+    if name == "HorizontalDivergence":
+        return dyn._d1(P, "x", 0, st.u) + dyn._d1(P, "z", 2, st.w)
+    if name in ("Buoyancy", "Fvb", "bPrime", "Cvb", "LogBuoyancySource"):
+        # buoyancy-analysis family (visuals.f90 iscal_offset+12): b/Froude,
+        # its vertical flux, fluctuation, b'v' covariance, and the
+        # evaporative source magnitude
+        from tlab_tpu_torch.physics.gravity import buoyancy_source
+        props = sim.case.buoyancy
+        if props is None or props.type == "none":
+            raise ValueError(f"{name} visual needs [BodyForce]")
+        froude = getattr(sim.nsp, "froude", 1.0) or 1.0
+        b = _visual_buoyancy(sim, st, box)
+        if name == "Buoyancy":
+            return b
+        if name == "Fvb":
+            return b * st.v
+        if name == "bPrime":
+            return _plane_fluct(b)
+        if name == "Cvb":
+            return _plane_fluct(b) * _plane_fluct(st.v)
+        tcfg = sim.case.thermo or {}
+        if tcfg.get("mixture", "") == "airwaterlinear" \
+                and tcfg.get("parameters"):
+            xi, _d1f, d2f = th.airwater_linear_source(
+                tuple(tcfg["parameters"]), st.s)
+            g2 = mappings.gradient_magnitude2(P, xi)
+            ns = st.s.shape[0]
+            cl = props.parameters[ns] if len(props.parameters) > ns else 0.0
+            src = g2 * d2f * cl
+        else:
+            src = buoyancy_source(props, mappings.gradient_magnitude2(
+                P, st.s[0]))
+        src = src * visc / sim.case.schmidt[0] / froude
+        return torch.log10(src.abs() + 1e-30)
+    if name == "LogEnstrophy":
+        return torch.log10(torch.clamp(
+            mappings.vorticity_magnitude2(P, st.u, st.v, st.w), min=1e-30))
+    if name == "LogPotentialEnstrophy":
+        # log10((omega . grad b)^2) with b the buoyancy/Froude; the
+        # reference computes it for whatever buoyancy is active, zeros
+        # included (visuals.f90:739-755)
+        b = _visual_buoyancy(sim, st, box)
+        om = mappings.curl(P, st.u, st.v, st.w)
+        pe = sum(dyn._d1(P, t, ax, b) * om[ax]
+                 for ax, t in enumerate("xyz"))
+        return torch.log10(pe * pe + 1e-30)
+    if name == "Supsat":
+        # supersaturated liquid (s_ql - ql_eq)/s_ql(1) (visuals.f90:527-533;
+        # needs the non-equilibrium airwater 3-scalar state,
+        # damkohler(1) > 0)
+        if st.s.shape[0] < 3:
+            raise ValueError("Supsat needs the non-equilibrium airwater "
+                             "state (3 scalars)")
+        ane = _get_ane(sim, box)
+        ql_eq = th.diagnostic_fields(ane["tp"], st.s[:2], ane["bg"])["ql"]
+        return (st.s[2] - ql_eq) / st.s[2].reshape(-1)[0].item()
+    if name == "EpsSolid":
+        # IBM solid mask (visuals.f90:1035-1039)
+        if not P.get("ibm"):
+            raise ValueError("EpsSolid visual needs [IBMParameter]")
+        return P["ibm"]["eps"]
+    if name == "EnstrophyProduction":
+        return mappings.vorticity_production(P, st.u, st.v, st.w)
+    if name == "EnstrophyDiffusion":
+        return visc * mappings.vorticity_diffusion(P, st.u, st.v, st.w)
+    if name == "StrainProduction":
+        return 2.0 * mappings.strain_production(P, st.u, st.v, st.w)
+    if name == "StrainDiffusion":
+        return 2.0 * visc * mappings.strain_diffusion(P, st.u, st.v, st.w)
+    if name == "StrainPressure":
+        return 2.0 * mappings.strain_pressure(P, st.u, st.v, st.w,
+                                              pressure_boussinesq(P, st))
+    if name == "ScalarGradientProduction":
+        return mappings.gradient_production(P, st.s[0], st.u, st.v, st.w)
+    if name == "Tke":
+        # fluctuation TKE about the (x,z)-plane means
+        return 0.5 * (_plane_fluct(st.u) ** 2 + _plane_fluct(st.v) ** 2
+                      + _plane_fluct(st.w) ** 2)
+    if name == "LogDissipation":
+        return torch.log10(torch.clamp(
+            mappings.dissipation(P, st.u, st.v, st.w, visc), min=1e-30))
+    if name == "Radiation":
+        ir = getattr(P.get("bodyforce"), "ir_field", None)
+        if ir is None:
+            raise ValueError("Radiation visual needs an active [Infrared] "
+                             "term")
+        return ir(st)
+    if name == "RelativeHumidity":
+        # RH% = pv/psat with pv = p qv Rv/Rmix, the same formula as the
+        # avg Stratification group (averages.py)
+        ane = _get_ane(sim, box)
+        tp = ane["tp"]
+        diag = th.diagnostic_fields(tp, st.s, ane["bg"])
+        qt = st.s[1] if st.s.shape[0] > 1 else st.s[0]
+        pv = ane["bg"]["p"][None, :, None] * (qt - diag["ql"]) * tp.Rv \
+            / th.mixture_R(tp, qt, diag["ql"])
+        return pv / tp.psat(diag["T"]) * 100.0
+    if name == "PressureGradientPower":
+        pf = pressure_boussinesq(P, st)
+        return -(dyn._d1(P, "x", 0, pf) * st.u + dyn._d1(P, "y", 1, pf)
+                 * st.v + dyn._d1(P, "z", 2, pf) * st.w)
+    if name in ("PressureStrainX", "PressureStrainY", "PressureStrainZ"):
+        pp = _plane_fluct(pressure_boussinesq(P, st))
+        ax = "XYZ".index(name[-1])
+        comp = (st.u, st.v, st.w)[ax]
+        return pp * dyn._d1(P, "xyz"[ax], ax, _plane_fluct(comp))
+    if name in ("PressureHydrostatic", "PressureHydrodynamic"):
+        zero = torch.zeros_like(st.u)
+        p_sta = pressure_boussinesq(P, st._replace(u=zero, v=zero, w=zero))
+        if name == "PressureHydrostatic":
+            return p_sta
+        return pressure_boussinesq(P, st) - p_sta
+    if name.startswith("Pressure") and name[8:] in (
+            "Total", "Advection", "AdvDiff", "Diffusion", "Coriolis",
+            "Buoyancy"):
+        return pressure_boussinesq(P, st, decomposition=name[8:].lower())
+    if name == "LaplacianV":
+        return mappings.laplacian(P, st.v)
+    if name in ("LaplacianB", "GradientRi"):
+        props = sim.case.buoyancy
+        if props is None or props.type == "none":
+            raise ValueError(f"{name} visual needs [BodyForce]")
+        b = _visual_buoyancy(sim, st, box)
+        if name == "LaplacianB":
+            return mappings.laplacian(P, b)
+        # gradient Richardson proxy |db/dy| / (du/dy)^2 (visuals.f90
+        # iscal_offset+19)
+        return dyn._d1(P, "y", 1, b).abs() \
+            / (dyn._d1(P, "y", 1, st.u) ** 2 + 1e-30)
+    if name == "PressureGradientY":
+        return dyn._d1(P, "y", 1, pressure_boussinesq(P, st))
+    if name == "ParticleDensity":
+        # scatter unit weights from the part.<it> restart (visuals.f90
+        # iscal_offset+18, PARTICLE_TO_FIELD)
+        from tlab_tpu_torch.particles.core import (make_locator,
+                                                   particles_to_field)
+        from tlab_tpu_torch.particles.io import read_particles
+        ps, _ = read_particles(os.path.join(outdir, f"part.{it}"),
+                               dtype=sim.dtype, device=sim.device)
+        loc = make_locator(sim.grid)(ps.x)
+        return particles_to_field(ps.x.new_ones(ps.x.shape[0]), loc,
+                                  sim.grid.shape)
+    if name in ("H2Ov", "Air", "H2Ol", "Liquid", "Chi", "Psi"):
+        # mixture species mass fractions (visuals.f90:649-668): airwater
+        # H2Ov = qt - ql, Air = 1 - qt, H2Ol = the liquid slot;
+        # airwaterlinear Chi/Psi are the mixing scalars and Liquid the
+        # diagnostic closure
+        if name in ("Chi", "Psi"):
+            return st.s[("Chi", "Psi").index(name)]
+        if comp_f is not None:
+            qt = st.s[0] if st.s.shape[0] else torch.zeros_like(st.u)
+            ql = comp_f.get("Liquid", torch.zeros_like(qt))
+        else:
+            qt = st.s[1] if st.s.shape[0] > 1 else st.s[0]
+            ql = torch.zeros_like(qt) \
+                if (sim.case.thermo or {}).get("mixture", "") == "airvapor" \
+                else _anelastic_liquid(sim, st, box)
+        return {"H2Ov": qt - ql, "Air": 1.0 - qt}.get(name, ql)
+    if name in ("VelocityX", "VelocityY", "VelocityZ"):
+        return (st.u, st.v, st.w)["XYZ".index(name[-1])]
+    if name.startswith("Scalar"):
+        return st.s[int(name[6:]) - 1]
+    raise ValueError(name)
+
+
 def run_visuals(sim: Simulation, outdir: str, iterations,
                 which=("Enstrophy",)) -> None:
-    raise NotImplementedError("visuals (derived-field extraction): "
-                              "ROADMAP A16")
+    """visuals.x equivalent: the derived fields `which` of each snapshot as
+    vis<it>.<name> files (a file set vis<it>.<name><i> for the vector and
+    tensor names), single precision, optionally restricted to
+    [PostProcessing] Subdomain; [PostProcessing] Format=general writes the
+    restart format instead of raw f4.  Each name that needs the diagnostic
+    pressure solves it (PressureHydrodynamic and PressureAdvection twice),
+    as tlab_tpu.  Each field goes to the host once and is freed before the
+    next."""
+    sub = subdomain_slices(sim)
+    box = {}
+    ini = sim.case.ini
+    # [PostProcessing] Format: 'single' (default) = raw f32 no header, as
+    # the reference's IO_WRITE_VISUALS FORMAT_SINGLE (what the xdmf/python
+    # readers mmap); 'general' = restart stream format
+    fv = ini.get("PostProcessing", "Format", "single").lower()
+    vfmt = "general" if fv in ("general", "0") else "single"
+    dcmp = ini.get("PostProcessing", "PressureDecomposition",
+                   "total").lower()
+    for it in iterations:
+        comp_f = None
+        if sim.comp is not None:
+            from tlab_tpu_torch.dycore.compressible import primitive_view
+            U, rtime = _load_comp(sim, outdir, it)
+            rho, T, p, ql = comp_fields(sim, U)
+            comp_f = {"Density": rho, "Temperature": T, "Pressure": p}
+            if ql is not None:
+                comp_f["Liquid"] = ql
+            st = primitive_view(U)
+        else:
+            st, rtime = load_snapshot(sim, outdir, it)
 
+        def write(suffix, fld):
+            fields_io.write_visual(
+                os.path.join(outdir, f"vis{it}.{suffix}"),
+                fld if sub is None else fld[sub], it, (rtime,), fmt=vfmt)
 
-def run_apriori(sim: Simulation, outdir: str, iterations) -> None:
-    raise NotImplementedError("apriori (subgrid-stress analysis): "
-                              "ROADMAP A16")
+        for name in which:
+            if comp_f is not None and name in comp_f:
+                write(name, comp_f[name])
+                continue
+            files = _file_set(name, st, sim.P, sim.nsp.visc,
+                              lambda: pressure_boussinesq(sim.P, st))
+            if files is None:
+                files = [(name, _visual_field(sim, name, st, comp_f, box,
+                                              dcmp, outdir, it))]
+            for suffix, fld in files:
+                write(suffix, fld)
+            del files
 
 
 def run_superlayer(sim: Simulation, outdir: str, iterations,
