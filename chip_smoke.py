@@ -167,6 +167,20 @@ non-zero:
               against NumPy's file byte for byte; (e) the cloud-state
               commands on the card against the CPU, the cloud-top pair's
               buoyancy reversal
+ 17. mesh     the rank mesh (tlab_tpu_torch/parallel/): K1-K3 against their
+              plain version at the shapes a 4x2 mesh gives them (K1 on the
+              x-gathered stack, K2 on the block, K3 on the z-gathered
+              stack); (a) examples/ekman_mesh/tlab.ini as written
+              (128x96x128, [Parallel] Mesh=4,2, 20 RK3 steps with its
+              buffer, rotation and towers) through the CLI: dns on one
+              device, then dns on 8 ranks on the card over gloo (the
+              backend rule's line in tlab.log), dns.out and the restarts
+              against each other within fp32 limits, each rank's launches
+              from tlab.log, s/step of both, transpose_check on 8 ranks;
+              (b) the shear layer at 512x256x256 through `dns --mesh 1,1`
+              (one rank, NCCL), 3 steps from 6a's fields: its rows against
+              6a's, launches >= 15 a kernel, s/step beside 6a's,
+              transpose_check there
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 Without a CUDA card the script exits 1 and prints no result.
@@ -234,6 +248,7 @@ CFL_TARGET, CFL_TOL = 1.2, 0.05      # [Main] TimeCFL of the case
 WALL_MEAN, WALL_TOL = 0.5, 1e-3      # |<u>| at the walls: DeltaVelocityX / 2
 OPTION_STEPS = 5
 INITIAL_FILES = ("flow.0.1", "flow.0.2", "flow.0.3", "scal.0.1")
+SAVED_6A = {"dns.out": "dns.6a", "tlab.trace": "trace.6a"}
 SOURCE = "tlab_tpu_torch/csrc/burgers.cu"
 REPLACES = ("tlab_tpu/ops/pallas_burgers.py:62",    # _kern_x
             "tlab_tpu/ops/pallas_burgers.py:71",    # _kern_y
@@ -526,6 +541,8 @@ def phase_dns_case(card: str, keep: str) -> list:
         launches, peak, run = res["launches"], res["peak"], res["run"]
         for f in INITIAL_FILES:
             shutil.move(os.path.join(out, f), os.path.join(keep, f))
+        for f, kept in SAVED_6A.items():          # 17b's reference
+            shutil.copy(os.path.join(out, f), os.path.join(keep, kept))
         n_sub = len(run.sim.P["rk"]["kdt"])
         require(launches == [DNS_STEPS * n_sub] * 3,
                 f"dns launched {launches}, expected "
@@ -4354,6 +4371,267 @@ def phase_tools(card: str, initial: str) -> dict:
     return {"launches_16a": vis["launches"], "seconds": t16}
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the rank mesh (parallel/, dns --mesh)
+# ---------------------------------------------------------------------------
+
+MESH = (4, 2)                # examples/ekman_mesh's [Parallel] Mesh
+MESH_STEPS = 20              # the case's End
+NCCL_MESH = (1, 1)
+NCCL_STEPS = 3               # 17b: dns of 6a's case from 6a's fields
+# 17a, the 4x2 mesh against one device on the card, fp32, 20 RK3 steps
+# (measured: PR 13's first chip run): dns.out's time, dt, CFL#, D#, visc
+# relative, 0 read, limit one digit of a 3-digit column; DilMin/DilMax over
+# the column's largest magnitude, 3.52e-5 read, limit 10x; the restarts
+# over their max, 3.14e-5 read, limit 10x.  A transpose with its peers'
+# blocks swapped (a scratch copy) went to NaN at step 5.
+MESH_ROW_TOL = 1e-2
+MESH_DIL_TOL = 4e-4
+MESH_FIELD_TOL = 3e-4
+# 17b, NCCL in a world of one against 6a's first rows: 0 and 2.26e-3 read
+NCCL_ROW_TOL = 1e-2
+NCCL_DIL_TOL = 2e-2
+LAUNCH_LINE = re.compile(r"(\d+) \[(\d+), (\d+), (\d+)\]")
+
+
+def substeps(text: str) -> int:
+    """The RK substeps a step of the case's TimeOrder."""
+    from tlab_tpu_torch.dycore import timemarch
+    return len(timemarch.get_scheme(
+        load_case(Ini(text=text)).time_order).kdt)
+
+
+def rank_launches(log: str) -> list:
+    """[K1, K2, K3] of each rank from tlab.log's launch line of a mesh
+    run (the kernels run in the ranks' processes)."""
+    with open(log) as fh:
+        line = [ln for ln in fh if ln.startswith("Burgers kernel launches")]
+    require(len(line) == 1, f"{log}: {len(line)} launch lines")
+    return [[int(g) for g in m.groups()[1:]]
+            for m in LAUNCH_LINE.finditer(line[0])]
+
+
+def row_errors(rows, ref) -> tuple:
+    """(max relative deviation of the time, dt, CFL#, D#, visc columns,
+    max deviation of DilMin/DilMax over the column's largest magnitude)."""
+    a = np.array([[float(v) for v in r[2:7]] for r in rows])
+    b = np.array([[float(v) for v in r[2:7]] for r in ref])
+    cols = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+    da = np.array([[float(v) for v in r[7:9]] for r in rows])
+    db = np.array([[float(v) for v in r[7:9]] for r in ref])
+    dil = np.abs(da - db).max(0) / np.maximum(np.abs(db).max(0), 1e-300)
+    return float(cols.max()), float(dil.max())
+
+
+def check_mesh_kernels(text: str, mesh) -> list:
+    """K1-K3 against their plain version, timed, at the shapes a (px, pz)
+    mesh gives them in the case's dns: K1 on the x-gathered stack, K2 on
+    the block, K3 on the z-gathered stack, with the case's operators."""
+    from tlab_tpu_torch.parallel.pencil import block_shapes
+    sim = Simulation.from_case(load_case(Ini(text=text)),
+                               dtype=torch.float32, device="cuda")
+    P = sim.P
+    shapes = block_shapes(*mesh, sim.grid.shape)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    nu = torch.tensor((P["visc"],) * 3 + P["diff"], dtype=torch.float32,
+                      device="cuda")
+    out = []
+    for axis, key in ((0, "x"), (1, "local"), (2, "z")):
+        shape = shapes[key]
+        x = torch.randn((len(nu),) + shape, generator=gen, device="cuda")
+        conv = torch.randn(shape, generator=gen, device="cuda")
+        r = check_kernel(axis, P["d12" + "xyz"[axis]], x, conv, nu, True)
+        r["shape"] = [len(nu), *shape]
+        print(f"[mesh] {burgers.ENTRY_POINTS[axis]} F={len(nu)} {shape} "
+              f"({key} of the {mesh[0]}x{mesh[1]} mesh): max|err| "
+              f"{r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}, limit "
+              f"{KERNEL_TOL}); kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, matmul {r['library_ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}")
+        out.append(r)
+    del sim, P
+    return out
+
+
+def mesh_transposes(mesh, shape) -> dict:
+    """transpose_check on px pz spawned ranks on the card (the backend
+    rule's), rank 0's report."""
+    from tlab_tpu_torch.ops import check
+    from tlab_tpu_torch.parallel import mesh as pmesh
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as td:
+        reports = pmesh.spawn(check.transpose_check, *mesh, "cuda", shape,
+                              torch.float32, 5, store_dir=td)
+    rep = reports[0]
+    require(all(r == rep for r in reports), "transpose_check: the ranks "
+            "disagree")
+    require(rep["transpose_roundtrip_residual"] == 0.0,
+            f"transpose_check residual {rep}")
+    return rep
+
+
+def traced_dns(ini: str, out: str, *more) -> dict:
+    """`dns` through the CLI with tlab.trace on (the mesh run's rank 0
+    writes it), the parent's kernel counts set to 0 just before it and
+    read just after: (seconds, parent's counts, trace)."""
+    os.environ["TLAB_TPU_TRACE"] = "1"
+    try:
+        burgers.launches[:] = [0, 0, 0]
+        seconds = run_cli("dns", ini, out, *more)
+        launches = list(burgers.launches)
+    finally:
+        del os.environ["TLAB_TPU_TRACE"]
+        ttrace.close()
+    return {"seconds": seconds, "launches": launches,
+            "trace": read_trace(os.path.join(out, "tlab.trace"))}
+
+
+def phase_mesh_ekman(card: str) -> dict:
+    """17a: examples/ekman_mesh/tlab.ini as written (128x96x128, [Parallel]
+    Mesh=4,2, 20 RK3 steps with its buffer, rotation and towers) through
+    the CLI: inigrid, ini, then dns on one device and dns on 8 ranks on
+    the card over gloo; dns.out and the restarts against each other."""
+    text = EKMAN.read_text()
+    require("[Parallel]\nMesh=4,2\n" in text and f"End={MESH_STEPS}" in text,
+            "17a: examples/ekman_mesh/tlab.ini is not the 4x2 case")
+    res = {"kernels": check_mesh_kernels(text, MESH)}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as top:
+        one, many = os.path.join(top, "one"), os.path.join(top, "mesh")
+        os.makedirs(one)
+        ini_one = os.path.join(one, "tlab.ini")
+        with open(ini_one, "w") as fh:
+            fh.write(text.replace("[Parallel]\nMesh=4,2\n", ""))
+        run_cli("inigrid", ini_one, one)
+        res["ini_s"] = run_cli("ini", ini_one, one)
+        shutil.copytree(one, many)
+        ini_many = os.path.join(many, "tlab.ini")
+        with open(ini_many, "w") as fh:
+            fh.write(text)
+        single = traced_dns(ini_one, one)
+        mesh = traced_dns(ini_many, many)
+        require(mesh["launches"] == [0, 0, 0], "17a: a kernel launched in "
+                "the launching process")
+        res["by_rank"] = rank_launches(os.path.join(many, "tlab.log"))
+        with open(os.path.join(many, "tlab.log")) as fh:
+            res["describe"] = [ln.split(":", 1)[1].strip() for ln in fh
+                               if ln.startswith("Mesh ")][0]
+        rows_one = data_rows(os.path.join(one, "dns.out"))
+        rows_many = data_rows(os.path.join(many, "dns.out"))
+        require(len(rows_many) == len(rows_one) == MESH_STEPS + 1,
+                f"17a: dns.out rows {len(rows_many)}, {len(rows_one)}")
+        res["rows"], res["dil"] = row_errors(rows_many, rows_one)
+        res["fields"] = {}
+        for name in ("flow.20.1", "flow.20.2", "flow.20.3", "scal.20.1"):
+            a = fields_io.read_field(os.path.join(one, name))[0]
+            b = fields_io.read_field(os.path.join(many, name))[0]
+            require(np.isfinite(b).all(), f"17a: non-finite {name}")
+            res["fields"][name] = float(np.abs(a - b).max()
+                                        / max(np.abs(a).max(), 1e-30))
+        res["towers"] = sorted(f for f in os.listdir(many)
+                               if f.startswith("tower"))
+        n_sub = substeps(text)
+        res["single"], res["mesh"] = single, mesh
+        res["single_rate"] = step_rate(single["trace"], MESH_STEPS, n_sub)
+        res["mesh_rate"] = step_rate(mesh["trace"], MESH_STEPS, n_sub)
+        res["single_launches"] = single["launches"]
+        res["transposes"] = mesh_transposes(MESH, EKMAN_SHAPE)
+    want = [MESH_STEPS * n_sub] * 3
+    require(res["single_launches"] == want,
+            f"17a: one device launched {res['single_launches']}")
+    require(len(res["by_rank"]) == MESH[0] * MESH[1]
+            and all(r == want for r in res["by_rank"]),
+            f"17a: launches by rank {res['by_rank']}, expected {want} each")
+    require(res["towers"], "17a: the mesh run wrote no tower files")
+    return res
+
+
+def phase_mesh_nccl(card: str, initial: str) -> dict:
+    """17b: dns of the shear layer at 512x256x256 through `dns --mesh 1,1`
+    (one rank, NCCL) from 6a's initial fields, 3 steps: its rows against
+    6a's, its launches and its time beside 6a's."""
+    changes = {("Iteration", "End"): str(NCCL_STEPS),
+               ("Iteration", "Restart"): str(NCCL_STEPS),
+               ("Iteration", "Statistics"): str(NCCL_STEPS)}
+    text = edit_case(CASE.read_text(), changes)
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
+        ini = write_case(out, text)
+        link_initial_fields(initial, out)
+        run = traced_dns(ini, out, "--mesh", ",".join(map(str, NCCL_MESH)))
+        require(run["launches"] == [0, 0, 0], "17b: a kernel launched in "
+                "the launching process")
+        res["by_rank"] = rank_launches(os.path.join(out, "tlab.log"))
+        with open(os.path.join(out, "tlab.log")) as fh:
+            res["describe"] = [ln.split(":", 1)[1].strip() for ln in fh
+                               if ln.startswith("Mesh ")][0]
+        rows = data_rows(os.path.join(out, "dns.out"))
+        got = fields_io.read_field(os.path.join(out, f"flow.{NCCL_STEPS}.1"))
+        require(np.isfinite(got[0]).all() and got[0].shape == MAIN_SHAPE,
+                "17b: the restart")
+        res["seconds"], res["trace"] = run["seconds"], run["trace"]
+    ref = data_rows(os.path.join(initial, SAVED_6A["dns.out"]))
+    require(len(rows) == NCCL_STEPS + 1, f"17b: dns.out rows {len(rows)}")
+    res["rows"], res["dil"] = row_errors(rows, ref[:NCCL_STEPS + 1])
+    n_sub = substeps(text)
+    res["rate"] = step_rate(res["trace"], NCCL_STEPS, n_sub)
+    res["rate_6a"] = step_rate(
+        read_trace(os.path.join(initial, SAVED_6A["tlab.trace"])),
+        NCCL_STEPS, n_sub)
+    res["transposes"] = mesh_transposes(NCCL_MESH, MAIN_SHAPE)
+    require("backend nccl" in res["describe"], f"17b: {res['describe']}")
+    require(len(res["by_rank"]) == 1
+            and all(n >= NCCL_STEPS * n_sub for n in res["by_rank"][0]),
+            f"17b: launches {res['by_rank']}")
+    return res
+
+
+def phase_mesh(card: str, initial: str) -> dict:
+    """Phase 17, each part's line."""
+    t17 = time.perf_counter()
+    a = phase_mesh_ekman(card)
+    tr = a["transposes"]
+    print(f"[mesh] 17a examples/ekman_mesh {EKMAN_SHAPE} fp32, "
+          f"{MESH_STEPS} RK3 steps ({card}): {a['describe']}; one device "
+          f"{a['single_rate']['seconds'] / MESH_STEPS:.4f} s/step "
+          f"({a['single_rate']['ms_substep']:.3f} ms/substep), the mesh "
+          f"{a['mesh_rate']['seconds'] / MESH_STEPS:.4f} s/step "
+          f"({a['mesh_rate']['ms_substep']:.3f} ms/substep; its other "
+          f"steps' median {a['mesh_rate']['others_ms_substep']:.3f}); dns "
+          f"{a['single']['seconds']:.1f} s and {a['mesh']['seconds']:.1f} "
+          f"s; launches one device {a['single_launches']}, by rank "
+          f"{a['by_rank']}; dns.out against one device: columns "
+          f"{a['rows']:.3e} (limit {MESH_ROW_TOL}), DilMin/DilMax "
+          f"{a['dil']:.3e} (limit {MESH_DIL_TOL}); restarts "
+          + ", ".join(f"{k} {v:.3e}" for k, v in a["fields"].items())
+          + f" (limit {MESH_FIELD_TOL}); towers {len(a['towers'])} files; "
+          f"transpose round trip ({tr['backend']}, {tr['mesh']}, "
+          f"{tr['shape']}) {1e3 * tr['transpose_roundtrip_time_s']:.3f} ms, "
+          f"{tr['transpose_bandwidth_GBps']:.3f} GB/s")
+    require(a["rows"] <= MESH_ROW_TOL and a["dil"] <= MESH_DIL_TOL,
+            f"17a dns.out: {a['rows']}, {a['dil']}")
+    require(max(a["fields"].values()) <= MESH_FIELD_TOL,
+            f"17a restarts: {a['fields']}")
+    b = phase_mesh_nccl(card, initial)
+    tr = b["transposes"]
+    print(f"[mesh] 17b shear layer {MAIN_SHAPE} fp32 dns --mesh 1,1, "
+          f"{NCCL_STEPS} steps from 6a's fields ({card}): {b['describe']}; "
+          f"{b['rate']['seconds'] / NCCL_STEPS:.4f} s/step "
+          f"({b['rate']['ms_substep']:.3f} ms/substep, its other steps' "
+          f"median {b['rate']['others_ms_substep']:.3f}) beside 6a's "
+          f"{b['rate_6a']['seconds'] / NCCL_STEPS:.4f} s/step "
+          f"({b['rate_6a']['ms_substep']:.3f}, median "
+          f"{b['rate_6a']['others_ms_substep']:.3f}); dns {b['seconds']:.1f}"
+          f" s; launches {b['by_rank'][0]}; rows against 6a's: columns "
+          f"{b['rows']:.3e} (limit {NCCL_ROW_TOL}), DilMin/DilMax "
+          f"{b['dil']:.3e} (limit {NCCL_DIL_TOL}); transpose round trip "
+          f"({tr['backend']}, {tr['mesh']}, {tr['shape']}) "
+          f"{1e3 * tr['transpose_roundtrip_time_s']:.3f} ms")
+    require(b["rows"] <= NCCL_ROW_TOL and b["dil"] <= NCCL_DIL_TOL,
+            f"17b rows: {b['rows']}, {b['dil']}")
+    t17 = time.perf_counter() - t17
+    print(f"[mesh] phase 17 took {t17:.1f} s")
+    return {"a": a, "b": b, "seconds": t17}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -4471,7 +4749,6 @@ def main() -> int:
     for rec, err in zip(records, errs):
         rec["max_abs_err_16a"] = err
     tools = phase_tools(smi, initial)
-    keep.cleanup()
     for key, got in (("15a", parts["15a"]),
                      ("15b_inertia", parts["15b_inertia"]),
                      ("15b_bil_cloud", parts["15b_bil_cloud"]),
@@ -4481,9 +4758,21 @@ def main() -> int:
             rec[f"launches_{key}"] = n
     for rec, n in zip(records, tools["launches_16a"]):
         rec["launches_16a"] = n
+    mesh = phase_mesh(smi, initial)
+    keep.cleanup()
+    for axis, rec in enumerate(records):
+        k = mesh["a"]["kernels"][axis]
+        rec["mesh_17a"] = {key: k[key] for key in (
+            "shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}
+        rec["max_abs_err_17a"] = k["max_abs_err"]
+        by_rank = [r[axis] for r in mesh["a"]["by_rank"]]
+        rec["launches_17a_by_rank"] = by_rank
+        rec["launches_17a"] = sum(by_rank)
+        rec["launches_17b"] = mesh["b"]["by_rank"][0][axis]
     print(f"[slice] phase 10 took {t10:.1f} s, 11 {t11:.1f} s, 12 "
           f"{t12:.1f} s, 13 {t13:.1f} s, 14 {t14:.1f} s, 15 {t15:.1f} s, "
-          f"16 {tools['seconds']:.1f} s")
+          f"16 {tools['seconds']:.1f} s, 17 {mesh['seconds']:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,7 +7,7 @@ agree to 1e-14, attach_buffer's plane means to 1e-13 (their summation
 order), surface_bc_step to 1e-12 on both sides, a step
 with each to 1e-10 of max|field|; the Ekman layer of
 examples/ekman_mesh/tlab.ini (its [Parallel] mesh and [SaveTowers] taken
-out: ROADMAP A17 and A15) with a Jmax sponge and an interactive bottom
+out) with a Jmax sponge and an interactive bottom
 surface runs at 32x24x32 through both command lines with dns.out and
 dns.obs equal in every printed digit."""
 import pathlib

@@ -1,6 +1,6 @@
 """The port's command line (tlab_tpu_torch/tools/cli.py) on the CPU: the
 files `ini` and `dns` leave behind, against tlab_tpu's CLI on the same case,
-tlab_tpu's commands, and the message for what is not ported."""
+tlab_tpu's commands (dns on a rank mesh: tests/test_torch_mesh_driver.py)."""
 import argparse
 import os
 import shutil
@@ -205,32 +205,6 @@ def test_saveplanes_and_savetowers_through_both_clis(rundir, tmp_path,
 
 
 COMPRESSIBLE = ("Equations=incompressible", "Equations=internal")
-
-
-@pytest.mark.parametrize("edits, item", [
-    # the options the case file can ask for beyond the port (the
-    # compressible set's characteristic boundaries and moist mixture run
-    # now: test_compressible_option_once_refused_runs_as_jax; the
-    # [Statistics] pdfs and spectra: tests/test_torch_postprocess.py;
-    # [SavePlanes] and [SaveTowers]: tests/test_torch_planes.py and
-    # test_saveplanes_and_savetowers_through_both_clis below)
-    ((("[BufferZone]\nType=none",
-       "[BufferZone]\nType=none\n[Parallel]\nMesh=4,2"),), "A17")])
-def test_unported_option_exits_with_its_item(rundir, tmp_path, edits, item):
-    for name in ("flow.0.1", "flow.0.2", "flow.0.3", "scal.0.1"):
-        shutil.copy(rundir / name, tmp_path / name)
-    ini = tmp_path / "tlab.ini"
-    with open(CASE3D) as fh:
-        text = fh.read()
-    for old, new in edits:
-        assert old in text
-        text = text.replace(old, new)
-    ini.write_text(text)
-    common = ["--ini", str(ini), "--outdir", str(tmp_path), "--device",
-              "cpu", "--x64", "--steps", "1"]
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        cli.main(["ini", *common])
-        cli.main(["dns", *common])
 
 
 def test_compressible_option_once_refused_runs_as_jax(tmp_path):

@@ -38,7 +38,8 @@ KNOWN = ("tlab_tpu_torch.entry.build",
          "tlab_tpu_torch.tools.cloudstate.mixing_diagram",
          "tlab_tpu_torch.tools.cloudstate.saturation_curve",
          "tlab_tpu_torch.tools.cloudstate.vapor_table",
-         "tlab_tpu_torch.tools.cloudstate.buoyancy_reversal")
+         "tlab_tpu_torch.tools.cloudstate.buoyancy_reversal",
+         "tlab_tpu_torch.parallel.mesh.make_mesh")
 
 
 def _callables(module):
@@ -148,3 +149,15 @@ def test_boundary_tables_raise_without_a_card(what):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
     assert call(device="cpu").device.type == "cpu"
+
+
+def test_mesh_device_raises_without_a_card():
+    """make_mesh's default device is the card: a rank's device resolves to
+    it, and where there is none that raises rather than run on the CPU."""
+    from tlab_tpu_torch.parallel import mesh as pmesh
+    if torch.cuda.is_available():
+        pytest.skip("there is a card: the default device exists")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        pmesh.rank_device("cuda", 0)
+    assert pmesh.rank_device("cpu", 3) == torch.device("cpu")
+    assert pmesh.backend_rule(4, "cpu") == "gloo"

@@ -356,14 +356,6 @@ def test_restart_identity(tmp_path, start):
     assert second.log.lines[-4:] == straight.log.lines[-4:]
 
 
-@pytest.mark.parametrize("kw, item", [(dict(mesh=object()), "A17")])
-def test_unported_arguments_raise(tmp_path, start, kw, item):
-    sim = Simulation.from_case(load_case(CASE3D), dtype=F64, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tdns.run(sim, state_from_numpy(*start, "cpu", F64),
-                 outdir=str(tmp_path), n_steps=1, **kw)
-
-
 def test_particles_once_refused_run_as_jax(tmp_path, start):
     """dns.run with particles (pstate, particle_props), refused until they
     were ported: 4 steps of the 3-D case with 200 tracers through both

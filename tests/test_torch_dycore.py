@@ -266,9 +266,11 @@ def test_from_case_runs_options_once_refused(section, key, value, plan_key):
     ("comm", {}),
 ])
 def test_step_rejects_plans_off_the_path(key, value):
+    """A mesh descriptor is on the path now (parallel/pencil.py), but only
+    a rank's: a "comm" without its mesh is refused."""
     _, PT, (u, v, w, s) = _setup()
     PT[key] = value
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(ValueError, match="pencil_plans"):
         tdyn.rk_step(PT, state_from_numpy(u, v, w, s, "cpu", F64), 1e-3)
 
 

@@ -24,6 +24,7 @@ names = [m.name for m in pkgutil.walk_packages(tlab_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 """ + _CLEAN + """
+print(*names)
 print(len(names))
 """
 
@@ -88,10 +89,20 @@ def _run(probe, *args):
                           capture_output=True, text=True, timeout=300)
 
 
+# the modules of the rank mesh, each among those the probe imports
+MESH_MODULES = ("tlab_tpu_torch.parallel", "tlab_tpu_torch.parallel.mesh",
+                "tlab_tpu_torch.parallel.pencil",
+                "tlab_tpu_torch.particles.parallel",
+                "tlab_tpu_torch.io.sharded")
+
+
 def test_port_imports_no_jax():
     proc = _run(_PROBE)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 40     # every module was imported
+    names = proc.stdout.split("\n")[-3].split()
+    for name in MESH_MODULES:
+        assert name in names, name
 
 
 def test_chip_smoke_imports_no_jax():
@@ -439,4 +450,41 @@ def test_particles_planes_and_towers_run_without_jax(tmp_path):
     names = proc.stdout.split("\n")[-2].split()
     for want in ("part.0", "part.2", "trajectories.1-2.npz", "planesJ.2",
                  "planesJ.2.nc", "towers.nc", "tower.mean.000002-000002.1"):
+        assert want in names, names
+
+
+# dns on a 2x1 rank mesh through the port's command line; the ranks it
+# spawns inherit PYTHONPATH, where a `jax`, `jaxlib` and `tlab_tpu` that
+# raise on import stand first
+_MESH_PROBE = """
+import os, sys
+from tlab_tpu_torch.tools import cli
+common = ["--ini", sys.argv[1], "--outdir", sys.argv[2], "--device", "cpu",
+          "--x64"]
+assert cli.main(["ini", *common]) == 0
+assert cli.main(["dns", *common, "--steps", "2", "--mesh", "2,1"]) == 0
+print(*sorted(os.listdir(sys.argv[2])))
+"""
+
+
+def test_mesh_dns_runs_without_jax(tmp_path):
+    """The mesh modules (parallel/, particles/parallel.py, io/sharded.py)
+    and dns --mesh, in the launching process and in every spawned rank,
+    where neither JAX nor tlab_tpu can be imported."""
+    fake = tmp_path / "fake"
+    for name in ("jax", "jaxlib", "tlab_tpu"):
+        (fake / name).mkdir(parents=True)
+        (fake / name / "__init__.py").write_text(
+            "raise ImportError('the card machine has no JAX')\n")
+    ini = tmp_path / "tlab.ini"
+    ini.write_text((REPO / "tests" / "data" / "case01_small3d.ini")
+                   .read_text().replace("Statistics=5", "Statistics=2"))
+    out = tmp_path / "run"
+    env = dict(__import__("os").environ, PYTHONPATH=f"{fake}:{REPO}")
+    proc = subprocess.run([sys.executable, "-c", _MESH_PROBE, str(ini),
+                           str(out)], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    names = proc.stdout.split("\n")[-2].split()
+    for want in ("dns.out", "tlab.log", "avg2", "avg2s1"):
         assert want in names, names

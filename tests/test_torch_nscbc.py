@@ -311,15 +311,23 @@ def test_a_banded_y_keeps_the_dense_edge_rows():
 
 def test_a_mesh_plan_raises_with_its_item():
     """The mesh-global max Mach^2 (an MPI_ALLREDUCE in the reference) is
-    A17's: a plan with a "comm" raises."""
+    the mesh's all-reduce now (tests/test_torch_pencil.py steps the set on
+    four ranks): _global_max hands the value to the rank's mesh, and a
+    plan whose "comm" has no mesh is refused."""
     g, _, PT = _plans(8, 32)
     _, Ut = _state(_pulse(g))
     spec = tn.NSCBCSpec(ymin="outflow", ymax="outflow", p_inf=P_INF)
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
+    with pytest.raises(ValueError, match="pencil_plans"):
         tcomp.rk_step_compressible(dict(PT, comm={}), Ut, 2e-4, GAMMA, MACH,
                                    0.0, 1.0, nscbc=spec)
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        tn._global_max({"comm": {}}, 1.0)
+
+    class Mesh:
+        def all_reduce(self, v, op):
+            return ("reduced", v, op)
+
+    assert tn._global_max(None, 1.0) == 1.0
+    assert tn._global_max({"comm": {"mesh": Mesh()}}, 1.0) == \
+        ("reduced", 1.0, "max")
 
 
 @pytest.mark.parametrize("edits", [

@@ -550,17 +550,14 @@ def test_cli_dns_engages_particles(tmp_path):
 
 def test_particle_refusals(tmp_path, small_pair):
     """What tlab_tpu has no path for stays refused: an unsteady inflow with
-    particles (tlab_tpu/tools/dns.py:767), particles in the compressible
-    set; a mesh stays ROADMAP A17."""
+    particles (tlab_tpu/tools/dns.py:767).  (Particles on a rank mesh, once
+    refused here, run: tests/test_torch_mesh_features.py.)"""
     _, tsim, start = small_pair
     ps = pc.init_particles(tsim.grid, 10, device="cpu")
     state = state_from_numpy(*start, "cpu", F64)
     with pytest.raises(NotImplementedError, match="unsteady inflow"):
         tdns.run(tsim, state, outdir=str(tmp_path), n_steps=1, pstate=ps,
                  particle_props=pc.ParticleProps(), inflow=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        tdns.run(tsim, state, outdir=str(tmp_path), n_steps=1, pstate=ps,
-                 particle_props=pc.ParticleProps(), mesh=object())
 
 
 # the float32 witness: tlab_tpu's particle step in float32 (x64 off, as its

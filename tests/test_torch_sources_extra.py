@@ -207,8 +207,16 @@ def test_wavemaker_source_matches():
                                           jnp.asarray(q), t)
             assert _rel(got, want) <= TOL
     assert tforc.localize_wavemaker(env, ph, None) == (env, ph)
-    with pytest.raises(NotImplementedError, match="ROADMAP A17"):
-        tforc.localize_wavemaker(env, ph, {"px": 2})
+    # on a rank mesh: the rank's block of both tables (pure slicing)
+    import types
+    nx, nz = env.shape[0], env.shape[2]
+    for ix, iz in ((0, 0), (1, 1)):
+        comm = {"mesh": types.SimpleNamespace(px=2, pz=2, ix=ix, iz=iz)}
+        e, p = tforc.localize_wavemaker(_t(env), _t(ph), comm)
+        xs = slice(ix * nx // 2, (ix + 1) * nx // 2)
+        zs = slice(iz * nz // 2, (iz + 1) * nz // 2)
+        assert torch.equal(e, _t(env)[xs, :, zs])
+        assert torch.equal(p, _t(ph)[:, xs])
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,7 @@ import torch
 
 from tlab_tpu_torch import device as _device
 from tlab_tpu_torch import ibm as ibmmod
-from tlab_tpu_torch.dycore.incompressible import (OFF_PATH, check_main_path,
+from tlab_tpu_torch.dycore.incompressible import (check_main_path,
                                                   scalar_bounds)
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.ops import elliptic_factorize as fac
@@ -101,9 +101,6 @@ def plans_from_jax(P_np: dict, device, dtype, bodyforce=None) -> dict:
             P[key] = thomas.device_plan(val, dtype, dev)
         elif key == "y_periodic":
             P[key] = bool(val)
-        elif key in OFF_PATH:
-            if val is not None:     # check_main_path rejects it
-                P[key] = val
         else:
             raise KeyError(f"unknown tlab_tpu plan key {key!r}")
     check_main_path(P)

@@ -13,8 +13,8 @@ The filter-type sponge (reference BOUNDARY_BUFFER_FILTER) blends the state
 toward its filtered self after each step inside the Imin/Imax strips.
 
 The profiles are NumPy copies of tlab_tpu's; the tables live on the run's
-device (the plan's "buffer" entry).  `localize` (the pencil mesh) is
-ROADMAP A17.
+device (the plan's "buffer" entry).  On the pencil mesh `localize` cuts the
+x-extended tables to the rank's block.
 """
 from __future__ import annotations
 
@@ -107,6 +107,38 @@ def build_buffer(y: np.ndarray, spec: BufferSpec, ref_profiles: dict,
     return buf
 
 
+def localize(buf, comm):
+    """The buffer tables of this rank's block on the pencil mesh (comm, the
+    plan's mesh descriptor): the x profile tau_x and the x/z-extended
+    reference planes sliced (y is never split); buf itself without a mesh.
+    Makes the Imin/Imax strips and the unsteady-inflow planes run on the
+    mesh (the reference relaxes its rank-local strips,
+    boundary_buffer.f90)."""
+    if buf is None or comm is None:
+        return buf
+    mesh = comm["mesh"]
+    px, pz, ix, iz = mesh.px, mesh.pz, mesh.ix, mesh.iz
+    if px == 1 and pz == 1:
+        return buf
+    out = dict(buf)
+    if "tau_x" in buf and px > 1:
+        t = buf["tau_x"]
+        nxl = t.shape[0] // px
+        out["tau_x"] = t[ix * nxl:(ix + 1) * nxl]
+    if "refs_x" in buf:
+        rx = {}
+        for k, v in buf["refs_x"].items():
+            if v.shape[0] > 1 and px > 1:
+                nxl = v.shape[0] // px
+                v = v[ix * nxl:(ix + 1) * nxl]
+            if v.shape[2] > 1 and pz > 1:
+                nzl = v.shape[2] // pz
+                v = v[:, :, iz * nzl:(iz + 1) * nzl]
+            rx[k] = v
+        out["refs_x"] = rx
+    return out
+
+
 def relax(buf, name: str, q, h):
     """h -= tau (q - ref), over the active strips, in place on h (a row of
     the step's tendency); returns h."""
@@ -161,8 +193,12 @@ def filter_sponge_amp(x: np.ndarray, points_imin: int, points_imax: int,
 def apply_filter_sponge(amp, filt_mats, state):
     """Post-step blend toward the filtered state inside the strips; a new
     State."""
-    f = filter_state(filt_mats, state)
+    return blend_sponge(amp, state, filter_state(filt_mats, state))
 
+
+def blend_sponge(amp, state, f):
+    """(1 - amp) state + amp f, field by field: the sponge's blend of a
+    state and its filtered self (on a mesh, the rank's blocks)."""
     def blend(q, qf):
         return (1.0 - amp) * q + amp * qf
 

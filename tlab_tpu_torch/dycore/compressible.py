@@ -135,11 +135,17 @@ def _d12_stack(P, axis_name: str, axis: int, stack):
     Burgers uses) -- replaces D1(D1(.)) for viscous/conduction terms,
     which loses the odd-even (grid-scale) modes (reference uses OPR_P2,
     fdm_derivative.f90:413).  A periodic long line takes its substructured
-    plans, as the incompressible set's (dyn._d12_apply)."""
+    plans, as the incompressible set's (dyn._d12_apply).  On a mesh a
+    split direction gathers the stack once, applies the operator to the
+    full lines and scatters both halves back in one transpose."""
     if P.get(f"d12{axis_name}") is None:
         z = torch.zeros_like(stack)
         return z, z
-    return dyn._d12_apply(P, axis_name, axis, stack)
+    F = stack.shape[0]
+    both = dyn._gathered_apply(
+        P, axis_name, stack,
+        lambda g: torch.cat(dyn._d12_apply(P, axis_name, axis, g)))
+    return both[:F], both[F:]
 
 
 def _apply_visc_bc(P, dx2, dy2, dz2):
@@ -161,12 +167,23 @@ def _apply_visc_bc(P, dx2, dy2, dz2):
             continue
         tang = [i for i in range(d2.shape[0]) if i != normal]
         d2 = d2.clone()
+        # on a mesh a block's first/last row is the domain's only on the
+        # first/last rank along a split direction
+        comm = dyn._axis_comm(P, axn)
+        lo = hi = True
+        if comm is not None:
+            i = comm["mesh"].ix if axn == "x" else comm["mesh"].iz
+            lo, hi = i == 0, i == comm[f"p{axn}"] - 1
         if kind == "outflow":
-            d2.narrow(axis, 0, 1)[tang] = 0.0
-            d2.narrow(axis, d2.shape[axis] - 1, 1)[tang] = 0.0
+            if lo:
+                d2.narrow(axis, 0, 1)[tang] = 0.0
+            if hi:
+                d2.narrow(axis, d2.shape[axis] - 1, 1)[tang] = 0.0
         else:   # inflow
-            d2.narrow(axis, d2.shape[axis] - 1, 1)[tang] = 0.0
-            d2.narrow(axis, 0, 1)[normal] = 0.0
+            if hi:
+                d2.narrow(axis, d2.shape[axis] - 1, 1)[tang] = 0.0
+            if lo:
+                d2.narrow(axis, 0, 1)[normal] = 0.0
         out.append(d2)
     return tuple(out)
 

@@ -26,6 +26,7 @@ import torch
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.ops import elliptic
+from tlab_tpu_torch.parallel import pencil
 
 # SMR91 coefficients (reference time.f90:114-134)
 KDT = (8.0 / 15.0, 5.0 / 12.0, 3.0 / 4.0)
@@ -77,8 +78,12 @@ def _helmholtz_update(P, pair, q, rhs, q_wall_aug, alpha_h, kef):
     neum = pair[0] == "neumann" and pair[1] == "neumann"
     bcs_b = torch.zeros_like(q[:, 0, :]) if neum else q_wall_aug[0]
     bcs_t = torch.zeros_like(q[:, -1, :]) if neum else q_wall_aug[1]
-    x = elliptic.helmholtz(_plan_for(P, pair), f, beta,
-                           bcs_b=bcs_b, bcs_t=bcs_t)
+    if P.get("comm") is not None:
+        x = pencil.pencil_helmholtz(_plan_for(P, pair), f, P["comm"], beta,
+                                    bcs_b=bcs_b, bcs_t=bcs_t)
+    else:
+        x = elliptic.helmholtz(_plan_for(P, pair), f, beta,
+                               bcs_b=bcs_b, bcs_t=bcs_t)
     return x - kef * q
 
 
@@ -134,8 +139,13 @@ def rk_step_implicit(P, state: State, dtime, aux=None):
         # pressure projection of the stage velocity
         div = dyn.divergence(P, u_new, v_new, w_new) / dte
         bcs_b = torch.zeros_like(v_new[:, 0, :])
-        p, dpdy = elliptic.poisson(P["ell"], div, bcs_b=bcs_b, bcs_t=bcs_b,
-                                   d1y=P["d1y"])
+        if P.get("comm") is not None:
+            p, dpdy = pencil.pencil_poisson(P["ell"], div, P["comm"],
+                                            bcs_b=bcs_b, bcs_t=bcs_b,
+                                            d1y=P["d1y"])
+        else:
+            p, dpdy = elliptic.poisson(P["ell"], div, bcs_b=bcs_b,
+                                       bcs_t=bcs_b, d1y=P["d1y"])
         u_new = u_new - dte * dyn._d1(P, "x", 0, p)
         v_new = v_new - dte * dpdy
         w_new = w_new - dte * dyn._d1(P, "z", 2, p)

@@ -32,8 +32,16 @@ derivative instead of the dense product, and a periodic uniform one also
 the substructured second derivative in its Burgers term, which then skips
 the kernel (as tlab_tpu's gate does).
 
-A plan that asks for a path not ported yet (a device mesh) raises
-NotImplementedError naming the ROADMAP item that will port it.
+On the (x, z) rank mesh (parallel/, a plan of pencil.pencil_plans with
+P["comm"]) the step runs on this rank's block: an x or z derivative, a
+staggered operator or a line filter gathers the direction's full lines with
+one all-to-all and scatters the result back (_gathered_apply); the Burgers
+term gathers the fields and the advecting velocity as one stack, and the
+kernel or the dense product runs on the gathered lines; the projection
+solves through the pencil Poisson solvers; the surface BC's plane means are
+the mesh's.  The immersed boundary's tables, the buffer's and the
+wavemaker's are the block's (pencil_plans, buffer.localize,
+forcing.localize_wavemaker).
 """
 from __future__ import annotations
 
@@ -230,18 +238,17 @@ def scalar_bounds(mins, maxs, dtype, device):
     return t(mins), t(maxs)
 
 
-# Plan keys of tlab_tpu that select a path this port does not have yet.
-OFF_PATH = {
-    "comm": "A17 (multi-GPU pencils)",
-}
 ADV_FORMS = ("convective", "skewsymmetric", "divergence")
 
 
 def check_main_path(P: dict) -> None:
-    """Raise NotImplementedError if P asks for an option off the ported path."""
-    for key, item in OFF_PATH.items():
-        if P.get(key) is not None:
-            raise NotImplementedError(f"plan key {key!r}: ROADMAP {item}")
+    """Raise if P asks for an advection form the step does not have, or
+    carries a mesh descriptor that is not a rank's (pencil.pencil_plans
+    makes it)."""
+    comm = P.get("comm")
+    if comm is not None and comm.get("mesh") is None:
+        raise ValueError("plan key 'comm' without this rank's mesh: build "
+                         "the plan with parallel.pencil.pencil_plans")
     if P.get("adv_form", "convective") not in ADV_FORMS:
         raise ValueError(f"advection form {P['adv_form']!r}: one of "
                          f"{ADV_FORMS}")
@@ -250,6 +257,32 @@ def check_main_path(P: dict) -> None:
 # ---------------------------------------------------------------------------
 # Operators
 # ---------------------------------------------------------------------------
+
+def _axis_comm(P, axis_name: str):
+    """The mesh descriptor P["comm"] where this direction is split over
+    ranks (x with px > 1, z with pz > 1), else None (y never is)."""
+    comm = P.get("comm")
+    if comm is None or axis_name == "y":
+        return None
+    return comm if comm[f"p{axis_name}"] > 1 else None
+
+
+def _gathered_apply(P, axis_name: str, a, fn):
+    """fn on the gathered full lines of `a` (..., nxl, ny, nzl) along
+    axis_name, scattered back (the OPR_Partial transpose sandwich,
+    opr_partial.f90:59-142); fn(a) itself where the direction is not split.
+    Shared by _d1, _d2, _stag, the compressible [D1;D2] stacks and the line
+    filters."""
+    comm = _axis_comm(P, axis_name)
+    if comm is None:
+        return fn(a)
+    from tlab_tpu_torch.parallel import pencil
+    off = a.ndim - 3
+    g = pencil.cast_on_wire(pencil.GATHER[axis_name], comm["mesh"], a, off,
+                            comm["wire"])
+    return pencil.cast_on_wire(pencil.SCATTER[axis_name], comm["mesh"],
+                               fn(g), off, comm["wire"])
+
 
 def _d1(P, axis_name: str, axis: int, a):
     """First derivative along one direction of a 3-D field or a 4-D stack
@@ -260,8 +293,9 @@ def _d1(P, axis_name: str, axis: int, a):
         return torch.zeros_like(a)
     bp = P.get(f"d1{axis_name}_banded")
     if bp is not None:
-        return thomas.banded_der1(bp, a, axis)
-    return der1(M, a, axis)
+        return _gathered_apply(P, axis_name, a,
+                               lambda g: thomas.banded_der1(bp, g, axis))
+    return _gathered_apply(P, axis_name, a, lambda g: der1(M, g, axis))
 
 
 def _d2(P, axis_name: str, axis: int, a):
@@ -271,7 +305,8 @@ def _d2(P, axis_name: str, axis: int, a):
     d12 = P.get(f"d12{axis_name}")
     if d12 is None:
         return torch.zeros_like(a)
-    return der12(d12, a, axis)[1]
+    return _gathered_apply(P, axis_name, a,
+                           lambda g: der12(d12, g, axis)[1])
 
 
 def _d12_apply(P, axis_name: str, axis: int, arr):
@@ -298,7 +333,8 @@ def _stag(P, axis_name: str, which: str, a):
     M = P["stag"].get(f"{which}{axis_name}")
     if M is None:
         return a
-    return der1(M, a, 0 if axis_name == "x" else 2)
+    axis = 0 if axis_name == "x" else 2
+    return _gathered_apply(P, axis_name, a, lambda g: der1(M, g, axis))
 
 
 def divergence_staggered(P, u, v, w):
@@ -348,17 +384,42 @@ def _burgers_all(P, axis_name: str, axis: int, fields, conv, nu):
     With an immersed boundary the solid points of `fields` and `conv` are
     first replaced by the direction's spline fill (new tensors: the stack
     passed in is the state), then the kernel or the dense product runs as
-    without one (tlab_tpu/dycore/incompressible.py:359-375)."""
+    without one (tlab_tpu/dycore/incompressible.py:359-375).
+
+    On a mesh with this direction split (P["comm"]) the fields and the
+    advecting velocity go to the full lines as ONE stacked all-to-all, the
+    immersed boundary's fill (then the gathered lines' table) applies there,
+    the term is computed on the gathered lines -- the kernel takes the
+    stack's two views as they are -- and the result is scattered back."""
     d12 = P.get(f"d12{axis_name}")
     if d12 is None:
         return torch.zeros_like(fields)
+    comm = _axis_comm(P, axis_name)
     ibm = P.get("ibm")
     fill = ibm.get("fills", {}).get(axis_name) if ibm is not None else None
+    if comm is None:
+        if fill is not None:
+            # replace solid regions by smooth interpolants before
+            # derivatives (reference ibm_burgers hook, opr_burgers.f90:468)
+            fields = ibmmod.apply_spline_fill(fields, fill)
+            conv = ibmmod.apply_spline_fill(conv, fill)
+        return _burgers_lines(P, axis_name, axis, fields, conv, nu)
+    from tlab_tpu_torch.parallel import pencil
+    mesh, wire = comm["mesh"], comm["wire"]
+    stack = pencil.cast_on_wire(pencil.GATHER[axis_name], mesh,
+                                torch.cat([fields, conv[None]]), 1, wire)
     if fill is not None:
-        # replace solid regions by smooth interpolants before derivatives
-        # (reference ibm_burgers hook, opr_burgers.f90:468)
-        fields = ibmmod.apply_spline_fill(fields, fill)
-        conv = ibmmod.apply_spline_fill(conv, fill)
+        # the fill on the gathered full lines, where the reference fills
+        # its MPI-gathered pencils (ibm_spline.f90:30)
+        stack = ibmmod.apply_spline_fill(stack, fill)
+    res = _burgers_lines(P, axis_name, axis, stack[:-1], stack[-1], nu)
+    return pencil.cast_on_wire(pencil.SCATTER[axis_name], mesh, res, 1, wire)
+
+
+def _burgers_lines(P, axis_name: str, axis: int, fields, conv, nu):
+    """_burgers_all's term on whole lines of the direction (after the fill
+    and, on a mesh, the gather)."""
+    d12 = P[f"d12{axis_name}"]
     form = P.get("adv_form", "convective")
     if form in ("divergence", "skewsymmetric"):
         F = fields.shape[0]
@@ -399,11 +460,27 @@ def _pressure_filter(P):
     pfil = P.get("pfilter")
     if pfil is None:
         return None
+    comm = P.get("comm")
     if isinstance(pfil, dict) and "helmholtz_alpha" in pfil:
         # Type=helmholtz: one implicit elliptic solve per field
-        # (opr_filter.f90:285 + opr_elliptic.f90 OPR_Helmholtz)
+        # (opr_filter.f90:285 + opr_elliptic.f90 OPR_Helmholtz), the
+        # distributed solve on a mesh
         al = pfil["helmholtz_alpha"]
+        if comm is not None:
+            from tlab_tpu_torch.parallel import pencil
+            return lambda arr: pencil.pencil_helmholtz(
+                P["ell"], al * arr, comm, al).to(arr.dtype)
         return lambda arr: elliptic.helmholtz(P["ell"], al * arr, al)
+    if comm is not None and not callable(pfil):
+        def filt(arr):
+            for name, ax in (("x", 0), ("y", 1), ("z", 2)):
+                M = pfil.get(name)
+                if M is not None:
+                    arr = _gathered_apply(
+                        P, name, arr,
+                        lambda g, M=M, ax=ax: apply_along(M, g, ax))
+            return arr
+        return filt
     return lambda arr: apply_filter(pfil, arr)
 
 
@@ -443,7 +520,19 @@ def _solve_pressure(P, u, v, w, h1, h2, h3, dte):
     if ane is not None:
         bcs_b = bcs_b * ane["rho"][0]
         bcs_t = bcs_t * ane["rho"][-1]
-    if P.get("ell_fac") is not None:
+    if P.get("comm") is not None:
+        # the distributed solves of the rank's block (the factorized one,
+        # or the direct eigen pencil with the staggered table if staggered)
+        from tlab_tpu_torch.parallel import pencil
+        if P.get("ell_fac") is not None:
+            p, dpdy = pencil.pencil_poisson_factorize(
+                P["ell_fac"], div, P["comm"], bcs_b=bcs_b, bcs_t=bcs_t)
+        else:
+            ell = P["ell_stag"] if stag is not None else P["ell"]
+            p, dpdy = pencil.pencil_poisson(ell, div, P["comm"],
+                                            bcs_b=bcs_b, bcs_t=bcs_t,
+                                            d1y=P["d1y"])
+    elif P.get("ell_fac") is not None:
         # reference-default factorized formulation: stage-consistent dpdy
         # removes divergence to round-off (opr_elliptic.f90:108-110); when
         # staggered, the plan carries the staggered-derivative wavenumbers
@@ -544,7 +633,7 @@ def substep_rhs_stacked(P, Q, H, dte, aux=None):
         # inflow's planes replace the Imin/Imax strips' references
         if aux and "refs_x" in aux:
             buf = dict(buf, refs_x=aux["refs_x"])
-        bufmod.relax_stack(buf, Q, H)
+        bufmod.relax_stack(bufmod.localize(buf, P.get("comm")), Q, H)
 
     dpdx, dpdy, dpdz, p = _solve_pressure(P, u, v, w, H[0], H[1], H[2], dte)
     ane = P.get("anelastic")
@@ -585,15 +674,17 @@ def _surface_anomalies(P, s_pre):
     Bottom: hfx = diff d1y[0].s, anomaly hfx - <hfx>.  Top: hfx = -diff
     d1y[-1].s, and its average is the reference's: +diff times the BOTTOM
     plane's mean derivative (AVG1V2D at j=1, boundary_bcs.f90:531-537), as
-    tlab_tpu mirrors it.  <.> is the plane mean (one device: tlab_tpu's
-    pmean)."""
+    tlab_tpu mirrors it.  <.> is the plane mean (tlab_tpu's pmean: on a
+    mesh the mean of the blocks' means)."""
     sbc = P.get("surface_bc")
     d1y = P["d1y"]
     diff = torch.tensor(P["diff"], dtype=s_pre.dtype,
                         device=s_pre.device)[:, None, None]
+    comm = P.get("comm")
 
     def pmean(a):
-        return torch.mean(a, dim=(1, 2), keepdim=True)
+        m = torch.mean(a, dim=(1, 2), keepdim=True)
+        return comm["mesh"].mean(m) if comm is not None else m
 
     def couples(cpl):
         return cpl is not None and any(c != 0.0 for c in cpl)

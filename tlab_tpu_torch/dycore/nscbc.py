@@ -27,9 +27,11 @@ Nondimensional EOS as in dycore.compressible: p = rho T/(gamma M^2),
 e_int = T/(gamma (gamma-1) M^2), hence p = (gamma-1) rho e_int and the
 reference's /(gamma-1) energy mapping carries over unchanged.
 
-Port of tlab_tpu/dycore/nscbc.py on one device: the mesh-global max and the
-pencil branch of the tangential derivative (a plan with a "comm") are ROADMAP
-A17 and raise.
+Port of tlab_tpu/dycore/nscbc.py.  On the pencil mesh (a plan with a
+"comm") the tangential derivatives of the y-edge planes go through the
+transposes like every other derivative and the Mach drift's max is the
+mesh's; open x boundaries with x split over ranks raise (tlab_tpu applies
+them at every block's x edges, ROADMAP C).
 """
 from __future__ import annotations
 
@@ -75,22 +77,25 @@ def _edge_deriv(P, a, axis: int, side: int):
 def _plane_d1(P, a2d, axis: int, which: str):
     """Tangential derivative of an edge plane: for a y-boundary the plane
     is (nx, nz), and 'x' contracts the first index, 'z' the second, with
-    the dense D1 of that direction."""
+    the dense D1 of that direction.  On a mesh the plane rides the
+    direction's transposes as a (nx/px, 1, nz/pz) block."""
+    from tlab_tpu_torch.dycore.incompressible import _gathered_apply
     M = P.get(f"d1{which}")
     if M is None:
         return torch.zeros_like(a2d)
-    return der1(M, a2d, 0 if which == "x" else 1)
+    ax = 0 if which == "x" else 2
+    return _gathered_apply(P, which, a2d[:, None, :],
+                           lambda g: der1(M, g, ax))[:, 0, :]
 
 
 def _global_max(P, v):
-    """The max Mach^2 over the box: on one device the value itself.  Over
-    a mesh (the reference's MPI_ALLREDUCE of M2_max, time.f90:786) it is
-    ROADMAP A17."""
-    if P is not None and P.get("comm") is not None:
-        raise NotImplementedError(
-            "NSCBC over a device mesh (the mesh-global max Mach^2): ROADMAP "
-            "A17")
-    return v
+    """The max Mach^2 over the box: the value itself on one device, the
+    mesh's max on a mesh (the reference's MPI_ALLREDUCE of M2_max,
+    time.f90:786)."""
+    comm = P.get("comm") if P is not None else None
+    if comm is None:
+        return v
+    return comm["mesh"].all_reduce(v, "max")
 
 
 def max_mach2(U: CompState, gamma: float, mach: float):
@@ -294,6 +299,13 @@ def apply_nscbc(P, U: CompState, h: CompState, gamma: float, mach: float,
     hs = h.rhos
     axes = ((1, (spec.ymin, spec.ymax), ly, 2),
             (0, (spec.xmin, spec.xmax), lx, 1))
+    comm = P.get("comm") if P is not None else None
+    if comm is not None and comm["px"] > 1 and (spec.xmin, spec.xmax) != (
+            "none", "none"):
+        raise NotImplementedError(
+            "open x boundaries (NSCBC) with x split over ranks: a rank's "
+            "block edges are not the domain's (tlab_tpu applies them there, "
+            "ROADMAP C)")
     for axis, kinds, length, idir in axes:
         for side in (0, 1):
             kind = kinds[side]

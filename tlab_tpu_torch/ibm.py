@@ -364,6 +364,76 @@ def build_ibm(eps: np.ndarray, dtype=torch.float64, device="cuda",
     return d
 
 
+# ---------------------------------------------------------------------------
+# The rank's views on the pencil mesh: its block (nx/px, ny, nz/pz), and the
+# x/z Burgers stacks GATHERED to full lines with a further split of the other
+# horizontal axis (parallel/pencil.py gather_x/gather_z).  The global tables
+# are cut to exactly the points each rank holds, as the reference runs its
+# spline fill on the gathered MPI pencils (ibm_spline.f90:30 inside
+# OPR_Burgers, opr_burgers.f90:468).
+# ---------------------------------------------------------------------------
+
+def _block_indices(comm):
+    """(px, pz, ix, iz) of the rank of the mesh descriptor `comm`."""
+    mesh = comm["mesh"]
+    return mesh.px, mesh.pz, mesh.ix, mesh.iz
+
+
+def _view(comm, axis_name: str, shape, gathered: bool):
+    """(x0, xs, z0, zs): the rank's x and z ranges of a global field of
+    `shape`, after the gather along axis_name (gathered) or in its block."""
+    px, pz, ix, iz = _block_indices(comm)
+    nx, _, nz = shape
+    if gathered and axis_name == "x":
+        chunk = nz // (px * pz)
+        return 0, nx, iz * (nz // pz) + ix * chunk, chunk
+    if gathered and axis_name == "z":
+        chunk = nx // (px * pz)
+        return ix * (nx // px) + iz * chunk, chunk, 0, nz
+    return ix * (nx // px), nx // px, iz * (nz // pz), nz // pz
+
+
+def localize_fill(fill, axis_name: str, comm, shape, gathered: bool) -> dict:
+    """One direction's fill (build_ibm_spline) cut to this rank's view of a
+    global field of `shape`: its solid points there, their sources and
+    weights, at flat indices of the view.  gathered=True: the layout after
+    the gather along axis_name (x: (nx, ny, nz/(px pz)); z:
+    (nx/(px pz), ny, nz)); gathered=False: the block (nx/px, ny, nz/pz), for
+    the y fill and for an x or z axis that is not split.  A line's sources
+    lie on the line, so a view that holds a solid point holds its
+    sources."""
+    px, pz, _, _ = _block_indices(comm)
+    if px == 1 and pz == 1:
+        return fill
+    x0, xs, z0, zs = _view(comm, axis_name, shape, gathered)
+    _, ny, nz = shape
+
+    def local(flat):
+        x, rem = flat // (ny * nz), flat % (ny * nz)
+        y, z = rem // nz, rem % nz
+        keep = (x >= x0) & (x < x0 + xs) & (z >= z0) & (z < z0 + zs)
+        return keep, ((x - x0) * ny + y) * zs + (z - z0)
+
+    keep, index = local(fill["index"])
+    out = {"index": index[keep]}
+    if "src" in fill:
+        n = fill["index"].numel()
+        _, src = local(fill["src"].reshape(4, n)[:, keep])
+        out.update(src=src.reshape(-1), w=fill["w"][:, keep],
+                   const=fill["const"][keep])
+    return out
+
+
+def localize_block(arr, comm):
+    """A global (nx, ny, nz) table cut to this rank's block."""
+    px, pz, ix, iz = _block_indices(comm)
+    if px == 1 and pz == 1:
+        return arr
+    nx, _, nz = arr.shape
+    nxl, nzl = nx // px, nz // pz
+    return arr[ix * nxl:(ix + 1) * nxl, :, iz * nzl:(iz + 1) * nzl]
+
+
 def force_stack(ibm, Q) -> None:
     """Direct forcing on the stacked carry Q (3+ns, nx, ny, nz), in place:
     zero velocity and pin scalars inside the solids (tlab_tpu's
@@ -379,11 +449,14 @@ def force_stack(ibm, Q) -> None:
             Q[3:].mul_(fluid[None])
 
 
-def apply_ibm_state(ibm, state: State) -> State:
+def apply_ibm_state(ibm, state: State, comm=None) -> State:
     """Zero velocity and pin scalars inside solids (direct forcing); a new
-    State (force_stack on a stacked copy)."""
+    State (force_stack on a stacked copy).  comm: the mesh descriptor where
+    `state` is this rank's block of a global plan's `ibm`."""
     if ibm is None:
         return state
+    if comm is not None:
+        ibm = dict(ibm, fluid=localize_block(ibm["fluid"], comm))
     Q = stack(state)
     force_stack(ibm, Q)
     return unstack(Q, state.sfc)

@@ -10,7 +10,9 @@ log before its header.
 tlab_tpu also reports the round trip of its matmul DFT (ops/rdft.py, the
 TPU's f32 transform); the port transforms with torch.fft and has no such
 module, so it has no rdft_* keys.  The random field is drawn from a
-torch.Generator: its values are not jax.random's.
+torch.Generator: its values are not jax.random's.  transpose_check is the
+rank mesh's counterpart: the pencil transposes' round trip, checked and
+timed.
 """
 from __future__ import annotations
 
@@ -81,3 +83,49 @@ def format_report(results: dict) -> str:
         lines.append(f"#   {k}: {v:.6e}" if isinstance(v, float)
                      else f"#   {k}: {v}")
     return "\n".join(lines)
+
+
+def transpose_check(mesh, shape, dtype=torch.float32, n_rep: int = 3) -> dict:
+    """The pencil transposes' round trip gather_x -> scatter_x -> gather_z
+    -> scatter_z on the rank mesh, checked and timed (tlab_tpu's
+    transpose_check; the reference's startup transpose test,
+    opr_check.f90:46-100).  shape is the global (nx, ny, nz); every rank
+    draws the global field from a CPU torch.Generator (seed 1) and keeps
+    its block.  A collective: every rank calls it and gets the same dict: the
+    largest residual over the ranks (0 for a right transpose: data
+    movement only), the best of n_rep round trips (the slowest rank's
+    time), the aggregate volume moved per second, the mesh, backend and
+    shape."""
+    from tlab_tpu_torch.parallel import pencil
+    gen = torch.Generator().manual_seed(1)
+    a = mesh.block(torch.randn(shape, generator=gen, dtype=dtype)).to(
+        mesh.device).contiguous()
+
+    def roundtrip(blk):
+        gx = pencil.gather_x(mesh, blk)
+        bx = pencil.scatter_x(mesh, gx)
+        gz = pencil.gather_z(mesh, bx)
+        return pencil.scatter_z(mesh, gz)
+
+    r = roundtrip(a)
+    res = mesh.all_reduce((r - a).abs().max().to(torch.float64), "max")
+    best = float("inf")
+    for _ in range(n_rep):
+        mesh.barrier()
+        _sync(mesh.device)
+        t0 = time.perf_counter()
+        roundtrip(a)
+        _sync(mesh.device)
+        took = mesh.all_reduce(torch.tensor(
+            time.perf_counter() - t0, dtype=torch.float64,
+            device=mesh.device), "max")
+        best = min(best, float(took))
+    # 4 all-to-alls, each moving (n-1)/n of the field, sent and received
+    nbytes = float(np.prod(shape)) * torch.finfo(dtype).bits / 8
+    n = mesh.size
+    moved = 4 * nbytes * (n - 1) / n * 2
+    return {"transpose_roundtrip_residual": float(res),
+            "transpose_roundtrip_time_s": best,
+            "transpose_bandwidth_GBps": moved / best / 1e9,
+            "mesh": f"{mesh.px}x{mesh.pz}", "backend": mesh.backend,
+            "shape": tuple(int(s) for s in shape)}

@@ -7,7 +7,8 @@ gather (reference FIELD_TO_PARTICLE, particle_interpolate.f90), and
 particle->grid is a scatter-add over the 8 corners (reference
 PARTICLE_TO_FIELD; index_put_ with accumulate, whose sums on the card depend
 on the order of the atomics).  No migration/sorting on one device; the
-multi-device version is ROADMAP A17.
+rank mesh's owner-sharded slots and their migration are particles/
+parallel.py.
 
 Particle types (reference particle_vars.f90:8-15):
   tracer:  dx/dt = u(x)

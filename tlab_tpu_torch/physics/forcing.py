@@ -109,13 +109,22 @@ def wavemaker_fields(props: WavemakerProps, grid):
 
 
 def localize_wavemaker(env, phases, comm):
-    """The envelope and phase tables of this device's block: the whole
-    tables on one device.  The pencil mesh's blocks are ROADMAP A17."""
-    if comm is not None:
-        raise NotImplementedError(
-            "the wavemaker on a device mesh: ROADMAP A17 (multi-GPU "
-            "pencils)")
-    return env, phases
+    """The (nx, ny, nz) envelope and (nw, nx, ny) phase tables of this
+    rank's block on the pencil mesh (comm, the plan's mesh descriptor);
+    the whole tables without one."""
+    if comm is None:
+        return env, phases
+    mesh = comm["mesh"]
+    px, pz, ix, iz = mesh.px, mesh.pz, mesh.ix, mesh.iz
+    if px == 1 and pz == 1:
+        return env, phases
+    nx, _, nz = env.shape
+    nxl = nx // px
+    env = env[ix * nxl:(ix + 1) * nxl]
+    if nz > 1 and pz > 1:
+        nzl = nz // pz
+        env = env[:, :, iz * nzl:(iz + 1) * nzl]
+    return env, phases[:, ix * nxl:(ix + 1) * nxl]
 
 
 def wavemaker_source(props: WavemakerProps, env, phases, iq, q, t):

@@ -2,13 +2,15 @@
 CaseSetup, for the incompressible (Boussinesq), anelastic and compressible
 equation sets on one device (port of tlab_tpu/runtime.py: make_anelastic,
 make_sources, the [IBMParameter] reader, the interactive surface BC,
-attach_buffer, attach_buffer_compressible and Simulation without its device
-mesh).  The compressible set takes its characteristic (NSCBC) boundaries,
-the combustion mixtures, CHEMKIN tables and the moist AirWater mixture.
+attach_buffer, attach_buffer_compressible and Simulation without the
+GSPMD shardings of its `mesh` argument, a JAX compiler path with no PyTorch
+counterpart: on a rank mesh every rank builds the global plans and
+parallel/pencil.pencil_plans makes them the rank's).  The compressible set
+takes its characteristic (NSCBC) boundaries, the combustion mixtures,
+CHEMKIN tables and the moist AirWater mixture.
 
-A case option not ported yet raises NotImplementedError naming the ROADMAP
-item that will port it (the device mesh's is A17); none is dropped
-silently.
+A case option the port does not have raises NotImplementedError with the
+reason; none is dropped silently.
 """
 from __future__ import annotations
 

@@ -14,6 +14,14 @@ reversal.x, the superlayer tools and stats2nc.py/Planes2nc.py/tower2nc.py.
 The run is on the CUDA card unless --device names another device; --x64
 computes in float64 (validation mode).
 
+dns on a rank mesh: --mesh PX,PZ or [Parallel] Mesh=PX,PZ.  Launched as one
+process, dns spawns PX PZ ranks itself (parallel.mesh.spawn, a FileStore in
+--outdir) and exits non-zero if any rank fails; under
+`python -m torch.distributed.run --nproc-per-node PX*PZ` each process joins
+the world of the environment (a world of another size is refused).  The
+backend: NCCL where every rank has a card of its own, gloo where ranks share
+a card or run on the CPU (tlab.log's "Mesh" line).
+
 Files: inigrid writes `grid` and `<ini>.bak`; ini writes
 flow.<Start>.{1,2,3} and scal.<Start>.<i> (the compressible set: the
 conservative flow.<Start>.{1..5} and flow.<Start>.s<i>); inipart writes
@@ -50,7 +58,7 @@ CONVERTERS = ("stats2nc", "planes2nc", "tower2nc")
 CLOUD_TOOLS = ("state", "smooth", "saturation", "reversal")
 
 
-def main(argv=None):
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="tlab-tpu-torch")
     ap.add_argument("command",
                     choices=["inigrid", *INI_COMMANDS, "inipart", "dns",
@@ -63,6 +71,9 @@ def main(argv=None):
                          "is not set")
     ap.add_argument("--inner-steps", type=int, default=1,
                     help="RK steps per host sync (fixed dt within)")
+    ap.add_argument("--mesh", default="",
+                    help="PX,PZ rank mesh for a multi-rank dns run "
+                         "(overrides [Parallel] Mesh)")
     ap.add_argument("--ini", default="tlab.ini")
     ap.add_argument("--outdir", default=".")
     ap.add_argument("--seed", type=int, default=None,
@@ -112,15 +123,66 @@ def main(argv=None):
                     help="transgrid: grid file read in --outdir")
     ap.add_argument("--grid-out", default="grid.ref",
                     help="transgrid: grid file written in --outdir")
-    args = ap.parse_args(argv)
+    return ap
 
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
     try:
         return _run(args)
     except NotImplementedError as e:        # an option that is not ported
         raise SystemExit(f"tlab_tpu_torch: {e}")
 
 
-def _run(args) -> int:
+def _mesh_shape(spec: str) -> tuple:
+    px, pz = (int(v) for v in spec.split(","))
+    return px, pz
+
+
+def _dns_rank(mesh, args) -> int:
+    """One rank of a spawned mesh run: the dns command on this rank."""
+    return _run(args, mesh)
+
+
+def _dns_on_mesh(args, spec: str) -> int:
+    """dns on a (px, pz) rank mesh: join the world of torch.distributed.run
+    where this process is one of its ranks, else spawn the px pz ranks."""
+    import torch.distributed as dist
+    from tlab_tpu_torch.config import load_case
+    from tlab_tpu_torch.parallel import mesh as pmesh
+    from tlab_tpu_torch.parallel.pencil import check_decomposition
+    from tlab_tpu_torch.runtime import grid_from_case
+    px, pz = _mesh_shape(spec)
+    nx, _, nz = grid_from_case(load_case(args.ini)).shape
+    check_decomposition(px, pz, nx, nz)
+    if "WORLD_SIZE" in os.environ and "RANK" in os.environ:
+        world = int(os.environ["WORLD_SIZE"])
+        if world != px * pz:
+            raise SystemExit(f"tlab_tpu_torch: mesh {px}x{pz} needs "
+                             f"{px * pz} ranks, torch.distributed.run "
+                             f"started {world}")
+        import datetime
+        rank = int(os.environ["RANK"])
+        dev = pmesh.rank_device(args.device, rank)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        dist.init_process_group(
+            pmesh.backend_rule(world, args.device),
+            timeout=datetime.timedelta(seconds=pmesh.TIMEOUT_S))
+        try:
+            return _run(args, pmesh.make_mesh(px, pz, args.device))
+        finally:
+            dist.destroy_process_group()
+    try:
+        pmesh.spawn(_dns_rank, px, pz, args.device, args,
+                    store_dir=args.outdir, results=False)
+    except Exception as e:                  # a rank failed or timed out
+        raise SystemExit(f"tlab_tpu_torch: dns on mesh {px}x{pz} failed: "
+                         f"{e}")
+    return 0
+
+
+def _run(args, mesh=None) -> int:
     from tlab_tpu_torch.config import load_case
     from tlab_tpu_torch.convert import state_from_numpy
     from tlab_tpu_torch.grid import write_reference_grid
@@ -138,7 +200,12 @@ def _run(args) -> int:
 
     case = load_case(args.ini)
     os.makedirs(args.outdir, exist_ok=True)
-    trace.maybe_init(case, args.outdir)
+    if args.command == "dns" and mesh is None:
+        spec = args.mesh or case.ini.get("Parallel", "Mesh", "")
+        if spec:
+            return _dns_on_mesh(args, spec)
+    if mesh is None or mesh.root:
+        trace.maybe_init(case, args.outdir)
     trace.point(f"tool {args.command} starting ({args.ini})")
 
     if args.command == "inigrid":
@@ -157,7 +224,8 @@ def _run(args) -> int:
         return _convert(args, case, its)
 
     dtype = torch.float64 if args.x64 else torch.float32
-    sim = Simulation.from_case(case, dtype=dtype, device=args.device)
+    sim = Simulation.from_case(case, dtype=dtype, device=args.device
+                               if mesh is None else mesh.device)
     flow = os.path.join(args.outdir, "flow")
     scal = os.path.join(args.outdir, "scal")
 
@@ -214,12 +282,8 @@ def _run(args) -> int:
         print(f"{args.command} done for {its}")
         return 0
 
-    # dns
+    # dns (on a rank mesh: this rank's part of the run)
     from tlab_tpu_torch.tools import dns as dns_tool
-    if case.ini.get("Parallel", "Mesh", ""):
-        # tlab_tpu's dns runs a [Parallel] Mesh=PX,PZ case on a device mesh
-        raise NotImplementedError("not ported yet: [Parallel] Mesh "
-                                  "(multi-GPU pencils) (ROADMAP A17)")
     it0 = case.it_start
     if sim.comp is not None:
         from tlab_tpu_torch.dycore.compressible import CompState
@@ -247,8 +311,10 @@ def _run(args) -> int:
                        log_path=os.path.join(args.outdir, "dns.out"),
                        inner_steps=args.inner_steps, pstate=pstate,
                        particle_props=pprops,
-                       restart_visc=float(visc0) if visc0 else None)
-    print("\n".join(run.log.lines[-3:]))
+                       restart_visc=float(visc0) if visc0 else None,
+                       mesh=mesh)
+    if mesh is None or mesh.root:
+        print("\n".join(run.log.lines[-3:]))
     return 0
 
 

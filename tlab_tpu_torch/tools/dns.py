@@ -50,9 +50,17 @@ step's own, else the diagnostic one), [SaveTowers] accumulates its strided
 columns and plane means every step and flushes them at the restart cadence;
 both in the compressible set too (the primitive view, the EOS pressure).
 
-What tlab_tpu's loop has beyond this thread (a device mesh, the operator
-self-test) raises NotImplementedError naming the ROADMAP item that will
-port it.
+On the (x, z) rank mesh (`mesh`, a parallel.mesh.Mesh; one process a rank,
+every rank calling run with the same arguments and the global state) each
+rank steps its block through the pencil engine (parallel/pencil.py) and the
+log's diagnostics are the mesh's (one all-reduce a step: the CFL, the
+dilatation or pressure and density extrema, NewtonRs).  Rank 0 writes every
+file: the restarts, statistics, towers, planes, dns.out, tlab.log and the
+particle files come from the fields gathered to it at their cadence and are
+written as the single-device run writes them; the other ranks write nothing.
+The [Filter] cadence and the filter sponge go through the same engine
+(pencil.make_pencil_filter), the particles are owner-sharded slots
+(particles/parallel.py).
 """
 from __future__ import annotations
 
@@ -65,17 +73,20 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tlab_tpu_torch.dycore import buffer as bufmod
 from tlab_tpu_torch.dycore import compressible as comp_mod
 from tlab_tpu_torch.dycore import implicit
 from tlab_tpu_torch.dycore import incompressible as dyn
-from tlab_tpu_torch.dycore.buffer import apply_filter_sponge
 from tlab_tpu_torch.dycore.pressure import pressure_boussinesq
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.io import fields_io
 from tlab_tpu_torch.io import reference_formats as rf
 from tlab_tpu_torch.io.planes import PlaneSpec, TowerAccumulator, write_planes
+from tlab_tpu_torch.ops import burgers
 from tlab_tpu_torch.ops.filter import filter_state
+from tlab_tpu_torch.parallel import pencil
 from tlab_tpu_torch.particles import io as pio
+from tlab_tpu_torch.particles import parallel as ppar
 from tlab_tpu_torch.particles.core import make_locator, n_props
 from tlab_tpu_torch.particles.stepping import rk_step_with_particles
 from tlab_tpu_torch.physics import eos, mixtures, thermo
@@ -173,8 +184,19 @@ def newton_error_fn(sim: Simulation):
         ane["tp"], state.s, ane["bg"])
 
 
+def _reduced(mesh, vals, mins=()):
+    """torch.stack(vals); on a mesh each entry the world's max of the ranks'
+    values (the min for the entries at `mins`), in one all-reduce."""
+    t = torch.stack(vals)
+    if mesh is None:
+        return t
+    sign = torch.ones_like(t)
+    sign[list(mins)] = -1.0
+    return mesh.all_reduce(t * sign, "max") * sign
+
+
 def make_step_functions(sim: Simulation, inner_steps: int = 1,
-                        particles=None):
+                        particles=None, mesh=None):
     """(step, diagnostics) for the single-device run.
 
     step(state, dtime, extra=None) takes `inner_steps` RK steps at a fixed
@@ -190,26 +212,58 @@ def make_step_functions(sim: Simulation, inner_steps: int = 1,
     particles (a ParticleProps): step(state, pstate, dtime) takes one RK
     step of the flow and the particles (rk_step_with_particles, whatever the
     case's TimeOrder, as tlab_tpu) and returns (state, pstate,
-    diagnostics(new state))."""
+    diagnostics(new state)).
+
+    mesh (a parallel.mesh.Mesh): the functions take and return this rank's
+    blocks (the particles: its slots (X, V, T, M)); the step is
+    pencil.make_pencil_step's (make_pencil_step_particles'), the
+    diagnostics are reduced over the mesh."""
     P = sim.P
     if sim.comp is not None:
         if particles is not None:
             raise NotImplementedError(
                 "particles in the compressible set: tlab_tpu has no "
                 "particle step for it")
-        return _compressible_step_functions(sim)
+        return _compressible_step_functions(sim, mesh)
     newton = newton_error_fn(sim)
     # TimeOrder=RungeKuttaDiffusion3: the SMR91 semi-implicit diffusion step
     # (reference RKM_IMP3_DIFFUSION, time.f90:114-134), which is what drops
     # the diffusion-number limit on dt; it does not take the stacked loop
     implicit_diff = "diffusion" in sim.case.time_order.lower()
 
+    pstep = None
+    if mesh is not None and particles is None:
+        def rk(Pp, state, dtime, aux):
+            if implicit_diff:
+                return implicit.rk_step_implicit(Pp, state, dtime, aux=aux)
+            return dyn.rk_step(Pp, state, dtime, aux=aux)
+
+        pstep = pencil.make_pencil_step(mesh, P, rk, inner_steps=inner_steps)
+        P = pstep.plan
+    elif mesh is not None:
+        pstep = pencil.make_pencil_step_particles(mesh, P, sim.grid,
+                                                  particles)
+        P = pstep.plan
+
     def diagnostics(state):
         vals = [dyn.cfl_advective_max(P, state),
                 *dyn.dilatation_minmax(P, state)]
         if newton is not None:
             vals.append(newton(state))
-        return torch.stack(vals)
+        return _reduced(mesh, vals, mins=(1,))
+
+    if pstep is not None and particles is None:
+        def step(state, dtime, extra=None):
+            new_state, p = pstep(state, dtime, extra)
+            return new_state, p, diagnostics(new_state)
+
+        return step, diagnostics
+    if pstep is not None:
+        def step(state, parts, dtime):
+            new_state, new_parts, _ = pstep(state, parts, dtime)
+            return new_state, new_parts, diagnostics(new_state)
+
+        return step, diagnostics
 
     def step(state, dtime, extra=None):
         if implicit_diff:
@@ -235,27 +289,52 @@ def make_step_functions(sim: Simulation, inner_steps: int = 1,
     return step, diagnostics
 
 
-def _primitive(sim: Simulation, U):
+def _primitive(sim: Simulation, U, P=None):
     """(u, v, w, T, p) of the conservative state in the set's energy
-    formulation and mixture."""
+    formulation and mixture (P: the plan, sim.P by default)."""
     c = sim.comp
     if c.get("aw") is not None:
         return comp_mod.primitive_airwater(U, c["aw"])[:5]
     fn = comp_mod.primitive if c["energy"] == "total" \
         else comp_mod.primitive_internal
-    return fn(sim.P, U, c["gamma"], c["mach"], mix=c.get("mixture"))
+    return fn(sim.P if P is None else P, U, c["gamma"], c["mach"],
+              mix=c.get("mixture"))
 
 
-def _compressible_step_functions(sim: Simulation):
+def _compressible_step_functions(sim: Simulation, mesh=None):
     """(step, diagnostics) of the compressible set, one RK step a call.
     diagnostics(U) is the device tensor [acoustic CFL max, PMin, PMax, RMin,
     RMax, (NewtonRs,) diffusion-number density] (the density, max(sfactor
     (sum 1/ds^2)/rho), is TIME_COURANT's compressible branch; NewtonRs, the
     AirWater mixture's, is the step's max over its substeps and 0 before
     the first step), read in one copy; step(U, dtime, extra=None) returns
-    (U, p, diagnostics(U)) with p the EOS pressure of the new state."""
+    (U, p, diagnostics(U)) with p the EOS pressure of the new state.
+
+    mesh: the functions take and return this rank's blocks, the step is
+    pencil.make_pencil_step_compressible's (the buffer cut to the block,
+    NewtonRs the mesh's max) and the diagnostics are the mesh's."""
     P, c = sim.P, sim.comp
     aw, mix = c.get("aw"), c.get("mixture")
+
+    def rk(Pp, U, dtime):
+        buf = bufmod.localize(c.get("buffer"), Pp.get("comm"))
+        if aw is not None:
+            return comp_mod.rk_step_airwater(
+                Pp, U, dtime, aw, sim.nsp.visc, c["prandtl"], c["schmidt"],
+                nscbc=c["nscbc"], ly=c["ly"], gvec=c["gvec"], buffer=buf)
+        return comp_mod.rk_step_compressible(
+            Pp, U, dtime, c["gamma"], c["mach"], sim.nsp.visc, c["prandtl"],
+            nscbc=c["nscbc"], ly=c["ly"], gas=c["gas"], lx=c["lx"],
+            form=c["form"], energy=c["energy"], mix=mix, gvec=c["gvec"],
+            buffer=buf)
+
+    if mesh is not None:
+        advance = pencil.make_pencil_step_compressible(
+            mesh, P, rk, return_scalar=aw is not None)
+        P = advance.plan
+    else:
+        def advance(U, dtime):
+            return rk(P, U, dtime)
 
     def stack(U, cfl, p, newton=None):
         vals = [cfl, p.min(), p.max(), U.rho.min(), U.rho.max()]
@@ -263,7 +342,7 @@ def _compressible_step_functions(sim: Simulation):
             vals.append(newton if newton is not None
                         else U.rho.new_zeros(()))
         vals.append(comp_mod.diffusion_number_max(P, U, c["sfactor"]))
-        return torch.stack(vals)
+        return _reduced(mesh, vals, mins=(1, 3))
 
     if aw is not None:
         def diagnostics(U, newton=None):
@@ -272,10 +351,7 @@ def _compressible_step_functions(sim: Simulation):
             return stack(U, cfl, prim[4], newton), prim[4]
 
         def step(U, dtime, extra=None):
-            new_U, newton = comp_mod.rk_step_airwater(
-                P, U, dtime, aw, sim.nsp.visc, c["prandtl"], c["schmidt"],
-                nscbc=c["nscbc"], ly=c["ly"], gvec=c["gvec"],
-                buffer=c.get("buffer"))
+            new_U, newton = advance(U, dtime)
             diag, p = diagnostics(new_U, newton)
             return new_U, p, diag
 
@@ -283,18 +359,14 @@ def _compressible_step_functions(sim: Simulation):
 
     def diagnostics(U, p=None):
         if p is None:
-            p = _primitive(sim, U)[4]
+            p = _primitive(sim, U, P)[4]
         cfl = comp_mod.acoustic_cfl_max(P, U, c["gamma"], c["mach"],
                                         mix=mix, energy=c["energy"])
         return stack(U, cfl, p)
 
     def step(U, dtime, extra=None):
-        new_U = comp_mod.rk_step_compressible(
-            P, U, dtime, c["gamma"], c["mach"], sim.nsp.visc, c["prandtl"],
-            nscbc=c["nscbc"], ly=c["ly"], gas=c["gas"], lx=c["lx"],
-            form=c["form"], energy=c["energy"], mix=mix, gvec=c["gvec"],
-            buffer=c.get("buffer"))
-        p = _primitive(sim, new_U)[4]
+        new_U = advance(U, dtime)
+        p = _primitive(sim, new_U, P)[4]
         return new_U, p, diagnostics(new_U, p)
 
     return step, diagnostics
@@ -495,9 +567,112 @@ def velocity_gradients(P, state) -> dict:
     return g
 
 
-def _unported(mesh):
-    """(option, ROADMAP item) of what this run asks for beyond the port."""
-    return [("mesh (multi-GPU pencils)", "A17")] if mesh is not None else []
+class _Ranks:
+    """The run's view of its ranks: one device (mesh None), or this rank of
+    the mesh.  whole_* gather a rank's blocks into the global fields on
+    rank 0 (None on the others; the objects themselves on one device):
+    collectives, so every rank calls them at the same points."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.root = mesh is None or mesh.root
+
+    def whole(self, a):
+        return a if self.mesh is None or a is None else self.mesh.gather(a)
+
+    def whole_state(self, state):
+        if self.mesh is None:
+            return state
+        Q = self.mesh.gather(torch.cat([state.u[None], state.v[None],
+                                        state.w[None], state.s]))
+        return None if Q is None else State(u=Q[0], v=Q[1], w=Q[2],
+                                            s=Q[3:])
+
+    def whole_comp(self, U):
+        if self.mesh is None:
+            return U
+        parts = [a[None] for a in U[:5]] + ([U.rhos] if U.rhos is not None
+                                            else [])
+        G = self.mesh.gather(torch.cat(parts))
+        if G is None:
+            return None
+        return type(U)(*G[:5], G[5:] if U.rhos is not None else None)
+
+    def whole_particles(self, pstate):
+        if self.mesh is None or pstate is None:
+            return pstate
+        return ppar.from_mesh(self.mesh, pstate)
+
+    def local_state(self, state):
+        """This rank's blocks of a global state (sfc (2, ns, nx, nz) too)."""
+        if self.mesh is None:
+            return state
+        m = self.mesh
+        return State(u=m.block(state.u), v=m.block(state.v),
+                     w=m.block(state.w), s=m.block(state.s),
+                     sfc=None if state.sfc is None
+                     else m.block(state.sfc, x_axis=-2, z_axis=-1))
+
+    def local_comp(self, U):
+        if self.mesh is None:
+            return U
+        return type(U)(*(None if a is None else self.mesh.block(a)
+                         for a in U))
+
+    def log_launches(self, outdir: str, counts) -> None:
+        """On a mesh, the Burgers kernels' launches (K1, K2, K3) of each
+        rank's run, one line in tlab.log: the kernels run in the ranks'
+        processes, where no caller can count them."""
+        if self.mesh is None:
+            return
+        got = self.mesh.gather_list(torch.tensor(counts, dtype=torch.int64,
+                                                 device=self.mesh.device))
+        if got is not None:
+            with open(os.path.join(outdir, "tlab.log"), "a") as fh:
+                fh.write("Burgers kernel launches (K1, K2, K3) by rank: "
+                         + ", ".join(f"{r} {g.tolist()}"
+                                     for r, g in enumerate(got)) + "\n")
+
+    def elapsed(self, t_start: float) -> float:
+        """Seconds since t_start: the ranks' max on a mesh (the walltime
+        watchdog then stops every rank at the same step)."""
+        dt = time.monotonic() - t_start
+        if self.mesh is None:
+            return dt
+        return float(self.mesh.all_reduce(
+            torch.tensor(dt, dtype=torch.float64,
+                         device=self.mesh.device), "max"))
+
+    def filters(self, sim: Simulation):
+        """(the [Filter] function of a state, the filter sponge's blend) of
+        this run, each None where the case has none: on a mesh through
+        pencil.make_pencil_filter (a Helmholtz filter through
+        pencil_helmholtz) and the sponge's amplitude cut to the block."""
+        def on_mesh(mats):
+            if not callable(mats):
+                return pencil.make_pencil_filter(self.mesh, sim.P, mats=mats)
+            spec = sim.case.filter          # [Filter] Type=helmholtz
+            wd = spec.parameters[0] if spec.parameters else 2.0
+            return pencil.make_pencil_filter(
+                self.mesh, sim.P, helmholtz_alpha=-24.0 / max(wd, 1e-30) ** 2)
+
+        def one_device(mats):
+            return lambda st: filter_state(mats, st)
+
+        make = one_device if self.mesh is None else on_mesh
+        filt = sim.filter_matrices()
+        filt_fn = make(filt) if filt is not None else None
+        sponge_fn = None
+        if sim.filter_sponge is not None:
+            amp, mats = sim.filter_sponge
+            sfilt = make(mats)
+            if self.mesh is not None:
+                nxl = amp.shape[0] // self.mesh.px
+                amp = amp[self.mesh.ix * nxl:(self.mesh.ix + 1) * nxl]
+
+            def sponge_fn(st):
+                return bufmod.blend_sponge(amp, st, sfilt(st))
+        return filt_fn, sponge_fn
 
 
 def _plane_specs(case, n_steps: int):
@@ -601,12 +776,16 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         opr_check: bool = False, pstate=None, particle_props=None,
         inner_steps: int = 1, inflow=None,
         restart_visc: Optional[float] = None, mesh=None) -> DnsRun:
+    """The time loop from `state` (and `pstate`), n_steps steps (the case's
+    end by default).  mesh: this rank of the (x, z) rank mesh; every rank
+    calls run with the same arguments and the global state, steps its
+    blocks and writes nothing but on rank 0; the DnsRun's state (and
+    pstate) is then the global one on rank 0 and None on the others."""
     case = sim.case
-    missing = _unported(mesh)
-    if missing:
-        raise NotImplementedError(
-            "not ported yet: " + "; ".join(
-                f"{opt} (ROADMAP {item})" for opt, item in missing))
+    if mesh is not None:
+        nx, _, nz = sim.grid.shape
+        pencil.check_decomposition(mesh.px, mesh.pz, nx, nz)
+    ranks = _Ranks(mesh)
     ini = getattr(case, "ini", None)
     n_steps = n_steps if n_steps is not None else (case.it_end - itime)
     if pstate is not None and inflow is not None:
@@ -622,7 +801,7 @@ def run(sim: Simulation, state: State, outdir: str = ".",
                 "Poisson plan to check (tlab_tpu's opr_check raises too)")
         return _run_compressible(sim, state, outdir, itime, rtime, n_steps,
                                  log_path, checkpoint, nan_abort,
-                                 restart_visc)
+                                 restart_visc, ranks)
     # the [Filter] cadence and a time-dependent forcing (the wavemaker reads
     # the start-of-step time) are per-step host work: no window across them
     filt = sim.filter_matrices()
@@ -633,7 +812,8 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             or pstate is not None:
         inner_steps = 1     # per-step host work (the sums, the particles)
     restart_dtype = _restart_dtype(ini)
-    _trace.maybe_init(case, outdir)
+    if ranks.root:
+        _trace.maybe_init(case, outdir)
     if sim.P.get("surface_bc") is not None and state.sfc is None \
             and state.s.shape[0]:
         # interactive-surface reference state (BcsScal%ref) starts at 0
@@ -642,12 +822,14 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         state = state._replace(sfc=state.s.new_zeros((2, ns, nx, nz)))
     with _trace.trace("attach_buffer"):
         sim.attach_buffer(state)
-    sponge = sim.filter_sponge
+    filt_fn, sponge_fn = ranks.filters(sim)
 
     def checkpoint_now():
-        fields_io.write_state(os.path.join(outdir, "flow"),
-                              os.path.join(outdir, "scal"), itime, state,
-                              rtime, visc, dtype=restart_dtype)
+        whole = ranks.whole_state(state)
+        if ranks.root:
+            fields_io.write_state(os.path.join(outdir, "flow"),
+                                  os.path.join(outdir, "scal"), itime, whole,
+                                  rtime, visc, dtype=restart_dtype)
 
     # the [ViscChange] ramp rides into the step as the visc_scale factor on
     # every diffusivity (as tlab_tpu: no ramp with an unsteady inflow or
@@ -667,6 +849,14 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             pstate = pstate._replace(props=torch.cat(
                 [pstate.props, pstate.x.new_zeros((pstate.x.shape[0],
                                                    need))], dim=1))
+    n_part = pstate.x.shape[0] if pstate is not None else 0
+    if mesh is not None:
+        # from here on this rank's blocks, and its particle slots
+        state = ranks.local_state(state)
+        if pstate is not None:
+            cap = ini.get_int("Particles", "MeshCapacity", 0) if ini else 0
+            pstate = ppar.to_mesh(mesh, sim.grid, pstate,
+                                  capacity=cap or None, dtype=state.u.dtype)
 
     def _aux():
         aux = {}
@@ -679,19 +869,24 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             # copy a step)
             aux["refs_x"] = inflow.refs_at(rtime, dtype=state.u.dtype,
                                            ny=state.u.shape[1],
-                                           device=sim.device)
+                                           device=state.u.device)
         return aux or None
 
     with _trace.trace("building step functions"):
         step, diagnostics = make_step_functions(
             sim, inner_steps=inner_steps,
-            particles=particle_props if pstate is not None else None)
+            particles=particle_props if pstate is not None else None,
+            mesh=mesh)
     newton = newton_error_fn(sim) is not None
 
-    write_tlab_log(sim, outdir)
-    log = RunLog(path=log_path, newton=newton)
-    if opr_check:
+    if ranks.root:
+        write_tlab_log(sim, outdir, mesh=mesh)
+        if mesh is not None:
+            print(mesh.describe(), flush=True)
+    log = RunLog(path=log_path if ranks.root else None, newton=newton)
+    if opr_check and ranks.root:
         # startup operator self-test + micro-benchmark (reference OPR_CHECK)
+        # on rank 0's device
         from tlab_tpu_torch.ops.check import format_report, \
             opr_check as run_check
         log._write(format_report(run_check(sim)))
@@ -709,7 +904,7 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         tn = ini.get_int("Particles", "TrajNumber", 0)
         if tn > 0:
             traj = pio.TrajectoryAccumulator(
-                tag_ids=np.arange(min(tn, pstate.x.shape[0])))
+                tag_ids=np.arange(min(tn, n_part)))
         if ini.get_bool("Particles", "CalculatePDF", False):
             part_pdf = {
                 "subdomain": ini.get_floats("Particles", "PdfSubdomain", ()),
@@ -744,6 +939,7 @@ def run(sim: Simulation, state: State, outdir: str = ".",
     prev_diag = None
     n_sub = len(sim.P["rk"]["kdt"])
     prof_samples = []
+    launches0 = list(burgers.launches)
     t_start = time.monotonic()
 
     # initial dt + step-0 log line: one read of [CFL, DilMin, DilMax(,
@@ -765,10 +961,10 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         itime += inner_steps
         rtime += dtime * inner_steps      # Python float64, never a tensor
         visc = _ramped(visc, visc_ini, ramp_rate, dtime * inner_steps)
-        if sponge is not None:
-            state = apply_filter_sponge(*sponge, state)
-        if filt is not None and filt_step > 0 and itime % filt_step == 0:
-            state = filter_state(filt, state)   # reference DNS_FILTER cadence
+        if sponge_fn is not None:
+            state = sponge_fn(state)
+        if filt_fn is not None and filt_step > 0 and itime % filt_step == 0:
+            state = filt_fn(state)      # reference DNS_FILTER cadence
         if dt_lag and prev_diag is not None:
             # the window's one host sync: the previous window's diagnostics
             # and this one's, whose NewtonRs (of the stepped state) is what
@@ -798,8 +994,9 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             status = 3
             log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
                      visc, *extras)
-            _stop(outdir, f"DNS_CONTROL. Dilatation out of bounds "
-                  f"at It{itime}.")
+            if ranks.root:
+                _stop(outdir, f"DNS_CONTROL. Dilatation out of bounds "
+                      f"at It{itime}.")
             if checkpoint and case.it_restart > 0:
                 checkpoint_now()
             break
@@ -807,23 +1004,48 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
                      visc, *extras)
             _trace.point(f"iteration {itime} logged (dt={new_dt:.3e})")
-        if time.monotonic() - t_start > runtime_sec:
-            _stop(outdir, f"Maximum walltime of {runtime_sec:g} seconds "
-                  f"is reached at It{itime}.")
+        if ranks.elapsed(t_start) > runtime_sec:
+            if ranks.root:
+                _stop(outdir, f"Maximum walltime of {runtime_sec:g} seconds "
+                      f"is reached at It{itime}.")
             if checkpoint and case.it_restart > 0:
                 checkpoint_now()
             break
         restart_now = checkpoint and case.it_restart > 0 \
             and itime % case.it_restart == 0
+        stats_now = case.it_stats > 0 and itime % case.it_stats == 0
+        obs_now = obs_log and itime % case.it_log == 0
+        planes_now = bool(plane_specs) and (itime - it_first) % plane_step == 0
+        ph_now = phavg is not None and phavg.wants(itime)
+        spa_now = spatial_stats is not None \
+            and (itime - it_first) % stats_spa == 0
+        pdf_now = part_pdf is not None and stats_now
+        # the global fields on rank 0 where this step writes or accumulates
+        # (the objects themselves on one device)
+        g_state = ranks.whole_state(state) if (
+            restart_now or stats_now or obs_now or planes_now or ph_now
+            or spa_now or pdf_now or towers is not None) else None
+        g_p = ranks.whole(p_cur) if (stats_now or planes_now
+                                     or spa_now) else None
+        g_ps = ranks.whole_particles(pstate) if (
+            restart_now or pdf_now or traj is not None) else None
         if restart_now:
             with _trace.trace(f"checkpoint {itime}"):
-                checkpoint_now()
-                if pstate is not None:
-                    pio.write_particles(
-                        os.path.join(outdir, f"part.{itime}"), pstate, itime)
-        if case.it_stats > 0 and itime % case.it_stats == 0:
+                if ranks.root:
+                    fields_io.write_state(
+                        os.path.join(outdir, "flow"),
+                        os.path.join(outdir, "scal"), itime, g_state, rtime,
+                        visc, dtype=restart_dtype)
+                    if pstate is not None:
+                        pio.write_particles(
+                            os.path.join(outdir, f"part.{itime}"), g_ps,
+                            itime)
+        if not ranks.root:
+            dtime = new_dt
+            continue
+        if stats_now:
             with _trace.trace(f"statistics {itime}"):
-                write_statistics(sim, state, outdir, itime, rtime, p=p_cur)
+                write_statistics(sim, g_state, outdir, itime, rtime, p=g_p)
             if spatial_stats is not None and spatial_stats.n_samples:
                 # per-station Rij budget tables from the running (z,t) sums
                 # (reference AVG_FLOW_ZT_REDUCE at the statistics cadence,
@@ -835,50 +1057,53 @@ def run(sim: Simulation, state: State, outdir: str = ".",
                     os.path.join(outdir, f"avg_zt{itime}"),
                     sim.grid.x.nodes, sim.grid.y.nodes, tabs, itime, rtime)
         if traj is not None:
-            traj.accumulate(itime, rtime, pstate)
+            traj.accumulate(itime, rtime, g_ps)
             if restart_now:
                 traj.flush(outdir)
-        if part_pdf is not None and case.it_stats > 0 \
-                and itime % case.it_stats == 0:
-            _particle_pdf(sim, state, pstate, part_pdf, outdir, itime)
-        if obs_log and itime % case.it_log == 0:
-            write_obs(sim, state, outdir, itime, rtime)
-        if plane_specs and (itime - it_first) % plane_step == 0:
+        if pdf_now:
+            _particle_pdf(sim, g_state, g_ps, part_pdf, outdir, itime)
+        if obs_now:
+            write_obs(sim, g_state, outdir, itime, rtime)
+        if planes_now:
             # every plane set carries the pressure too (planes.f90
             # PLANES_INITIALIZE sizes flow + scalars + 1)
-            write_planes(outdir, itime, state, plane_specs,
-                         pressure=p_cur if p_cur is not None
-                         else pressure_boussinesq(sim.P, state))
+            write_planes(outdir, itime, g_state, plane_specs,
+                         pressure=g_p if g_p is not None
+                         else pressure_boussinesq(sim.P, g_state))
         if towers is not None:
-            towers.accumulate(itime, rtime, state, pressure=(
-                pressure_boussinesq(sim.P, state) if tower_pressure
+            towers.accumulate(itime, rtime, g_state, pressure=(
+                pressure_boussinesq(sim.P, g_state) if tower_pressure
                 else None))
             if restart_now:
                 towers.flush(outdir)
-        if phavg is not None and phavg.wants(itime):
-            pfields = {"u": state.u, "v": state.v, "w": state.w,
-                       "p": pressure_boussinesq(sim.P, state)}
+        if ph_now:
+            pfields = {"u": g_state.u, "v": g_state.v, "w": g_state.w,
+                       "p": pressure_boussinesq(sim.P, g_state)}
             for i in range(sim.nsp.n_scalars):
-                pfields[f"s{i + 1}"] = state.s[i]
+                pfields[f"s{i + 1}"] = g_state.s[i]
             phavg.accumulate(itime, pfields)
             if restart_now:
                 phavg.save(os.path.join(outdir, f"phavg{itime}.npz"), itime)
-        if spatial_stats is not None and (itime - it_first) % stats_spa == 0:
+        if spa_now:
             # one device reduction; only (K, nx, ny) comes to the host
             spatial_stats.accumulate_device(
-                state_fields(state), grads=velocity_gradients(sim.P, state),
-                p=p_cur)
+                state_fields(g_state),
+                grads=velocity_gradients(sim.P, g_state), p=g_p)
             if restart_now:
                 spatial_stats.save(os.path.join(outdir, f"st{itime}.npz"),
                                    itime)
         dtime = new_dt
 
-    if profile and prof_samples:
+    if profile and prof_samples and ranks.root:
         _write_profile(sim, outdir, log, prof_samples, n_sub, inner_steps)
     if checkpoint and status != 0 and case.it_restart > 0 \
             and itime % case.it_restart != 0:
         checkpoint_now()
-    if traj is not None:
+    ranks.log_launches(outdir, [b - a for a, b in zip(launches0,
+                                                      burgers.launches)])
+    state = ranks.whole_state(state)
+    pstate = ranks.whole_particles(pstate)
+    if traj is not None and ranks.root:
         traj.flush(outdir)
     return DnsRun(sim=sim, state=state, itime=itime, rtime=rtime, log=log,
                   pstate=pstate)
@@ -901,7 +1126,8 @@ def _particle_pdf(sim: Simulation, state: State, pstate, cfg: dict,
 
 def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
                       rtime: float, n_steps: int, log_path, checkpoint: bool,
-                      nan_abort: bool, restart_visc) -> DnsRun:
+                      nan_abort: bool, restart_visc,
+                      ranks: _Ranks = None) -> DnsRun:
     """run() of the compressible set (sim.comp): one RK step a window; dt
     from the acoustic CFL and the diffusion-number density (TIME_COURANT's
     compressible branch); the log's PMin PMax RMin RMax (and NewtonRs for
@@ -913,11 +1139,15 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
     primitive view (comp_mod.primitive_view) with the EOS pressure of the
     step.  As tlab_tpu's compressible thread: no [Filter], ObsLog or
     dilatation bound, and the [ViscChange] ramp moves only the log's visc
-    column."""
+    column.  ranks: the mesh's view (run's), the blocks stepped and
+    gathered to rank 0 for every file."""
+    ranks = ranks or _Ranks(None)
+    mesh = ranks.mesh
     case = sim.case
     ini = case.ini
     restart_dtype = _restart_dtype(ini)
-    _trace.maybe_init(case, outdir)
+    if ranks.root:
+        _trace.maybe_init(case, outdir)
     cfla = case.time_cfl
     cfld = case.time_cfl_diffusive
     fixed_dt = case.time_step if case.time_step > 0 else None
@@ -927,10 +1157,14 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
     bnd = sim.comp.get("bounds")
     with _trace.trace("attach_buffer"):
         sim.attach_buffer_compressible(U)
+    U = ranks.local_comp(U)
     with _trace.trace("building step functions"):
-        step, diagnostics = _compressible_step_functions(sim)
-    write_tlab_log(sim, outdir)
-    log = RunLog(path=log_path, comp=True,
+        step, diagnostics = _compressible_step_functions(sim, mesh)
+    if ranks.root:
+        write_tlab_log(sim, outdir, mesh=mesh)
+        if mesh is not None:
+            print(mesh.describe(), flush=True)
+    log = RunLog(path=log_path if ranks.root else None, comp=True,
                  newton=sim.comp.get("aw") is not None)
     log.header()
     # spatial mode: the density-weighted (z, t) sums every [Iteration]
@@ -951,8 +1185,11 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
     tower_pressure = bool((case.towers or {}).get("pressure"))
 
     def checkpoint_now():
-        fields_io.write_comp_state(os.path.join(outdir, "flow"), itime, U,
-                                   rtime, visc, dtype=restart_dtype)
+        whole = ranks.whole_comp(U)
+        if ranks.root:
+            fields_io.write_comp_state(os.path.join(outdir, "flow"), itime,
+                                       whole, rtime, visc,
+                                       dtype=restart_dtype)
 
     def next_dt(cmax, dden):
         dt = fixed_dt or min(cfla / cmax if cmax > 0 else np.inf,
@@ -998,8 +1235,9 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
             status = 2              # DNS_ERROR_NEGDENS/NEGPRESS analog
             log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
                      visc, *extras)
-            _stop(outdir, f"DNS_CONTROL. Pressure/density out of bounds "
-                  f"at It{itime}.")
+            if ranks.root:
+                _stop(outdir, f"DNS_CONTROL. Pressure/density out of bounds "
+                      f"at It{itime}.")
             if checkpoint and case.it_restart > 0:
                 checkpoint_now()
             break
@@ -1007,20 +1245,36 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
             log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
                      visc, *extras)
             _trace.point(f"iteration {itime} logged (dt={new_dt:.3e})")
-        if time.monotonic() - t_start > runtime_sec:
-            _stop(outdir, f"Maximum walltime of {runtime_sec:g} seconds "
-                  f"is reached at It{itime}.")
+        if ranks.elapsed(t_start) > runtime_sec:
+            if ranks.root:
+                _stop(outdir, f"Maximum walltime of {runtime_sec:g} seconds "
+                      f"is reached at It{itime}.")
             if checkpoint and case.it_restart > 0:
                 checkpoint_now()
             break
         restart_now = checkpoint and case.it_restart > 0 \
             and itime % case.it_restart == 0
+        stats_now = case.it_stats > 0 and itime % case.it_stats == 0
+        planes_now = bool(plane_specs) and (itime - it_first) % plane_step == 0
+        spa_now = spatial_stats is not None \
+            and (itime - it_first) % stats_spa == 0
+        # the global fields on rank 0 where this step writes or accumulates
+        g_U = ranks.whole_comp(U) if (
+            restart_now or stats_now or planes_now or spa_now
+            or towers is not None) else None
+        g_p = ranks.whole(p_cur) if (
+            planes_now or (towers is not None and tower_pressure)) else None
+        if not ranks.root:
+            dtime = new_dt
+            continue
         if restart_now:
             with _trace.trace(f"checkpoint {itime}"):
-                checkpoint_now()
-        if case.it_stats > 0 and itime % case.it_stats == 0:
+                fields_io.write_comp_state(os.path.join(outdir, "flow"),
+                                           itime, g_U, rtime, visc,
+                                           dtype=restart_dtype)
+        if stats_now:
             with _trace.trace(f"statistics {itime}"):
-                write_statistics_compressible(sim, U, outdir, itime, rtime)
+                write_statistics_compressible(sim, g_U, outdir, itime, rtime)
             if spatial_stats is not None and spatial_stats.n_samples:
                 # Favre station tables from the density-weighted (z, t)
                 # sums (avg_flow_zt_reduce.f90), before this step's sample,
@@ -1035,29 +1289,30 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
                         write_station_budgets(
                             os.path.join(outdir, name), sim.grid.x.nodes,
                             sim.grid.y.nodes, tabs, itime, rtime)
-        if plane_specs and (itime - it_first) % plane_step == 0:
-            write_planes(outdir, itime, comp_mod.primitive_view(U),
-                         plane_specs, pressure=p_cur)
+        if planes_now:
+            write_planes(outdir, itime, comp_mod.primitive_view(g_U),
+                         plane_specs, pressure=g_p)
         if towers is not None:
-            towers.accumulate(itime, rtime, comp_mod.primitive_view(U),
-                              pressure=p_cur if tower_pressure else None)
+            towers.accumulate(itime, rtime, comp_mod.primitive_view(g_U),
+                              pressure=g_p if tower_pressure else None)
             if restart_now:
                 towers.flush(outdir)
-        if spatial_stats is not None and (itime - it_first) % stats_spa == 0:
+        if spa_now:
             with _trace.trace(f"spatial sums {itime}"):
-                spatial_stats.accumulate_comp_stack(reducer(U))
+                spatial_stats.accumulate_comp_stack(reducer(g_U))
             if restart_now:
                 spatial_stats.save(os.path.join(outdir, f"st{itime}.npz"),
                                    itime)
         dtime = new_dt
 
-    if profile and prof_samples:
+    if profile and prof_samples and ranks.root:
         _write_profile(sim, outdir, log, prof_samples,
                        len(sim.P["rk"]["kdt"]), 1)
     if checkpoint and status != 0 and case.it_restart > 0 \
             and itime % case.it_restart != 0:
         checkpoint_now()
-    return DnsRun(sim=sim, state=U, itime=itime, rtime=rtime, log=log)
+    return DnsRun(sim=sim, state=ranks.whole_comp(U), itime=itime,
+                  rtime=rtime, log=log)
 
 
 def _device_name(device: torch.device) -> str:
@@ -1066,9 +1321,11 @@ def _device_name(device: torch.device) -> str:
     return str(device)
 
 
-def write_tlab_log(sim: Simulation, outdir: str, extra: str = "") -> None:
+def write_tlab_log(sim: Simulation, outdir: str, extra: str = "",
+                   mesh=None) -> None:
     """Run-provenance narrative log (reference tlab.log written by
-    TLab_Write_ASCII during initialization: banner, option echo, sizes)."""
+    TLab_Write_ASCII during initialization: banner, option echo, sizes);
+    on a rank mesh its shape, ranks and backend after the device line."""
     case = sim.case
     nx, ny, nz = sim.grid.shape
     lines = [
@@ -1077,6 +1334,8 @@ def write_tlab_log(sim: Simulation, outdir: str, extra: str = "") -> None:
         f"# started {datetime.datetime.now().isoformat(timespec='seconds')}",
         "########################################",
         f"Devices          : {_device_name(sim.device)}",
+        *([f"Mesh             : {mesh.describe()}"] if mesh is not None
+          else []),
         f"Precision        : {str(sim.dtype).replace('torch.', '')}",
         f"Grid             : {nx} x {ny} x {nz}",
         f"Scales           : {sim.grid.x.scale:g} x {sim.grid.y.nodes[-1] - sim.grid.y.nodes[0]:g} x {sim.grid.z.scale:g}",
