@@ -181,6 +181,20 @@ non-zero:
               (one rank, NCCL), 3 steps from 6a's fields: its rows against
               6a's, launches >= 15 a kernel, s/step beside 6a's,
               transpose_check there
+ 18. nantrap  the NaN trap (--debug-nans, [Main] DebugNans): (a) the shear
+              layer at 128x64x64 with a fixed TimeStep that makes a NaN at
+              a few steps: the untrapped run's NaN row with status 1; dns
+              --debug-nans, and the case with [Main] DebugNans=yes, raise
+              FloatingPointError naming an op after the untrapped rows
+              before it; (b) 6b's case 8 steps with the trap off and on in
+              turns, 3 times each: dns.out, the restarts and the avg tables
+              bit for bit, the launches equal, the trap's cost a substep,
+              and a step from 10 pairs of steps in one process;
+              (c) K1-K3 on a finite input whose products overflow: each
+              returns its NaN without the trap and raises naming its entry
+              point under it; (d) 6a's case at 512x256x256 from 6a's
+              fields, 5 steps off, on, on, off: dns.out and the launches
+              equal, the cost, and from 10 pairs of steps
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 Without a CUDA card the script exits 1 and prints no result.
@@ -188,6 +202,7 @@ Without a CUDA card the script exits 1 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import pathlib
@@ -221,6 +236,7 @@ from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.stats import averages, spatial
 from tlab_tpu_torch.tools import cli
 from tlab_tpu_torch.tools import dns as dns_tool
+from tlab_tpu_torch.utils import nantrap
 from tlab_tpu_torch.utils import trace as ttrace
 
 MAIN_SHAPE = (512, 256, 256)
@@ -4632,6 +4648,271 @@ def phase_mesh(card: str, initial: str) -> dict:
     return {"a": a, "b": b, "seconds": t17}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the NaN trap (--debug-nans, [Main] DebugNans)
+# ---------------------------------------------------------------------------
+
+# 6b's grid of the shear layer
+TRAP_GRID = {("Grid", "Imax"): "128", ("Grid", "Jmax"): "64",
+             ("Grid", "Kmax"): "64", ("IniGridOx", "points_1"): "129",
+             ("IniGridOy", "points_1"): "64",
+             ("IniGridOz", "points_1"): "65"}
+# 18a: a fixed dt 7x the CFL's first one at 128x64x64; a CPU fp32 run of
+# the case makes its NaN at the 4th step (CFL 4.6e25 at the 3rd)
+BLOWUP_DT = "0.1"
+BLOWUP_STEPS = 8
+TRAP_STEPS = 8               # 18b: 6b's case, restarts at 4 and 8
+TRAP_COST_STEPS = 5          # 18d: 6a's case from 6a's fields
+TRAP_PAIRS = 10              # steps off and on in turns, in one process
+NAN_OP = re.compile(r"invalid value \(nan\) encountered in "
+                    r"(aten\.[a-z0-9_]+\.[A-Za-z0-9_]+|burgers_[xyz])$")
+# 18c: |x| ~ 1e38, finite in fp32; the [D1; D2] products overflow, and the
+# combine (or the product's sum) meets inf - inf
+OVERFLOW = 3e38
+
+
+def trapped_dns(ini: str, out: str, *more) -> str:
+    """`dns` through the CLI that must stop with the NaN trap's
+    FloatingPointError: its message."""
+    try:
+        run_cli("dns", ini, out, *more)
+    except FloatingPointError as e:
+        return str(e)
+    require(False, f"{out}: dns ran to its end under the NaN trap")
+
+
+def trap_blow_up() -> dict:
+    """18a: the shear layer at 128x64x64 with dt fixed at BLOWUP_DT: the
+    untrapped run ends with its NaN row and status 1; with --debug-nans,
+    and with [Main] DebugNans=yes, dns raises naming an op, after the
+    untrapped run's rows before its NaN row."""
+    text = edit_case(CASE.read_text(), {
+        **TRAP_GRID, ("Main", "TimeStep"): BLOWUP_DT,
+        ("Iteration", "End"): str(BLOWUP_STEPS),
+        ("Iteration", "Restart"): str(BLOWUP_STEPS),
+        ("Iteration", "Statistics"): str(BLOWUP_STEPS)})
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as top:
+        start = os.path.join(top, "start")
+        os.makedirs(start)
+        ini = write_case(start, text)
+        run_cli("inigrid", ini, start)
+        run_cli("ini", ini, start)
+        plain = os.path.join(top, "plain")
+        shutil.copytree(start, plain)
+        run_cli("dns", write_case(plain, text), plain)
+        rows = data_rows(os.path.join(plain, "dns.out"))
+        require(rows[-1][0] == "1" and "NaN" in rows[-1]
+                and all(r[0] == "0" for r in rows[:-1])
+                and len(rows) < BLOWUP_STEPS + 1,
+                f"18a: the untrapped run's rows {rows}")
+        res["nan_step"] = int(rows[-1][1])
+        for how, more, case in (
+                ("flag", ("--debug-nans",), text),
+                ("key", (), add_keys(text, "Main", ["DebugNans=yes"]))):
+            out = os.path.join(top, how)
+            shutil.copytree(start, out)
+            msg = trapped_dns(write_case(out, case), out, *more)
+            require(NAN_OP.match(msg), f"18a ({how}): {msg}")
+            got = data_rows(os.path.join(out, "dns.out"))
+            require(got == rows[:-1], f"18a ({how}): rows {got}, the "
+                    f"untrapped run's before its NaN row {rows[:-1]}")
+            res[how] = msg
+    return res
+
+
+def trap_runs(text: str, steps: int, start: str, order) -> dict:
+    """dns of `text` from the initial fields in `start` (linked) with the
+    trap off and on in `order`: each run's traced_dns, the SHA-256 of its
+    files but the log, trace and case, and its ms/substep."""
+    n_sub = substeps(text)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as top:
+        for i, trap in enumerate(order):
+            out = os.path.join(top, f"run{i}")
+            link_initial_fields(start, out)
+            r = traced_dns(write_case(out, text), out,
+                           *(("--debug-nans",) if trap else ()))
+            r["rate"] = step_rate(r["trace"], steps, n_sub)
+            r["files"] = {f: hashlib.sha256(pathlib.Path(out, f)
+                                            .read_bytes()).hexdigest()
+                          for f in sorted(os.listdir(out))
+                          if f not in INITIAL_FILES + ("tlab.log",
+                                                       "tlab.trace",
+                                                       "tlab.ini")}
+            runs.setdefault(trap, []).append(r)
+    off, on = runs[False], runs[True]
+    for r in off[1:] + on:
+        require(r["files"] == off[0]["files"], "the run with the trap on "
+                "wrote other files than without it: " + ", ".join(
+                    f for f in off[0]["files"]
+                    if r["files"].get(f) != off[0]["files"][f]))
+        require(r["launches"] == off[0]["launches"],
+                f"launches {r['launches']} against {off[0]['launches']}")
+    ms = {k: statistics.mean(r["rate"]["ms_substep"] for r in v)
+          for k, v in runs.items()}
+    med = {k: statistics.mean(r["rate"]["others_ms_substep"] for r in v)
+           for k, v in runs.items()}
+    return {"off": off, "on": on, "ms": ms, "others": med,
+            "files": sorted(off[0]["files"]),
+            "launches": off[0]["launches"],
+            "cost": (ms[True] - ms[False]) / ms[False],
+            "cost_others": (med[True] - med[False]) / med[False]}
+
+
+def trap_same_numbers() -> dict:
+    """18b: 6b's case (128x64x64), TRAP_STEPS steps with the trap off and
+    on in turns, three times each: dns.out, the restarts and the avg tables
+    bit for bit, the launches equal; ms/substep of both."""
+    text = edit_case(CASE.read_text(), {
+        **TRAP_GRID, ("Iteration", "End"): str(TRAP_STEPS),
+        ("Iteration", "Restart"): str(TRAP_STEPS // 2),
+        ("Iteration", "Statistics"): str(TRAP_STEPS)})
+    with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as start:
+        run_cli("ini", write_case(start, text), start)
+        res = trap_runs(text, TRAP_STEPS, start, (False, True) * 3)
+        res["pairs"] = trap_step_cost(text, start)
+    return res
+
+
+def trap_step_cost(text: str, start: str) -> dict:
+    """The trap's cost a step in one process: dns's step function (a region)
+    on the case's initial fields in `start`, TRAP_PAIRS pairs of steps with
+    the trap off and on in turns (the first of a pair alternating), each
+    timed on the host clock to its synchronize, as the loop's host read
+    ends a step: the medians, and the quartiles of the pairs'
+    differences."""
+    sim = Simulation.from_case(load_case(Ini(text=text)),
+                               dtype=torch.float32, device="cuda")
+    u, v, w, s, _, _ = fields_io.read_state(
+        os.path.join(start, "flow"), os.path.join(start, "scal"), 0,
+        sim.nsp.n_scalars)
+    state = state_from_numpy(u, v, w, s, "cuda", torch.float32)
+    raw, diagnostics = dns_tool.make_step_functions(sim)
+    step, _ = dns_tool._trapped(raw, diagnostics)
+    dt = dyn.next_dt(sim.P, float(diagnostics(state)[0]),
+                     sim.case.time_cfl, sim.case.time_cfl_diffusive)
+
+    def timed(trap: bool) -> float:
+        with nantrap.trap(trap):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, dt)[2].tolist()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+    timed(False), timed(True)                       # warm-up
+    times = {False: [], True: []}
+    for i in range(TRAP_PAIRS):
+        for trap in ((False, True) if i % 2 == 0 else (True, False)):
+            times[trap].append(timed(trap))
+    diffs = [b - a for a, b in zip(times[False], times[True])]
+    q1, _, q3 = statistics.quantiles(diffs, n=4)
+    off = statistics.median(times[False])
+    return {"off_ms": off, "on_ms": statistics.median(times[True]),
+            "diff_ms": statistics.median(diffs), "q1": q1, "q3": q3,
+            "share": statistics.median(diffs) / off}
+
+
+def trap_kernels() -> list:
+    """18c: K1-K3 on a finite input whose products overflow: without the
+    trap each returns its NaN; under the trap each raises naming its own
+    entry point."""
+    sim = Simulation.from_case(load_case(Ini(text=edit_case(
+        CASE.read_text(), TRAP_GRID))), dtype=torch.float32, device="cuda")
+    shape = sim.grid.shape
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    x = OVERFLOW * (2.0 * torch.rand((2,) + shape, generator=gen,
+                                     device="cuda") - 1.0)
+    conv = torch.rand(shape, generator=gen, device="cuda") + 0.5
+    nu = torch.tensor((sim.P["visc"],) * 2, dtype=torch.float32,
+                      device="cuda")
+    require(bool(torch.isfinite(x).all()), "18c: the input is not finite")
+    msgs = []
+    for axis in range(3):
+        d12 = sim.P["d12" + "xyz"[axis]]
+        out = burgers.fused_burgers(d12, x, conv, nu, axis)
+        n_nan = int(torch.isnan(out).sum())
+        require(n_nan > 0, f"18c: {burgers.ENTRY_POINTS[axis]} made no NaN")
+        try:
+            with nantrap.trap():
+                burgers.fused_burgers(d12, x, conv, nu, axis)
+        except FloatingPointError as e:
+            msgs.append((str(e), n_nan))
+        else:
+            require(False, f"18c: {burgers.ENTRY_POINTS[axis]} under the "
+                    "trap returned")
+        require(msgs[-1][0] == "invalid value (nan) encountered in "
+                + burgers.ENTRY_POINTS[axis], f"18c: {msgs[-1][0]}")
+    return msgs
+
+
+def trap_cost(initial: str) -> dict:
+    """18d: 6a's case (512x256x256) from 6a's fields, TRAP_COST_STEPS steps
+    with the trap off, on, on, off (no restart or statistics step: 18b
+    holds those): dns.out and the launches the same, the trap's cost a
+    substep; then its cost a step from TRAP_PAIRS pairs in one process."""
+    steps = TRAP_COST_STEPS
+    text = edit_case(CASE.read_text(), {
+        ("Iteration", "End"): str(steps),
+        ("Iteration", "Restart"): str(10 * steps),
+        ("Iteration", "Statistics"): str(10 * steps)})
+    res = trap_runs(text, steps, initial, (False, True, True, False))
+    res["pairs"] = trap_step_cost(text, initial)
+    return res
+
+
+def pairs_text(r: dict) -> str:
+    return (f"{TRAP_PAIRS} pairs of steps in one process: off {r['off_ms']:.3f}"
+            f" ms, on {r['on_ms']:.3f} ms (medians), the trap "
+            f"{r['diff_ms']:.3f} ms a step (quartiles {r['q1']:.3f}, "
+            f"{r['q3']:.3f}): {100 * r['share']:.2f}%")
+
+
+def each_run(res: dict) -> str:
+    """ms/substep of each run, off and on, in run order."""
+    return "; ".join(
+        f"{'on' if trap else 'off'} " + ", ".join(
+            f"{r['rate']['ms_substep']:.4f}" for r in res[
+                "on" if trap else "off"]) for trap in (False, True))
+
+
+def phase_nantrap(card: str, initial: str) -> dict:
+    """Phase 18, each part's line."""
+    t18 = time.perf_counter()
+    a = trap_blow_up()
+    print(f"[nantrap] 18a shear layer 128x64x64 fp32, TimeStep={BLOWUP_DT} "
+          f"({card}): the untrapped run's NaN row at step {a['nan_step']} "
+          f"(status 1); dns --debug-nans: {a['flag']!r}; [Main] "
+          f"DebugNans=yes: {a['key']!r}; both after the untrapped rows "
+          f"before it")
+    b = trap_same_numbers()
+    print(f"[nantrap] 18b shear layer 128x64x64 fp32, {TRAP_STEPS} steps "
+          f"off/on x 3 ({card}): {len(b['files'])} files bit for bit "
+          f"({', '.join(b['files'])}); launches {b['launches']} each run; "
+          f"ms/substep off {b['ms'][False]:.4f}, on {b['ms'][True]:.4f} "
+          f"(the other steps' median {b['others'][False]:.4f}, "
+          f"{b['others'][True]:.4f}): the trap costs "
+          f"{100 * b['cost']:.2f}% ({100 * b['cost_others']:.2f}%); each "
+          f"run {each_run(b)}; {pairs_text(b['pairs'])}")
+    c = trap_kernels()
+    print(f"[nantrap] 18c K1-K3 on |x| ~ {OVERFLOW:.0e} fp32 ({card}): "
+          + "; ".join(f"{burgers.ENTRY_POINTS[i]} {n} NaN without the trap, "
+                      f"under it {m!r}" for i, (m, n) in enumerate(c)))
+    d = trap_cost(initial)
+    print(f"[nantrap] 18d shear layer {MAIN_SHAPE} fp32, {TRAP_COST_STEPS} "
+          f"steps off/on/on/off from 6a's fields ({card}): "
+          f"{len(d['files'])} files bit for bit; launches {d['launches']} "
+          f"each run; ms/substep off {d['ms'][False]:.4f}, on "
+          f"{d['ms'][True]:.4f} (the other steps' median "
+          f"{d['others'][False]:.4f}, {d['others'][True]:.4f}): the trap "
+          f"costs {100 * d['cost']:.2f}% ({100 * d['cost_others']:.2f}%); "
+          f"each run {each_run(d)}; {pairs_text(d['pairs'])}")
+    t18 = time.perf_counter() - t18
+    print(f"[nantrap] phase 18 took {t18:.1f} s")
+    return {"a": a, "b": b, "c": c, "d": d, "seconds": t18}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card; this script runs only on one",
@@ -4759,6 +5040,7 @@ def main() -> int:
     for rec, n in zip(records, tools["launches_16a"]):
         rec["launches_16a"] = n
     mesh = phase_mesh(smi, initial)
+    trap = phase_nantrap(smi, initial)
     keep.cleanup()
     for axis, rec in enumerate(records):
         k = mesh["a"]["kernels"][axis]
@@ -4770,9 +5052,12 @@ def main() -> int:
         rec["launches_17a_by_rank"] = by_rank
         rec["launches_17a"] = sum(by_rank)
         rec["launches_17b"] = mesh["b"]["by_rank"][0][axis]
+        rec["launches_18b"] = trap["b"]["launches"][axis]
+        rec["launches_18d"] = trap["d"]["launches"][axis]
     print(f"[slice] phase 10 took {t10:.1f} s, 11 {t11:.1f} s, 12 "
           f"{t12:.1f} s, 13 {t13:.1f} s, 14 {t14:.1f} s, 15 {t15:.1f} s, "
-          f"16 {tools['seconds']:.1f} s, 17 {mesh['seconds']:.1f} s")
+          f"16 {tools['seconds']:.1f} s, 17 {mesh['seconds']:.1f} s, 18 "
+          f"{trap['seconds']:.1f} s")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

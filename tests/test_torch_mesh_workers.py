@@ -327,3 +327,24 @@ def sharded_job(mesh, arr, prefix: str, read_from: str):
     sharded.write_state_sharded(prefix + ".", 5, State(
         u=blk[0], v=blk[1], w=-blk[0], s=blk[1:]), 0.25, 1e-3, mesh)
     return _np(sharded.read_sharded_to(read_from, mesh))
+
+
+def nan_trap_ranks(mesh):
+    """The NaN trap on a mesh: rank 1 alone divides 0 by 0 inside a region
+    that also all-reduces, so the NaN reaches the other ranks through the
+    collective.  (nantrap.nan_flag of the outputs, the message the region
+    raised or None) on this rank."""
+    from tlab_tpu_torch.utils import nantrap
+    a = torch.full((4,), 0.0 if mesh.rank == 1 else 1.0, dtype=F64)
+
+    def body(x):
+        q = x / x
+        return q, mesh.all_reduce(q.sum(), "sum") * x
+
+    flag = nantrap.nan_flag(body(a), mesh)
+    try:
+        with nantrap.trap():
+            nantrap.region("body", body, mesh)(a)
+    except FloatingPointError as e:
+        return flag, str(e)
+    return flag, None

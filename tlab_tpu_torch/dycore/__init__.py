@@ -1,1 +1,2 @@
 """Dynamical cores (the incompressible main path)."""
+from tlab_tpu_torch.dycore.state import State  # noqa: F401

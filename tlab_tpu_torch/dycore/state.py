@@ -19,6 +19,16 @@ class State(NamedTuple):
     sfc: Optional[torch.Tensor] = None
 
 
+def zero_state(nx: int, ny: int, nz: int, n_scalars: int = 1,
+               dtype=torch.float32, device="cuda") -> State:
+    """The state at rest: zero velocities and `n_scalars` zero scalars.
+    u, v and w are one tensor, as tlab_tpu's (replace a component, do not
+    write into it)."""
+    z = torch.zeros((nx, ny, nz), dtype=dtype, device=device)
+    return State(u=z, v=z, w=z, s=torch.zeros((n_scalars, nx, ny, nz),
+                                              dtype=dtype, device=device))
+
+
 def stack(state: State) -> torch.Tensor:
     """Q (3+ns, nx, ny, nz) with rows u, v, w, s1.. (a new tensor)."""
     return torch.cat([state.u[None], state.v[None], state.w[None], state.s],

@@ -38,6 +38,7 @@ import torch
 from tlab_tpu_torch import device as _device
 from tlab_tpu_torch.ops import _build
 from tlab_tpu_torch.ops.derivative import der12
+from tlab_tpu_torch.utils import nantrap
 
 # kernel launches per axis (K1, K2, K3); counted where a launch is made
 launches = [0, 0, 0]
@@ -163,7 +164,17 @@ def fused_burgers(d12, x, conv, nu, axis: int):
     the stacked fields x (F, nx, ny, nz), as tlab_tpu's fused_burgers.
 
     d12: (2n, n) stacked [D1; D2]; conv: (nx, ny, nz); nu: (F,).
-    Returns (F, nx, ny, nz)."""
+    Returns (F, nx, ny, nz).
+
+    Under the NaN trap's per-op check (utils/nantrap.py) the call is one
+    op: a launch through ctypes is seen by no dispatcher, so its output is
+    checked here and a NaN is named after the entry point (burgers_x,
+    burgers_y, burgers_z), on the CPU's plain version too."""
+    if nantrap.checking():
+        with nantrap.suspended():
+            out = fused_burgers(d12, x, conv, nu, axis)
+        nantrap.check(out, ENTRY_POINTS[axis], (x, conv))
+        return out
     if x.device.type == "cpu":
         return fused_burgers_plain(d12, x, conv, nu, axis)
     _check(d12, x, conv, nu, axis)

@@ -31,6 +31,11 @@ def der1(plan_d1: torch.Tensor, u: torch.Tensor, axis: int) -> torch.Tensor:
     return apply_along(plan_d1, u, axis)
 
 
+def der2(plan_d2: torch.Tensor, u: torch.Tensor, axis: int) -> torch.Tensor:
+    """Second derivative along `axis`."""
+    return apply_along(plan_d2, u, axis)
+
+
 def der12(plan_d12: torch.Tensor, u: torch.Tensor, axis: int):
     """(d1 u, d2 u) from one product with the stacked (2n, n) operator."""
     n = u.shape[axis]

@@ -331,9 +331,10 @@ def mode_fields(sim, state, pressure, opt_main: int = 1):
 
 def run_pdf_mode(sim, state, pressure, outdir: str, itime: int,
                  rtime: float, opt_main: int = 1, nbins=(32, 32),
-                 gate_level: float = 0.0) -> None:
+                 gate_level: float = 0.0, fields=None) -> None:
     """One ParamPdfs analysis mode on a snapshot: compute the mode's
-    fields and write reference-layout pdf<it>.<tag> files."""
+    fields and write reference-layout pdf<it>.<tag> files.  fields: the
+    mode's (singles, joints) of mode_fields where the caller has them."""
     y = sim.grid.y.nodes
     nb = int(np.atleast_1d(nbins)[0])
     nb2 = (int(np.atleast_1d(nbins)[0]),
@@ -341,7 +342,7 @@ def run_pdf_mode(sim, state, pressure, outdir: str, itime: int,
     gate = None
     if gate_level > 0.0 and state.s.shape[0]:
         gate = _np(state.s[0]) > gate_level
-    singles, joints = mode_fields(sim, state, pressure, opt_main)
+    singles, joints = fields or mode_fields(sim, state, pressure, opt_main)
     for tag, a in singles:
         _pdf1v_out(outdir, itime, rtime, y, tag, a, nb, gate=gate)
     for tag, a, b in joints:

@@ -12,7 +12,10 @@ iniflow.x/iniscal.x/inipart.x/dns.x/averages.x/spectra.x/pdfs.x/visuals.x/
 apriori.x/transfields.x/transgrid.x/state.x/smooth.x/saturation.x/
 reversal.x, the superlayer tools and stats2nc.py/Planes2nc.py/tower2nc.py.
 The run is on the CUDA card unless --device names another device; --x64
-computes in float64 (validation mode).
+computes in float64 (validation mode).  --debug-nans, or [Main]
+DebugNans=yes in the case file, stops any command at the first NaN a
+computation makes with FloatingPointError naming the op
+(utils/nantrap.py; tlab_tpu's jax_debug_nans).
 
 dns on a rank mesh: --mesh PX,PZ or [Parallel] Mesh=PX,PZ.  Launched as one
 process, dns spawns PX PZ ranks itself (parallel.mesh.spawn, a FileStore in
@@ -51,6 +54,8 @@ import sys
 
 import torch
 
+from tlab_tpu_torch.utils import nantrap
+
 INI_COMMANDS = ("ini", "inirand", "iniflow", "iniscal")
 POST_COMMANDS = ("averages", "spectra", "pdfs", "superlayer", "visuals",
                  "apriori")
@@ -80,6 +85,12 @@ def _parser() -> argparse.ArgumentParser:
                     help="override [Broadband] Seed (default: ini value)")
     ap.add_argument("--x64", action="store_true",
                     help="run in float64 (validation mode)")
+    ap.add_argument("--debug-nans", action="store_true",
+                    help="trap the first NaN (not Inf) that a computation "
+                         "makes: FloatingPointError naming the op or the "
+                         "Burgers kernel's entry point (the reference's "
+                         "debug-build FPE trap, config/*.cmake "
+                         "-ffpe-trap); also [Main] DebugNans=yes")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the CUDA card; "
                          "'cpu' for a run without one)")
@@ -129,7 +140,9 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = _parser().parse_args(argv)
     try:
-        return _run(args)
+        # before the command branches, as tlab_tpu sets jax_debug_nans
+        with nantrap.trap(args.debug_nans):
+            return _run(args)
     except NotImplementedError as e:        # an option that is not ported
         raise SystemExit(f"tlab_tpu_torch: {e}")
 
@@ -141,7 +154,8 @@ def _mesh_shape(spec: str) -> tuple:
 
 def _dns_rank(mesh, args) -> int:
     """One rank of a spawned mesh run: the dns command on this rank."""
-    return _run(args, mesh)
+    with nantrap.trap(args.debug_nans):
+        return _run(args, mesh)
 
 
 def _dns_on_mesh(args, spec: str) -> int:
@@ -184,13 +198,6 @@ def _dns_on_mesh(args, spec: str) -> int:
 
 def _run(args, mesh=None) -> int:
     from tlab_tpu_torch.config import load_case
-    from tlab_tpu_torch.convert import state_from_numpy
-    from tlab_tpu_torch.grid import write_reference_grid
-    from tlab_tpu_torch.io import fields_io
-    from tlab_tpu_torch.particles.core import props_from_ini
-    from tlab_tpu_torch.particles.io import read_particles
-    from tlab_tpu_torch.runtime import Simulation, grid_from_case
-    from tlab_tpu_torch.utils import trace
 
     # the commands that need no case file go before it is read
     if args.command == "transgrid":
@@ -199,6 +206,24 @@ def _run(args, mesh=None) -> int:
         return _cloud_tool(args)
 
     case = load_case(args.ini)
+    # [Main] DebugNans=yes|true turns the trap on as --debug-nans does (and
+    # so for the ranks of a mesh run too)
+    if case.ini.get("Main", "DebugNans", "no").lower() in ("yes", "true"):
+        args.debug_nans = True
+    with nantrap.trap(args.debug_nans):
+        return _case_command(args, case, mesh)
+
+
+def _case_command(args, case, mesh=None) -> int:
+    """The commands that read the case file `case`."""
+    from tlab_tpu_torch.convert import state_from_numpy
+    from tlab_tpu_torch.grid import write_reference_grid
+    from tlab_tpu_torch.io import fields_io
+    from tlab_tpu_torch.particles.core import props_from_ini
+    from tlab_tpu_torch.particles.io import read_particles
+    from tlab_tpu_torch.runtime import Simulation, grid_from_case
+    from tlab_tpu_torch.utils import trace
+
     os.makedirs(args.outdir, exist_ok=True)
     if args.command == "dns" and mesh is None:
         spec = args.mesh or case.ini.get("Parallel", "Mesh", "")
@@ -255,16 +280,18 @@ def _run(args, mesh=None) -> int:
 
     if args.command in POST_COMMANDS:
         from tlab_tpu_torch.tools import postprocess as pp
+        debug = args.debug_nans
         if args.command == "visuals":
             fields = tuple(f for f in args.fields.split(",") if f) \
                 or visual_menu(case, sim)
-            pp.run_visuals(sim, args.outdir, its, which=fields)
+            pp.run_visuals(sim, args.outdir, its, which=fields,
+                           debug_nans=debug)
         elif args.command == "apriori":
-            pp.run_apriori(sim, args.outdir, its)
+            pp.run_apriori(sim, args.outdir, its, debug_nans=debug)
         elif args.command == "averages":
             pp.run_averages(sim, args.outdir, its,
                             gate_scalar=args.gate_scalar,
-                            gate_level=args.gate_level)
+                            gate_level=args.gate_level, debug_nans=debug)
         elif args.command == "spectra":
             cross, corr = args.cross, args.correlations
             psp = case.ini.get_floats("PostProcessing", "ParamSpectra", ())
@@ -274,11 +301,12 @@ def _run(args, mesh=None) -> int:
                 cross = int(psp[0]) in (2, 4)
                 corr = int(psp[0]) in (3, 4)
             pp.run_spectra(sim, args.outdir, its, cross=cross,
-                           correlations=corr, y_blocks=args.y_blocks)
+                           correlations=corr, y_blocks=args.y_blocks,
+                           debug_nans=debug)
         elif args.command == "pdfs":
-            pp.run_pdfs(sim, args.outdir, its)
+            pp.run_pdfs(sim, args.outdir, its, debug_nans=debug)
         else:
-            pp.run_superlayer(sim, args.outdir, its)
+            pp.run_superlayer(sim, args.outdir, its, debug_nans=debug)
         print(f"{args.command} done for {its}")
         return 0
 
@@ -312,7 +340,7 @@ def _run(args, mesh=None) -> int:
                        inner_steps=args.inner_steps, pstate=pstate,
                        particle_props=pprops,
                        restart_visc=float(visc0) if visc0 else None,
-                       mesh=mesh)
+                       mesh=mesh, debug_nans=args.debug_nans)
     if mesh is None or mesh.root:
         print("\n".join(run.log.lines[-3:]))
     return 0

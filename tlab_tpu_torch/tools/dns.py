@@ -61,11 +61,17 @@ written as the single-device run writes them; the other ranks write nothing.
 The [Filter] cadence and the filter sponge go through the same engine
 (pencil.make_pencil_filter), the particles are owner-sharded slots
 (particles/parallel.py).
+
+With the NaN trap on (run(debug_nans=True), the CLI's --debug-nans) the
+step, the diagnostics, the filters, the statistics and the diagnostic
+pressure are the trap's regions (utils/nantrap.py: tlab_tpu's jit calls
+here); on a mesh the collective ones flag on every rank at once.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import functools
 import os
 import time
 from typing import Optional
@@ -100,8 +106,13 @@ from tlab_tpu_torch.stats.spatial import (SpatialStats,
                                           register_station_table,
                                           state_fields,
                                           write_station_budgets)
+from tlab_tpu_torch.utils import nantrap
 from tlab_tpu_torch.utils import trace as _trace
 from tlab_tpu_torch.utils.fortran_fmt import fort_e
+
+
+# the in-run PDFs' bins
+INRUN_BINS = 32
 
 
 @dataclasses.dataclass
@@ -289,6 +300,13 @@ def make_step_functions(sim: Simulation, inner_steps: int = 1,
     return step, diagnostics
 
 
+def _trapped(step, diagnostics, mesh=None):
+    """The step and the diagnostics of make_step_functions as NaN-trap
+    regions (utils/nantrap.py), on every rank of `mesh`."""
+    return (nantrap.region("dns step", step, mesh),
+            nantrap.region("dns diagnostics", diagnostics, mesh))
+
+
 def _primitive(sim: Simulation, U, P=None):
     """(u, v, w, T, p) of the conservative state in the set's energy
     formulation and mixture (P: the plan, sim.P by default)."""
@@ -382,7 +400,8 @@ def write_statistics(sim: Simulation, state: State, outdir: str,
     (ncols, ny) stack -- no full field is copied (the reference reduces in
     place via AVG_IK_V, averages.f90:36-333)."""
     _write_tables(sim, outdir, itime, rtime,
-                  *avg.stats_tables(sim, state, p))
+                  *nantrap.region("stats_tables", avg.stats_tables)(
+                      sim, state, p))
     _inrun_pdfs_spectra(sim, state, outdir, itime, rtime)
 
 
@@ -407,6 +426,15 @@ def write_statistics_compressible(sim: Simulation, U, outdir: str,
     AVG_FLOW_XZ (compressible branch, avg_flow_xz.f90:768-940), with the
     AirWater or combustion mixture's energy, enthalpy, entropy and gamma;
     reduced on the device, one (ncols, ny) copy to the host."""
+    state, flow, scals = nantrap.region("compressible statistics",
+                                        _comp_tables)(sim, U)
+    _write_tables(sim, outdir, itime, rtime, flow, scals)
+    _inrun_pdfs_spectra(sim, state, outdir, itime, rtime)
+
+
+def _comp_tables(sim: Simulation, U):
+    """(the primitive State, the flow table, [scalar tables]) of
+    write_statistics_compressible, the tables as NumPy columns."""
     c = sim.comp
     gamma, mach = c["gamma"], c["mach"]
     rho = U.rho
@@ -453,8 +481,7 @@ def write_statistics_compressible(sim: Simulation, U, outdir: str,
     scals = [avg.scalar_statistics(sim.P, state, sim.nsp.diffusivity(i), i,
                                    p=p, visc=sim.nsp.visc, extras=extras,
                                    rho=rho, vis=vis) for i in range(ns)]
-    _write_tables(sim, outdir, itime, rtime, *avg.to_host(flow, scals))
-    _inrun_pdfs_spectra(sim, state, outdir, itime, rtime)
+    return (state, *avg.to_host(flow, scals))
 
 
 def _inrun_pdfs_spectra(sim: Simulation, state: State, outdir: str,
@@ -475,15 +502,35 @@ def _inrun_pdfs_spectra(sim: Simulation, state: State, outdir: str,
     want_spec = ini.get_bool("Statistics", "Spectrums", False)
     if not (want_pdf or want_int or want_spec):
         return
+    plan, flat = nantrap.region("in-run pdfs and spectra", _inrun_pack)(
+        ini, state, want_pdf, want_int, want_spec)
+    y = sim.grid.y.nodes
+    off = 0
+    for kind, tag, shape in plan:
+        a = flat[off:off + int(np.prod(shape))].reshape(shape)
+        off += a.size
+        if kind == "pdf":
+            rf.write_pdf_file(outdir, f"pdf{itime}.{tag}", rtime, y, a,
+                              INRUN_BINS)
+        elif kind == "int":
+            avg.write_table(os.path.join(outdir, f"int{itime}"), y,
+                            {"gamma": a}, itime, rtime)
+        else:
+            rf.write_spectrum_file(outdir, kind, itime, tag, a)
+
+
+def _inrun_pack(ini, state: State, want_pdf: bool, want_int: bool,
+                want_spec: bool):
+    """([(kind, tag, shape)], the tables packed into one flat float64 NumPy
+    array) of _inrun_pdfs_spectra."""
     nx, ny, nz = state.u.shape
-    nb = 32
     want_corr = ini.get_bool("Statistics", "Correlations", False)
     fields = dict(u=state.u, v=state.v, w=state.w)
     for i in range(state.s.shape[0]):
         fields[f"s{i + 1}"] = state.s[i]
     plan = []                       # (kind, tag, table) per piece
     if want_pdf:
-        plan += [("pdf", n, pdf1v_plane_table_device(f, nb))
+        plan += [("pdf", n, pdf1v_plane_table_device(f, INRUN_BINS))
                  for n, f in fields.items()]
     if want_int:
         gate_level = ini.get_float("Statistics", "GateLevel", 0.5)
@@ -504,18 +551,7 @@ def _inrun_pdfs_spectra(sim: Simulation, state: State, outdir: str,
                                  spectra.correlation_z(f)[: nz // 2]))
     flat = torch.cat([a.to(torch.float64).reshape(-1)
                       for _, _, a in plan]).cpu().numpy()   # the one copy
-    y = sim.grid.y.nodes
-    off = 0
-    for kind, tag, a in plan:
-        a = flat[off:off + a.numel()].reshape(a.shape)
-        off += a.size
-        if kind == "pdf":
-            rf.write_pdf_file(outdir, f"pdf{itime}.{tag}", rtime, y, a, nb)
-        elif kind == "int":
-            avg.write_table(os.path.join(outdir, f"int{itime}"), y,
-                            {"gamma": a}, itime, rtime)
-        else:
-            rf.write_spectrum_file(outdir, kind, itime, tag, a)
+    return [(k, t, tuple(a.shape)) for k, t, a in plan], flat
 
 
 def write_obs(sim: Simulation, state: State, outdir: str, itime: int,
@@ -672,7 +708,10 @@ class _Ranks:
 
             def sponge_fn(st):
                 return bufmod.blend_sponge(amp, st, sfilt(st))
-        return filt_fn, sponge_fn
+        return tuple(None if fn is None else
+                     nantrap.region(name, fn, self.mesh)
+                     for name, fn in (("filter", filt_fn),
+                                      ("filter sponge", sponge_fn)))
 
 
 def _plane_specs(case, n_steps: int):
@@ -775,12 +814,29 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         checkpoint: bool = True, nan_abort: bool = True,
         opr_check: bool = False, pstate=None, particle_props=None,
         inner_steps: int = 1, inflow=None,
-        restart_visc: Optional[float] = None, mesh=None) -> DnsRun:
+        restart_visc: Optional[float] = None, mesh=None,
+        debug_nans: bool = False) -> DnsRun:
     """The time loop from `state` (and `pstate`), n_steps steps (the case's
     end by default).  mesh: this rank of the (x, z) rank mesh; every rank
     calls run with the same arguments and the global state, steps its
     blocks and writes nothing but on rank 0; the DnsRun's state (and
-    pstate) is then the global one on rank 0 and None on the others."""
+    pstate) is then the global one on rank 0 and None on the others.
+    debug_nans: the NaN trap over the run (utils/nantrap.py): the step
+    that makes a NaN raises FloatingPointError naming the op, after the
+    rows of dns.out before it."""
+    with nantrap.trap(debug_nans):
+        return _run(sim, state, outdir, itime, rtime, n_steps, log_path,
+                    checkpoint, nan_abort, opr_check, pstate,
+                    particle_props, inner_steps, inflow, restart_visc, mesh)
+
+
+def _run(sim: Simulation, state: State, outdir: str, itime: int,
+         rtime: float, n_steps: Optional[int], log_path: Optional[str],
+         checkpoint: bool, nan_abort: bool, opr_check: bool, pstate,
+         particle_props, inner_steps: int, inflow,
+         restart_visc: Optional[float], mesh) -> DnsRun:
+    """run() of the incompressible set, or its branch to the compressible
+    loop."""
     case = sim.case
     if mesh is not None:
         nx, _, nz = sim.grid.shape
@@ -873,10 +929,15 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         return aux or None
 
     with _trace.trace("building step functions"):
-        step, diagnostics = make_step_functions(
+        step, diagnostics = _trapped(*make_step_functions(
             sim, inner_steps=inner_steps,
             particles=particle_props if pstate is not None else None,
-            mesh=mesh)
+            mesh=mesh), mesh)
+    # (the plan goes in the partial: a region copies its arguments)
+    pressure = nantrap.region("pressure_boussinesq",
+                              functools.partial(pressure_boussinesq, sim.P))
+    gradients = nantrap.region("velocity_gradients",
+                               functools.partial(velocity_gradients, sim.P))
     newton = newton_error_fn(sim) is not None
 
     if ranks.root:
@@ -889,7 +950,8 @@ def run(sim: Simulation, state: State, outdir: str = ".",
         # on rank 0's device
         from tlab_tpu_torch.ops.check import format_report, \
             opr_check as run_check
-        log._write(format_report(run_check(sim)))
+        log._write(format_report(nantrap.region("opr_check",
+                                                run_check)(sim)))
     log.header()
 
     obs_log = ini.get("Iteration", "ObsLog", "none").lower() != "none" \
@@ -1069,16 +1131,15 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             # PLANES_INITIALIZE sizes flow + scalars + 1)
             write_planes(outdir, itime, g_state, plane_specs,
                          pressure=g_p if g_p is not None
-                         else pressure_boussinesq(sim.P, g_state))
+                         else pressure(g_state))
         if towers is not None:
             towers.accumulate(itime, rtime, g_state, pressure=(
-                pressure_boussinesq(sim.P, g_state) if tower_pressure
-                else None))
+                pressure(g_state) if tower_pressure else None))
             if restart_now:
                 towers.flush(outdir)
         if ph_now:
             pfields = {"u": g_state.u, "v": g_state.v, "w": g_state.w,
-                       "p": pressure_boussinesq(sim.P, g_state)}
+                       "p": pressure(g_state)}
             for i in range(sim.nsp.n_scalars):
                 pfields[f"s{i + 1}"] = g_state.s[i]
             phavg.accumulate(itime, pfields)
@@ -1088,7 +1149,7 @@ def run(sim: Simulation, state: State, outdir: str = ".",
             # one device reduction; only (K, nx, ny) comes to the host
             spatial_stats.accumulate_device(
                 state_fields(g_state),
-                grads=velocity_gradients(sim.P, g_state), p=g_p)
+                grads=gradients(g_state), p=g_p)
             if restart_now:
                 spatial_stats.save(os.path.join(outdir, f"st{itime}.npz"),
                                    itime)
@@ -1159,7 +1220,8 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
         sim.attach_buffer_compressible(U)
     U = ranks.local_comp(U)
     with _trace.trace("building step functions"):
-        step, diagnostics = _compressible_step_functions(sim, mesh)
+        step, diagnostics = _trapped(
+            *_compressible_step_functions(sim, mesh), mesh)
     if ranks.root:
         write_tlab_log(sim, outdir, mesh=mesh)
         if mesh is not None:
@@ -1299,7 +1361,8 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
                 towers.flush(outdir)
         if spa_now:
             with _trace.trace(f"spatial sums {itime}"):
-                spatial_stats.accumulate_comp_stack(reducer(g_U))
+                spatial_stats.accumulate_comp_stack(nantrap.region(
+                    "compressible spatial sums", reducer)(g_U))
             if restart_now:
                 spatial_stats.save(os.path.join(outdir, f"st{itime}.npz"),
                                    itime)

@@ -6,9 +6,13 @@ Each function loops over a snapshot iteration list, reads the restart
 fields onto the simulation's device, computes there, and writes analysis
 files: averages.x, spectra.x, pdfs.x, visuals.x (run_visuals), apriori.x
 (run_apriori) and the superlayer tools.
+
+Each run_* takes debug_nans=False: the NaN trap (utils/nantrap.py) over
+its work, each snapshot's computation one region.
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -22,6 +26,16 @@ from tlab_tpu_torch.io import fields_io
 from tlab_tpu_torch.io import reference_formats as rf
 from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.stats import averages, pdfs, spectra
+from tlab_tpu_torch.utils import nantrap
+
+
+def _debug_nans(fn):
+    """fn with the keyword debug_nans=False: the NaN trap over its work."""
+    @functools.wraps(fn)
+    def run(*args, debug_nans: bool = False, **kwargs):
+        with nantrap.trap(debug_nans):
+            return fn(*args, **kwargs)
+    return run
 
 
 def _np(a):
@@ -84,6 +98,7 @@ _MODE_FILES = {3: "avgMom", 4: "avgMain", 5: "avgW2", 6: "avgS2",
                15: "avgEps", 16: "avgSiCov", 17: "avgPV"}
 
 
+@_debug_nans
 def run_averages(sim: Simulation, outdir: str, iterations,
                  gate_scalar: int = 0, gate_level: float = 0.0) -> None:
     """Plane-averaged statistics tables; gate_scalar>0 additionally writes
@@ -106,7 +121,10 @@ def run_averages(sim: Simulation, outdir: str, iterations,
     wr = averages.avg_writer(sim.case)
     pvec = sim.case.ini.get_floats("PostProcessing", "ParamAverages", ())
     mode = int(pvec[0]) if pvec else 0
-    for it in iterations:
+
+    def tables(it):
+        """(rtime, flow, [scalar tables], {file prefix: extra table}) of
+        snapshot `it`, as NumPy columns."""
         st, rtime = load_snapshot(sim, outdir, it)
         p = pressure_boussinesq(sim.P, st)
         extras = averages.build_extras(sim, st)
@@ -115,33 +133,35 @@ def run_averages(sim: Simulation, outdir: str, iterations,
         scals = [averages.scalar_statistics(
             sim.P, st, sim.nsp.diffusivity(i), i, p=p, visc=sim.nsp.visc,
             extras=extras) for i in range(sim.nsp.n_scalars)]
-        flow, scals = averages.to_host(flow, scals)
-        wr(os.path.join(outdir, f"avg{it}"), y, flow, averages.FLOW_GROUPS,
-           it, rtime)
-        sgroups = averages.scal_groups(st.s.shape[0])
-        for i, sc in enumerate(scals):
-            wr(os.path.join(outdir, f"avg{it}s{i + 1}"), y, sc, sgroups, it,
-               rtime)
+        more = {}
         if gate_scalar > 0:
             gate = st.s[gate_scalar - 1] > gate_level
-            cond = averages.conditional_flow_statistics(sim.P, st, gate)
-            averages.write_table(os.path.join(outdir, f"cavg{it}"), y,
-                                 _host_table(cond), it, rtime)
-            averages.write_table(
-                os.path.join(outdir, f"int{it}"), y,
-                _host_table({"gamma": averages.intermittency(gate)}), it,
-                rtime)
+            more["cavg"] = _host_table(
+                averages.conditional_flow_statistics(sim.P, st, gate))
+            more["int"] = _host_table(
+                {"gamma": averages.intermittency(gate)})
         # [PostProcessing] ParamAverages analysis modes (reference
         # averages.f90:150-204: mode 1/2 are the tables above; 3-17 are
         # the specialised budgets/diagnostics in stats.analysis)
         if mode >= 3:
             from tlab_tpu_torch.stats import analysis
-            tab = analysis.run_mode(sim.P, st, sim.nsp.visc, mode,
-                                    diff=[sim.nsp.diffusivity(i) for i in
-                                          range(sim.nsp.n_scalars)])
-            averages.write_table(
-                os.path.join(outdir, f"{_MODE_FILES[mode]}{it}"), y,
-                _host_table(tab), it, rtime)
+            more[_MODE_FILES[mode]] = _host_table(analysis.run_mode(
+                sim.P, st, sim.nsp.visc, mode,
+                diff=[sim.nsp.diffusivity(i)
+                      for i in range(sim.nsp.n_scalars)]))
+        return (rtime, *averages.to_host(flow, scals), more)
+
+    for it in iterations:
+        rtime, flow, scals, more = nantrap.region("averages", tables)(it)
+        wr(os.path.join(outdir, f"avg{it}"), y, flow, averages.FLOW_GROUPS,
+           it, rtime)
+        sgroups = averages.scal_groups(len(scals))
+        for i, sc in enumerate(scals):
+            wr(os.path.join(outdir, f"avg{it}s{i + 1}"), y, sc, sgroups, it,
+               rtime)
+        for prefix, tab in more.items():
+            averages.write_table(os.path.join(outdir, f"{prefix}{it}"), y,
+                                 tab, it, rtime)
 
 
 def _snapshot_fields(sim, st):
@@ -151,6 +171,7 @@ def _snapshot_fields(sim, st):
     return comps
 
 
+@_debug_nans
 def run_spectra(sim: Simulation, outdir: str, iterations,
                 cross: bool = False, correlations: bool = False,
                 y_blocks: int = 0) -> None:
@@ -167,37 +188,34 @@ def run_spectra(sim: Simulation, outdir: str, iterations,
 
     nx = sim.grid.x.size
     nz = sim.grid.z.size
-    for it in iterations:
+
+    def files(it):
+        """[(kind, tag, NumPy table)] of snapshot `it`, and the 2-D
+        spectra {field name: table}."""
         st, _ = load_snapshot(sim, outdir, it)
         comps = _snapshot_fields(sim, st)
+        out, sp2d = [], {}
         for name, a in comps.items():
             t2 = tag(name) + tag(name)
             ex = _np(spectra.spectrum_x(a))
-            rf.write_spectrum_file(outdir, "xsp", it, "E" + t2,
-                                   0.5 * ex[: nx // 2])
+            out.append(("xsp", "E" + t2, 0.5 * ex[: nx // 2]))
             if nz > 1:
                 ez = _np(spectra.spectrum_z(a))
-                rf.write_spectrum_file(outdir, "zsp", it, "E" + t2,
-                                       0.5 * ez[: nz // 2])
+                out.append(("zsp", "E" + t2, 0.5 * ez[: nz // 2]))
                 er = spectra.radial_spectrum(a, sim.grid.x.scale,
                                              sim.grid.z.scale)
                 nk = min(nx // 2, nz // 2)
-                out = np.zeros((nk, er.shape[1]), er.dtype)
-                out[: min(nk, er.shape[0])] = er[: nk]
-                rf.write_spectrum_file(outdir, "rsp", it, "E" + t2,
-                                       0.5 * out)
+                rsp = np.zeros((nk, er.shape[1]), er.dtype)
+                rsp[: min(nk, er.shape[0])] = er[: nk]
+                out.append(("rsp", "E" + t2, 0.5 * rsp))
             if correlations:
                 cx = _np(spectra.correlation_x(a))
-                rf.write_spectrum_file(outdir, "xcr", it, "C" + t2,
-                                       cx[: nx // 2])
+                out.append(("xcr", "C" + t2, cx[: nx // 2]))
                 if nz > 1:
                     cz = _np(spectra.correlation_z(a))
-                    rf.write_spectrum_file(outdir, "zcr", it, "C" + t2,
-                                           cz[: nz // 2])
+                    out.append(("zcr", "C" + t2, cz[: nz // 2]))
             if y_blocks > 0:
-                e2 = spectra.spectrum_2d(a, y_blocks=y_blocks)
-                np.savez(os.path.join(outdir, f"sp2d{it}.{name}.npz"),
-                         e=_np(e2), itime=it)
+                sp2d[name] = _np(spectra.spectrum_2d(a, y_blocks=y_blocks))
         if cross:
             names = list(comps)
             pairs = [("u", "v"), ("u", "w"), ("v", "w")] + \
@@ -205,19 +223,25 @@ def run_spectra(sim: Simulation, outdir: str, iterations,
             for na, nb in pairs:
                 tp = tag(na) + tag(nb)
                 ex = _np(spectra.spectrum_x(comps[na], comps[nb]))
-                rf.write_spectrum_file(outdir, "xsp", it, "E" + tp,
-                                       0.5 * ex[: nx // 2])
+                out.append(("xsp", "E" + tp, 0.5 * ex[: nx // 2]))
                 power, phase = spectra.cross_phase_x(comps[na], comps[nb])
-                rf.write_spectrum_file(outdir, "pow", it, "E" + tp,
-                                       _np(power)[: nx // 2])
-                rf.write_spectrum_file(outdir, "pha", it, "E" + tp,
-                                       _np(phase)[: nx // 2])
+                out.append(("pow", "E" + tp, _np(power)[: nx // 2]))
+                out.append(("pha", "E" + tp, _np(phase)[: nx // 2]))
                 if correlations:
                     cx = _np(spectra.correlation_x(comps[na], comps[nb]))
-                    rf.write_spectrum_file(outdir, "xcr", it, "C" + tp,
-                                           cx[: nx // 2])
+                    out.append(("xcr", "C" + tp, cx[: nx // 2]))
+        return out, sp2d
+
+    for it in iterations:
+        out, sp2d = nantrap.region("spectra", files)(it)
+        for kind, t, a in out:
+            rf.write_spectrum_file(outdir, kind, it, t, a)
+        for name, e2 in sp2d.items():
+            np.savez(os.path.join(outdir, f"sp2d{it}.{name}.npz"), e=e2,
+                     itime=it)
 
 
+@_debug_nans
 def run_pdfs(sim: Simulation, outdir: str, iterations, nbins=32) -> None:
     """pdfs.x equivalent: [PostProcessing] ParamPdfs = mode, block,
     gate_level, nbins1[, nbins2] (pdfs.f90:130-173); default mode 1
@@ -229,14 +253,20 @@ def run_pdfs(sim: Simulation, outdir: str, iterations, nbins=32) -> None:
     nb = (int(pvec[3]) if len(pvec) > 3 else nbins,
           int(pvec[4]) if len(pvec) > 4 else
           (int(pvec[3]) if len(pvec) > 3 else nbins))
-    for it in iterations:
+
+    def fields(it):
         st, rtime = load_snapshot(sim, outdir, it)
         pres = pressure_boussinesq(sim.P, st) if sim.comp is None else None
+        return st, rtime, pres, pdfs.mode_fields(sim, st, pres, opt_main)
+
+    for it in iterations:
+        st, rtime, pres, mode = nantrap.region("pdfs", fields)(it)
         pdfs.run_pdf_mode(sim, st, pres, outdir, it, float(rtime),
                           opt_main=opt_main, nbins=nb,
-                          gate_level=gate_level)
+                          gate_level=gate_level, fields=mode)
 
 
+@_debug_nans
 def run_apriori(sim: Simulation, outdir: str, iterations) -> None:
     """apriori.x equivalent: [PostProcessing] ParamStructure = 1 (the
     subgrid-stress profiles tau<it> and the Smagorinsky study sgs<it>) or
@@ -257,25 +287,29 @@ def run_apriori(sim: Simulation, outdir: str, iterations) -> None:
         mats = build_filter_matrices(sim.fdm, spec, sim.dtype, sim.device)
     dx = sim.grid.x.scale / max(sim.grid.x.size, 1)
     y = sim.grid.y.nodes
-    for it in iterations:
+
+    def tables(it):
+        """(rtime, {file prefix: NumPy table}) of snapshot `it`."""
         st, rtime = load_snapshot(sim, outdir, it)
         if mode == 2:
-            tab, name = ap.filtered_gradients(sim.P, mats, st), f"gradU{it}"
-        else:
-            # reference tau<it> table: plane profiles of the six subgrid
-            # stresses tagged Tauxx..Tauyz (apriori.f90:248-295 AVG_N_XZ)
-            tau, _ = ap.subgrid_stress(mats, st.u, st.v, st.w)
-            tab = {"Tau" + b: averages._pavg(tau[a]) for a, b in
-                   (("uu", "xx"), ("vv", "yy"), ("ww", "zz"),
-                    ("uv", "xy"), ("uw", "xz"), ("vw", "yz"))}
-            del tau
-            averages.write_table(os.path.join(outdir, f"tau{it}"), y,
-                                 _host_table(tab), it, float(rtime))
-            # the Smagorinsky-coefficient study in a side table
-            tab = ap.apriori_statistics(sim.P, mats, st, delta=2.0 * dx)
-            name = f"sgs{it}"
-        averages.write_table(os.path.join(outdir, name), y,
-                             _host_table(tab), it, float(rtime))
+            return rtime, {"gradU": _host_table(
+                ap.filtered_gradients(sim.P, mats, st))}
+        # reference tau<it> table: plane profiles of the six subgrid
+        # stresses tagged Tauxx..Tauyz (apriori.f90:248-295 AVG_N_XZ)
+        tau, _ = ap.subgrid_stress(mats, st.u, st.v, st.w)
+        tab = {"Tau" + b: averages._pavg(tau[a]) for a, b in
+               (("uu", "xx"), ("vv", "yy"), ("ww", "zz"),
+                ("uv", "xy"), ("uw", "xz"), ("vw", "yz"))}
+        del tau
+        # the Smagorinsky-coefficient study in a side table
+        return rtime, {"tau": _host_table(tab), "sgs": _host_table(
+            ap.apriori_statistics(sim.P, mats, st, delta=2.0 * dx))}
+
+    for it in iterations:
+        rtime, tabs = nantrap.region("apriori", tables)(it)
+        for prefix, tab in tabs.items():
+            averages.write_table(os.path.join(outdir, f"{prefix}{it}"), y,
+                                 tab, it, float(rtime))
 
 
 def subdomain_slices(sim):
@@ -578,6 +612,7 @@ def _visual_field(sim, name: str, st, comp_f, box: dict, dcmp: str, outdir,
     raise ValueError(name)
 
 
+@_debug_nans
 def run_visuals(sim: Simulation, outdir: str, iterations,
                 which=("Enstrophy",)) -> None:
     """visuals.x equivalent: the derived fields `which` of each snapshot as
@@ -616,20 +651,25 @@ def run_visuals(sim: Simulation, outdir: str, iterations,
                 os.path.join(outdir, f"vis{it}.{suffix}"),
                 fld if sub is None else fld[sub], it, (rtime,), fmt=vfmt)
 
-        for name in which:
+        def files(name):
+            """[(file suffix, field)] of the visual `name`."""
             if comp_f is not None and name in comp_f:
-                write(name, comp_f[name])
-                continue
-            files = _file_set(name, st, sim.P, sim.nsp.visc,
-                              lambda: pressure_boussinesq(sim.P, st))
-            if files is None:
-                files = [(name, _visual_field(sim, name, st, comp_f, box,
-                                              dcmp, outdir, it))]
-            for suffix, fld in files:
+                return [(name, comp_f[name])]
+            out = _file_set(name, st, sim.P, sim.nsp.visc,
+                            lambda: pressure_boussinesq(sim.P, st))
+            if out is None:
+                out = [(name, _visual_field(sim, name, st, comp_f, box,
+                                            dcmp, outdir, it))]
+            return out
+
+        for name in which:
+            fs = nantrap.region(f"visuals {name}", files)(name)
+            for suffix, fld in fs:
                 write(suffix, fld)
-            del files
+            del fs
 
 
+@_debug_nans
 def run_superlayer(sim: Simulation, outdir: str, iterations,
                    indicator: str = "vorticity", threshold: float = 0.01,
                    samples=("Enstrophy",), nbins: int = 64) -> None:
@@ -639,7 +679,9 @@ def run_superlayer(sim: Simulation, outdir: str, iterations,
     PDFs, and fields sampled on both surfaces; written to sl{it}.npz."""
     from tlab_tpu_torch.stats import superlayer as sl
     y = sim.grid.y.nodes
-    for it in iterations:
+
+    def surfaces(it):
+        """The arrays of sl<it>.npz."""
         st, _ = load_snapshot(sim, outdir, it)
         if indicator == "vorticity":
             a = mappings.vorticity_magnitude2(sim.P, st.u, st.v, st.w)
@@ -679,4 +721,8 @@ def run_superlayer(sim: Simulation, outdir: str, iterations,
                     sl.sample_along_normals(sim.grid, fld, ysl, dists,
                                             side=side))
                 out[f"{tag}_normal_dists"] = np.asarray(dists)
-        np.savez(os.path.join(outdir, f"sl{it}.npz"), **out)
+        return out
+
+    for it in iterations:
+        np.savez(os.path.join(outdir, f"sl{it}.npz"),
+                 **nantrap.region("superlayer", surfaces)(it))
