@@ -195,6 +195,19 @@ non-zero:
               point under it; (d) 6a's case at 512x256x256 from 6a's
               fields, 5 steps off, on, on, off: dns.out and the launches
               equal, the cost, and from 10 pairs of steps
+ 19. precision tlab_tpu's other two contracts of the Burgers kernel
+              (TLAB_TPU_MATMUL_PRECISION; every earlier phase runs at the
+              unset "highest", 3xTF32): (a) the bf16 variants of K1-K3,
+              "high" (3-pass bf16 split) and "default" (one bf16 pass),
+              against their plain versions (the same split) at the ragged
+              shapes and at 512x256x256, each also against fp64 and timed
+              beside its plain version, the fp32 matmul and its bound; (b)
+              the main path at 512x256x256 under each, 3 RK4 steps: only
+              that contract's entry points launch, ms/substep beside phase
+              4's; (c) phase 5's fp32-against-fp64 run under "high" (held
+              to phase 5's limit) and "default" (printed); (d) the
+              factorized Poisson solve in fp64 under TLAB_TPU_SING_MODE=
+              legacy against the CPU's, and apart from the reference mode
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 Without a CUDA card the script exits 1 and prints no result.
@@ -213,6 +226,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -248,14 +262,14 @@ RAGGED = ((5, (24, 20, 36)), (5, (23, 19, 37)), (3, (7, 5, 6)),
           (3, (6, 10, 200)))
 STEPS = 3
 REPS = 7
+# ms a substep of the main path by contract (phase 4, 19b)
+MAIN_MS: dict = {}
 KERNEL_TOL = 1e-5        # max|kernel - plain| / max|plain|: sums of <= 512
                          # products in another order, from the 3xTF32 split
                          # (K1-K3: ~22 bits an operand)
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense)
 PEAK_BYTES = 3.35e12     # device memory, B/s
-PEAK_OPS = {"tf32": 495e12, "fp32": 67e12}      # FLOP/s by unit
-# the unit each kernel's product runs on, and its passes over the product
-UNIT = (("tf32", 3), ("tf32", 3), ("tf32", 3))
+PEAK_OPS = {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12}   # FLOP/s by unit
 FP64_TOL = 3e-4          # 5 RK4 steps at tlab_tpu's production 5.9e-5/step
 CASE = pathlib.Path(__file__).resolve().parent / "examples" / "shear3d" \
     / "tlab.ini"
@@ -315,13 +329,14 @@ def phase_build() -> None:
           + " | ".join(regs))
 
 
-def bound(axis, d12, x, conv, nu) -> dict:
+def bound(axis, d12, x, conv, nu, prec: str = "highest") -> dict:
     """The least time the card could take for one fused Burgers term: each
     input read once and the output written once at the memory rate, or
     2 * 2n multiply-adds per output point (times the passes of the split)
-    at the peak of the unit the kernel's product runs on."""
+    at the peak of the unit the contract's product runs on
+    (burgers.CONTRACTS: 3 TF32 passes for "highest", 3 or 1 bf16 passes)."""
     n = x.shape[axis + 1]
-    unit, passes = UNIT[axis]
+    unit, passes = burgers.CONTRACTS[prec]
     nbytes = sum(t.numel() * t.element_size() for t in (d12, x, conv, nu, x))
     ops = passes * 4 * n * x.numel()
     by_bytes, by_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS[unit]
@@ -339,23 +354,36 @@ def fp64_errors(axis, d12, x, conv, nu, got, ref) -> dict:
             "plain_vs_fp64": (ref - ref64).abs().max().item() / scale}
 
 
-def check_kernel(axis, d12, x, conv, nu, timed: bool) -> dict:
-    got = burgers.fused_burgers(d12, x, conv, nu, axis)
-    ref = burgers.fused_burgers_plain(d12, x, conv, nu, axis)
+def plain_version(prec: str):
+    """The plain PyTorch version a contract's kernel is held to: the
+    full-fp32 product for "highest" (the 3xTF32 split is within its
+    round-off), the same bf16 split for "high" and "default"."""
+    if prec == "highest":
+        return burgers.fused_burgers_plain
+    unit, passes = burgers.CONTRACTS[prec]
+    return lambda d12, x, conv, nu, axis: burgers.fused_burgers_split_plain(
+        d12, x, conv, nu, axis, passes, unit)
+
+
+def check_kernel(axis, d12, x, conv, nu, timed: bool,
+                 prec: str = "highest") -> dict:
+    plain = plain_version(prec)
+    got = burgers.fused_burgers(d12, x, conv, nu, axis, prec)
+    ref = plain(d12, x, conv, nu, axis)
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     require(err <= KERNEL_TOL * scale,
-            f"{burgers.ENTRY_POINTS[axis]} at {tuple(x.shape)}: "
+            f"{burgers.entry_points(prec)[axis]} at {tuple(x.shape)}: "
             f"max|err| {err} > {KERNEL_TOL} * {scale}")
     res = {"max_abs_err": err, "rel_err": err / scale}
     if timed:
         res.update(fp64_errors(axis, d12, x, conv, nu, got, ref))
         del got, ref
         calls = {
-            "ms": lambda: burgers.fused_burgers(d12, x, conv, nu, axis),
-            "plain_ms":
-                lambda: burgers.fused_burgers_plain(d12, x, conv, nu, axis),
+            "ms": lambda: burgers.fused_burgers(d12, x, conv, nu, axis,
+                                                prec),
+            "plain_ms": lambda: plain(d12, x, conv, nu, axis),
             # the plain version's one full-fp32 matmul, without the combine
             "library_ms": lambda: apply_along(d12, x, axis + 1)}
         times = {key: [] for key in calls}
@@ -363,7 +391,7 @@ def check_kernel(axis, d12, x, conv, nu, timed: bool) -> dict:
             for key, fn in calls.items():
                 times[key].append(event_ms(fn))
         res.update({key: statistics.median(v) for key, v in times.items()})
-        res.update(bound(axis, d12, x, conv, nu))
+        res.update(bound(axis, d12, x, conv, nu, prec))
     return res
 
 
@@ -416,7 +444,7 @@ def phase_main(P, state) -> list:
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    burgers.launches[:] = [0, 0, 0]
+    burgers.reset_launches()
     t0 = time.perf_counter()
     state, p = dyn.rk_loop_stacked(P, state, entry.DT, STEPS)
     torch.cuda.synchronize()
@@ -425,6 +453,8 @@ def phase_main(P, state) -> list:
     substeps = STEPS * len(P["rk"]["kdt"])
     require(launches == [substeps] * 3,
             f"kernel launches {launches}, expected {substeps} per axis")
+    require(burgers.total_launches() == launches,
+            f"another contract's kernel launched: {burgers.contract_launches}")
     for name, a in zip("uvws", (state.u, state.v, state.w, state.s)):
         require(bool(torch.isfinite(a).all()), f"non-finite {name}")
     require(tuple(state.u.shape) == MAIN_SHAPE
@@ -439,17 +469,25 @@ def phase_main(P, state) -> list:
           f"{points * substeps / seconds:.6e} points/s/substep; "
           f"peak memory {peak} B; CFL {cfl:.4f}; "
           f"dilatation [{dmin:.4e}, {dmax:.4e}]; launches {launches}")
+    MAIN_MS["highest"] = 1e3 * seconds / substeps
     return launches
 
 
-def phase_fp64() -> None:
+def fp32_drift() -> float:
+    """max|u32 - u64| / max|u64| after 5 RK4 steps at 128x64x64: fp32 through
+    the kernels of the contract the environment names, fp64 through the
+    dense path."""
     out = {}
     for dtype in (torch.float32, torch.float64):
         _, P, state = entry.build(128, 64, 64, dtype, "cuda", seed=0)
         state, _ = dyn.rk_loop_stacked(P, state, entry.DT, 5)
         out[dtype] = state.u.double()
     ref = out[torch.float64]
-    rel = ((out[torch.float32] - ref).abs().max() / ref.abs().max()).item()
+    return ((out[torch.float32] - ref).abs().max() / ref.abs().max()).item()
+
+
+def phase_fp64() -> None:
+    rel = fp32_drift()
     print(f"[fp64] 128x64x64, 5 RK4 steps: max|u32 - u64| / max|u64| = "
           f"{rel:.3e} (limit {FP64_TOL})")
     require(rel <= FP64_TOL, f"fp32 vs fp64: {rel} > {FP64_TOL}")
@@ -4912,6 +4950,179 @@ def phase_nantrap(card: str, initial: str) -> dict:
     print(f"[nantrap] phase 18 took {t18:.1f} s")
     return {"a": a, "b": b, "c": c, "d": d, "seconds": t18}
 
+# ---------------------------------------------------------------------------
+# Phase 19: tlab_tpu's other two arithmetic contracts of the Burgers kernel
+# (TLAB_TPU_MATMUL_PRECISION=high, default) and TLAB_TPU_SING_MODE=legacy
+# ---------------------------------------------------------------------------
+
+# the bf16 contracts, the branches of tlab_tpu's _dot they port
+BF16_CONTRACTS = ("high", "default")
+# 19c: tlab_tpu's documented fp32 drift a step at "default" (its
+# ops/derivative.py:op_precision): the default contract's drift is printed
+# beside 5 steps of it, not held
+DEFAULT_DRIFT_A_STEP = 2.5e-2
+# 19d: the factorized solve in fp64 on the card against the CPU's fp64
+# solve (round-off of the same tables), and legacy apart from the
+# reference mode (0.674 of max|p| at 16x33x8 on the CPU)
+LEGACY_TOL = 1e-10
+LEGACY_APART = 1e-3
+LEGACY_SHAPE = (64, 65, 32)
+
+
+def phase_contract_kernels(P) -> list:
+    """19a: the bf16 variants of K1-K3 against their plain versions (the
+    same split) at the ragged shapes and at the main path's, timed there."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    records = []
+    nu = torch.tensor((P["visc"],) * 3 + P["diff"], dtype=torch.float32,
+                      device="cuda")
+    x = randn(len(nu), *MAIN_SHAPE)
+    conv = randn(*MAIN_SHAPE)
+    for prec in BF16_CONTRACTS:
+        names = burgers.entry_points(prec)
+        for F, shape in RAGGED:
+            errs = []
+            for axis in range(3):
+                n = shape[axis]
+                r = check_kernel(axis, randn(2 * n, n), randn(F, *shape),
+                                 randn(*shape),
+                                 torch.rand(F, generator=gen, device="cuda"),
+                                 False, prec)
+                errs.append(f"{names[axis]} {r['rel_err']:.3e}")
+            print(f"[precision] 19a {prec} F={F} {shape}: rel err "
+                  + ", ".join(errs))
+        for axis in range(3):
+            r = check_kernel(axis, P["d12" + "xyz"[axis]], x, conv, nu, True,
+                             prec)
+            print(f"[precision] 19a {names[axis]} F={len(nu)} {MAIN_SHAPE}: "
+                  f"max|err| {r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}) "
+                  f"against its plain version (the same bf16 split); "
+                  f"max|. - fp64| / max|fp64| {r['kernel_vs_fp64']:.3e} "
+                  f"(plain {r['plain_vs_fp64']:.3e}); kernel {r['ms']:.3f} "
+                  f"ms, plain {r['plain_ms']:.3f} ms, the fp32 matmul "
+                  f"{r['library_ms']:.3f} ms (median of {REPS}); bound "
+                  f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['unit']} x"
+                  f"{burgers.CONTRACTS[prec][1]}: {r['ops_ms']:.3f} ms, "
+                  f"bytes: {r['bytes_ms']:.3f} ms)")
+            records.append({
+                "name": names[axis], "route": "cuda", "source": SOURCE,
+                "replaces": f"{REPLACES[axis]} prec_name={prec} "
+                            "(_dot, tlab_tpu/ops/pallas_burgers.py:38)",
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "kernel_vs_fp64": r["kernel_vs_fp64"]})
+    return records
+
+
+def phase_contract_main(prec: str, P, state) -> list:
+    """19b: the main path at 512x256x256 under TLAB_TPU_MATMUL_PRECISION=
+    prec from phase 4's initial state, 3 timed RK4 steps after a warm-up:
+    the contract's entry points launch 5 a step each and no other
+    contract's."""
+    with mock.patch.dict(os.environ, {"TLAB_TPU_MATMUL_PRECISION": prec}):
+        state, _ = dyn.rk_loop_stacked(P, state, entry.DT, 1)     # warm-up
+        torch.cuda.synchronize()
+        burgers.reset_launches()
+        t0 = time.perf_counter()
+        state, _ = dyn.rk_loop_stacked(P, state, entry.DT, STEPS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: list(v) for k, v in burgers.contract_launches.items()}
+    substeps = STEPS * len(P["rk"]["kdt"])
+    want = {k: [substeps] * 3 if k == prec else [0, 0, 0] for k in counts}
+    require(counts == want, f"19b {prec}: launches {counts}, expected "
+                            f"{want}")
+    for name, a in zip("uvws", (state.u, state.v, state.w, state.s)):
+        require(bool(torch.isfinite(a).all()), f"19b {prec}: non-finite "
+                                               f"{name}")
+    MAIN_MS[prec] = 1e3 * seconds / substeps
+    dmin, dmax = (float(d) for d in dyn.dilatation_minmax(P, state))
+    print(f"[precision] 19b {MAIN_SHAPE} fp32 RK4 under "
+          f"TLAB_TPU_MATMUL_PRECISION={prec}: {STEPS} steps, "
+          f"{MAIN_MS[prec]:.3f} ms/substep (phase 4, highest: "
+          f"{MAIN_MS['highest']:.3f}); dilatation [{dmin:.4e}, {dmax:.4e}]; "
+          f"launches {counts}")
+    return counts[prec]
+
+
+def phase_contract_drift() -> None:
+    """19c: phase 5's fp32-against-fp64 run under each bf16 contract."""
+    for prec in BF16_CONTRACTS:
+        with mock.patch.dict(os.environ, {"TLAB_TPU_MATMUL_PRECISION": prec}):
+            rel = fp32_drift()
+        if prec == "high":
+            print(f"[precision] 19c high: 128x64x64, 5 RK4 steps: max|u32 - "
+                  f"u64| / max|u64| = {rel:.3e} (limit {FP64_TOL}: "
+                  f"tlab_tpu's 5.9e-5 a step at high, x5)")
+            require(rel <= FP64_TOL, f"19c high: {rel} > {FP64_TOL}")
+        else:
+            print(f"[precision] 19c default: 128x64x64, 5 RK4 steps: max|u32"
+                  f" - u64| / max|u64| = {rel:.3e} (not held; tlab_tpu "
+                  f"documents {DEFAULT_DRIFT_A_STEP} a step at default, "
+                  f"{5 * DEFAULT_DRIFT_A_STEP:.3g} over 5)")
+
+
+def phase_legacy() -> None:
+    """19d: the factorized Poisson solve in fp64 on the card under
+    TLAB_TPU_SING_MODE=legacy against the CPU's, and apart from the
+    reference mode's."""
+    from tlab_tpu_torch.grid import uniform_grid
+    nx, ny, nz = LEGACY_SHAPE
+    grid = uniform_grid(nx, ny, nz, 2.0 * np.pi, 1.0, np.pi)
+    plan = fac.build_factorize_plan(build_fdm_plan(grid))
+    y = np.asarray(grid.y.nodes)
+    f = np.random.default_rng(19).standard_normal((nx, ny, nz)) \
+        + 3.0 * np.cos(np.pi * y)[None, :, None]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        fd = torch.from_numpy(f).to(dev)
+        dplan = fac.device_factorize_plan(plan, torch.float64, dev)
+        with mock.patch.dict(os.environ, {"TLAB_TPU_SING_MODE": "legacy"}):
+            out[dev] = [a.cpu() for a in fac.poisson_factorize(dplan, fd)]
+        if dev == "cuda":
+            with mock.patch.dict(os.environ,
+                                 {"TLAB_TPU_SING_MODE": "reference"}):
+                out["reference"] = [a.cpu() for a in
+                                    fac.poisson_factorize(dplan, fd)]
+    parts = []
+    for i, name in enumerate(("p", "dp/dy")):
+        scale = out["cpu"][i].abs().max().item()
+        err = (out["cuda"][i] - out["cpu"][i]).abs().max().item() / scale
+        apart = (out["cuda"][i] - out["reference"][i]).abs().max().item() \
+            / scale
+        require(err <= LEGACY_TOL, f"19d {name}: card vs CPU {err} > "
+                                   f"{LEGACY_TOL}")
+        require(apart > LEGACY_APART, f"19d {name}: legacy vs reference "
+                                      f"{apart} <= {LEGACY_APART}")
+        parts.append(f"{name} card vs CPU {err:.3e} (limit {LEGACY_TOL}), "
+                     f"legacy vs reference {apart:.3e} (> {LEGACY_APART})")
+    print(f"[precision] 19d factorized solve {LEGACY_SHAPE} fp64 under "
+          f"TLAB_TPU_SING_MODE=legacy, of max|.|: " + "; ".join(parts))
+
+
+def phase_precision() -> dict:
+    """Phase 19: 19a-19d; the records of the bf16 variants with their
+    launches on 19b's runs."""
+    t0 = time.perf_counter()
+    _, P, state = entry.build(*MAIN_SHAPE, torch.float32, "cuda", seed=0)
+    records = phase_contract_kernels(P)
+    launches = {prec: phase_contract_main(prec, P, state)
+                for prec in BF16_CONTRACTS}
+    del P, state
+    for rec in records:
+        prec = rec["name"].rsplit("_", 1)[1]
+        rec["launches"] = launches[prec]["xyz".index(rec["name"][8])]
+    phase_contract_drift()
+    phase_legacy()
+    seconds = time.perf_counter() - t0
+    print(f"[precision] phase 19 took {seconds:.1f} s")
+    return {"records": records, "seconds": seconds}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -5042,6 +5253,7 @@ def main() -> int:
     mesh = phase_mesh(smi, initial)
     trap = phase_nantrap(smi, initial)
     keep.cleanup()
+    precision = phase_precision()
     for axis, rec in enumerate(records):
         k = mesh["a"]["kernels"][axis]
         rec["mesh_17a"] = {key: k[key] for key in (
@@ -5057,8 +5269,8 @@ def main() -> int:
     print(f"[slice] phase 10 took {t10:.1f} s, 11 {t11:.1f} s, 12 "
           f"{t12:.1f} s, 13 {t13:.1f} s, 14 {t14:.1f} s, 15 {t15:.1f} s, "
           f"16 {tools['seconds']:.1f} s, 17 {mesh['seconds']:.1f} s, 18 "
-          f"{trap['seconds']:.1f} s")
-    print(json.dumps({"kernels": records}))
+          f"{trap['seconds']:.1f} s, 19 {precision['seconds']:.1f} s")
+    print(json.dumps({"kernels": records + precision["records"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -270,3 +270,57 @@ def test_pack_operator_round_trips_the_z_operator_at_256():
     assert int(normal.sum()) > d12.numel() // 4
     assert torch.all(((back - d12.double()).abs()
                       <= 2.0 ** -21 * d12.double().abs())[normal])
+
+
+@pytest.mark.parametrize("prec_name", ["default", "high", "highest"])
+def test_fused_burgers_on_the_cpu_is_plain_for_every_contract(prec_name):
+    """On a CPU tensor every contract gives the full-fp32 plain version (as
+    tlab_tpu off a TPU computes full fp32 whatever the name) and launches
+    nothing; an unknown name raises."""
+    d12, x, conv, nu = map(torch.from_numpy,
+                           _operands(3, (6, 10, 12), 2, np.float32))
+    before = {k: list(v) for k, v in burgers.contract_launches.items()}
+    got = burgers.fused_burgers(d12, x, conv, nu, 2, prec_name)
+    assert torch.equal(got, burgers.fused_burgers_plain(d12, x, conv, nu, 2))
+    assert burgers.contract_launches == before
+    with pytest.raises(ValueError, match="prec_name"):
+        burgers.fused_burgers(d12, x, conv, nu, 2, "hihg")
+
+
+@pytest.mark.parametrize("prec_name", ["high", "default"])
+@pytest.mark.parametrize("n", [7, 23, 128, 130])
+def test_pack_operator_bf16_layout(prec_name, n):
+    """The bf16 contracts' operator as the kernels copy it: bfloat16 tiles
+    of 128 rows x 32 deep (64 bytes a row, as the TF32 tiles), the bf16
+    split's parts D1 hi, D1 lo, D2 hi, D2 lo ("high") or D1, D2 ("default")
+    per (row tile, K tile), zero padding, and the 64-byte swizzle of each
+    row's four 16-byte chunks of 8 elements."""
+    rows, depth = 128, 32
+    d12 = torch.from_numpy(np.random.default_rng(n).standard_normal(
+        (2 * n, n)).astype(np.float32))
+    pack = burgers.pack_operator(d12, rows, depth, prec_name)
+    parts = 4 if prec_name == "high" else 2
+    at, kt = -(-n // rows), -(-n // depth)
+    assert pack.dtype == torch.bfloat16 and pack.is_contiguous()
+    assert tuple(pack.shape) == (at, kt, parts, rows, 4, 8)
+    assert pack.numel() * 2 == at * kt * parts * 8192
+    hi, lo = burgers.bf16_split(d12.reshape(2, n, n))
+    want = torch.stack((hi[0], lo[0], hi[1], lo[1]) if parts == 4
+                       else (hi[0], hi[1]))
+    r = torch.arange(rows)
+    src = torch.arange(4)[None, :] ^ ((r[:, None] >> 1) & 3)
+    q = pack.float().gather(
+        4, src[None, None, None, :, :, None].expand_as(pack))
+    q = q.permute(2, 0, 3, 1, 4, 5).reshape(parts, at * rows, kt * depth)
+    assert torch.equal(q[:, :n, :n], want)
+    assert float(q.abs().sum()) == pytest.approx(float(want.abs().sum()),
+                                                 rel=1e-5)
+    # one element by hand: row a, column k of D2's hi part
+    flat = pack.reshape(at, kt, parts, rows * depth)
+    for a, k in ((0, 0), (n - 1, n - 1), (n // 2, n // 3)):
+        rr, c = a % rows, (k % depth) // 8
+        pos = rr * depth + ((c ^ ((rr >> 1) & 3)) * 8) + k % 8
+        assert float(flat[a // rows, k // depth, parts // 2, pos]) == \
+            float(hi[1][a, k])
+    with pytest.raises(ValueError):
+        burgers.pack_operator(d12, rows, 16, prec_name)

@@ -227,3 +227,43 @@ def test_banded_der1_on_the_card_matches_the_dense_product(n, periodic,
     got = thomas.banded_der1(bp, u, 2)
     ref = der1(d1, u, 2)
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec_name", ["high", "default"])
+@pytest.mark.parametrize("F, shape", SHAPES)
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_bf16_kernel_matches_its_split(prec_name, F, shape, axis):
+    """The bf16 variants ("high": 3-pass split, "default": one pass)
+    against the plain version of the same split: sums of the same exact
+    products in another order, within 1e-5 of the largest result; each
+    launch counted under its contract alone."""
+    d12, x, conv, nu = _operands(F, shape, axis, _card())
+    unit, passes = burgers.CONTRACTS[prec_name]
+    before = {k: list(v) for k, v in burgers.contract_launches.items()}
+    got = burgers.fused_burgers(d12, x, conv, nu, axis, prec_name)
+    ref = burgers.fused_burgers_split_plain(d12, x, conv, nu, axis, passes,
+                                            unit)
+    torch.cuda.synchronize()
+    before[prec_name][axis] += 1
+    assert burgers.contract_launches == before
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", [None, "high", "default", "highest"])
+def test_setting_picks_the_contract(monkeypatch, setting):
+    """_burgers_all on a CUDA float32 stack launches the entry point of
+    TLAB_TPU_MATMUL_PRECISION's contract; unset, the 3xTF32 one."""
+    if setting is None:
+        monkeypatch.delenv("TLAB_TPU_MATMUL_PRECISION", raising=False)
+    else:
+        monkeypatch.setenv("TLAB_TPU_MATMUL_PRECISION", setting)
+    d12, x, conv, nu = _operands(4, (16, 12, 8), 1, _card())
+    burgers.reset_launches()
+    tdyn._burgers_all({"d12y": d12}, "y", 1, x, conv,
+                      nu[:, None, None, None])
+    want = setting or "highest"
+    assert burgers.contract_launches == {
+        k: [0, 1, 0] if k == want else [0, 0, 0]
+        for k in burgers.CONTRACTS}

@@ -6,17 +6,25 @@
 // bound by operations, not bytes (see tlab_tpu_torch/ops/burgers.py), so
 // what matters is the unit the product runs on.
 //
-// All three run on the tensor cores: wgmma with TF32 operands and the
-// 3-pass split x = x_hi + x_lo, d = d_hi + d_lo,
-// x_lo.d_hi + x_hi.d_lo + x_hi.d_hi into fp32 accumulators, the Hopper
-// counterpart of the Pallas kernel's 3-pass bf16 split (_dot).  hi + lo
-// carries ~22 significant bits and the dropped lo.lo term is ~2^-22
-// relative, so the result stays within fp32 round-off of a full-fp32
-// product.  K1 and K2 share the column kernel (D @ X, tc::burgers_col), K3
-// is the row kernel (X @ D^T, tc::burgers_row); both take the operator
-// split and tiled once on the host side (`pack`) and differ in where the
-// field tile's fragment elements sit and in their epilogue.  See the notes
-// above the two kernels.
+// All three run on the tensor cores, in one of three arithmetic contracts,
+// those of the Pallas kernel's _dot (pallas_burgers.py:38-58) as the port
+// names them (ops/derivative.py::op_precision):
+//   "highest"  wgmma with TF32 operands and the 3-pass split
+//              x = x_hi + x_lo, d = d_hi + d_lo, x_lo.d_hi + x_hi.d_lo +
+//              x_hi.d_hi into fp32 accumulators.  hi + lo carries ~22
+//              significant bits and the dropped lo.lo term is ~2^-22
+//              relative, so the result stays within fp32 round-off of a
+//              full-fp32 product (the TPU's HIGHEST).  The port's default.
+//   "high"     wgmma with bf16 operands and the same 3-pass split, _dot's
+//              own "high" branch: hi + lo carries ~16 bits (~5e-6 of the
+//              largest result from fp64).
+//   "default"  one bf16 pass, x_hi.d_hi (_dot's "default" on a TPU).
+// The contract is a template parameter (Tf32x3, Bf16<3>, Bf16<1> below);
+// the ring, the tiles and the epilogues are shared.  K1 and K2 share the
+// column kernel (D @ X, tc::burgers_col), K3 is the row kernel (X @ D^T,
+// tc::burgers_row); both take the operator split and tiled once on the host
+// side (`pack`) and differ in where the field tile's fragment elements sit
+// and in their epilogue.  See the notes above the two kernels.
 //
 // Two accumulators (the D1 rows and the D2 rows of the same output tile)
 // are combined with nu_f and the matching conv element in the epilogue, so
@@ -24,7 +32,8 @@
 // masked: loads outside the array read 0, stores outside it are skipped.
 //
 // Entry points: plain C, launched on the caller's stream, returning
-// cudaGetLastError().
+// cudaGetLastError(); "highest" without a suffix, "high" and "default" with
+// theirs (burgers_x_high, burgers_x_default, ...).
 //   burgers_x  K1  contracts axis 0: column form D @ X_f, X_f = (nx, ny*nz)
 //   burgers_y  K2  contracts axis 1: column form D @ X_fi, X_fi = (ny, nz)
 //   burgers_z  K3  contracts axis 2: row form X_f @ D^T, X_f = (nx*ny, nz)
@@ -68,69 +77,121 @@ __device__ __forceinline__ void combine_store(
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core machinery both forms share, 3xTF32.
+// The tensor-core machinery both forms and all three contracts share.
 //
 // wgmma computes D (M x N, fp32 registers) += A (M x K) . B (K x N) with
 // M = 64 field lines a warpgroup, N = kTA operator rows a, K = the
 // contracted index.  B = the operator rows, which are K-major as they
 // stand.  The operator is split once on the host side into `pack`: for each
-// (row tile, K tile) the four kTA x kKT tiles D1 hi, D1 lo, D2 hi, D2 lo,
-// zero-padded, already in the 64-byte-swizzled core-matrix layout their
-// wgmma descriptor names, so a stage's operator tiles are one contiguous
-// 32 KB copy.  A = the field tile comes from registers: each thread reads
-// its fragment elements from a plain tile in shared memory and splits them
-// into hi + lo there.  Thread (g, q) of warp w holds (m, k), (m + 8, k),
-// (m, k + 4), (m + 8, k + 4) with m = 16 w + g, k = q; the two forms differ
+// (row tile, K tile) the kTA x kKT tiles D1 hi, D1 lo, D2 hi, D2 lo (D1 and
+// D2 alone for one pass), zero-padded, already in the 64-byte-swizzled
+// core-matrix layout their wgmma descriptor names, so a stage's operator
+// tiles are one contiguous copy of 8 KB a tile.  A K tile is 64 bytes of
+// each operator row: 16 TF32 elements or 32 bf16 ones, two wgmma k-steps
+// (k8 for TF32, k16 for bf16) of 32 bytes each.  A = the field tile comes
+// from registers: each thread reads its fragment elements from a plain fp32
+// tile in shared memory and splits them into hi + lo there (the operand
+// type's rounding).  For TF32 thread (g, q) of warp w holds (m, k),
+// (m + 8, k), (m, k + 4), (m + 8, k + 4) with m = 16 w + g, k = q; for
+// bf16 the pairs (m, k..k+1), (m + 8, k..k+1), (m, k+8..k+9),
+// (m + 8, k+8..k+9) with k = 2q, two to a register.  The two forms differ
 // in the strides between those elements (the Tiles types below).
+//
+// wgmma could read a 16-bit A from shared memory, MN-major as well (the
+// transpose bit that 32-bit operands lack), but the field is fp32 in
+// device memory and has to be split first: reading the fragments into
+// registers and splitting them there costs no second pass through shared
+// memory, and keeps one ring and one set of loads for all three contracts.
 //
 // A block of two warpgroups owns 128 field lines (64 each) x 128 operator
 // rows a and two fp32 accumulators per thread (D1 rows, D2 rows; 2 x 64
 // registers), so one block fits an SM.  A ring of kStages shared-memory
 // stages is filled by cp.async kStages - 2 K tiles ahead; each K tile is one
-// commit group of 12 wgmma (2 k-steps x {D1, D2} x {x_lo.d_hi, x_hi.d_lo,
-// x_hi.d_hi}), and the fragments of tile t+1 are read and split while the
-// products of tile t run (two register sets, wait_group 1).  The conv tile
-// of the epilogue is asked into L2 a few K tiles before it is used, and the
-// blocks are ordered so that those sharing a conv tile run side by side.
+// commit group of 4 x passes wgmma (2 k-steps x {D1, D2} x {x_lo.d_hi,
+// x_hi.d_lo, x_hi.d_hi}, or x_hi.d_hi alone), and the fragments of tile t+1
+// are read and split while the products of tile t run (two register sets,
+// wait_group 1).  The conv tile of the epilogue is asked into L2 a few K
+// tiles before it is used, and the blocks are ordered so that those sharing
+// a conv tile run side by side.
 namespace tc {
 
 constexpr int kTC = 128;             // field lines per block (2 warpgroups x 64)
 constexpr int kTA = 128;             // operator rows per block (wgmma N)
-constexpr int kKT = 16;              // contraction depth per stage (64 bytes)
-constexpr int kStages = 5;
-constexpr int kPrefetch = 8;         // K tiles between asking for conv and using it
 constexpr int kThreads = 256;
-constexpr int kOpSub = kTA * kKT;    // floats in one operator tile (8 KB)
-constexpr int kOpStage = 4 * kOpSub; // D1 hi, D1 lo, D2 hi, D2 lo
-constexpr int kOpRing = kStages * kOpStage;
+constexpr int kOpSub = kTA * 16;     // floats in one operator tile (8 KB)
 constexpr int kMaxSmemBytes = 232448;   // what one block may have on sm_90
-static_assert(kKT * 4 == 64, "the pack is laid out for the 64-byte swizzle");
+constexpr int kOS = kTC + 4;         // column epilogue row stride, 4 mod 32
 static_assert(kTA == 128 && kTC == 128, "prefetch_tile asks for 128 x 128");
 
-// column form: (k, c) field tiles, one a K tile, beside the operator stages
-constexpr int kXS = kTC + 8;         // field-tile row stride, = 8 (mod 32)
-constexpr int kOS = kTC + 4;         // epilogue row stride, = 4 (mod 32)
-constexpr int kXStage = kKT * kXS;
-constexpr int kRing = kOpRing + kStages * kXStage;      // floats
-constexpr int kSmemBytes = kRing * 4 + 1024;            // + alignment slack
-static_assert(2 * kTA * kOS <= kRing, "epilogue tiles must fit in the ring");
+// The contracts.  kKT: contraction depth per stage (64 bytes of operands);
+// kRK: depth of a row-form field chunk (128-byte pieces of a field row);
+// kXS, kRS: the row strides of the column form's field tile and of the row
+// form's chunks, set so that a warp's fragment reads spread over the banks.
+struct Tf32x3 {                      // "highest"
+    static constexpr bool kBf16 = false;
+    static constexpr int kPasses = 3;
+    static constexpr int kKT = 16;
+    static constexpr int kStages = 5;
+    static constexpr int kRK = 32;   // 128-byte pieces of a field row
+    static constexpr int kXS = kTC + 8;      // = 8 (mod 32): (k = q, m)
+    static constexpr int kRS = kRK + 4;      // = 4 (mod 8)
+};
 
-// row form: (r, k) field chunks kRK deep, one for kRT operator tiles
-constexpr int kRK = 32;              // 128-byte pieces of a field row
-constexpr int kRT = kRK / kKT;       // K tiles a chunk serves
-constexpr int kRG = kRT > 2 ? kRT : 2;   // an item's K tiles come in such groups
-constexpr int kRS = kRK + 4;         // chunk row stride, = 4 (mod 8)
-constexpr int kRChunk = kTC * kRS;
-// chunks alive at once: those of the kStages - 2 tiles ahead, and the one
-// being read
-constexpr int kRChunks = (kStages - 2 + kRT - 1) / kRT + 1;
-constexpr int kRowRing = kOpRing + kRChunks * kRChunk;  // floats
-constexpr int kRowSmemBytes = kRowRing * 4 + 1024;
-static_assert(kRK % kKT == 0 && kRG % kRT == 0 && kRG % 2 == 0,
-              "chunks hold whole K tiles, groups whole chunks and tile pairs");
-static_assert(kRS % 8 == 4, "fragment reads must spread over the 32 banks");
-static_assert(kSmemBytes <= kMaxSmemBytes && kRowSmemBytes <= kMaxSmemBytes,
-              "the rings must fit in one block's shared memory");
+template <int P>                     // "high" (P = 3), "default" (P = 1)
+struct Bf16 {
+    static constexpr bool kBf16 = true;
+    static constexpr int kPasses = P;
+    static constexpr int kKT = 32;
+    // 4 stages of 4 operator tiles, 5 of 2: what fits beside the field tiles
+    static constexpr int kStages = P == 3 ? 4 : 5;
+    static constexpr int kRK = kKT;  // one K tile a chunk
+    static constexpr int kXS = kTC + 4;      // = 4 (mod 32): (k = 2q, m)
+    static constexpr int kRS = kRK + 8;      // = 8 (mod 32): 8-byte reads
+};
+using Bf16x3 = Bf16<3>;
+using Bf16x1 = Bf16<1>;
+
+// What follows from a contract: the ring's sizes in floats.
+template <class C>
+struct Layout : C {
+    static constexpr int kParts = C::kPasses == 3 ? 4 : 2;  // tiles a stage
+    static constexpr int kOpStage = kParts * kOpSub;
+    static constexpr int kOpRing = C::kStages * kOpStage;
+    static constexpr int kPrefetch = 128 / C::kKT;   // K tiles between asking
+                                                     // for conv and using it
+    // column form: (k, c) field tiles, one a K tile, beside the operator
+    static constexpr int kXStage = C::kKT * C::kXS;
+    static constexpr int kRing = kOpRing + C::kStages * kXStage;
+    static constexpr int kSmemBytes = kRing * 4 + 1024;  // + alignment slack
+    // row form: (r, k) field chunks kRK deep, one for kRT operator tiles
+    static constexpr int kRT = C::kRK / C::kKT;      // K tiles a chunk serves
+    static constexpr int kRG = kRT > 2 ? kRT : 2;    // an item's K tiles come
+                                                     // in such groups
+    static constexpr int kRChunk = kTC * C::kRS;
+    // chunks alive at once: those of the kStages - 2 tiles ahead, and the
+    // one being read
+    static constexpr int kRChunks = (C::kStages - 2 + kRT - 1) / kRT + 1;
+    static constexpr int kRowRing = kOpRing + kRChunks * kRChunk;
+    static constexpr int kRowSmemBytes = kRowRing * 4 + 1024;
+
+    static_assert(C::kKT * (C::kBf16 ? 2 : 4) == 64,
+                  "the pack is laid out for the 64-byte swizzle");
+    static_assert(C::kPasses == 3 || (C::kPasses == 1 && C::kBf16),
+                  "3 passes, or one bf16 pass");
+    static_assert(2 * kTA * kOS <= kRing,
+                  "epilogue tiles must fit in the ring");
+    static_assert(C::kRK % C::kKT == 0 && kRG % kRT == 0 && kRG % 2 == 0,
+                  "chunks hold whole K tiles, groups whole chunks and tile "
+                  "pairs");
+    static_assert(C::kXS % 4 == 0 && C::kRS % 4 == 0,
+                  "16-byte copies into the field tiles");
+    static_assert(C::kBf16 ? (C::kXS % 32 == 4 && C::kRS % 32 == 8)
+                           : (C::kXS % 32 == 8 && C::kRS % 8 == 4),
+                  "fragment reads must spread over the 32 banks");
+    static_assert(kSmemBytes <= kMaxSmemBytes
+                  && kRowSmemBytes <= kMaxSmemBytes,
+                  "the rings must fit in one block's shared memory");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -178,6 +239,7 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Descriptor of a K-major operator tile in the 64-byte swizzle: rows of 64
 // bytes, 8-row groups 512 bytes apart (SBO), LBO unused (1), layout type 2.
+// The same for TF32 and bf16 tiles: the layout is one of bytes.
 __device__ __forceinline__ uint64_t op_desc(uint32_t addr) {
     return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
          | (static_cast<uint64_t>(1) << 16)
@@ -195,6 +257,42 @@ __device__ __forceinline__ uint32_t to_tf32(float v) {
     return r;
 }
 
+// (lo, hi) rounded to bf16, nearest even, in one register: lo in the low
+// half (the lower k of a fragment pair), hi in the high half
+__device__ __forceinline__ uint32_t to_bf16x2(float lo, float hi) {
+    uint32_t r;
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+    return r;
+}
+
+// the 64 fp32 accumulator operands of an m64n128 wgmma
+#define WGMMA_ACC_64                                                  \
+    "{%0, %1, %2, %3, %4, %5, %6, %7, "                               \
+    "%8, %9, %10, %11, %12, %13, %14, %15, "                          \
+    "%16, %17, %18, %19, %20, %21, %22, %23, "                        \
+    "%24, %25, %26, %27, %28, %29, %30, %31, "                        \
+    "%32, %33, %34, %35, %36, %37, %38, %39, "                        \
+    "%40, %41, %42, %43, %44, %45, %46, %47, "                        \
+    "%48, %49, %50, %51, %52, %53, %54, %55, "                        \
+    "%56, %57, %58, %59, %60, %61, %62, %63}"
+#define WGMMA_ACC_OUT(d)                                              \
+    "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                   \
+    "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+    "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+    "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+    "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+    "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+    "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+    "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),               \
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),               \
+    "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),               \
+    "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),               \
+    "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),               \
+    "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),               \
+    "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),               \
+    "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),               \
+    "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
 // d (64 x 128, fp32) += A (64 x 8, TF32, registers) . B (8 x 128, TF32,
 // shared memory through its descriptor)
 __device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64],
@@ -205,41 +303,38 @@ __device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64],
         ".reg .pred p;\n"
         "setp.ne.b32 p, %69, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, "
-        "%8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, "
-        "%24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, "
-        "%40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, "
-        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        WGMMA_ACC_64 ", "
         "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
         "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : WGMMA_ACC_OUT(d)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// Start the copy of one stage's four operator tiles (contiguous in pack).
+// d (64 x 128, fp32) += A (64 x 16, bf16, registers) . B (16 x 128, bf16,
+// shared memory through its descriptor, K-major: no transpose)
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
+                                                      const uint32_t (&a)[4],
+                                                      uint64_t desc) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        WGMMA_ACC_64 ", "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+        "}\n"
+        : WGMMA_ACC_OUT(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Start the copy of one stage's operator tiles (contiguous in pack).
+template <class C>
 __device__ __forceinline__ void load_operator(float* ring, const float* src,
                                               int stage, int tid) {
-    const uint32_t op = smem_u32(ring + stage * kOpStage);
+    using L = Layout<C>;
+    const uint32_t op = smem_u32(ring + stage * L::kOpStage);
 #pragma unroll
-    for (int i = 0; i < kOpStage / 4 / kThreads; ++i) {
+    for (int i = 0; i < L::kOpStage / 4 / kThreads; ++i) {
         const int e = (tid + i * kThreads) * 4;
         cp_async16(op + e * 4, src + e, 16);
     }
@@ -263,38 +358,40 @@ __device__ __forceinline__ void clear(float (&acc1)[64], float (&acc2)[64]) {
 // The K tiles of a column-form block: tile t is operator tile t of the
 // block's row tile and the (kKT, kTC) field tile below it, in stage
 // t % kStages.  Fragment element (m, k) sits at k * kXS + m.
+template <class C>
 struct ColTiles {
-    static constexpr int kStepK = kXS, kStepM = 1;
+    using L = Layout<C>;
+    static constexpr int kStepK = C::kXS, kStepM = 1;
     const float* pack_tiles;   // the row tile's operator tiles
-    const float* xb;           // the batch's (n, C) slab
-    int kt, n, C, c0;
+    const float* xb;           // the batch's (n, ncol) slab
+    int kt, n, ncol, c0;
     bool xvec;
     int tid, frag0;
 
     // start the copies of tile t; zero beyond n and C, nothing beyond kt
     __device__ __forceinline__ void load(float* ring, int t) {
         if (t >= kt) return;
-        const int s = t % kStages;
-        load_operator(ring, pack_tiles + (size_t)t * kOpStage, s, tid);
-        const uint32_t xs = smem_u32(ring + kOpRing + s * kXStage);
-        const int k0 = t * kKT;
+        const int s = t % L::kStages;
+        load_operator<C>(ring, pack_tiles + (size_t)t * L::kOpStage, s, tid);
+        const uint32_t xs = smem_u32(ring + L::kOpRing + s * L::kXStage);
+        const int k0 = t * C::kKT;
         if (xvec) {
 #pragma unroll
-            for (int i = 0; i < kKT * kTC / 4 / kThreads; ++i) {
+            for (int i = 0; i < C::kKT * kTC / 4 / kThreads; ++i) {
                 const int e = tid + i * kThreads;
                 const int kk = e / (kTC / 4), cc = (e % (kTC / 4)) * 4;
                 const int k = k0 + kk, c = c0 + cc;
-                const bool ok = k < n && c < C;
-                cp_async16(xs + (kk * kXS + cc) * 4,
-                           ok ? xb + (size_t)k * C + c : xb, ok ? 16 : 0);
+                const bool ok = k < n && c < ncol;
+                cp_async16(xs + (kk * C::kXS + cc) * 4,
+                           ok ? xb + (size_t)k * ncol + c : xb, ok ? 16 : 0);
             }
         } else {
-            for (int e = tid; e < kKT * kTC; e += kThreads) {
+            for (int e = tid; e < C::kKT * kTC; e += kThreads) {
                 const int kk = e / kTC, cc = e % kTC;
                 const int k = k0 + kk, c = c0 + cc;
-                const bool ok = k < n && c < C;
-                cp_async4(xs + (kk * kXS + cc) * 4,
-                          ok ? xb + (size_t)k * C + c : xb, ok ? 4 : 0);
+                const bool ok = k < n && c < ncol;
+                cp_async4(xs + (kk * C::kXS + cc) * 4,
+                          ok ? xb + (size_t)k * ncol + c : xb, ok ? 4 : 0);
             }
         }
     }
@@ -302,7 +399,7 @@ struct ColTiles {
     // this thread's first fragment element of tile t
     __device__ __forceinline__ const float* frag(const float* ring,
                                                  int t) const {
-        return ring + kOpRing + (t % kStages) * kXStage + frag0;
+        return ring + L::kOpRing + (t % L::kStages) * L::kXStage + frag0;
     }
 };
 
@@ -314,8 +411,10 @@ struct ColTiles {
 // nothing and are skipped.  Fragment element (m, k) sits at m * kRS + k.
 // The copies are asked for in the order of t, each position once, so the
 // item and K tile of the next one are counted along and not divided out.
+template <class C>
 struct RowTiles {
-    static constexpr int kStepK = 1, kStepM = kRS;
+    using L = Layout<C>;
+    static constexpr int kStepK = 1, kStepM = C::kRS;
     const float* pack;         // the whole packed operator
     const float* xb;           // the block's first field row
     int kt, kt_live, items, n, rows;
@@ -327,34 +426,35 @@ struct RowTiles {
     // row, nothing for padding tiles and beyond the last item
     __device__ __forceinline__ void load(float* ring, int t) {
         if (item < items && tk < kt_live) {
-            load_operator(ring,
-                          pack + ((size_t)item * kt_live + tk) * kOpStage,
-                          t % kStages, tid);
-            if (tk % kRT == 0) load_chunk(ring, t);
+            load_operator<C>(ring,
+                             pack + ((size_t)item * kt_live + tk)
+                                        * L::kOpStage,
+                             t % L::kStages, tid);
+            if (tk % L::kRT == 0) load_chunk(ring, t);
         }
         if (++tk == kt) { tk = 0; ++item; }
     }
 
     __device__ __forceinline__ void load_chunk(float* ring, int t) const {
         const uint32_t xs = smem_u32(
-            ring + kOpRing + ((t / kRT) % kRChunks) * kRChunk);
-        const int k0 = tk * kKT;
+            ring + L::kOpRing + ((t / L::kRT) % L::kRChunks) * L::kRChunk);
+        const int k0 = tk * C::kKT;
         if (xvec) {
 #pragma unroll
-            for (int i = 0; i < kTC * kRK / 4 / kThreads; ++i) {
+            for (int i = 0; i < kTC * C::kRK / 4 / kThreads; ++i) {
                 const int e = tid + i * kThreads;
-                const int rr = e / (kRK / 4), kk = (e % (kRK / 4)) * 4;
+                const int rr = e / (C::kRK / 4), kk = (e % (C::kRK / 4)) * 4;
                 const int k = k0 + kk;
                 const bool ok = rr < rows && k < n;
-                cp_async16(xs + (rr * kRS + kk) * 4,
+                cp_async16(xs + (rr * C::kRS + kk) * 4,
                            ok ? xb + (size_t)rr * n + k : xb, ok ? 16 : 0);
             }
         } else {
-            for (int e = tid; e < kTC * kRK; e += kThreads) {
-                const int rr = e / kRK, kk = e % kRK;
+            for (int e = tid; e < kTC * C::kRK; e += kThreads) {
+                const int rr = e / C::kRK, kk = e % C::kRK;
                 const int k = k0 + kk;
                 const bool ok = rr < rows && k < n;
-                cp_async4(xs + (rr * kRS + kk) * 4,
+                cp_async4(xs + (rr * C::kRS + kk) * 4,
                           ok ? xb + (size_t)rr * n + k : xb, ok ? 4 : 0);
             }
         }
@@ -362,44 +462,93 @@ struct RowTiles {
 
     __device__ __forceinline__ const float* frag(const float* ring,
                                                  int t) const {
-        return ring + kOpRing + ((t / kRT) % kRChunks) * kRChunk
-             + (t % kRT) * kKT + frag0;
+        return ring + L::kOpRing + ((t / L::kRT) % L::kRChunks) * L::kRChunk
+             + (t % L::kRT) * C::kKT + frag0;
     }
 };
 
 // One K tile: read this thread's A fragments from the field tile (element
 // (m, k) of the fragment at xs[m * SM + k * SK]), split them, and start the
-// tile's 12 products against the operator stage at `op` as one commit group.
-template <int SK, int SM>
+// tile's 4 x passes products against the operator stage at `op` as one
+// commit group.  Operator tile i of the stage starts i * kOpSub floats in.
+template <class C, int SK, int SM>
 __device__ __forceinline__ void tile_products(
         const float* xs, uint32_t op, float (&acc1)[64], float (&acc2)[64],
-        uint32_t (&hi)[kKT / 8][4], uint32_t (&lo)[kKT / 8][4]) {
+        uint32_t (&hi)[2][4], uint32_t (&lo)[2][4]) {
+    if constexpr (!C::kBf16) {
 #pragma unroll
-    for (int j = 0; j < kKT / 8; ++j) {
-        // a0 (m, k), a1 (m + 8, k), a2 (m, k + 4), a3 (m + 8, k + 4)
-        const float v[4] = {xs[(j * 8) * SK], xs[(j * 8) * SK + 8 * SM],
-                            xs[(j * 8 + 4) * SK],
-                            xs[(j * 8 + 4) * SK + 8 * SM]};
+        for (int j = 0; j < 2; ++j) {
+            // a0 (m, k), a1 (m + 8, k), a2 (m, k + 4), a3 (m + 8, k + 4)
+            const float v[4] = {xs[(j * 8) * SK], xs[(j * 8) * SK + 8 * SM],
+                                xs[(j * 8 + 4) * SK],
+                                xs[(j * 8 + 4) * SK + 8 * SM]};
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            hi[j][i] = to_tf32(v[i]);
-            lo[j][i] = to_tf32(v[i] - __uint_as_float(hi[j][i]));
+            for (int i = 0; i < 4; ++i) {
+                hi[j][i] = to_tf32(v[i]);
+                lo[j][i] = to_tf32(v[i] - __uint_as_float(hi[j][i]));
+            }
         }
-    }
-    wgmma_fence();
+        wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < kKT / 8; ++j) {
-        // a k-step of 8 is 32 bytes further along each 64-byte row
-        const uint64_t d1h = op_desc(op + j * 32);
-        const uint64_t d1l = op_desc(op + kOpSub * 4 + j * 32);
-        const uint64_t d2h = op_desc(op + 2 * kOpSub * 4 + j * 32);
-        const uint64_t d2l = op_desc(op + 3 * kOpSub * 4 + j * 32);
-        wgmma_m64n128k8(acc1, lo[j], d1h);      // the two small terms first
-        wgmma_m64n128k8(acc2, lo[j], d2h);
-        wgmma_m64n128k8(acc1, hi[j], d1l);
-        wgmma_m64n128k8(acc2, hi[j], d2l);
-        wgmma_m64n128k8(acc1, hi[j], d1h);
-        wgmma_m64n128k8(acc2, hi[j], d2h);
+        for (int j = 0; j < 2; ++j) {
+            // a k-step of 8 is 32 bytes further along each 64-byte row
+            const uint64_t d1h = op_desc(op + j * 32);
+            const uint64_t d1l = op_desc(op + kOpSub * 4 + j * 32);
+            const uint64_t d2h = op_desc(op + 2 * kOpSub * 4 + j * 32);
+            const uint64_t d2l = op_desc(op + 3 * kOpSub * 4 + j * 32);
+            wgmma_m64n128k8(acc1, lo[j], d1h);      // the two small terms first
+            wgmma_m64n128k8(acc2, lo[j], d2h);
+            wgmma_m64n128k8(acc1, hi[j], d1l);
+            wgmma_m64n128k8(acc2, hi[j], d2l);
+            wgmma_m64n128k8(acc1, hi[j], d1h);
+            wgmma_m64n128k8(acc2, hi[j], d2h);
+        }
+    } else {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                // register i: (m + 8 (i % 2), k + 8 (i / 2)) and the k + 1
+                // beside it, k = 16 j + 2 q
+                const float* p = xs + (j * 16 + (i / 2) * 8) * SK
+                               + (i % 2) * 8 * SM;
+                float v0, v1;
+                if constexpr (SK == 1) {
+                    const float2 w = *reinterpret_cast<const float2*>(p);
+                    v0 = w.x;
+                    v1 = w.y;
+                } else {
+                    v0 = p[0];
+                    v1 = p[SK];
+                }
+                hi[j][i] = to_bf16x2(v0, v1);
+                if constexpr (C::kPasses == 3)
+                    lo[j][i] = to_bf16x2(
+                        v0 - __uint_as_float(hi[j][i] << 16),
+                        v1 - __uint_as_float(hi[j][i] & 0xFFFF0000u));
+            }
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            // a k-step of 16 is 32 bytes further along each 64-byte row
+            if constexpr (C::kPasses == 3) {
+                const uint64_t d1h = op_desc(op + j * 32);
+                const uint64_t d1l = op_desc(op + kOpSub * 4 + j * 32);
+                const uint64_t d2h = op_desc(op + 2 * kOpSub * 4 + j * 32);
+                const uint64_t d2l = op_desc(op + 3 * kOpSub * 4 + j * 32);
+                wgmma_m64n128k16_bf16(acc1, lo[j], d1h);   // small terms first
+                wgmma_m64n128k16_bf16(acc2, lo[j], d2h);
+                wgmma_m64n128k16_bf16(acc1, hi[j], d1l);
+                wgmma_m64n128k16_bf16(acc2, hi[j], d2l);
+                wgmma_m64n128k16_bf16(acc1, hi[j], d1h);
+                wgmma_m64n128k16_bf16(acc2, hi[j], d2h);
+            } else {
+                wgmma_m64n128k16_bf16(acc1, hi[j], op_desc(op + j * 32));
+                wgmma_m64n128k16_bf16(acc2, hi[j],
+                                      op_desc(op + kOpSub * 4 + j * 32));
+            }
+        }
     }
     wgmma_commit();
 }
@@ -408,19 +557,19 @@ __device__ __forceinline__ void tile_products(
 // t + kStages - 2 into the stage that tile t - 2 has left, start tile t's
 // products (unless the tile is padding, `live` false), and wait until tile
 // t - 1's are done.
-template <class Tiles>
+template <class C, class Tiles>
 __device__ __forceinline__ void ring_step(
         Tiles& tl, float* ring, int t, bool live, float (&acc1)[64],
-        float (&acc2)[64], uint32_t (&hi)[kKT / 8][4],
-        uint32_t (&lo)[kKT / 8][4]) {
-    cp_async_wait<kStages - 3>();
+        float (&acc2)[64], uint32_t (&hi)[2][4], uint32_t (&lo)[2][4]) {
+    using L = Layout<C>;
+    cp_async_wait<L::kStages - 3>();
     fence_async_shared();
     __syncthreads();
-    tl.load(ring, t + kStages - 2);
+    tl.load(ring, t + L::kStages - 2);
     cp_async_commit();
     if (live)
-        tile_products<Tiles::kStepK, Tiles::kStepM>(
-            tl.frag(ring, t), smem_u32(ring + (t % kStages) * kOpStage),
+        tile_products<C, Tiles::kStepK, Tiles::kStepM>(
+            tl.frag(ring, t), smem_u32(ring + (t % L::kStages) * L::kOpStage),
             acc1, acc2, hi, lo);
     wgmma_wait<1>();
 }
@@ -437,7 +586,8 @@ __device__ __forceinline__ float* aligned_ring(unsigned char* raw) {
 //
 // Batch b = f * G + g.  For each b the (n, C) output slab is
 // out_b = nu_f * (D2 @ X_b) - conv_g .* (D1 @ X_b), with X_b, conv_g, out_b
-// row-major (n, C) slabs.  K1: G = 1, C = ny*nz.  K2: G = nx, C = nz.
+// row-major (n, ncol) slabs.  K1: G = 1, ncol = ny*nz.  K2: G = nx,
+// ncol = nz.
 //
 // wgmma takes 32-bit operands only K-major, and the field tile (k, c) has c
 // contiguous, so a block computes the transposed tile
@@ -446,17 +596,19 @@ __device__ __forceinline__ float* aligned_ring(unsigned char* raw) {
 // epilogue stages both accumulators through the ring's memory, transposed
 // back, and writes 16-byte rows of out, reading conv the same way.
 //
-// What holds it back now (H100, 512x256x256): with the loads taken out the
-// K loop runs at ~92% of the TF32 peak, but each block's prologue and
-// epilogue (~0.7 ms over a launch) overlap nothing, since the 2 x 64
+// What holds it back now (H100, 512x256x256, 3xTF32): with the loads taken
+// out the K loop runs at ~92% of the TF32 peak, but each block's prologue
+// and epilogue (~0.7 ms over a launch) overlap nothing, since the 2 x 64
 // accumulator registers allow one block an SM; the loads (~41 KB a K tile
 // from L2) slow the loop by another ~20%.
+template <class C>
 __global__ void __launch_bounds__(kThreads, 1)
 burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
             const float* __restrict__ conv, const float* __restrict__ nu,
-            float* __restrict__ out, int n, int C, int G, int F, int a_tiles,
-            int c_tiles)
+            float* __restrict__ out, int n, int ncol, int G, int F,
+            int a_tiles, int c_tiles)
 {
+    using L = Layout<C>;
     extern __shared__ unsigned char smem_raw[];
     float* ring = aligned_ring(smem_raw);
 
@@ -475,24 +627,27 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
     const int c0 = (rest % c_tiles) * kTC;
     const int g_slab = rest / c_tiles;
     const int b = f * G + g_slab;
-    const size_t slab = (size_t)n * C;
-    const int kt = (n + kKT - 1) / kKT;
-    // this thread's rows of A: m = 16 * warp + g (+ 8), column k = q (+ 4)
+    const size_t slab = (size_t)n * ncol;
+    const int kt = (n + C::kKT - 1) / C::kKT;
+    // this thread's rows of A: m = 16 * warp + g (+ 8); its first column k
+    // is q for TF32, 2q for bf16
     const int m = warp * 16 + g;
-    ColTiles tl{
-        pack + (size_t)a_tile * kt * kOpStage, x + (size_t)b * slab, kt, n, C,
-        c0, (C % 4) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0, tid,
-        q * kXS + m};
+    const int kq = C::kBf16 ? 2 * q : q;
+    ColTiles<C> tl{
+        pack + (size_t)a_tile * kt * L::kOpStage, x + (size_t)b * slab, kt, n,
+        ncol, c0,
+        (ncol % 4) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0, tid,
+        kq * C::kXS + m};
 
     const float* cg = conv + (size_t)g_slab * slab;
 
     float acc1[64], acc2[64];
     clear(acc1, acc2);
-    uint32_t hi_a[kKT / 8][4], lo_a[kKT / 8][4];
-    uint32_t hi_b[kKT / 8][4], lo_b[kKT / 8][4];
+    uint32_t hi_a[2][4], lo_a[2][4];
+    uint32_t hi_b[2][4], lo_b[2][4];
 
 #pragma unroll
-    for (int t = 0; t < kStages - 2; ++t) {
+    for (int t = 0; t < L::kStages - 2; ++t) {
         tl.load(ring, t);
         cp_async_commit();
     }
@@ -501,15 +656,16 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
     // the products and the field tiles streaming through L2 meanwhile do
     // not push it out again.  The F blocks that share the tile run side by
     // side, and the first of them asks.
-    const int ask_at = f == 0 ? (kt > kPrefetch ? (kt - kPrefetch) & ~1 : 0)
-                              : -1;
+    const int ask_at = f == 0
+        ? (kt > L::kPrefetch ? (kt - L::kPrefetch) & ~1 : 0) : -1;
     // two tiles per trip, so that each has its own fragment registers
     for (int t = 0; t < kt; t += 2) {
         if (t == ask_at)
-            prefetch_tile(cg + (size_t)a0 * C + c0, C, n - a0, C - c0, tid);
-        ring_step(tl, ring, t, true, acc1, acc2, hi_a, lo_a);
+            prefetch_tile(cg + (size_t)a0 * ncol + c0, ncol, n - a0,
+                          ncol - c0, tid);
+        ring_step<C>(tl, ring, t, true, acc1, acc2, hi_a, lo_a);
         if (t + 1 < kt)
-            ring_step(tl, ring, t + 1, true, acc1, acc2, hi_b, lo_b);
+            ring_step<C>(tl, ring, t + 1, true, acc1, acc2, hi_b, lo_b);
     }
     wgmma_wait<0>();
     cp_async_wait<0>();
@@ -533,16 +689,16 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
 
     const float nu_f = nu[f];
     float* ob = out + (size_t)b * slab;
-    const bool vec = (C % 4) == 0 && aligned16(cg, ob);
+    const bool vec = (ncol % 4) == 0 && aligned16(cg, ob);
     for (int i = tid; i < kTA * (kTC / 4); i += kThreads) {
         const int aa = i / (kTC / 4), cc = (i % (kTC / 4)) * 4;
         const int a = a0 + aa, c = c0 + cc;
-        if (a >= n || c >= C) continue;
+        if (a >= n || c >= ncol) continue;
         float d1[kTN], d2[kTN];
         load4(d1, &s1[aa * kOS + cc]);
         load4(d2, &s2[aa * kOS + cc]);
-        const size_t o = (size_t)a * C + c;
-        combine_store(ob + o, cg + o, d1, d2, nu_f, C - c, vec);
+        const size_t o = (size_t)a * ncol + c;
+        combine_store(ob + o, cg + o, d1, d2, nu_f, ncol - c, vec);
     }
 }
 
@@ -554,7 +710,7 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
 //
 // Here both operands are K-major as they lie in memory: the field lines are
 // the rows r, A = X is read through the fragment strides of RowTiles from
-// plain (r, k) chunks whose row stride (= 4 mod 8 words) spreads a warp's
+// plain (r, k) chunks whose row stride (kRS) spreads a warp's
 // fragment reads over the 32 banks.  A chunk is kRK deep, so that a field
 // row comes from L2 in 128-byte pieces, and serves kRT operator tiles.
 //
@@ -569,10 +725,10 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
 // never straddles two fields, so nu_f is one scalar a block; the F blocks
 // that share a conv tile run side by side, and the first asks for it.
 //
-// What holds it back now (H100, 512x256x256, 1.51 ms a launch against a
-// bound of 0.83 ms): the copies from L2 (without them 1.26 ms) and, as in
-// the column form, each block's first copies and last epilogue, which
-// overlap nothing.  The K loop is sensitive to integer work ahead of the
+// What holds it back now (H100, 512x256x256, 3xTF32, 1.51 ms a launch
+// against a bound of 0.83 ms): the copies from L2 (without them 1.26 ms)
+// and, as in the column form, each block's first copies and last
+// epilogue, which overlap nothing.  The K loop is sensitive to integer work ahead of the
 // copies: with the item and K tile of a position divided out of t (two
 // divisions a tile) a launch took 1.93 ms.  A 16- or 64-deep chunk, the
 // next item's copies only after the epilogue, and an epilogue staged
@@ -623,11 +779,13 @@ __device__ __forceinline__ void row_epilogue(
     }
 }
 
+template <class C>
 __global__ void __launch_bounds__(kThreads, 1)
 burgers_row(const float* __restrict__ pack, const float* __restrict__ x,
             const float* __restrict__ conv, const float* __restrict__ nu,
             float* __restrict__ out, int n, int P, int F, int a_tiles)
 {
+    using L = Layout<C>;
     extern __shared__ unsigned char smem_raw[];
     float* ring = aligned_ring(smem_raw);
 
@@ -639,14 +797,16 @@ burgers_row(const float* __restrict__ pack, const float* __restrict__ x,
     const int f = blockIdx.x % F;
     const int p0 = (blockIdx.x / F) * kTC;
     const size_t row0 = (size_t)f * P + p0;
-    const int kt_live = (n + kKT - 1) / kKT;
-    const int kt = (kt_live + kRG - 1) / kRG * kRG;
-    // this thread's rows of A: m = 16 * warp + g (+ 8), column k = q (+ 4)
+    const int kt_live = (n + C::kKT - 1) / C::kKT;
+    const int kt = (kt_live + L::kRG - 1) / L::kRG * L::kRG;
+    // this thread's rows of A: m = 16 * warp + g (+ 8); its first column k
+    // is q for TF32, 2q for bf16
     const int m = warp * 16 + g;
-    RowTiles tl{
+    const int kq = C::kBf16 ? 2 * q : q;
+    RowTiles<C> tl{
         pack, x + row0 * n, kt, kt_live, a_tiles, n, P - p0,
         (n % 4) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0, tid,
-        m * kRS + q, 0, 0};
+        m * C::kRS + kq, 0, 0};
 
     const float* cv = conv + (size_t)p0 * n;
     float* ob = out + row0 * n;
@@ -658,18 +818,19 @@ burgers_row(const float* __restrict__ pack, const float* __restrict__ x,
 
     float acc1[64], acc2[64];
     clear(acc1, acc2);
-    uint32_t hi_a[kKT / 8][4], lo_a[kKT / 8][4];
-    uint32_t hi_b[kKT / 8][4], lo_b[kKT / 8][4];
+    uint32_t hi_a[2][4], lo_a[2][4];
+    uint32_t hi_b[2][4], lo_b[2][4];
 
 #pragma unroll
-    for (int t = 0; t < kStages - 2; ++t) {
+    for (int t = 0; t < L::kStages - 2; ++t) {
         tl.load(ring, t);
         cp_async_commit();
     }
     // as in the column form: the first of the F blocks sharing the item's
     // conv tile asks for it kPrefetch K tiles before the item's epilogue
     const int ask_at = f == 0
-        ? (kt_live > kPrefetch ? (kt_live - kPrefetch) & ~1 : 0) : -1;
+        ? (kt_live > L::kPrefetch ? (kt_live - L::kPrefetch) & ~1 : 0)
+        : -1;
     // two tiles per trip, so that each has its own fragment registers (kt
     // is even); t runs on through the items
     int t = 0;
@@ -677,9 +838,9 @@ burgers_row(const float* __restrict__ pack, const float* __restrict__ x,
         for (int tk = 0; tk < kt; tk += 2, t += 2) {
             if (tk == ask_at)
                 prefetch_tile(cv + a0, n, tl.rows, n - a0, tid);
-            ring_step(tl, ring, t, tk < kt_live, acc1, acc2, hi_a, lo_a);
-            ring_step(tl, ring, t + 1, tk + 1 < kt_live, acc1, acc2, hi_b,
-                      lo_b);
+            ring_step<C>(tl, ring, t, tk < kt_live, acc1, acc2, hi_a, lo_a);
+            ring_step<C>(tl, ring, t + 1, tk + 1 < kt_live, acc1, acc2, hi_b,
+                         lo_b);
         }
         wgmma_wait<0>();
         row_epilogue(acc1, acc2, cv + a0, ob + a0, nu_f, n, tl.rows, n - a0,
@@ -692,36 +853,40 @@ burgers_row(const float* __restrict__ pack, const float* __restrict__ x,
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// F * G batches of (n, C) slabs through the column kernel
+// F * G batches of (n, ncol) slabs through the column kernel
+template <class C>
 int launch_col(const float* pack, const float* x, const float* conv,
-               const float* nu, float* out, int n, int C, int G, int F,
+               const float* nu, float* out, int n, int ncol, int G, int F,
                void* stream)
 {
+    constexpr int smem = tc::Layout<C>::kSmemBytes;
     cudaError_t err = cudaFuncSetAttribute(
-        tc::burgers_col, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        tc::kSmemBytes);
+        tc::burgers_col<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int at = ceil_div(n, tc::kTA), ct = ceil_div(C, tc::kTC);
+    const int at = ceil_div(n, tc::kTA), ct = ceil_div(ncol, tc::kTC);
     const long long blocks = (long long)at * ct * F * G;
     if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-    tc::burgers_col<<<static_cast<unsigned>(blocks), tc::kThreads,
-                      tc::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-        pack, x, conv, nu, out, n, C, G, F, at, ct);
+    tc::burgers_col<C><<<static_cast<unsigned>(blocks), tc::kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+        pack, x, conv, nu, out, n, ncol, G, F, at, ct);
     return static_cast<int>(cudaGetLastError());
 }
 
 // F fields of (P, n) slabs through the row kernel
+template <class C>
 int launch_row(const float* pack, const float* x, const float* conv,
                const float* nu, float* out, int n, int P, int F, void* stream)
 {
+    constexpr int smem = tc::Layout<C>::kRowSmemBytes;
     cudaError_t err = cudaFuncSetAttribute(
-        tc::burgers_row, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        tc::kRowSmemBytes);
+        tc::burgers_row<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long blocks = (long long)ceil_div(P, tc::kTC) * F;
     if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-    tc::burgers_row<<<static_cast<unsigned>(blocks), tc::kThreads,
-                      tc::kRowSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+    tc::burgers_row<C><<<static_cast<unsigned>(blocks), tc::kThreads, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
         pack, x, conv, nu, out, n, P, F, ceil_div(n, tc::kTA));
     return static_cast<int>(cudaGetLastError());
 }
@@ -729,30 +894,46 @@ int launch_row(const float* pack, const float* x, const float* conv,
 }  // namespace
 
 // Tile sizes of the split operator that the entry points take as `pack`
-// (see tlab_tpu_torch/ops/burgers.py::pack_operator).
+// (see tlab_tpu_torch/ops/burgers.py::pack_operator): rows and K-tile depth
+// in elements, TF32 for "highest", bf16 for "high" and "default".
 extern "C" void burgers_pack_tiles(int* rows, int* depth)
 {
     *rows = tc::kTA;
-    *depth = tc::kKT;
+    *depth = tc::Tf32x3::kKT;
 }
 
-extern "C" int burgers_x(const float* pack, const float* x, const float* conv,
-                         const float* nu, float* out, int F, int nx, int ny,
-                         int nz, void* stream)
+extern "C" void burgers_pack_tiles_bf16(int* rows, int* depth)
 {
-    return launch_col(pack, x, conv, nu, out, nx, ny * nz, 1, F, stream);
+    *rows = tc::kTA;
+    *depth = tc::Bf16x3::kKT;
 }
 
-extern "C" int burgers_y(const float* pack, const float* x, const float* conv,
-                         const float* nu, float* out, int F, int nx, int ny,
-                         int nz, void* stream)
-{
-    return launch_col(pack, x, conv, nu, out, ny, nz, nx, F, stream);
-}
+// burgers_x, burgers_y, burgers_z with `suffix`, in contract C
+#define BURGERS_ENTRY_POINTS(suffix, C)                                      \
+    extern "C" int burgers_x##suffix(                                        \
+            const float* pack, const float* x, const float* conv,            \
+            const float* nu, float* out, int F, int nx, int ny, int nz,      \
+            void* stream)                                                    \
+    {                                                                        \
+        return launch_col<C>(pack, x, conv, nu, out, nx, ny * nz, 1, F,      \
+                             stream);                                        \
+    }                                                                        \
+    extern "C" int burgers_y##suffix(                                        \
+            const float* pack, const float* x, const float* conv,            \
+            const float* nu, float* out, int F, int nx, int ny, int nz,      \
+            void* stream)                                                    \
+    {                                                                        \
+        return launch_col<C>(pack, x, conv, nu, out, ny, nz, nx, F, stream); \
+    }                                                                        \
+    extern "C" int burgers_z##suffix(                                        \
+            const float* pack, const float* x, const float* conv,            \
+            const float* nu, float* out, int F, int nx, int ny, int nz,      \
+            void* stream)                                                    \
+    {                                                                        \
+        return launch_row<C>(pack, x, conv, nu, out, nz, nx * ny, F,         \
+                             stream);                                        \
+    }
 
-extern "C" int burgers_z(const float* pack, const float* x, const float* conv,
-                         const float* nu, float* out, int F, int nx, int ny,
-                         int nz, void* stream)
-{
-    return launch_row(pack, x, conv, nu, out, nz, nx * ny, F, stream);
-}
+BURGERS_ENTRY_POINTS(, tc::Tf32x3)            // "highest"
+BURGERS_ENTRY_POINTS(_high, tc::Bf16x3)       // "high"
+BURGERS_ENTRY_POINTS(_default, tc::Bf16x1)    // "default"

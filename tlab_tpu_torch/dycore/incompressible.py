@@ -27,10 +27,12 @@ interactive surface BC (P["surface_bc"]) moves the wall scalars with the
 flux anomaly each substep and carries its state as State.sfc.
 
 Long lines (ops/thomas.py): a direction of 2304 points or more (the
-`banded_min_n` of build_device_plans) takes the substructured first
-derivative instead of the dense product, and a periodic uniform one also
-the substructured second derivative in its Burgers term, which then skips
-the kernel (as tlab_tpu's gate does).
+crossovers of build_device_plans; the entry points read them from
+TLAB_TPU_THOMAS_MIN_N for a line between walls and TLAB_TPU_PARTITION_MIN_N
+for a periodic one) takes the substructured first derivative instead of
+the dense product, and a periodic uniform one also the substructured
+second derivative in its Burgers term, which then skips the kernel (as
+tlab_tpu's gate does).
 
 On the (x, z) rank mesh (parallel/, a plan of pencil.pencil_plans with
 P["comm"]) the step runs on this rank's block: an x or z derivative, a
@@ -46,6 +48,8 @@ forcing.localize_wavemaker).
 from __future__ import annotations
 
 import dataclasses
+import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -62,7 +66,8 @@ from tlab_tpu_torch.ops import burgers
 from tlab_tpu_torch.ops import elliptic
 from tlab_tpu_torch.ops import elliptic_factorize as fac
 from tlab_tpu_torch.ops import thomas
-from tlab_tpu_torch.ops.derivative import apply_along, der1, der12
+from tlab_tpu_torch.ops.derivative import (apply_along, der1, der12,
+                                           op_precision)
 from tlab_tpu_torch.ops.filter import apply_filter
 
 
@@ -127,12 +132,29 @@ def neumann_value_rows(plan_y: DerivPlan, bot: bool, top: bool):
 BANDED_MIN_N = 2304
 
 
+def banded_crossovers(banded_min_n: Optional[int] = None) -> dict:
+    """build_device_plans' crossover keywords as the entry points
+    (Simulation.from_case, entry.build) set them: `banded_min_n` for both
+    kinds of line where it is given, else TLAB_TPU_THOMAS_MIN_N for a line
+    between walls and TLAB_TPU_PARTITION_MIN_N for a periodic one, read at
+    each call as tlab_tpu reads them at each plan
+    (tlab_tpu/dycore/incompressible.py:136-137), each BANDED_MIN_N when
+    unset."""
+    if banded_min_n is not None:
+        return {"banded_min_n": banded_min_n, "periodic_min_n": banded_min_n}
+    return {"banded_min_n": int(os.environ.get("TLAB_TPU_THOMAS_MIN_N",
+                                               BANDED_MIN_N)),
+            "periodic_min_n": int(os.environ.get("TLAB_TPU_PARTITION_MIN_N",
+                                                 BANDED_MIN_N))}
+
+
 def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
                        rk_name: str = "RungeKuttaExplicit4",
                        dtype=torch.float32, device="cuda",
                        wall_refs=None, bodyforce=None,
                        factorize: bool = True, with_elliptic: bool = True,
-                       banded_min_n: int = BANDED_MIN_N) -> dict:
+                       banded_min_n: int = BANDED_MIN_N,
+                       periodic_min_n: Optional[int] = None) -> dict:
     """The plan dict of operator tensors and coefficients on `device`.
 
     The keys of tlab_tpu's build_device_plans: P["ell"] is the direct eigen
@@ -144,11 +166,13 @@ def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
     with_elliptic=False builds no Poisson plan at all (the compressible set,
     which has no projection and allows a periodic y).
 
-    A line of `banded_min_n` points or more gets the substructured plans of
-    ops/thomas.py under tlab_tpu's conditions (its TLAB_TPU_THOMAS_MIN_N and
-    TLAB_TPU_PARTITION_MIN_N, both 2304 by default): a non-periodic line
-    "d1<x>_banded", a periodic uniform one "d1<x>_banded" and
-    "d2<x>_banded"."""
+    A long line gets the substructured plans of ops/thomas.py under
+    tlab_tpu's conditions: a non-periodic line of `banded_min_n` points or
+    more "d1<x>_banded", a periodic uniform one of `periodic_min_n` (None:
+    `banded_min_n`) or more "d1<x>_banded" and "d2<x>_banded".  The two are
+    tlab_tpu's TLAB_TPU_THOMAS_MIN_N and TLAB_TPU_PARTITION_MIN_N; the
+    entry points read those (banded_crossovers), this function reads no
+    environment."""
     dev = _device.resolve(device)
     _device.full_fp32_matmul()
     if with_elliptic and not fdm.x.periodic:
@@ -181,17 +205,18 @@ def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
         "diff": tuple(nsp.visc / sc for sc in nsp.schmidt),
         "sizes": tuple(p.size for p in (fdm.x, fdm.y, fdm.z)),
     }
+    if periodic_min_n is None:
+        periodic_min_n = banded_min_n
     for name, plan in (("x", fdm.x), ("y", fdm.y), ("z", fdm.z)):
         if plan.size > 1:
             P[f"d1{name}"] = t(plan.d1[BC.DD])
             P[f"d12{name}"] = t(plan.d12[BC.DD])
             P[f"iod{name}"] = t(1.0 / plan.jac)
-            if plan.size < banded_min_n:
-                continue
             if not plan.periodic:
-                P[f"d1{name}_banded"] = thomas.device_plan(
-                    thomas.banded_plan(plan.A1, plan.B1, nt), dtype, dev)
-            elif plan.uniform:
+                if plan.size >= banded_min_n:
+                    P[f"d1{name}_banded"] = thomas.device_plan(
+                        thomas.banded_plan(plan.A1, plan.B1, nt), dtype, dev)
+            elif plan.size >= periodic_min_n and plan.uniform:
                 P[f"d1{name}_banded"] = thomas.device_plan(
                     thomas.banded_plan(plan.A1, plan.B1, nt, periodic=True),
                     dtype, dev)
@@ -435,7 +460,11 @@ def _burgers_lines(P, axis_name: str, axis: int, fields, conv, nu):
             d2a = d2a * ane["rho_inv"][None, None, :, None]
         return nu * d2a - adv
     if _fused_burgers_ok(P, axis_name, fields):
-        return burgers.fused_burgers(d12, fields, conv, nu.reshape(-1), axis)
+        # the kernel of TLAB_TPU_MATMUL_PRECISION's contract (the port's
+        # unset default: 3xTF32), as tlab_tpu's call site
+        # (tlab_tpu/dycore/incompressible.py:428-435)
+        return burgers.fused_burgers(d12, fields, conv, nu.reshape(-1), axis,
+                                     op_precision(fields.dtype))
     # the dense branch: one [D1;D2] product, or a long line's substructured
     # operators
     da, d2a = _d12_apply(P, axis_name, axis, fields)

@@ -43,14 +43,17 @@ def initial_fields(grid, seed: int, n_scalars: int = 1):
 
 def build(nx: int, ny: int, nz: int, dtype=torch.float32, device="cuda",
           seed: int = 0, n_scalars: int = 1):
-    """(grid, P, state) of the shear layer on `device` in `dtype`."""
+    """(grid, P, state) of the shear layer on `device` in `dtype`; a long
+    line's crossovers from tlab_tpu's environment variables, as
+    Simulation.from_case reads them."""
     grid = uniform_grid(nx, ny, nz, 2.0 * np.pi, 1.0, np.pi)
     fdm = build_fdm_plan(grid)
     nsp = NSParams(reynolds=REYNOLDS, schmidt=(1.0,) * n_scalars)
     bcs = dyn.WallBCs.from_velocity_kind(
         "freeslip", "freeslip",
         scalar_bcs=(("neumann", "neumann"),) * n_scalars)
-    P = dyn.build_device_plans(fdm, nsp, bcs, dtype=dtype, device=device)
+    P = dyn.build_device_plans(fdm, nsp, bcs, dtype=dtype, device=device,
+                               **dyn.banded_crossovers())
     state = state_from_numpy(*initial_fields(grid, seed, n_scalars),
                              device=device, dtype=dtype)
     return grid, P, state

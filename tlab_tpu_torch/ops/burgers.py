@@ -12,19 +12,29 @@ against ~9 bytes of device-memory traffic (x in, result out, conv shared by
 the F fields): ~230 flop/byte along x and ~115 along y and z, far above the
 fp32-FMA ridge of ~20 flop/byte (67 TFLOP/s over 3.35 TB/s).  The kernels
 are bound by operations, so the unit decides.  All three run on the tensor
-cores (wgmma, TF32 operands) with the 3-pass split of the Pallas kernel's
-``_dot``: x = x_hi + x_lo, d = d_hi + d_lo, each part rounded to TF32, and
-x_lo.d_hi + x_hi.d_lo + x_hi.d_hi summed in fp32.  hi + lo carries ~22
-significant bits and the dropped lo.lo term is ~2^-22 relative, so the
-result agrees with a full-fp32 product to fp32 round-off, at three times
-the TF32 work (495 TFLOP/s peak) instead of fp32 FMA.  The operator's split
-is a constant of the plan: ``pack_operator`` makes it once for each operator
-tensor, already in the tile layout that all three kernels copy into shared
-memory.  The TPU kernel's point, the fusion, is
-kept for the bytes: the combine runs in the epilogue from two accumulators
-(D1 rows and D2 rows), so the 2F-field product that the plain version
-writes and reads back (~6F+1 field passes per axis) never reaches device
-memory (2F+1 passes).
+cores (wgmma), in one of the three arithmetic contracts of the Pallas
+kernel's ``_dot`` (``prec_name``, CONTRACTS):
+
+- "highest", the port's default: TF32 operands and the 3-pass split x =
+  x_hi + x_lo, d = d_hi + d_lo, each part rounded to TF32, and x_lo.d_hi +
+  x_hi.d_lo + x_hi.d_hi summed in fp32.  hi + lo carries ~22 significant
+  bits and the dropped lo.lo term is ~2^-22 relative, so the result agrees
+  with a full-fp32 product to fp32 round-off, at three times the TF32 work
+  (495 TFLOP/s peak) instead of fp32 FMA.  Entry points burgers_x/y/z.
+- "high", tlab_tpu's default: the same split with bf16 parts, _dot's own
+  3-pass bf16 (~16 bits, ~5e-6 of the largest result from fp64), three
+  times the bf16 work (989 TFLOP/s peak).  burgers_x_high, ...
+- "default": one bf16 pass, x_hi.d_hi (~3e-3 from fp64); at F = 4 and
+  512x256x256 its work is below the bytes it must move.  burgers_x_default,
+  ...
+
+The operator's split is a constant of the plan: ``pack_operator`` makes it
+once for each operator tensor and contract, already in the tile layout that
+all three kernels copy into shared memory.  The TPU kernel's point, the
+fusion, is kept for the bytes: the combine runs in the epilogue from two
+accumulators (D1 rows and D2 rows), so the 2F-field product that the plain
+version writes and reads back (~6F+1 field passes per axis) never reaches
+device memory (2F+1 passes).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
@@ -40,8 +50,15 @@ from tlab_tpu_torch.ops import _build
 from tlab_tpu_torch.ops.derivative import der12
 from tlab_tpu_torch.utils import nantrap
 
-# kernel launches per axis (K1, K2, K3); counted where a launch is made
-launches = [0, 0, 0]
+# the arithmetic contracts of tlab_tpu's _dot by their prec_name
+# (ops/derivative.py::op_precision): (operand type, passes)
+CONTRACTS = {"highest": ("tf32", 3), "high": ("bf16", 3),
+             "default": ("bf16", 1)}
+# kernel launches per axis (K1, K2, K3) of each contract's entry points;
+# counted where a launch is made
+contract_launches = {name: [0, 0, 0] for name in CONTRACTS}
+# those of the "highest" entry points, the port's default
+launches = contract_launches["highest"]
 
 ENTRY_POINTS = ("burgers_x", "burgers_y", "burgers_z")
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -49,6 +66,34 @@ _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 # entry keeps its operator alive, so a key's address cannot be reused
 _PACKS_KEPT = 8
 _packs: dict = {}
+
+
+def entry_points(prec_name: str = "highest") -> tuple:
+    """The entry points (K1, K2, K3) of a contract: burgers_x/y/z for
+    "highest", with the suffix _high or _default for the others."""
+    _contract(prec_name)
+    suffix = "" if prec_name == "highest" else f"_{prec_name}"
+    return tuple(name + suffix for name in ENTRY_POINTS)
+
+
+def reset_launches() -> None:
+    """Every contract's launch counts set to 0."""
+    for counts in contract_launches.values():
+        counts[:] = [0, 0, 0]
+
+
+def total_launches() -> list:
+    """Launches per axis (K1, K2, K3) over all contracts."""
+    return [sum(c[axis] for c in contract_launches.values())
+            for axis in range(3)]
+
+
+def _contract(prec_name: str) -> tuple:
+    try:
+        return CONTRACTS[prec_name]
+    except KeyError:
+        raise ValueError(f"prec_name must be one of {tuple(CONTRACTS)}, "
+                         f"got {prec_name!r}") from None
 
 
 def fused_burgers_plain(d12, x, conv, nu, axis: int):
@@ -73,16 +118,41 @@ def tf32_split(v):
     return hi, tf32_round(v - hi)
 
 
-def fused_burgers_split_plain(d12, x, conv, nu, axis: int, passes: int = 3):
+def bf16_round(v):
+    """float32 `v` rounded to bf16 (7 explicit mantissa bits, 8
+    significant), nearest even, on the bit pattern; the result is a float32
+    whose 16 low bits are zero."""
+    bits = v.contiguous().view(torch.int32)
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & ~0xFFFF
+    return bits.view(torch.float32)
+
+
+def bf16_split(v):
+    """(hi, lo) with hi = bf16(v) and lo = bf16(v - hi), as tlab_tpu's _dot
+    splits its operands (v - hi is exact in float32)."""
+    hi = bf16_round(v)
+    return hi, bf16_round(v - hi)
+
+
+_SPLITS = {"tf32": tf32_split, "bf16": bf16_split}
+
+
+def fused_burgers_split_plain(d12, x, conv, nu, axis: int, passes: int = 3,
+                              unit: str = "tf32"):
     """The arithmetic of the tensor-core kernels in plain PyTorch, on any
-    device: operands split into TF32 hi + lo, the products x_lo.d_hi,
-    x_hi.d_lo and x_hi.d_hi summed in float32 (small terms first), then
-    the combine.  `passes=1` keeps x_hi.d_hi alone, a single TF32 pass.
-    The tests hold the split's accuracy with it; the main path never calls
-    it."""
+    device: operands split into hi + lo of the `unit`'s type (TF32 or
+    bf16), the products x_lo.d_hi, x_hi.d_lo and x_hi.d_hi summed in
+    float32 (small terms first), then the combine.  `passes=1` keeps
+    x_hi.d_hi alone, a single pass.  Each product is one of operands that
+    float32 holds exactly, accumulated in float32.  ("tf32", 3) is the
+    "highest" contract, ("bf16", 3) "high" and ("bf16", 1) "default"
+    (CONTRACTS).  The tests and chip_smoke.py hold the kernels with it; the
+    main path never calls it."""
     _device.full_fp32_matmul()
-    d_hi, d_lo = tf32_split(d12)
-    x_hi, x_lo = tf32_split(x)
+    if unit not in _SPLITS:
+        raise ValueError(f"unit must be 'tf32' or 'bf16', got {unit!r}")
+    d_hi, d_lo = _SPLITS[unit](d12)
+    x_hi, x_lo = _SPLITS[unit](x)
     if passes == 3:
         terms = ((d_hi, x_lo), (d_lo, x_hi), (d_hi, x_hi))
     elif passes == 1:
@@ -96,44 +166,56 @@ def fused_burgers_split_plain(d12, x, conv, nu, axis: int, passes: int = 3):
     return nu.reshape(-1, 1, 1, 1) * d2x - conv[None] * d1x
 
 
-def pack_operator(d12, rows: int, depth: int):
+def pack_operator(d12, rows: int, depth: int, prec_name: str = "highest"):
     """The split operator in the layout K1-K3 copy into shared memory.
 
-    d12 (2n, n) = [D1; D2] is split into TF32 hi + lo, zero-padded to
+    d12 (2n, n) = [D1; D2] is split as the contract `prec_name` splits it
+    (TF32 or bf16 hi + lo; the hi part alone for one pass), zero-padded to
     multiples of the tile (rows x depth), and written tile by tile as
-    (row tile, K tile, {D1 hi, D1 lo, D2 hi, D2 lo}, rows, depth), each
-    tile K-major with its 16-byte chunks in the 64-byte swizzle of the
+    (row tile, K tile, {D1 hi, D1 lo, D2 hi, D2 lo} or {D1, D2}, rows,
+    chunks, chunk), each tile K-major, 64 bytes a row (depth 16 in float32,
+    32 in bfloat16), with its 16-byte chunks in the 64-byte swizzle of the
     wgmma descriptor: chunk c of row r sits at chunk c ^ ((r >> 1) & 3).
+    float32 for "highest", bfloat16 (the parts are bf16 values) otherwise.
     """
-    if depth != 16:
-        raise ValueError("the 64-byte swizzle needs a K-tile of 16 floats")
+    unit, passes = _contract(prec_name)
+    size = 4 if unit == "tf32" else 2
+    if depth * size != 64:
+        raise ValueError(f"the 64-byte swizzle needs a K-tile of "
+                         f"{64 // size} {unit} elements, got {depth}")
     n = d12.shape[1]
-    hi, lo = tf32_split(d12.reshape(2, n, n))
-    q = torch.stack((hi[0], lo[0], hi[1], lo[1]))
+    hi, lo = _SPLITS[unit](d12.reshape(2, n, n))
+    q = torch.stack((hi[0], lo[0], hi[1], lo[1]) if passes == 3
+                    else (hi[0], hi[1]))
+    chunk = 16 // size
     at, kt = -(-n // rows), -(-n // depth)
     q = torch.nn.functional.pad(q, (0, kt * depth - n, 0, at * rows - n))
-    q = q.reshape(4, at, rows, kt, depth // 4, 4)
+    q = q.reshape(len(q), at, rows, kt, depth // chunk, chunk)
     r = torch.arange(rows, device=d12.device)
-    c = torch.arange(depth // 4, device=d12.device)
+    c = torch.arange(depth // chunk, device=d12.device)
     src = c[None, :] ^ ((r[:, None] >> 1) & 3)            # (rows, chunks)
     q = q.gather(4, src[None, None, :, None, :, None].expand_as(q))
-    return q.permute(1, 3, 0, 2, 4, 5).contiguous()
+    q = q.permute(1, 3, 0, 2, 4, 5).contiguous()
+    return q if unit == "tf32" else q.to(torch.bfloat16)
 
 
-def _packed(d12, lib):
-    """pack_operator(d12) at the kernel's tile sizes, made once for each
-    operator tensor."""
-    key = (d12.data_ptr(), tuple(d12.shape), d12.device, d12._version)
+def _packed(d12, lib, prec_name: str):
+    """pack_operator(d12, prec_name) at the kernel's tile sizes, made once
+    for each operator tensor and contract."""
+    key = (d12.data_ptr(), tuple(d12.shape), d12.device, d12._version,
+           prec_name)
     hit = _packs.get(key)
     if hit is None:
         rows, depth = ctypes.c_int(), ctypes.c_int()
-        lib.burgers_pack_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-        lib.burgers_pack_tiles.restype = None
-        lib.burgers_pack_tiles(ctypes.byref(rows), ctypes.byref(depth))
+        tiles = lib.burgers_pack_tiles if CONTRACTS[prec_name][0] == "tf32" \
+            else lib.burgers_pack_tiles_bf16
+        tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        tiles.restype = None
+        tiles(ctypes.byref(rows), ctypes.byref(depth))
         while len(_packs) >= _PACKS_KEPT:
             _packs.pop(next(iter(_packs)))
         hit = _packs[key] = (d12, pack_operator(d12, rows.value,
-                                                depth.value))
+                                                depth.value, prec_name))
     return hit[1]
 
 
@@ -159,38 +241,44 @@ def _check(d12, x, conv, nu, axis: int) -> None:
         raise ValueError("x has 2**31 elements or more (32-bit sizes)")
 
 
-def fused_burgers(d12, x, conv, nu, axis: int):
+def fused_burgers(d12, x, conv, nu, axis: int,
+                  prec_name: str = "highest"):
     """res = nu * D2(x) - conv * D1(x) along spatial axis `axis` (0..2) of
     the stacked fields x (F, nx, ny, nz), as tlab_tpu's fused_burgers.
 
     d12: (2n, n) stacked [D1; D2]; conv: (nx, ny, nz); nu: (F,).
-    Returns (F, nx, ny, nz).
+    Returns (F, nx, ny, nz).  prec_name is the arithmetic contract
+    ("highest", "high" or "default", CONTRACTS; tlab_tpu's default is
+    "high", the port's "highest": ROADMAP C).  On a CPU tensor every
+    contract gives the full-fp32 plain version, as tlab_tpu computes full
+    fp32 off a TPU whatever the name; on a CUDA tensor the contract's
+    kernel runs.
 
     Under the NaN trap's per-op check (utils/nantrap.py) the call is one
     op: a launch through ctypes is seen by no dispatcher, so its output is
-    checked here and a NaN is named after the entry point (burgers_x,
-    burgers_y, burgers_z), on the CPU's plain version too."""
+    checked here and a NaN is named after the contract's entry point
+    (burgers_x, burgers_y_high, ...), on the CPU's plain version too."""
+    name = entry_points(prec_name)[axis]
     if nantrap.checking():
         with nantrap.suspended():
-            out = fused_burgers(d12, x, conv, nu, axis)
-        nantrap.check(out, ENTRY_POINTS[axis], (x, conv))
+            out = fused_burgers(d12, x, conv, nu, axis, prec_name)
+        nantrap.check(out, name, (x, conv))
         return out
     if x.device.type == "cpu":
         return fused_burgers_plain(d12, x, conv, nu, axis)
     _check(d12, x, conv, nu, axis)
     out = torch.empty_like(x)
     lib = _build.library("burgers")
-    fn = getattr(lib, ENTRY_POINTS[axis])
+    fn = getattr(lib, name)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     F, nx, ny, nz = x.shape
     with torch.cuda.device(x.device):
-        pack = _packed(d12, lib)
+        pack = _packed(d12, lib, prec_name)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(pack.data_ptr(), x.data_ptr(), conv.data_ptr(),
                  nu.data_ptr(), out.data_ptr(), F, nx, ny, nz, stream)
     if err != 0:
-        raise RuntimeError(f"{ENTRY_POINTS[axis]} launch failed: "
-                           f"cudaError {err}")
-    launches[axis] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    contract_launches[prec_name][axis] += 1
     return out

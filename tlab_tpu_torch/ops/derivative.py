@@ -6,14 +6,41 @@ A compact-FD derivative is one product with the precomputed dense operator
 [D1; D2]).  Works on 3-D fields and 4-D stacks alike: the caller passes the
 axis index valid for the tensor itself.
 
-Float32 products run in full float32 (device.full_fp32_matmul); the TPU's
-precision knob (tlab_tpu/ops/derivative.py:33-59) has no counterpart.
+Float32 products run in full float32 (device.full_fp32_matmul) at every
+setting.  The TPU's precision knob (tlab_tpu/ops/derivative.py:33-59),
+TLAB_TPU_MATMUL_PRECISION, reaches the port's fused Burgers kernels alone:
+op_precision names their arithmetic contract.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
+
+# tlab_tpu's precision names, from the cheapest to the most exact
+PRECISIONS = ("default", "high", "highest")
+
+
+def op_precision(dtype):
+    """The arithmetic contract of the float32 Burgers kernels
+    (ops/burgers.py: "default" one bf16 pass, "high" 3-pass bf16, "highest"
+    3xTF32), the counterpart of tlab_tpu's op_precision: for float32 the
+    value of TLAB_TPU_MATMUL_PRECISION, read at each call (tlab_tpu reads it
+    at each trace), lower-cased; None for any other dtype.
+
+    Unset means "highest", where tlab_tpu means "high": off a TPU tlab_tpu
+    computes full fp32 whatever the name, and every witness and limit of
+    the port is such a computation.  An unknown value raises ValueError
+    (tlab_tpu takes "high" for its kernel and HIGHEST for its einsums).
+    The port's dense products stay full fp32 at every setting."""
+    if dtype != torch.float32:
+        return None
+    name = os.environ.get("TLAB_TPU_MATMUL_PRECISION", "highest").lower()
+    if name not in PRECISIONS:
+        raise ValueError(f"TLAB_TPU_MATMUL_PRECISION={name!r}: expected "
+                         f"one of {PRECISIONS}")
+    return name
 
 
 def apply_along(M: torch.Tensor, u: torch.Tensor, axis: int) -> torch.Tensor:

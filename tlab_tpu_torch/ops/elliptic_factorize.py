@@ -14,6 +14,7 @@ must stay in full complex64 (device.full_fp32_matmul, never TF32).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -285,6 +286,10 @@ def build_tables(dev: dict) -> dict:
 def sing_column(dev: dict, fcol, gbs, gts, ibc: str = "nn"):
     """Reference singular-mode (kappa = 0) column solve: NN via
     DN_Sing(gb=0), DD via DD_Sing (opr_odes.f90:37-100,170-185,188-260).
+    TLAB_TPU_SING_MODE=legacy (read at each call, as tlab_tpu reads it at
+    each trace: tlab_tpu/ops/elliptic_factorize.py:344-361) takes tlab_tpu's
+    older upward-integration convention for NN instead; unset or
+    "reference", the reference's.
 
     fcol: (ny,) complex forcing column; gbs/gts the wall values (gbs is
     read by 'dd' only).  Returns (u, v) columns.  The kappa=0 sweep
@@ -310,6 +315,19 @@ def sing_column(dev: dict, fcol, gbs, gts, ibc: str = "nn"):
 
     zero0 = torch.zeros((), dtype=cd, device=fcol.device)
     zcol = torch.zeros(ny, dtype=cd, device=fcol.device)
+    if ibc == "nn" and os.environ.get("TLAB_TPU_SING_MODE",
+                                      "reference") == "legacy":
+        # upward-integration convention: v0 from the MIN sweep (v(0) = 0),
+        # shifted by the constant homogeneous mode to hit v(N) = gts, then
+        # u integrated down with u(N) = 0.  It leaves the singular mode's
+        # compatibility defect at the bottom slot (tlab_tpu keeps it for
+        # the cloud-top-forced stratocumulus family)
+        f0 = fcol.clone()
+        f0[ny - 1] = 0.0
+        v0s, _ = smin0(f0, zero0)
+        vs = v0s + (gts - v0s[ny - 1])
+        us, _ = smax0(vs, zero0)
+        return us, vs
     if ibc == "nn":
         # literal reference NN_Sing -> DN_Sing(gb=0): v' = f with v_N = gts
         # (max sweep), then u' = v with u_1 = 0 (min sweep); the constraint

@@ -629,10 +629,12 @@ class Simulation:
     @classmethod
     def from_case(cls, case_or_path, dtype=torch.float32, device="cuda",
                   grid: Optional[Grid] = None,
-                  banded_min_n: int = dyn.BANDED_MIN_N) -> "Simulation":
-        """The simulation of a case file (or CaseSetup).  A line of
-        `banded_min_n` points or more takes the substructured operators
-        (dycore.incompressible.build_device_plans)."""
+                  banded_min_n: Optional[int] = None) -> "Simulation":
+        """The simulation of a case file (or CaseSetup).  A long line takes
+        the substructured operators (dycore.incompressible.
+        build_device_plans): from TLAB_TPU_THOMAS_MIN_N points between
+        walls and TLAB_TPU_PARTITION_MIN_N periodic (2304 when unset), or
+        from `banded_min_n` points for both where it is given."""
         case = case_or_path if isinstance(case_or_path, CaseSetup) \
             else load_case(case_or_path)
         consistency_check(case)
@@ -665,7 +667,7 @@ class Simulation:
             P = dyn.build_device_plans(
                 fdm, nsp, bcs, rk_name=case.time_order, dtype=dtype,
                 device=dev, wall_refs=wall_refs, with_elliptic=False,
-                banded_min_n=banded_min_n)
+                **dyn.banded_crossovers(banded_min_n))
             comp = _compressible(case, grid, nsp, P, dtype, dev)
             return cls(case=case, grid=grid, fdm=fdm, nsp=nsp, P=P,
                        ell_plans={}, dtype=dtype, device=dev, comp=comp)
@@ -692,7 +694,7 @@ class Simulation:
             bodyforce=make_sources(case, grid, dtype, dev,
                                    anelastic=anelastic),
             factorize=factorized and not case.stagger,
-            banded_min_n=banded_min_n)
+            **dyn.banded_crossovers(banded_min_n))
         # [Main] TermAdvection selects the nonlinear formulation
         # (reference rhs_flow_global_incompressible_1/2/3.f90); the
         # anelastic set is combined-convective only, as the reference

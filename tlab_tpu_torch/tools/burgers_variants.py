@@ -38,7 +38,7 @@ _NOAHEAD_COUNT = ("        if (++tk == kt) { tk = 0; ++item; }\n",
                   "        if (tk < kt) ++tk;\n")
 _PROLOGUE_AGAIN = """        tl.tk = 0;
         ++tl.item;
-        for (int i = 0; i < kStages - 2; ++i) {
+        for (int i = 0; i < L::kStages - 2; ++i) {
             tl.load(ring, t + i);
             cp_async_commit();
         }
@@ -80,15 +80,20 @@ _STAGED_EPILOGUE = """        cp_async_wait<0>();
         }
 """
 
+# the "highest" contract's (3xTF32) ring depth and row-form chunk depth;
+# every variant times that contract's entry points
+_TF32_STAGES = ("    static constexpr int kStages = 5;\n",
+                "    static constexpr int kStages = 4;\n")
+_TF32_RK = "    static constexpr int kRK = 32;   // 128-byte pieces"
 VARIANTS = {
     "base": [],
     # the K loop without its copies from L2 (the prologue's tiles only)
-    "noload": [("    tl.load(ring, t + kStages - 2);\n",
-                "    if (t < 0) tl.load(ring, t + kStages - 2);\n")],
+    "noload": [("    tl.load(ring, t + L::kStages - 2);\n",
+                "    if (t < 0) tl.load(ring, t + L::kStages - 2);\n")],
     # the copies and the epilogue without the products
     "nomma": [("    if (live)\n        tile_products<",
                "    if (t < 0)\n        tile_products<")],
-    "stages4": [("constexpr int kStages = 5;", "constexpr int kStages = 4;")],
+    "stages4": [_TF32_STAGES],
     # column kernel: fields slowest, as a (tiles, batch) grid orders them
     "fslowest": [("const int f = rest % F;\n    rest /= F;",
                   "const int f = rest / (c_tiles * G);\n"
@@ -97,9 +102,8 @@ VARIANTS = {
                     "if (r < 0) prefetch_l2(")],
     # row kernel: depth of a field chunk (64-, 128-, 256-byte pieces of a
     # field row); 64 deep leaves room for 4 operator stages
-    "xk16": [("constexpr int kRK = 32;", "constexpr int kRK = 16;")],
-    "xk64": [("constexpr int kRK = 32;", "constexpr int kRK = 64;"),
-             ("constexpr int kStages = 5;", "constexpr int kStages = 4;")],
+    "xk16": [(_TF32_RK, _TF32_RK.replace("32", "16"))],
+    "xk64": [(_TF32_RK, _TF32_RK.replace("32", "64")), _TF32_STAGES],
     "noahead": [_NOAHEAD_COUNT,
                 (_EPILOGUE + _CLEAR, _EPILOGUE + _CLEAR + _PROLOGUE_AGAIN)],
     # the staged epilogue needs the ring, so it cannot have the next item's

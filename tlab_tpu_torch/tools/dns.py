@@ -656,9 +656,10 @@ class _Ranks:
                          for a in U))
 
     def log_launches(self, outdir: str, counts) -> None:
-        """On a mesh, the Burgers kernels' launches (K1, K2, K3) of each
-        rank's run, one line in tlab.log: the kernels run in the ranks'
-        processes, where no caller can count them."""
+        """On a mesh, the Burgers kernels' launches (K1, K2, K3, over the
+        three contracts) of each rank's run, one line in tlab.log: the
+        kernels run in the ranks' processes, where no caller can count
+        them."""
         if self.mesh is None:
             return
         got = self.mesh.gather_list(torch.tensor(counts, dtype=torch.int64,
@@ -1001,7 +1002,7 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
     prev_diag = None
     n_sub = len(sim.P["rk"]["kdt"])
     prof_samples = []
-    launches0 = list(burgers.launches)
+    launches0 = burgers.total_launches()
     t_start = time.monotonic()
 
     # initial dt + step-0 log line: one read of [CFL, DilMin, DilMax(,
@@ -1160,8 +1161,8 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
     if checkpoint and status != 0 and case.it_restart > 0 \
             and itime % case.it_restart != 0:
         checkpoint_now()
-    ranks.log_launches(outdir, [b - a for a, b in zip(launches0,
-                                                      burgers.launches)])
+    ranks.log_launches(outdir, [b - a for a, b in zip(
+        launches0, burgers.total_launches())])
     state = ranks.whole_state(state)
     pstate = ranks.whole_particles(pstate)
     if traj is not None and ranks.root:
