@@ -11,7 +11,7 @@ non-zero:
   1. device   the card's name and power limit (nvidia-smi)
   2. build    the Burgers kernels K1-K3 from tlab_tpu_torch/csrc/ with nvcc
   3. kernels  K1-K3 against their plain PyTorch version on the card, fp32,
-              at four ragged shapes and at the main path's 512x256x256
+              at ten ragged shapes and at the main path's 512x256x256
               shape, each there also against a float64 product and timed
               beside its plain version, the plain version's one matmul
               (library_ms) and its bound
@@ -200,8 +200,12 @@ non-zero:
               unset "highest", 3xTF32): (a) the bf16 variants of K1-K3,
               "high" (3-pass bf16 split) and "default" (one bf16 pass),
               against their plain versions (the same split) at the ragged
-              shapes and at 512x256x256, each also against fp64 and timed
-              beside its plain version, the fp32 matmul and its bound; (b)
+              shapes (those that leave the bf16 column kernel's clusters
+              partly empty among them) and at 512x256x256, each also
+              against fp64 and timed, in turns, beside its plain version,
+              one cuBLAS product of the bf16-cast operands (the library
+              call of "default"; "high" has none) and the fp32 matmul, with
+              its bound; (b)
               the main path at 512x256x256 under each, 3 RK4 steps: only
               that contract's entry points launch, ms/substep beside phase
               4's; (c) phase 5's fp32-against-fp64 run under "high" (held
@@ -256,10 +260,15 @@ from tlab_tpu_torch.utils import trace as ttrace
 MAIN_SHAPE = (512, 256, 256)
 # ragged edges in every tile dimension; the odd widths take the kernels'
 # scalar loads and epilogue, the multiples of 4 their 16-byte ones; the
-# third is smaller than one tile in every dimension; in the last nz spans
-# two operator tiles and ends in a ragged K tile
+# third is smaller than one tile in every dimension; in the fourth nz spans
+# two operator tiles and ends in a ragged K tile; the rest leave the bf16
+# column kernel's clusters partly empty: n = 300 (3 operator row tiles),
+# nz = 300 (3 line tiles a slab), F = 1, n = 513 (a last K tile of one
+# row), ncol 23 (cp.async path) beside 24
 RAGGED = ((5, (24, 20, 36)), (5, (23, 19, 37)), (3, (7, 5, 6)),
-          (3, (6, 10, 200)))
+          (3, (6, 10, 200)), (2, (300, 20, 36)), (2, (6, 40, 300)),
+          (1, (300, 24, 40)), (3, (513, 8, 12)), (1, (40, 300, 23)),
+          (1, (40, 300, 24)))
 STEPS = 3
 REPS = 7
 # ms a substep of the main path by contract (phase 4, 19b)
@@ -365,6 +374,34 @@ def plain_version(prec: str):
         d12, x, conv, nu, axis, passes, unit)
 
 
+def bf16_library_call(d12, x, axis):
+    """(fn, how): one cuBLAS product of the bf16-rounded operator and field
+    along `axis`, [D1; D2] X in one call, the yardstick of the bf16
+    contracts' kernels (the "default" contract computes that product with
+    fp32 accumulation, then the combine).  The operands are cast to bf16
+    here, outside what `fn` does; fn returns fp32 where torch's mm/bmm take
+    out_dtype=torch.float32, a bf16 result otherwise (`how` says which).
+    K1 and K2 are one strided-batched product over the (n, ncol) slabs with
+    the operator's batch stride 0, K3 one product of the (rows, n) lines
+    with the operator's transpose."""
+    n = x.shape[axis + 1]
+    d = d12.to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    if axis == 2:
+        a, b, op = xb.reshape(-1, n), d.t(), torch.mm
+    else:
+        lead = xb.shape[0] * (xb.shape[1] if axis == 1 else 1)
+        b = xb.reshape(lead, n, -1)
+        a, op = d.expand(lead, 2 * n, n), torch.bmm
+    try:
+        op(a[..., :1, :], b[..., :1] if axis < 2 else b[:, :1],
+           out_dtype=torch.float32)
+        kw, how = {"out_dtype": torch.float32}, "bf16 operands, fp32 result"
+    except (TypeError, RuntimeError):
+        kw, how = {}, "bf16 operands, bf16 result (no out_dtype)"
+    return (lambda: op(a, b, **kw)), how
+
+
 def check_kernel(axis, d12, x, conv, nu, timed: bool,
                  prec: str = "highest") -> dict:
     plain = plain_version(prec)
@@ -386,6 +423,13 @@ def check_kernel(axis, d12, x, conv, nu, timed: bool,
             "plain_ms": lambda: plain(d12, x, conv, nu, axis),
             # the plain version's one full-fp32 matmul, without the combine
             "library_ms": lambda: apply_along(d12, x, axis + 1)}
+        if prec != "highest":
+            # the bf16 contracts' yardstick: one bf16 product on operands
+            # cast beforehand; the fp32 matmul stays a printed reference
+            fp32_matmul = calls.pop("library_ms")
+            calls["bf16_call_ms"], res["bf16_call"] = bf16_library_call(
+                d12, x, axis)
+            calls["fp32_matmul_ms"] = fp32_matmul
         times = {key: [] for key in calls}
         for _ in range(REPS):
             for key, fn in calls.items():
@@ -4998,13 +5042,22 @@ def phase_contract_kernels(P) -> list:
         for axis in range(3):
             r = check_kernel(axis, P["d12" + "xyz"[axis]], x, conv, nu, True,
                              prec)
+            # "default" is the one bf16 product (and the combine): the bf16
+            # call is its library time; no one call computes "high"'s
+            # 3-pass split, so there it is printed beside the kernel only
+            library = r["bf16_call_ms"] if prec == "default" else None
             print(f"[precision] 19a {names[axis]} F={len(nu)} {MAIN_SHAPE}: "
                   f"max|err| {r['max_abs_err']:.3e} (rel {r['rel_err']:.3e}) "
                   f"against its plain version (the same bf16 split); "
                   f"max|. - fp64| / max|fp64| {r['kernel_vs_fp64']:.3e} "
                   f"(plain {r['plain_vs_fp64']:.3e}); kernel {r['ms']:.3f} "
-                  f"ms, plain {r['plain_ms']:.3f} ms, the fp32 matmul "
-                  f"{r['library_ms']:.3f} ms (median of {REPS}); bound "
+                  f"ms, plain {r['plain_ms']:.3f} ms, the bf16 call "
+                  f"{r['bf16_call_ms']:.3f} ms ({r['bf16_call']}, cast "
+                  f"outside the timing; library_ms "
+                  + ("this call" if library is not None else
+                     "none: no one call computes the 3-pass split")
+                  + f"), the fp32 matmul {r['fp32_matmul_ms']:.3f} ms "
+                  f"(reference; median of {REPS}, in turns); bound "
                   f"{r['bound_ms']:.3f} ms by {r['bound_by']} ({r['unit']} x"
                   f"{burgers.CONTRACTS[prec][1]}: {r['ops_ms']:.3f} ms, "
                   f"bytes: {r['bytes_ms']:.3f} ms)")
@@ -5014,7 +5067,9 @@ def phase_contract_kernels(P) -> list:
                             "(_dot, tlab_tpu/ops/pallas_burgers.py:38)",
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "bound_by": r["bound_by"], "library_ms": library,
+                "bf16_call_ms": r["bf16_call_ms"],
+                "fp32_matmul_ms": r["fp32_matmul_ms"],
                 "kernel_vs_fp64": r["kernel_vs_fp64"]})
     return records
 

@@ -324,3 +324,68 @@ def test_pack_operator_bf16_layout(prec_name, n):
             float(hi[1][a, k])
     with pytest.raises(ValueError):
         burgers.pack_operator(d12, rows, 16, prec_name)
+
+
+# (F, (nx, ny, nz)): the ragged shapes, those that leave the bf16 column
+# kernel's clusters partly empty (n = 300: 3 row tiles; nz = 300: 3 line
+# tiles a slab; F = 1; a short last K tile, n = 513; ncol 23 beside 24) and
+# the main path's
+COLUMN_SHAPES = [(5, (24, 20, 36)), (5, (23, 19, 37)), (3, (7, 5, 6)),
+                 (3, (6, 10, 200)), (2, (300, 20, 36)), (2, (6, 40, 300)),
+                 (1, (300, 24, 40)), (1, (40, 300, 23)), (1, (40, 300, 24)),
+                 (3, (513, 8, 12)), (4, (512, 256, 256))]
+
+
+def _column_launch(F, shape, axis):
+    """(n, ncol, G) of K1 (axis 0) or K2 (axis 1), as burgers.cu's entry
+    points hand them to the column kernel."""
+    nx, ny, nz = shape
+    return (nx, ny * nz, 1) if axis == 0 else (ny, nz, nx)
+
+
+@pytest.mark.parametrize("F, shape", COLUMN_SHAPES)
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("bulk", [True, False])
+def test_column_walk_covers_every_output_tile_once(F, shape, axis, bulk):
+    """The persistent walk of the bf16 column kernel: over all cluster
+    tiles and ranks, every (line tile, row tile) of the launch is owned
+    exactly once, every other slot is a padded one, and the line tiles
+    decode to every (field, slab, column tile) once, fields fastest."""
+    n, ncol, G = _column_launch(F, shape, axis)
+    s = burgers.column_schedule(n, ncol, G, F, bulk)
+    cs = s["cc"] * s["ca"]
+    assert cs <= 8 and s["cc"] & (s["cc"] - 1) == 0 \
+        and s["ca"] & (s["ca"] - 1) == 0
+    owned, padded = [], 0
+    for T in range(s["tiles"]):
+        for rank in range(cs):
+            L, A = burgers.column_tile(s, T, rank)
+            if L < s["lines"] and A < s["at"]:
+                owned.append((L, A))
+            else:
+                padded += 1
+    assert sorted(owned) == [(L, A) for L in range(s["lines"])
+                             for A in range(s["at"])]
+    assert padded == s["tiles"] * cs - s["lines"] * s["at"]
+    decoded = [burgers.column_line(s, L, F) for L in range(s["lines"])]
+    assert sorted(decoded) == sorted(
+        (f, g, c0) for f in range(F) for g in range(G)
+        for c0 in range(0, ncol, burgers.TILE))
+    assert [d[0] for d in decoded[:F]] == list(range(F))
+
+
+@pytest.mark.parametrize("n, ncol, G, F, bulk, want", [
+    # K1 and K2 at 512x256x256, F = 4: 2 x 4 and 4 x 2 blocks
+    (512, 256 * 256, 1, 4, True, (2, 4, 1024)),
+    (256, 256, 512, 4, True, (4, 2, 1024)),
+    # 3 row tiles: pairs of them, the second pair half padded
+    (300, 720, 1, 2, True, (4, 2, 6)),
+    # off the bulk path no field is shared: 8 line tiles a cluster
+    (300, 23, 40, 1, False, (8, 1, 15)),
+    # fewer line tiles than 8 / ca: the cluster shrinks to cover them
+    (7, 30, 1, 3, True, (4, 1, 1)),
+    (5, 6, 7, 3, False, (8, 1, 3)),
+])
+def test_column_cluster_extents(n, ncol, G, F, bulk, want):
+    s = burgers.column_schedule(n, ncol, G, F, bulk)
+    assert (s["cc"], s["ca"], s["tiles"]) == want

@@ -229,9 +229,17 @@ def test_banded_der1_on_the_card_matches_the_dense_product(n, periodic,
     assert ((got - ref).abs().max() / ref.abs().max()).item() <= tol
 
 
+# shapes that leave the bf16 column kernel's clusters partly empty: K1 with
+# n = 300 (3 operator row tiles, paired), K2 with three 128-line tiles a
+# slab (nz = 300), F = 1, a short last K tile (n = 513, one row), and an
+# unaligned ncol (23: the cp.async path) beside an aligned one (24)
+BF16_EDGE_SHAPES = [(2, (300, 20, 36)), (2, (6, 40, 300)), (1, (300, 24, 40)),
+                    (3, (513, 8, 12)), (1, (40, 300, 23)), (1, (40, 300, 24))]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("prec_name", ["high", "default"])
-@pytest.mark.parametrize("F, shape", SHAPES)
+@pytest.mark.parametrize("F, shape", SHAPES + BF16_EDGE_SHAPES)
 @pytest.mark.parametrize("axis", [0, 1, 2])
 def test_bf16_kernel_matches_its_split(prec_name, F, shape, axis):
     """The bf16 variants ("high": 3-pass split, "default": one pass)
@@ -248,6 +256,45 @@ def test_bf16_kernel_matches_its_split(prec_name, F, shape, axis):
     before[prec_name][axis] += 1
     assert burgers.contract_launches == before
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prec_name", ["high", "default"])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_bf16_column_kernel_on_a_misaligned_field(prec_name, axis):
+    """x 4 bytes off a 16-byte boundary: the column kernel copies the field
+    by cp.async (no tensor map) and stores from the epilogue tile by rows,
+    within 1e-5 of the split's plain version."""
+    d12, x, conv, nu = _operands(3, (64, 64, 64), axis, _card())
+    xm = torch.empty(x.numel() + 1, device=x.device)[1:].view(x.shape)
+    xm.copy_(x)
+    unit, passes = burgers.CONTRACTS[prec_name]
+    got = burgers.fused_burgers(d12, xm, conv, nu, axis, prec_name)
+    ref = burgers.fused_burgers_split_plain(d12, x, conv, nu, axis, passes,
+                                            unit)
+    torch.cuda.synchronize()
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.cuda
+def test_column_schedule_matches_the_library():
+    """The bf16 column kernel's cluster extents and tile count as the
+    library computes them (burgers_col_schedule) against
+    ops/burgers.py::column_schedule, which the CPU tests hold."""
+    import ctypes
+    from tlab_tpu_torch.ops import _build
+    _card()
+    fn = _build.library("burgers").burgers_col_schedule
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = None
+    for n, ncol, G, F in ((512, 65536, 1, 4), (256, 256, 512, 4),
+                          (300, 720, 1, 2), (40, 300, 6, 2), (513, 96, 1, 3),
+                          (7, 30, 1, 3), (2303, 128, 2, 5)):
+        for bulk in (True, False):
+            out = (ctypes.c_int * 3)()
+            fn(n, ncol, G, F, int(bulk), out)
+            s = burgers.column_schedule(n, ncol, G, F, bulk)
+            assert list(out) == [s["cc"], s["ca"], s["tiles"]]
 
 
 @pytest.mark.cuda

@@ -19,12 +19,13 @@
 //              own "high" branch: hi + lo carries ~16 bits (~5e-6 of the
 //              largest result from fp64).
 //   "default"  one bf16 pass, x_hi.d_hi (_dot's "default" on a TPU).
-// The contract is a template parameter (Tf32x3, Bf16<3>, Bf16<1> below);
-// the ring, the tiles and the epilogues are shared.  K1 and K2 share the
-// column kernel (D @ X, tc::burgers_col), K3 is the row kernel (X @ D^T,
-// tc::burgers_row); both take the operator split and tiled once on the host
-// side (`pack`) and differ in where the field tile's fragment elements sit
-// and in their epilogue.  See the notes above the two kernels.
+// The contract is a template parameter (Tf32x3, Bf16<3>, Bf16<1> below).
+// K1 and K2 share the column kernel (D @ X): tc::burgers_col in 3xTF32,
+// tc::burgers_col_bf16 (clusters, multicast, a persistent ring) in the bf16
+// contracts; K3 is the row kernel (X @ D^T, tc::burgers_row) in all three.
+// All take the operator split and tiled once on the host side (`pack`) and
+// differ in where the field tile's fragment elements sit and in their
+// epilogue.  See the notes above the kernels.
 //
 // Two accumulators (the D1 rows and the D2 rows of the same output tile)
 // are combined with nu_f and the matching conv element in the epilogue, so
@@ -38,6 +39,7 @@
 //   burgers_y  K2  contracts axis 1: column form D @ X_fi, X_fi = (ny, nz)
 //   burgers_z  K3  contracts axis 2: row form X_f @ D^T, X_f = (nx*ny, nz)
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -125,8 +127,9 @@ static_assert(kTA == 128 && kTC == 128, "prefetch_tile asks for 128 x 128");
 
 // The contracts.  kKT: contraction depth per stage (64 bytes of operands);
 // kRK: depth of a row-form field chunk (128-byte pieces of a field row);
-// kXS, kRS: the row strides of the column form's field tile and of the row
-// form's chunks, set so that a warp's fragment reads spread over the banks.
+// kXS, kRS: the row strides of the 3xTF32 column form's field tile and of
+// the row form's chunks, set so that a warp's fragment reads spread over
+// the banks (the bf16 column kernel reads a swizzled tile instead).
 struct Tf32x3 {                      // "highest"
     static constexpr bool kBf16 = false;
     static constexpr int kPasses = 3;
@@ -145,7 +148,6 @@ struct Bf16 {
     // 4 stages of 4 operator tiles, 5 of 2: what fits beside the field tiles
     static constexpr int kStages = P == 3 ? 4 : 5;
     static constexpr int kRK = kKT;  // one K tile a chunk
-    static constexpr int kXS = kTC + 4;      // = 4 (mod 32): (k = 2q, m)
     static constexpr int kRS = kRK + 8;      // = 8 (mod 32): 8-byte reads
 };
 using Bf16x3 = Bf16<3>;
@@ -159,8 +161,12 @@ struct Layout : C {
     static constexpr int kOpRing = C::kStages * kOpStage;
     static constexpr int kPrefetch = 128 / C::kKT;   // K tiles between asking
                                                      // for conv and using it
-    // column form: (k, c) field tiles, one a K tile, beside the operator
-    static constexpr int kXStage = C::kKT * C::kXS;
+    // 3xTF32 column form: (k, c) field tiles, one a K tile, beside the
+    // operator
+    static constexpr int kXS = [] {
+        if constexpr (C::kBf16) return 0; else return C::kXS;
+    }();
+    static constexpr int kXStage = C::kKT * kXS;
     static constexpr int kRing = kOpRing + C::kStages * kXStage;
     static constexpr int kSmemBytes = kRing * 4 + 1024;  // + alignment slack
     // row form: (r, k) field chunks kRK deep, one for kRT operator tiles
@@ -178,15 +184,15 @@ struct Layout : C {
                   "the pack is laid out for the 64-byte swizzle");
     static_assert(C::kPasses == 3 || (C::kPasses == 1 && C::kBf16),
                   "3 passes, or one bf16 pass");
-    static_assert(2 * kTA * kOS <= kRing,
+    static_assert(C::kBf16 || 2 * kTA * kOS <= kRing,
                   "epilogue tiles must fit in the ring");
     static_assert(C::kRK % C::kKT == 0 && kRG % kRT == 0 && kRG % 2 == 0,
                   "chunks hold whole K tiles, groups whole chunks and tile "
                   "pairs");
-    static_assert(C::kXS % 4 == 0 && C::kRS % 4 == 0,
+    static_assert(kXS % 4 == 0 && C::kRS % 4 == 0,
                   "16-byte copies into the field tiles");
-    static_assert(C::kBf16 ? (C::kXS % 32 == 4 && C::kRS % 32 == 8)
-                           : (C::kXS % 32 == 8 && C::kRS % 8 == 4),
+    static_assert(C::kBf16 ? C::kRS % 32 == 8
+                           : (kXS % 32 == 8 && C::kRS % 8 == 4),
                   "fragment reads must spread over the 32 banks");
     static_assert(kSmemBytes <= kMaxSmemBytes
                   && kRowSmemBytes <= kMaxSmemBytes,
@@ -504,6 +510,9 @@ __device__ __forceinline__ void tile_products(
             wgmma_m64n128k8(acc2, hi[j], d2h);
         }
     } else {
+        // the row form's chunks (the bf16 column form has its own reader,
+        // col_bf16_products)
+        static_assert(SK == 1, "bf16 pairs are adjacent in k");
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
 #pragma unroll
@@ -512,15 +521,8 @@ __device__ __forceinline__ void tile_products(
                 // beside it, k = 16 j + 2 q
                 const float* p = xs + (j * 16 + (i / 2) * 8) * SK
                                + (i % 2) * 8 * SM;
-                float v0, v1;
-                if constexpr (SK == 1) {
-                    const float2 w = *reinterpret_cast<const float2*>(p);
-                    v0 = w.x;
-                    v1 = w.y;
-                } else {
-                    v0 = p[0];
-                    v1 = p[SK];
-                }
+                const float2 w = *reinterpret_cast<const float2*>(p);
+                const float v0 = w.x, v1 = w.y;
                 hi[j][i] = to_bf16x2(v0, v1);
                 if constexpr (C::kPasses == 3)
                     lo[j][i] = to_bf16x2(
@@ -582,7 +584,8 @@ __device__ __forceinline__ float* aligned_ring(unsigned char* raw) {
 }
 
 // ---------------------------------------------------------------------------
-// Column form (K1, K2).
+// Column form (K1, K2) in the 3xTF32 contract; the bf16 contracts have their
+// own design below (burgers_col_bf16).
 //
 // Batch b = f * G + g.  For each b the (n, C) output slab is
 // out_b = nu_f * (D2 @ X_b) - conv_g .* (D1 @ X_b), with X_b, conv_g, out_b
@@ -608,6 +611,7 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
             float* __restrict__ out, int n, int ncol, int G, int F,
             int a_tiles, int c_tiles)
 {
+    static_assert(!C::kBf16, "the bf16 contracts run burgers_col_bf16");
     using L = Layout<C>;
     extern __shared__ unsigned char smem_raw[];
     float* ring = aligned_ring(smem_raw);
@@ -699,6 +703,641 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
         load4(d2, &s2[aa * kOS + cc]);
         const size_t o = (size_t)a * ncol + c;
         combine_store(ob + o, cg + o, d1, d2, nu_f, ncol - c, vec);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Column form (K1, K2) in the bf16 contracts: "high" (3 bf16 passes) and
+// "default" (one), the TPU kernels _kern_x and _kern_y
+// (tlab_tpu/ops/pallas_burgers.py:62, :71) at prec_name "high" and
+// "default" (_dot, :38-58).
+//
+// What bounds it on an H100 (NVIDIA H100 80GB HBM3 at 700 W, 512x256x256,
+// F = 4, tools/burgers_variants.py; PERF.md section 6).  The bf16
+// instances of the 3xTF32 design that this kernel replaced (a block of 128
+// lines x 128 operator rows, one an SM, every thread copying its share by
+// cp.async) read, for K1 "default": 1.122 ms, 1.108
+// without its products, 0.809 without its K loop's copies, 1.038 with the
+// field's copies alone and 0.817 with the operator's alone; K1 "high"
+// 1.724, 1.369 without products or without copies.  So the field's
+// per-thread copies set the pace, the operator's cost nothing by
+// themselves, and with no copies at all each block's exposed first copies
+// and epilogue (0.81 ms against 0.28 of products) weighed as much again.
+//
+// What the design does about it.  A cluster of cc x ca blocks shares both
+// streams from L2: the ca blocks on one field tile (its operator row tiles,
+// ca up to 4) and the cc blocks on one operator row tile (cc = 8 / ca line
+// tiles, fields and slabs included: the operator is the same for all).
+// K1 at 512x256x256 runs 2 x 4, K2 4 x 2 (2 x 2 and 4 x 2 measured within
+// 3% of them, 8 x 1 3-6% slower).
+//   - The operator stage is contiguous in the pack (pack_operator), so each
+//     of the cc blocks copies 1 / cc of it with one 1-D bulk copy
+//     (cp.async.bulk, no tensor map) multicast into all cc blocks.
+//   - A field tile (32 rows x 128 lines of fp32) is 4 boxes of 32 lines of
+//     a 3-D tensor map over the (F G, n, ncol) slabs, in the 128-byte
+//     swizzle; each of the ca blocks copies 4 / ca of them multicast into
+//     all ca.  (One bulk copy a 512-byte row was measured 3x slower: the
+//     copies' count, not their bytes, set its pace.)  The swizzle spreads
+//     a warp's fragment reads over the 32 banks (their addresses are XORed
+//     to match), and the copy fills rows beyond n and lines beyond ncol
+//     with zeros.  A tensor map needs 16-byte strides and bases (ncol % 4
+//     == 0; x, conv, out aligned); other shapes take the cp.async path of
+//     the kernel (the producer warp's 32 lanes write the same swizzled
+//     layout, zero-filling; ca = 1).  "high" also asks each box into L2
+//     kAhead K tiles before its copy; "default" keeps pace better without.
+//   - Arrival goes to each stage's full mbarrier (expect_tx of the bytes
+//     that land in the block: always a whole operator stage and, on the
+//     bulk path, 4 whole boxes); a consumer warpgroup done with a stage
+//     arrives on the empty mbarrier of every block that writes into it (its
+//     op group and its field group), and a producer waits for its own empty
+//     barrier before it writes into any of them.  Every block writes the
+//     same bytes into every block of its groups in every round (a padded
+//     slot copies row tile 0's operator, and out-of-range boxes are zeros),
+//     so no consumer can arrive a round early.
+//   - The grid is persistent: as many clusters as fit walk the (line group,
+//     row group) tiles, and one producer warp keeps kStages K tiles in
+//     flight across tile ends.  The two consumer warpgroups (64 lines each)
+//     read their fragments, split them (hi, lo on the registers, as before)
+//     and run wgmma with 240 registers a thread (setmaxnreg; the producer
+//     warpgroup keeps 24, and its waits carry no counter: one cost the
+//     loops 13%).  The epilogue has a 64 KB tile of its own: a storer
+//     thread copies each tile's conv into it during the K loop, the
+//     consumers combine their accumulators with nu_f and conv in place,
+//     and the storer writes it to out by the tensor map while the
+//     consumers run on into the next tile.  (Combining from registers with
+//     conv read from device memory made ptxas serialize the wgmma for
+//     want of registers, and cost more than the tile's stages.)  Padded
+//     cluster slots (n / 128 or the line tiles not a multiple of the
+//     extents) keep the barrier and copy protocol and skip products and
+//     stores.
+// L2 -> shared memory at 512x256x256, F = 4: K1 1.5 GiB ("default", 4 GiB
+// before) and 2.5 GiB ("high", 6), K2 0.75 and 1.0 GiB (2 and 3).
+//
+// What holds it back now (same card and reading): without the epilogue's
+// combine and stores K1 "default" takes 0.658 ms and K2 0.410, against
+// 0.278 and 0.139 of products: 5 stages of 32 KB are ~0.66 us a K tile, the
+// time it takes a stage to come back round the cluster; "high" (3 stages
+// of 48 KB beside the epilogue tile) K1 1.141 against its bound 0.834.
+// The epilogue costs the rest: 0.13-0.19 ms a launch.
+template <class C>
+struct ColRing {
+    static_assert(C::kBf16, "the bf16 contracts");
+    static constexpr int kThreads = 384;     // 2 consumer warpgroups + 1
+    static constexpr int kParts = C::kPasses == 3 ? 4 : 2;
+    static constexpr int kOpBytes = kParts * kOpSub * 4;  // a stage's operator
+    static constexpr int kBox = 32;          // lines a box: 128 swizzled bytes
+    static constexpr int kXBytes = C::kKT * kTC * 4;      // and field tile
+    static constexpr int kEBytes = kTA * kTC * 4;  // the epilogue's tile
+    static constexpr int kStages = C::kPasses == 3 ? 3 : 5;
+    // K tiles a field box is asked into L2 before its copy (none in
+    // "default", whose producer keeps pace better without)
+    static constexpr int kAhead = C::kPasses == 3 ? 8 : 0;
+    static constexpr int kSmemBytes =
+        kStages * (kOpBytes + kXBytes + 16) + kEBytes + 16 + 1024;
+    static_assert(kSmemBytes <= kMaxSmemBytes, "the ring must fit");
+    static_assert(kSmemBytes <= kMaxSmemBytes, "the ring must fit");
+    static_assert(C::kKT == 32 && kTC % kBox == 0,
+                  "a box is 32 rows of 128 bytes");
+};
+
+struct ColArgs {
+    // (bulk path) the field and out, (F G, n, ncol), and conv, (G, n, ncol)
+    CUtensorMap xmap, cmap, omap;
+    const float* pack;
+    const float* x;
+    const float* conv;
+    const float* nu;
+    float* out;
+    int n, ncol, G, F;
+    int at, ct, lines;       // operator row tiles, line tiles a slab, in all
+    int cc, ca;              // the cluster's extents (line tiles, row tiles)
+    int bulk;                // field, conv and out by the tensor maps
+};
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return r;
+}
+
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile("barrier.cluster.arrive.release;\n"
+                 "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(bar), "r"(count) : "memory");
+}
+
+// wait for the phase of `parity` to complete
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile("{\n"
+                     ".reg .pred p;\n"
+                     "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                     "selp.u32 %0, 1, 0, p;\n"
+                     "}\n"
+                     : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    } while (!done);
+}
+
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// arrive on the barrier at the same offset in block `rank` of the cluster
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, uint32_t rank) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote) : "r"(bar), "r"(rank));
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
+                 :: "r"(remote) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(bar) : "memory");
+}
+
+// this thread's cp.async copies so far arrive on `bar` when they land
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n"
+                 :: "r"(bar) : "memory");
+}
+
+// `bytes` (a multiple of 16, 16-byte aligned) from src into dst of every
+// block in `mask`, each counted on its barrier at offset `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          uint16_t mask) {
+    if ((mask & (mask - 1)) == 0)
+        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                     "complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                     :: "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+                     : "memory");
+    else
+        asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::"
+                     "complete_tx::bytes.multicast::cluster [%0], [%1], %2, "
+                     "[%3], %4;\n"
+                     :: "r"(dst), "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+                     : "memory");
+}
+
+// the box of the tensor map at (c, k, b) into dst of every block in `mask`
+__device__ __forceinline__ void box_copy(uint32_t dst, const CUtensorMap* map,
+                                         int c, int k, int b, uint32_t bar,
+                                         uint16_t mask) {
+    const uint64_t desc = reinterpret_cast<uint64_t>(map);
+    if ((mask & (mask - 1)) == 0)
+        asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global."
+                     "mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], "
+                     "[%5];\n"
+                     :: "r"(dst), "l"(desc), "r"(c), "r"(k), "r"(b), "r"(bar)
+                     : "memory");
+    else
+        asm volatile("cp.async.bulk.tensor.3d.shared::cluster.global."
+                     "mbarrier::complete_tx::bytes.multicast::cluster [%0], "
+                     "[%1, {%2, %3, %4}], [%5], %6;\n"
+                     :: "r"(dst), "l"(desc), "r"(c), "r"(k), "r"(b), "r"(bar),
+                        "h"(mask)
+                     : "memory");
+}
+
+// ask for the box of the tensor map at (c, k, b) into L2
+__device__ __forceinline__ void box_prefetch(const CUtensorMap* map, int c,
+                                             int k, int b) {
+    asm volatile("cp.async.bulk.prefetch.tensor.3d.L2.global.tile "
+                 "[%0, {%1, %2, %3}];\n"
+                 :: "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(k),
+                    "r"(b) : "memory");
+}
+
+// the epilogue tile's 4 boxes of 32 lines x 128 rows at (c0, a0, b) into
+// out, as one bulk group; zero beyond the tensor's edges is not written
+__device__ __forceinline__ void store_boxes(const CUtensorMap* map,
+                                            uint32_t src, int c0, int a0,
+                                            int b) {
+    const uint64_t desc = reinterpret_cast<uint64_t>(map);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+        asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+                     "[%0, {%1, %2, %3}], [%4];\n"
+                     :: "l"(desc), "r"(c0 + 32 * j), "r"(a0), "r"(b),
+                        "r"(src + j * 128 * 128) : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void consumers_sync() {
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// Byte offset of field element (k, line c) in a stage: box c / 32, rows of
+// 128 bytes, the 16-byte chunk c % 32 / 4 XORed with k % 8 (the 128-byte
+// swizzle of the tensor map; the stages are 1024-byte aligned).
+__device__ __forceinline__ int field_offset(int k, int c) {
+    return (c / 32) * (32 * 128) + k * 128 + ((((c % 32) >> 2) ^ (k & 7)) << 4)
+         + (c & 3) * 4;
+}
+
+// Byte offset of element (operator row a, line c) in the epilogue tile:
+// boxes of 32 lines x 128 rows, in the same swizzle
+__device__ __forceinline__ int epi_offset(int a, int c) {
+    return (c / 32) * (128 * 128) + a * 128
+         + ((((c % 32) >> 2) ^ (a & 7)) << 4) + (c & 3) * 4;
+}
+
+// One output tile of the persistent walk: cluster tile T of a block at
+// (l, aa) of its cluster.
+struct ColTile {
+    int a0, c0, f, g, b;
+    bool op_live, x_live;
+
+    __device__ __forceinline__ ColTile(const ColArgs& p, int T, int l,
+                                       int aa) {
+        const int groups = (p.at + p.ca - 1) / p.ca;
+        const int lg = T / groups;
+        const int A = (T - lg * groups) * p.ca + aa;
+        const int Lt = lg * p.cc + l;
+        op_live = A < p.at;
+        x_live = Lt < p.lines;
+        // line tiles: fields fastest (the F tiles that share a conv tile
+        // sit in one cluster), then the slab's column tiles, then slabs; a
+        // padded slot copies row tile 0's operator and lines past the last
+        const int L = x_live ? Lt : p.lines;
+        f = L % p.F;
+        const int rest = L / p.F;
+        c0 = (rest % p.ct) * kTC;
+        g = rest / p.ct;
+        b = f * p.G + g;
+        a0 = (op_live ? A : 0) * kTA;
+    }
+};
+
+// One K tile of the bf16 column form: this thread's A fragments from the
+// field stage at xs (byte offsets off[h][e] of its elements (m + 8h,
+// k + e), k = 2q, in the first 8 rows; 8 rows further is 1024 bytes,
+// the swizzle's period), split, and the tile's products against the
+// operator stage at `op` as one commit group.
+template <class C>
+__device__ __forceinline__ void col_bf16_products(
+        const unsigned char* xs, const int (&off)[2][2], uint32_t op,
+        float (&acc1)[64], float (&acc2)[64], uint32_t (&hi)[2][4],
+        uint32_t (&lo)[2][4]) {
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+            // register i: (m + 8 (i % 2), k + 8 (i / 2)) and the k + 1
+            // beside it, k = 16 j + 2 q
+            const unsigned char* p = xs + (j * 2 + i / 2) * 1024;
+            const float v0 = *reinterpret_cast<const float*>(
+                p + off[i % 2][0]);
+            const float v1 = *reinterpret_cast<const float*>(
+                p + off[i % 2][1]);
+            hi[j][i] = to_bf16x2(v0, v1);
+            if constexpr (C::kPasses == 3)
+                lo[j][i] = to_bf16x2(
+                    v0 - __uint_as_float(hi[j][i] << 16),
+                    v1 - __uint_as_float(hi[j][i] & 0xFFFF0000u));
+        }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+        // a k-step of 16 is 32 bytes further along each 64-byte row
+        if constexpr (C::kPasses == 3) {
+            const uint64_t d1h = op_desc(op + j * 32);
+            const uint64_t d1l = op_desc(op + kOpSub * 4 + j * 32);
+            const uint64_t d2h = op_desc(op + 2 * kOpSub * 4 + j * 32);
+            const uint64_t d2l = op_desc(op + 3 * kOpSub * 4 + j * 32);
+            wgmma_m64n128k16_bf16(acc1, lo[j], d1h);     // small terms first
+            wgmma_m64n128k16_bf16(acc2, lo[j], d2h);
+            wgmma_m64n128k16_bf16(acc1, hi[j], d1l);
+            wgmma_m64n128k16_bf16(acc2, hi[j], d2l);
+            wgmma_m64n128k16_bf16(acc1, hi[j], d1h);
+            wgmma_m64n128k16_bf16(acc2, hi[j], d2h);
+        } else {
+            wgmma_m64n128k16_bf16(acc1, hi[j], op_desc(op + j * 32));
+            wgmma_m64n128k16_bf16(acc2, hi[j],
+                                  op_desc(op + kOpSub * 4 + j * 32));
+        }
+    }
+    wgmma_commit();
+}
+
+// The ring as one block sees it: the stages' operator tiles, field tiles,
+// full and empty barriers, and the position (stage, phase) of the next K
+// tile.
+template <class C>
+struct ColRingState {
+    using R = ColRing<C>;
+    static constexpr uint32_t kX0 = R::kStages * R::kOpBytes;
+    static constexpr uint32_t kEpi = kX0 + R::kStages * R::kXBytes;
+    static constexpr uint32_t kFull = kEpi + R::kEBytes;
+    static constexpr uint32_t kEmpty = kFull + R::kStages * 8;
+    static constexpr uint32_t kEpiFull = kEmpty + R::kStages * 8;
+    static constexpr uint32_t kEpiDone = kEpiFull + 8;
+    uint32_t op0;                // the ring's start; the rest follows it
+    int stage = 0;
+    uint32_t phase = 0;
+
+    __device__ __forceinline__ explicit ColRingState(uint32_t base)
+        : op0(base) {}
+
+    __device__ __forceinline__ uint32_t full0() const { return op0 + kFull; }
+    __device__ __forceinline__ uint32_t empty0() const {
+        return op0 + kEmpty;
+    }
+    __device__ __forceinline__ uint32_t epi() const { return op0 + kEpi; }
+    __device__ __forceinline__ uint32_t epi_full() const {
+        return op0 + kEpiFull;
+    }
+    __device__ __forceinline__ uint32_t epi_done() const {
+        return op0 + kEpiDone;
+    }
+    __device__ __forceinline__ uint32_t full() const {
+        return full0() + 8 * stage;
+    }
+    __device__ __forceinline__ uint32_t empty() const {
+        return empty0() + 8 * stage;
+    }
+    __device__ __forceinline__ uint32_t op() const {
+        return op0 + stage * R::kOpBytes;
+    }
+    __device__ __forceinline__ uint32_t field() const {
+        return op0 + kX0 + stage * R::kXBytes;
+    }
+    __device__ __forceinline__ void advance() {
+        if (++stage == R::kStages) { stage = 0; phase ^= 1; }
+    }
+};
+
+template <class C>
+__global__ void __launch_bounds__(ColRing<C>::kThreads, 1)
+burgers_col_bf16(const __grid_constant__ ColArgs p)
+{
+    using R = ColRing<C>;
+    extern __shared__ unsigned char smem_raw[];
+    float* ring = aligned_ring(smem_raw);
+    ColRingState<C> rs(smem_u32(ring));
+
+    const int tid = threadIdx.x;
+    // the warpgroup, uniform over each warp as setmaxnreg needs it
+    const int wg = __shfl_sync(0xFFFFFFFFu, tid / 128, 0);
+    const int rank = static_cast<int>(cluster_rank());
+    const int l = rank % p.cc, aa = rank / p.cc;
+    const int cs = p.cc * p.ca;
+    const int cluster = blockIdx.x / cs, clusters = gridDim.x / cs;
+    const int kt = (p.n + C::kKT - 1) / C::kKT;
+    const int tiles = (p.lines + p.cc - 1) / p.cc
+                    * ((p.at + p.ca - 1) / p.ca);
+    const size_t slab = (size_t)p.n * p.ncol;
+
+    if (tid == 0) {
+        for (int s = 0; s < R::kStages; ++s) {
+            mbar_init(rs.full0() + 8 * s, p.bulk ? 1 : 1 + 32);
+            // one arrival a consumer warpgroup of each writing block
+            mbar_init(rs.empty0() + 8 * s, 2 * (p.cc + p.ca - 1));
+        }
+        mbar_init(rs.epi_full(), 1);
+        mbar_init(rs.epi_done(), 256);      // every consumer thread
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    cluster_sync();
+
+    if (wg == 2) {
+        // producer warpgroup: its first warp issues the copies (lane 0 the
+        // bulk ones, all 32 lanes those of the cp.async path); the
+        // registers go to the consumers
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+        const int lane = tid % 32;
+        if (tid < 2 * 128 + 32 && (lane == 0 || !p.bulk)) {
+            // the blocks on this block's operator row tile, on its field
+            // tile
+            const uint16_t op_mask = static_cast<uint16_t>(
+                ((1 << p.cc) - 1) << (aa * p.cc));
+            uint16_t x_mask = 0;
+            for (int i = 0; i < p.ca; ++i) x_mask |= 1 << (i * p.cc + l);
+            const unsigned char* pack =
+                reinterpret_cast<const unsigned char*>(p.pack);
+            const int share = R::kOpBytes / p.cc;
+            const int boxes = kTC / R::kBox / p.ca;    // this block's
+            const uint32_t bytes = R::kOpBytes + (p.bulk ? R::kXBytes : 0);
+            for (int T = cluster; T < tiles; T += clusters) {
+                const ColTile tl(p, T, l, aa);
+                // the tile after this one, for the boxes asked into L2
+                const ColTile tn(p, T + clusters, l, aa);
+                const bool more = T + clusters < tiles;
+                const unsigned char* ops =
+                    pack + (size_t)(tl.a0 / kTA) * kt * R::kOpBytes
+                    + l * share;
+                for (int t = 0; t < kt; ++t, rs.advance()) {
+                    mbar_wait(rs.empty(), rs.phase ^ 1);
+                    if (lane == 0) {
+                        mbar_expect(rs.full(), bytes);
+                        bulk_copy(rs.op() + l * share,
+                                  ops + (size_t)t * R::kOpBytes, share,
+                                  rs.full(), op_mask);
+                    }
+                    if (p.bulk) {
+                        for (int j = aa * boxes; j < (aa + 1) * boxes; ++j)
+                            box_copy(rs.field() + j * R::kBox * 128, &p.xmap,
+                                     tl.c0 + j * R::kBox, t * C::kKT, tl.b,
+                                     rs.full(), x_mask);
+                        // the boxes kAhead K tiles on, from device memory
+                        // into L2, so that their copy waits on L2 only
+                        const int u = t + R::kAhead;
+                        if (R::kAhead > 0 && (u < kt || more)) {
+                            const ColTile& tu = u < kt ? tl : tn;
+                            const int ku = (u < kt ? u : u - kt) * C::kKT;
+                            for (int j = aa * boxes; j < (aa + 1) * boxes;
+                                 ++j)
+                                box_prefetch(&p.xmap, tu.c0 + j * R::kBox, ku,
+                                             tu.b);
+                        }
+                    } else {
+                        // the (kKT, kTC) tile in the swizzled layout, zero
+                        // beyond n, ncol and the last line tile
+                        const float* xb = p.x + (size_t)tl.b * slab + tl.c0;
+                        const int rows = min(C::kKT, p.n - t * C::kKT);
+                        const int cols = min(kTC, p.ncol - tl.c0);
+                        const uint32_t xs = rs.field();
+#pragma unroll 4
+                        for (int e = lane; e < C::kKT * kTC; e += 32) {
+                            const int kk = e / kTC, cc = e % kTC;
+                            const bool ok = tl.x_live && kk < rows
+                                            && cc < cols;
+                            cp_async4(xs + field_offset(kk, cc),
+                                      ok ? xb + (size_t)(t * C::kKT + kk)
+                                                    * p.ncol + cc
+                                         : p.x,
+                                      ok ? 4 : 0);
+                        }
+                        cp_async_arrive(rs.full());
+                    }
+                }
+            }
+        }
+        if (tid == 2 * 128 + 32 && p.bulk) {
+            // the storer (the second warp's lane 0): each tile's conv into
+            // the epilogue tile, and the tile's results from it into out
+            // once the consumers have written them; the next conv once the
+            // store has read them
+            uint32_t done_phase = 0;
+            for (int T = cluster; T < tiles; T += clusters) {
+                const ColTile tl(p, T, l, aa);
+                mbar_expect(rs.epi_full(), R::kEBytes);
+                for (int j = 0; j < 4; ++j)
+                    box_copy(rs.epi() + j * 128 * 128, &p.cmap,
+                             tl.c0 + j * R::kBox, tl.a0, tl.g, rs.epi_full(),
+                             0);
+                mbar_wait(rs.epi_done(), done_phase);
+                done_phase ^= 1;
+                if (tl.op_live && tl.x_live)
+                    store_boxes(&p.omap, rs.epi(), tl.c0, tl.a0, tl.b);
+                asm volatile("cp.async.bulk.wait_group.read 0;\n"
+                             ::: "memory");
+            }
+            asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+        }
+        // peers may still arrive on this block's barriers
+        __syncwarp();
+        cluster_sync();
+    } else {
+        // consumer warpgroups: 64 lines each
+        asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+        const int lane = tid % 32, warp = tid / 32;
+        const int g = lane / 4, q = lane % 4;
+        const int m = warp * 16 + g;
+        const bool releases = tid % 128 == 0;
+        // this thread's fragment elements (m + 8h, 2q + e) in a stage, and
+        // its accumulator elements (a = 2q + e, c = m + 8h) in the
+        // epilogue tile (8 rows further is 1024 bytes in both)
+        int off[2][2], eoff[2][2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                off[h][e] = field_offset(2 * q + e, m + 8 * h);
+                eoff[h][e] = epi_offset(2 * q + e, m + 8 * h);
+            }
+        const unsigned char* xring =
+            reinterpret_cast<const unsigned char*>(ring)
+            + R::kStages * R::kOpBytes;
+        float* epi = reinterpret_cast<float*>(
+            reinterpret_cast<unsigned char*>(ring) + (rs.epi() - rs.op0));
+        float acc1[64], acc2[64];
+        uint32_t hi_a[2][4], lo_a[2][4];
+        uint32_t hi_b[2][4], lo_b[2][4];
+        int held = -1;               // the stage of the tile in flight
+        uint32_t epi_phase = 0;
+        // On the cp.async path the tile's conv comes into the epilogue tile
+        // by every consumer thread's copies, asked for after the tile's
+        // first K tile (the last tile's stores are done), zero beyond the
+        // edges; on the bulk path the storer asks for it.
+        auto ask_conv = [&](const ColTile& tl) {
+            if (p.bulk) return;
+            const float* cb = p.conv + (size_t)tl.g * slab
+                            + (size_t)tl.a0 * p.ncol + tl.c0;
+            const int rows = p.n - tl.a0;
+            const int cols = min(kTC, p.ncol - tl.c0);
+            for (int e = tid; e < kTA * kTC; e += 256) {
+                const int a = e / kTC, c = e % kTC;
+                const bool ok = tl.x_live && a < rows && c < cols;
+                cp_async4(rs.epi() + epi_offset(a, c),
+                          ok ? cb + (size_t)a * p.ncol + c : p.x, ok ? 4 : 0);
+            }
+            cp_async_commit();
+        };
+
+        // release stage s: one arrival on the empty barrier of every block
+        // that writes into this one (its op group and its field group)
+        auto release = [&](int s) {
+            if (!releases) return;
+            const uint32_t bar = rs.empty0() + 8 * s;
+            for (int i = 0; i < p.cc; ++i) mbar_arrive_at(bar, aa * p.cc + i);
+            for (int i = 0; i < p.ca; ++i)
+                if (i != aa) mbar_arrive_at(bar, i * p.cc + l);
+        };
+        // K tile t: wait for it, start its products (a live tile), then
+        // wait for the previous tile's and release its stage
+        auto step = [&](bool live, uint32_t (&hi)[2][4],
+                        uint32_t (&lo)[2][4]) {
+            mbar_wait(rs.full(), rs.phase);
+            if (live)
+                col_bf16_products<C>(xring + rs.stage * R::kXBytes, off,
+                                     rs.op(), acc1, acc2, hi, lo);
+            wgmma_wait<1>();
+            if (held >= 0) release(held);
+            held = rs.stage;
+            rs.advance();
+        };
+
+        for (int T = cluster; T < tiles; T += clusters) {
+            const ColTile tl(p, T, l, aa);
+            const bool live = tl.op_live && tl.x_live;
+            clear(acc1, acc2);
+            for (int t = 0; t < kt; t += 2) {
+                step(live, hi_a, lo_a);
+                if (t == 0) ask_conv(tl);
+                if (t + 1 < kt) step(live, hi_b, lo_b);
+            }
+            wgmma_wait<0>();
+            release(held);
+            held = -1;
+
+            // the accumulators hold out^T: d[4j + 2h + e] is (c = m + 8h,
+            // a = 8j + 2q + e); combined with conv in the epilogue tile,
+            // in place
+            if (p.bulk) {
+                mbar_wait(rs.epi_full(), epi_phase);
+                epi_phase ^= 1;
+            } else {
+                cp_async_wait<0>();
+                consumers_sync();
+            }
+            if (live) {
+                const float nu_f = p.nu[tl.f];
+#pragma unroll
+                for (int j = 0; j < 16; ++j)
+#pragma unroll
+                    for (int h = 0; h < 2; ++h)
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const int i = 4 * j + 2 * h + e;
+                            float* v = reinterpret_cast<float*>(
+                                reinterpret_cast<unsigned char*>(epi)
+                                + eoff[h][e] + j * 1024);
+                            *v = nu_f * acc2[i] - *v * acc1[i];
+                        }
+            }
+            if (p.bulk) {
+                // the storer stores the tile
+                fence_async_shared();
+                mbar_arrive(rs.epi_done());
+            } else {
+                // rows of the tile into out, masked
+                consumers_sync();
+                if (live) {
+                    float* ob = p.out + (size_t)tl.b * slab
+                              + (size_t)tl.a0 * p.ncol + tl.c0;
+                    const int rows = p.n - tl.a0;
+                    const int cols = min(kTC, p.ncol - tl.c0);
+                    for (int e = tid; e < kTA * kTC; e += 256) {
+                        const int a = e / kTC, c = e % kTC;
+                        if (a < rows && c < cols)
+                            ob[(size_t)a * p.ncol + c] = *reinterpret_cast<
+                                const float*>(reinterpret_cast<const unsigned
+                                char*>(epi) + epi_offset(a, c));
+                    }
+                }
+                consumers_sync();
+            }
+        }
+        cluster_sync();
     }
 }
 
@@ -873,6 +1512,140 @@ int launch_col(const float* pack, const float* x, const float* conv,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The cluster of the bf16 column kernel: ca operator row tiles that share
+// a field tile (a power of 2 up to 4 and up to at; 1 on the cp.async path,
+// which copies each block's field itself), times cc line tiles that share
+// the operator stages (8 blocks in all, no more line tiles than there are).
+// ops/burgers.py::column_schedule is the same choice, held by the tests.
+inline void col_cluster(int at, int lines, bool bulk, int* cc, int* ca)
+{
+    int a = 1;
+    while (bulk && a * 2 <= at && a * 2 <= 4) a *= 2;
+    int c = 8 / a;
+    while (c > 1 && c / 2 >= lines) c /= 2;
+    *cc = c;
+    *ca = a;
+}
+
+// The 3-D tensor map of B fp32 (n, ncol) slabs at x, in boxes of 32 lines
+// x `rows` rows, 128-byte swizzled, zero beyond its edges; the driver's
+// encoder is found through the runtime, so nothing links libcuda.
+int slab_map(CUtensorMap* map, const float* x, int n, int ncol, int B,
+             int rows)
+{
+    using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+    static Encode encode = nullptr;
+    if (encode == nullptr) {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        cudaError_t err = cudaGetDriverEntryPoint(
+            "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+            return static_cast<int>(cudaErrorNotSupported);
+        encode = reinterpret_cast<Encode>(fn);
+    }
+    const cuuint64_t dim[3] = {static_cast<cuuint64_t>(ncol),
+                               static_cast<cuuint64_t>(n),
+                               static_cast<cuuint64_t>(B)};
+    const cuuint64_t stride[2] = {static_cast<cuuint64_t>(ncol) * 4,
+                                  static_cast<cuuint64_t>(n) * ncol * 4};
+    const cuuint32_t box[3] = {32, static_cast<cuuint32_t>(rows), 1};
+    const cuuint32_t step[3] = {1, 1, 1};
+    const CUresult res = encode(
+        map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(x), dim,
+        stride, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// F * G batches of (n, ncol) slabs through the bf16 column kernel: a
+// persistent grid of as many clusters as fit on the card, at most one a
+// cluster tile
+template <class C>
+int launch_col_bf16(const float* pack, const float* x, const float* conv,
+                    const float* nu, float* out, int n, int ncol, int G,
+                    int F, void* stream)
+{
+    using R = tc::ColRing<C>;
+    auto kernel = tc::burgers_col_bf16<C>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tc::ColArgs a{};
+    a.pack = pack;
+    a.x = x;
+    a.conv = conv;
+    a.nu = nu;
+    a.out = out;
+    a.n = n;
+    a.ncol = ncol;
+    a.G = G;
+    a.F = F;
+    a.at = ceil_div(n, tc::kTA);
+    a.ct = ceil_div(ncol, tc::kTC);
+    const long long lines = (long long)F * G * a.ct;
+    if (lines > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+    a.lines = static_cast<int>(lines);
+    a.bulk = ncol % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+    a.bulk = a.bulk && ((reinterpret_cast<uintptr_t>(conv)
+                         | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+    if (a.bulk) {
+        int e = slab_map(&a.xmap, x, n, ncol, F * G, 32);
+        if (e == 0) e = slab_map(&a.cmap, conv, n, ncol, G, tc::kTA);
+        if (e == 0) e = slab_map(&a.omap, out, n, ncol, F * G, tc::kTA);
+        if (e != 0) return e;
+    }
+    col_cluster(a.at, a.lines, a.bulk, &a.cc, &a.ca);
+    const int cs = a.cc * a.ca;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = cs;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cs);
+    cfg.blockDim = dim3(R::kThreads);
+    cfg.dynamicSmemBytes = R::kSmemBytes;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    // clusters that fit at once, asked once a process for each extent
+    static int active[9] = {};
+    if (active[cs] == 0) {
+        err = cudaOccupancyMaxActiveClusters(&active[cs], kernel, &cfg);
+        if (err != cudaSuccess) return static_cast<int>(err);
+        if (active[cs] == 0)
+            return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    const long long tiles = (lines + a.cc - 1) / a.cc
+                          * ((a.at + a.ca - 1) / a.ca);
+    cfg.gridDim = dim3(static_cast<unsigned>(
+        (tiles < active[cs] ? tiles : active[cs]) * cs));
+    err = cudaLaunchKernelEx(&cfg, kernel, a);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// the column form of a contract: its own design for the bf16 ones
+template <class C>
+int launch_column(const float* pack, const float* x, const float* conv,
+                  const float* nu, float* out, int n, int ncol, int G, int F,
+                  void* stream)
+{
+    if constexpr (C::kBf16)
+        return launch_col_bf16<C>(pack, x, conv, nu, out, n, ncol, G, F,
+                                  stream);
+    else
+        return launch_col<C>(pack, x, conv, nu, out, n, ncol, G, F, stream);
+}
+
 // F fields of (P, n) slabs through the row kernel
 template <class C>
 int launch_row(const float* pack, const float* x, const float* conv,
@@ -908,6 +1681,20 @@ extern "C" void burgers_pack_tiles_bf16(int* rows, int* depth)
     *depth = tc::Bf16x3::kKT;
 }
 
+// The bf16 column kernel's launch for F * G slabs of (n, ncol): the
+// cluster's extents and the cluster tiles the grid walks, {cc, ca, tiles}
+// (bulk: the field rows start on 16 bytes), as ops/burgers.py's
+// column_schedule computes them.
+extern "C" void burgers_col_schedule(int n, int ncol, int G, int F, int bulk,
+                                     int* out)
+{
+    const int at = ceil_div(n, tc::kTA);
+    const long long lines = (long long)F * G * ceil_div(ncol, tc::kTC);
+    col_cluster(at, static_cast<int>(lines), bulk != 0, &out[0], &out[1]);
+    out[2] = static_cast<int>((lines + out[0] - 1) / out[0]
+                              * ((at + out[1] - 1) / out[1]));
+}
+
 // burgers_x, burgers_y, burgers_z with `suffix`, in contract C
 #define BURGERS_ENTRY_POINTS(suffix, C)                                      \
     extern "C" int burgers_x##suffix(                                        \
@@ -915,15 +1702,16 @@ extern "C" void burgers_pack_tiles_bf16(int* rows, int* depth)
             const float* nu, float* out, int F, int nx, int ny, int nz,      \
             void* stream)                                                    \
     {                                                                        \
-        return launch_col<C>(pack, x, conv, nu, out, nx, ny * nz, 1, F,      \
-                             stream);                                        \
+        return launch_column<C>(pack, x, conv, nu, out, nx, ny * nz, 1, F,   \
+                                stream);                                     \
     }                                                                        \
     extern "C" int burgers_y##suffix(                                        \
             const float* pack, const float* x, const float* conv,            \
             const float* nu, float* out, int F, int nx, int ny, int nz,      \
             void* stream)                                                    \
     {                                                                        \
-        return launch_col<C>(pack, x, conv, nu, out, ny, nz, nx, F, stream); \
+        return launch_column<C>(pack, x, conv, nu, out, ny, nz, nx, F,       \
+                                stream);                                     \
     }                                                                        \
     extern "C" int burgers_z##suffix(                                        \
             const float* pack, const float* x, const float* conv,            \

@@ -28,6 +28,12 @@ kernel's ``_dot`` (``prec_name``, CONTRACTS):
   512x256x256 its work is below the bytes it must move.  burgers_x_default,
   ...
 
+In the bf16 contracts K1 and K2 run a kernel of their own: clusters of
+blocks share the operator stages and the field tiles (multicast copies), a
+persistent ring runs on across output tiles, and the epilogue goes through
+a shared-memory tile by the tensor maps (csrc/burgers.cu, the note above
+burgers_col_bf16; ``column_schedule`` here is its launch).
+
 The operator's split is a constant of the plan: ``pack_operator`` makes it
 once for each operator tensor and contract, already in the tile layout that
 all three kernels copy into shared memory.  The TPU kernel's point, the
@@ -197,6 +203,52 @@ def pack_operator(d12, rows: int, depth: int, prec_name: str = "highest"):
     q = q.gather(4, src[None, None, :, None, :, None].expand_as(q))
     q = q.permute(1, 3, 0, 2, 4, 5).contiguous()
     return q if unit == "tf32" else q.to(torch.bfloat16)
+
+
+# The bf16 column kernel's launch (csrc/burgers.cu: col_cluster, ColTile),
+# written out for the CPU tests and for the card test that holds the C code
+# to it: a block owns TILE field lines x TILE operator rows; a cluster of
+# cc x ca blocks shares the operator stages (cc line tiles) and the field
+# tiles (ca row tiles); a persistent grid of clusters walks the cluster
+# tiles.
+TILE = 128
+
+
+def column_schedule(n: int, ncol: int, G: int, F: int, bulk: bool) -> dict:
+    """The bf16 column kernel's launch for F * G slabs of (n, ncol): `at`
+    operator row tiles, `ct` line tiles a slab, `lines` = F G ct line tiles
+    in all; the cluster's extents `cc` (line tiles that share the operator
+    stages) and `ca` (row tiles that share a field tile: a power of 2 up to
+    4 and up to at, 1 off the bulk-copy path), 8 blocks in all and no more
+    line tiles than there are; `tiles`, the cluster tiles the grid walks.
+    `bulk`: the field rows start on 16 bytes (ncol % 4 == 0, x aligned)."""
+    at, ct = -(-n // TILE), -(-ncol // TILE)
+    lines = F * G * ct
+    ca = 1
+    while bulk and ca * 2 <= min(at, 4):
+        ca *= 2
+    cc = 8 // ca
+    while cc > 1 and cc // 2 >= lines:
+        cc //= 2
+    return {"at": at, "ct": ct, "lines": lines, "cc": cc, "ca": ca,
+            "tiles": -(-lines // cc) * -(-at // ca)}
+
+
+def column_tile(sched: dict, T: int, rank: int) -> tuple:
+    """(line tile, operator row tile) of the block at `rank` of its cluster
+    in cluster tile T (row tiles of a line group fastest); a line tile past
+    `lines` or a row tile past `at` is a padded slot."""
+    groups = -(-sched["at"] // sched["ca"])
+    lg, ag = divmod(T, groups)
+    return (lg * sched["cc"] + rank % sched["cc"],
+            ag * sched["ca"] + rank // sched["cc"])
+
+
+def column_line(sched: dict, L: int, F: int) -> tuple:
+    """(f, g, c0) of line tile L: fields fastest (the F tiles that share a
+    conv tile sit side by side), then a slab's column tiles, then slabs."""
+    f, rest = L % F, L // F
+    return f, rest // sched["ct"], (rest % sched["ct"]) * TILE
 
 
 def _packed(d12, lib, prec_name: str):

@@ -1,6 +1,6 @@
 """Time variants of the Burgers kernels (K1-K3) on one CUDA card.
 
-    python3 -m tlab_tpu_torch.tools.burgers_variants [variant ...]
+    python3 -m tlab_tpu_torch.tools.burgers_variants [--prec P[,P]] [variant ...]
 
 Each variant is a set of text replacements on ``csrc/burgers.cu``; a
 replacement whose old text is no longer in the source is an error, so the
@@ -8,12 +8,17 @@ table below has to follow the kernel.  All variants are built at once (one
 nvcc each, into a temporary directory), then each is run through its C
 entry points at the main path's shape (F = 4, 512x256x256, fp32) on the
 same inputs, compared with the plain version and timed with CUDA events
-(median and minimum of 7).  Variants that drop work ("noload", "nomma")
-give wrong results on purpose: they show what the remaining work costs.
-The ring, the products and the operator's layout are shared by the column
-kernel (K1, K2) and the row kernel (K3), so most variants change all three;
-"fslowest" changes the column kernel alone, and "xk16", "xk64", "noahead",
-"stagedepi" and "stcs" the row kernel alone.
+(median and minimum of 7).  ``--prec`` names the contracts whose entry
+points are timed ("highest" when it is not given; "high" and "default", the
+bf16 ones, are each held to the plain version of their own split).
+Variants that drop work ("noload", "nomma", "bfnomma", ...) give wrong
+results on purpose: they show what the remaining work costs.  The ring, the
+products and the operator's layout of the 3xTF32 column kernel (K1, K2) and
+of the row kernel (K3, every contract) are shared, so "noload", "nomma",
+"stages4" and "noprefetch" change both; "fslowest", "nofieldcopy" and
+"noopcopy" change the 3xTF32 column kernel alone; "xk16", "xk64", "noahead",
+"stagedepi" and "stcs" the row kernel alone; the "bf..." and "cl..."
+variants the bf16 column kernel alone (time them with --prec high,default).
 
 With no arguments every variant runs, "base" first and last.
 """
@@ -85,6 +90,12 @@ _STAGED_EPILOGUE = """        cp_async_wait<0>();
 _TF32_STAGES = ("    static constexpr int kStages = 5;\n",
                 "    static constexpr int kStages = 4;\n")
 _TF32_RK = "    static constexpr int kRK = 32;   // 128-byte pieces"
+# the bf16 column kernel's choice of cluster extents
+_CLUSTER = ("    while (bulk && a * 2 <= at && a * 2 <= 4) a *= 2;\n"
+            "    int c = 8 / a;\n")
+# the column kernel's copy of a K tile's operator stage
+_COL_OP_COPY = ("        load_operator<C>(ring, pack_tiles + (size_t)t * "
+                "L::kOpStage, s, tid);\n")
 VARIANTS = {
     "base": [],
     # the K loop without its copies from L2 (the prologue's tiles only)
@@ -94,6 +105,30 @@ VARIANTS = {
     "nomma": [("    if (live)\n        tile_products<",
                "    if (t < 0)\n        tile_products<")],
     "stages4": [_TF32_STAGES],
+    # column kernel: the K loop without the field tiles' copies, or without
+    # the operator's (what each stream from L2 costs)
+    "nofieldcopy": [(_COL_OP_COPY, _COL_OP_COPY + "        return;\n")],
+    "noopcopy": [(_COL_OP_COPY, "")],
+    # bf16 column kernel: without its products; without the combine and
+    # store of its epilogue
+    "bfnomma": [("if (live)\n                col_bf16_products<C>(",
+                 "if (kt < 0)\n                col_bf16_products<C>(")],
+    "bfnoepi": [("if (live) {\n                const float nu_f",
+                 "if (kt < 0) {\n                const float nu_f"),
+                ("if (tl.op_live && tl.x_live)\n"
+                 "                    store_boxes(",
+                 "if (kt < 0)\n                    store_boxes(")],
+    # bf16 column kernel: no field boxes asked into L2 ahead of their
+    # copies; 4 stages in "default"
+    "bfnopf": [("if (R::kAhead > 0 && (u < kt || more)) {", "if (u < 0) {")],
+    "bfst4": [("kStages = C::kPasses == 3 ? 3 : 5;",
+               "kStages = C::kPasses == 3 ? 3 : 4;")],
+    # bf16 column kernel: the cluster's extents cc x ca (ca up to the row
+    # tiles), in place of 8 / ca x up to 4
+    **{f"cl{cc}{ca}": [(_CLUSTER, _CLUSTER.replace("a * 2 <= 4",
+                                                   f"a * 2 <= {ca}")
+                        .replace("8 / a", str(cc)))]
+       for cc, ca in ((8, 1), (2, 2), (4, 2))},
     # column kernel: fields slowest, as a (tiles, batch) grid orders them
     "fslowest": [("const int f = rest % F;\n    rest /= F;",
                   "const int f = rest / (c_tiles * G);\n"
@@ -153,26 +188,32 @@ def registers(log: str) -> str:
     found, kernel = [], "?"
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            kernel = "row" if "burgers_row" in ln else "col"
+            kernel = "row" if "burgers_row" in ln else \
+                "colbf16" if "col_bf16" in ln else "col"
         elif "Used" in ln:
             found.append(f"{kernel} "
                          + ln.split(":")[-1].split(",")[0].strip()[5:])
         elif "spill" in ln and "0 bytes spill stores, 0 bytes spill" not in ln:
             found.append(f"{kernel} SPILLS: {ln.strip()}")
+        elif "Performance" in ln or "serialized" in ln or "warning" in ln:
+            found.append(f"{kernel} {ln.split(':', 1)[-1].strip()}")
     return ", ".join(found)
 
 
-def time_variant(lib, x, conv, nu, d12, ref) -> str:
+def time_variant(lib, x, conv, nu, d12, ref, prec: str) -> str:
     rows, depth = ctypes.c_int(), ctypes.c_int()
-    lib.burgers_pack_tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
-    lib.burgers_pack_tiles.restype = None
-    lib.burgers_pack_tiles(ctypes.byref(rows), ctypes.byref(depth))
+    tiles = lib.burgers_pack_tiles if prec == "highest" \
+        else lib.burgers_pack_tiles_bf16
+    tiles.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    tiles.restype = None
+    tiles(ctypes.byref(rows), ctypes.byref(depth))
     parts = []
-    for axis, name in enumerate(burgers.ENTRY_POINTS):
+    for axis, name in enumerate(burgers.entry_points(prec)):
         fn = getattr(lib, name)
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-        pack = burgers.pack_operator(d12[axis], rows.value, depth.value)
+        pack = burgers.pack_operator(d12[axis], rows.value, depth.value,
+                                     prec)
         out = torch.empty_like(x)
         stream = torch.cuda.current_stream().cuda_stream
 
@@ -200,8 +241,15 @@ def time_variant(lib, x, conv, nu, d12, ref) -> str:
 
 
 def main(argv=None) -> int:
-    names = list(sys.argv[1:] if argv is None else argv) \
-        or [*VARIANTS, "base"]
+    args = list(sys.argv[1:] if argv is None else argv)
+    precs = ["highest"]
+    if "--prec" in args:
+        i = args.index("--prec")
+        precs = args[i + 1].split(",")
+        del args[i:i + 2]
+    for prec in precs:
+        burgers.entry_points(prec)          # raises on an unknown name
+    names = args or [*VARIANTS, "base"]
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:
         print(f"unknown variants {unknown}; known: {list(VARIANTS)}",
@@ -223,8 +271,14 @@ def main(argv=None) -> int:
     nu = torch.rand(FIELDS, generator=gen, device="cuda")
     d12 = [torch.randn((2 * n, n), generator=gen, device="cuda")
            for n in SHAPE]
-    ref = [burgers.fused_burgers_plain(d12[a], x, conv, nu, a)
-           for a in range(3)]
+
+    def reference(prec):
+        unit, passes = burgers.CONTRACTS[prec]
+        return [burgers.fused_burgers_plain(d12[a], x, conv, nu, a)
+                if prec == "highest" else burgers.fused_burgers_split_plain(
+                    d12[a], x, conv, nu, a, passes, unit)
+                for a in range(3)]
+
     with tempfile.TemporaryDirectory() as tmp:
         built = build_all(dict.fromkeys(names), pathlib.Path(tmp))
         for name in names:
@@ -232,9 +286,13 @@ def main(argv=None) -> int:
             if so is None:
                 print(f"[variants] {name}: BUILD FAILED\n{log[-2000:]}")
                 return 1
-            print(f"[variants] {name}: {registers(log)}; "
-                  + time_variant(ctypes.CDLL(str(so)), x, conv, nu, d12, ref),
-                  flush=True)
+            lib = ctypes.CDLL(str(so))
+            for prec in precs:
+                ref = reference(prec)
+                print(f"[variants] {name} {prec}: {registers(log)}; "
+                      + time_variant(lib, x, conv, nu, d12, ref, prec),
+                      flush=True)
+                del ref
     return 0
 
 
