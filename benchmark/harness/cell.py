@@ -1,0 +1,237 @@
+"""One run of one cell: set-up, the measured window, the readings, and the
+comparison with the reference once the window has closed.
+
+Set-up builds the cell's Simulation with Simulation.from_case from the
+configuration's case in its dtype, makes the initial fields on the device
+from the seed (harness/fields.py), takes one warm step through the step
+that tools.dns.make_step_functions returns (and one statistics write
+where the traffic writes statistics), and keeps that step's result on the
+host for the comparison.  The window then steps on from the warm step's
+state (harness/window.py).  A traced run wraps the spans that its metrics
+read around the program's entry points for the whole window and profiles
+a steady stretch of it (harness/devtrace.py).
+"""
+from __future__ import annotations
+
+import gc
+import shutil
+import tempfile
+import time
+
+from harness import check, devtrace, fields, spec, window
+from harness.spans import Spans
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    import subprocess
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return "nvidia-smi unread"
+
+
+def _stats_every(cell: spec.Cell, case) -> int:
+    every = cell.traffic.get("statistics_every", 0)
+    return case.it_stats if every == "case" else int(every)
+
+
+def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
+        device: str = "cuda", shape=None, t_start: float = None,
+        log=print, patch=None, control: str = "") -> dict:
+    """The run's result object (the contract's keys, "checks" last).
+    shape: a smaller grid (tests); patch(step) -> step: a fault planted in
+    the timed path (tests); control: judge the reference put in the
+    program's place from the same inputs instead of the program's
+    outputs: "tf32" in float32 with TF32 products (the control's
+    readings); "fp32" wholly in plain float32, its Poisson solve and
+    background too, or "bg32" in float64 on a float32 background
+    (witnesses of what float32 itself reads;
+    benchmark/tests/controls.py; the benchmark's own runs never do)."""
+    import torch
+    from tlab_tpu_torch.config import Ini, load_case
+    from tlab_tpu_torch.dycore import incompressible as dyn
+    from tlab_tpu_torch.dycore.state import stack, unstack
+    from tlab_tpu_torch.ops import _build, burgers
+    from tlab_tpu_torch.runtime import Simulation
+    from tlab_tpu_torch.tools import dns
+
+    t_start = time.time() if t_start is None else t_start
+    cuda = torch.device(device).type == "cuda"
+    ini = cell.config["ini"] if shape is None \
+        else spec.resized(cell.config["ini"], shape)
+    dtype = getattr(torch, cell.config["dtype"])
+    sim = Simulation.from_case(load_case(Ini(text=spec.ini_text(ini))),
+                               dtype=dtype, device=device)
+    case = sim.case
+    every = _stats_every(cell, case)
+    q0 = fields.initial_stack(cell.config, ini, seed, device, dtype,
+                              cell.bench_dir)
+    step, diagnostics = dns.make_step_functions(sim)
+    if patch is not None:
+        step = patch(step)
+    cfla, cfld = case.time_cfl, case.time_cfl_diffusive
+    dt0 = dyn.next_dt(sim.P, diagnostics(unstack(q0)).tolist()[0], cfla,
+                      cfld)
+    out1, p1, diag1 = step(unstack(q0), dt0)
+    start = {"new": stack(out1).cpu(), "dt": dt0, "diag": diag1.tolist()}
+    del q0
+    outdir = tempfile.mkdtemp(prefix="bench-stats-")
+    try:
+        if every:
+            dns.write_statistics(sim, out1, outdir, 1, dt0, p=p1)
+        per_layer = {m["name"]: spec.metric(m["name"], cell.bench_dir)
+                     for m in cell.per_layer} if trace else {}
+        spans = None
+        if trace and cuda:
+            spans = Spans()
+            spans.install([s for mod in per_layer.values()
+                           for s in getattr(mod, "SPANS", ())])
+        if trace:
+            devtrace.warm(device)
+        burgers.reset_launches()
+        if cuda:
+            torch.cuda.synchronize()
+        setup_s = time.time() - t_start
+        tr = cell.traffic
+        # the window owns the state: no name here keeps a step's fields
+        carry = {"state": out1}
+        del out1, p1, diag1
+        win = window.run(sim, step, carry, dyn.next_dt(
+            sim.P, start["diag"][0], cfla, cfld), 1, dt0, seconds, every,
+            outdir, trace_at=(tr["trace_first_step"], tr["trace_steps"])
+            if trace else None)
+        peak = win.peak_bytes
+        launches = {k: list(v) for k, v in burgers.contract_launches.items()}
+        span_ms = None
+        if spans is not None:
+            torch.cuda.synchronize()
+            span_ms = spans.totals_ms()
+            spans.remove()
+        n_sub = len(sim.P["rk"]["kdt"])
+        nfields = 3 + sim.nsp.n_scalars
+        grid = tuple(sim.grid.shape)
+        built = {k: round(v["seconds"], 3) for k, v in _build.builds.items()}
+        del sim, step, diagnostics
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        card = torch.cuda.get_device_name(0) if cuda else "cpu"
+        if cuda:
+            ctx_card = _card()
+            log(f"[bench] card: {ctx_card}")
+        log(f"[bench] {cell.name} seed {seed}: {card}; grid {grid}; "
+            f"set-up {setup_s:.3f} s (builds {built}); window "
+            f"{win.seconds:.3f} s, {win.steps} steps, {len(win.stats_s)} "
+            f"statistics writes; peak {peak} B")
+        if win.step_s:
+            ms = sorted(1e3 * t for t in win.step_s)
+            log(f"[bench] step ms: min {ms[0]:.3f} median "
+                f"{ms[len(ms) // 2]:.3f} max {ms[-1]:.3f}; statistics "
+                f"writes ms: " + " ".join(f"{1e3 * t:.1f}"
+                                          for t in win.stats_s[:40]))
+        log(f"[bench] burgers.contract_launches {launches} "
+            f"({win.steps * n_sub} substeps)")
+        ctx = {"window": win, "points": grid[0] * grid[1] * grid[2],
+               "substeps_per_step": n_sub, "substeps": win.steps * n_sub,
+               "setup_s": setup_s, "peak_bytes": peak, "spans": span_ms,
+               "trace": win.trace, "shape": grid, "fields": nfields,
+               "word_bytes": torch.finfo(dtype).bits // 8,
+               "card": ctx_card if cuda else card,
+               "bench_dir": cell.bench_dir,
+               "log": log}
+        wanted = cell.per_layer if trace else cell.end_to_end
+        metrics = {}
+        for m in wanted:
+            mod = per_layer.get(m["name"]) \
+                or spec.metric(m["name"], cell.bench_dir)
+            v = mod.read(ctx)
+            if v is not None:
+                metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+        readings = _compare(cell, ini, seed, device, dtype, start, win,
+                            outdir, every, log, control)
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+    correct, rows = check.verdict(readings, cell.limits)
+    if win.failed:
+        correct = False
+        log(f"[bench] failed: {win.failed}")
+    result = {"correct": bool(correct), "attempted": win.steps,
+              "failed": int(win.failed is not None), "metrics": metrics,
+              "device": {"platform": "gpu" if cuda else "cpu",
+                         "kind": card, "count": 1,
+                         "memory_peak_bytes": int(peak)}}
+    if trace and win.trace:
+        result["device"]["busy_s"] = win.trace["busy_s"]
+        result["device"]["window_s"] = win.trace["window_s"]
+        result["breakdown"] = {"device_ops": win.trace["device_ops"],
+                               "idle_gaps": win.trace["idle_gaps"]}
+    result["checks"] = {n: {"value": v, "limit": lim} for n, v, lim in rows}
+    return result
+
+
+def _compare(cell, ini, seed, device, dtype, start, win, outdir, every,
+             log, control="") -> dict:
+    """The numbers of the comparison with the reference (harness/
+    check.py), the program's state already freed but for what is judged."""
+    import torch
+    from tlab_tpu_torch.dycore.state import stack
+    from reference import averages
+    from reference.step import Model
+
+    if win.failed:
+        return {}
+    t0 = time.perf_counter()
+    last = win.last
+    q_old, q_new = stack(last["state"]), stack(last["new"])
+    dt, diag = last["dt"], last["diag"]
+    held = win.stats
+    win.last = win.stats = None
+    del last
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    q0 = fields.initial_stack(cell.config, ini, seed, device, dtype,
+                              cell.bench_dir)
+    new0, diag0 = start["new"], start["diag"]
+    if control:
+        ctl = Model(ini, device, torch.float64 if control == "bg32"
+                    else torch.float32, tf32=control == "tf32",
+                    bg32=control in ("bg32", "fp32"),
+                    poisson32=control == "fp32")
+        new0 = ctl.step(q0, start["dt"])[0]
+        diag0 = ctl.diagnostics(new0)[0]
+        q_new = ctl.step(q_old, dt)[0]
+        diag = ctl.diagnostics(q_new)[0]
+        if not (every and held is not None):
+            del ctl                     # the tables of one model at a time
+    model = Model(ini, device)
+    own = {}
+    out = check.step_gaps(model, "start", q0, new0, start["dt"], diag0, own)
+    del q0, new0
+    out.update(check.step_gaps(model, "last", q_old, q_new, dt, diag, own))
+    log("[bench] velocity gaps over each component's own change: "
+        + " ".join(f"{k} {v:.4g}" for k, v in own.items()))
+    del q_old, q_new
+    if every and held is not None:
+        it = held["itime"]
+        q = stack(held["state"])
+        if control:
+            flow, scal = averages.tables(ctl, q, held["p"])
+            tables = [{n: v for n, (v, _) in t.items()}
+                      for t in [flow] + scal]
+        else:
+            tables = [averages.read_avg(f"{outdir}/avg{it}")] + [
+                averages.read_avg(f"{outdir}/avg{it}s{i + 1}")
+                for i in range(q.shape[0] - 3)]
+        gap, where = check.stats_gap(model, q, held["p"], tables)
+        out.update(gap)
+        log(f"[bench] statistics of iteration {it}: worst column {where}")
+    ref_peak = torch.cuda.max_memory_allocated() \
+        if torch.device(device).type == "cuda" else 0
+    log(f"[bench] the reference's comparison took "
+        f"{time.perf_counter() - t0:.3f} s, its peak {ref_peak} B")
+    return out
