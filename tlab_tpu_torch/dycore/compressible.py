@@ -42,6 +42,7 @@ from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.physics import eos
 from tlab_tpu_torch.physics import mixtures as mx
 from tlab_tpu_torch.physics import thermo as th
+from tlab_tpu_torch.utils import trace as _trace
 
 
 class CompState(NamedTuple):
@@ -77,6 +78,7 @@ def mass_fractions(U: CompState):
     return torch.cat([Y, (1.0 - torch.sum(Y, dim=0))[None]], dim=0)
 
 
+@_trace.span("dycore.mixture")
 def mixture_thermal(U: CompState, e, mach: float, mix, n_newton: int = 8):
     """(T, p, cp) from nondimensional internal energy via the mixture
     caloric table (reference THERMO_CALORIC_TEMPERATURE Newton +
@@ -479,6 +481,7 @@ def _add_gravity(h: CompState, U: CompState, gvec, energy: str):
     return CompState(h.rho, h_ru, h_rv, h_rw, h_rE, h.rhos)
 
 
+@_trace.span("dycore.buffer")
 def _apply_buffer(h: CompState, U: CompState, buf):
     """Compressible buffer relaxation (BOUNDARY_BUFFER RELAX_BLOCK_CF /
     RELAX_BLOCK_RHO): conservative fields relax toward the plane-mean

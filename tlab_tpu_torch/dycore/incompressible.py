@@ -69,6 +69,7 @@ from tlab_tpu_torch.ops import thomas
 from tlab_tpu_torch.ops.derivative import (apply_along, der1, der12,
                                            op_precision)
 from tlab_tpu_torch.ops.filter import apply_filter
+from tlab_tpu_torch.utils import trace as _trace
 
 
 # ---------------------------------------------------------------------------
@@ -246,11 +247,12 @@ def build_device_plans(fdm: FdmPlan, nsp: NSParams, bcs: WallBCs,
     P["bodyforce"] = bodyforce
     if not with_elliptic:
         return P
-    P["ell"] = elliptic.device_elliptic_plan(
-        elliptic.build_elliptic_plan(fdm, ibc=BC.NN), dtype, dev)
-    if factorize and fdm.y.size > 4:
-        P["ell_fac"] = fac.device_factorize_plan(
-            fac.build_factorize_plan(fdm), dtype, dev)
+    with _trace.trace("runtime.elliptic_plans"):
+        P["ell"] = elliptic.device_elliptic_plan(
+            elliptic.build_elliptic_plan(fdm, ibc=BC.NN), dtype, dev)
+        if factorize and fdm.y.size > 4:
+            P["ell_fac"] = fac.device_factorize_plan(
+                fac.build_factorize_plan(fdm), dtype, dev)
     return P
 
 
@@ -309,6 +311,7 @@ def _gathered_apply(P, axis_name: str, a, fn):
                                fn(g), off, comm["wire"])
 
 
+@_trace.span("dycore.d1")
 def _d1(P, axis_name: str, axis: int, a):
     """First derivative along one direction of a 3-D field or a 4-D stack
     (`axis` is valid for `a` itself): the substructured solve where the
@@ -334,6 +337,7 @@ def _d2(P, axis_name: str, axis: int, a):
                            lambda g: der12(d12, g, axis)[1])
 
 
+@_trace.span("dycore.d12")
 def _d12_apply(P, axis_name: str, axis: int, arr):
     """(d1 arr, d2 arr) along axis+1 of a 4-D stack: the substructured
     circulant plans of a periodic long line (2(L+2b) instead of 2N
@@ -391,6 +395,7 @@ def _fused_burgers_ok(P, axis_name: str, fields) -> bool:
             and P.get("adv_form", "convective") == "convective")
 
 
+@_trace.span("ops.burgers")
 def _burgers_all(P, axis_name: str, axis: int, fields, conv, nu):
     """nu d2 f - c d1 f along one direction for ALL fields of the stack.
 
@@ -602,6 +607,7 @@ def _apply_wall_rows_stacked(H, i, rows):
         nb, nt = rows["nb"], rows["nt"]
     H[i, :, 0, :] = torch.matmul(nb, H[i]) if nb is not None else 0.0
     H[i, :, -1, :] = torch.matmul(nt, H[i]) if nt is not None else 0.0
+    _trace.count("library.cublas", (nb is not None) + (nt is not None))
 
 
 # aux keys of tlab_tpu's step that the port does not carry
@@ -624,6 +630,7 @@ def _visc_scale(aux) -> float:
     return float(aux.get("visc_scale", 1.0))
 
 
+@_trace.span("dycore.substep")
 def substep_rhs_stacked(P, Q, H, dte, aux=None):
     """The tendency of one substep on the stacked carry Q, H
     (3+ns, nx, ny, nz), rows u, v, w, s1..  Returns (H_new, p); H is not
@@ -844,6 +851,7 @@ def rk_loop_stacked(P, state: State, dtime, n_steps: int, aux=None):
 # Diagnostics for the step log / adaptive dt
 # ---------------------------------------------------------------------------
 
+@_trace.span("dycore.diagnostics")
 def cfl_advective_max(P, state: State):
     """max(|u|/dx + |v|/dy + |w|/dz), cf. reference TIME_COURANT."""
     acc = 0.0
@@ -856,6 +864,7 @@ def cfl_advective_max(P, state: State):
     return torch.max(acc)
 
 
+@_trace.span("dycore.diagnostics")
 def dilatation_minmax(P, state: State):
     """Dilatation extrema for the step log / bounds control (on the
     pressure nodes for a staggered run).  Anelastic runs monitor the

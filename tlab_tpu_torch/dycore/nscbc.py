@@ -43,6 +43,7 @@ from tlab_tpu_torch.dycore.compressible import (CompState, gamma_airwater,
                                                 mass_fractions, primitive)
 from tlab_tpu_torch.ops.derivative import der1
 from tlab_tpu_torch.physics import mixtures as mx
+from tlab_tpu_torch.utils import trace as _trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -265,6 +266,7 @@ def _add_rows(a, idx, val):
     return a
 
 
+@_trace.span("dycore.nscbc")
 def apply_nscbc(P, U: CompState, h: CompState, gamma: float, mach: float,
                 spec: NSCBCSpec, ly: float, lx: float = 1.0,
                 gvec=(0.0, 0.0, 0.0), energy: str = "total",
@@ -391,6 +393,7 @@ def apply_nscbc(P, U: CompState, h: CompState, gamma: float, mach: float,
     return CompState(*comps, hs)
 
 
+@_trace.span("dycore.nscbc")
 def apply_nscbc_airwater(P, U: CompState, h: CompState, tp, spec: NSCBCSpec,
                          ly: float, prim, gvec=(0.0, 0.0, 0.0)) -> CompState:
     """BOUNDARY_BCS_Y for the compressible AirWater internal-energy core:

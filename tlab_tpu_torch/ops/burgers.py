@@ -55,6 +55,7 @@ from tlab_tpu_torch import device as _device
 from tlab_tpu_torch.ops import _build
 from tlab_tpu_torch.ops.derivative import der12
 from tlab_tpu_torch.utils import nantrap
+from tlab_tpu_torch.utils import trace as _trace
 
 # the arithmetic contracts of tlab_tpu's _dot by their prec_name
 # (ops/derivative.py::op_precision): (operand type, passes)
@@ -92,6 +93,11 @@ def total_launches() -> list:
     """Launches per axis (K1, K2, K3) over all contracts."""
     return [sum(c[axis] for c in contract_launches.values())
             for axis in range(3)]
+
+
+# the span registry's counter ops.burgers.k, set to 0 by its reset()
+_trace.source("ops.burgers.k", lambda: sum(total_launches()),
+              reset_launches)
 
 
 def _contract(prec_name: str) -> tuple:

@@ -18,6 +18,8 @@ import os
 
 import torch
 
+from tlab_tpu_torch.utils import trace as _trace
+
 # tlab_tpu's precision names, from the cheapest to the most exact
 PRECISIONS = ("default", "high", "highest")
 
@@ -45,6 +47,7 @@ def op_precision(dtype):
 
 def apply_along(M: torch.Tensor, u: torch.Tensor, axis: int) -> torch.Tensor:
     """out = M @ u along `axis` (one GEMM, batched over the leading axes)."""
+    _trace.count("library.cublas")
     n = u.shape[axis]
     if axis == u.ndim - 1:
         return torch.matmul(u, M.T)

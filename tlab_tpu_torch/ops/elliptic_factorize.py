@@ -21,6 +21,7 @@ import torch
 
 from tlab_tpu_torch.fdm.plan import DerivPlan, FdmPlan
 from tlab_tpu_torch import device as _device
+from tlab_tpu_torch.utils import trace as _trace
 
 
 # ---------------------------------------------------------------------------
@@ -213,11 +214,13 @@ def device_plan_from_arrays(arrays: dict, dtype, device) -> dict:
 
 def _lmul(M, X):
     """M @ X over the leading axis of X ("ab,b...->a...")."""
+    _trace.count("library.cublas")
     return (M @ X.reshape(X.shape[0], -1)).reshape(M.shape[0], *X.shape[1:])
 
 
 def _modal_solve(V, W, dnm, rhs):
     """x = V [(W rhs) / dnm] batched over modes; rhs and dnm (nkx, n, nz)."""
+    _trace.count("library.cublas", 2)
     return torch.matmul(V, torch.matmul(W, rhs) / dnm)
 
 
@@ -262,6 +265,7 @@ def build_tables(dev: dict) -> dict:
     rB, rA, rAf = dev["rB_ft_max"], dev["rA_ft_max"], dev["rAf_ft_max"]
 
     def ft_max(u, f):
+        _trace.count("library.cublas", 3)
         return (torch.einsum("a,akz->kz", rB, u)
                 - kap * torch.einsum("a,akz->kz", rA, u)
                 - torch.einsum("a,akz->kz", rAf, f))
@@ -397,6 +401,7 @@ def solve_modal_factorize(dev: dict, f_hat, gb, gt, ibc: str = "nn"):
     u0 = _modal_solve(dev["Vmax"], dev["Wmax"], tb["dmax"], rhs2s)
 
     # u'_N of stage 2 from the bc-end scheme row (du_boundary)
+    _trace.count("library.cublas", 3)
     du0_n = (torch.matmul(rB, u0) - kap * torch.matmul(rA, u0)
              - torch.matmul(rAf, rhs2s))
     if ibc == "dd":
@@ -462,6 +467,7 @@ def solve_modal_factorize(dev: dict, f_hat, gb, gt, ibc: str = "nn"):
     return u, v
 
 
+@_trace.span("ops.poisson")
 def poisson_factorize(dev: dict, f, bcs_b=None, bcs_t=None,
                       ibc: str = "nn"):
     """Physical-space Poisson via the factorized modal solver; bcs_b/bcs_t
@@ -477,10 +483,12 @@ def poisson_factorize(dev: dict, f, bcs_b=None, bcs_t=None,
     gt_phys = zero if bcs_t is None else bcs_t
 
     def fwd(a):
+        _trace.count("library.cufft", 2 if nz > 1 else 1)
         ah = torch.fft.rfft(a, dim=0)
         return torch.fft.fft(ah, dim=-1) if nz > 1 else ah
 
     def bwd(ah):
+        _trace.count("library.cufft", 2 if nz > 1 else 1)
         if nz > 1:
             ah = torch.fft.ifft(ah, dim=-1)
         return torch.fft.irfft(ah, n=nx, dim=0)

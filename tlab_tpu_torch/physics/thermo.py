@@ -50,6 +50,8 @@ import functools
 import numpy as np
 import torch
 
+from tlab_tpu_torch.utils import trace as _trace
+
 # Reference property data (Iribarne & Godson 1981, thermodynamics.f90:
 # 270-283, 420-422): molar masses in kg/kmol, heat capacities in J/kg/K,
 # latent heat of vaporization at 273.15 K in J/kg
@@ -291,6 +293,7 @@ def temperature_unsaturated(tp: ThermoParams, h, qt, ep):
     return (h - ep) / (tp.Cd + qt * tp.Cdv)
 
 
+@_trace.span("physics.thermo")
 def equilibrium_newton_error(tp: ThermoParams, s, bg: dict):
     """The reference's NEWTONRAPHSON_ERROR for the dns.out NewtonRs
     column (thermo_anelastic.f90:176, dns_main.f90:483-493): the final
@@ -465,6 +468,7 @@ def hydrostatic_background(tp: ThermoParams, y: np.ndarray,
             "rho_inv": 1.0 / rho}
 
 
+@_trace.span("physics.thermo")
 def buoyancy_explicit(tp: ThermoParams, s, bg: dict):
     """b = (rho_bar - p_bar/(R_hat T))/rho_bar from state scalars, with
     R_hat = R_mix/Rd the reference-normalized gas constant (reference
@@ -479,6 +483,7 @@ def buoyancy_explicit(tp: ThermoParams, s, bg: dict):
     return ((rho - p / (R_hat * T)) / rho).to(s.dtype)
 
 
+@_trace.span("physics.thermo")
 def equilibrium_state(tp: ThermoParams, s, bg: dict):
     """(T, ql) of the state scalars s on the background bg, in s's
     dtype."""
@@ -588,6 +593,7 @@ def _airwater_re64(tp: ThermoParams, qt, e, rho, nr: int):
     return T, ql, err
 
 
+@_trace.span("physics.thermo")
 def airwater_re(tp: ThermoParams, qt, e, rho, nr: int = 3):
     """(T, ql, err) from (rho, e, qt) via the caloric EOS
     (THERMO_AIRWATER_RE, thermo_airwater.f90:254-425, dsmooth=0 branch).

@@ -627,6 +627,7 @@ class Simulation:
     comp: Optional[dict] = None
 
     @classmethod
+    @_trace.trace("runtime.from_case")
     def from_case(cls, case_or_path, dtype=torch.float32, device="cuda",
                   grid: Optional[Grid] = None,
                   banded_min_n: Optional[int] = None) -> "Simulation":
@@ -641,7 +642,8 @@ class Simulation:
         dev = _device.resolve(device)
         if grid is None:
             grid = grid_from_case(case)
-        fdm = build_fdm_plan(grid, case.space_order1, case.space_order2)
+        with _trace.trace("runtime.fdm_plan"):
+            fdm = build_fdm_plan(grid, case.space_order1, case.space_order2)
         nsp = NSParams(reynolds=case.reynolds, schmidt=tuple(case.schmidt),
                        prandtl=case.prandtl, froude=case.froude,
                        rossby=case.rossby)
@@ -664,11 +666,13 @@ class Simulation:
             # no pressure Poisson, acoustic integration (reference
             # DNS_EQNS_TOTAL/INTERNAL); the Poisson solves of the initial
             # conditions build their plans at first use
-            P = dyn.build_device_plans(
-                fdm, nsp, bcs, rk_name=case.time_order, dtype=dtype,
-                device=dev, wall_refs=wall_refs, with_elliptic=False,
-                **dyn.banded_crossovers(banded_min_n))
-            comp = _compressible(case, grid, nsp, P, dtype, dev)
+            with _trace.trace("runtime.device_plans"):
+                P = dyn.build_device_plans(
+                    fdm, nsp, bcs, rk_name=case.time_order, dtype=dtype,
+                    device=dev, wall_refs=wall_refs, with_elliptic=False,
+                    **dyn.banded_crossovers(banded_min_n))
+            with _trace.trace("runtime.tables"):
+                comp = _compressible(case, grid, nsp, P, dtype, dev)
             return cls(case=case, grid=grid, fdm=fdm, nsp=nsp, P=P,
                        ell_plans={}, dtype=dtype, device=dev, comp=comp)
         # EllipticOrder: the factorized formulation is the default (as the
@@ -684,17 +688,19 @@ class Simulation:
         # the reference's Boussinesq + moist-thermo combination; only
         # Equations=anelastic also weights the dycore by rho_bar
         # (P["anelastic"] below)
-        anelastic = make_anelastic(case, grid, dtype, dev) \
-            if (case.equations == "anelastic"
-                or (case.thermo or {}).get("type", "").lower()
-                == "anelastic") else None
-        P = dyn.build_device_plans(
-            fdm, nsp, bcs, rk_name=case.time_order, dtype=dtype, device=dev,
-            wall_refs=wall_refs,
-            bodyforce=make_sources(case, grid, dtype, dev,
-                                   anelastic=anelastic),
-            factorize=factorized and not case.stagger,
-            **dyn.banded_crossovers(banded_min_n))
+        with _trace.trace("runtime.tables"):
+            anelastic = make_anelastic(case, grid, dtype, dev) \
+                if (case.equations == "anelastic"
+                    or (case.thermo or {}).get("type", "").lower()
+                    == "anelastic") else None
+            bodyforce = make_sources(case, grid, dtype, dev,
+                                     anelastic=anelastic)
+        with _trace.trace("runtime.device_plans"):
+            P = dyn.build_device_plans(
+                fdm, nsp, bcs, rk_name=case.time_order, dtype=dtype,
+                device=dev, wall_refs=wall_refs, bodyforce=bodyforce,
+                factorize=factorized and not case.stagger,
+                **dyn.banded_crossovers(banded_min_n))
         # [Main] TermAdvection selects the nonlinear formulation
         # (reference rhs_flow_global_incompressible_1/2/3.f90); the
         # anelastic set is combined-convective only, as the reference

@@ -42,6 +42,7 @@ import torch
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.physics import gravity as grav
 from tlab_tpu_torch.physics import thermo
+from tlab_tpu_torch.utils import trace as _trace
 
 # ---------------------------------------------------------------------------
 # Table layout (reference avg_flow_xz.f90:102-391, avg_scal_xz.f90:92-236)
@@ -181,6 +182,7 @@ def build_extras(sim, state):
     return add_state_extras(sim, state, build_extras_static(sim))
 
 
+@_trace.span("stats.tables")
 def stats_tables(sim, state, p):
     """The full avg tables of `state` (counterpart of tlab_tpu's
     make_stats_tables_fn): (flow dict, [scalar dicts]) of (ny,) NumPy

@@ -215,7 +215,26 @@ def _run(args, mesh=None) -> int:
 
 
 def _case_command(args, case, mesh=None) -> int:
-    """The commands that read the case file `case`."""
+    """The commands that read the case file `case`; tlab.trace, where the
+    case asks for it, is the root's and ends with the registry's table."""
+    from tlab_tpu_torch.utils import trace
+
+    os.makedirs(args.outdir, exist_ok=True)
+    if args.command == "dns" and mesh is None:
+        spec = args.mesh or case.ini.get("Parallel", "Mesh", "")
+        if spec:
+            return _dns_on_mesh(args, spec)
+    if mesh is not None and not mesh.root:
+        return _command(args, case, mesh)
+    trace.maybe_init(case, args.outdir)
+    try:
+        return _command(args, case, mesh)
+    finally:
+        trace.close()
+
+
+def _command(args, case, mesh=None) -> int:
+    """_case_command's command, on this rank."""
     from tlab_tpu_torch.convert import state_from_numpy
     from tlab_tpu_torch.grid import write_reference_grid
     from tlab_tpu_torch.io import fields_io
@@ -224,13 +243,6 @@ def _case_command(args, case, mesh=None) -> int:
     from tlab_tpu_torch.runtime import Simulation, grid_from_case
     from tlab_tpu_torch.utils import trace
 
-    os.makedirs(args.outdir, exist_ok=True)
-    if args.command == "dns" and mesh is None:
-        spec = args.mesh or case.ini.get("Parallel", "Mesh", "")
-        if spec:
-            return _dns_on_mesh(args, spec)
-    if mesh is None or mesh.root:
-        trace.maybe_init(case, args.outdir)
     trace.point(f"tool {args.command} starting ({args.ini})")
 
     if args.command == "inigrid":
@@ -316,14 +328,16 @@ def _case_command(args, case, mesh=None) -> int:
     if sim.comp is not None:
         from tlab_tpu_torch.dycore.compressible import CompState
         # as tlab_tpu's: no [ViscChange] ramp in the compressible set
-        U0, rtime, _ = fields_io.read_comp_state(flow, it0)
+        with trace.trace("io.read_state"):
+            U0, rtime, _ = fields_io.read_comp_state(flow, it0)
+            state = CompState(*(None if a is None else torch.as_tensor(
+                a).to(sim.device, sim.dtype) for a in U0))
         visc0 = None
-        state = CompState(*(None if a is None else torch.as_tensor(a).to(
-            sim.device, sim.dtype) for a in U0))
     else:
-        u, v, w, s, rtime, visc0 = fields_io.read_state(flow, scal, it0,
-                                                        sim.nsp.n_scalars)
-        state = state_from_numpy(u, v, w, s, sim.device, sim.dtype)
+        with trace.trace("io.read_state"):
+            u, v, w, s, rtime, visc0 = fields_io.read_state(
+                flow, scal, it0, sim.nsp.n_scalars)
+            state = state_from_numpy(u, v, w, s, sim.device, sim.dtype)
     # Lagrangian particles (reference dns.x particle path): engaged when
     # [Particles] Type is set and a part.<it> restart exists
     pstate = None

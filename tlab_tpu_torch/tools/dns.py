@@ -113,6 +113,10 @@ from tlab_tpu_torch.utils.fortran_fmt import fort_e
 
 # the in-run PDFs' bins
 INRUN_BINS = 32
+# the step function's span: the host's launch time of a whole step; the
+# loop's host read of its diagnostics
+_STEP_SPAN = _trace.span("tools.dns.step")
+_READ_SPAN = _trace.span("tools.dns.read")
 
 
 @dataclasses.dataclass
@@ -264,18 +268,21 @@ def make_step_functions(sim: Simulation, inner_steps: int = 1,
         return _reduced(mesh, vals, mins=(1,))
 
     if pstep is not None and particles is None:
+        @_STEP_SPAN
         def step(state, dtime, extra=None):
             new_state, p = pstep(state, dtime, extra)
             return new_state, p, diagnostics(new_state)
 
         return step, diagnostics
     if pstep is not None:
+        @_STEP_SPAN
         def step(state, parts, dtime):
             new_state, new_parts, _ = pstep(state, parts, dtime)
             return new_state, new_parts, diagnostics(new_state)
 
         return step, diagnostics
 
+    @_STEP_SPAN
     def step(state, dtime, extra=None):
         if implicit_diff:
             new_state = state
@@ -292,6 +299,7 @@ def make_step_functions(sim: Simulation, inner_steps: int = 1,
     if particles is not None:
         locate = make_locator(sim.grid)
 
+        @_STEP_SPAN
         def step(state, pstate, dtime):
             new_state, new_ps = rk_step_with_particles(
                 P, sim.grid, locate, particles, state, pstate, dtime)
@@ -368,6 +376,7 @@ def _compressible_step_functions(sim: Simulation, mesh=None):
             cfl = comp_mod.acoustic_cfl_max_airwater(P, U, aw, prim=prim)
             return stack(U, cfl, prim[4], newton), prim[4]
 
+        @_STEP_SPAN
         def step(U, dtime, extra=None):
             new_U, newton = advance(U, dtime)
             diag, p = diagnostics(new_U, newton)
@@ -382,6 +391,7 @@ def _compressible_step_functions(sim: Simulation, mesh=None):
                                         mix=mix, energy=c["energy"])
         return stack(U, cfl, p)
 
+    @_STEP_SPAN
     def step(U, dtime, extra=None):
         new_U = advance(U, dtime)
         p = _primitive(sim, new_U, P)[4]
@@ -390,6 +400,7 @@ def _compressible_step_functions(sim: Simulation, mesh=None):
     return step, diagnostics
 
 
+@_trace.span("stats.write")
 def write_statistics(sim: Simulation, state: State, outdir: str,
                      itime: int, rtime: float, p=None) -> None:
     """avg<itime> / avg<itime>s<i> plane-statistics tables
@@ -405,6 +416,7 @@ def write_statistics(sim: Simulation, state: State, outdir: str,
     _inrun_pdfs_spectra(sim, state, outdir, itime, rtime)
 
 
+@_trace.span("stats.files")
 def _write_tables(sim: Simulation, outdir: str, itime: int, rtime: float,
                   flow: dict, scals: list) -> None:
     """avg<itime> and avg<itime>s<i> from the host tables."""
@@ -418,6 +430,7 @@ def _write_tables(sim: Simulation, outdir: str, itime: int, rtime: float,
             itime, rtime)
 
 
+@_trace.span("stats.write")
 def write_statistics_compressible(sim: Simulation, U, outdir: str,
                                   itime: int, rtime: float) -> None:
     """Compressible avg<itime> / avg<itime>s<i> tables: the primitive
@@ -432,6 +445,7 @@ def write_statistics_compressible(sim: Simulation, U, outdir: str,
     _inrun_pdfs_spectra(sim, state, outdir, itime, rtime)
 
 
+@_trace.span("stats.tables")
 def _comp_tables(sim: Simulation, U):
     """(the primitive State, the flow table, [scalar tables]) of
     write_statistics_compressible, the tables as NumPy columns."""
@@ -484,6 +498,7 @@ def _comp_tables(sim: Simulation, U):
     return (state, *avg.to_host(flow, scals))
 
 
+@_trace.span("stats.pdfs_spectra")
 def _inrun_pdfs_spectra(sim: Simulation, state: State, outdir: str,
                         itime: int, rtime: float) -> None:
     """[Statistics] Pdfs / Intermittency / Spectrums / Correlations at
@@ -929,11 +944,10 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
                                            device=state.u.device)
         return aux or None
 
-    with _trace.trace("building step functions"):
-        step, diagnostics = _trapped(*make_step_functions(
-            sim, inner_steps=inner_steps,
-            particles=particle_props if pstate is not None else None,
-            mesh=mesh), mesh)
+    step, diagnostics = _trapped(*make_step_functions(
+        sim, inner_steps=inner_steps,
+        particles=particle_props if pstate is not None else None,
+        mesh=mesh), mesh)
     # (the plan goes in the partial: a region copies its arguments)
     pressure = nantrap.region("pressure_boussinesq",
                               functools.partial(pressure_boussinesq, sim.P))
@@ -1032,7 +1046,9 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
             # the window's one host sync: the previous window's diagnostics
             # and this one's, whose NewtonRs (of the stepped state) is what
             # tlab_tpu logs
-            (cmax, *extras), now = torch.stack((prev_diag, diag)).tolist()
+            with _READ_SPAN:
+                (cmax, *extras), now = torch.stack(
+                    (prev_diag, diag)).tolist()
             cmax *= 1.0 / 0.97
             if newton:
                 extras[2] = now[3]
@@ -1041,7 +1057,8 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
             if dt_lag:
                 prev_diag = diag
             # the window's one host sync: a 3-element copy
-            cmax, *extras = diag.tolist()
+            with _READ_SPAN:
+                cmax, *extras = diag.tolist()
         if profile:
             prof_samples.append(time.monotonic() - t_it)
         if nan_abort and not np.isfinite(cmax):
@@ -1220,9 +1237,8 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
     with _trace.trace("attach_buffer"):
         sim.attach_buffer_compressible(U)
     U = ranks.local_comp(U)
-    with _trace.trace("building step functions"):
-        step, diagnostics = _trapped(
-            *_compressible_step_functions(sim, mesh), mesh)
+    step, diagnostics = _trapped(
+        *_compressible_step_functions(sim, mesh), mesh)
     if ranks.root:
         write_tlab_log(sim, outdir, mesh=mesh)
         if mesh is not None:
@@ -1278,8 +1294,10 @@ def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
         visc = _ramped(visc, visc_ini, ramp_rate, dtime)
         # the window's one host sync: a 6- or 7-element copy (the previous
         # window's with DtLag)
-        cmax, *extras, dden = (prev_diag if dt_lag and prev_diag is not None
-                               else diag).tolist()
+        with _READ_SPAN:
+            cmax, *extras, dden = (prev_diag if dt_lag
+                                   and prev_diag is not None
+                                   else diag).tolist()
         if dt_lag and prev_diag is not None:
             cmax *= 1.0 / 0.97
         if dt_lag:
