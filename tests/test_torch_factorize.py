@@ -133,17 +133,95 @@ def test_poisson_factorize_dd_manufactured_solution():
 
 
 def test_sing_column_dd_matches_jax():
+    """The batched singular solve with one mode against tlab_tpu's
+    per-mode DD_Sing column."""
     _, _, dev_j, dev_t = _plans(32, 33, 16)
     rng = np.random.default_rng(13)
     fcol = rng.standard_normal(33) + 1j * rng.standard_normal(33)
     gbs, gts = 0.3 - 0.2j, -0.7 + 0.1j
     uj, vj = jfac.sing_column(dev_j, jnp.asarray(fcol), gbs, gts, "dd")
-    ut, vt = tfac.sing_column(dev_t, torch.from_numpy(fcol),
-                              torch.tensor(gbs, dtype=torch.complex128),
-                              torch.tensor(gts, dtype=torch.complex128), "dd")
-    assert _rel(ut, uj) <= 1e-11 and _rel(vt, vj) <= 1e-11
+    ut, vt = tfac.sing_column(dev_t, torch.from_numpy(fcol)[:, None],
+                              torch.tensor([gbs], dtype=torch.complex128),
+                              torch.tensor([gts], dtype=torch.complex128),
+                              "dd")
+    assert ut.shape == vt.shape == (33, 1)
+    assert _rel(ut[:, 0], uj) <= 1e-11 and _rel(vt[:, 0], vj) <= 1e-11
     with pytest.raises(ValueError, match="ibc"):
         tfac.solve_modal_factorize(dev_t, None, None, None, ibc="dn")
+
+
+# the singular index sets: the reference's four {0, Nyquist}^2 (the plan's
+# own), the staggered grid's one, and a pencil rank's empty set
+SING_SETS = {"four": None, "one": ((0, 0),), "none": ()}
+
+
+@pytest.mark.parametrize("modes", list(SING_SETS))
+@pytest.mark.parametrize("ibc, mode", [("nn", None), ("nn", "legacy"),
+                                       ("dd", None)])
+def test_batched_singular_solve_matches_jax_per_mode(monkeypatch, ibc, mode,
+                                                     modes):
+    """solve_modal_factorize solves the plan's singular modes as one batch:
+    each mode's columns equal tlab_tpu's sing_column of that mode alone to
+    1e-12 (float64), every mode with a forcing column and wall values of
+    its own, and the whole solve equals tlab_tpu's over the same index set
+    to 1e-11 (but for the kappa ~ 0 modes outside it); an empty set makes
+    no product of its own."""
+    from tlab_tpu_torch.utils import trace
+    if mode is None:
+        monkeypatch.delenv("TLAB_TPU_SING_MODE", raising=False)
+    else:
+        monkeypatch.setenv("TLAB_TPU_SING_MODE", mode)
+    nx, ny, nz = 32, 33, 16
+    sing_idx = SING_SETS[modes]
+    fdm = build_fdm_plan(uniform_grid(nx, ny, nz, 2.0, 1.0, 1.5))
+    tfdm = tbuild_fdm_plan(tgrid.uniform_grid(nx, ny, nz, 2.0, 1.0, 1.5))
+    dev_j = jfac.device_factorize_plan(
+        jfac.build_factorize_plan(fdm, sing_idx=sing_idx), jnp.float64)
+    dev_t = tfac.device_factorize_plan(
+        tfac.build_factorize_plan(tfdm, sing_idx=sing_idx), torch.float64,
+        "cpu")
+    m = len(dev_t["sing_idx"])
+    assert m == {"four": 4, "one": 1, "none": 0}[modes]
+    nkx = nx // 2 + 1
+    rng = np.random.default_rng(14)
+
+    def cplx(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    f_hat, gb, gt = cplx(nkx, ny, nz), cplx(nkx, nz), cplx(nkx, nz)
+    trace.stop()
+    trace.reset()
+    trace.start(host_only=True)
+    try:
+        with trace.span("t.solve"):
+            u, v = tfac.solve_modal_factorize(
+                dev_t, torch.from_numpy(f_hat), torch.from_numpy(gb),
+                torch.from_numpy(gt), ibc)
+        counts = trace.totals()["spans"]["t.solve"]["counts"]
+    finally:
+        trace.stop()
+        trace.reset()
+    assert counts["library.cublas"] == 7 + (4 if m else 0)
+    assert counts["ops.poisson.sing_columns"] == m
+    for (i, k) in dev_t["sing_idx"]:
+        gbs = 0.0 if ibc == "nn" else gb[i, k]
+        uj, vj = jfac.sing_column(dev_j, jnp.asarray(f_hat[i, :, k]), gbs,
+                                  gt[i, k], ibc)
+        assert _rel(u[i, :, k], uj) <= 1e-12
+        assert _rel(v[i, :, k], vj) <= 1e-12
+    # kappa ~ 0 modes outside the set keep the regular solve's ill-posed
+    # 'nn' columns (kappa 1e-14 at Nyquist: ~1e27), which neither package
+    # defines: left out
+    kappa = dev_t["kappa"].numpy()
+    keep = kappa > 1e-8 * kappa.max()
+    for (i, k) in dev_t["sing_idx"]:
+        keep[i, k] = True
+    uj, vj = jfac.solve_modal_factorize(
+        dev_j, jnp.asarray(f_hat), jnp.asarray(gb), jnp.asarray(gt),
+        ibc=ibc, sing_idx=dev_j["sing_idx"])
+    for a, b in ((u, uj), (v, vj)):
+        a, b = a.numpy().transpose(0, 2, 1), np.asarray(b).transpose(0, 2, 1)
+        assert _rel(a[keep], b[keep]) <= 1e-11
 
 
 def _shear_text(ny, changes=(), n=8):

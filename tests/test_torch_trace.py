@@ -172,7 +172,7 @@ def test_library_calls_of_one_substep_follow_the_code_path():
     cuBLAS  3  [D1;D2] products (the Burgers term, x y z)
           + 3  d1 products of the forcing's divergence
           + 7  the Poisson solve's modal sweeps (2 x 2) and u'_N (3)
-          + 8  for each singular mode (4 sweeps of 2 products)
+          + 4  its singular modes, all in one batch (2 sweeps of 2)
           + 2  d1 products of the pressure gradient (x, z)
           + 6  wall rows: u, w (free-slip) and s (Neumann), 2 each
     cuFFT  10  the Poisson solve: f, and the two walls' data, forward
@@ -186,14 +186,35 @@ def test_library_calls_of_one_substep_follow_the_code_path():
     with trace.span("t.substep"):
         dyn.substep_rhs_stacked(P, Q, torch.zeros_like(Q), 1e-3)
     counts = trace.totals()["spans"]["t.substep"]["counts"]
-    assert counts == {"library.cublas": 3 + 3 + 7 + 8 * n_sing + 2 + 6,
-                      "library.cufft": 10}
+    assert counts == {"library.cublas": 3 + 3 + 7 + 4 + 2 + 6,
+                      "library.cufft": 10,
+                      "ops.poisson.sing_columns": n_sing}
     trace.reset()
     with trace.span("t.diag"):
         dyn.cfl_advective_max(P, state)
         dyn.dilatation_minmax(P, state)
     assert trace.totals()["spans"]["t.diag"]["counts"] == {
         "library.cublas": 3}
+
+
+def test_the_poisson_solve_counts_its_singular_columns():
+    """One poisson_factorize call of a 4-mode 'nn' plan: its span counts
+    the 4 singular columns, solved as one batch, and 11 products (the
+    regular solve's 7 and the batch's 2 sweeps of 2)."""
+    from tlab_tpu_torch import grid as tgrid
+    from tlab_tpu_torch.fdm.plan import build_fdm_plan
+    from tlab_tpu_torch.ops import elliptic_factorize as fac
+    fdm = build_fdm_plan(tgrid.uniform_grid(16, 24, 8, 2.0, 1.0, 1.5))
+    dev = fac.device_factorize_plan(fac.build_factorize_plan(fdm),
+                                    torch.float64, "cpu")
+    assert len(dev["sing_idx"]) == 4
+    f = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (16, 24, 8)))
+    trace.start()
+    fac.poisson_factorize(dev, f)
+    counts = trace.totals()["spans"]["ops.poisson"]["counts"]
+    assert counts["ops.poisson.sing_columns"] == 4
+    assert counts["library.cublas"] == 7 + 4
 
 
 def test_the_burgers_launches_are_the_kernels_own_counters():

@@ -219,7 +219,8 @@ def _lmul(M, X):
 
 
 def _modal_solve(V, W, dnm, rhs):
-    """x = V [(W rhs) / dnm] batched over modes; rhs and dnm (nkx, n, nz)."""
+    """x = V [(W rhs) / dnm]: batched over modes with rhs and dnm (nkx, n,
+    nz), or one (n, c) block of columns with dnm (n, 1)."""
     _trace.count("library.cublas", 2)
     return torch.matmul(V, torch.matmul(W, rhs) / dnm)
 
@@ -236,7 +237,13 @@ def build_tables(dev: dict) -> dict:
     from the bc-end scheme row.  All are stored complex in the modal
     layout (nkx, ny, nz) that the solve reads.  The responses are real for
     real kappa; like the reference implementation the tables keep only
-    their real part (the imaginary part is eigen-decomposition round-off)."""
+    their real part (the imaginary part is eigen-decomposition round-off).
+
+    And what the singular modes' solve (sing_column) reads: the indices of
+    dev["sing_idx"] as device tensors sing_i, sing_k; the kappa = 0 sweep
+    denominators dmin0, dmax0 (ny, 1), the same for every mode; the wall
+    slots as masks wall0, wallN (ny, 1); sps, the 'max' response to a
+    column of ones with bc = 0 (DD_Sing's s^+)."""
     cd = dev["Vmin"].dtype
     kap = dev["kappa"].to(cd)                              # (nkx, nz)
     kl = kap[None]                                         # (1, nkx, nz)
@@ -284,41 +291,51 @@ def build_tables(dev: dict) -> dict:
         out[name] = real_part(t).movedim(0, 1).contiguous()
     for name, t in (("du1_n", du1_n), ("dsp_n", dsp_n), ("dep_n", dep_n)):
         out[name] = real_part(t)
+
+    device = Vmin.device
+    idx = torch.tensor(dev["sing_idx"], dtype=torch.long).reshape(-1, 2)
+    out["sing_i"] = idx[:, 0].contiguous().to(device)
+    out["sing_k"] = idx[:, 1].contiguous().to(device)
+    out["dmin0"] = (1.0 - shift * dev["lam_min"])[:, None]
+    out["dmax0"] = (1.0 + shift * dev["lam_max"])[:, None]
+    rows = torch.arange(ny, device=device)[:, None]
+    out["wall0"] = rows == 0
+    out["wallN"] = rows == ny - 1
+    ones = torch.ones((ny, 1), dtype=cd, device=device)
+    out["sps"] = _modal_solve(Vmax, Wmax, out["dmax0"],
+                              torch.where(out["wallN"], 0.0, ones))
     return out
 
 
-def sing_column(dev: dict, fcol, gbs, gts, ibc: str = "nn"):
-    """Reference singular-mode (kappa = 0) column solve: NN via
-    DN_Sing(gb=0), DD via DD_Sing (opr_odes.f90:37-100,170-185,188-260).
-    TLAB_TPU_SING_MODE=legacy (read at each call, as tlab_tpu reads it at
-    each trace: tlab_tpu/ops/elliptic_factorize.py:344-361) takes tlab_tpu's
-    older upward-integration convention for NN instead; unset or
-    "reference", the reference's.
+def sing_column(dev: dict, f, gbs, gts, ibc: str = "nn"):
+    """Reference singular-mode (kappa = 0) column solve, for m modes at
+    once: NN via DN_Sing(gb=0), DD via DD_Sing (opr_odes.f90:37-100,
+    170-185,188-260).  TLAB_TPU_SING_MODE=legacy (read at each call, as
+    tlab_tpu reads it at each trace: tlab_tpu/ops/elliptic_factorize.py:
+    344-361) takes tlab_tpu's older upward-integration convention for NN
+    instead; unset or "reference", the reference's.
 
-    fcol: (ny,) complex forcing column; gbs/gts the wall values (gbs is
-    read by 'dd' only).  Returns (u, v) columns.  The kappa=0 sweep
-    denominators are mode-independent (1 -+ shift*lam), so no per-mode
-    tables needed."""
-    cd = fcol.dtype
-    ny = dev["ny"]
-    shift = dev["shift"]
-    dmin0 = (1.0 - shift * dev["lam_min"])[None, :, None]
-    dmax0 = (1.0 + shift * dev["lam_max"])[None, :, None]
+    f: (ny, m) complex forcing columns; gbs/gts: (m,) wall values (gbs is
+    read by 'dd' only).  Returns (u, v), (ny, m).  Each sweep solves all
+    the modes' right-hand sides as the columns of one (ny, c) block, and
+    tlab_tpu's per-mode solve of a column is one column of the batch; the
+    kappa = 0 denominators, the wall slots and s^+ are the same for every
+    mode and come from the plan's tables.  The wall slots are set by
+    masks, never by a host write, so the solve does not synchronise."""
+    tb = dev["tables"]
+    ny, m = f.shape
+    w0, wN = tb["wall0"], tb["wallN"]
 
-    def smin0(fv, bc):
-        rhs = fv.clone()
-        rhs[0] = bc
-        x = _modal_solve(dev["Vmin"], dev["Wmin"], dmin0, rhs[None, :, None])
-        return x[0, :, 0], rhs
+    def smin0(rhs):
+        return _modal_solve(dev["Vmin"], dev["Wmin"], tb["dmin0"], rhs)
 
-    def smax0(fv, bc):
-        rhs = fv.clone()
-        rhs[ny - 1] = bc
-        x = _modal_solve(dev["Vmax"], dev["Wmax"], dmax0, rhs[None, :, None])
-        return x[0, :, 0], rhs
+    def smax0(rhs):
+        return _modal_solve(dev["Vmax"], dev["Wmax"], tb["dmax0"], rhs)
 
-    zero0 = torch.zeros((), dtype=cd, device=fcol.device)
-    zcol = torch.zeros(ny, dtype=cd, device=fcol.device)
+    def ft(rB, rAf, x, rhs):
+        """each column's bc-end forcing ft (u' there) from the scheme row"""
+        return (rB[:, None] * x).sum(0) - (rAf[:, None] * rhs).sum(0)
+
     if ibc == "nn" and os.environ.get("TLAB_TPU_SING_MODE",
                                       "reference") == "legacy":
         # upward-integration convention: v0 from the MIN sweep (v(0) = 0),
@@ -326,48 +343,36 @@ def sing_column(dev: dict, fcol, gbs, gts, ibc: str = "nn"):
         # u integrated down with u(N) = 0.  It leaves the singular mode's
         # compatibility defect at the bottom slot (tlab_tpu keeps it for
         # the cloud-top-forced stratocumulus family)
-        f0 = fcol.clone()
-        f0[ny - 1] = 0.0
-        v0s, _ = smin0(f0, zero0)
+        v0s = smin0(torch.where(w0 | wN, 0.0, f))
         vs = v0s + (gts - v0s[ny - 1])
-        us, _ = smax0(vs, zero0)
-        return us, vs
+        return smax0(torch.where(wN, 0.0, vs)), vs
     if ibc == "nn":
         # literal reference NN_Sing -> DN_Sing(gb=0): v' = f with v_N = gts
         # (max sweep), then u' = v with u_1 = 0 (min sweep); the constraint
-        # adjusts the free bottom forcing f_1 of the max sweep
-        rB0, rAf0 = dev["rB_ft_min"], dev["rAf_ft_min"]
-        f0 = fcol.clone()
-        f0[0] = 0.0
-        e0 = zcol.clone()
-        e0[0] = 1.0
-        v0s, _ = smax0(f0, gts)
-        v1s, _ = smax0(e0, zero0)
-        u0s, r0 = smin0(v0s, zero0)
-        u1s, r1 = smin0(v1s, zero0)
-        du0 = torch.sum(rB0 * u0s) - torch.sum(rAf0 * r0)      # u'_1 = ft
-        du1 = torch.sum(rB0 * u1s) - torch.sum(rAf0 * r1)
-        coef = (v0s[0] - du0) / (du1 - v1s[0])
-        return u0s + coef * u1s, v0s + coef * v1s
+        # adjusts the free bottom forcing f_1 of the max sweep.  Columns
+        # [f0 | e0] give [v0s | v1s], then [u0s | u1s]
+        r1 = torch.cat([torch.where(wN, gts, torch.where(w0, 0.0, f)),
+                        w0.to(f.dtype).expand(ny, m)], 1)
+        v = smax0(r1)
+        r2 = torch.where(w0, 0.0, v)
+        u = smin0(r2)
+        du = ft(dev["rB_ft_min"], dev["rAf_ft_min"], u, r2)   # u'_1 = ft
+        coef = (v[0, :m] - du[:m]) / (du[m:] - v[0, m:])
+        return u[:, :m] + coef * u[:, m:], v[:, :m] + coef * v[:, m:]
     # DD_Sing: v' = f with v_1 = 0 (min sweep), u' = v with u_N = gts
-    # (max sweep) + s^+ correction for u_1 = gbs
-    rB0, rAf0 = dev["rB_ft_max"], dev["rAf_ft_max"]
-    f0 = fcol.clone()
-    f0[ny - 1] = 0.0
-    e0 = zcol.clone()
-    e0[ny - 1] = 1.0
-    v0s, _ = smin0(f0, zero0)
-    v1s, _ = smin0(e0, zero0)
-    u0s, r0 = smax0(v0s, gts)
-    u1s, r1 = smax0(v1s, zero0)
-    sps, _ = smax0(torch.ones(ny, dtype=cd, device=fcol.device), zero0)
-    du0 = torch.sum(rB0 * u0s) - torch.sum(rAf0 * r0)          # u'_N = ft
-    du1 = torch.sum(rB0 * u1s) - torch.sum(rAf0 * r1)
-    coef = (v0s[ny - 1] - du0) / (du1 - v1s[ny - 1])
-    q1s = (gbs - (u0s[0] + coef * u1s[0])) / sps[0]
-    us = u0s + coef * u1s + q1s * sps
-    us[0] = gbs
-    return us, v0s + coef * v1s + q1s
+    # (max sweep) + s^+ correction for u_1 = gbs; columns [f0 | eN]
+    r1 = torch.cat([torch.where(w0 | wN, 0.0, f),
+                    wN.to(f.dtype).expand(ny, m)], 1)
+    v = smin0(r1)
+    r2 = torch.where(wN, torch.cat([gts, torch.zeros_like(gts)]), v)
+    u = smax0(r2)
+    du = ft(dev["rB_ft_max"], dev["rAf_ft_max"], u, r2)       # u'_N = ft
+    coef = (v[ny - 1, :m] - du[:m]) / (du[m:] - v[ny - 1, m:])
+    sps = tb["sps"]
+    us = u[:, :m] + coef * u[:, m:]
+    q1s = (gbs - us[0]) / sps[0]
+    us = torch.where(w0, gbs, us + q1s * sps)
+    return us, v[:, :m] + coef * v[:, m:] + q1s
 
 
 def solve_modal_factorize(dev: dict, f_hat, gb, gt, ibc: str = "nn"):
@@ -460,10 +465,16 @@ def solve_modal_factorize(dev: dict, f_hat, gb, gt, ibc: str = "nn"):
     v = v0 + fn[:, None, :] * v1 + q1[:, None, :] * em + kap3 * u
 
     # ---- reference singular modes (kappa = 0 at {0,Nyq} x {0,Nyq}) ----
-    for (i, k) in dev["sing_idx"]:
-        us, vs = sing_column(dev, f_hat[i, :, k], gb[i, k], gt[i, k], ibc)
-        u[i, :, k] = us
-        v[i, :, k] = vs
+    # m of them (0 on a pencil rank that holds none), one gather, one
+    # batched solve and one scatter
+    si, sk = tb["sing_i"], tb["sing_k"]
+    m = si.numel()
+    _trace.count("ops.poisson.sing_columns", m)
+    if m:
+        us, vs = sing_column(dev, f_hat[si, :, sk].T, gb[si, sk],
+                             gt[si, sk], ibc)
+        u[si, :, sk] = us.T
+        v[si, :, sk] = vs.T
     return u, v
 
 
