@@ -14,6 +14,7 @@ a steady stretch of it (harness/devtrace.py).
 from __future__ import annotations
 
 import gc
+import importlib
 import shutil
 import tempfile
 import time
@@ -22,16 +23,43 @@ from harness import check, devtrace, fields, spec, window
 from harness.spans import Spans
 
 
-def _card() -> str:
-    """The card's name and power limit, as nvidia-smi reads them."""
+def _smi(*args) -> str:
+    """What nvidia-smi prints with `args`, or why it could not."""
     import subprocess
     try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60, check=True).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return "nvidia-smi unread"
+        out = subprocess.run(["nvidia-smi", *args], capture_output=True,
+                             text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi unread ({type(e).__name__})"
+    if out.returncode:
+        return (f"nvidia-smi unread (exit {out.returncode}: "
+                f"{(out.stderr or out.stdout).strip()[-300:]})")
+    return out.stdout.strip()
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi reads them."""
+    return (_smi("--query-gpu=name,power.limit", "--format=csv,noheader")
+            or "nvidia-smi: no output").splitlines()[0]
+
+
+def _topology() -> str:
+    """How the cards are linked: nvidia-smi topo -m, and where that fails
+    (it does on some hosts), each card's NVLink links (nvlink --status)
+    and the peer-to-peer matrix of reads (topo -p2p r)."""
+    out = _smi("topo", "-m")
+    if not out.startswith("nvidia-smi unread"):
+        return out
+    return "\n".join([f"topo -m: {out}", _smi("nvlink", "--status"),
+                      _smi("topo", "-p2p", "r")])
+
+
+def reference_model(cell: spec.Cell):
+    """The Model class of the configuration's reference module,
+    reference/<name>.py (its "reference" key; reference/step.py where it
+    has none)."""
+    name = cell.config.get("reference", "step")
+    return importlib.import_module(f"reference.{name}").Model
 
 
 def _stats_every(cell: spec.Cell, case) -> int:
@@ -50,7 +78,14 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     readings); "fp32" wholly in plain float32, its Poisson solve and
     background too, or "bg32" in float64 on a float32 background
     (witnesses of what float32 itself reads;
-    benchmark/tests/controls.py; the benchmark's own runs never do)."""
+    benchmark/tests/controls.py; the benchmark's own runs never do).
+    A cell on more than one card runs as its mesh's ranks
+    (harness/mesh.py)."""
+    if cell.chips > 1:
+        from harness import mesh
+        return mesh.run(cell, seed, seconds, trace, device=device,
+                        shape=shape, t_start=t_start, log=log, patch=patch,
+                        control=control)
     import torch
     from tlab_tpu_torch.config import Ini, load_case
     from tlab_tpu_torch.dycore import incompressible as dyn
@@ -143,51 +178,63 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                "card": ctx_card if cuda else card,
                "bench_dir": cell.bench_dir,
                "log": log}
-        wanted = cell.per_layer if trace else cell.end_to_end
-        metrics = {}
-        for m in wanted:
-            mod = per_layer.get(m["name"]) \
-                or spec.metric(m["name"], cell.bench_dir)
-            v = mod.read(ctx)
-            if v is not None:
-                metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+        metrics = read_metrics(cell, trace, per_layer, ctx)
         readings = _compare(cell, ini, seed, device, dtype, start, win,
                             outdir, every, log, control)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
+    return result_of(cell, readings, win.steps, win.failed, metrics, cuda,
+                     card, 1, peak, win.trace if trace else None, log)
+
+
+def read_metrics(cell, trace: bool, per_layer: dict, ctx: dict) -> dict:
+    """{name: {value, unit}} of the cell's per-layer metrics (trace) or
+    end-to-end ones, each read by its file from ctx; a reader that finds
+    nothing to read leaves its metric out."""
+    metrics = {}
+    for m in cell.per_layer if trace else cell.end_to_end:
+        mod = per_layer.get(m["name"]) \
+            or spec.metric(m["name"], cell.bench_dir)
+        v = mod.read(ctx)
+        if v is not None:
+            metrics[m["name"]] = {"value": v, "unit": m["unit"]}
+    return metrics
+
+
+def result_of(cell, readings, steps, failed, metrics, cuda, card, count,
+              peak, trace_summary, log) -> dict:
+    """The run's result object: the contract's keys, "checks" last, each
+    number compared beside its limit; a failed window is not correct."""
     correct, rows = check.verdict(readings, cell.limits)
-    if win.failed:
+    if failed:
         correct = False
-        log(f"[bench] failed: {win.failed}")
-    result = {"correct": bool(correct), "attempted": win.steps,
-              "failed": int(win.failed is not None), "metrics": metrics,
+        log(f"[bench] failed: {failed}")
+    result = {"correct": bool(correct), "attempted": steps,
+              "failed": int(failed is not None), "metrics": metrics,
               "device": {"platform": "gpu" if cuda else "cpu",
-                         "kind": card, "count": 1,
+                         "kind": card, "count": count,
                          "memory_peak_bytes": int(peak)}}
-    if trace and win.trace:
-        result["device"]["busy_s"] = win.trace["busy_s"]
-        result["device"]["window_s"] = win.trace["window_s"]
-        result["breakdown"] = {"device_ops": win.trace["device_ops"],
-                               "idle_gaps": win.trace["idle_gaps"]}
+    if trace_summary:
+        result["device"]["busy_s"] = trace_summary["busy_s"]
+        result["device"]["window_s"] = trace_summary["window_s"]
+        result["breakdown"] = {"device_ops": trace_summary["device_ops"],
+                               "idle_gaps": trace_summary["idle_gaps"]}
     result["checks"] = {n: {"value": v, "limit": lim} for n, v, lim in rows}
     return result
 
 
 def _compare(cell, ini, seed, device, dtype, start, win, outdir, every,
              log, control="") -> dict:
-    """The numbers of the comparison with the reference (harness/
-    check.py), the program's state already freed but for what is judged."""
+    """The numbers of the comparison with the reference (judge), the
+    program's state already freed but for what is judged."""
     import torch
     from tlab_tpu_torch.dycore.state import stack
-    from reference import averages
-    from reference.step import Model
 
     if win.failed:
         return {}
-    t0 = time.perf_counter()
     last = win.last
-    q_old, q_new = stack(last["state"]), stack(last["new"])
-    dt, diag = last["dt"], last["diag"]
+    judged = {"old": stack(last["state"]), "new": stack(last["new"]),
+              "dt": last["dt"], "diag": last["diag"]}
     held = win.stats
     win.last = win.stats = None
     del last
@@ -196,6 +243,28 @@ def _compare(cell, ini, seed, device, dtype, start, win, outdir, every,
         torch.cuda.empty_cache()
     q0 = fields.initial_stack(cell.config, ini, seed, device, dtype,
                               cell.bench_dir)
+    return judge(cell, ini, device, q0, start, judged, held, outdir, every,
+                 log, control)
+
+
+def judge(cell, ini, device, q0, start, last, held, outdir, every, log,
+          control="") -> dict:
+    """The numbers of harness/check.py from the configuration's reference
+    on `device`: the warm step from q0 (start: its "new" stack, "dt",
+    "diag"), the window's last step (last: "old", "new" stacks, "dt",
+    "diag"), and the last statistics write (held) where there is one.
+    The stacks may live on any device.  control: the reference put in the
+    program's place (run's docstring)."""
+    import torch
+    from reference import averages
+
+    Model = reference_model(cell)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q_old, q_new = last["old"], last["new"]
+    dt, diag = last["dt"], last["diag"]
     new0, diag0 = start["new"], start["diag"]
     if control:
         ctl = Model(ini, device, torch.float64 if control == "bg32"
@@ -217,6 +286,7 @@ def _compare(cell, ini, seed, device, dtype, start, win, outdir, every,
         + " ".join(f"{k} {v:.4g}" for k, v in own.items()))
     del q_old, q_new
     if every and held is not None:
+        from tlab_tpu_torch.dycore.state import stack
         it = held["itime"]
         q = stack(held["state"])
         if control:
@@ -230,8 +300,7 @@ def _compare(cell, ini, seed, device, dtype, start, win, outdir, every,
         gap, where = check.stats_gap(model, q, held["p"], tables)
         out.update(gap)
         log(f"[bench] statistics of iteration {it}: worst column {where}")
-    ref_peak = torch.cuda.max_memory_allocated() \
-        if torch.device(device).type == "cuda" else 0
+    ref_peak = torch.cuda.max_memory_allocated() if cuda else 0
     log(f"[bench] the reference's comparison took "
         f"{time.perf_counter() - t0:.3f} s, its peak {ref_peak} B")
     return out

@@ -32,13 +32,17 @@ FIELDS = ("u", "v", "w", "s1", "s2", "s3")
 
 def step_gaps(model, tag, q_old, q_new, dt, diag, own=None):
     """The numbers of one step: q_old, q_new (F, nx, ny, nz) the program's
-    state before and after it, diag its diagnostics as the host read
-    them.  own: a dict that gets each velocity component's gap over its
-    own change as well (printed, not judged)."""
-    q_old = q_old.to(model.device, torch.float64)
-    ref, _ = model.step(q_old, dt)
-    d_ref = ref.to(torch.float64) - q_old
-    del ref
+    state before and after it, on any device, diag its diagnostics as the
+    host read them.  own: a dict that gets each velocity component's gap
+    over its own change as well (printed, not judged).  Field by field on
+    the reference's device, so that a grid of a card's size fits."""
+    d_ref = model.step(q_old, dt)[0].to(torch.float64)
+
+    def field(q, i):
+        return q[i].to(model.device).to(torch.float64)
+
+    for i in range(d_ref.shape[0]):
+        d_ref[i] -= field(q_old, i)
     size = [float(torch.max(torch.abs(d))) for d in d_ref]
     mine = size[:3]
     # the velocity's change is a vector: each component's gap is taken
@@ -46,7 +50,7 @@ def step_gaps(model, tag, q_old, q_new, dt, diag, own=None):
     size[:3] = [max(size[:3])] * 3
     out = {}
     for i in range(d_ref.shape[0]):
-        d_prog = q_new[i].to(model.device, torch.float64) - q_old[i]
+        d_prog = field(q_new, i) - field(q_old, i)
         gap = float(torch.max(torch.abs(d_prog - d_ref[i])))
         out[f"{tag}_{FIELDS[i]}"] = gap / size[i]
         if own is not None and i < 3:

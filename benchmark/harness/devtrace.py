@@ -70,8 +70,9 @@ class Profile:
 
 
 def summarize(events) -> dict:
-    """{window_s, busy_s, device_events, device_ops, idle_gaps} of a
-    Chrome trace's events (times in microseconds)."""
+    """{window_s, busy_s, device_events, device_ops, idle_gaps, ops} of a
+    Chrome trace's events (times in microseconds); ops: every device
+    operation's name -> (seconds, calls)."""
     stretch = [e for e in events if e.get("name") == STRETCH
                and e.get("cat") == "user_annotation"]
     if not stretch:
@@ -83,8 +84,10 @@ def summarize(events) -> dict:
     ivs = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in dev]
     busy = numbers.busy_within(ivs, lo, hi)
     by_op: dict = {}
+    calls: dict = {}
     for e in dev:
         by_op[e["name"]] = by_op.get(e["name"], 0.0) + float(e["dur"]) * 1e-6
+        calls[e["name"]] = calls.get(e["name"], 0) + 1
     ranges = _sorted_ranges(e for e in events
                             if e.get("cat") == "user_annotation"
                             and e.get("name", "").startswith("bench.")
@@ -104,7 +107,8 @@ def summarize(events) -> dict:
     return {"window_s": (hi - lo) * 1e-6, "busy_s": busy * 1e-6,
             "device_events": len(dev),
             "device_ops": [[n, v] for n, v in top],
-            "idle_gaps": [[n, v] for n, v in gap_top]}
+            "idle_gaps": [[n, v] for n, v in gap_top],
+            "ops": {n: (v, calls[n]) for n, v in by_op.items()}}
 
 
 def _sorted_ranges(evs):

@@ -65,10 +65,13 @@ class _Peak:
 
 def run(sim, step, carry: dict, dt: float, itime: int, rtime: float,
         seconds: float, stats_every: int, outdir: str,
-        trace_at: Optional[tuple] = None) -> Window:
+        trace_at: Optional[tuple] = None, agree=None) -> Window:
     """Steps from carry["state"] (taken out of the dict, so that only the
     loop holds the fields) until `seconds` have passed, the last step run
-    to its end.  trace_at: (first step, steps) of the profiled stretch."""
+    to its end.  trace_at: (first step, steps) of the profiled stretch.
+    agree(stop) -> stop: the ranks of a mesh take rank 0's decision after
+    each step, outside the timed step (harness/mesh.py), so that every
+    rank runs the same steps."""
     import torch
     from tlab_tpu_torch.dycore import incompressible as dyn
     from tlab_tpu_torch.tools import dns
@@ -115,7 +118,10 @@ def run(sim, step, carry: dict, dt: float, itime: int, rtime: float,
         if prof is not None and win.steps == trace_at[0] + trace_at[1]:
             prof.__exit__(None, None, None)
             win.trace, prof = dict(prof.summary, steps=trace_at[1]), None
-        if te - t0 >= seconds or win.failed:
+        stop = te - t0 >= seconds or win.failed is not None
+        if agree is not None:
+            stop = agree(stop)
+        if stop:
             win.seconds = te - t0
             win.last = {"state": state, "new": new, "dt": dt, "diag": vals}
             break

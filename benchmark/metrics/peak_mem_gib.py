@@ -1,5 +1,6 @@
 """torch.cuda.max_memory_allocated() from the process's start to the end
-of the window, in GiB."""
+of the window, in GiB; on a mesh the fullest card's, from the warm step to
+the end of the window (harness/mesh.py)."""
 
 
 def read(ctx):

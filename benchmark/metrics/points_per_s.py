@@ -1,5 +1,6 @@
 """Grid points times RK substeps completed in the window, over the
-window's seconds (host clock): the reference's headline unit."""
+window's seconds (host clock): the reference's headline unit.  On a mesh
+the whole grid's points over rank 0's window."""
 from harness import numbers
 
 

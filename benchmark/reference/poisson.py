@@ -21,6 +21,9 @@ import torch
 
 from reference.ops import Axis
 
+# the blocks of kx rows a solve takes at a time
+CHUNKS = 8
+
 
 def _pencil(A, B, end):
     """(M0, M1, R) of u' + t u = f with u given at `end`."""
@@ -101,44 +104,72 @@ class Poisson:
     def _msolve(self, V, W, dnm, rhs):
         return torch.matmul(V, torch.matmul(W, rhs) / dnm)
 
+    def _chunks(self, nk=None):
+        """The kx rows in blocks of about an eighth: the per-mode work of
+        a block at a time, so that its temporaries stay a fraction of a
+        field at a grid of a card's size (the modes are independent)."""
+        nk = self.kap.shape[0] if nk is None else nk
+        step = -(-nk // CHUNKS)
+        return [slice(a, min(a + step, nk)) for a in range(0, nk, step)]
+
+    def _dnm(self, kl):
+        """The sweeps' per-mode denominators (rows, ny, nz) of the kappa
+        rows kl (1, rows, nz)."""
+        dmin = (1.0 + (kl - self.shift) * self.lmin_t[:, None, None]
+                ).movedim(0, 1)
+        dmax = (1.0 + (-kl + self.shift) * self.lmax_t[:, None, None]
+                ).movedim(0, 1)
+        return dmin.contiguous(), dmax.contiguous()
+
     def _tables(self):
         """The homogeneous responses of the composition (tlab's
         opr_odes.f90): em, v1 of the min sweep to a unit bc and a unit
         top forcing, ep of the max sweep to a unit bc, u1 and sp of the
         max sweep to v1 and em; their real parts, as the reference keeps
-        (held real: half the memory, the same products)."""
-        kl = self.kap[None]
+        (held real: half the memory, the same products).  Built a block
+        of kx rows at a time."""
         n = self.ny
-        self.dmin = (1.0 + (kl - self.shift) * self.lmin[:, None, None]
-                     ).movedim(0, 1).contiguous()
-        self.dmax = (1.0 + (-kl + self.shift) * self.lmax[:, None, None]
-                     ).movedim(0, 1).contiguous()
+        nk, nz = self.kap.shape
+        self.lmin_t = torch.as_tensor(self.lmin).to(self.device)
+        self.lmax_t = torch.as_tensor(self.lmax).to(self.device)
+        real = self.kap.real.dtype
+        for name in ("em", "v1", "u1", "sp", "ep"):
+            setattr(self, name, torch.empty((nk, n, nz), dtype=real,
+                                            device=self.device))
+        for name in ("du1_n", "dsp_n", "dep_n"):
+            setattr(self, name, torch.empty((nk, nz), dtype=real,
+                                            device=self.device))
 
         def col(V, W, dnm, j):
             return torch.matmul(V, W[:, j][None, :, None] / dnm)
 
-        def through_max(src):
+        def through_max(src, dmax):
             v = src.clone()
             v[:, n - 1, :] = 0.0
-            return self._msolve(self.Vmax, self.Wmax, self.dmax, v), v
+            return self._msolve(self.Vmax, self.Wmax, dmax, v), v
 
-        em = col(self.Vmin, self.Wmin, self.dmin, 0)
-        v1 = col(self.Vmin, self.Wmin, self.dmin, n - 1)
-        ep = col(self.Vmax, self.Wmax, self.dmax, n - 1)
-        u1, v1f = through_max(v1)
-        sp, emf = through_max(em)
-        self.du1_n = self._ft_max(u1, v1f)
-        self.dsp_n = self._ft_max(sp, emf)
-        self.dep_n = self._ft_max(ep, torch.zeros_like(em)) + self.kap
-        self.em, self.v1, self.u1, self.sp, self.ep = (
-            t.real.contiguous() for t in (em, v1, u1, sp, ep))
+        for sl in self._chunks():
+            kap = self.kap[sl]
+            dmin, dmax = self._dnm(kap[None])
+            em = col(self.Vmin, self.Wmin, dmin, 0)
+            v1 = col(self.Vmin, self.Wmin, dmin, n - 1)
+            ep = col(self.Vmax, self.Wmax, dmax, n - 1)
+            u1, v1f = through_max(v1, dmax)
+            sp, emf = through_max(em, dmax)
+            self.du1_n[sl] = self._ft_max(u1, v1f, kap)
+            self.dsp_n[sl] = self._ft_max(sp, emf, kap)
+            self.dep_n[sl] = self._ft_max(ep, torch.zeros_like(em),
+                                          kap) + kap.real
+            for name, t in (("em", em), ("v1", v1), ("u1", u1),
+                            ("sp", sp), ("ep", ep)):
+                getattr(self, name)[sl] = t.real
+            del em, v1, ep, u1, v1f, sp, emf, dmin, dmax
 
-    def _ft_max(self, u, f):
+    def _ft_max(self, u, f, kap):
         """u'_N of a max-sweep solution u of forcing f (bc-end row)."""
         return (torch.einsum("a,kaz->kz", self.rB_max, u)
-                - self.kap * torch.einsum("a,kaz->kz", self.rA_max, u)
-                - torch.einsum("a,kaz->kz", self.rAf_max, f)).real.to(
-                    self.kap.dtype)
+                - kap * torch.einsum("a,kaz->kz", self.rA_max, u)
+                - torch.einsum("a,kaz->kz", self.rAf_max, f)).real
 
     def _sing(self, f, gt):
         """A kappa = 0 column: q' = f with q_N = gt, then p' = q with
@@ -174,56 +205,77 @@ class Poisson:
         c = (q0[0] - dp0) / (dp1 - q1[0])
         return p0 + c * p1, q0 + c * q1
 
+    def forward(self, a):
+        """The modes (nx/2+1, ny, nz) of a field (nx, ny, nz): the
+        transform along z a block of kx rows at a time, in place."""
+        ah = torch.fft.rfft(a, dim=0)
+        for sl in self._chunks(ah.shape[0]):
+            ah[sl] = torch.fft.fft(ah[sl], dim=-1)
+        return ah
+
     def solve(self, f, bcs_b, bcs_t):
         """(p, dp/dy) of p_xx + p_yy + p_zz = f, dp/dy = bcs at the walls;
         f (nx, ny, nz), bcs (nx, nz), float64."""
-        nx, n, nz = f.shape
+        return self.solve_modes(self.forward(f), f.shape[0], bcs_b, bcs_t)
 
-        def fwd(a):
-            return torch.fft.fft(torch.fft.rfft(a, dim=0), dim=-1)
+    def solve_modes(self, fh, nx, bcs_b, bcs_t):
+        """solve() from the modes fh = forward(f) of f, a block of kx rows
+        at a time; fh is overwritten."""
+        n = self.ny
+        gb, gt = (torch.fft.fft(torch.fft.rfft(b, dim=0), dim=-1)
+                  for b in (bcs_b, bcs_t))
+        q_hat = torch.empty_like(fh)
+        for sl in self._chunks():
+            kap = self.kap[sl]
+            dmin, dmax = self._dnm(kap[None])
+            em, v1, u1, sp, ep = (t[sl] for t in (self.em, self.v1,
+                                                  self.u1, self.sp,
+                                                  self.ep))
+            r1 = fh[sl].clone()
+            r1[:, 0, :] = 0.0
+            r1[:, n - 1, :] = 0.0
+            v0 = self._msolve(self.Vmin, self.Wmin, dmin, r1)
+            del r1
+            r2 = v0.clone()
+            r2[:, n - 1, :] = 0.0
+            u0 = self._msolve(self.Vmax, self.Wmax, dmax, r2)
+            du0_n = (torch.matmul(self.rB_max, u0)
+                     - kap * torch.matmul(self.rA_max, u0)
+                     - torch.matmul(self.rAf_max, r2))
+            del r2, dmin, dmax
+            sing = kap.real <= 0.0
 
-        fh = fwd(f)
-        gb = fwd(bcs_b[:, None, :])[:, 0, :]
-        gt = fwd(bcs_t[:, None, :])[:, 0, :]
-        kap = self.kap
-        em, v1, u1, sp, ep = self.em, self.v1, self.u1, self.sp, self.ep
-        r1 = fh.clone()
-        r1[:, 0, :] = 0.0
-        r1[:, n - 1, :] = 0.0
-        v0 = self._msolve(self.Vmin, self.Wmin, self.dmin, r1)
-        r2 = v0.clone()
-        r2[:, n - 1, :] = 0.0
-        u0 = self._msolve(self.Vmax, self.Wmax, self.dmax, r2)
-        du0_n = (torch.matmul(self.rB_max, u0)
-                 - kap * torch.matmul(self.rA_max, u0)
-                 - torch.matmul(self.rAf_max, r2))
-        sing = kap.real <= 0.0
+            def safe(a):
+                return torch.where(sing, torch.ones_like(a), a)
 
-        def safe(a):
-            return torch.where(sing, torch.ones_like(a), a)
-
-        a11 = 1.0 + kap * sp[:, 0, :]
-        a21 = em[:, n - 1, :]
-        a31 = self.dsp_n
-        a12 = kap * ep[:, 0, :] / safe(a11)
-        a22 = kap - a21 * a12
-        a32 = self.dep_n - a31 * a12
-        a13 = kap * u1[:, 0, :] / safe(a11)
-        a23 = (v1[:, n - 1, :] - a21 * a13) / safe(a22)
-        a33 = self.du1_n - a31 * a13 - a32 * a23
-        q1 = (gb - kap * u0[:, 0, :]) / safe(a11)
-        uN = (gt - v0[:, n - 1, :] - a21 * q1) / safe(a22)
-        fn = (gt - du0_n - a31 * q1 - a32 * uN) / safe(a33)
-        uN = uN - a23 * fn
-        q1 = q1 - a12 * uN - a13 * fn
-        p = u0 + fn[:, None, :] * u1 + q1[:, None, :] * sp \
-            + uN[:, None, :] * ep
-        q = v0 + fn[:, None, :] * v1 + q1[:, None, :] * em \
-            + kap[:, None, :] * p
-        for (i, k) in self.sing:
-            p[i, :, k], q[i, :, k] = self._sing(fh[i, :, k], gt[i, k])
-
-        def bwd(a):
-            return torch.fft.irfft(torch.fft.ifft(a, dim=-1), n=nx, dim=0)
-
-        return bwd(p), bwd(q)
+            a11 = 1.0 + kap * sp[:, 0, :]
+            a21 = em[:, n - 1, :]
+            a31 = self.dsp_n[sl]
+            a12 = kap * ep[:, 0, :] / safe(a11)
+            a22 = kap - a21 * a12
+            a32 = self.dep_n[sl] - a31 * a12
+            a13 = kap * u1[:, 0, :] / safe(a11)
+            a23 = (v1[:, n - 1, :] - a21 * a13) / safe(a22)
+            a33 = self.du1_n[sl] - a31 * a13 - a32 * a23
+            q1 = (gb[sl] - kap * u0[:, 0, :]) / safe(a11)
+            uN = (gt[sl] - v0[:, n - 1, :] - a21 * q1) / safe(a22)
+            fn = (gt[sl] - du0_n - a31 * q1 - a32 * uN) / safe(a33)
+            uN = uN - a23 * fn
+            q1 = q1 - a12 * uN - a13 * fn
+            p = u0 + fn[:, None, :] * u1 + q1[:, None, :] * sp \
+                + uN[:, None, :] * ep
+            del u0
+            q_hat[sl] = v0 + fn[:, None, :] * v1 + q1[:, None, :] * em \
+                + kap[:, None, :] * p
+            del v0
+            for (i, k) in self.sing:
+                if sl.start <= i < sl.stop:
+                    p[i - sl.start, :, k], q_hat[i, :, k] = self._sing(
+                        fh[i, :, k], gt[i, k])
+            # the block's modes are used up: its inverse along z in place
+            fh[sl] = torch.fft.ifft(p, dim=-1)
+            q_hat[sl] = torch.fft.ifft(q_hat[sl], dim=-1)
+            del p
+        p = torch.fft.irfft(fh, n=nx, dim=0)
+        del fh
+        return p, torch.fft.irfft(q_hat, n=nx, dim=0)

@@ -188,9 +188,10 @@ class Model:
 
     # -- the step ---------------------------------------------------------
     def rhs(self, Q, H, dte):
-        """H + the substep's tendencies, in place (field by field, so that
-        a grid of a card's size fits beside its temporaries), and the
-        pressure."""
+        """H + the substep's tendencies, in place, and the pressure: field
+        by field and term by term, in place where the order of the
+        operations allows, so that a grid of a card's size fits beside its
+        temporaries."""
         u, v, w = Q[0], Q[1], Q[2]
         for f in range(Q.shape[0]):
             adv = torch.zeros_like(Q[f])
@@ -198,8 +199,10 @@ class Model:
                 d1 = ops.along(self.d1[axis], Q[f], axis, self.tf32)
                 d2 = ops.along(self.d2[axis], Q[f], axis, self.tf32)
                 if self.anelastic:
-                    d2 = d2 * self.rho_inv[None, :, None]
-                adv += self.nu[f] * d2 - conv * d1
+                    d2.mul_(self.rho_inv[None, :, None])
+                d2.mul_(self.nu[f])
+                d2.sub_(d1.mul_(conv))          # nu d2 - u_i d1
+                adv += d2
                 del d1, d2
             H[f] += adv
             del adv
@@ -208,24 +211,34 @@ class Model:
             for i, g in enumerate(self.gravity):
                 if g != 0.0:
                     H[i] += g * b
-        fx, fy, fz = (H[i] + Q[i] / dte for i in range(3))
-        if self.anelastic:
-            r = self.rho[None, :, None]
-            fx, fy, fz = fx * r, fy * r, fz * r
-        div = self.d1_along(fy, 1) + self.d1_along(fx, 0) \
-            + self.d1_along(fz, 2)
-        del fx, fy, fz
+            del b
+
+        def flux(i):
+            a = H[i] + Q[i] / dte
+            if self.anelastic:
+                a.mul_(self.rho[None, :, None])
+            return a
+
+        div = self.d1_along(flux(1), 1)
+        div.add_(self.d1_along(flux(0), 0))
+        div.add_(self.d1_along(flux(2), 2))
         bb, bt = H[1][:, 0, :], H[1][:, -1, :]
         if self.anelastic:
             bb, bt = bb * self.rho[0], bt * self.rho[-1]
-        p, dpdy = self.poisson.solve(div.to(self.pdt), bb.to(self.pdt),
-                                     bt.to(self.pdt))
+        nx = div.shape[0]
+        fh = self.poisson.forward(div.to(self.pdt))
+        del div
+        p, dpdy = self.poisson.solve_modes(fh, nx, bb.to(self.pdt),
+                                           bt.to(self.pdt))
+        del fh
         p, dpdy = p.to(self.dtype), dpdy.to(self.dtype)
-        grad = [self.d1_along(p, 0), dpdy, self.d1_along(p, 2)]
         for i in range(3):
+            g = dpdy if i == 1 else self.d1_along(p, i)
             if self.anelastic:
-                grad[i] = grad[i] * self.rho_inv[None, :, None]
-            H[i] -= grad[i]
+                g = g * self.rho_inv[None, :, None]
+            H[i] -= g
+            del g
+        del dpdy
         nb, nt = self.neumann
         for i, kind in enumerate(self.kinds):
             if kind == "neumann":
@@ -239,7 +252,8 @@ class Model:
     def step(self, q, dt: float):
         """One RK4 step of the stack q (3 + ns, nx, ny, nz): (q_new, the
         last substep's pressure)."""
-        Q = q.to(self.device, self.dtype).clone()
+        # to the device first: a conversion on the host is slow
+        Q = q.to(self.device).to(self.dtype, copy=True)
         Q[1, :, 0, :] = 0.0                 # no penetration at the walls
         Q[1, :, -1, :] = 0.0
         H = torch.zeros_like(Q)
@@ -259,19 +273,32 @@ class Model:
     def diagnostics(self, q):
         """[CFL max, dilatation min, dilatation max(, Newton error)] of the
         stack q, and the scale of the dilatation: the max of the sum of
-        the magnitudes of its three terms."""
-        q = q.to(self.device, self.dtype)
-        u, v, w = q[0], q[1], q[2]
-        cfl = torch.max(torch.abs(u) * self.iod[0][:, None, None]
-                        + torch.abs(v) * self.iod[1][None, :, None]
-                        + torch.abs(w) * self.iod[2][None, None, :])
-        if self.anelastic:
-            r = self.rho[None, :, None]
-            u, v, w = u * r, v * r, w * r
-        terms = [self.d1_along(f, i) for i, f in enumerate((u, v, w))]
-        div = terms[0] + terms[1] + terms[2]
-        scale = torch.max(sum(torch.abs(a) for a in terms))
+        the magnitudes of its three terms.  A component at a time."""
+        def comp(i):
+            a = q[i].to(self.device).to(self.dtype)
+            if self.anelastic:
+                a = a * self.rho[None, :, None]
+            return a
+
+        iod = (self.iod[0][:, None, None], self.iod[1][None, :, None],
+               self.iod[2][None, None, :])
+        cfl = None
+        for i in range(3):
+            c = torch.abs(q[i].to(self.device).to(self.dtype)) * iod[i]
+            cfl = c if cfl is None else cfl.add_(c)
+            del c
+        cfl = torch.max(cfl)
+        div = self.d1_along(comp(0), 0)
+        mag = torch.abs(div)
+        for i in (1, 2):
+            t = self.d1_along(comp(i), i)
+            div.add_(t)
+            mag.add_(torch.abs(t))
+            del t
+        scale = torch.max(mag)
+        del mag
         out = [cfl, div.min(), div.max()]
+        del div
         if self.tw is not None:
-            out.append(self.newton_error(q[3:]))
+            out.append(self.newton_error(q[3:].to(self.device)))
         return [float(a) for a in out], float(scale)

@@ -13,9 +13,11 @@ limit as the last lines of its standard error; the last line of its
 standard output is one JSON object: correct, attempted, failed, metrics,
 device (with busy_s, window_s and a breakdown when traced) and checks.
 
-It refuses to run (exit 2, no result) without a CUDA card, and fails
-(exit 3, no result) if JAX, its libraries or the JAX package tlab_tpu
-were loaded.
+A cell whose `chips` is more than 1 runs as the ranks of its
+configuration's [Parallel] Mesh, one process a card (harness/mesh.py).
+It refuses to run (exit 2, no result) without as many CUDA cards as the
+cell asks for, and fails (exit 3, no result) if JAX, its libraries or the
+JAX package tlab_tpu were loaded, in this process or in a rank.
 """
 from __future__ import annotations
 
@@ -41,14 +43,7 @@ T_START = _process_start()
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [HERE, os.path.dirname(HERE)]
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "tlab_tpu")
-
-
-def loaded_forbidden(modules=None) -> list:
-    """The names in sys.modules whose top-level name (before the first
-    dot) is one of FORBIDDEN, compared whole."""
-    modules = sys.modules if modules is None else modules
-    return sorted(n for n in modules if n.split(".", 1)[0] in FORBIDDEN)
+from harness.guard import FORBIDDEN, loaded_forbidden  # noqa: E402,F401
 
 
 def main(argv=None) -> int:
@@ -78,7 +73,7 @@ def main(argv=None) -> int:
 
     result = cellmod.run(cell, args.seed, args.seconds, bool(args.trace),
                          device="cuda", t_start=T_START, log=log)
-    bad = loaded_forbidden()
+    bad = loaded_forbidden() + result.pop("ranks_forbidden", [])
     if bad:
         print(f"run.py: JAX or the JAX package was loaded: {bad}",
               file=sys.stderr)

@@ -108,7 +108,8 @@ def test_a_traced_run_reports_the_four():
         assert math.isfinite(m[name]) and m[name] > 0.0, name
     # the CPU's float64 step: no kernel launch; the counts of one step of
     # the shear layer (tests/test_torch_trace.py writes them out): per
-    # substep 21 + 8 x 4 singular modes cuBLAS and 10 cuFFT calls, and
-    # the step's diagnostics 3 cuBLAS calls over 5 substeps
+    # substep 21 + 4 (the singular modes, one batch: 2 sweeps of 2)
+    # cuBLAS and 10 cuFFT calls, and the step's diagnostics 3 cuBLAS calls
+    # over 5 substeps
     assert m["library_calls_per_substep"] == pytest.approx(
-        21 + 8 * 4 + 10 + 3 / 5)
+        21 + 4 + 10 + 3 / 5)

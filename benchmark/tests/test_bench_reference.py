@@ -200,3 +200,94 @@ def test_the_witnesses_read_far_below_the_control(kind):
                       log=lambda m: None, control=kind)
     for k, v in wit["checks"].items():
         assert v["value"] <= 0.1 * ctl["checks"][k]["value"], k
+
+
+def test_the_solve_in_blocks_of_modes_is_the_whole_solve(monkeypatch):
+    """The solve a block of kx rows at a time, which keeps a grid of a
+    card's size inside the card, gives the one-block solve's numbers."""
+    from reference import poisson
+    _, ini = _case("shear3d", (32, 24, 16))
+    g = torch.Generator().manual_seed(13)
+    f = torch.randn((32, 24, 16), generator=g, dtype=torch.float64)
+    bb, bt = (torch.randn((32, 16), generator=g, dtype=torch.float64)
+              for _ in range(2))
+    monkeypatch.setattr(poisson, "CHUNKS", 1)
+    whole = Model(ini, "cpu").poisson
+    assert len(whole._chunks()) == 1
+    p1, d1 = whole.solve(f, bb, bt)
+    monkeypatch.setattr(poisson, "CHUNKS", 8)
+    blocks = Model(ini, "cpu").poisson
+    assert len(blocks._chunks()) == 6          # 17 rows in blocks of 3
+    p2, d2 = blocks.solve(f, bb, bt)
+    for a, b in ((p1, p2), (d1, d2)):
+        assert float((a - b).abs().max()) <= 1e-14 * float(a.abs().max())
+    for name in ("em", "v1", "u1", "sp", "ep", "du1_n", "dsp_n", "dep_n"):
+        a, b = getattr(whole, name), getattr(blocks, name)
+        assert float((a - b).abs().max()) <= 1e-14 * float(a.abs().max())
+
+
+def _judged(name):
+    """A cell's judge inputs at SHAPE: the warm step and a last step of
+    the reference itself, the program's side perturbed."""
+    c = spec.find_cell(name)
+    ini = spec.resized(c.config["ini"], SHAPE)
+    q0 = fields.initial_stack(c.config, ini, SEED, "cpu", torch.float32)
+    model = Model(ini, "cpu")
+    (cfl, *_), _ = model.diagnostics(q0)
+    dt = 1.0 / cfl
+    g = torch.Generator().manual_seed(17)
+    new0 = model.step(q0, dt)[0].float()
+    new0 += 1e-6 * torch.randn(new0.shape, generator=g)
+    new1 = model.step(new0, dt)[0].float()
+    start = {"new": new0, "dt": dt, "diag": model.diagnostics(new0)[0]}
+    last = {"old": new0, "new": new1, "dt": dt,
+            "diag": model.diagnostics(new1)[0]}
+    return c, ini, q0, start, last
+
+
+def test_the_default_reference_gives_todays_numbers():
+    """A configuration without a "reference" key is judged by
+    reference/step.py, the one module there was: the same numbers as
+    naming it, and as check.step_gaps with reference.step.Model."""
+    import copy
+
+    from harness import check
+    c, ini, q0, start, last = _judged("shear3d.loop")
+    assert "reference" not in c.config
+    assert cellmod.reference_model(c) is Model
+    default = cellmod.judge(c, ini, "cpu", q0, start, last, None, "", 0,
+                            lambda m: None)
+    named = copy.deepcopy(c)
+    named.config["reference"] = "step"
+    assert cellmod.judge(named, ini, "cpu", q0, start, last, None, "", 0,
+                         lambda m: None) == default
+    model = Model(ini, "cpu")
+    today = check.step_gaps(model, "start", q0, start["new"], start["dt"],
+                            start["diag"])
+    today.update(check.step_gaps(model, "last", last["old"], last["new"],
+                                 last["dt"], last["diag"]))
+    assert today == default
+    assert 0.0 < default["start_u"] < 1e-3
+
+
+def test_a_configuration_names_its_reference(monkeypatch):
+    """"reference": "<name>" takes reference/<name>.py's Model, so that a
+    new configuration brings its reference as a new file."""
+    import sys
+    import types
+    calls = []
+
+    class Other(Model):
+        def __init__(self, *a, **k):
+            calls.append(a[0])
+            super().__init__(*a, **k)
+
+    mod = types.ModuleType("reference.other")
+    mod.Model = Other
+    monkeypatch.setitem(sys.modules, "reference.other", mod)
+    c, ini, q0, start, last = _judged("shear3d.loop")
+    c.config = dict(c.config, reference="other")
+    assert cellmod.reference_model(c) is Other
+    out = cellmod.judge(c, ini, "cpu", q0, start, last, None, "", 0,
+                        lambda m: None)
+    assert calls == [ini] and set(out) >= {"start_u", "last_diag"}
