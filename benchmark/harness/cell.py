@@ -6,7 +6,13 @@ configuration's case in its dtype, makes the initial fields on the device
 from the seed (harness/fields.py), takes one warm step through the step
 that tools.dns.make_step_functions returns (and one statistics write
 where the traffic writes statistics), and keeps that step's result on the
-host for the comparison.  The window then steps on from the warm step's
+host for the comparison.  What differs between the equation sets (the
+state, its fields, the dt rule) the Simulation's entry of harness/sets.py
+gives: the warm step's dt is that of the loop the set runs in, tools/
+dns.py::_run (dycore.incompressible.next_dt, tools/dns.py:1025) or
+_run_compressible (its next_dt, tools/dns.py:1273-1281).  A compressible
+cell whose traffic writes statistics is refused at set-up: the reference
+has no Favre tables.  The window then steps on from the warm step's
 state (harness/window.py).  A traced run wraps the spans that its metrics
 read around the program's entry points for the whole window and profiles
 a steady stretch of it (harness/devtrace.py).
@@ -19,7 +25,7 @@ import shutil
 import tempfile
 import time
 
-from harness import check, devtrace, fields, spec, window
+from harness import check, devtrace, fields, sets, spec, window
 from harness.spans import Spans
 
 
@@ -88,8 +94,6 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                         control=control)
     import torch
     from tlab_tpu_torch.config import Ini, load_case
-    from tlab_tpu_torch.dycore import incompressible as dyn
-    from tlab_tpu_torch.dycore.state import stack, unstack
     from tlab_tpu_torch.ops import _build, burgers
     from tlab_tpu_torch.runtime import Simulation
     from tlab_tpu_torch.tools import dns
@@ -102,17 +106,22 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     sim = Simulation.from_case(load_case(Ini(text=spec.ini_text(ini))),
                                dtype=dtype, device=device)
     case = sim.case
+    eqs = sets.of(sim)
     every = _stats_every(cell, case)
+    if every and not eqs.stats:
+        raise ValueError(
+            f"{cell.name}: the {eqs.name} set writes Favre-averaged "
+            "statistics, and no Favre-table reference exists yet to judge "
+            "them; give the cell a traffic mix without statistics")
     q0 = fields.initial_stack(cell.config, ini, seed, device, dtype,
                               cell.bench_dir)
     step, diagnostics = dns.make_step_functions(sim)
     if patch is not None:
         step = patch(step)
-    cfla, cfld = case.time_cfl, case.time_cfl_diffusive
-    dt0 = dyn.next_dt(sim.P, diagnostics(unstack(q0)).tolist()[0], cfla,
-                      cfld)
-    out1, p1, diag1 = step(unstack(q0), dt0)
-    start = {"new": stack(out1).cpu(), "dt": dt0, "diag": diag1.tolist()}
+    dt0 = eqs.next_dt(sim, diagnostics(eqs.unstack(q0)).tolist())
+    out1, p1, diag1 = step(eqs.unstack(q0), dt0)
+    start = {"new": eqs.stack(out1).cpu(), "dt": dt0,
+             "diag": diag1.tolist()}
     del q0
     outdir = tempfile.mkdtemp(prefix="bench-stats-")
     try:
@@ -135,8 +144,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         # the window owns the state: no name here keeps a step's fields
         carry = {"state": out1}
         del out1, p1, diag1
-        win = window.run(sim, step, carry, dyn.next_dt(
-            sim.P, start["diag"][0], cfla, cfld), 1, dt0, seconds, every,
+        win = window.run(sim, step, carry, eqs.next_dt(
+            sim, start["diag"]), 1, dt0, seconds, every,
             outdir, trace_at=(tr["trace_first_step"], tr["trace_steps"])
             if trace else None)
         peak = win.peak_bytes
@@ -147,7 +156,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             span_ms = spans.totals_ms()
             spans.remove()
         n_sub = len(sim.P["rk"]["kdt"])
-        nfields = 3 + sim.nsp.n_scalars
+        nfields = eqs.n_fields(sim)
         grid = tuple(sim.grid.shape)
         built = {k: round(v["seconds"], 3) for k, v in _build.builds.items()}
         del sim, step, diagnostics
@@ -179,8 +188,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
                "bench_dir": cell.bench_dir,
                "log": log}
         metrics = read_metrics(cell, trace, per_layer, ctx)
-        readings = _compare(cell, ini, seed, device, dtype, start, win,
-                            outdir, every, log, control)
+        readings = _compare(cell, eqs, ini, seed, device, dtype, start,
+                            win, outdir, every, log, control)
     finally:
         shutil.rmtree(outdir, ignore_errors=True)
     return result_of(cell, readings, win.steps, win.failed, metrics, cuda,
@@ -223,17 +232,17 @@ def result_of(cell, readings, steps, failed, metrics, cuda, card, count,
     return result
 
 
-def _compare(cell, ini, seed, device, dtype, start, win, outdir, every,
-             log, control="") -> dict:
+def _compare(cell, eqs, ini, seed, device, dtype, start, win, outdir,
+             every, log, control="") -> dict:
     """The numbers of the comparison with the reference (judge), the
     program's state already freed but for what is judged."""
     import torch
-    from tlab_tpu_torch.dycore.state import stack
 
     if win.failed:
         return {}
     last = win.last
-    judged = {"old": stack(last["state"]), "new": stack(last["new"]),
+    judged = {"old": eqs.stack(last["state"]),
+              "new": eqs.stack(last["new"]),
               "dt": last["dt"], "diag": last["diag"]}
     held = win.stats
     win.last = win.stats = None
@@ -259,6 +268,7 @@ def judge(cell, ini, device, q0, start, last, held, outdir, every, log,
     from reference import averages
 
     Model = reference_model(cell)
+    eqs = sets.of_case(ini)
     cuda = torch.device(device).type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats()
@@ -279,16 +289,18 @@ def judge(cell, ini, device, q0, start, last, held, outdir, every, log,
             del ctl                     # the tables of one model at a time
     model = Model(ini, device)
     own = {}
-    out = check.step_gaps(model, "start", q0, new0, start["dt"], diag0, own)
+    out = check.step_gaps(model, "start", q0, new0, start["dt"], diag0, own,
+                          eqs)
     del q0, new0
-    out.update(check.step_gaps(model, "last", q_old, q_new, dt, diag, own))
-    log("[bench] velocity gaps over each component's own change: "
+    out.update(check.step_gaps(model, "last", q_old, q_new, dt, diag, own,
+                               eqs))
+    log(f"[bench] the {eqs.name} set's vector gaps over each component's "
+        "own change: "
         + " ".join(f"{k} {v:.4g}" for k, v in own.items()))
     del q_old, q_new
     if every and held is not None:
-        from tlab_tpu_torch.dycore.state import stack
         it = held["itime"]
-        q = stack(held["state"])
+        q = eqs.stack(held["state"])
         if control:
             flow, scal = averages.tables(ctl, q, held["p"])
             tables = [{n: v for n, (v, _) in t.items()}

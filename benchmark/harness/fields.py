@@ -2,10 +2,12 @@
 
 Each configuration names a recipe ("initial": {"kind": ...}), a file of
 its own, initial/<kind>.py, whose make(case, params, seed, device, dtype)
-returns the stack (u, v, w, s1..) in the configuration's dtype, made in a
-few large calls of a generator on the device: the same seed gives the same
-fields.  The recipes are the benchmark's own copies of the tlab cases'
-initial conditions; the helpers they share are here.
+returns the stack of the case's equation set (harness/sets.py: u, v, w,
+s1.., or rho, rho u, rho v, rho w, rho e, rho s1..) in the
+configuration's dtype, made in a few large calls of a generator on the
+device: the same seed gives the same fields.  The recipes are the
+benchmark's own copies of the tlab cases' initial conditions; the
+helpers they share are here.
 """
 from __future__ import annotations
 
@@ -66,7 +68,8 @@ def curl_noise(gen, shape, lengths, f0, env, device):
 
 def initial_stack(config: dict, ini: dict, seed: int, device, dtype,
                   bench_dir=None) -> torch.Tensor:
-    """The configuration's initial stack (3 + ns, nx, ny, nz)."""
+    """The configuration's initial stack (F, nx, ny, nz), F the number
+    of the equation set's fields."""
     from harness.spec import BENCH_DIR, load_module
     params = config["initial"]
     mod = load_module((bench_dir or BENCH_DIR) / "initial"

@@ -1,13 +1,19 @@
 """The measured window: the DNS loop of tlab_tpu_torch.tools.dns as `dns`
 takes it, stopped on a clock.
 
-A copy of the loop's few lines (tools/dns.py::_run, as profile_step's
-profile_dns_step copies them): the step that make_step_functions returns
-(rk_step with the scalar clip, then the CFL and dilatation diagnostics),
+A copy of the loop's few lines, of the loop that the Simulation's
+equation set runs in (harness/sets.py): tools/dns.py::_run (as
+profile_step's profile_dns_step copies it) or _run_compressible
+(tools/dns.py:1206-1397).  The step that make_step_functions returns
+(the RK step, then the diagnostics: CFL and dilatation, or the acoustic
+CFL, the pressure and density extrema and the diffusion-number density),
 the host's one read of the diagnostics, the adaptive dt at the case's
-TimeCFL, and, where the traffic asks for it, write_statistics at its
-cadence.  The loop is closed: each step waits for the last one's read.
-`dns.run` itself cannot stop on a clock, so it is not called.
+TimeCFL by the set's rule (_run's dycore.incompressible.next_dt,
+tools/dns.py:1025 and 1069, or _run_compressible's next_dt, tools/
+dns.py:1273-1276 and 1312), and, where the traffic asks for it,
+write_statistics at its cadence.  The loop is closed: each step waits
+for the last one's read.  `dns.run` itself cannot stop on a clock, so it
+is not called.
 """
 from __future__ import annotations
 
@@ -73,20 +79,19 @@ def run(sim, step, carry: dict, dt: float, itime: int, rtime: float,
     each step, outside the timed step (harness/mesh.py), so that every
     rank runs the same steps."""
     import torch
-    from tlab_tpu_torch.dycore import incompressible as dyn
     from tlab_tpu_torch.tools import dns
-    from harness import devtrace
+    from harness import devtrace, sets
 
     def rng(name):
         if trace_at is None:
             return contextlib.nullcontext()
         return torch.profiler.record_function(name)
 
-    cfla, cfld = sim.case.time_cfl, sim.case.time_cfl_diffusive
+    eqs = sets.of(sim)
     state = carry.pop("state")
     win = Window()
     prof = None
-    peak = _Peak(state.u.is_cuda)
+    peak = _Peak(state[0].is_cuda)
     pending = 0           # a write's bytes, still the loop's own this step
     t0 = time.perf_counter()
     while True:
@@ -103,7 +108,7 @@ def run(sim, step, carry: dict, dt: float, itime: int, rtime: float,
         if not all(math.isfinite(v) for v in vals):
             win.failed = f"non-finite diagnostics {vals} at step {itime}"
         with rng("bench.dt"):
-            new_dt = dyn.next_dt(sim.P, vals[0], cfla, cfld)
+            new_dt = eqs.next_dt(sim, vals)
         if stats_every and itime % stats_every == 0 and not win.failed:
             tw = time.perf_counter()
             with rng("bench.statistics"):

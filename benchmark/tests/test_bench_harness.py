@@ -253,21 +253,24 @@ def _unchanged(step):
 
 
 def _half(step):
+    """Half of the grid in x left where it was, in every field of either
+    equation set's state."""
     def bad(state, dt, extra=None):
         new, p, diag = step(state, dt)
-        h = state.u.shape[0] // 2
-        for a, b in zip((new.u, new.v, new.w, new.s[0]),
-                        (state.u, state.v, state.w, state.s[0])):
-            a[:h] = b[:h]
+        h = state[0].shape[0] // 2
+        for a, b in zip(new, state):
+            if a is not None and b is not None:
+                a[..., :h, :, :] = b[..., :h, :, :]
         return new, p, diag
     return bad
 
 
 def _altered(step):
+    """One value of the second field (v, or rho u) altered."""
     def bad(state, dt, extra=None):
         new, p, diag = step(state, dt)
-        d = float((new.v - state.v).abs().max())
-        new.v[3, new.v.shape[1] // 2, 2] += 0.01 * d
+        d = float((new[1] - state[1]).abs().max())
+        new[1][3, new[1].shape[1] // 2, 2] += 0.01 * d
         return new, p, diag
     return bad
 

@@ -121,7 +121,7 @@ def test_tf32_rounding():
 
 
 @pytest.mark.parametrize("name", ["shear3d.loop", "cloudtop.loop",
-                                  "shear3d.stats"])
+                                  "shear3d.stats", "case02.loop"])
 def test_the_control_reads_far_above_the_program(name):
     """The control (the reference in float32 with TF32 products in the
     program's place) at a small size on the CPU: its worst number reads at
