@@ -14,7 +14,12 @@ non-zero:
               at ten ragged shapes and at the main path's 512x256x256
               shape, each there also against a float64 product and timed
               beside its plain version, the plain version's one matmul
-              (library_ms) and its bound
+              (library_ms) and its bound; (b) the plain derivative
+              products deriv1_x/y/z and deriv12_x/y/z against their
+              full-fp32 product at the ragged shapes and a 96-point line,
+              and at 512x256x256 with case02's operators (F = 1 and 4)
+              against fp64 (no further off than 2x the cuBLAS product),
+              timed beside the plain version and the cuBLAS fp32 product
   4. main     the shear layer at 512x256x256 fp32: one warm-up RK4 step,
               then 3 timed steps through rk_loop_stacked; every Burgers
               term must go through the kernels
@@ -481,6 +486,148 @@ def phase_kernels(P) -> list:
     return records
 
 
+# max|kernel - plain| / max|plain| of the plain derivative products against
+# their full-fp32 product with case02's operators: sums of <= 512 products
+# in another order, from the 3xTF32 split (~22 bits an operand).  Random
+# operators cancel far more (results ~sqrt(n) of their terms' sum) and are
+# held to K1-K3's KERNEL_TOL
+DERIV_TOL = 1e-6
+# the ragged shapes, and lines of 96 points along every axis
+DERIV_SHAPES = RAGGED + ((3, (96, 96, 96)),)
+DERIV_BATCH = 10         # calls timed between two events
+
+
+def deriv_plain(kind: str):
+    """The plain version of a derivative entry point: the full-fp32 product
+    (der1, or der12 with its halves made two contiguous tensors, as the
+    entry point gives them)."""
+    if kind == "deriv1":
+        return lambda d12, x, axis: (
+            apply_along(d12[:x.shape[axis]], x, axis),)
+    return lambda d12, x, axis: tuple(h.contiguous()
+                                      for h in der12(d12, x, axis))
+
+
+def deriv_bound(kind: str, d12, x) -> dict:
+    """The least time of one derivative entry point: x read once and each
+    output written once at the memory rate, or 2n (d1) or 4n ([D1; D2])
+    flop a point, three times (the TF32 split's passes), at the TF32
+    peak."""
+    outs = 1 if kind == "deriv1" else 2
+    n = d12.shape[1]
+    nbytes = (1 + outs) * x.numel() * 4 + d12.numel() * 4
+    ops = 3 * outs * 2 * n * x.numel()
+    by_bytes, by_ops = nbytes / PEAK_BYTES, ops / PEAK_OPS["tf32"]
+    return {"bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "operations" if by_ops >= by_bytes else "bytes",
+            "flop": ops / 3}
+
+
+def check_deriv(kind: str, axis: int, d12, x, timed: bool,
+                tol: float = DERIV_TOL) -> dict:
+    """One entry point (kind deriv1 or deriv12, spatial axis `axis` of the
+    stack x) against its plain version, within `tol`; timed: against fp64
+    too, the kernel's, the plain version's and the cuBLAS product's ms, the
+    bound."""
+    fn, plain = getattr(burgers, kind), deriv_plain(kind)
+    name = f"{kind}_{'xyz'[axis]}"
+    got = fn(d12, x, axis + 1)
+    got = got if isinstance(got, tuple) else (got,)
+    ref = plain(d12, x, axis + 1)
+    torch.cuda.synchronize()
+    require(all(g.is_contiguous() for g in got)
+            and len({g.data_ptr() for g in got}) == len(got),
+            f"{name}: outputs not contiguous and separate")
+    rel = max((g - r).abs().max().item() / r.abs().max().item()
+              for g, r in zip(got, ref))
+    require(rel <= tol, f"{name} at {tuple(x.shape)}: rel err {rel} > "
+            f"{tol}")
+    res = {"rel_err": rel}
+    if timed:
+        ref64 = plain(d12.double(), x.double(), axis + 1)
+        res["kernel_vs_fp64"] = max(
+            (g.double() - r).abs().max().item() / r.abs().max().item()
+            for g, r in zip(got, ref64))
+        res["plain_vs_fp64"] = max(
+            (g.double() - r).abs().max().item() / r.abs().max().item()
+            for g, r in zip(ref, ref64))
+        del got, ref, ref64
+        calls = {"ms": lambda: fn(d12, x, axis + 1),
+                 "plain_ms": lambda: plain(d12, x, axis + 1),
+                 "library_ms": lambda: apply_along(
+                     d12 if kind == "deriv12" else d12[:x.shape[axis + 1]],
+                     x, axis + 1)}
+        # a batch of calls between two events, so that the host's issue of
+        # a call (ctypes, the output's allocation: ~0.1 ms against kernels
+        # of 0.3 ms) overlaps the card's work as in a step
+        times = {key: [] for key in calls}
+        for _ in range(REPS):
+            for key, call in calls.items():
+                times[key].append(event_ms(
+                    lambda: [call() for _ in range(DERIV_BATCH)])
+                    / DERIV_BATCH)
+        res.update({key: statistics.median(v) for key, v in times.items()})
+        res.update(deriv_bound(kind, d12, x))
+    return res
+
+
+def phase_deriv_kernels() -> list:
+    """3b: the plain derivative products (deriv1_x/y/z, deriv12_x/y/z)
+    against their full-fp32 product at the ragged shapes (random operators,
+    KERNEL_TOL), then at 512x256x256 with case02's operators for F = 1 and
+    F = 4, there against fp64 too and timed beside the plain version and
+    today's cuBLAS fp32 product (library_ms), with the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    worst = 0.0
+    for F, shape in DERIV_SHAPES:
+        for axis in range(3):
+            n = shape[axis]
+            for kind in burgers.DERIV_KINDS:
+                r = check_deriv(kind, axis, randn(2 * n, n),
+                                randn(F, *shape), False, KERNEL_TOL)
+                worst = max(worst, r["rel_err"])
+    print(f"[deriv] deriv1/deriv12 x/y/z at {len(DERIV_SHAPES)} ragged "
+          f"shapes, random operators: worst rel err {worst:.3e} (limit "
+          f"{KERNEL_TOL})")
+    sim = Simulation.from_case(load_case(Ini(text=comp_case(MAIN_SHAPE, 1))),
+                               dtype=torch.float32, device="cuda")
+    records = []
+    for F in (1, 4):
+        x = randn(F, *MAIN_SHAPE)
+        for axis in range(3):
+            d12 = sim.P["d12" + "xyz"[axis]]
+            for kind in burgers.DERIV_KINDS:
+                name = f"{kind}_{'xyz'[axis]}"
+                r = check_deriv(kind, axis, d12, x, True)
+                print(f"[deriv] {name} F={F} {MAIN_SHAPE}: rel err "
+                      f"{r['rel_err']:.3e}; against fp64 "
+                      f"{r['kernel_vs_fp64']:.3e} (cuBLAS fp32 "
+                      f"{r['plain_vs_fp64']:.3e}); kernel {r['ms']:.3f} ms "
+                      f"({r['flop'] / r['ms'] / 1e9:.1f} TFLOP/s), plain "
+                      f"{r['plain_ms']:.3f} ms, cuBLAS fp32 "
+                      f"{r['library_ms']:.3f} ms (a call, batches of "
+                      f"{DERIV_BATCH}, median of {REPS}); bound "
+                      f"{r['bound_ms']:.3f} ms by {r['bound_by']} (tf32 x3)")
+                require(r["kernel_vs_fp64"] <= 2 * r["plain_vs_fp64"],
+                        f"{name} F={F}: {r['kernel_vs_fp64']} from fp64, "
+                        f"over 2x the cuBLAS product's {r['plain_vs_fp64']}")
+                records.append({
+                    "name": name, "F": F, "route": "cuda", "source": SOURCE,
+                    "replaces": "none: tlab_tpu's compressible einsums",
+                    "rel_err": r["rel_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"],
+                    "kernel_vs_fp64": r["kernel_vs_fp64"],
+                    "plain_vs_fp64": r["plain_vs_fp64"]})
+        del x
+    return records
+
+
 def phase_main(P, state) -> list:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -597,14 +744,16 @@ def traced_cli(ini: str, out: str, commands, *more) -> dict:
             if command == "dns":
                 torch.cuda.reset_peak_memory_stats()
                 burgers.launches[:] = [0, 0, 0]
+                burgers.reset_deriv_launches()
             seconds[command] = run_cli(command, ini, out, *more)
         launches = list(burgers.launches)
+        deriv = {k: list(v) for k, v in burgers.deriv_launches.items()}
     finally:
         dns_tool.run = run_fn
         del os.environ["TLAB_TPU_TRACE"]
         ttrace.close()
-    return {"run": runs[0], "launches": launches, "seconds": seconds,
-            "peak": torch.cuda.max_memory_allocated()}
+    return {"run": runs[0], "launches": launches, "deriv_launches": deriv,
+            "seconds": seconds, "peak": torch.cuda.max_memory_allocated()}
 
 
 def step_rate(trace: dict, steps: int, n_sub: int) -> dict:
@@ -2473,6 +2622,11 @@ def phase_compressible(card: str) -> list:
               f"{flow['rR'].min():.6f}..{flow['rR'].max():.6f}")
         require(res["launches"] == [0, 0, 0],
                 f"12a launched {res['launches']}")
+        # 24 d1 and 6 [D1;D2] products a substep through the kernels
+        d = res["deriv_launches"]
+        print(f"[12] 12a: derivative kernel launches {d}")
+        require(min(d["deriv1"] + d["deriv12"]) > 0,
+                f"12a: derivative kernel launches {d}")
         launches.append(res["launches"])
         # 12b: the same fields in total energy
         ke = 0.5 * (U0.rhou ** 2 + U0.rhov ** 2 + U0.rhow ** 2) / U0.rho
@@ -5193,6 +5347,7 @@ def main() -> int:
     for rec, n in zip(records, launches):
         rec["launches"] = n
     del P, state
+    deriv_records = phase_deriv_kernels()
     phase_fp64()
     # 6a's initial fields at 512x256x256, for phases 7, 8c and 10b
     keep = tempfile.TemporaryDirectory(prefix="tlab_smoke_")
@@ -5325,7 +5480,8 @@ def main() -> int:
           f"{t12:.1f} s, 13 {t13:.1f} s, 14 {t14:.1f} s, 15 {t15:.1f} s, "
           f"16 {tools['seconds']:.1f} s, 17 {mesh['seconds']:.1f} s, 18 "
           f"{trap['seconds']:.1f} s, 19 {precision['seconds']:.1f} s")
-    print(json.dumps({"kernels": records + precision["records"]}))
+    print(json.dumps({"kernels": records + deriv_records
+                      + precision["records"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,7 @@ tests/conftest.py (which imports JAX) must be left out:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+import functools
 import os
 
 import numpy as np
@@ -16,6 +17,7 @@ from tlab_tpu_torch import entry
 from tlab_tpu_torch.config import load_case
 from tlab_tpu_torch.dycore import incompressible as tdyn
 from tlab_tpu_torch.ops import burgers
+from tlab_tpu_torch.ops.derivative import der1, der12
 from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.tools import dns as tdns
 from tlab_tpu_torch.tools.initialize import initial_state
@@ -348,3 +350,138 @@ def test_setting_picks_the_contract(monkeypatch, setting):
     assert burgers.contract_launches == {
         k: [0, 1, 0] if k == want else [0, 0, 0]
         for k in burgers.CONTRACTS}
+
+
+@functools.lru_cache(maxsize=None)
+def _case02_operators(shape):
+    """The [D1; D2] operators of case02's box at `shape` (x periodic over
+    2, y between walls over 1, z periodic over 1), float32 on the card."""
+    from tlab_tpu_torch import grid as tgrid
+    from tlab_tpu_torch.constants import BC
+    from tlab_tpu_torch.fdm.plan import build_fdm_plan
+    fdm = build_fdm_plan(tgrid.uniform_grid(*shape, 2.0, 1.0, 1.0))
+    return tuple(torch.from_numpy(p.d12[BC.DD]).to(_card(), torch.float32)
+                 for p in (fdm.x, fdm.y, fdm.z))
+
+
+# case02's grid with one field and with four, and ragged shapes: F = 3 with
+# nz spanning two operator tiles and ending in a ragged K tile, 96-point
+# lines (a d1 pair whose second row tile lies beyond n), odd widths (the
+# scalar loads and stores), a box smaller than one tile (6 points: the
+# fewest that the wall rows' stencils take)
+DERIV_CASES = [(1, (512, 256, 256)), (4, (512, 256, 256)),
+               (3, (6, 10, 200)), (3, (96, 96, 96)), (5, (23, 19, 37)),
+               (3, (7, 6, 6))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", burgers.DERIV_KINDS)
+@pytest.mark.parametrize("F, shape", DERIV_CASES)
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_derivative_kernel_matches_plain_version(kind, F, shape, axis):
+    """deriv1 and deriv12 with case02's operators against the full-fp32
+    product (der1, der12): sums of <= 512 products in another order, from
+    the 3xTF32 split (~22 bits an operand), within 1e-6 of the largest
+    result; the outputs contiguous and separate, one launch counted."""
+    d12 = _case02_operators(shape)[axis]
+    n = shape[axis]
+    x = torch.from_numpy(np.random.default_rng(F + axis).standard_normal(
+        (F,) + shape)).to(_card(), torch.float32)
+    before = burgers.deriv_launches[kind][axis]
+    got = getattr(burgers, kind)(d12, x, axis + 1)
+    if kind == "deriv1":
+        got, ref = (got,), (der1(d12[:n], x, axis + 1),)
+    else:
+        ref = der12(d12, x, axis + 1)
+    torch.cuda.synchronize()
+    assert burgers.deriv_launches[kind][axis] == before + 1
+    assert all(g.is_contiguous() and g.shape == x.shape for g in got)
+    assert len({g.data_ptr() for g in got}) == len(got)
+    for g, r in zip(got, ref):
+        assert (g - r).abs().max() <= 1e-6 * r.abs().max()
+
+
+@pytest.mark.cuda
+def test_derivative_kernel_takes_a_field_and_raises_on_what_it_does_not():
+    """A 3-D field is a stack of one; a strided or float64 CUDA input
+    raises (the gate keeps float64 off the kernel)."""
+    d12 = _case02_operators((96, 96, 96))[1]
+    x = torch.randn(96, 96, 96, device=_card())
+    got = burgers.deriv1(d12, x, 1)
+    torch.cuda.synchronize()
+    ref = der1(d12[:96], x, 1)
+    assert (got - ref).abs().max() <= 1e-6 * ref.abs().max()
+    with pytest.raises(ValueError):
+        burgers.deriv12(d12, x.transpose(0, 2), 1)
+    with pytest.raises(TypeError):
+        burgers.deriv1(d12, x.double(), 1)
+
+
+def _compressible_rhs(dtype, seed=2):
+    """rhs_compressible_internal of a random primitive state on a
+    64x32x32 box (x, z periodic, y between free-slip walls, one scalar) on
+    the card, in `dtype`."""
+    from tlab_tpu_torch import grid as tgrid
+    from tlab_tpu_torch.dycore import compressible as tcomp
+    from tlab_tpu_torch.fdm.plan import build_fdm_plan
+    from tlab_tpu_torch.physics.params import NSParams
+    dev = _card()
+    P = tdyn.build_device_plans(
+        build_fdm_plan(tgrid.uniform_grid(64, 32, 32, 2.0, 1.0, 1.0)),
+        NSParams(reynolds=1000.0, schmidt=(1.0,)),
+        tdyn.WallBCs.from_velocity_kind(
+            "freeslip", "freeslip", scalar_bcs=(("neumann", "neumann"),)),
+        dtype=dtype, device=dev, with_elliptic=False)
+    rng = np.random.default_rng(seed)
+    shape = (64, 32, 32)
+    prim = [1.0 + 0.05 * rng.standard_normal(shape)] \
+        + [0.1 * rng.standard_normal(shape) for _ in range(3)] \
+        + [1.0 + 0.05 * rng.standard_normal(shape)]
+    s = rng.random((1,) + shape)
+    U = tcomp.from_primitive(
+        *(torch.from_numpy(a).to(dev, dtype) for a in prim), 1.4, 0.3,
+        s=torch.from_numpy(s).to(dev, dtype), energy="internal")
+    return tcomp.rhs_compressible_internal(P, U, 1.4, 0.3, 1e-3, 0.7)
+
+
+@pytest.mark.cuda
+def test_compressible_rhs_float32_on_the_kernels_follows_float64(
+        monkeypatch):
+    """One internal-energy RHS in float32: its 24 d1 and 6 [D1;D2]
+    products through the kernels, and each tendency no further from the
+    float64 RHS than twice the float32 RHS on cuBLAS's products (the gate
+    turned off here, in the test alone)."""
+    from tlab_tpu_torch.dycore import compressible as tcomp
+    ref = _compressible_rhs(torch.float64)
+    burgers.reset_deriv_launches()
+    got = _compressible_rhs(torch.float32)
+    assert {k: sum(v) for k, v in burgers.deriv_launches.items()} == {
+        "deriv1": 24, "deriv12": 6}
+    monkeypatch.setattr(tcomp, "_tensor_cores", lambda *a: False)
+    cublas = _compressible_rhs(torch.float32)
+    assert sum(map(sum, burgers.deriv_launches.values())) == 30
+    for name, a, b, r in zip(tcomp.CompState._fields, got, cublas, ref):
+        scale = r.abs().max()
+        gap = (a.double() - r).abs().max() / scale
+        gap_cublas = (b.double() - r).abs().max() / scale
+        assert gap <= 2 * gap_cublas, (name, gap.item(), gap_cublas.item())
+
+
+@pytest.mark.cuda
+def test_derivative_kernels_do_not_synchronise():
+    """deriv1 and deriv12 along each axis under CUDA's sync debug mode
+    "error", after a first call that packs the operators."""
+    ops = _case02_operators((96, 96, 96))
+    x = torch.randn(2, 96, 96, 96, device=_card())
+    calls = [(fn, ops[axis], axis + 1) for axis in range(3)
+             for fn in (burgers.deriv1, burgers.deriv12)]
+    for fn, d12, axis in calls:
+        fn(d12, x, axis)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn, d12, axis in calls:
+            fn(d12, x, axis)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()

@@ -38,6 +38,10 @@
 //   burgers_x  K1  contracts axis 0: column form D @ X_f, X_f = (nx, ny*nz)
 //   burgers_y  K2  contracts axis 1: column form D @ X_fi, X_fi = (ny, nz)
 //   burgers_z  K3  contracts axis 2: row form X_f @ D^T, X_f = (nx*ny, nz)
+// The same column and row kernels, with the epilogue a template policy,
+// give the plain derivative products in "highest" alone (the note above
+// the column form): deriv1_x/y/z (D1 @ X) and deriv12_x/y/z (D1 @ X and
+// D2 @ X into two outputs).
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -56,6 +60,19 @@ __device__ __forceinline__ void load4(float (&r)[4], const float* p) {
 __device__ __forceinline__ bool aligned16(const void* a, const void* b) {
     return ((reinterpret_cast<uintptr_t>(a) |
              reinterpret_cast<uintptr_t>(b)) & 15) == 0;
+}
+
+// kTN consecutive values v to o[0..cols); one 16-byte store when the whole
+// group is in range.
+__device__ __forceinline__ void store4(float* o, const float (&v)[kTN],
+                                       int cols, bool vec) {
+    if (vec && cols >= kTN) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        return;
+    }
+#pragma unroll
+    for (int j = 0; j < kTN; ++j)
+        if (j < cols) o[j] = v[j];
 }
 
 // nu * d2 - c * d1 for kTN consecutive outputs at o[0..cols), with conv at
@@ -333,16 +350,28 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64],
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// Start the copy of one stage's operator tiles (contiguous in pack).
-template <class C>
+// Start the copy of one stage's operator tiles: the kParts tiles of one
+// (row tile, K tile) of the pack, contiguous there.  For a pair (kPair, the
+// d1 entry points' StoreD1) the D1 tiles (hi, lo) of two row tiles: src's
+// into parts 0 and 1, second's into parts 2 and 3, zeros where second is
+// null (the pair's second row tile lies beyond n).
+template <class C, bool kPair = false>
 __device__ __forceinline__ void load_operator(float* ring, const float* src,
-                                              int stage, int tid) {
+                                              const float* second, int stage,
+                                              int tid) {
     using L = Layout<C>;
+    constexpr int kCopies = L::kOpStage / 4 / kThreads;
+    static_assert(!kPair || L::kParts == 4, "a pair fills 4 parts");
     const uint32_t op = smem_u32(ring + stage * L::kOpStage);
 #pragma unroll
-    for (int i = 0; i < L::kOpStage / 4 / kThreads; ++i) {
+    for (int i = 0; i < kCopies; ++i) {
         const int e = (tid + i * kThreads) * 4;
-        cp_async16(op + e * 4, src + e, 16);
+        if (!kPair || i < kCopies / 2)
+            cp_async16(op + e * 4, src + e, 16);
+        else
+            cp_async16(op + e * 4,
+                       second ? second + (e - L::kOpStage / 2) : src,
+                       second ? 16 : 0);
     }
 }
 
@@ -362,9 +391,10 @@ __device__ __forceinline__ void clear(float (&acc1)[64], float (&acc2)[64]) {
 }
 
 // The K tiles of a column-form block: tile t is operator tile t of the
-// block's row tile and the (kKT, kTC) field tile below it, in stage
-// t % kStages.  Fragment element (m, k) sits at k * kXS + m.
-template <class C>
+// block's row tile (of both row tiles of a pair) and the (kKT, kTC) field
+// tile below it, in stage t % kStages.  Fragment element (m, k) sits at
+// k * kXS + m.
+template <class C, bool kPair = false>
 struct ColTiles {
     using L = Layout<C>;
     static constexpr int kStepK = C::kXS, kStepM = 1;
@@ -373,12 +403,16 @@ struct ColTiles {
     int kt, n, ncol, c0;
     bool xvec;
     int tid, frag0;
+    const float* second;       // a pair's second row tile's, or null
 
     // start the copies of tile t; zero beyond n and C, nothing beyond kt
     __device__ __forceinline__ void load(float* ring, int t) {
         if (t >= kt) return;
         const int s = t % L::kStages;
-        load_operator<C>(ring, pack_tiles + (size_t)t * L::kOpStage, s, tid);
+        load_operator<C, kPair>(
+            ring, pack_tiles + (size_t)t * L::kOpStage,
+            kPair && second ? second + (size_t)t * L::kOpStage : nullptr, s,
+            tid);
         const uint32_t xs = smem_u32(ring + L::kOpRing + s * L::kXStage);
         const int k0 = t * C::kKT;
         if (xvec) {
@@ -410,32 +444,38 @@ struct ColTiles {
 };
 
 // The K tiles of a row-form block, numbered through all its work items
-// (one an operator row tile): ring position t is K tile t % kt of item
-// t / kt, in stage t % kStages.  kt is padded to whole groups of kRG, so the
-// field chunks (kTC rows x kRK, one copied with every kRT-th tile) keep one
-// numbering through the items; the padding tiles beyond kt_live hold
-// nothing and are skipped.  Fragment element (m, k) sits at m * kRS + k.
+// (one an operator row tile, or a pair of them): ring position t is K tile
+// t % kt of item t / kt, in stage t % kStages.  kt is padded to whole
+// groups of kRG, so the field chunks (kTC rows x kRK, one copied with every
+// kRT-th tile) keep one numbering through the items; the padding tiles
+// beyond kt_live hold nothing and are skipped.  Fragment element (m, k)
+// sits at m * kRS + k.
 // The copies are asked for in the order of t, each position once, so the
 // item and K tile of the next one are counted along and not divided out.
-template <class C>
+template <class C, bool kPair = false>
 struct RowTiles {
     using L = Layout<C>;
     static constexpr int kStepK = 1, kStepM = C::kRS;
+    static constexpr int kTiles = kPair ? 2 : 1;    // row tiles an item
     const float* pack;         // the whole packed operator
     const float* xb;           // the block's first field row
     int kt, kt_live, items, n, rows;
     bool xvec;
     int tid, frag0;
     int item, tk;              // of the next position to be copied
+    int at;                    // operator row tiles (read for a pair)
 
     // start the copies of position t; zero beyond n and the field's last
     // row, nothing for padding tiles and beyond the last item
     __device__ __forceinline__ void load(float* ring, int t) {
         if (item < items && tk < kt_live) {
-            load_operator<C>(ring,
-                             pack + ((size_t)item * kt_live + tk)
-                                        * L::kOpStage,
-                             t % L::kStages, tid);
+            const float* src =
+                pack + ((size_t)item * kTiles * kt_live + tk) * L::kOpStage;
+            load_operator<C, kPair>(
+                ring, src,
+                kPair && kTiles * item + 1 < at
+                    ? src + (size_t)kt_live * L::kOpStage : nullptr,
+                t % L::kStages, tid);
             if (tk % L::kRT == 0) load_chunk(ring, t);
         }
         if (++tk == kt) { tk = 0; ++item; }
@@ -584,13 +624,39 @@ __device__ __forceinline__ float* aligned_ring(unsigned char* raw) {
 }
 
 // ---------------------------------------------------------------------------
+// The epilogues, a template policy of the 3xTF32 column kernel and of the
+// row kernel:
+//   Burgers   out = nu_f * D2 - conv * D1 (K1-K3, entry points burgers_*).
+//   StoreD12  D1 into out and D2 into out2 (deriv12_*), two outputs.
+//   StoreD1   the D1 product into out (deriv1_*).  A block's second
+//             accumulator holds D1 of the next operator row tile in place
+//             of D2 (kPair: each stage carries the D1 tiles of two row
+//             tiles, load_operator), so that a d1 block runs as many
+//             products on each field tile it reads as a Burgers block and
+//             covers 2 kTA output rows.  The pack is the one of [D1; D2],
+//             read by its D1 tiles only.
+// The plain-store entry points replace no Pallas kernel: they stand for
+// tlab_tpu's compressible einsums (HIGHEST, full fp32 off a TPU), which the
+// port ran as cuBLAS fp32 products on the FMA units.  They are bound by
+// operations as K1-K3 are: a point's D1 product is 2n flop and its [D1; D2]
+// product 4n (512 to 2,048 at n = 256 and 512) against 8 bytes of field in
+// and out, far above the fp32-FMA ridge of ~20 flop a byte, so they take
+// the tensor cores in the same 3xTF32 contract (fp32 round-off of a full
+// fp32 product), the same ring and the same packed operator, and write the
+// accumulators straight out: no combine, no conv to read.
+struct Burgers { static constexpr bool kCombine = true, kPair = false; };
+struct StoreD12 { static constexpr bool kCombine = false, kPair = false; };
+struct StoreD1 { static constexpr bool kCombine = false, kPair = true; };
+
+// ---------------------------------------------------------------------------
 // Column form (K1, K2) in the 3xTF32 contract; the bf16 contracts have their
 // own design below (burgers_col_bf16).
 //
 // Batch b = f * G + g.  For each b the (n, C) output slab is
 // out_b = nu_f * (D2 @ X_b) - conv_g .* (D1 @ X_b), with X_b, conv_g, out_b
 // row-major (n, ncol) slabs.  K1: G = 1, ncol = ny*nz.  K2: G = nx,
-// ncol = nz.
+// ncol = nz.  The plain-store epilogues write D1 @ X_b (and D2 @ X_b)
+// instead, over B = F G slabs (F = 1 to col_body).
 //
 // wgmma takes 32-bit operands only K-major, and the field tile (k, c) has c
 // contiguous, so a block computes the transposed tile
@@ -604,15 +670,16 @@ __device__ __forceinline__ float* aligned_ring(unsigned char* raw) {
 // and epilogue (~0.7 ms over a launch) overlap nothing, since the 2 x 64
 // accumulator registers allow one block an SM; the loads (~41 KB a K tile
 // from L2) slow the loop by another ~20%.
-template <class C>
-__global__ void __launch_bounds__(kThreads, 1)
-burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
-            const float* __restrict__ conv, const float* __restrict__ nu,
-            float* __restrict__ out, int n, int ncol, int G, int F,
-            int a_tiles, int c_tiles)
+template <class C, class E>
+__device__ __forceinline__ void col_body(
+        const float* __restrict__ pack, const float* __restrict__ x,
+        const float* __restrict__ conv, const float* __restrict__ nu,
+        float* __restrict__ out, float* __restrict__ out2, int n, int ncol,
+        int G, int F, int a_tiles, int c_tiles)
 {
     static_assert(!C::kBf16, "the bf16 contracts run burgers_col_bf16");
     using L = Layout<C>;
+    constexpr int kTiles = E::kPair ? 2 : 1;    // operator row tiles a block
     extern __shared__ unsigned char smem_raw[];
     float* ring = aligned_ring(smem_raw);
 
@@ -627,7 +694,7 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
     rest /= a_tiles;
     const int f = rest % F;
     rest /= F;
-    const int a0 = a_tile * kTA;
+    const int a0 = a_tile * kTiles * kTA;
     const int c0 = (rest % c_tiles) * kTC;
     const int g_slab = rest / c_tiles;
     const int b = f * G + g_slab;
@@ -637,13 +704,16 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
     // is q for TF32, 2q for bf16
     const int m = warp * 16 + g;
     const int kq = C::kBf16 ? 2 * q : q;
-    ColTiles<C> tl{
-        pack + (size_t)a_tile * kt * L::kOpStage, x + (size_t)b * slab, kt, n,
-        ncol, c0,
+    const float* tiles = pack + (size_t)a_tile * kTiles * kt * L::kOpStage;
+    ColTiles<C, E::kPair> tl{
+        tiles, x + (size_t)b * slab, kt, n, ncol, c0,
         (ncol % 4) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0, tid,
-        kq * C::kXS + m};
+        kq * C::kXS + m,
+        E::kPair && a0 + kTA < n ? tiles + (size_t)kt * L::kOpStage
+                                 : nullptr};
 
-    const float* cg = conv + (size_t)g_slab * slab;
+    const float* cg =
+        E::kCombine ? conv + (size_t)g_slab * slab : nullptr;
 
     float acc1[64], acc2[64];
     clear(acc1, acc2);
@@ -660,7 +730,7 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
     // the products and the field tiles streaming through L2 meanwhile do
     // not push it out again.  The F blocks that share the tile run side by
     // side, and the first of them asks.
-    const int ask_at = f == 0
+    const int ask_at = E::kCombine && f == 0
         ? (kt > L::kPrefetch ? (kt - L::kPrefetch) & ~1 : 0) : -1;
     // two tiles per trip, so that each has its own fragment registers
     for (int t = 0; t < kt; t += 2) {
@@ -676,7 +746,7 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
     __syncthreads();
 
     // the accumulators hold out^T: d[4j + 2h + e] is (c = m + 8h,
-    // a = 8j + 2q + e).  Store them as (a, c) tiles, then combine by rows.
+    // a = 8j + 2q + e).  Store them as (a, c) tiles, then write by rows.
     float* s1 = ring;
     float* s2 = ring + kTA * kOS;
 #pragma unroll
@@ -691,19 +761,66 @@ burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
             }
     __syncthreads();
 
-    const float nu_f = nu[f];
     float* ob = out + (size_t)b * slab;
-    const bool vec = (ncol % 4) == 0 && aligned16(cg, ob);
-    for (int i = tid; i < kTA * (kTC / 4); i += kThreads) {
-        const int aa = i / (kTC / 4), cc = (i % (kTC / 4)) * 4;
-        const int a = a0 + aa, c = c0 + cc;
-        if (a >= n || c >= ncol) continue;
-        float d1[kTN], d2[kTN];
-        load4(d1, &s1[aa * kOS + cc]);
-        load4(d2, &s2[aa * kOS + cc]);
-        const size_t o = (size_t)a * ncol + c;
-        combine_store(ob + o, cg + o, d1, d2, nu_f, ncol - c, vec);
+    if constexpr (E::kCombine) {
+        const float nu_f = nu[f];
+        const bool vec = (ncol % 4) == 0 && aligned16(cg, ob);
+        for (int i = tid; i < kTA * (kTC / 4); i += kThreads) {
+            const int aa = i / (kTC / 4), cc = (i % (kTC / 4)) * 4;
+            const int a = a0 + aa, c = c0 + cc;
+            if (a >= n || c >= ncol) continue;
+            float d1[kTN], d2[kTN];
+            load4(d1, &s1[aa * kOS + cc]);
+            load4(d2, &s2[aa * kOS + cc]);
+            const size_t o = (size_t)a * ncol + c;
+            combine_store(ob + o, cg + o, d1, d2, nu_f, ncol - c, vec);
+        }
+    } else {
+        // the second accumulator: D2 of the same rows into out2, or D1 of
+        // the pair's second row tile, kTA rows further down out
+        float* ob2 = E::kPair ? ob + (size_t)kTA * ncol
+                              : out2 + (size_t)b * slab;
+        const bool vec = (ncol % 4) == 0 && aligned16(ob, ob2);
+        const int rows2 = E::kPair ? n - a0 - kTA : n - a0;
+        for (int i = tid; i < kTA * (kTC / 4); i += kThreads) {
+            const int aa = i / (kTC / 4), cc = (i % (kTC / 4)) * 4;
+            const int c = c0 + cc;
+            if (c >= ncol) continue;
+            const size_t o = (size_t)(a0 + aa) * ncol + c;
+            float v[kTN];
+            if (aa < n - a0) {
+                load4(v, &s1[aa * kOS + cc]);
+                store4(ob + o, v, ncol - c, vec);
+            }
+            if (aa < rows2) {
+                load4(v, &s2[aa * kOS + cc]);
+                store4(ob2 + o, v, ncol - c, vec);
+            }
+        }
     }
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads, 1)
+burgers_col(const float* __restrict__ pack, const float* __restrict__ x,
+            const float* __restrict__ conv, const float* __restrict__ nu,
+            float* __restrict__ out, int n, int ncol, int G, int F,
+            int a_tiles, int c_tiles)
+{
+    col_body<C, Burgers>(pack, x, conv, nu, out, nullptr, n, ncol, G, F,
+                         a_tiles, c_tiles);
+}
+
+// The plain products (StoreD1, StoreD12) of B (n, ncol) slabs, 3xTF32;
+// `units` operator row tiles (StoreD12) or pairs of them (StoreD1).
+template <class E>
+__global__ void __launch_bounds__(kThreads, 1)
+deriv_col(const float* __restrict__ pack, const float* __restrict__ x,
+          float* __restrict__ d1, float* __restrict__ d2, int n, int ncol,
+          int B, int units, int c_tiles)
+{
+    col_body<Tf32x3, E>(pack, x, nullptr, nullptr, d1, d2, n, ncol, B, 1,
+                        units, c_tiles);
 }
 
 // ---------------------------------------------------------------------------
@@ -1363,6 +1480,9 @@ burgers_col_bf16(const __grid_constant__ ColArgs p)
 // way, and they land while the epilogue reads conv and stores.  A row tile
 // never straddles two fields, so nu_f is one scalar a block; the F blocks
 // that share a conv tile run side by side, and the first asks for it.
+// The plain-store epilogues write the accumulators as they stand
+// (row_store) and read no conv, so there the F nx ny rows of all fields
+// are one (P, n) slab (F = 1 to row_body).
 //
 // What holds it back now (H100, 512x256x256, 3xTF32, 1.51 ms a launch
 // against a bound of 0.83 ms): the copies from L2 (without them 1.26 ms)
@@ -1418,13 +1538,42 @@ __device__ __forceinline__ void row_epilogue(
     }
 }
 
-template <class C>
-__global__ void __launch_bounds__(kThreads, 1)
-burgers_row(const float* __restrict__ pack, const float* __restrict__ x,
-            const float* __restrict__ conv, const float* __restrict__ nu,
-            float* __restrict__ out, int n, int P, int F, int a_tiles)
+// acc to this thread's part of a (rows, cols) tile at ob, straight from
+// the accumulator, in 8-byte pieces where vec.
+__device__ __forceinline__ void row_store(
+        const float (&acc)[64], float* __restrict__ ob, size_t n, int rows,
+        int cols, int m, int q, bool vec) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        const int r = m + 8 * h;
+        if (r >= rows) continue;
+        float* orow = ob + r * n + 2 * q;
+        const int left = cols - 2 * q;      // columns from this thread's first
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+            const int i = 4 * j + 2 * h;
+            if (vec) {
+                if (8 * j < left)
+                    *reinterpret_cast<float2*>(orow + 8 * j) =
+                        make_float2(acc[i], acc[i + 1]);
+            } else {
+#pragma unroll
+                for (int e = 0; e < 2; ++e)
+                    if (8 * j + e < left) orow[8 * j + e] = acc[i + e];
+            }
+        }
+    }
+}
+
+template <class C, class E>
+__device__ __forceinline__ void row_body(
+        const float* __restrict__ pack, const float* __restrict__ x,
+        const float* __restrict__ conv, const float* __restrict__ nu,
+        float* __restrict__ out, float* __restrict__ out2, int n, int P,
+        int F, int items)
 {
     using L = Layout<C>;
+    constexpr int kTiles = E::kPair ? 2 : 1;    // operator row tiles an item
     extern __shared__ unsigned char smem_raw[];
     float* ring = aligned_ring(smem_raw);
 
@@ -1442,17 +1591,21 @@ burgers_row(const float* __restrict__ pack, const float* __restrict__ x,
     // is q for TF32, 2q for bf16
     const int m = warp * 16 + g;
     const int kq = C::kBf16 ? 2 * q : q;
-    RowTiles<C> tl{
-        pack, x + row0 * n, kt, kt_live, a_tiles, n, P - p0,
+    RowTiles<C, E::kPair> tl{
+        pack, x + row0 * n, kt, kt_live, items, n, P - p0,
         (n % 4) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0, tid,
-        m * C::kRS + kq, 0, 0};
+        m * C::kRS + kq, 0, 0, (n + kTA - 1) / kTA};
 
-    const float* cv = conv + (size_t)p0 * n;
+    const float* cv = E::kCombine ? conv + (size_t)p0 * n : nullptr;
     float* ob = out + row0 * n;
-    const float nu_f = nu[f];
+    const float nu_f = E::kCombine ? nu[f] : 0.f;
+    // the second accumulator's output: D2 of the same columns into out2, or
+    // D1 of the pair's second row tile, kTA columns further along out
+    const int off2 = E::kPair ? kTA : 0;
+    float* ob2 = E::kCombine || E::kPair ? ob : out2 + row0 * n;
     // 8-byte pieces: every (r, a) with a even is then 8-byte aligned
     const bool vec = (n % 2) == 0 &&
-        ((reinterpret_cast<uintptr_t>(conv) |
+        ((reinterpret_cast<uintptr_t>(E::kCombine ? conv : ob2) |
           reinterpret_cast<uintptr_t>(out)) & 7) == 0;
 
     float acc1[64], acc2[64];
@@ -1467,13 +1620,13 @@ burgers_row(const float* __restrict__ pack, const float* __restrict__ x,
     }
     // as in the column form: the first of the F blocks sharing the item's
     // conv tile asks for it kPrefetch K tiles before the item's epilogue
-    const int ask_at = f == 0
+    const int ask_at = E::kCombine && f == 0
         ? (kt_live > L::kPrefetch ? (kt_live - L::kPrefetch) & ~1 : 0)
         : -1;
     // two tiles per trip, so that each has its own fragment registers (kt
     // is even); t runs on through the items
     int t = 0;
-    for (int a0 = 0; a0 < n; a0 += kTA) {
+    for (int a0 = 0; a0 < n; a0 += kTiles * kTA) {
         for (int tk = 0; tk < kt; tk += 2, t += 2) {
             if (tk == ask_at)
                 prefetch_tile(cv + a0, n, tl.rows, n - a0, tid);
@@ -1482,15 +1635,56 @@ burgers_row(const float* __restrict__ pack, const float* __restrict__ x,
                          lo_b);
         }
         wgmma_wait<0>();
-        row_epilogue(acc1, acc2, cv + a0, ob + a0, nu_f, n, tl.rows, n - a0,
-                     m, q, vec);
+        if constexpr (E::kCombine) {
+            row_epilogue(acc1, acc2, cv + a0, ob + a0, nu_f, n, tl.rows,
+                         n - a0, m, q, vec);
+        } else {
+            row_store(acc1, ob + a0, n, tl.rows, n - a0, m, q, vec);
+            row_store(acc2, ob2 + a0 + off2, n, tl.rows, n - a0 - off2, m, q,
+                      vec);
+        }
         clear(acc1, acc2);
     }
+}
+
+template <class C>
+__global__ void __launch_bounds__(kThreads, 1)
+burgers_row(const float* __restrict__ pack, const float* __restrict__ x,
+            const float* __restrict__ conv, const float* __restrict__ nu,
+            float* __restrict__ out, int n, int P, int F, int a_tiles)
+{
+    row_body<C, Burgers>(pack, x, conv, nu, out, nullptr, n, P, F, a_tiles);
+}
+
+// The plain products (StoreD1, StoreD12) of P rows of n, 3xTF32; `units`
+// operator row tiles (StoreD12) or pairs of them (StoreD1) a block walks.
+template <class E>
+__global__ void __launch_bounds__(kThreads, 1)
+deriv_row(const float* __restrict__ pack, const float* __restrict__ x,
+          float* __restrict__ d1, float* __restrict__ d2, int n, int P,
+          int units)
+{
+    row_body<Tf32x3, E>(pack, x, nullptr, nullptr, d1, d2, n, P, 1, units);
 }
 
 }  // namespace tc
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// `blocks` blocks of `kernel` with `smem` bytes of shared memory on
+// `stream`
+template <class... Params, class... Args>
+int launch(void (*kernel)(Params...), int smem, long long blocks,
+           void* stream, Args... args)
+{
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+    kernel<<<static_cast<unsigned>(blocks), tc::kThreads, smem,
+             static_cast<cudaStream_t>(stream)>>>(args...);
+    return static_cast<int>(cudaGetLastError());
+}
 
 // F * G batches of (n, ncol) slabs through the column kernel
 template <class C>
@@ -1498,18 +1692,29 @@ int launch_col(const float* pack, const float* x, const float* conv,
                const float* nu, float* out, int n, int ncol, int G, int F,
                void* stream)
 {
-    constexpr int smem = tc::Layout<C>::kSmemBytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        tc::burgers_col<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
     const int at = ceil_div(n, tc::kTA), ct = ceil_div(ncol, tc::kTC);
-    const long long blocks = (long long)at * ct * F * G;
-    if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-    tc::burgers_col<C><<<static_cast<unsigned>(blocks), tc::kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-        pack, x, conv, nu, out, n, ncol, G, F, at, ct);
-    return static_cast<int>(cudaGetLastError());
+    return launch(tc::burgers_col<C>, tc::Layout<C>::kSmemBytes,
+                  (long long)at * ct * F * G, stream, pack, x, conv, nu, out,
+                  n, ncol, G, F, at, ct);
+}
+
+// operator row tiles, or pairs of them, a plain-store epilogue walks
+template <class E>
+int deriv_units(int n)
+{
+    return ceil_div(n, (E::kPair ? 2 : 1) * tc::kTA);
+}
+
+// D1 (StoreD1), or D1 and D2 (StoreD12), of B (n, ncol) slabs through the
+// column kernel
+template <class E>
+int launch_deriv_col(const float* pack, const float* x, float* d1, float* d2,
+                     int n, int ncol, int B, void* stream)
+{
+    const int units = deriv_units<E>(n), ct = ceil_div(ncol, tc::kTC);
+    return launch(tc::deriv_col<E>, tc::Layout<tc::Tf32x3>::kSmemBytes,
+                  (long long)units * ct * B, stream, pack, x, d1, d2, n, ncol,
+                  B, units, ct);
 }
 
 // The cluster of the bf16 column kernel: ca operator row tiles that share
@@ -1651,17 +1856,20 @@ template <class C>
 int launch_row(const float* pack, const float* x, const float* conv,
                const float* nu, float* out, int n, int P, int F, void* stream)
 {
-    constexpr int smem = tc::Layout<C>::kRowSmemBytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        tc::burgers_row<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const long long blocks = (long long)ceil_div(P, tc::kTC) * F;
-    if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-    tc::burgers_row<C><<<static_cast<unsigned>(blocks), tc::kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-        pack, x, conv, nu, out, n, P, F, ceil_div(n, tc::kTA));
-    return static_cast<int>(cudaGetLastError());
+    return launch(tc::burgers_row<C>, tc::Layout<C>::kRowSmemBytes,
+                  (long long)ceil_div(P, tc::kTC) * F, stream, pack, x, conv,
+                  nu, out, n, P, F, ceil_div(n, tc::kTA));
+}
+
+// D1 (StoreD1), or D1 and D2 (StoreD12), of P rows of n through the row
+// kernel
+template <class E>
+int launch_deriv_row(const float* pack, const float* x, float* d1, float* d2,
+                     int n, int P, void* stream)
+{
+    return launch(tc::deriv_row<E>, tc::Layout<tc::Tf32x3>::kRowSmemBytes,
+                  (long long)ceil_div(P, tc::kTC), stream, pack, x, d1, d2, n,
+                  P, deriv_units<E>(n));
 }
 
 }  // namespace
@@ -1725,3 +1933,33 @@ extern "C" void burgers_col_schedule(int n, int ncol, int G, int F, int bulk,
 BURGERS_ENTRY_POINTS(, tc::Tf32x3)            // "highest"
 BURGERS_ENTRY_POINTS(_high, tc::Bf16x3)       // "high"
 BURGERS_ENTRY_POINTS(_default, tc::Bf16x1)    // "default"
+
+// deriv1_x/y/z: D1 @ x along axis 0, 1 or 2 of the stacked fields x
+// (F, nx, ny, nz) into d1 (d2 unused); deriv12_x/y/z: D1 @ x into d1 and
+// D2 @ x into d2.  3xTF32; pack is burgers_x/y/z's, the [D1; D2] operator
+// packed for "highest" (deriv1 reads its D1 tiles).  x is contracted as
+// K1 (B = F slabs of (nx, ny nz)), K2 (F nx slabs of (ny, nz)) or K3
+// (F nx ny rows of nz).
+#define DERIV_ENTRY_POINTS(name, E)                                          \
+    extern "C" int name##_x(const float* pack, const float* x, float* d1,    \
+                            float* d2, int F, int nx, int ny, int nz,        \
+                            void* stream)                                    \
+    {                                                                        \
+        return launch_deriv_col<E>(pack, x, d1, d2, nx, ny * nz, F, stream); \
+    }                                                                        \
+    extern "C" int name##_y(const float* pack, const float* x, float* d1,    \
+                            float* d2, int F, int nx, int ny, int nz,        \
+                            void* stream)                                    \
+    {                                                                        \
+        return launch_deriv_col<E>(pack, x, d1, d2, ny, nz, F * nx, stream); \
+    }                                                                        \
+    extern "C" int name##_z(const float* pack, const float* x, float* d1,    \
+                            float* d2, int F, int nx, int ny, int nz,        \
+                            void* stream)                                    \
+    {                                                                        \
+        return launch_deriv_row<E>(pack, x, d1, d2, nz, F * nx * ny,         \
+                                   stream);                                  \
+    }
+
+DERIV_ENTRY_POINTS(deriv1, tc::StoreD1)
+DERIV_ENTRY_POINTS(deriv12, tc::StoreD12)

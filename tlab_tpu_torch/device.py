@@ -21,7 +21,15 @@ def resolve(device) -> torch.device:
 
 
 def full_fp32_matmul() -> None:
-    """Keep float32 products in full float32 on the card.
+    """Keep float32 products through torch.matmul in full float32 on the
+    card.
+
+    Its scope is PyTorch's own products (cuBLAS, cuDNN): the dense products
+    of ops/derivative.py and the Poisson solve's.  The hand-written kernels
+    of ops/burgers.py set their own arithmetic: K1-K3 by contract, and the
+    compressible set's float32 derivative products (deriv1, deriv12) 3xTF32,
+    split so that the result stays within fp32 round-off of a full-fp32
+    product.
 
     TF32 keeps a 10-bit mantissa (~3 digits).  The compact-derivative
     operators are held to float64 at ~1e-5 per RK step, and the factorized

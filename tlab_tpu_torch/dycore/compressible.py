@@ -39,6 +39,7 @@ import torch
 
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.state import State
+from tlab_tpu_torch.ops import burgers
 from tlab_tpu_torch.physics import eos
 from tlab_tpu_torch.physics import mixtures as mx
 from tlab_tpu_torch.physics import thermo as th
@@ -121,14 +122,44 @@ def primitive_view(U: CompState) -> State:
     return State(u=U.rhou / rho, v=U.rhov / rho, w=U.rhow / rho, s=s)
 
 
+def _tensor_cores(P, axis_name: str, a) -> bool:
+    """Whether the dense products along a direction run in the 3xTF32
+    kernels (ops/burgers.py deriv1, deriv12): a float32 CUDA tensor and no
+    banded plan for the direction.  Elsewhere (float64, the CPU, a long
+    line) the incompressible set's dense or banded products run.  There is
+    no switch: where it holds, the kernel runs or the step raises."""
+    return (a.is_cuda and a.dtype == torch.float32
+            and P.get(f"d1{axis_name}_banded") is None)
+
+
+def _d1(P, axis_name: str, axis: int, a):
+    """First derivative along one direction, as dyn._d1 (`axis` valid for
+    `a` itself); a dense float32 CUDA line through the kernel deriv1, which
+    reads the D1 rows of the plan's [D1;D2]."""
+    d12 = P.get(f"d12{axis_name}")
+    if d12 is None or not _tensor_cores(P, axis_name, a):
+        return dyn._d1(P, axis_name, axis, a)
+    with _trace.span("dycore.d1"):
+        return dyn._gathered_apply(P, axis_name, a,
+                                   lambda g: burgers.deriv1(d12, g, axis))
+
+
 def _div(P, fx, fy, fz):
-    return dyn._d1(P, "x", 0, fx) + dyn._d1(P, "y", 1, fy) \
-        + dyn._d1(P, "z", 2, fz)
+    return _d1(P, "x", 0, fx) + _d1(P, "y", 1, fy) + _d1(P, "z", 2, fz)
 
 
 def _grad(P, a):
-    return (dyn._d1(P, "x", 0, a), dyn._d1(P, "y", 1, a),
-            dyn._d1(P, "z", 2, a))
+    return _d1(P, "x", 0, a), _d1(P, "y", 1, a), _d1(P, "z", 2, a)
+
+
+@_trace.span("dycore.d12")
+def _d12_lines(P, axis_name: str, axis: int, stack):
+    """(d1, d2) of a stack along axis+1 on whole lines: the kernel
+    deriv12 (two tensors) on a dense float32 CUDA line, else
+    dyn._d12_apply."""
+    if _tensor_cores(P, axis_name, stack):
+        return burgers.deriv12(P[f"d12{axis_name}"], stack, axis + 1)
+    return dyn._d12_apply(P, axis_name, axis, stack)
 
 
 def _d12_stack(P, axis_name: str, axis: int, stack):
@@ -139,14 +170,17 @@ def _d12_stack(P, axis_name: str, axis: int, stack):
     fdm_derivative.f90:413).  A periodic long line takes its substructured
     plans, as the incompressible set's (dyn._d12_apply).  On a mesh a
     split direction gathers the stack once, applies the operator to the
-    full lines and scatters both halves back in one transpose."""
+    full lines and scatters both halves back in one transpose, joined for
+    it."""
     if P.get(f"d12{axis_name}") is None:
         z = torch.zeros_like(stack)
         return z, z
+    if dyn._axis_comm(P, axis_name) is None:
+        return _d12_lines(P, axis_name, axis, stack)
     F = stack.shape[0]
     both = dyn._gathered_apply(
         P, axis_name, stack,
-        lambda g: torch.cat(dyn._d12_apply(P, axis_name, axis, g)))
+        lambda g: torch.cat(_d12_lines(P, axis_name, axis, g)))
     return both[:F], both[F:]
 
 
@@ -372,9 +406,9 @@ def _rhs_scalars(P, U: CompState, u, v, w, visc: float):
     rhos = U.rhos
     rho = U.rho
     s = rhos / rho[None]
-    h = -(dyn._d1(P, "x", 1, rhos * u[None])
-          + dyn._d1(P, "y", 2, rhos * v[None])
-          + dyn._d1(P, "z", 3, rhos * w[None]))
+    h = -(_d1(P, "x", 1, rhos * u[None])
+          + _d1(P, "y", 2, rhos * v[None])
+          + _d1(P, "z", 3, rhos * w[None]))
     diff = torch.tensor(P["diff"], dtype=rhos.dtype,
                         device=rhos.device)[:, None, None, None]
     sx1, sx2 = _d12_stack(P, "x", 0, s)

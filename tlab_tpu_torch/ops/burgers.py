@@ -44,6 +44,18 @@ device memory (2F+1 passes).
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
 launches the kernel or raises.
+
+The plain derivative products (``deriv1``, ``deriv12``): the same column
+and row kernels with a plain store for an epilogue, D1 @ X (deriv1_x/y/z)
+or D1 @ X and D2 @ X into two outputs (deriv12_x/y/z), in the "highest"
+contract alone, from the same packed [D1; D2] (deriv1 reads its D1 tiles).
+They replace no Pallas kernel: they stand for tlab_tpu's compressible
+einsums, HIGHEST whatever TLAB_TPU_MATMUL_PRECISION says, which the port
+ran as cuBLAS fp32 products on the FMA units (~48 TFLOP/s at 512x256x256
+on an H100, whose fp32 peak is 67).  A d1 block runs D1 of two operator
+row tiles in its two accumulators, so it does as many products on each
+field tile it reads as a K1-K3 block.  The compressible set calls them (dycore/compressible.py);
+their launches are the span registry's counter ops.derivative.k.
 """
 from __future__ import annotations
 
@@ -53,7 +65,7 @@ import torch
 
 from tlab_tpu_torch import device as _device
 from tlab_tpu_torch.ops import _build
-from tlab_tpu_torch.ops.derivative import der12
+from tlab_tpu_torch.ops.derivative import der1, der12
 from tlab_tpu_torch.utils import nantrap
 from tlab_tpu_torch.utils import trace as _trace
 
@@ -98,6 +110,22 @@ def total_launches() -> list:
 # the span registry's counter ops.burgers.k, set to 0 by its reset()
 _trace.source("ops.burgers.k", lambda: sum(total_launches()),
               reset_launches)
+
+# launches per axis of the plain derivative products' entry points
+# (deriv1_x/y/z, deriv12_x/y/z); counted where a launch is made
+deriv_launches = {"deriv1": [0, 0, 0], "deriv12": [0, 0, 0]}
+
+
+def reset_deriv_launches() -> None:
+    for counts in deriv_launches.values():
+        counts[:] = [0, 0, 0]
+
+
+# the span registry's counter ops.derivative.k (the derivative products
+# that the kernels compute), set to 0 by its reset()
+_trace.source("ops.derivative.k",
+              lambda: sum(map(sum, deriv_launches.values())),
+              reset_deriv_launches)
 
 
 def _contract(prec_name: str) -> tuple:
@@ -149,17 +177,17 @@ def bf16_split(v):
 _SPLITS = {"tf32": tf32_split, "bf16": bf16_split}
 
 
-def fused_burgers_split_plain(d12, x, conv, nu, axis: int, passes: int = 3,
-                              unit: str = "tf32"):
-    """The arithmetic of the tensor-core kernels in plain PyTorch, on any
-    device: operands split into hi + lo of the `unit`'s type (TF32 or
-    bf16), the products x_lo.d_hi, x_hi.d_lo and x_hi.d_hi summed in
-    float32 (small terms first), then the combine.  `passes=1` keeps
-    x_hi.d_hi alone, a single pass.  Each product is one of operands that
-    float32 holds exactly, accumulated in float32.  ("tf32", 3) is the
-    "highest" contract, ("bf16", 3) "high" and ("bf16", 1) "default"
-    (CONTRACTS).  The tests and chip_smoke.py hold the kernels with it; the
-    main path never calls it."""
+def der12_split_plain(d12, x, axis: int, passes: int = 3,
+                      unit: str = "tf32"):
+    """(d1 x, d2 x) in the arithmetic of the tensor-core kernels, in plain
+    PyTorch on any device, `axis` valid for x itself (as der12): operands
+    split into hi + lo of the `unit`'s type (TF32 or bf16), the products
+    x_lo.d_hi, x_hi.d_lo and x_hi.d_hi summed in float32 (small terms
+    first).  `passes=1` keeps x_hi.d_hi alone, a single pass.  Each product
+    is one of operands that float32 holds exactly, accumulated in float32.
+    ("tf32", 3) is the "highest" contract, ("bf16", 3) "high" and
+    ("bf16", 1) "default" (CONTRACTS).  The tests and chip_smoke.py hold
+    the kernels with it; the main path never calls it."""
     _device.full_fp32_matmul()
     if unit not in _SPLITS:
         raise ValueError(f"unit must be 'tf32' or 'bf16', got {unit!r}")
@@ -173,8 +201,16 @@ def fused_burgers_split_plain(d12, x, conv, nu, axis: int, passes: int = 3,
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     d1x = d2x = 0.0
     for d, xx in terms:
-        a, b = der12(d, xx, axis + 1)
+        a, b = der12(d, xx, axis)
         d1x, d2x = d1x + a, d2x + b
+    return d1x, d2x
+
+
+def fused_burgers_split_plain(d12, x, conv, nu, axis: int, passes: int = 3,
+                              unit: str = "tf32"):
+    """The Burgers term in the arithmetic of the tensor-core kernels
+    (der12_split_plain along spatial axis `axis`), then the combine."""
+    d1x, d2x = der12_split_plain(d12, x, axis + 1, passes, unit)
     return nu.reshape(-1, 1, 1, 1) * d2x - conv[None] * d1x
 
 
@@ -284,8 +320,14 @@ def _check(d12, x, conv, nu, axis: int) -> None:
         raise ValueError(f"x must be (F, nx, ny, nz), got {tuple(x.shape)}")
     F, nx, ny, nz = x.shape
     n = x.shape[axis + 1]
-    for name, t, shape in (("d12", d12, (2 * n, n)), ("x", x, x.shape),
-                           ("conv", conv, (nx, ny, nz)), ("nu", nu, (F,))):
+    _check_tensors(x, (("d12", d12, (2 * n, n)), ("x", x, x.shape),
+                       ("conv", conv, (nx, ny, nz)), ("nu", nu, (F,))))
+
+
+def _check_tensors(x, tensors) -> None:
+    """Each (name, tensor, shape) on x's device, float32, of that shape and
+    contiguous; x with fewer than 2**31 elements (32-bit sizes)."""
+    for name, t, shape in tensors:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if t.dtype != torch.float32:
@@ -340,3 +382,63 @@ def fused_burgers(d12, x, conv, nu, axis: int,
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
     contract_launches[prec_name][axis] += 1
     return out
+
+
+DERIV_KINDS = ("deriv1", "deriv12")
+_DERIV_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
+
+
+def _deriv(kind: str, d12, x, axis: int):
+    """The entry point `kind` along `axis` (valid for x itself) of a 3-D
+    field or a 4-D stack: d1 x, or (d1 x, d2 x) for "deriv12"."""
+    if x.ndim not in (3, 4) or not x.ndim - 3 <= axis < x.ndim:
+        raise ValueError(f"axis {axis} is not a spatial axis of a field or "
+                         f"a stack of shape {tuple(x.shape)}")
+    spatial = axis - (x.ndim - 3)
+    name = f"{kind}_{'xyz'[spatial]}"
+    if nantrap.checking():
+        with nantrap.suspended():
+            out = _deriv(kind, d12, x, axis)
+        nantrap.check(out, name, (x,))
+        return out
+    if x.device.type == "cpu":
+        if kind == "deriv1":
+            return der1(d12[:x.shape[axis]], x, axis)
+        return der12(d12, x, axis)
+    n = x.shape[axis]
+    _check_tensors(x, (("d12", d12, (2 * n, n)), ("x", x, x.shape)))
+    d1 = torch.empty_like(x)
+    d2 = torch.empty_like(x) if kind == "deriv12" else None
+    lib = _build.library("burgers")
+    fn = getattr(lib, name)
+    fn.argtypes = _DERIV_ARGTYPES
+    fn.restype = ctypes.c_int
+    F, nx, ny, nz = (1,) * (4 - x.ndim) + tuple(x.shape)
+    with torch.cuda.device(x.device):
+        pack = _packed(d12, lib, "highest")
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(pack.data_ptr(), x.data_ptr(), d1.data_ptr(),
+                 None if d2 is None else d2.data_ptr(), F, nx, ny, nz,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    deriv_launches[kind][spatial] += 1
+    return d1 if d2 is None else (d1, d2)
+
+
+def deriv1(d12, x, axis: int):
+    """D1 x along `axis` of a field (nx, ny, nz) or a stack (F, nx, ny, nz),
+    axis valid for x itself (as ops.derivative.der1), from the plan's
+    stacked d12 = [D1; D2] (2n, n).  On a CUDA tensor the 3xTF32 kernel
+    deriv1_x/y/z (float32, contiguous, or it raises); on a CPU tensor the
+    plain product der1(d12[:n], x, axis).  Under the NaN trap's per-op
+    check the call is one op, named after its entry point."""
+    return _deriv("deriv1", d12, x, axis)
+
+
+def deriv12(d12, x, axis: int):
+    """(D1 x, D2 x) along `axis` as deriv1, two separate contiguous
+    tensors: on a CUDA tensor the kernel deriv12_x/y/z, on a CPU tensor
+    der12(d12, x, axis)."""
+    return _deriv("deriv12", d12, x, axis)

@@ -6,10 +6,13 @@ A compact-FD derivative is one product with the precomputed dense operator
 [D1; D2]).  Works on 3-D fields and 4-D stacks alike: the caller passes the
 axis index valid for the tensor itself.
 
-Float32 products run in full float32 (device.full_fp32_matmul) at every
-setting.  The TPU's precision knob (tlab_tpu/ops/derivative.py:33-59),
-TLAB_TPU_MATMUL_PRECISION, reaches the port's fused Burgers kernels alone:
-op_precision names their arithmetic contract.
+The products here run in full float32 (device.full_fp32_matmul) at every
+setting.  The compressible set's float32 products on the card do not come
+here: they run 3xTF32 in the kernels of ops/burgers.py (deriv1, deriv12),
+within fp32 round-off of these.  The TPU's precision knob
+(tlab_tpu/ops/derivative.py:33-59), TLAB_TPU_MATMUL_PRECISION, reaches the
+port's fused Burgers kernels alone: op_precision names their arithmetic
+contract.
 """
 from __future__ import annotations
 
@@ -35,7 +38,10 @@ def op_precision(dtype):
     computes full fp32 whatever the name, and every witness and limit of
     the port is such a computation.  An unknown value raises ValueError
     (tlab_tpu takes "high" for its kernel and HIGHEST for its einsums).
-    The port's dense products stay full fp32 at every setting."""
+    The port's other products keep their arithmetic at every setting: the
+    dense products here full fp32, the compressible set's float32 products
+    on the card 3xTF32 (ops/burgers.py deriv1, deriv12), as tlab_tpu's
+    einsums stay HIGHEST."""
     if dtype != torch.float32:
         return None
     name = os.environ.get("TLAB_TPU_MATMUL_PRECISION", "highest").lower()

@@ -48,10 +48,12 @@ _PROLOGUE_AGAIN = """        tl.tk = 0;
             cp_async_commit();
         }
 """
-_EPILOGUE = """        row_epilogue(acc1, acc2, cv + a0, ob + a0, nu_f, n, tl.rows, n - a0,
-                     m, q, vec);
+# the row kernel's combine (the Burgers epilogue), and the end of each
+# item's epilogue with the clear after it
+_EPILOGUE = """            row_epilogue(acc1, acc2, cv + a0, ob + a0, nu_f, n, tl.rows,
+                         n - a0, m, q, vec);
 """
-_CLEAR = "        clear(acc1, acc2);\n"
+_CLEAR = "        }\n        clear(acc1, acc2);\n"
 # the row kernel's epilogue through the ring's memory, as the column
 # kernel's: (r, a) tiles, then 16-byte rows of out and conv
 _STAGED_EPILOGUE = """        cp_async_wait<0>();
@@ -94,8 +96,11 @@ _TF32_RK = "    static constexpr int kRK = 32;   // 128-byte pieces"
 _CLUSTER = ("    while (bulk && a * 2 <= at && a * 2 <= 4) a *= 2;\n"
             "    int c = 8 / a;\n")
 # the column kernel's copy of a K tile's operator stage
-_COL_OP_COPY = ("        load_operator<C>(ring, pack_tiles + (size_t)t * "
-                "L::kOpStage, s, tid);\n")
+_COL_OP_COPY = ("        load_operator<C, kPair>(\n"
+                "            ring, pack_tiles + (size_t)t * L::kOpStage,\n"
+                "            kPair && second ? second + (size_t)t * "
+                "L::kOpStage : nullptr, s,\n"
+                "            tid);\n")
 VARIANTS = {
     "base": [],
     # the K loop without its copies from L2 (the prologue's tiles only)
@@ -139,12 +144,11 @@ VARIANTS = {
     # field row); 64 deep leaves room for 4 operator stages
     "xk16": [(_TF32_RK, _TF32_RK.replace("32", "16"))],
     "xk64": [(_TF32_RK, _TF32_RK.replace("32", "64")), _TF32_STAGES],
-    "noahead": [_NOAHEAD_COUNT,
-                (_EPILOGUE + _CLEAR, _EPILOGUE + _CLEAR + _PROLOGUE_AGAIN)],
+    "noahead": [_NOAHEAD_COUNT, (_CLEAR, _CLEAR + _PROLOGUE_AGAIN)],
     # the staged epilogue needs the ring, so it cannot have the next item's
     # copies on their way: compare it with "noahead"
-    "stagedepi": [_NOAHEAD_COUNT, (_EPILOGUE + _CLEAR, _STAGED_EPILOGUE
-                                   + _CLEAR + _PROLOGUE_AGAIN)],
+    "stagedepi": [_NOAHEAD_COUNT, (_EPILOGUE, _STAGED_EPILOGUE),
+                  (_CLEAR, _CLEAR + _PROLOGUE_AGAIN)],
     # row kernel: streaming stores of out
     "stcs": [("                        *reinterpret_cast<float2*>"
               "(orow + 8 * (jb + j)) = v;",
@@ -189,7 +193,8 @@ def registers(log: str) -> str:
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             kernel = "row" if "burgers_row" in ln else \
-                "colbf16" if "col_bf16" in ln else "col"
+                "colbf16" if "col_bf16" in ln else \
+                "deriv" if "deriv_" in ln else "col"
         elif "Used" in ln:
             found.append(f"{kernel} "
                          + ln.split(":")[-1].split(",")[0].strip()[5:])

@@ -59,6 +59,8 @@ The spans and counters of the port:
                         the Poisson solve's complex products, the wall rows)
   library.cufft         count: the Poisson solve's transforms
   ops.burgers.k         count: the launches of K1-K3 (ops.burgers)
+  ops.derivative.k      count: the launches of the compressible set's
+                        derivative products (ops.burgers.deriv1, deriv12)
   runtime.from_case     phase: Simulation.from_case; its children
                         runtime.fdm_plan, runtime.tables,
                         runtime.device_plans, runtime.elliptic_plans
