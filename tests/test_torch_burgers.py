@@ -69,10 +69,10 @@ def test_cpu_stack_takes_the_dense_path():
     runs the dense product and launches nothing."""
     d12, x, conv, nu = map(torch.from_numpy,
                            _operands(4, (8, 8, 8), 0, np.float32))
-    before = list(burgers.launches)
+    before = {k: list(v) for k, v in burgers.contract_launches.items()}
     assert not tdyn._fused_burgers_ok({"d12x": d12}, "x", x)
     tdyn._burgers_all({"d12x": d12}, "x", 0, x, conv, nu[:, None, None, None])
-    assert burgers.launches == before
+    assert burgers.contract_launches == before
 
 
 @pytest.mark.parametrize("bad, exc", [

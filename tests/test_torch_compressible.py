@@ -45,6 +45,7 @@ from tlab_tpu_torch.physics.params import NSParams as TNSParams
 from tlab_tpu_torch.runtime import Simulation
 from tlab_tpu_torch.stats import averages as tavg
 from tlab_tpu_torch.tools import cli
+from tlab_tpu_torch.tools import dns as tdns
 from tlab_tpu_torch.tools.initialize import compressible_initial_state
 
 F64 = torch.float64
@@ -417,16 +418,22 @@ def test_restart_3_plus_2_is_5(case02_runs, tmp_path):
     assert rows[4] == ref_rows[4] and rows[5] == ref_rows[5]
 
 
-@pytest.mark.parametrize("keys", [
-    "[Iteration]\nDtLag=yes\n",
-    "[Control]\nFlowLimit=yes\nMaxDensity=1.0001\n",
-], ids=["dtlag", "bounds"])
-def test_case02_loop_keys_through_both_clis(tmp_path, keys):
+@pytest.mark.parametrize("keys, status, err", [
+    ("[Iteration]\nDtLag=yes\n", "0", None),
+    ("[Control]\nFlowLimit=yes\nMaxDensity=1.0001\n", "2",
+     "DNS_CONTROL. Pressure/density out of bounds at It"),
+    ("[Iteration]\nRuntime=0.0\n", "0", "Maximum walltime of 0 seconds"),
+    ("[Main]\nProfiling=yes\n", "0", None),
+], ids=["dtlag", "bounds", "runtime", "profiling"])
+def test_case02_loop_keys_through_both_clis(tmp_path, keys, status, err):
     """The compressible loop's own keys through both command lines, 4
-    steps with a restart file each: DtLag (dt from the previous step's CFL)
-    and a [Control] density bound the run passes (status 2, tlab.err, the
-    restart files of the step it stops at): dns.out to every printed digit,
-    tlab.err and the last fields alike."""
+    steps with a restart file each: DtLag (dt from the previous step's CFL),
+    a [Control] density bound the run passes (status 2, tlab.err, the
+    restart files of the step it stops at), the walltime watchdog
+    ([Iteration] Runtime: tlab.err and the restart files of the step it
+    stops at) and [Main] Profiling (dns.prof, a row a step, and the mean in
+    dns.out's last line, which both packages time on their own): dns.out
+    to every printed digit, tlab.err and the last fields alike."""
     section = keys.split("\n", 1)[0]
     text = _case02(steps=4, restart=1)
     text = text.replace(section + "\n", keys, 1) if section in text \
@@ -443,17 +450,62 @@ def test_case02_loop_keys_through_both_clis(tmp_path, keys):
         main(["dns", *common])
         outs[name] = out
     t, j = outs["torch"], outs["jax"]
-    log = (t / "dns.out").read_text()
-    assert log == (j / "dns.out").read_text()
+    log, jlog = ("".join(ln for ln in open(d / "dns.out")
+                         if not ln.startswith("# profiling:"))
+                 for d in (t, j))
+    assert log == jlog
     rows = [r.split() for r in log.splitlines() if not r.startswith("#")]
-    stopped = section == "[Control]"
-    assert [r[0] for r in rows][-1] == ("2" if stopped else "0")
-    assert (t / "tlab.err").exists() == stopped == (j / "tlab.err").exists()
+    assert [r[0] for r in rows][-1] == status
+    assert (t / "tlab.err").exists() == (err is not None) == \
+        (j / "tlab.err").exists()
     last = rows[-1][1]
-    if stopped:
+    if err is not None:
         assert int(last) < 4
         assert (t / "tlab.err").read_text() == (j / "tlab.err").read_text()
+        assert (t / "tlab.err").read_text().startswith(err)
+    profiled = section == "[Main]"
+    for d in (t, j):
+        assert (d / "dns.prof").exists() == profiled
+        if profiled:
+            assert len((d / "dns.prof").read_text().splitlines()) == 3 + 4
+            assert open(d / "dns.out").read().splitlines()[-1].startswith(
+                "# profiling:")
     for tag in ("1", "2", "3", "4", "5", "s1"):
         a = tio.read_field(str(t / f"flow.{last}.{tag}"))[0]
         b = jio.read_field(str(j / f"flow.{last}.{tag}"))[0]
         assert np.max(np.abs(a - b)) <= TOL * np.max(np.abs(b)), tag
+
+
+def test_case02_visc_change_ramp_moves_the_log_alone(tmp_path):
+    """A restart viscosity of twice the case's relaxes to it over
+    [ViscChange] Time in the compressible set too (dns.run's restart_visc;
+    the command line passes none in this set).  As tlab_tpu's compressible
+    thread means it, the ramp moves dns.out's visc column and the restart
+    files' viscosity, not the step: the fields equal bit for bit those of
+    the same run without a ramp, and dns.out's other columns to every
+    digit.  (tlab_tpu's own run stops on it: its ramp factor reads the
+    velocity of the conservative state.)"""
+    text = _case02(steps=4, restart=4) + "\n[ViscChange]\nTime=0.005\n"
+    sim = Simulation.from_case(load_case(Ini(text=text)), dtype=F64,
+                               device="cpu")
+    U = compressible_initial_state(sim, seed=5)
+    rows, fields = {}, {}
+    for name, visc0 in (("ramp", 2e-3), ("plain", None)):
+        out = tmp_path / name
+        out.mkdir()
+        run = tdns.run(sim, U, outdir=str(out), n_steps=4,
+                       log_path=str(out / "dns.out"), restart_visc=visc0)
+        assert run.itime == 4
+        rows[name] = [r.split() for r in run.log.lines
+                      if not r.startswith("#")]
+        fields[name] = tio.read_comp_state(str(out / "flow"), 4)
+    visc = [float(r[6]) for r in rows["ramp"]]
+    assert visc[0] == 2e-3 and visc[-1] == 1e-3 and 1e-3 < visc[1] < 2e-3
+    assert all(a >= b for a, b in zip(visc, visc[1:]))
+    assert [float(r[6]) for r in rows["plain"]] == [1e-3] * 5
+    for a, b in zip(rows["ramp"], rows["plain"]):
+        assert a[:6] + a[7:] == b[:6] + b[7:]
+    (got, rtime, v), (want, rtime0, v0) = fields["ramp"], fields["plain"]
+    assert rtime == rtime0 and v == v0 == 1e-3
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or np.array_equal(a, b)

@@ -56,11 +56,11 @@ def test_kernel_matches_plain_version(F, shape, axis):
     (all three kernels, ~22 bits an operand): 1e-5 of the largest result is
     well above their round-off."""
     d12, x, conv, nu = _operands(F, shape, axis, _card())
-    before = burgers.launches[axis]
+    before = burgers.contract_launches["highest"][axis]
     got = burgers.fused_burgers(d12, x, conv, nu, axis)
     ref = burgers.fused_burgers_plain(d12, x, conv, nu, axis)
     torch.cuda.synchronize()
-    assert burgers.launches[axis] == before + 1
+    assert burgers.contract_launches["highest"][axis] == before + 1
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
@@ -71,10 +71,10 @@ def test_gate_launches_for_float32_only():
     dev = _card()
     for dtype, launched in ((torch.float32, 1), (torch.float64, 0)):
         d12, x, conv, nu = _operands(4, (16, 12, 8), 0, dev, dtype)
-        before = burgers.launches[0]
+        before = burgers.contract_launches["highest"][0]
         tdyn._burgers_all({"d12x": d12}, "x", 0, x, conv,
                           nu[:, None, None, None])
-        assert burgers.launches[0] == before + launched
+        assert burgers.contract_launches["highest"][0] == before + launched
 
 
 @pytest.mark.cuda
@@ -95,11 +95,11 @@ def test_two_dimensional_step_launches_no_z_kernel():
     out = {}
     for dtype in (torch.float32, torch.float64):
         _, P, state = entry.build(64, 48, 1, dtype, dev, seed=1)
-        before = list(burgers.launches)
+        before = list(burgers.contract_launches["highest"])
         state, _ = tdyn.rk_step(P, state, 1e-3)
         torch.cuda.synchronize()
-        out[dtype] = (state, [b - a for a, b in zip(before,
-                                                    burgers.launches)])
+        out[dtype] = (state, [b - a for a, b in zip(
+            before, burgers.contract_launches["highest"])])
     assert out[torch.float32][1] == [5, 5, 0]
     assert out[torch.float64][1] == [0, 0, 0]
     u32, u64 = out[torch.float32][0].u.double(), out[torch.float64][0].u
@@ -122,10 +122,11 @@ def test_dns_run_float32_follows_float64(tmp_path):
         sim = Simulation.from_case(case, dtype=dtype, device=dev)
         state = type(start)(*(t.to(dtype) for t in start[:4]))
         out = tmp_path / str(dtype)
-        before = list(burgers.launches)
+        before = list(burgers.contract_launches["highest"])
         runs[dtype] = tdns.run(sim, state, outdir=str(out), n_steps=10,
                                log_path=str(out / "dns.out"))
-        launched = [b - a for a, b in zip(before, burgers.launches)]
+        launched = [b - a for a, b in zip(
+            before, burgers.contract_launches["highest"])]
         assert launched == ([50] * 3 if dtype == torch.float32 else [0] * 3)
     r32, r64 = runs[torch.float32], runs[torch.float64]
     assert abs(r32.rtime - r64.rtime) <= 3e-4 * r64.rtime

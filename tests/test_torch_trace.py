@@ -227,7 +227,8 @@ def test_the_burgers_launches_are_the_kernels_own_counters():
         assert trace.totals()["counters"]["ops.burgers.k"] == 3
         trace.reset()
         assert trace.totals()["counters"]["ops.burgers.k"] == 0
-        assert burgers.total_launches() == [0, 0, 0]
+        assert burgers.contract_launches == {
+            name: [0, 0, 0] for name in burgers.CONTRACTS}
     finally:
         burgers.reset_launches()
 

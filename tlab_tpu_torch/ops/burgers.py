@@ -76,8 +76,6 @@ CONTRACTS = {"highest": ("tf32", 3), "high": ("bf16", 3),
 # kernel launches per axis (K1, K2, K3) of each contract's entry points;
 # counted where a launch is made
 contract_launches = {name: [0, 0, 0] for name in CONTRACTS}
-# those of the "highest" entry points, the port's default
-launches = contract_launches["highest"]
 
 ENTRY_POINTS = ("burgers_x", "burgers_y", "burgers_z")
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -101,14 +99,9 @@ def reset_launches() -> None:
         counts[:] = [0, 0, 0]
 
 
-def total_launches() -> list:
-    """Launches per axis (K1, K2, K3) over all contracts."""
-    return [sum(c[axis] for c in contract_launches.values())
-            for axis in range(3)]
-
-
 # the span registry's counter ops.burgers.k, set to 0 by its reset()
-_trace.source("ops.burgers.k", lambda: sum(total_launches()),
+_trace.source("ops.burgers.k",
+              lambda: sum(map(sum, contract_launches.values())),
               reset_launches)
 
 # launches per axis of the plain derivative products' entry points

@@ -1,29 +1,35 @@
-"""The dns.x equivalent time loop (port of tlab_tpu/tools/dns.py,
-the single-device incompressible and ideal-gas compressible threads
-through it).
+"""The dns.x equivalent time loop (port of tlab_tpu/tools/dns.py: one
+loop, _run, for the incompressible and the compressible equation sets).
 
 Outer loop on the host (adaptive dt, logging, checkpoints, statistics);
 each RK step, or window of `inner_steps` steps, is a sequence of device
-calls that the host waits for once, when it reads the window's CFL and
-dilatation extrema.  Structure mirrors reference dns_main.f90:246-361; the
-dns.out step log reproduces the reference's columns (Itn. time dt CFL# D#
-visc DilMin DilMax, and NewtonRs for the anelastic AirWater mixture,
-dns_main.f90:394-495).  TimeOrder=RungeKuttaDiffusion3 steps with the
-semi-implicit diffusion of dycore/implicit.py, one step at a time within a
-window.
+calls that the host waits for once, when it reads the window's
+diagnostics.  Structure mirrors reference dns_main.f90:246-361.  What the
+loop takes of its equation set (the state's type, its gather, cut and
+restart files, the diagnostics' columns and the dt rule, the bounds that
+stop a run, the statistics, the view and pressure of planes and towers,
+the spatial sums) is the set's _EquationSet, built once a run by
+_incompressible or _compressible.
+
+In the incompressible set the dns.out step log reproduces the
+reference's columns (Itn. time dt CFL# D# visc DilMin DilMax, and
+NewtonRs for the anelastic AirWater mixture, dns_main.f90:394-495).
+TimeOrder=RungeKuttaDiffusion3 steps with the semi-implicit diffusion of
+dycore/implicit.py, one step at a time within a window.
 
 The compressible set (sim.comp) steps its conservative state with
-dycore/compressible.py in a loop of its own (_run_compressible), one step
-a window: the acoustic CFL and the diffusion-number density set dt, the
-log prints the pressure and density extrema (PMin PMax RMin RMax,
-dns_main.f90:434-439) and, for the AirWater mixture, the saturation
-Newton's NewtonRs, all read in one copy a step; the buffer and the NSCBC
-reference states attach at the start (Simulation.attach_buffer_compressible);
-the restarts hold the conservative fields (fields_io.write_comp_state), the
-statistics are the Favre tables of write_statistics_compressible, and a
-spatial run accumulates the density-weighted (z, t) sums and the MA_*
-registers on the device (stats/spatial.make_comp_spatial_reducer; avg_zt
-and avgMA_zt at the statistics cadence).
+dycore/compressible.py, one step a window: the acoustic CFL and the
+diffusion-number density set dt, the log prints the pressure and density
+extrema (PMin PMax RMin RMax, dns_main.f90:434-439) and, for the AirWater
+mixture, the saturation Newton's NewtonRs, all read in one copy a step;
+the buffer and the NSCBC reference states attach at the start
+(Simulation.attach_buffer_compressible); the restarts hold the
+conservative fields (fields_io.write_comp_state), the statistics are the
+Favre tables of write_statistics_compressible, and a spatial run
+accumulates the density-weighted (z, t) sums and the MA_* registers on the
+device (stats/spatial.make_comp_spatial_reducer; avg_zt and avgMA_zt at
+the statistics cadence).  The incompressible set's own features below
+(the boundary machinery, phase averages, particles) are off in it.
 
 The boundary machinery rides in the loop as in tlab_tpu's: the interactive
 surface state starts at zero, the buffer takes its references from the
@@ -74,7 +80,7 @@ import datetime
 import functools
 import os
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -672,9 +678,9 @@ class _Ranks:
 
     def log_launches(self, outdir: str, counts) -> None:
         """On a mesh, the Burgers kernels' launches (K1, K2, K3, over the
-        three contracts) of each rank's run, one line in tlab.log: the
-        kernels run in the ranks' processes, where no caller can count
-        them."""
+        three contracts: _launches) of each rank's run, one line in
+        tlab.log: the kernels run in the ranks' processes, where no caller
+        can count them."""
         if self.mesh is None:
             return
         got = self.mesh.gather_list(torch.tensor(counts, dtype=torch.int64,
@@ -730,6 +736,12 @@ class _Ranks:
                                       ("filter sponge", sponge_fn)))
 
 
+def _launches() -> np.ndarray:
+    """K1-K3's launches in this process, per axis, summed over the
+    contracts (ops.burgers.contract_launches)."""
+    return np.sum(list(burgers.contract_launches.values()), axis=0)
+
+
 def _plane_specs(case, n_steps: int):
     """([PlaneSpec], the planes' cadence) of [SavePlanes]; [Iteration]
     SavePlanes <= 0 is clamped to the run length (dns_read_local.f90:538),
@@ -759,7 +771,7 @@ def _restart_dtype(ini) -> str:
         "Main", "FileType", "double").lower() == "single") else "<f8"
 
 
-def _visc_ramp(ini, visc_ini: float, restart_visc, ramp: bool = True):
+def _visc_ramp(ini, visc_ini: float, restart_visc, ramp: bool):
     """(visc, ramp rate) of the [ViscChange] viscosity ramp: a restart
     whose stored viscosity differs from the INI's relaxes linearly over
     Time toward it (dns_main.f90:176-184, 261)."""
@@ -798,12 +810,6 @@ def _loop_keys(ini, fixed_dt):
     return dt_lag, runtime_sec, profile
 
 
-def _stop(outdir: str, text: str) -> None:
-    """The line of tlab.err that says why the run stopped."""
-    with open(os.path.join(outdir, "tlab.err"), "a") as fh:
-        fh.write(text + "\n")
-
-
 def _write_profile(sim: Simulation, outdir: str, log: RunLog, samples,
                    n_sub: int, inner_steps: int) -> None:
     """dns.prof: the per-window wall times, and their mean per substep at
@@ -822,6 +828,166 @@ def _write_profile(sim: Simulation, outdir: str, log: RunLog, samples,
             fh.write(f"{s:.6e}\n")
     log._write(f"# profiling: {per_sub.mean()*1e3:.3f} ms/RK-substep "
                f"(min {per_sub.min()*1e3:.3f})")
+
+
+@dataclasses.dataclass
+class _EquationSet:
+    """What the time loop takes of its equation set, from _incompressible or
+    _compressible: the formats that differ between the sets, which the loop
+    does not look into."""
+    attach: Callable        # state -> state, the buffer's references taken
+    local: Callable         # a global state -> this rank's blocks
+    whole: Callable         # the global state on rank 0 (None on the others)
+    write_restart: Callable  # (itime, global state, rtime, visc, dtype)
+    # (diagnostics, the previous window's with DtLag or None) -> (CFL max,
+    # the log's columns, the diffusion-number density): the host's one read
+    read: Callable
+    next_dt: Callable       # (CFL max, density) -> the adaptive dt
+    bounds: Callable        # columns -> None, or (status, what is out)
+    statistics: Callable    # (global state, itime, rtime, step's pressure)
+    stations: Callable      # (SpatialStats, stations) -> [(file, tables)]
+    sampler: Callable       # SpatialStats -> sample(global state, p, itime)
+    view: Callable          # global state -> the (u, v, w, s) of planes
+    # the diagnostic pressure of a global state; None: planes and towers
+    # take the step's pressure
+    pressure: Optional[Callable]
+    step_p: tuple           # the writers that take the step's pressure
+    log: dict               # RunLog's columns
+
+
+def _incompressible(sim: Simulation, ranks: _Ranks,
+                    outdir: str) -> _EquationSet:
+    """The incompressible set: State restarts (flow and scal), the CFL dt
+    of dycore.incompressible.next_dt, the log's dilatation extrema (and
+    NewtonRs), [Control] MaxDilatation, the plane statistics with the
+    step's pressure, the Rij station budgets, and the diagnostic pressure
+    for planes, towers and phase averages."""
+    P, case = sim.P, sim.case
+    dconst = P["diffusion_constant"]
+    max_dil = (getattr(case, "control", None)
+               or {}).get("max_dilatation", -1.0)
+    newton = newton_error_fn(sim) is not None
+    # (the plan goes in the partial: a region copies its arguments)
+    gradients = nantrap.region("velocity_gradients",
+                               functools.partial(velocity_gradients, P))
+
+    def attach(state):
+        if P.get("surface_bc") is not None and state.sfc is None \
+                and state.s.shape[0]:
+            # interactive-surface reference state (BcsScal%ref) starts at
+            # 0 each run, as the reference (allocated fresh per execution)
+            ns, nx, _, nz = state.s.shape
+            state = state._replace(sfc=state.s.new_zeros((2, ns, nx, nz)))
+        sim.attach_buffer(state)
+        return state
+
+    def read(diag, prev):
+        if prev is None:
+            cmax, *extras = diag.tolist()  # [CFL, DilMin, DilMax(, NewtonRs)]
+        else:
+            # the previous window's diagnostics and this one's, whose
+            # NewtonRs (of the stepped state) is what tlab_tpu logs
+            (cmax, *extras), now = torch.stack((prev, diag)).tolist()
+            if newton:
+                extras[2] = now[3]
+        return cmax, extras, dconst
+
+    def bounds(extras):
+        # DNS_BOUNDS_CONTROL bound_d branch: max |nabla.u| past [Control]
+        # MaxDilatation
+        if max_dil > 0 and max(abs(extras[0]), abs(extras[1])) > max_dil:
+            return 3, "Dilatation"
+        return None
+
+    def stations(spatial_stats, sta):
+        # the per-station Rij budget tables (reference AVG_FLOW_ZT_REDUCE,
+        # dns_statistics.f90:233)
+        return [("avg_zt", spatial_stats.station_budgets(
+            sta, sim.nsp.visc, d1x=_host(P.get("d1x")),
+            d1y=_host(P.get("d1y"))))]
+
+    def sampler(spatial_stats):
+        # one device reduction; only (K, nx, ny) comes to the host
+        return lambda g, p, itime: spatial_stats.accumulate_device(
+            state_fields(g), grads=gradients(g), p=p)
+
+    return _EquationSet(
+        attach=attach, local=ranks.local_state, whole=ranks.whole_state,
+        write_restart=functools.partial(
+            fields_io.write_state, os.path.join(outdir, "flow"),
+            os.path.join(outdir, "scal")),
+        read=read,
+        next_dt=lambda cmax, _: dyn.next_dt(P, cmax, case.time_cfl,
+                                            case.time_cfl_diffusive),
+        bounds=bounds,
+        statistics=lambda g, itime, rtime, p: write_statistics(
+            sim, g, outdir, itime, rtime, p=p),
+        stations=stations, sampler=sampler, view=lambda g: g,
+        pressure=nantrap.region("pressure_boussinesq", functools.partial(
+            pressure_boussinesq, P)),
+        step_p=("statistics", "planes", "spatial"), log={"newton": newton})
+
+
+def _compressible(sim: Simulation, ranks: _Ranks,
+                  outdir: str) -> _EquationSet:
+    """The compressible set (sim.comp): write_comp_state restarts; dt from
+    the acoustic CFL and the diffusion-number density (TIME_COURANT's
+    compressible branch); the log's PMin PMax RMin RMax (and NewtonRs for
+    AirWater); the [Control] pressure and density bounds
+    (DNS_BOUNDS_CONTROL, dns_local.f90:136-158); the Favre statistics and,
+    in a spatial run, the density-weighted station sums (avg_zt, avgMA_zt);
+    the planes and towers of the primitive view (comp_mod.primitive_view)
+    with the EOS pressure of the step."""
+    case, c = sim.case, sim.comp
+    bnd = c.get("bounds")
+
+    def attach(U):
+        sim.attach_buffer_compressible(U)
+        return U
+
+    def read(diag, prev):
+        # [CFL, PMin, PMax, RMin, RMax, (NewtonRs,) density]: a 6- or
+        # 7-element copy (the previous window's alone with DtLag)
+        cmax, *extras, dden = (diag if prev is None else prev).tolist()
+        return cmax, extras, dden
+
+    def next_dt(cmax, dden):
+        return min(case.time_cfl / cmax if cmax > 0 else np.inf,
+                   case.time_cfl_diffusive / dden if dden > 0 else np.inf)
+
+    def bounds(extras):
+        if bnd is not None and (
+                extras[0] < bnd["p"][0] or extras[1] > bnd["p"][1]
+                or extras[2] < bnd["r"][0] or extras[3] > bnd["r"][1]):
+            return 2, "Pressure/density"    # DNS_ERROR_NEGDENS/NEGPRESS
+        return None
+
+    def stations(spatial_stats, sta):
+        # Favre station tables from the density-weighted (z, t) sums
+        # (avg_flow_zt_reduce.f90) and the full MA_* register table
+        # (avgij_map.h families)
+        return [("avg_zt", spatial_stats.favre_station_table(sta)),
+                ("avgMA_zt", register_station_table(spatial_stats, sta))]
+
+    def sampler(spatial_stats):
+        reduce = nantrap.region("compressible spatial sums",
+                                make_comp_spatial_reducer(sim, spatial_stats))
+
+        def sample(g, p, itime):
+            with _trace.trace(f"spatial sums {itime}"):
+                spatial_stats.accumulate_comp_stack(reduce(g))
+        return sample
+
+    return _EquationSet(
+        attach=attach, local=ranks.local_comp, whole=ranks.whole_comp,
+        write_restart=functools.partial(fields_io.write_comp_state,
+                                        os.path.join(outdir, "flow")),
+        read=read, next_dt=next_dt, bounds=bounds,
+        statistics=lambda g, itime, rtime, p: write_statistics_compressible(
+            sim, g, outdir, itime, rtime),
+        stations=stations, sampler=sampler, view=comp_mod.primitive_view,
+        pressure=None, step_p=("planes", "towers"),
+        log={"comp": True, "newton": c.get("aw") is not None})
 
 
 def run(sim: Simulation, state: State, outdir: str = ".",
@@ -846,13 +1012,18 @@ def run(sim: Simulation, state: State, outdir: str = ".",
                     particle_props, inner_steps, inflow, restart_visc, mesh)
 
 
-def _run(sim: Simulation, state: State, outdir: str, itime: int,
+def _run(sim: Simulation, state, outdir: str, itime: int,
          rtime: float, n_steps: Optional[int], log_path: Optional[str],
          checkpoint: bool, nan_abort: bool, opr_check: bool, pstate,
          particle_props, inner_steps: int, inflow,
          restart_visc: Optional[float], mesh) -> DnsRun:
-    """run() of the incompressible set, or its branch to the compressible
-    loop."""
+    """run()'s loop, one for both equation sets: what differs is the
+    _EquationSet of sim's set.  The incompressible set's own features
+    (particles, the [Filter] cadence and the filter sponge, an inflow,
+    phase averages, ObsLog, windows of inner_steps, opr_check and the
+    launch line) are off in the compressible set, as in tlab_tpu's
+    compressible thread, whose [ViscChange] ramp moves only the log's visc
+    column."""
     case = sim.case
     if mesh is not None:
         nx, _, nz = sim.grid.shape
@@ -862,7 +1033,8 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
     n_steps = n_steps if n_steps is not None else (case.it_end - itime)
     if pstate is not None and inflow is not None:
         raise NotImplementedError("unsteady inflow with particles")
-    if sim.comp is not None:
+    inc = sim.comp is None
+    if not inc:
         if pstate is not None:
             raise NotImplementedError(
                 "particles in the compressible set: tlab_tpu has no "
@@ -871,43 +1043,31 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
             raise ValueError(
                 "opr_check in the compressible set: its step has no "
                 "Poisson plan to check (tlab_tpu's opr_check raises too)")
-        return _run_compressible(sim, state, outdir, itime, rtime, n_steps,
-                                 log_path, checkpoint, nan_abort,
-                                 restart_visc, ranks)
-    # the [Filter] cadence and a time-dependent forcing (the wavemaker reads
-    # the start-of-step time) are per-step host work: no window across them
-    filt = sim.filter_matrices()
-    filt_step = case.filter.step if case.filter is not None else 0
+        inflow = None
+    eqs = (_incompressible if inc else _compressible)(sim, ranks, outdir)
     timed = bool(getattr(sim.P.get("bodyforce"), "time_dependent", False))
     spatial = case.flow_type == "spatial"
-    if filt is not None or timed or spatial or inflow is not None \
-            or pstate is not None:
-        inner_steps = 1     # per-step host work (the sums, the particles)
     restart_dtype = _restart_dtype(ini)
     if ranks.root:
         _trace.maybe_init(case, outdir)
-    if sim.P.get("surface_bc") is not None and state.sfc is None \
-            and state.s.shape[0]:
-        # interactive-surface reference state (BcsScal%ref) starts at 0
-        # each run, as the reference (allocated fresh per execution)
-        ns, nx, _, nz = state.s.shape
-        state = state._replace(sfc=state.s.new_zeros((2, ns, nx, nz)))
     with _trace.trace("attach_buffer"):
-        sim.attach_buffer(state)
-    filt_fn, sponge_fn = ranks.filters(sim)
+        state = eqs.attach(state)
+    filt_fn, sponge_fn = ranks.filters(sim) if inc else (None, None)
+    filt_step = case.filter.step if case.filter is not None else 0
+    # the [Filter] cadence and a time-dependent forcing (the wavemaker reads
+    # the start-of-step time) are per-step host work: no window across them
+    if not inc or filt_fn is not None or timed or spatial \
+            or inflow is not None or pstate is not None:
+        inner_steps = 1     # per-step host work (the sums, the particles)
 
     def checkpoint_now():
-        whole = ranks.whole_state(state)
+        whole = eqs.whole(state)
         if ranks.root:
-            fields_io.write_state(os.path.join(outdir, "flow"),
-                                  os.path.join(outdir, "scal"), itime, whole,
-                                  rtime, visc, dtype=restart_dtype)
+            eqs.write_restart(itime, whole, rtime, visc, dtype=restart_dtype)
 
     # the [ViscChange] ramp rides into the step as the visc_scale factor on
     # every diffusivity (as tlab_tpu: no ramp with an unsteady inflow or
     # with particles)
-    cfla = case.time_cfl
-    cfld = case.time_cfl_diffusive
     fixed_dt = case.time_step if case.time_step > 0 else None
     visc_ini = sim.nsp.visc
     visc, ramp_rate = _visc_ramp(ini, visc_ini, restart_visc,
@@ -922,13 +1082,12 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
                 [pstate.props, pstate.x.new_zeros((pstate.x.shape[0],
                                                    need))], dim=1))
     n_part = pstate.x.shape[0] if pstate is not None else 0
-    if mesh is not None:
-        # from here on this rank's blocks, and its particle slots
-        state = ranks.local_state(state)
-        if pstate is not None:
-            cap = ini.get_int("Particles", "MeshCapacity", 0) if ini else 0
-            pstate = ppar.to_mesh(mesh, sim.grid, pstate,
-                                  capacity=cap or None, dtype=state.u.dtype)
+    # from here on this rank's blocks, and its particle slots
+    state = eqs.local(state)
+    if pstate is not None and mesh is not None:
+        cap = ini.get_int("Particles", "MeshCapacity", 0) if ini else 0
+        pstate = ppar.to_mesh(mesh, sim.grid, pstate, capacity=cap or None,
+                              dtype=state.u.dtype)
 
     def _aux():
         aux = {}
@@ -948,18 +1107,12 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
         sim, inner_steps=inner_steps,
         particles=particle_props if pstate is not None else None,
         mesh=mesh), mesh)
-    # (the plan goes in the partial: a region copies its arguments)
-    pressure = nantrap.region("pressure_boussinesq",
-                              functools.partial(pressure_boussinesq, sim.P))
-    gradients = nantrap.region("velocity_gradients",
-                               functools.partial(velocity_gradients, sim.P))
-    newton = newton_error_fn(sim) is not None
 
     if ranks.root:
         write_tlab_log(sim, outdir, mesh=mesh)
         if mesh is not None:
             print(mesh.describe(), flush=True)
-    log = RunLog(path=log_path if ranks.root else None, newton=newton)
+    log = RunLog(path=log_path if ranks.root else None, **eqs.log)
     if opr_check and ranks.root:
         # startup operator self-test + micro-benchmark (reference OPR_CHECK)
         # on rank 0's device
@@ -970,7 +1123,7 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
     log.header()
 
     obs_log = ini.get("Iteration", "ObsLog", "none").lower() != "none" \
-        if ini else False
+        if inc and ini else False
     plane_specs, plane_step = _plane_specs(case, n_steps)
     towers = _towers(case)
     tower_pressure = bool((case.towers or {}).get("pressure"))
@@ -1000,11 +1153,10 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
         spatial_stats = SpatialStats.create(
             nx, ny, ["u", "v", "w"]
             + [f"s{i + 1}" for i in range(sim.nsp.n_scalars)])
-    dconst = sim.P["diffusion_constant"]
-    max_dil = (getattr(case, "control", None)
-               or {}).get("max_dilatation", -1.0)
+        sample = eqs.sampler(spatial_stats)
     # [Iteration] PhaseAvg: phase-locked z-means every `stride` steps
-    ph_stride = ini.get_int("Iteration", "PhaseAvg", 0) if ini else 0
+    ph_stride = ini.get_int("Iteration", "PhaseAvg", 0) if inc and ini \
+        else 0
     phavg = None
     if ph_stride > 0:
         nx, ny, _ = sim.grid.shape
@@ -1016,15 +1168,14 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
     prev_diag = None
     n_sub = len(sim.P["rk"]["kdt"])
     prof_samples = []
-    launches0 = burgers.total_launches()
+    launches0 = _launches() if inc else None
     t_start = time.monotonic()
 
-    # initial dt + step-0 log line: one read of [CFL, DilMin, DilMax(,
-    # NewtonRs)]
-    cmax, *extras0 = diagnostics(state).tolist()
-    dtime = fixed_dt or dyn.next_dt(sim.P, cmax, cfla, cfld)
-    log.step(0, itime, rtime, dtime, dtime * cmax, dtime * dconst, visc,
-             *extras0)
+    # initial dt + step-0 log line: one read of the diagnostics
+    cmax, extras, dden = eqs.read(diagnostics(state), None)
+    dtime = fixed_dt or eqs.next_dt(cmax, dden)
+    log.step(0, itime, rtime, dtime, dtime * cmax, dtime * dden, visc,
+             *extras)
 
     status = 0
     _trace.point("time loop starts")
@@ -1042,23 +1193,14 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
             state = sponge_fn(state)
         if filt_fn is not None and filt_step > 0 and itime % filt_step == 0:
             state = filt_fn(state)      # reference DNS_FILTER cadence
+        # the window's one host sync
+        with _READ_SPAN:
+            cmax, extras, dden = eqs.read(diag, prev_diag if dt_lag
+                                          else None)
         if dt_lag and prev_diag is not None:
-            # the window's one host sync: the previous window's diagnostics
-            # and this one's, whose NewtonRs (of the stepped state) is what
-            # tlab_tpu logs
-            with _READ_SPAN:
-                (cmax, *extras), now = torch.stack(
-                    (prev_diag, diag)).tolist()
             cmax *= 1.0 / 0.97
-            if newton:
-                extras[2] = now[3]
+        if dt_lag:
             prev_diag = diag
-        else:
-            if dt_lag:
-                prev_diag = diag
-            # the window's one host sync: a 3-element copy
-            with _READ_SPAN:
-                cmax, *extras = diag.tolist()
         if profile:
             prof_samples.append(time.monotonic() - t_it)
         if nan_abort and not np.isfinite(cmax):
@@ -1066,28 +1208,27 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
             log.step(status, itime, rtime, dtime, np.nan, np.nan, visc,
                      *extras)
             break
-        new_dt = fixed_dt or dyn.next_dt(sim.P, cmax, cfla, cfld)
-        dnum = new_dt * dconst
-        # dilatation bound (DNS_BOUNDS_CONTROL bound_d branch): abort when
-        # max |nabla.u| exceeds [Control] MaxDilatation
-        if max_dil > 0 and max(abs(extras[0]), abs(extras[1])) > max_dil:
-            status = 3
+        new_dt = fixed_dt or eqs.next_dt(cmax, dden)
+        dnum = new_dt * dden
+        stop = None
+        bound = eqs.bounds(extras)
+        if bound is not None:
+            status = bound[0]
             log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
                      visc, *extras)
+            stop = f"DNS_CONTROL. {bound[1]} out of bounds at It{itime}."
+        else:
+            if itime % case.it_log == 0:
+                log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
+                         visc, *extras)
+                _trace.point(f"iteration {itime} logged (dt={new_dt:.3e})")
+            if ranks.elapsed(t_start) > runtime_sec:
+                stop = (f"Maximum walltime of {runtime_sec:g} seconds is "
+                        f"reached at It{itime}.")
+        if stop is not None:
             if ranks.root:
-                _stop(outdir, f"DNS_CONTROL. Dilatation out of bounds "
-                      f"at It{itime}.")
-            if checkpoint and case.it_restart > 0:
-                checkpoint_now()
-            break
-        if itime % case.it_log == 0:
-            log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
-                     visc, *extras)
-            _trace.point(f"iteration {itime} logged (dt={new_dt:.3e})")
-        if ranks.elapsed(t_start) > runtime_sec:
-            if ranks.root:
-                _stop(outdir, f"Maximum walltime of {runtime_sec:g} seconds "
-                      f"is reached at It{itime}.")
+                with open(os.path.join(outdir, "tlab.err"), "a") as fh:
+                    fh.write(stop + "\n")
             if checkpoint and case.it_restart > 0:
                 checkpoint_now()
             break
@@ -1100,22 +1241,23 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
         spa_now = spatial_stats is not None \
             and (itime - it_first) % stats_spa == 0
         pdf_now = part_pdf is not None and stats_now
+        takes_p = {"statistics": stats_now, "planes": planes_now,
+                   "spatial": spa_now,
+                   "towers": towers is not None and tower_pressure}
         # the global fields on rank 0 where this step writes or accumulates
         # (the objects themselves on one device)
-        g_state = ranks.whole_state(state) if (
+        g_state = eqs.whole(state) if (
             restart_now or stats_now or obs_now or planes_now or ph_now
             or spa_now or pdf_now or towers is not None) else None
-        g_p = ranks.whole(p_cur) if (stats_now or planes_now
-                                     or spa_now) else None
+        g_p = ranks.whole(p_cur) if any(takes_p[k] for k in eqs.step_p) \
+            else None
         g_ps = ranks.whole_particles(pstate) if (
             restart_now or pdf_now or traj is not None) else None
         if restart_now:
             with _trace.trace(f"checkpoint {itime}"):
                 if ranks.root:
-                    fields_io.write_state(
-                        os.path.join(outdir, "flow"),
-                        os.path.join(outdir, "scal"), itime, g_state, rtime,
-                        visc, dtype=restart_dtype)
+                    eqs.write_restart(itime, g_state, rtime, visc,
+                                      dtype=restart_dtype)
                     if pstate is not None:
                         pio.write_particles(
                             os.path.join(outdir, f"part.{itime}"), g_ps,
@@ -1125,17 +1267,17 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
             continue
         if stats_now:
             with _trace.trace(f"statistics {itime}"):
-                write_statistics(sim, g_state, outdir, itime, rtime, p=g_p)
+                eqs.statistics(g_state, itime, rtime, g_p)
             if spatial_stats is not None and spatial_stats.n_samples:
-                # per-station Rij budget tables from the running (z,t) sums
-                # (reference AVG_FLOW_ZT_REDUCE at the statistics cadence,
-                # dns_statistics.f90:233), before this step's sample
-                tabs = spatial_stats.station_budgets(
-                    _stations(case, sim.grid.shape[0]), sim.nsp.visc,
-                    d1x=_host(sim.P.get("d1x")), d1y=_host(sim.P.get("d1y")))
-                write_station_budgets(
-                    os.path.join(outdir, f"avg_zt{itime}"),
-                    sim.grid.x.nodes, sim.grid.y.nodes, tabs, itime, rtime)
+                # the station tables from the running (z, t) sums at the
+                # statistics cadence, before this step's sample
+                sta = _stations(case, sim.grid.shape[0])
+                for name, tabs in eqs.stations(spatial_stats, sta):
+                    if tabs:
+                        write_station_budgets(
+                            os.path.join(outdir, f"{name}{itime}"),
+                            sim.grid.x.nodes, sim.grid.y.nodes, tabs, itime,
+                            rtime)
         if traj is not None:
             traj.accumulate(itime, rtime, g_ps)
             if restart_now:
@@ -1147,27 +1289,25 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
         if planes_now:
             # every plane set carries the pressure too (planes.f90
             # PLANES_INITIALIZE sizes flow + scalars + 1)
-            write_planes(outdir, itime, g_state, plane_specs,
+            write_planes(outdir, itime, eqs.view(g_state), plane_specs,
                          pressure=g_p if g_p is not None
-                         else pressure(g_state))
+                         else eqs.pressure(g_state))
         if towers is not None:
-            towers.accumulate(itime, rtime, g_state, pressure=(
-                pressure(g_state) if tower_pressure else None))
+            towers.accumulate(itime, rtime, eqs.view(g_state), pressure=(
+                (g_p if eqs.pressure is None else eqs.pressure(g_state))
+                if tower_pressure else None))
             if restart_now:
                 towers.flush(outdir)
         if ph_now:
             pfields = {"u": g_state.u, "v": g_state.v, "w": g_state.w,
-                       "p": pressure(g_state)}
+                       "p": eqs.pressure(g_state)}
             for i in range(sim.nsp.n_scalars):
                 pfields[f"s{i + 1}"] = g_state.s[i]
             phavg.accumulate(itime, pfields)
             if restart_now:
                 phavg.save(os.path.join(outdir, f"phavg{itime}.npz"), itime)
         if spa_now:
-            # one device reduction; only (K, nx, ny) comes to the host
-            spatial_stats.accumulate_device(
-                state_fields(g_state),
-                grads=gradients(g_state), p=g_p)
+            sample(g_state, g_p, itime)
             if restart_now:
                 spatial_stats.save(os.path.join(outdir, f"st{itime}.npz"),
                                    itime)
@@ -1178,9 +1318,9 @@ def _run(sim: Simulation, state: State, outdir: str, itime: int,
     if checkpoint and status != 0 and case.it_restart > 0 \
             and itime % case.it_restart != 0:
         checkpoint_now()
-    ranks.log_launches(outdir, [b - a for a, b in zip(
-        launches0, burgers.total_launches())])
-    state = ranks.whole_state(state)
+    if launches0 is not None:
+        ranks.log_launches(outdir, _launches() - launches0)
+    state = eqs.whole(state)
     pstate = ranks.whole_particles(pstate)
     if traj is not None and ranks.root:
         traj.flush(outdir)
@@ -1201,200 +1341,6 @@ def _particle_pdf(sim: Simulation, state: State, pstate, cfg: dict,
     pio.particle_pdf_reference(
         sim.grid, pstate, sf, cfg["locate"], cfg["subdomain"], cfg["max"],
         cfg["interval"], os.path.join(outdir, f"particle_pdf.{itime}"))
-
-
-def _run_compressible(sim: Simulation, U, outdir: str, itime: int,
-                      rtime: float, n_steps: int, log_path, checkpoint: bool,
-                      nan_abort: bool, restart_visc,
-                      ranks: _Ranks = None) -> DnsRun:
-    """run() of the compressible set (sim.comp): one RK step a window; dt
-    from the acoustic CFL and the diffusion-number density (TIME_COURANT's
-    compressible branch); the log's PMin PMax RMin RMax (and NewtonRs for
-    AirWater), read with the CFL in one copy a step; the [Control]
-    pressure and density bounds (DNS_BOUNDS_CONTROL, dns_local.f90:136-158);
-    the buffer attached at the start (Simulation.attach_buffer_compressible);
-    write_comp_state restarts, the Favre statistics and, in a spatial run,
-    the density-weighted station sums; the planes and towers of the
-    primitive view (comp_mod.primitive_view) with the EOS pressure of the
-    step.  As tlab_tpu's compressible thread: no [Filter], ObsLog or
-    dilatation bound, and the [ViscChange] ramp moves only the log's visc
-    column.  ranks: the mesh's view (run's), the blocks stepped and
-    gathered to rank 0 for every file."""
-    ranks = ranks or _Ranks(None)
-    mesh = ranks.mesh
-    case = sim.case
-    ini = case.ini
-    restart_dtype = _restart_dtype(ini)
-    if ranks.root:
-        _trace.maybe_init(case, outdir)
-    cfla = case.time_cfl
-    cfld = case.time_cfl_diffusive
-    fixed_dt = case.time_step if case.time_step > 0 else None
-    visc_ini = sim.nsp.visc
-    visc, ramp_rate = _visc_ramp(ini, visc_ini, restart_visc)
-    dt_lag, runtime_sec, profile = _loop_keys(ini, fixed_dt)
-    bnd = sim.comp.get("bounds")
-    with _trace.trace("attach_buffer"):
-        sim.attach_buffer_compressible(U)
-    U = ranks.local_comp(U)
-    step, diagnostics = _trapped(
-        *_compressible_step_functions(sim, mesh), mesh)
-    if ranks.root:
-        write_tlab_log(sim, outdir, mesh=mesh)
-        if mesh is not None:
-            print(mesh.describe(), flush=True)
-    log = RunLog(path=log_path if ranks.root else None, comp=True,
-                 newton=sim.comp.get("aw") is not None)
-    log.header()
-    # spatial mode: the density-weighted (z, t) sums every [Iteration]
-    # SaveStats steps, reduced on the device (one (K, nx, ny) copy)
-    spatial_stats = reducer = None
-    stats_spa = 1
-    it_first = itime
-    if case.flow_type == "spatial":
-        stats_spa = max(ini.get_int("Iteration", "SaveStats", 1), 1) \
-            if ini is not None else 1
-        nx, ny, _ = sim.grid.shape
-        spatial_stats = SpatialStats.create(
-            nx, ny, ["u", "v", "w"]
-            + [f"s{i + 1}" for i in range(sim.nsp.n_scalars)])
-        reducer = make_comp_spatial_reducer(sim, spatial_stats)
-    plane_specs, plane_step = _plane_specs(case, n_steps)
-    towers = _towers(case)
-    tower_pressure = bool((case.towers or {}).get("pressure"))
-
-    def checkpoint_now():
-        whole = ranks.whole_comp(U)
-        if ranks.root:
-            fields_io.write_comp_state(os.path.join(outdir, "flow"), itime,
-                                       whole, rtime, visc,
-                                       dtype=restart_dtype)
-
-    def next_dt(cmax, dden):
-        dt = fixed_dt or min(cfla / cmax if cmax > 0 else np.inf,
-                             cfld / dden if dden > 0 else np.inf)
-        return dt, dt * dden
-
-    # initial dt + step-0 log line: one read of [CFL, PMin, PMax, RMin,
-    # RMax, (NewtonRs,) diffusion-number density]
-    cmax, *extras, dden = diagnostics(U).tolist()
-    dtime, dnum = next_dt(cmax, dden)
-    log.step(0, itime, rtime, dtime, dtime * cmax, dnum, visc, *extras)
-
-    status = 0
-    prev_diag = None
-    prof_samples = []
-    t_start = time.monotonic()
-    _trace.point("time loop starts")
-    for _ in range(n_steps):
-        t_it = time.monotonic()
-        U, p_cur, diag = step(U, dtime)
-        itime += 1
-        rtime += dtime
-        visc = _ramped(visc, visc_ini, ramp_rate, dtime)
-        # the window's one host sync: a 6- or 7-element copy (the previous
-        # window's with DtLag)
-        with _READ_SPAN:
-            cmax, *extras, dden = (prev_diag if dt_lag
-                                   and prev_diag is not None
-                                   else diag).tolist()
-        if dt_lag and prev_diag is not None:
-            cmax *= 1.0 / 0.97
-        if dt_lag:
-            prev_diag = diag
-        if profile:
-            prof_samples.append(time.monotonic() - t_it)
-        if nan_abort and not np.isfinite(cmax):
-            status = 1
-            log.step(status, itime, rtime, dtime, np.nan, np.nan, visc,
-                     *extras)
-            break
-        new_dt, dnum = next_dt(cmax, dden)
-        if bnd is not None and (
-                extras[0] < bnd["p"][0] or extras[1] > bnd["p"][1]
-                or extras[2] < bnd["r"][0] or extras[3] > bnd["r"][1]):
-            status = 2              # DNS_ERROR_NEGDENS/NEGPRESS analog
-            log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
-                     visc, *extras)
-            if ranks.root:
-                _stop(outdir, f"DNS_CONTROL. Pressure/density out of bounds "
-                      f"at It{itime}.")
-            if checkpoint and case.it_restart > 0:
-                checkpoint_now()
-            break
-        if itime % case.it_log == 0:
-            log.step(status, itime, rtime, new_dt, new_dt * cmax, dnum,
-                     visc, *extras)
-            _trace.point(f"iteration {itime} logged (dt={new_dt:.3e})")
-        if ranks.elapsed(t_start) > runtime_sec:
-            if ranks.root:
-                _stop(outdir, f"Maximum walltime of {runtime_sec:g} seconds "
-                      f"is reached at It{itime}.")
-            if checkpoint and case.it_restart > 0:
-                checkpoint_now()
-            break
-        restart_now = checkpoint and case.it_restart > 0 \
-            and itime % case.it_restart == 0
-        stats_now = case.it_stats > 0 and itime % case.it_stats == 0
-        planes_now = bool(plane_specs) and (itime - it_first) % plane_step == 0
-        spa_now = spatial_stats is not None \
-            and (itime - it_first) % stats_spa == 0
-        # the global fields on rank 0 where this step writes or accumulates
-        g_U = ranks.whole_comp(U) if (
-            restart_now or stats_now or planes_now or spa_now
-            or towers is not None) else None
-        g_p = ranks.whole(p_cur) if (
-            planes_now or (towers is not None and tower_pressure)) else None
-        if not ranks.root:
-            dtime = new_dt
-            continue
-        if restart_now:
-            with _trace.trace(f"checkpoint {itime}"):
-                fields_io.write_comp_state(os.path.join(outdir, "flow"),
-                                           itime, g_U, rtime, visc,
-                                           dtype=restart_dtype)
-        if stats_now:
-            with _trace.trace(f"statistics {itime}"):
-                write_statistics_compressible(sim, g_U, outdir, itime, rtime)
-            if spatial_stats is not None and spatial_stats.n_samples:
-                # Favre station tables from the density-weighted (z, t)
-                # sums (avg_flow_zt_reduce.f90), before this step's sample,
-                # and the full MA_* register table (avgij_map.h families)
-                sta = _stations(case, sim.grid.shape[0])
-                for name, tabs in (
-                        (f"avg_zt{itime}",
-                         spatial_stats.favre_station_table(sta)),
-                        (f"avgMA_zt{itime}",
-                         register_station_table(spatial_stats, sta))):
-                    if tabs:
-                        write_station_budgets(
-                            os.path.join(outdir, name), sim.grid.x.nodes,
-                            sim.grid.y.nodes, tabs, itime, rtime)
-        if planes_now:
-            write_planes(outdir, itime, comp_mod.primitive_view(g_U),
-                         plane_specs, pressure=g_p)
-        if towers is not None:
-            towers.accumulate(itime, rtime, comp_mod.primitive_view(g_U),
-                              pressure=g_p if tower_pressure else None)
-            if restart_now:
-                towers.flush(outdir)
-        if spa_now:
-            with _trace.trace(f"spatial sums {itime}"):
-                spatial_stats.accumulate_comp_stack(nantrap.region(
-                    "compressible spatial sums", reducer)(g_U))
-            if restart_now:
-                spatial_stats.save(os.path.join(outdir, f"st{itime}.npz"),
-                                   itime)
-        dtime = new_dt
-
-    if profile and prof_samples and ranks.root:
-        _write_profile(sim, outdir, log, prof_samples,
-                       len(sim.P["rk"]["kdt"]), 1)
-    if checkpoint and status != 0 and case.it_restart > 0 \
-            and itime % case.it_restart != 0:
-        checkpoint_now()
-    return DnsRun(sim=sim, state=ranks.whole_comp(U), itime=itime,
-                  rtime=rtime, log=log)
 
 
 def _device_name(device: torch.device) -> str:

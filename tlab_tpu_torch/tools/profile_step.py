@@ -13,7 +13,8 @@ synchronise nothing, so the parts add up to the stream time.  Prints the
 card's name and power limit, then one line per part in ms/substep with
 its share, then the host wall time of the same steps.
 
-Then the same steps as the DNS loop takes them (tools/dns.py::
+Then the same steps as the DNS loop takes them (tools/dns.py::_run, the
+one time loop of both equation sets, with the step of
 make_step_functions: rk_step with the scalar clip, then the CFL and
 dilatation diagnostics, then the host's one read of them): one line per
 part in ms/step, the host wall time a step, of which the host's time in
@@ -21,9 +22,8 @@ the step function (tools.dns.step: its launches), whose excess over the
 stream time is the card's idle time at the read, and each step's wall
 time.
 
---compressible profiles the compressible set's step instead, as the DNS
-loop takes it (tools/dns.py::_compressible_step_functions, one host read a
-step), for two case files of the repo in float32: tests/data/
+--compressible profiles the compressible set's step instead, as the same
+loop takes it from make_step_functions (one host read a step), for two case files of the repo in float32: tests/data/
 case02_small3d.ini at 512x256x256 (chip_smoke.py's 12a: the ideal gas,
 internal energy) and tests/data/case14_small3d.ini at 256x192x128 (13a: the
 compressible AirWater set with NSCBC outflow and its buffer), each from its
@@ -93,7 +93,8 @@ def profile(shape, steps: int) -> dict:
     parts["RK update outside the substep"] = loop_ms - ms["dycore.substep"]
     return {"parts": parts, "stream_ms": loop_ms,
             "wall_ms": 1e3 * wall / substeps, "substeps": substeps,
-            "launches": burgers.total_launches()}
+            "launches": {k: list(v)
+                         for k, v in burgers.contract_launches.items()}}
 
 
 def profile_dns_step(shape, steps: int) -> dict:
@@ -172,7 +173,7 @@ def profile_compressible(path: str, shape, steps: int) -> dict:
                                dtype=torch.float32, device="cuda")
     U = compressible_initial_state(sim, seed=0)
     sim.attach_buffer_compressible(U)
-    step, diagnostics = dns_tool._compressible_step_functions(sim)
+    step, diagnostics = dns_tool.make_step_functions(sim)
     dt = 0.5 * sim.case.time_cfl / diagnostics(U)[0].item()
     U, _, diag = step(U, dt)
     diag.tolist()
@@ -230,7 +231,7 @@ def main(argv=None) -> int:
         return 0
     res = profile(tuple(args.shape), args.steps)
     print(f"[profile] {smi}; {tuple(args.shape)} fp32, {res['substeps']} "
-          f"substeps; kernel launches {res['launches']}")
+          f"substeps; kernel launches by contract {res['launches']}")
     for name, v in res["parts"].items():
         print(f"[profile] {name}: {v:.3f} ms/substep "
               f"({100 * v / res['stream_ms']:.1f}%)")

@@ -49,14 +49,14 @@ named):
 | `tools/dns.make_step_functions` step: `incompressible.rk_step`, `rk_loop_stacked`, `implicit.rk_step_implicit` with the diagnostics | `:354` (`_step`), `:324` (`_step`, unsteady inflow) |
 | the same with particles: `particles/stepping.rk_step_with_particles` | `:420` (`step`) |
 | the pencil step (`parallel/pencil.make_pencil_step`, `make_pencil_step_particles`) with the mesh's diagnostics | `parallel/pencil.py:283` (`_mesh_jit`), `:372`, `:404` (`_mesh_diag`, `_pdiag`) |
-| `tools/dns._compressible_step_functions` step (ideal gas, mixtures, AirWater, on a mesh) | `:208`, `:225` (`_comp_step`), `:145`, `:185` (`_aw_diag`, `_comp_diag`) |
-| the step-0 diagnostics (`diagnostics`) | `:428`, `:156`, `:198`, `:218`, `:245` (`cfl_only`) |
+| the compressible set's `make_step_functions` step (`tools/dns._compressible_step_functions`: ideal gas, mixtures, AirWater, on a mesh) | `:208`, `:225` (`_comp_step`), `:145`, `:185` (`_aw_diag`, `_comp_diag`) |
+| the step-0 diagnostics (`diagnostics`, read by `tools/dns._run`, the one time loop of both sets) | `:428`, `:156`, `:198`, `:218`, `:245` (`cfl_only`) |
 | the filter sponge and the [Filter] cadence (`_Ranks.filters`) | `:869` (`sponge_fn`), `:890` (`filter_fn`) |
 | `stats/averages.stats_tables` | `stats/averages.py:168` (`make_stats_tables_fn`) |
 | `tools/dns._inrun_pdfs_spectra` | `:515` (`compute`) |
 | `tools/dns.write_statistics_compressible` | `:644` (`compute`) |
-| the spatial mode's gradients and sums (`velocity_gradients`, the compressible reducer) | `:990` (`spatial_grads_fn`), `stats/spatial.py:110`, `:592` |
-| the diagnostic pressure of planes, towers, PhaseAvg (`dycore/pressure.pressure_boussinesq`) | eager in tlab_tpu |
+| the spatial mode's gradients and sums (`velocity_gradients` of `tools/dns._incompressible`, the reducer of `_compressible`) | `:990` (`spatial_grads_fn`), `stats/spatial.py:110`, `:592` |
+| the diagnostic pressure of planes, towers, PhaseAvg (`dycore/pressure.pressure_boussinesq`, `tools/dns._incompressible`'s `pressure`) | eager in tlab_tpu |
 | each post-processing command's per-snapshot computation (`tools/postprocess`) | eager in tlab_tpu |
 """
 from __future__ import annotations
