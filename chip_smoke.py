@@ -19,7 +19,12 @@ non-zero:
               full-fp32 product at the ragged shapes and a 96-point line,
               and at 512x256x256 with case02's operators (F = 1 and 4)
               against fp64 (no further off than 2x the cuBLAS product),
-              timed beside the plain version and the cuBLAS fp32 product
+              timed beside the plain version and the cuBLAS fp32 product;
+              (c) the fused compressible kernels comp_flux_<d>,
+              comp_assemble_<d>, comp_final against their plain versions
+              at 512x256x256, timed against their byte bound, and one
+              internal-energy RHS fused and on the PyTorch algebra against
+              fp64, timed in turns, with the memory a call adds
   4. main     the shear layer at 512x256x256 fp32: one warm-up RK4 step,
               then 3 timed steps through rk_loop_stacked; every Burgers
               term must go through the kernels
@@ -251,7 +256,7 @@ from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.state import State
 from tlab_tpu_torch.fdm.plan import build_fdm_plan
 from tlab_tpu_torch.io import fields_io
-from tlab_tpu_torch.ops import _build, burgers, elliptic
+from tlab_tpu_torch.ops import _build, burgers, comp_rhs, elliptic
 from tlab_tpu_torch.ops import elliptic_factorize as fac
 from tlab_tpu_torch.ops.derivative import apply_along, der12
 from tlab_tpu_torch.physics import radiation, thermo
@@ -628,6 +633,189 @@ def phase_deriv_kernels() -> list:
     return records
 
 
+# max|kernel - plain| / max|plain| of the fused compressible kernels: the
+# same fp32 operations, contracted into FMAs and summed in another order
+COMP_TOL = 1e-5
+COMP_SOURCE = "tlab_tpu_torch/csrc/comp_rhs.cu"
+COMP_ENTRIES = tuple(f"comp_{kind}_{d}" for kind in ("flux", "assemble")
+                     for d in "xyz") + ("comp_final",)
+
+
+def comp_fields(kind: str, ns: int, first: bool = True,
+                last: bool = False, prim: bool = False) -> int:
+    """Fields a fused compressible kernel reads and writes at one point of
+    a 3-D box with ns scalars, each once: comp_flux (the state; the fluxes,
+    with `prim` the stack and s), comp_assemble (the derivatives, rho and
+    the tendencies so far; the tendencies and the gradients, or, `last`,
+    the other two directions' gradients and rho e, and div u), comp_final
+    (three momentum tendencies and d div u; the tendencies)."""
+    if kind == "flux":
+        return 5 + ns + 4 + ns + (4 + ns if prim else 0)
+    if kind == "final":
+        return 9
+    reads = 1 + 4 + ns + 3 + 4 + (3 * ns + 1 if ns else 0) \
+        + (0 if first else 5 + ns) + (6 + (1 if ns else 2) if last else 0)
+    return reads + 5 + ns + (1 if last else 3)
+
+
+def phase_comp_rhs_kernels(smi: str) -> list:
+    """3c: the fused compressible kernels (ops/comp_rhs.py) at 512x256x256
+    with one scalar against their plain versions (COMP_TOL), each timed
+    alone (batches of DERIV_BATCH calls, median of REPS) beside its plain
+    version against its byte bound; then one whole internal-energy RHS of
+    case02's plan, fused and on the PyTorch algebra (the gate off here
+    alone), each against float64 (the fused no further off than 1.5x),
+    timed in turns, and the device memory one call adds at its peak."""
+    from tlab_tpu_torch.dycore import compressible as tcomp
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    ns = 1
+
+    def f(*lead, lo=None):
+        a = torch.randn(lead + MAIN_SHAPE, generator=gen, device="cuda")
+        return a if lo is None else lo + 0.05 * a
+
+    U = tcomp.CompState(f(lo=1.0), 0.1 * f(), 0.1 * f(), 0.1 * f(),
+                        f(lo=17.0), 0.5 + 0.1 * f(ns))
+    der = comp_rhs.Derivs(f(), (f(), f(), f(), f(), f(ns)), f(4), f(4),
+                          f(ns), f(ns), f())
+    grads = {0: f(3), 1: f(3)}
+    h0 = f(5 + ns)
+    dd = [f(), f(), f()]
+    cT, cP, mu, cond, diff = 0.0504, 7.9365, 1e-3, 0.0397, (1e-3,)
+    cases = [
+        ("comp_flux_x", "flux", dict(prim=True),
+         lambda: comp_rhs.flux(0, U, cT, cP, True),
+         lambda: comp_rhs.flux_plain(0, U, cT, cP, True)),
+        ("comp_flux_y", "flux", dict(prim=False),
+         lambda: comp_rhs.flux(1, U, cT, cP, False),
+         lambda: comp_rhs.flux_plain(1, U, cT, cP, False)),
+        ("comp_flux_z", "flux", dict(prim=False),
+         lambda: comp_rhs.flux(2, U, cT, cP, False),
+         lambda: comp_rhs.flux_plain(2, U, cT, cP, False))]
+    for d, first, last in ((0, True, False), (1, False, False),
+                           (2, False, True)):
+        args = (grads, first, last, mu, cond, cT, cP, diff)
+        cases.append((
+            f"comp_assemble_{'xyz'[d]}", "assemble",
+            dict(first=first, last=last),
+            lambda d=d, args=args: comp_rhs.assemble(d, der, U, h0.clone(),
+                                                     *args),
+            lambda d=d, args=args: comp_rhs.assemble_plain(
+                d, der, U, h0.clone(), *args)))
+    cases.append(("comp_final", "final", {},
+                  lambda: comp_rhs.final(h0.clone(), dd, mu),
+                  lambda: comp_rhs.final_plain(h0.clone(), dd, mu)))
+    points = MAIN_SHAPE[0] * MAIN_SHAPE[1] * MAIN_SHAPE[2]
+    records = []
+    for name, kind, kw, fn, plain in cases:
+        got, ref = fn(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        torch.cuda.synchronize()
+        rel = max((g - r).abs().max().item() / r.abs().max().item()
+                  for g, r in zip(got, ref) if r is not None)
+        require(rel <= COMP_TOL, f"{name}: rel err {rel} > {COMP_TOL}")
+        del got, ref
+        fields = comp_fields(kind, ns, **kw)
+        bound = 1e3 * fields * points * 4 / PEAK_BYTES
+        # the clones of h0 the calls take are timed too: the same copy in
+        # the kernel's and the plain version's time, read and written once
+        clone_ms = statistics.median(
+            event_ms(lambda: [h0.clone() for _ in range(DERIV_BATCH)])
+            / DERIV_BATCH for _ in range(REPS)) if kind != "flux" else 0.0
+        times = {"ms": [], "plain_ms": []}
+        for _ in range(REPS):
+            for key, call in (("ms", fn), ("plain_ms", plain)):
+                times[key].append(event_ms(
+                    lambda: [call() for _ in range(DERIV_BATCH)])
+                    / DERIV_BATCH - clone_ms)
+        ms = statistics.median(times["ms"])
+        plain_ms = statistics.median(times["plain_ms"])
+        print(f"[comp_rhs] {name} {MAIN_SHAPE} ns={ns} {kw or ''}: rel err "
+              f"{rel:.3e}; kernel {ms:.4f} ms ({fields} fields, "
+              f"{fields * points * 4 / ms / 1e6:.0f} GB/s), plain "
+              f"{plain_ms:.4f} ms; bound {bound:.4f} ms by bytes "
+              f"({100 * bound / ms:.1f}%); {smi}")
+        records.append({"name": name, "route": "cuda",
+                        "source": COMP_SOURCE,
+                        "replaces": "none: the PyTorch algebra of "
+                                    "rhs_compressible_internal",
+                        "rel_err": rel, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": "bytes",
+                        "fields": fields})
+    del U, der, grads, h0, dd
+    sim = Simulation.from_case(load_case(Ini(text=comp_case(MAIN_SHAPE, 1))),
+                               dtype=torch.float32, device="cuda")
+    c = sim.comp
+    rng = np.random.default_rng(3)
+    prim = [1.0 + 0.05 * rng.standard_normal(MAIN_SHAPE)] \
+        + [0.1 * rng.standard_normal(MAIN_SHAPE) for _ in range(3)] \
+        + [1.0 + 0.05 * rng.standard_normal(MAIN_SHAPE)]
+    s = rng.random((ns,) + MAIN_SHAPE)
+
+    def state(dtype):
+        return tcomp.from_primitive(
+            *(torch.from_numpy(a).to("cuda", dtype) for a in prim),
+            c["gamma"], c["mach"], s=torch.from_numpy(s).to("cuda", dtype),
+            energy="internal")
+
+    def rhs(P, U):
+        return tcomp.rhs_compressible_internal(
+            P, U, c["gamma"], c["mach"], sim.nsp.visc, c["prandtl"],
+            gas=c["gas"])
+
+    U32 = state(torch.float32)
+    fused = tcomp._fused
+    paths = {"fused": fused, "torch": lambda *a: False}
+    out = {}
+    for key, gate in paths.items():
+        tcomp._fused = gate
+        try:
+            rhs(sim.P, U32)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            h = rhs(sim.P, U32)
+            torch.cuda.synchronize()
+            out[key] = {"h": [x.double().cpu() for x in h],
+                        "peak": torch.cuda.max_memory_allocated() - base}
+            del h
+        finally:
+            tcomp._fused = fused
+    del U32
+    P64 = Simulation.from_case(load_case(Ini(text=comp_case(MAIN_SHAPE, 1))),
+                               dtype=torch.float64, device="cuda").P
+    ref = [x.cpu() for x in rhs(P64, state(torch.float64))]
+    del P64
+    torch.cuda.empty_cache()
+    gaps = {key: [float((a - r).abs().max() / r.abs().max())
+                  for a, r in zip(o["h"], ref)] for key, o in out.items()}
+    for name, a, b in zip(tcomp.CompState._fields, gaps["fused"],
+                          gaps["torch"]):
+        require(a <= 1.5 * b, f"fused RHS {name}: {a} from fp64, over 1.5x "
+                f"the PyTorch algebra's {b}")
+    U32 = state(torch.float32)
+    times = {key: [] for key in paths}
+    for _ in range(REPS):
+        for key, gate in paths.items():
+            tcomp._fused = gate
+            try:
+                times[key].append(event_ms(lambda: rhs(sim.P, U32)))
+            finally:
+                tcomp._fused = fused
+    field_bytes = 4 * points
+    print(f"[comp_rhs] RHS {MAIN_SHAPE} ns={ns}: fused "
+          f"{statistics.median(times['fused']):.3f} ms, PyTorch algebra "
+          f"{statistics.median(times['torch']):.3f} ms (a call, median of "
+          f"{REPS}, in turns); device memory a call adds at its peak: fused "
+          f"{out['fused']['peak'] / field_bytes:.1f} fields, PyTorch "
+          f"{out['torch']['peak'] / field_bytes:.1f} ({out['fused']['peak']} "
+          f"and {out['torch']['peak']} B); max|. - fp64| / max|fp64| fused "
+          + ", ".join(f"{g:.2e}" for g in gaps["fused"]) + "; PyTorch "
+          + ", ".join(f"{g:.2e}" for g in gaps["torch"]) + f"; {smi}")
+    return records
+
+
 def phase_main(P, state) -> list:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -727,7 +915,8 @@ def read_trace(path) -> dict:
 
 def traced_cli(ini: str, out: str, commands, *more) -> dict:
     """The CLI's `commands` in turn with tlab.trace on; `dns` comes last,
-    with the kernels' counts set to 0 just before it and read just after.
+    with the kernels' counts set to 0 just before it and read just after
+    (K1-K3, the derivative products, the fused compressible kernels).
     Returns the DnsRun, the counts, dns' peak device memory and the seconds
     of each command."""
     os.environ["TLAB_TPU_TRACE"] = "1"         # spans for the timings
@@ -746,15 +935,30 @@ def traced_cli(ini: str, out: str, commands, *more) -> dict:
                 torch.cuda.reset_peak_memory_stats()
                 burgers.reset_launches()
                 burgers.reset_deriv_launches()
+                comp_rhs.reset_launches()
             seconds[command] = run_cli(command, ini, out, *more)
         launches = list(burgers.contract_launches["highest"])
         deriv = {k: list(v) for k, v in burgers.deriv_launches.items()}
+        comp = {k: comp_rhs.launches.get(k, 0) for k in COMP_ENTRIES}
     finally:
         dns_tool.run = run_fn
         del os.environ["TLAB_TPU_TRACE"]
         ttrace.close()
     return {"run": runs[0], "launches": launches, "deriv_launches": deriv,
-            "seconds": seconds, "peak": torch.cuda.max_memory_allocated()}
+            "comp_launches": comp, "seconds": seconds,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def comp_launches(tag: str, res, each) -> dict:
+    """The fused compressible kernels' launches in a traced_cli dns,
+    required to be `each` for every entry point (one of them a set)."""
+    got = res["comp_launches"]
+    allowed = each if isinstance(each, set) else {each}
+    print(f"[{tag[:2]}] {tag}: fused compressible kernel launches {got}")
+    require(len(set(got.values())) == 1 and got["comp_final"] in allowed,
+            f"{tag}: fused compressible kernel launches {got}, each of "
+            f"{sorted(allowed)} expected")
+    return got
 
 
 def step_rate(trace: dict, steps: int, n_sub: int) -> dict:
@@ -2592,8 +2796,10 @@ def phase_compressible(card: str) -> list:
     the divergence form whatever TermAdvection says, as tlab_tpu's) at
     512x256x256, 5 adaptive RK4 steps; 12b: its initial
     state in total energy (rhoE + rho |u|^2 / 2 of the same fields) with
-    Equations=total and TermAdvection=divergence, 5 steps."""
-    launches = []
+    Equations=total and TermAdvection=divergence, 5 steps.  Returns each
+    run's K1-K3 launches and its fused compressible kernels' launches:
+    each entry point once a substep in 12a, none in 12b."""
+    launches, fused = [], []
     with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
         res = traced_cli(write_case(out, comp_case(COMP_SHAPE, COMP_STEPS)),
                          out, ("inigrid", "ini", "dns"))
@@ -2629,6 +2835,8 @@ def phase_compressible(card: str) -> list:
         print(f"[12] 12a: derivative kernel launches {d}")
         require(min(d["deriv1"] + d["deriv12"]) > 0,
                 f"12a: derivative kernel launches {d}")
+        substeps = COMP_STEPS * len(run.sim.P["rk"]["kdt"])
+        fused.append(comp_launches("12a", res, substeps))
         launches.append(res["launches"])
         # 12b: the same fields in total energy
         ke = 0.5 * (U0.rhou ** 2 + U0.rhov ** 2 + U0.rhow ** 2) / U0.rho
@@ -2656,8 +2864,9 @@ def phase_compressible(card: str) -> list:
               f"RMin RMax {' '.join(rows[-1][7:11])}")
         require(res["launches"] == [0, 0, 0],
                 f"12b launched {res['launches']}")
+        fused.append(comp_launches("12b", res, 0))
         launches.append(res["launches"])
-    return launches
+    return launches, fused
 
 
 def phase_compressible_fp64() -> None:
@@ -2907,7 +3116,9 @@ def phase_airwater(card: str) -> list:
 def phase_open(tag: str, card: str, text: str) -> list:
     """13b1/13b2: inigrid, ini and dns of an edited case02 at 512x256x256,
     5 adaptive RK4 steps: 13b1 outflow NSCBC and the buffer (the ideal gas),
-    13b2 the unidecomp mixture and the buffer between free-slip walls."""
+    13b2 the unidecomp mixture and the buffer between free-slip walls.
+    Returns the K1-K3 launches and the fused compressible kernels': none
+    with the mixture, each entry point once a substep or none in 13b1."""
     with tempfile.TemporaryDirectory(prefix="tlab_smoke_") as out:
         res = traced_cli(write_case(out, text), out,
                          ("inigrid", "ini", "dns"))
@@ -2935,7 +3146,9 @@ def phase_open(tag: str, card: str, text: str) -> list:
             f"{tag}: the case's parts")
     require(all(np.isfinite(v).all() for v in flow.values()),
             f"{tag}: avg columns not finite")
-    return res["launches"]
+    substeps = COMP_STEPS * len(run.sim.P["rk"]["kdt"])
+    fused = comp_launches(tag, res, 0 if tag == "13b2" else {0, substeps})
+    return res["launches"], fused
 
 
 def plane_means(U) -> dict:
@@ -5351,7 +5564,7 @@ def main() -> int:
     for rec, n in zip(records, launches):
         rec["launches"] = n
     del P, state
-    deriv_records = phase_deriv_kernels()
+    deriv_records = phase_deriv_kernels() + phase_comp_rhs_kernels(smi)
     phase_fp64()
     # 6a's initial fields at 512x256x256, for phases 7, 8c and 10b
     keep = tempfile.TemporaryDirectory(prefix="tlab_smoke_")
@@ -5414,9 +5627,15 @@ def main() -> int:
     phase_crossover(smi)
     t11 = time.perf_counter() - t11
     t12 = time.perf_counter()
-    for tag, got in zip(("12a", "12b"), phase_compressible(smi)):
+    comp_records = [r for r in deriv_records if r["source"] == COMP_SOURCE]
+
+    def comp_counts(tag, fused):
+        for rec in comp_records:
+            rec[f"launches_{tag}"] = fused[rec["name"]]
+    for tag, got, fused in zip(("12a", "12b"), *phase_compressible(smi)):
         for rec, n in zip(records, got):
             rec[f"launches_{tag}"] = n
+        comp_counts(tag, fused)
     phase_compressible_fp64()
     t12 = time.perf_counter() - t12
     t13 = time.perf_counter()
@@ -5424,8 +5643,10 @@ def main() -> int:
         rec["launches_13a"] = n
     for tag, text in (("13b1", open_case(COMP_SHAPE, COMP_STEPS)),
                       ("13b2", mix_case(COMP_SHAPE, COMP_STEPS))):
-        for rec, n in zip(records, phase_open(tag, smi, text)):
+        got, fused = phase_open(tag, smi, text)
+        for rec, n in zip(records, got):
             rec[f"launches_{tag}"] = n
+        comp_counts(tag, fused)
     phase_case14_fp64(smi)
     phase_case14_fp32()
     for rec, n in zip(records, phase_spatial_comp(smi)):

@@ -418,30 +418,38 @@ def test_derivative_kernel_takes_a_field_and_raises_on_what_it_does_not():
         burgers.deriv1(d12, x.double(), 1)
 
 
-def _compressible_rhs(dtype, seed=2):
-    """rhs_compressible_internal of a random primitive state on a
-    64x32x32 box (x, z periodic, y between free-slip walls, one scalar) on
-    the card, in `dtype`."""
+def _compressible_case(dtype, shape=(64, 32, 32), ns=1, seed=2):
+    """(P, U) of a random primitive state on a box (x, z periodic, y
+    between free-slip walls, ns scalars) on the card, in `dtype`."""
     from tlab_tpu_torch import grid as tgrid
     from tlab_tpu_torch.dycore import compressible as tcomp
     from tlab_tpu_torch.fdm.plan import build_fdm_plan
     from tlab_tpu_torch.physics.params import NSParams
     dev = _card()
     P = tdyn.build_device_plans(
-        build_fdm_plan(tgrid.uniform_grid(64, 32, 32, 2.0, 1.0, 1.0)),
-        NSParams(reynolds=1000.0, schmidt=(1.0,)),
+        build_fdm_plan(tgrid.uniform_grid(*shape, 2.0, 1.0, 1.0)),
+        NSParams(reynolds=1000.0, schmidt=((1.0, 0.7) + (1.0,) * ns)[:ns]),
         tdyn.WallBCs.from_velocity_kind(
-            "freeslip", "freeslip", scalar_bcs=(("neumann", "neumann"),)),
+            "freeslip", "freeslip",
+            scalar_bcs=(("neumann", "neumann"),) * ns),
         dtype=dtype, device=dev, with_elliptic=False)
     rng = np.random.default_rng(seed)
-    shape = (64, 32, 32)
     prim = [1.0 + 0.05 * rng.standard_normal(shape)] \
         + [0.1 * rng.standard_normal(shape) for _ in range(3)] \
         + [1.0 + 0.05 * rng.standard_normal(shape)]
-    s = rng.random((1,) + shape)
+    s = rng.random((ns,) + shape)
     U = tcomp.from_primitive(
         *(torch.from_numpy(a).to(dev, dtype) for a in prim), 1.4, 0.3,
-        s=torch.from_numpy(s).to(dev, dtype), energy="internal")
+        s=torch.from_numpy(s).to(dev, dtype) if ns else None,
+        energy="internal")
+    return P, U
+
+
+def _compressible_rhs(dtype, seed=2, shape=(64, 32, 32), ns=1):
+    """rhs_compressible_internal of _compressible_case's state (64x32x32,
+    one scalar unless said)."""
+    from tlab_tpu_torch.dycore import compressible as tcomp
+    P, U = _compressible_case(dtype, shape, ns, seed)
     return tcomp.rhs_compressible_internal(P, U, 1.4, 0.3, 1e-3, 0.7)
 
 
@@ -486,3 +494,142 @@ def test_derivative_kernels_do_not_synchronise():
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
+
+
+# the fused compressible algebra (ops/comp_rhs.py): a point count that is
+# not a multiple of 4 (one point a thread) and one that is (16-byte
+# accesses)
+COMP_SHAPES = [(31, 17, 13), (64, 32, 32)]
+
+
+def _comp_operands(shape, ns, axis, seed=3):
+    """A random float32 state, one direction's random derivatives, random
+    tendencies and the other directions' gradients, on the card."""
+    from tlab_tpu_torch.dycore import compressible as tcomp
+    from tlab_tpu_torch.ops import comp_rhs
+    rng = np.random.default_rng(seed + ns + axis)
+
+    def f(*lead, lo=None):
+        a = rng.standard_normal(lead + shape)
+        if lo is not None:
+            a = lo + 0.1 * np.abs(a)
+        return torch.from_numpy(a).to(_card(), torch.float32)
+    U = tcomp.CompState(f(lo=0.8), f(), f(), f(), f(lo=2.0),
+                        f(ns) if ns else None)
+    der = comp_rhs.Derivs(f(), (f(), f(), f(), f()) + ((f(ns),) if ns
+                                                        else ()),
+                          f(4), f(4), f(ns) if ns else None,
+                          f(ns) if ns else None, f() if ns else None)
+    grads = {d: f(3) for d in range(3) if d != axis}
+    return U, der, f(5 + ns), grads, [f(), None, f()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", COMP_SHAPES)
+@pytest.mark.parametrize("ns", [0, 2])
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_comp_rhs_kernels_match_their_plain_versions(shape, ns, axis):
+    """comp_flux_<d>, comp_assemble_<d> (first, middle and last direction,
+    and one direction alone) and comp_final against their plain versions
+    in float32 on the card: the same operations, contracted into FMAs and
+    summed in another order, within 1e-5 of the largest result."""
+    from tlab_tpu_torch.ops import comp_rhs
+    U, der, h0, grads, dd = _comp_operands(shape, ns, axis)
+    cT, cP, mu, cond = 0.0504, 7.9365, 1e-3, 0.0397
+    diff = (1e-3, 1.4e-3)[:ns]
+
+    def close(got, want):
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None)
+            if w is not None:
+                assert g.shape == w.shape and g.is_contiguous()
+                assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+    close(comp_rhs.flux(axis, U, cT, cP, True),
+          comp_rhs.flux_plain(axis, U, cT, cP, True))
+    close(comp_rhs.flux(axis, U, cT, cP, False)[:1],
+          comp_rhs.flux_plain(axis, U, cT, cP, False)[:1])
+    for first, last in ((True, False), (False, False), (False, True),
+                        (True, True)):
+        args = (grads, first, last, mu, cond, cT, cP, diff)
+        close(comp_rhs.assemble(axis, der, U, h0.clone(), *args),
+              comp_rhs.assemble_plain(axis, der, U, h0.clone(), *args))
+    close([comp_rhs.final(h0.clone(), dd, mu)],
+          [comp_rhs.final_plain(h0.clone(), dd, mu)])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", COMP_SHAPES)
+@pytest.mark.parametrize("ns", [0, 1, 2])
+def test_fused_compressible_rhs_follows_float64(monkeypatch, shape, ns):
+    """One internal-energy RHS in float32 through the fused kernels: 7
+    launches (dycore.comp_fused.k), the same 24 + 6 derivative products
+    (18 + 3 without a scalar), and each tendency no further from the
+    float64 RHS than 1.5 times the float32 RHS on the PyTorch algebra (the
+    gate turned off here, in the test alone)."""
+    from tlab_tpu_torch.dycore import compressible as tcomp
+    from tlab_tpu_torch.ops import comp_rhs
+    from tlab_tpu_torch.utils import trace
+    ref = _compressible_rhs(torch.float64, shape=shape, ns=ns)
+    trace.reset()
+    got = _compressible_rhs(torch.float32, shape=shape, ns=ns)
+    counters = trace.totals()["counters"]
+    assert counters["dycore.comp_fused.k"] == 7
+    assert comp_rhs.launches == {
+        **{f"comp_{k}_{d}": 1 for k in ("flux", "assemble") for d in "xyz"},
+        "comp_final": 1}
+    assert {k: sum(v) for k, v in burgers.deriv_launches.items()} == (
+        {"deriv1": 24, "deriv12": 6} if ns else
+        {"deriv1": 18, "deriv12": 3})
+    monkeypatch.setattr(tcomp, "_fused", lambda *a: False)
+    plain = _compressible_rhs(torch.float32, shape=shape, ns=ns)
+    assert trace.totals()["counters"]["dycore.comp_fused.k"] == 7
+    for name, a, b, r in zip(tcomp.CompState._fields, got, plain, ref):
+        assert (a is None) == (r is None), name
+        if r is None:
+            continue
+        scale = r.abs().max()
+        gap = (a.double() - r).abs().max() / scale
+        gap_plain = (b.double() - r).abs().max() / scale
+        assert gap <= 1.5 * gap_plain, (name, gap.item(), gap_plain.item())
+
+
+@pytest.mark.cuda
+def test_fused_compressible_rhs_does_not_synchronise():
+    """A whole fused internal-energy RHS (its 30 products, 7 kernels and
+    the scalar's diffusivity as a kernel argument) under CUDA's sync debug
+    mode "error", after a warm call that packs the operators."""
+    from tlab_tpu_torch.dycore import compressible as tcomp
+    P, U = _compressible_case(torch.float32, ns=2)
+    tcomp.rhs_compressible_internal(P, U, 1.4, 0.3, 1e-3, 0.7)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tcomp.rhs_compressible_internal(P, U, 1.4, 0.3, 1e-3, 0.7)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_fused_compressible_rhs_raises_beyond_the_kernels_scalars():
+    """Past comp_rhs.MAX_SCALARS scalars the gate still holds and the
+    fused RHS raises before any launch: no fallback to the PyTorch
+    algebra."""
+    from tlab_tpu_torch.dycore import compressible as tcomp
+    from tlab_tpu_torch.ops import comp_rhs
+    from tlab_tpu_torch.utils import trace
+    P, U = _compressible_case(torch.float32, shape=(16, 12, 8),
+                              ns=comp_rhs.MAX_SCALARS + 1)
+    trace.reset()
+    with pytest.raises(ValueError, match="at most"):
+        tcomp.rhs_compressible_internal(P, U, 1.4, 0.3, 1e-3, 0.7)
+    assert trace.totals()["counters"]["dycore.comp_fused.k"] == 0
+
+
+@pytest.mark.cuda
+def test_comp_rhs_library_takes_the_scalars_the_wrapper_allows():
+    from tlab_tpu_torch.ops import _build, comp_rhs
+    _card()
+    assert _build.library("comp_rhs").comp_rhs_max_scalars() \
+        == comp_rhs.MAX_SCALARS

@@ -8,7 +8,9 @@ the Euler fluxes in divergence or skew-symmetric form through the first
 derivative (the substructured solve of ops/thomas.py on a long line, else
 the dense D1), the viscous and conduction terms through the dense [D1;D2]
 operator, as tlab_tpu's einsums.  No Poisson solve: the acoustics are
-integrated (acoustic CFL), and y may be periodic.
+integrated (acoustic CFL), and y may be periodic.  In float32 on a card,
+the internal-energy set's pointwise algebra at constant viscosity runs in
+the fused kernels of ops/comp_rhs.py around the same products (_fused).
 
 Nondimensionalization: velocities by U0, temperature by T0, density by rho0;
 ideal gas
@@ -39,7 +41,7 @@ import torch
 
 from tlab_tpu_torch.dycore import incompressible as dyn
 from tlab_tpu_torch.dycore.state import State
-from tlab_tpu_torch.ops import burgers
+from tlab_tpu_torch.ops import burgers, comp_rhs
 from tlab_tpu_torch.physics import eos
 from tlab_tpu_torch.physics import mixtures as mx
 from tlab_tpu_torch.physics import thermo as th
@@ -375,7 +377,11 @@ def rhs_compressible_internal(P, U: CompState, gamma: float, mach: float,
                               mix=None):
     """Internal-energy formulation (reference rhs_flow_global_2.f90 /
     DNS_EQNS_INTERNAL): d(rho e)/dt = -div(rho e u) - p div u + Phi +
-    div(k grad T), with Phi = tau : grad u the viscous dissipation."""
+    div(k grad T), with Phi = tau : grad u the viscous dissipation.  Where
+    _fused holds, the pointwise algebra runs in the fused kernels
+    (_rhs_internal_fused)."""
+    if _fused(P, U, gas, mix):
+        return _rhs_internal_fused(P, U, gamma, mach, visc, prandtl)
     u, v, w, T, p = primitive_internal(P, U, gamma, mach, mix=mix)
 
     h_rho = -_div(P, U.rhou, U.rhov, U.rhow)
@@ -396,6 +402,68 @@ def rhs_compressible_internal(P, U: CompState, gamma: float, mach: float,
             - p * divu + phi + conduction)
     h_rs = _rhs_scalars(P, U, u, v, w, visc) if U.rhos is not None else None
     return CompState(h_rho, h_ru, h_rv, h_rw, h_re, h_rs)
+
+
+def _fused(P, U: CompState, gas, mix) -> bool:
+    """Whether rhs_compressible_internal runs its pointwise algebra in the
+    fused kernels of ops/comp_rhs.py: a float32 CUDA state, a constant
+    viscosity (no transport law), no mixture and no ViscousI/J/K rows
+    (P["visc_bc"], _apply_visc_bc).  Elsewhere (float64, the CPU, mu(T),
+    mixtures) the PyTorch algebra runs.  There is no switch: where it
+    holds, the kernels run or the step raises (more scalars than
+    comp_rhs.MAX_SCALARS)."""
+    return (U.rho.is_cuda and U.rho.dtype == torch.float32
+            and (gas is None or gas.transport == "none") and mix is None
+            and not P.get("visc_bc"))
+
+
+def _rhs_internal_fused(P, U: CompState, gamma: float, mach: float,
+                        visc: float, prandtl: float) -> CompState:
+    """rhs_compressible_internal at constant viscosity without a mixture,
+    its pointwise algebra in the kernels of ops/comp_rhs.py around the same
+    d1 and [D1;D2] products: for each direction with points in turn, its
+    fluxes (with the first, the stack [u, v, w, T] and s), its products,
+    and its terms added into the tendencies; then d(div u) and its term.
+    One direction's derivatives are alive at a time, beside the velocity
+    gradients of the directions before it."""
+    U = CompState(*(None if a is None else a.contiguous() for a in U))
+    ns = 0 if U.rhos is None else U.rhos.shape[0]
+    cT = gamma * (gamma - 1.0) * mach ** 2
+    cP = 1.0 / (gamma * mach ** 2)
+    cond = _conduction_coef(U, None, visc, prandtl, gamma, mach, None)
+    diff = tuple(P["diff"]) if ns else ()
+    axes = [(i, ax) for i, ax in enumerate("xyz")
+            if P.get(f"d12{ax}") is not None]
+    mass = (U.rhou, U.rhov, U.rhow)
+    h = prim = s = divu = None
+    grads = {}
+    for k, (axis, ax) in enumerate(axes):
+        first, last = k == 0, k == len(axes) - 1
+        fl, st, ss = comp_rhs.flux(axis, U, cT, cP, prim is None)
+        if prim is None:
+            prim, s = st, ss
+        dfl = tuple(_d1(P, ax, axis, fl[c]) for c in range(4))
+        if ns:
+            dfl += (_d1(P, ax, axis + 1, fl[4:]),)
+        del fl, st, ss
+        d1, d2 = _d12_stack(P, ax, axis, prim)
+        s1, s2 = _d12_stack(P, ax, axis, s) if ns else (None, None)
+        der = comp_rhs.Derivs(_d1(P, ax, axis, mass[axis]), dfl, d1, d2,
+                              s1, s2, _d1(P, ax, axis, U.rho) if ns else None)
+        del dfl, d1, d2, s1, s2
+        if last:
+            prim = s = None
+        h, g, divu = comp_rhs.assemble(axis, der, U, h, grads, first, last,
+                                       visc, cond, cT, cP, diff)
+        del der
+        grads[axis] = g
+    grads.clear()
+    dd = [None] * 3
+    for axis, ax in axes:
+        dd[axis] = _d1(P, ax, axis, divu)
+    del divu
+    comp_rhs.final(h, dd, visc)
+    return CompState(h[0], h[1], h[2], h[3], h[4], h[5:] if ns else None)
 
 
 def _rhs_scalars(P, U: CompState, u, v, w, visc: float):

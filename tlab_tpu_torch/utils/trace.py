@@ -61,6 +61,8 @@ The spans and counters of the port:
   ops.burgers.k         count: the launches of K1-K3 (ops.burgers)
   ops.derivative.k      count: the launches of the compressible set's
                         derivative products (ops.burgers.deriv1, deriv12)
+  dycore.comp_fused.k   count: the launches of the compressible RHS's
+                        fused pointwise kernels (ops.comp_rhs)
   runtime.from_case     phase: Simulation.from_case; its children
                         runtime.fdm_plan, runtime.tables,
                         runtime.device_plans, runtime.elliptic_plans
